@@ -1,0 +1,42 @@
+"""Carry the reference's parameters across: numpy leaves -> torch tensors.
+
+The tests compare the port with the JAX package from the same weights,
+so they never depend on the two frameworks' random generators agreeing.
+The bridge imports neither ``jax`` nor ``repro``: it takes any nested
+dict whose leaves ``numpy.asarray`` accepts (the reference's
+``init_params`` tree does).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+
+
+def _leaf(a, device: torch.device, dtype: Optional[torch.dtype]
+          ) -> torch.Tensor:
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes: no numpy -> torch path
+        t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr))  # a writable copy
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def from_jax_params(tree, device: DeviceLike, dtype=None) -> Dict:
+    """The reference's parameter tree as the port's parameter dict, one
+    leaf to one tensor with the same keys.  ``dtype`` casts the floating
+    leaves; ``None`` keeps each leaf's own dtype."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return _leaf(node, dev, dtype)
+
+    return conv(tree)

@@ -1,0 +1,80 @@
+"""Plain PyTorch versions of the wire kernels K4 / K5 (port of
+``repro/kernels/ref.py``, RD-FSQ part).
+
+``kernels/ops.py`` runs these on CPU tensors; on the card they are what
+the CUDA kernels are held against.  The kernels pack one code per
+power-of-two slot of a uint8 word, LSB first.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.packing import storage_bits
+
+_EPS = 1e-6
+
+
+def _pack_slots(codes2d: torch.Tensor, bits: int) -> torch.Tensor:
+    """(R, C) codes -> (R, C / per) uint8 words, per-slot shift-or."""
+    sb = storage_bits(bits)
+    per = 8 // sb
+    r, c = codes2d.shape
+    grouped = codes2d.to(torch.uint8).reshape(r, c // per, per)
+    shifts = torch.arange(per, dtype=torch.uint8,
+                          device=codes2d.device) * sb
+    return (grouped << shifts).sum(dim=-1).to(torch.uint8)
+
+
+def _unpack_slots(words: torch.Tensor, bits: int, c: int) -> torch.Tensor:
+    """Inverse of :func:`_pack_slots`: (R, C / per) words -> (R, C)."""
+    sb = storage_bits(bits)
+    per = 8 // sb
+    shifts = torch.arange(per, dtype=torch.uint8, device=words.device) * sb
+    mask = (1 << sb) - 1
+    return ((words[..., None] >> shifts) & mask).reshape(words.shape[0], c)
+
+
+def div_exact(a: torch.Tensor, b: float) -> torch.Tensor:
+    """``a / b``, correctly rounded on every device.
+
+    PyTorch divides a CUDA tensor by a Python scalar as a product with the
+    scalar's reciprocal, which is one ulp off wherever ``1 / b`` is not
+    exact (``b`` = 7.5 or 127.5 here).  A 0-dim tensor on ``a``'s device
+    takes the true division, as the CPU and the CUDA kernels do."""
+    return a / torch.tensor(b, dtype=a.dtype, device=a.device)
+
+
+def rdfsq_stats(x2d: torch.Tensor, clip_sigma: float = 3.0):
+    """Per-row (lo, hi) after the mu +- k*sigma clip.  x2d: (R, C)."""
+    xf = x2d.float()
+    mu = xf.mean(dim=1, keepdim=True)
+    sd = xf.std(dim=1, correction=0, keepdim=True)  # population sigma
+    xc = torch.clamp(xf, mu - clip_sigma * sd, mu + clip_sigma * sd)
+    return xc.amin(dim=1, keepdim=True), xc.amax(dim=1, keepdim=True)
+
+
+def rdfsq_codes_ref(x2d: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                    bits: int) -> torch.Tensor:
+    """(R, C) codes in {0 .. 2^bits - 1} (uint8, before packing)."""
+    d = 2 ** bits
+    half = (d - 1) / 2.0
+    xf = torch.clamp(x2d.float(), lo, hi)
+    e = 2.0 * (xf - lo) / (hi - lo + _EPS) - 1.0
+    # d = 2^bits is even: the grid is half-integer
+    z = torch.round(half * e - 0.5) + 0.5
+    z = torch.clamp(z, -half, half)
+    return (z + half).to(torch.uint8)
+
+
+def rdfsq_quantize_ref(x2d, lo, hi, bits: int) -> torch.Tensor:
+    """Packed uint8 words in kernel slot layout: (R, C / per)."""
+    return _pack_slots(rdfsq_codes_ref(x2d, lo, hi, bits), bits)
+
+
+def rdfsq_dequantize_ref(packed: torch.Tensor, lo, hi, bits: int,
+                         n_cols: int) -> torch.Tensor:
+    d = 2 ** bits
+    half = (d - 1) / 2.0
+    codes = _unpack_slots(packed, bits, n_cols)
+    cvals = div_exact(codes.float() - half, half)
+    return (cvals + 1.0) / 2.0 * (hi - lo) + lo

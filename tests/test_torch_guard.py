@@ -1,0 +1,43 @@
+"""The port imports neither ``jax`` nor the reference package ``repro``."""
+import pytest
+
+pytest.importorskip("jax")
+
+import ast  # noqa: E402
+import os  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+PORT = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+FORBIDDEN = ("jax", "repro")
+
+
+def _forbidden(name: str) -> bool:
+    return name.split(".")[0] in FORBIDDEN
+
+
+def test_no_source_file_imports_jax_or_repro():
+    files = sorted(PORT.rglob("*.py"))
+    assert len(files) > 20
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                bad += [(path.name, a.name) for a in node.names
+                        if _forbidden(a.name)]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                if _forbidden(node.module or ""):
+                    bad.append((path.name, node.module))
+    assert not bad, bad
+
+
+def test_port_imports_with_jax_blocked():
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['repro'] = None; "
+            "import repro_torch.serve.engine, repro_torch.bridge, "
+            "repro_torch.kernels.build; print('ok')")
+    env = dict(os.environ, PYTHONPATH=str(PORT.parent))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
