@@ -8,17 +8,25 @@ non-zero:
 
 1. build   -- compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
               (first use), print the build time and the card.
-2. kernels -- hold K1 (flash prefill), K4 / K5 (RD-FSQ wire) and K8 (paged
-              decode) against their plain PyTorch versions on the card, at
-              the serve path's shapes plus edge cases; time each (CUDA
-              events, median), its plain version and, where one PyTorch
-              call computes the same function, that call.
+2. kernels -- hold K1 (flash forward), K2 / K3 (flash backward), K4 / K5
+              (RD-FSQ wire) and K8 (paged decode) against their plain
+              PyTorch versions on the card, at the main paths' shapes plus
+              edge cases; time each (CUDA events, median), its plain
+              version and, where one PyTorch call computes the same
+              function, that call.
 3. serve   -- full-width tinyllava (16 layers, d 1280, bf16, random weights
               from a seed) behind ServeEngine with the 2-bit RD-FSQ split
               wire: 8 requests through 4 slots until all finish.  Launch
               counts are zeroed right before and read right after.
 4. parity  -- one request's prefill logits on the card against the port's
               own CPU path in fp32 from the same weights.
+5. train   -- the paper's training step on the same model: 30 steps of
+              make_train_step (composite loss through the 2-bit RD-FSQ
+              compressor, remat, warmup-cosine AdamW) on batches of 4 x 793
+              positions from the port's data pipeline.  Launch counts are
+              zeroed right before and read right after.
+6. train parity -- one step's loss, gradient norm and per-leaf gradient
+              cosine on the card against the port's fp32 CPU path.
 
 The last lines are the card (nvidia-smi), the per-kernel JSON line and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
@@ -42,11 +50,15 @@ BF16_FLOP_PER_S = 989e12     # H100 SXM dense bf16 tensor cores
 SRC = "src/repro_torch/kernels/csrc/"
 REPLACES = {
     "flash_fwd": "src/repro/kernels/flash_kernel.py:109",
+    "flash_bwd_dq": "src/repro/kernels/flash_kernel.py:189",
+    "flash_bwd_dkv": "src/repro/kernels/flash_kernel.py:266",
     "rdfsq_quantize": "src/repro/kernels/rdfsq_kernel.py:74",
     "rdfsq_dequantize": "src/repro/kernels/rdfsq_kernel.py:93",
     "decode_paged": "src/repro/kernels/decode_kernel.py:262",
 }
 SOURCES = {"flash_fwd": SRC + "flash_fwd.cu",
+           "flash_bwd_dq": SRC + "flash_bwd.cu",
+           "flash_bwd_dkv": SRC + "flash_bwd.cu",
            "rdfsq_quantize": SRC + "rdfsq.cu",
            "rdfsq_dequantize": SRC + "rdfsq.cu",
            "decode_paged": SRC + "decode_paged.cu"}
@@ -56,7 +68,15 @@ FLASH_OUT_ATOL = 2e-2   # P is rounded to bf16 at different running maxima
 STATS_ATOL = 1e-3       # m: fp32 sums of exact bf16 products, other order
 L_RTOL = 1e-3           # l: fp32 sums of exp, other order and rescaling
 DECODE_ATOL = 2e-2      # as FLASH_OUT_ATOL, over one slot's pages
+# dq / dk / dv against the plain version, relative to max |plain|: P and dS
+# are rounded to bf16 from fp32 values summed in another order
+FLASH_BWD_RTOL = 2e-2
 PARITY_RTOL = 5e-2      # bf16 card path vs fp32 CPU path, 16 layers
+# one training step, bf16 card path vs fp32 CPU path: bf16 through 16
+# layers and 2-bit codes flipped by it move the forward by about 1e-2
+TRAIN_LOSS_RTOL = 5e-2
+GRAD_COS_MIN = 0.98
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_TEXT = 30, 4, 64
 
 
 def smi() -> str:
@@ -200,6 +220,85 @@ def check_flash(gen, results):
                                 bound=bound(n_bytes, flops))
 
 
+def _visible_pairs(qpos, kpos, window=None) -> int:
+    """(q, key) pairs of one (batch row, head) that the mask lets through:
+    the work a flash kernel's products cannot avoid."""
+    from repro_torch.kernels.attention_ref import _mask
+
+    return int(_mask(qpos, kpos, window).sum())
+
+
+def check_flash_bwd(gen, results):
+    """K2 / K3 against ``flash_backward_ref`` on the forward's own (out, m,
+    l); rows that see no key get a zero output gradient, as
+    ``flash_attention`` gives them (it slices them off)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import attention_ops, attention_ref
+
+    cases = {
+        "train shape B4 S793 (padded to 1024)":
+            _flash_case(gen, 4, 793, 20, 5),
+        "padded q tail S777 + kv_valid_len 700":
+            _flash_case(gen, 2, 777, 20, 5, kv_valid_len=700),
+        "window 256": _flash_case(gen, 1, 1024, 20, 5, window=256),
+        "ragged tiles S100": _flash_case(gen, 1, 100, 20, 5),
+    }
+    worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for name, (q, k, v, qpos, kpos, window) in cases.items():
+        out, m, l = attention_ops.flash_forward(q, k, v, qpos, kpos,
+                                                window=window)
+        out = out.bfloat16()
+        go = torch.randn(out.shape, generator=gen, device="cuda").bfloat16()
+        go = go * (l > 0)  # rows that see no key: zero gradient
+        di = (go.float() * out.float()).sum(-1, keepdim=True)
+        args = (q, k, v, go, m, l, di, qpos, kpos)
+        dq = attention_ops.flash_backward_dq(*args, window=window)
+        dk, dv = attention_ops.flash_backward_dkv(*args, window=window)
+        rq, rk, rv = attention_ref.flash_backward_ref(*args, window=window)
+        torch.cuda.synchronize()
+        errs = {n: max_err(a, r) / float(r.abs().max())
+                for n, a, r in (("dq", dq, rq), ("dk", dk, rk),
+                                ("dv", dv, rv))}
+        print(f"[kernels] K2/K3 flash_bwd {name}: max|x-plain|/max|plain| "
+              + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+              + f" (tol {FLASH_BWD_RTOL})")
+        require(all(e <= FLASH_BWD_RTOL for e in errs.values()),
+                f"K2/K3 {name}: {errs}")
+        worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], max_err(dq, rq))
+        worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"],
+                                     max_err(dk, rk), max_err(dv, rv))
+        if name.startswith("train"):
+            main = args, window
+
+    args, window = main
+    q, k, v, go, m, l, di, qpos, kpos = args
+    b, h, sq, d = q.shape
+    kh, skv = k.shape[1], k.shape[2]
+    plain_ms = time_ms(lambda: attention_ref.flash_backward_ref(*args),
+                       reps=5, inner=1)
+    # the yardstick: SDPA's backward (K2 + K3 together) on a saved graph
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
+                                       enable_gqa=True, scale=1.0)
+    lib_ms = time_ms(lambda: torch.autograd.grad(o, (qr, kr, vr), go,
+                                                 retain_graph=True))
+    pairs = b * h * _visible_pairs(qpos, kpos)
+    prod = 2 * pairs * d  # FLOPs of one (Sq x Skv x D) product, causal
+    n_in = (q.numel() + k.numel() + v.numel() + go.numel()) * 2 \
+        + 3 * b * h * sq * 4  # bf16 operands, fp32 m, l, di
+    results["flash_bwd_dq"] = dict(
+        max_abs_err=worst["flash_bwd_dq"],
+        ms=time_ms(lambda: attention_ops.flash_backward_dq(*args)),
+        plain_ms=plain_ms, library_ms=lib_ms,
+        bound=bound(n_in + q.numel() * 4, 3 * prod))
+    results["flash_bwd_dkv"] = dict(
+        max_abs_err=worst["flash_bwd_dkv"],
+        ms=time_ms(lambda: attention_ops.flash_backward_dkv(*args)),
+        plain_ms=plain_ms, library_ms=lib_ms,
+        bound=bound(n_in + 2 * b * kh * skv * d * 4, 4 * prod))
+
+
 def check_wire(gen, results):
     import torch
     from repro_torch.kernels import ops
@@ -327,6 +426,7 @@ def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(1234)
     results = {}
     check_flash(gen, results)
+    check_flash_bwd(gen, results)
     check_wire(gen, results)
     check_decode(gen, results)
     for name, r in results.items():
@@ -399,10 +499,12 @@ def phase_serve(cfg, params):
             f"wire bytes {st}")
     bf16_bytes = st["prefill_rows"] * cfg.n_image_tokens * cfg.d_model * 2
     n_layers = cfg.n_layers
-    expect = dict(flash_fwd=n_layers * n_pb, rdfsq_quantize=n_pb,
+    expect = dict(flash_fwd=n_layers * n_pb, flash_bwd_dq=0,
+                  flash_bwd_dkv=0, rdfsq_quantize=n_pb,
                   rdfsq_dequantize=n_pb, decode_paged=n_layers * n_dt)
     print(f"[serve] launches {launches}, expected {expect}")
-    require(launches == expect and all(launches.values()),
+    require(launches == expect and all(launches[k] for k in (
+        "flash_fwd", "rdfsq_quantize", "rdfsq_dequantize", "decode_paged")),
             f"launches {launches}, expected {expect}")
     print(f"[serve] {len(reqs)} requests, {st['tokens_emitted']} tokens in "
           f"{wall:.3f} s: {st['tokens_emitted'] / wall:.1f} tokens/s; "
@@ -459,6 +561,111 @@ def phase_parity(cfg, params, req):
             f"parity: rel {rel}, argmax agree {agree}")
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the training step at full width
+# ---------------------------------------------------------------------------
+
+def phase_train(cfg):
+    """30 steps of the paper's training step; returns the launch counts."""
+    import torch
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.kernels import build
+    from repro_torch.models.transformer import cdtype, layer_forward_count
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.loop import init_state, make_train_step
+    from repro_torch.utils.tree import tree_count
+
+    seq = cfg.n_image_tokens + TRAIN_TEXT
+    data = make_pipeline(cfg, TRAIN_BATCH, seq, seed=0)
+    batches = [next(data) for _ in range(TRAIN_STEPS)]  # set-up, off clock
+    opt = AdamWConfig(lr=1e-3)
+    state = init_state(cfg, opt, seed=0)
+    step_fn = make_train_step(cfg, opt, total_steps=TRAIN_STEPS)
+    print(f"[train] full-width {cfg.name}: {tree_count(state.params)} "
+          f"parameters, remat {cfg.remat}, {cfg.split.quant.method} "
+          f"{cfg.split.quant.bits}-bit compressor at cut "
+          f"{cfg.split.cut_layer}; {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+          f"{seq} positions")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    times, ces, losses = [], [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))  # waits for the step
+        times.append(time.perf_counter() - t0)
+        ces.append(float(m["ce"]))
+    torch.cuda.synchronize()
+    launches = dict(build.launches)
+    peak = torch.cuda.max_memory_allocated()
+
+    carry = torch.empty((TRAIN_BATCH, seq, cfg.d_model), dtype=cdtype(cfg),
+                        device="meta")
+    per_step = layer_forward_count(cfg, carry)
+    expect = dict(flash_fwd=per_step * TRAIN_STEPS,
+                  flash_bwd_dq=cfg.n_layers * TRAIN_STEPS,
+                  flash_bwd_dkv=cfg.n_layers * TRAIN_STEPS,
+                  rdfsq_quantize=0, rdfsq_dequantize=0, decode_paged=0)
+    print(f"[train] launches {launches}, expected {expect} (K1: "
+          f"{per_step} layer forwards per step under the remat policy)")
+    require(launches == expect, f"train launches {launches}, expected "
+            f"{expect}")
+    require(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    first, last = statistics.mean(ces[:5]), statistics.mean(ces[-5:])
+    print(f"[train] CE mean of the first 5 steps {first:.4f}, of the last 5 "
+          f"{last:.4f}; losses " + " ".join(f"{x:.4f}" for x in losses))
+    require(last < first, f"CE did not fall: {first} -> {last}")
+    steady = statistics.median(times[1:])
+    print(f"[train] {1e3 * steady:.2f} ms per step (median of steps 2-"
+          f"{TRAIN_STEPS}; first step {1e3 * times[0]:.2f} ms), "
+          f"{TRAIN_BATCH * seq / steady:.1f} training tokens/s; peak device "
+          f"memory {peak / 2 ** 30:.2f} GiB")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6: one training step on the card against the fp32 CPU path
+# ---------------------------------------------------------------------------
+
+def phase_train_parity(cfg, params):
+    import torch
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.train.loop import batch_to, make_grad_fn
+    from repro_torch.utils.tree import tree_flatten_with_path
+
+    batch = next(make_pipeline(cfg, 1, cfg.n_image_tokens + TRAIN_TEXT,
+                               seed=1))
+    grads, m = make_grad_fn(cfg)(params, batch_to(batch,
+                                                  torch.device("cuda")))
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    params32 = _tree(params, lambda t: t.float().cpu())
+    g32, m32 = make_grad_fn(cfg32)(params32,
+                                   batch_to(batch, torch.device("cpu")))
+    loss, loss32 = float(m["loss"]), float(m32["loss"])
+    rel = abs(loss - loss32) / abs(loss32)
+    norm = math.sqrt(sum(float(g.double().square().sum())
+                         for _, g in tree_flatten_with_path(grads)))
+    norm32 = math.sqrt(sum(float(g.double().square().sum())
+                           for _, g in tree_flatten_with_path(g32)))
+    cos = {}
+    for (path, g), (_, c) in zip(tree_flatten_with_path(grads),
+                                 tree_flatten_with_path(g32)):
+        a, b = g.double().cpu().reshape(-1), c.double().reshape(-1)
+        cos["/".join(path)] = float(a @ b / (a.norm() * b.norm()))
+    worst = min(cos, key=cos.get)
+    print(f"[train parity] one step, 1 x {cfg.n_image_tokens + TRAIN_TEXT} "
+          f"positions: loss card {loss:.5f} cpu {loss32:.5f} (rel "
+          f"{rel:.3e}, tol {TRAIN_LOSS_RTOL}); grad norm card {norm:.4f} "
+          f"cpu {norm32:.4f}; per-leaf gradient cosine min {cos[worst]:.5f} "
+          f"({worst}, tol {GRAD_COS_MIN})")
+    print("[train parity] cosines " + " ".join(
+        f"{k}={v:.5f}" for k, v in cos.items()))
+    require(rel < TRAIN_LOSS_RTOL and cos[worst] >= GRAD_COS_MIN,
+            f"train parity: loss rel {rel}, cosines {cos}")
+
+
 def _tree(tree, fn):
     if isinstance(tree, dict):
         return {k: _tree(v, fn) for k, v in tree.items()}
@@ -488,16 +695,21 @@ def main() -> int:
     print(f"[serve] full-width {cfg.name}: {cfg.n_layers} layers, d "
           f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, bf16; "
           f"weights from seed 0 in {time.perf_counter() - t0:.1f} s")
-    launches, reqs = phase_serve(cfg, params)
+    serve_launches, reqs = phase_serve(cfg, params)
     phase_parity(cfg, params, reqs[0])
+    train_launches = phase_train(cfg)
+    phase_train_parity(cfg, params)
+    print(f"[launches] per main path: serve {serve_launches}; train "
+          f"{train_launches}")
 
     kernels = []
-    for name in ("flash_fwd", "rdfsq_quantize", "rdfsq_dequantize",
-                 "decode_paged"):
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                 "rdfsq_quantize", "rdfsq_dequantize", "decode_paged"):
         r = results[name]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
-            replaces=REPLACES[name], launches=launches[name],
+            replaces=REPLACES[name],
+            launches=serve_launches.get(name, 0) + train_launches[name],
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"]))

@@ -1,0 +1,4 @@
+"""Checkpointing (port of ``repro/checkpoint``)."""
+from repro_torch.checkpoint.ckpt import restore, save
+
+__all__ = ["save", "restore"]

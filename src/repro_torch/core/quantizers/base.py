@@ -84,6 +84,11 @@ def register_backend(method: str, impl: str, encode_fn, decode_fn) -> None:
     _BACKEND_DECODERS[(method, impl)] = decode_fn
 
 
+def methods() -> Tuple[str, ...]:
+    """Names of the registered quantizers."""
+    return tuple(sorted(_ROUNDTRIPS))
+
+
 def _check_ungrouped(cfg: QuantConfig) -> None:
     if cfg.grouped or cfg.channel_perm or cfg.scale_dq:
         raise NotImplementedError(

@@ -53,9 +53,12 @@ def server_decode_post(params: Optional[Dict], cfg: SplitConfig,
 
 
 def compressor_roundtrip(params: Optional[Dict], cfg: SplitConfig,
-                         x: torch.Tensor
+                         x: torch.Tensor,
+                         rng: Optional[torch.Generator] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (server-side feature, commitment loss)."""
+    """Returns (server-side feature, commitment loss).  ``rng`` is the
+    reference's argument for the randomized quantizers (M8); RD-FSQ, the
+    one this slice ports, is deterministic and ignores it."""
     if not cfg.enabled or cfg.quant.method == "none":
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
     h = client_encode_pre(params, cfg, x)

@@ -1,9 +1,9 @@
-"""Wrappers of the attention kernels K1 (flash prefill forward) and K8
-(paged decode) (port of ``repro/kernels/attention_ops.py``, forward
-paths).
+"""Wrappers of the attention kernels K1 (flash forward), K2 / K3 (flash
+backward) and K8 (paged decode) (port of ``repro/kernels/attention_ops.py``:
+``flash_pallas`` with its custom VJP, and ``decode_paged_pallas``).
 
-For a CUDA tensor a wrapper launches its kernel from
-``csrc/flash_fwd.cu`` or ``csrc/decode_paged.cu``, or raises on what the
+For a CUDA tensor a wrapper launches its kernel from ``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu`` or ``csrc/decode_paged.cu``, or raises on what the
 kernel does not take; for a CPU tensor it runs the plain version in
 ``attention_ref.py``.  No shape gate or environment variable sends a CUDA
 tensor to the plain version.
@@ -41,6 +41,44 @@ def _check_device(name: str, *tensors: torch.Tensor) -> None:
         raise ValueError(f"{name} operands lie on different devices")
 
 
+def _check_flash(name: str, q, k, v, qpos, kpos, *rest):
+    """The checks every flash kernel makes of its operands (``rest``: the
+    bf16 (B, H, Sq, Dv) output gradient, if any).  Returns (qpos, kpos)
+    as flat contiguous int32."""
+    b, h, sq, d = q.shape
+    kh, skv = k.shape[1], k.shape[2]
+    _check_bf16(name, q, k, v, *rest)
+    _check_device(name, q, k, v, qpos, kpos, *rest)
+    if d != HEAD_DIM or v.shape[-1] != HEAD_DIM or k.shape[-1] != HEAD_DIM:
+        raise ValueError(f"{name} is compiled for head_dim {HEAD_DIM}, got "
+                         f"q {d}, v {v.shape[-1]}")
+    if h % kh or k.shape[:3] != v.shape[:3] or k.shape[0] != b \
+            or any(t.shape != (b, h, sq, HEAD_DIM) for t in rest):
+        raise ValueError(f"bad GQA shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
+    for i, t in enumerate((q, k, v) + rest):
+        if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) \
+                or t.data_ptr() % 16:
+            raise ValueError(f"{name} needs operand {i} with a contiguous "
+                             "last axis, 16-byte rows and 16-byte alignment")
+    qpos = qpos.reshape(-1).to(torch.int32).contiguous()
+    kpos = kpos.reshape(-1).to(torch.int32).contiguous()
+    if qpos.numel() != sq or kpos.numel() != skv:
+        raise ValueError("qpos / kpos do not match Sq / Skv")
+    return qpos, kpos
+
+
+def _row_stats(name: str, like: torch.Tensor, *stats: torch.Tensor):
+    """m, l, di as contiguous fp32 (B, H, Sq, 1) on ``like``'s device."""
+    out = []
+    for t in stats:
+        if t.dtype != torch.float32 or t.device != like.device \
+                or t.shape != like.shape[:3] + (1,):
+            raise ValueError(f"{name} takes fp32 (B, H, Sq, 1) row stats")
+        out.append(t.contiguous())
+    return out
+
+
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   qpos: torch.Tensor, kpos: torch.Tensor, *,
                   window: Optional[int] = None
@@ -55,25 +93,9 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not q.is_cuda:
         return attention_ref.flash_forward_ref(q, k, v, qpos, kpos,
                                                window=window)
-    b, h, sq, d = q.shape
+    b, h, sq, _ = q.shape
     kh, skv = k.shape[1], k.shape[2]
-    _check_bf16("flash_forward", q, k, v)
-    _check_device("flash_forward", q, k, v, qpos, kpos)
-    if d != HEAD_DIM or v.shape[-1] != HEAD_DIM or k.shape[-1] != HEAD_DIM:
-        raise ValueError(f"flash_forward is compiled for head_dim "
-                         f"{HEAD_DIM}, got q {d}, v {v.shape[-1]}")
-    if h % kh or k.shape[:3] != v.shape[:3] or k.shape[0] != b:
-        raise ValueError(f"bad GQA shapes q {tuple(q.shape)} "
-                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) \
-                or t.data_ptr() % 16:
-            raise ValueError(f"flash_forward needs {name} with a contiguous "
-                             "last axis, 16-byte rows and 16-byte alignment")
-    qpos = qpos.reshape(-1).to(torch.int32).contiguous()
-    kpos = kpos.reshape(-1).to(torch.int32).contiguous()
-    if qpos.numel() != sq or kpos.numel() != skv:
-        raise ValueError("qpos / kpos do not match Sq / Skv")
+    qpos, kpos = _check_flash("flash_forward", q, k, v, qpos, kpos)
     out = torch.empty((b, sq, h, HEAD_DIM), dtype=torch.float32,
                       device=q.device).transpose(1, 2)
     m = torch.empty((b, h, sq, 1), dtype=torch.float32, device=q.device)
@@ -89,14 +111,107 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, m, l
 
 
+def flash_backward_dq(q, k, v, go, m, l, di, qpos, kpos, *,
+                      window: Optional[int] = None) -> torch.Tensor:
+    """K2.  Operands as ``flash_forward`` plus go (B, H, Sq, Dv) and the
+    forward's m, l and di = rowsum(go * out) (B, H, Sq, 1) fp32.  Returns
+    dq fp32 (B, H, Sq, D) w.r.t. the pre-scaled query, as a transposed
+    view of a (B, Sq, H, D) buffer."""
+    if not q.is_cuda:
+        return attention_ref.flash_backward_ref(
+            q, k, v, go, m, l, di, qpos, kpos, window=window)[0]
+    b, h, sq, _ = q.shape
+    kh, skv = k.shape[1], k.shape[2]
+    qpos, kpos = _check_flash("flash_backward_dq", q, k, v, qpos, kpos, go)
+    m, l, di = _row_stats("flash_backward_dq", q, m, l, di)
+    dq = torch.empty((b, sq, h, HEAD_DIM), dtype=torch.float32,
+                     device=q.device).transpose(1, 2)
+    has_window, win = _window_args(window)
+    build.launch(
+        "flash_bwd_dq", "flash_bwd_dq_bf16",
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), go.data_ptr(),
+        m.data_ptr(), l.data_ptr(), di.data_ptr(), qpos.data_ptr(),
+        kpos.data_ptr(), dq.data_ptr(), b, h, kh, sq, skv,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *go.stride()[:3], *dq.stride()[:3], has_window, win,
+        build.current_stream())
+    return dq
+
+
+def flash_backward_dkv(q, k, v, go, m, l, di, qpos, kpos, *,
+                       window: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3.  Operands as ``flash_backward_dq``.  Returns (dk, dv) fp32
+    (B, KH, Skv, D/Dv), each summed over the GQA group, as transposed
+    views of (B, Skv, KH, D) buffers."""
+    if not q.is_cuda:
+        _, dk, dv = attention_ref.flash_backward_ref(
+            q, k, v, go, m, l, di, qpos, kpos, window=window)
+        return dk, dv
+    b, h, sq, _ = q.shape
+    kh, skv = k.shape[1], k.shape[2]
+    qpos, kpos = _check_flash("flash_backward_dkv", q, k, v, qpos, kpos, go)
+    m, l, di = _row_stats("flash_backward_dkv", q, m, l, di)
+    dk = torch.empty((b, skv, kh, HEAD_DIM), dtype=torch.float32,
+                     device=q.device).transpose(1, 2)
+    dv = torch.empty_like(dk)
+    has_window, win = _window_args(window)
+    build.launch(
+        "flash_bwd_dkv", "flash_bwd_dkv_bf16",
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), go.data_ptr(),
+        m.data_ptr(), l.data_ptr(), di.data_ptr(), qpos.data_ptr(),
+        kpos.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, kh, sq, skv,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *go.stride()[:3], *dk.stride()[:3], *dv.stride()[:3], has_window,
+        win, build.current_stream())
+    return dk, dv
+
+
+def _bhsd(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, D) <-> (B, H, S, D), a view."""
+    return x.transpose(1, 2)
+
+
+class FlashAttention(torch.autograd.Function):
+    """The port's ``flash_pallas``: flash attention on pre-scaled,
+    chunk-padded (B, S, H, D) operands, whose backward runs K2 and K3.
+
+    The forward runs K1 and saves (q, k, v, qpos, kpos, out, m, l), with
+    ``out`` already in q's dtype, as the reference's custom VJP does.  The
+    backward forms di = rowsum(dO * O) in fp32 (fp64 for fp64 operands)
+    outside the kernels and returns dq / dk / dv in q / k / v's dtypes.
+    """
+
+    @staticmethod
+    def forward(ctx, qs, k, v, qpos, kpos, window):
+        out, m, l = flash_forward(_bhsd(qs), _bhsd(k), _bhsd(v), qpos, kpos,
+                                  window=window)
+        out = _bhsd(out).to(qs.dtype)
+        ctx.save_for_backward(qs, k, v, qpos, kpos, out, m, l)
+        ctx.window = window
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        qs, k, v, qpos, kpos, out, m, l = ctx.saved_tensors
+        gout = gout.contiguous()  # autograd may hand a strided view
+        acc = torch.float64 if qs.dtype == torch.float64 else torch.float32
+        di = torch.einsum("bshd,bshd->bhs", gout.to(acc),
+                          out.to(acc)).unsqueeze(-1)
+        args = (_bhsd(qs), _bhsd(k), _bhsd(v), _bhsd(gout), m, l, di, qpos,
+                kpos)
+        dq = flash_backward_dq(*args, window=ctx.window)
+        dk, dv = flash_backward_dkv(*args, window=ctx.window)
+        return (_bhsd(dq).to(qs.dtype), _bhsd(dk).to(k.dtype),
+                _bhsd(dv).to(v.dtype), None, None, None)
+
+
 def flash(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           qpos: torch.Tensor, kpos: torch.Tensor,
           window: Optional[int]) -> torch.Tensor:
     """(B, S, H, D) operands of ``flash_attention`` -> (B, Sq, H, Dv) in
-    qs.dtype (the reference's ``flash_pallas`` forward)."""
-    out, _, _ = flash_forward(qs.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), qpos, kpos, window=window)
-    return out.transpose(1, 2).to(qs.dtype)
+    qs.dtype, differentiable in (qs, k, v) through K2 / K3."""
+    return FlashAttention.apply(qs, k, v, qpos, kpos, window)
 
 
 def decode_paged(qf: torch.Tensor, k_pool: torch.Tensor,

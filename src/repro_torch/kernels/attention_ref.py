@@ -1,11 +1,12 @@
-"""Plain PyTorch versions of the attention kernels K1 / K8 (port of
-``repro/kernels/attention_ref.py``: the forward of ``flash_reference``
-and the paged decode reference).
+"""Plain PyTorch versions of the attention kernels K1, K2 / K3 and K8
+(port of ``repro/kernels/attention_ref.py``: ``flash_reference`` forward
+and backward, and the paged decode reference).
 
 ``kernels/attention_ops.py`` runs these on CPU tensors; on the card they
-are what the CUDA kernels are held against.  Scores and sums are fp32;
-the probabilities are rounded to V's dtype before the PV product, as in
-the reference.
+are what the CUDA kernels are held against.  Scores and sums are fp32
+(fp64 for fp64 operands, so that ``gradcheck`` can hold them); the
+probabilities and dS are rounded to the operand dtype before their
+products, as in the reference.
 
 One deliberate difference from the reference's online softmax: a masked
 score contributes exactly 0 to the row sum.  The reference (and its TPU
@@ -14,7 +15,11 @@ masked score, which later visible keys wash out; for a row that never
 sees a key (a padded query row) its (out, m, l) then depend on the block
 size.  Here such a row gives out = 0, m = -1e30, l = 0 whatever the
 tiling, which is what the CUDA kernel computes too.  Rows with at least
-one visible key agree with the reference.
+one visible key agree with the reference.  The backward follows: a
+masked entry of P is exactly 0, where the reference gives exp(-1e30 -
+(-1e30)) = 1 on a row that saw no key.  That matters only where such a
+row's output gradient is non-zero, which ``flash_attention`` never
+produces, because it slices those rows off.
 """
 from __future__ import annotations
 
@@ -37,6 +42,11 @@ def _mask(qpos: torch.Tensor, kpos: torch.Tensor,
     return m
 
 
+def _acc(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the accumulation dtype: fp64 stays fp64, the rest fp32."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def flash_forward_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       qpos: torch.Tensor, kpos: torch.Tensor, *,
                       window: Optional[int] = None
@@ -49,16 +59,51 @@ def flash_forward_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, H, Sq, 1)); out = acc / max(l, 1e-30).
     """
     g = q.shape[1] // k.shape[1]
-    kx = k.repeat_interleave(g, dim=1).float()
+    kx = _acc(k.repeat_interleave(g, dim=1))
     vx = v.repeat_interleave(g, dim=1)
-    s = q.float() @ kx.transpose(-1, -2)
+    s = _acc(q) @ kx.transpose(-1, -2)
     mask = _mask(qpos, kpos, window)
     s = torch.where(mask, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
-    out = (p.to(v.dtype).float() @ vx.float()) / torch.clamp_min(l, 1e-30)
+    out = (_acc(p.to(v.dtype)) @ _acc(vx)) / torch.clamp_min(l, 1e-30)
     return out, m, l
+
+
+def flash_backward_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       go: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                       di: torch.Tensor, qpos: torch.Tensor,
+                       kpos: torch.Tensor, *, window: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Attention backward with the contract of the TPU kernels
+    ``backward_dq`` / ``backward_dkv`` together (K2 and K3).
+
+    Operands as ``flash_forward_ref``, plus go (B, H, Sq, Dv) and the
+    forward's m, l and di = rowsum(go * out), all (B, H, Sq, 1) fp32.
+    Returns dq (B, H, Sq, D) w.r.t. the pre-scaled q, and dk / dv
+    (B, KH, Skv, D/Dv) summed over the GQA group, all fp32:
+    P = exp(S - m) / max(l, 1e-30), dP = go V^T, dS = P (dP - di),
+    dq = dS K, dk = dS^T q, dv = P^T go.
+    """
+    b, h, sq, d = q.shape
+    kh, skv = k.shape[1], k.shape[2]
+    g = h // kh
+    kx = _acc(k.repeat_interleave(g, dim=1))
+    vx = _acc(v.repeat_interleave(g, dim=1))
+    s = _acc(q) @ kx.transpose(-1, -2)
+    mask = _mask(qpos, kpos, window)
+    s = torch.where(mask, s, NEG_INF)
+    linv = 1.0 / torch.clamp_min(l, 1e-30)
+    p = torch.where(mask, torch.exp(s - m) * linv, 0.0)
+    dp = _acc(go) @ vx.transpose(-1, -2)
+    ds = p * (dp - di)
+    dq = _acc(ds.to(k.dtype)) @ kx
+    dk = _acc(ds.to(q.dtype)).transpose(-1, -2) @ _acc(q)
+    dv = _acc(p.to(go.dtype)).transpose(-1, -2) @ _acc(go)
+    dk = dk.reshape(b, kh, g, skv, d).sum(dim=2)
+    dv = dv.reshape(b, kh, g, skv, dv.shape[-1]).sum(dim=2)
+    return dq, dk, dv
 
 
 # ---------------------------------------------------------------------------

@@ -29,13 +29,15 @@ BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-KERNELS = ("flash_fwd", "rdfsq_quantize", "rdfsq_dequantize",
-           "decode_paged")
+KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "rdfsq_quantize",
+           "rdfsq_dequantize", "decode_paged")
 launches: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
     "flash_fwd_bf16": [_P] * 8 + [_I] * 5 + [_LL] * 12 + [_I, _I, _P],
+    "flash_bwd_dq_bf16": [_P] * 10 + [_I] * 5 + [_LL] * 15 + [_I, _I, _P],
+    "flash_bwd_dkv_bf16": [_P] * 11 + [_I] * 5 + [_LL] * 18 + [_I, _I, _P],
     "rdfsq_quantize": [_P, _I, _P, _P, _LL, _LL, _I, _P],
     "rdfsq_dequantize": [_P, _P, _P, _I, _LL, _LL, _I, _P],
     "decode_paged_bf16": [_P] * 7 + [_I] * 7 + [_P],

@@ -21,61 +21,11 @@
 // keep working.  Masked scores add exactly 0 to l, so a row with no visible
 // key ends with l = 0 and out = acc / max(l, 1e-30) = 0.  GQA reads kv head
 // h / (H / KH).  Simple first: no TMA, no wgmma, no double buffering.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int D = 64;         // head dim of q/k and of v
-constexpr int kBQ = 64;       // query rows per block: 4 warps x 16
-constexpr int kBKV = 64;      // keys per kv tile
-constexpr int kLds = D + 8;   // smem row stride (bf16): conflict-free frags
-constexpr int kThreads = 128;
-constexpr float kNeg = -1e30f;
-constexpr int kFar = 1 << 30;
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-// D(16x8) += A(16x16, row-major) * B(16x8, col-major); bf16 in, fp32 acc.
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ bool visible_pos(long long qp, long long kp,
-                                            int has_window, int window) {
-  return kp <= qp && (!has_window || qp - kp < window);
-}
-
-// Copies rows [row0, row0 + 64) of a (rows, D) bf16 matrix with row stride
-// `ld` (elements) into smem; rows at or past `n_rows` are zero.
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long ld, int row0, int n_rows,
-                                          int tid) {
-  for (int i = tid; i < 64 * (D / 8); i += kThreads) {
-    const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * ld +
-                                            c8);
-    *reinterpret_cast<uint4*>(dst + r * kLds + c8) = val;
-  }
-}
+using namespace flash;
 
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -107,23 +57,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   __syncthreads();
 
   // q tile position extrema over its real rows (block-level skip test)
-  long long qmin = kFar, qmax = -kFar;
-  for (int i = 0; i < kBQ && q0 + i < Sq; ++i) {
-    qmin = min(qmin, (long long)qp_s[i]);
-    qmax = max(qmax, (long long)qp_s[i]);
-  }
+  long long qmin, qmax;
+  extrema(qp_s, min(kBQ, Sq - q0), qmin, qmax);
   const long long qp0 = qp_s[r0], qp1 = qp_s[r0 + 8];
 
   uint32_t qa[D / 16][4];  // A fragments of this warp's 16 x 64 q rows
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const __nv_bfloat16* base = q_s + kk * 16 + t * 2;
-    qa[kk][0] = *reinterpret_cast<const uint32_t*>(base + r0 * kLds);
-    qa[kk][1] = *reinterpret_cast<const uint32_t*>(base + (r0 + 8) * kLds);
-    qa[kk][2] = *reinterpret_cast<const uint32_t*>(base + r0 * kLds + 8);
-    qa[kk][3] =
-        *reinterpret_cast<const uint32_t*>(base + (r0 + 8) * kLds + 8);
-  }
+  load_a_frags(qa, q_s, warp * 16, g, t);
 
   float m0 = kNeg, m1 = kNeg, l0 = 0.0f, l1 = 0.0f;
   float acc[D / 8][4];
@@ -135,12 +74,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     __syncthreads();  // the previous tile's smem reads are done
     if (tid < kBKV) kp_s[tid] = k0 + tid < Skv ? kpos[k0 + tid] : kFar;
     __syncthreads();
-    long long kmin = kFar, kmax = -kFar;
-    for (int i = 0; i < kBKV && k0 + i < Skv; ++i) {
-      kmin = min(kmin, (long long)kp_s[i]);
-      kmax = max(kmax, (long long)kp_s[i]);
-    }
-    if (!(kmin <= qmax && (!has_window || kmax > qmin - window)))
+    long long kmin, kmax;
+    extrema(kp_s, min(kBKV, Skv - k0), kmin, kmax);
+    if (!tiles_visible(qmin, qmax, kmin, kmax, has_window, window))
       continue;  // uniform across the block
     load_tile(k_s, kb, k_ss, k0, Skv, tid);
     load_tile(v_s, vb, v_ss, k0, Skv, tid);
@@ -154,8 +90,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const __nv_bfloat16* kr = k_s + (n * 8 + g) * kLds + kk * 16 + t * 2;
-        mma_16816(s[n], qa[kk], *reinterpret_cast<const uint32_t*>(kr),
-                  *reinterpret_cast<const uint32_t*>(kr + 8));
+        mma_16816(s[n], qa[kk], ld32(kr), ld32(kr + 8));
       }
     }
 
@@ -214,10 +149,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 #pragma unroll
     for (int kk = 0; kk < kBKV / 16; ++kk) {
       uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
       const __nv_bfloat16* vr = v_s + (kk * 16 + t * 2) * kLds + g;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {

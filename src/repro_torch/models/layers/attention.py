@@ -2,9 +2,10 @@
 KV pool and its decode step (port of
 ``repro/models/layers/attention.py``, bf16 KV caches only).
 
-The attention math goes through ``kernels/attention_ops.py``: K1 for
-prefill and K8 for decode on CUDA tensors, their plain versions on CPU
-tensors.  The int8 KV cache (``bits=8``) is the K7/K9 slice and raises.
+The attention math goes through ``kernels/attention_ops.py``: K1 for the
+forward (K2 / K3 for its backward) and K8 for decode on CUDA tensors,
+their plain versions on CPU tensors.  The int8 KV cache (``bits=8``) is
+the K7/K9 slice and raises.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import attention_ops
 from repro_torch.kernels.attention_ref import FAR
 from repro_torch.models.layers.rope import apply_rope, rope_angles
@@ -150,9 +152,11 @@ def gqa_decode_paged(params: Dict, x: torch.Tensor, cache: Dict, *,
 
 def init_kv_cache(batch: int, length: int, n_kv_heads: int, head_dim: int,
                   dtype=torch.bfloat16, bits: int = 16,
-                  device=None) -> Dict:
-    """Contiguous ring cache (B, L, KH, hd), positions -1 (empty)."""
+                  device: DeviceLike = None) -> Dict:
+    """Contiguous ring cache (B, L, KH, hd), positions -1 (empty), on
+    ``device`` (CUDA unless ``device="cpu"``)."""
     _check_bits(bits)
+    device = resolve_device(device)
     return dict(
         k=torch.zeros((batch, length, n_kv_heads, head_dim), dtype=dtype,
                       device=device),
@@ -165,10 +169,12 @@ def init_kv_cache(batch: int, length: int, n_kv_heads: int, head_dim: int,
 
 def init_paged_kv_pool(n_pages: int, page_size: int, n_kv_heads: int,
                        head_dim: int, dtype=torch.bfloat16, bits: int = 16,
-                       device=None) -> Dict:
-    """(P, pg, ...) pools shared by every request; physical page 0 is the
-    trash page, never handed to a request."""
+                       device: DeviceLike = None) -> Dict:
+    """(P, pg, ...) pools shared by every request, on ``device`` (CUDA
+    unless ``device="cpu"``); physical page 0 is the trash page, never
+    handed to a request."""
     _check_bits(bits)
+    device = resolve_device(device)
     return dict(
         k=torch.zeros((n_pages, page_size, n_kv_heads, head_dim),
                       dtype=dtype, device=device),

@@ -1,20 +1,21 @@
 """The decoder stack for the ``dense`` block and the ``vlm`` modality (port
 of ``repro/models/transformer.py``: ``init_params``, ``_embed_inputs``,
-``block_forward``, ``_fill_kv_cache``, ``_run_segments``, ``forward``,
-the paged branch of ``block_decode``, ``decode_step_paged`` and
-``init_paged_caches``).
+``block_forward``, ``_fill_kv_cache``, ``_run_segments`` with its remat
+policies, ``forward``, the paged branch of ``block_decode``,
+``decode_step_paged`` and ``init_paged_caches``).
 
 Parameters are a plain dict keyed like the reference's tree, with each
 segment's layers stacked on a leading axis (``models/stack.py``).  The
 compressor (encoder -> RD-FSQ roundtrip with STE -> decoder) runs between
-the client and server segment lists.
+the client and server segment lists.  ``forward`` is differentiable: the
+training step (``train/loop.py``) takes its gradient.
 
 Not ported, on purpose: ``utils/barrier.py::grad_safe_barrier``, which the
 reference's ``block_forward`` calls.  It keeps XLA from hoisting the
 layer-invariant attention masks out of its layer scan; PyTorch runs the
 layers eagerly and hoists nothing, so the barrier means nothing here.
-The MoE auxiliary losses (always 0 for dense blocks) and the other block
-types and modalities are ROADMAP item M11.
+The MoE auxiliary losses are carried as zeros, which is what dense blocks
+give; the other block types and modalities are ROADMAP item M11.
 """
 from __future__ import annotations
 
@@ -152,10 +153,19 @@ def _fill_kv_cache(cfg: ArchConfig, kv, cache_len: int,
     return cache
 
 
+AUX_KEYS = ("load_balance", "router_z", "drop_fraction")
+
+
+def _empty_aux(device) -> Dict[str, torch.Tensor]:
+    """The MoE auxiliaries of a dense block: all zero."""
+    return {k: torch.zeros((), dtype=torch.float32, device=device)
+            for k in AUX_KEYS}
+
+
 def block_forward(cfg: ArchConfig, p: Dict, x: torch.Tensor, *,
                   positions: torch.Tensor, window: Optional[int],
                   collect_cache: Optional[int] = None):
-    """Full-sequence dense block.  Returns (x, cache_or_None)."""
+    """Full-sequence dense block.  Returns (x, aux, cache_or_None)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     cache = None
     if collect_cache is not None:
@@ -168,7 +178,7 @@ def block_forward(cfg: ArchConfig, p: Dict, x: torch.Tensor, *,
                                  window=window, **_attn_kwargs(cfg))
     x = x + a
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + swiglu_forward(p["ffn"], h2), cache
+    return x + swiglu_forward(p["ffn"], h2), _empty_aux(x.device), cache
 
 
 def block_decode(cfg: ArchConfig, p: Dict, x: torch.Tensor, cache: Dict, *,
@@ -190,10 +200,13 @@ def block_decode(cfg: ArchConfig, p: Dict, x: torch.Tensor, cache: Dict, *,
 # ---------------------------------------------------------------------------
 
 def init_paged_caches(cfg: ArchConfig, n_pages: int, page_size: int,
-                      dtype=torch.bfloat16, device=None) -> Dict:
+                      dtype=torch.bfloat16, device: DeviceLike = None
+                      ) -> Dict:
     """Stacked paged KV pools per segment, keyed like the parameters: one
-    (P, pg, ...) pool per layer, shared page table across layers."""
+    (P, pg, ...) pool per layer, shared page table across layers, on
+    ``device`` (CUDA unless ``device="cpu"``)."""
     _check_supported(cfg)
+    device = resolve_device(device)
     client_segs, server_segs = cfg.client_server_segments()
     out = {}
     for side, segs in (("client", client_segs), ("server", server_segs)):
@@ -226,30 +239,60 @@ def _embed_inputs(params: Dict, cfg: ArchConfig, batch: Dict
     return torch.cat([img, tok], dim=1)
 
 
+def _remat_group(cfg: ArchConfig, n: int, x: torch.Tensor) -> int:
+    """``cfg.remat_group``, or when unset the bytes-aware auto-tuner's
+    choice from the carry entering the segment (the stored layer input of
+    the remat schedule), as the reference decides it."""
+    if cfg.remat and cfg.remat_group == 0:
+        return stack_mod.auto_group_size(n, x.numel() * x.element_size())
+    return cfg.remat_group
+
+
 def _run_segments(params: Dict, cfg: ArchConfig, side: str, segs, x, *,
                   positions, window, collect_cache: Optional[int] = None):
-    """Run one side's segments.  Returns (x, caches)."""
+    """Run one side's segments.  Returns (x, aux_sum, caches)."""
+    aux_sum = _empty_aux(x.device)
     caches = {}
     for i, _ in enumerate(segs):
         def body(carry, p):
-            return block_forward(cfg, p, carry, positions=positions,
-                                 window=window, collect_cache=collect_cache)
+            y, aux, cache = block_forward(cfg, p, carry, positions=positions,
+                                          window=window,
+                                          collect_cache=collect_cache)
+            return y, (aux, cache)
 
-        x, seg_caches = stack_mod.run_stack(
-            body, x, params[side][f"seg{i}"],
+        stacked = params[side][f"seg{i}"]
+        x, seg_aux, seg_caches = stack_mod.run_stack(
+            body, x, stacked, remat=cfg.remat,
+            remat_group=_remat_group(cfg, stack_mod.stack_len(stacked), x),
             collect=collect_cache is not None)
+        aux_sum = {k: aux_sum[k] + seg_aux[k] for k in aux_sum}
         if collect_cache is not None:
             caches[f"seg{i}"] = seg_caches
-    return x, caches
+    return x, aux_sum, caches
+
+
+def layer_forward_count(cfg: ArchConfig, x: torch.Tensor) -> int:
+    """How many times one training step's forward + backward runs a layer
+    body (and so K1), summed over every segment, for the remat policy
+    ``_run_segments`` picks for a carry like ``x`` (B, S, d)."""
+    total = 0
+    for segs in cfg.client_server_segments():
+        for _, n in segs:
+            total += stack_mod.layer_forward_count(
+                n, cfg.remat, _remat_group(cfg, n, x))
+    return total
 
 
 def forward(params: Dict, cfg: ArchConfig, batch: Dict, *,
+            rng: Optional[torch.Generator] = None,
             window: Optional[int] = None,
             collect_cache: Optional[int] = None):
-    """Full-sequence forward (prefill).
+    """Full-sequence forward (train / prefill).
 
     Returns (logits, aux) or (logits, aux, caches) when ``collect_cache``
-    (a cache length) is given; aux = {commit}.
+    (a cache length) is given; aux = {commit, load_balance, router_z,
+    drop_fraction}.  ``rng`` is the reference's argument, handed to the
+    compressor; RD-FSQ draws no randomness.
     """
     _check_supported(cfg)
     x = _embed_inputs(params, cfg, batch)
@@ -258,18 +301,19 @@ def forward(params: Dict, cfg: ArchConfig, batch: Dict, *,
         positions = torch.arange(x.shape[1], device=x.device)
     positions = positions.to(torch.int32)
     client_segs, server_segs = cfg.client_server_segments()
-    x, caches_c = _run_segments(params, cfg, "client", client_segs, x,
-                                positions=positions, window=window,
-                                collect_cache=collect_cache)
+    x, aux_c, caches_c = _run_segments(
+        params, cfg, "client", client_segs, x, positions=positions,
+        window=window, collect_cache=collect_cache)
     # the paper's compressor at the cut
     x, commit = split_mod.compressor_roundtrip(params.get("codec"),
-                                               cfg.split, x)
-    x, caches_s = _run_segments(params, cfg, "server", server_segs, x,
-                                positions=positions, window=window,
-                                collect_cache=collect_cache)
+                                               cfg.split, x, rng)
+    x, aux_s, caches_s = _run_segments(
+        params, cfg, "server", server_segs, x, positions=positions,
+        window=window, collect_cache=collect_cache)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = head_logits(params["head"], x)
-    aux = {"commit": commit}
+    aux = {k: aux_c[k] + aux_s[k] for k in aux_c}
+    aux["commit"] = commit
     if collect_cache is not None:
         return logits, aux, dict(client=caches_c, server=caches_s)
     return logits, aux

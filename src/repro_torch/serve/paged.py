@@ -19,6 +19,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as tf
 
 
@@ -28,11 +29,13 @@ def next_pow2(n: int) -> int:
 
 
 def init_pools(cfg: ArchConfig, n_pages: int, page_size: int,
-               device=None) -> Dict:
+               device: DeviceLike = None) -> Dict:
     """Paged KV pools in the serve compute dtype (the dtype the prefill
-    caches are collected in, so ``insert_prefill`` is a pure move)."""
+    caches are collected in, so ``insert_prefill`` is a pure move), on
+    ``device`` (CUDA unless ``device="cpu"``)."""
     return tf.init_paged_caches(cfg, n_pages, page_size,
-                                dtype=tf.cdtype(cfg), device=device)
+                                dtype=tf.cdtype(cfg),
+                                device=resolve_device(device))
 
 
 @torch.inference_mode()

@@ -1,9 +1,10 @@
-"""The port's attention (kernels K1 / K8 and the layers around them)
-against the JAX reference, on the CPU, in fp32."""
+"""The port's attention (kernels K1, K2 / K3 and K8, and the layers around
+them) against the JAX reference, on the CPU, in fp32."""
 import pytest
 
 pytest.importorskip("jax")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -125,6 +126,96 @@ def test_gqa_forward_matches_reference():
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=ATOL)
 
 
+def _bhsd(a):
+    return np.ascontiguousarray(np.asarray(a).transpose(0, 2, 1, 3))
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_backward_plain_matches_reference_kernels(case):
+    """dq / dk / dv of the plain K2 / K3 against the Pallas backward_dq /
+    backward_dkv in interpret mode and the jnp VJP of flash_reference,
+    all fed the JAX forward's own (m, l) and di.  Rows that see no key
+    (padded q rows) get a zero output gradient, as flash_attention gives
+    them; there the reference's P is not 0 (attention_ref docstring)."""
+    sq, skv, h, kh, window, kvl, chunk = case
+    qs, k, v, qpos, kpos = _operands(*case)
+    rng = np.random.default_rng(5)
+    go = rng.normal(size=qs.shape).astype(np.float32)  # (B, S, H, D)
+    go[:, sq:] = 0.0
+    jq, jk, jv = (jnp.asarray(_bhsd(a)) for a in (qs, k, v))
+    jqp, jkp = jnp.asarray(qpos.reshape(-1, 1)), jnp.asarray(
+        kpos.reshape(1, -1))
+    jo, jm, jl = flash_kernel.forward(jq, jk, jv, jqp, jkp, window=window,
+                                      block=chunk, interpret=True)
+    gob = _bhsd(go)
+    di = np.sum(gob * np.asarray(jo), axis=-1, keepdims=True)
+    kw = dict(window=window, block=chunk, interpret=True)
+    jdq = flash_kernel.backward_dq(jq, jk, jv, jnp.asarray(gob), jm, jl,
+                                   jnp.asarray(di), jqp, jkp, **kw)
+    jdk, jdv = flash_kernel.backward_dkv(jq, jk, jv, jnp.asarray(gob), jm,
+                                         jl, jnp.asarray(di), jqp, jkp, **kw)
+    targs = [_t(_bhsd(a)) for a in (qs, k, v)] + [_t(gob), _t(jm), _t(jl),
+                                                   _t(di), _t(qpos),
+                                                   _t(kpos)]
+    dq, dk, dv = tref.flash_backward_ref(*targs, window=window)
+    assert dq.dtype == dk.dtype == dv.dtype == torch.float32
+    for port, ref in ((dq, jdq), (dk, jdk), (dv, jdv)):
+        np.testing.assert_allclose(port.numpy(), np.asarray(ref), atol=ATOL)
+    # the wrappers run the same plain version on CPU tensors
+    np.testing.assert_array_equal(
+        tops.flash_backward_dq(*targs, window=window).numpy(), dq.numpy())
+    wk, wv = tops.flash_backward_dkv(*targs, window=window)
+    np.testing.assert_array_equal(wk.numpy(), dk.numpy())
+    np.testing.assert_array_equal(wv.numpy(), dv.numpy())
+    # the jnp custom VJP, in (B, S, H, D) layout
+    _, vjp = jax.vjp(lambda a, b_, c: jref.flash_reference(
+        a, b_, c, jnp.asarray(qpos), jnp.asarray(kpos), window, chunk),
+        jnp.asarray(qs), jnp.asarray(k), jnp.asarray(v))
+    rq, rk, rv = vjp(jnp.asarray(go))
+    for port, ref in ((dq, rq), (dk, rk), (dv, rv)):
+        np.testing.assert_allclose(_bhsd(port.numpy()), np.asarray(ref),
+                                   atol=ATOL)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_grads_match_reference(case):
+    """torch.autograd.grad through the port's flash_attention (the
+    FlashAttention Function, K2 / K3's plain version on the CPU) against
+    jax.grad through the reference's with its jnp custom VJP (the Pallas
+    backward is held above)."""
+    sq, skv, h, kh, window, kvl, chunk = case
+    q, k, v = _qkv(2, sq, h, kh, 16, seed=3, skv=skv)
+    w = np.random.default_rng(4).normal(size=(2, sq, h, 16)).astype(
+        np.float32)
+    kw = dict(window=window, kv_valid_len=kvl, q_chunk=chunk, kv_chunk=chunk)
+    jg = jax.grad(lambda a, b_, c: jnp.sum(jattn.flash_attention(
+        a, b_, c, impl="jnp", **kw) * w), argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (_t(a).requires_grad_() for a in (q, k, v))
+    out = tattn.flash_attention(tq, tk, tv, **kw)
+    tg = torch.autograd.grad((out * _t(w)).sum(), (tq, tk, tv))
+    for port, ref in zip(tg, jg):
+        assert port.shape == ref.shape and port.dtype == torch.float32
+        np.testing.assert_allclose(port.numpy(), np.asarray(ref), atol=ATOL)
+
+
+@pytest.mark.parametrize("window", [None, 5])
+def test_flash_attention_function_gradcheck(window):
+    """FlashAttention in fp64 on the CPU against finite differences, with
+    GQA, a padded q row (qpos -2^30: it sees no key) and a padded key."""
+    rng = np.random.default_rng(6)
+    b, s, h, kh, d = 1, 8, 2, 1, 4
+    qs, k, v = (torch.tensor(rng.normal(size=shape), dtype=torch.float64,
+                             requires_grad=True)
+                for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d)))
+    qpos = torch.tensor(list(range(s - 1)) + [-FAR], dtype=torch.int32)
+    kpos = torch.tensor(list(range(s - 1)) + [FAR], dtype=torch.int32)
+    assert torch.autograd.gradcheck(
+        lambda a, b_, c: tops.FlashAttention.apply(a, b_, c, qpos, kpos,
+                                                   window),
+        (qs, k, v), eps=1e-6, atol=1e-6)
+
+
 def _paged_fixture():
     """The reference's own paged fixture: slot 0 has a -1 page, slot 2 is
     inactive (qpos = -1, no pages)."""
@@ -177,7 +268,8 @@ def test_gqa_decode_paged_pool_writes_match_reference():
                           ("wv", (dm, kh * d)), ("wo", (h * d, dm)))}
     pt = np.array([[1, 2, 3], [4, 5, -1], [-1, -1, -1]], np.int32)
     jpool = jattn.init_paged_kv_pool(6, pg, kh, d, dtype=jnp.float32)
-    tpool = tattn.init_paged_kv_pool(6, pg, kh, d, dtype=torch.float32)
+    tpool = tattn.init_paged_kv_pool(6, pg, kh, d, dtype=torch.float32,
+                                     device="cpu")
     kw = dict(n_heads=h, n_kv_heads=kh, head_dim=d, rope_theta=1e4)
     for t in range(7):
         x = rng.normal(size=(s, 1, dm)).astype(np.float32)

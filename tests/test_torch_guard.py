@@ -36,7 +36,9 @@ def test_port_imports_with_jax_blocked():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['repro'] = None; "
             "import repro_torch.serve.engine, repro_torch.bridge, "
-            "repro_torch.kernels.build; print('ok')")
+            "repro_torch.kernels.build, repro_torch.train.loop, "
+            "repro_torch.launch.train, repro_torch.launch.e2e, "
+            "repro_torch.checkpoint; print('ok')")
     env = dict(os.environ, PYTHONPATH=str(PORT.parent))
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)

@@ -18,10 +18,12 @@ from repro.models.layers import rope as jrope  # noqa: E402
 from repro_torch.bridge import from_jax_params  # noqa: E402
 from repro_torch.configs import get_config as torch_get_config  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
+from repro_torch.models.layers import attention as tattn  # noqa: E402
 from repro_torch.models.layers import embedding as temb  # noqa: E402
 from repro_torch.models.layers import mlp as tmlp  # noqa: E402
 from repro_torch.models.layers import norms as tnorms  # noqa: E402
 from repro_torch.models.layers import rope as trope  # noqa: E402
+from repro_torch.serve import paged as tpaged  # noqa: E402
 
 ATOL = 1e-5
 CFG = get_config("tinyllava").reduced()
@@ -127,7 +129,8 @@ def test_decode_step_paged_matches_reference(params):
     rng = np.random.default_rng(2)
     n_pages, pg = 9, 4
     jpools = jtf.init_paged_caches(CFG, n_pages, pg, dtype=jnp.float32)
-    tpools = ttf.init_paged_caches(TCFG, n_pages, pg, dtype=torch.float32)
+    tpools = ttf.init_paged_caches(TCFG, n_pages, pg, dtype=torch.float32,
+                                   device="cpu")
     pt = np.array([[1, 2, 3, 4], [5, 6, -1, -1], [-1, -1, -1, -1]],
                   np.int32)
     for t in range(6):
@@ -155,6 +158,22 @@ def test_entry_points_raise_without_cuda():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ttf.init_params(TCFG, seed=0)
+
+
+@pytest.mark.parametrize("make", [
+    lambda: tattn.init_kv_cache(1, 8, 2, 16),
+    lambda: tattn.init_paged_kv_pool(4, 4, 2, 16),
+    lambda: ttf.init_paged_caches(TCFG, 4, 4),
+    lambda: tpaged.init_pools(TCFG, 4, 4),
+], ids=["init_kv_cache", "init_paged_kv_pool", "init_paged_caches",
+        "init_pools"])
+def test_cache_constructors_raise_without_cuda(make):
+    """With no device given, the caches go to CUDA, as every entry point
+    of the port does, and raise without it."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
 
 
 def test_unported_model_features_raise():
