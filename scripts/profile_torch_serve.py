@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
-"""Where a decode tick of the port's split-serve engine, or a training
-step, spends its time.
+"""Where a decode tick of the port's split-serve engine, a static decode
+step, or a training step spends its time.
 
-    python3 scripts/profile_torch_serve.py            # decode ticks
-    python3 scripts/profile_torch_serve.py --train    # training steps
+    python3 scripts/profile_torch_serve.py               # decode ticks
+    python3 scripts/profile_torch_serve.py --generate    # static steps
+    python3 scripts/profile_torch_serve.py --train       # training steps
 
-Needs one CUDA device.  Without ``--train`` it builds the same full-width
+Needs one CUDA device.  By default it builds the same full-width
 tinyllava engine and requests as ``chip_smoke.py``'s serve phase, steps it
 until every request has been admitted (so no prefill runs afterwards),
-then traces ``TICKS`` pure decode ticks.  With ``--train`` it builds the
-state, batches and step of ``chip_smoke.py``'s train phase, runs two
-steps untraced, then traces ``STEPS`` steps.  Both trace with
-``torch.profiler`` (CPU + CUDA) and print one JSON object:
+then traces ``TICKS`` pure decode ticks.  With ``--generate`` it prefills
+the generate phase's 4 requests into its ring caches of 825 and traces
+``TICKS`` steps of ``make_serve_step`` after two untraced ones, once with
+bf16 caches (K6 each layer) and once with int8 caches (K7).  With ``--train`` it builds the state, batches and step of
+``chip_smoke.py``'s train phase, runs two steps untraced, then traces
+``STEPS`` steps.  All trace with ``torch.profiler`` (CPU + CUDA) and print
+one JSON object:
 
 * the wall time per tick (step) and the device busy share (sum of kernel
   durations over the wall time; kernels run on one stream, so they do not
@@ -40,7 +44,11 @@ STEPS = 3
 GROUPS = (("flash_fwd_kernel", "K1 flash_fwd"),
           ("flash_bwd_dq_kernel", "K2 flash_bwd_dq"),
           ("flash_bwd_dkv_kernel", "K3 flash_bwd_dkv"),
-          ("rdfsq", "K4/K5 rdfsq"), ("decode_paged_kernel", "K8 decode_paged"),
+          ("rdfsq", "K4/K5 rdfsq"),
+          ("ring_decode_kernel<__nv_bfloat16", "K6 decode"),
+          ("ring_decode_kernel<signed char", "K7 decode_q8"),
+          ("paged_decode_kernel<__nv_bfloat16", "K8 decode_paged"),
+          ("paged_decode_kernel<signed char", "K9 decode_paged_q8"),
           ("nvjet", "cuBLAS GEMM"), ("gemm", "cuBLAS GEMM"))
 
 
@@ -123,6 +131,49 @@ def profile_serve(chip_smoke) -> dict:
     return _trace(tick, TICKS, "tick", chip_smoke.smi())
 
 
+def profile_generate(chip_smoke) -> dict:
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import decode as sd
+
+    cfg = get_config("tinyllava")
+    params = init_params(cfg, seed=0)
+    b, text = chip_smoke.GEN_BATCH, chip_smoke.GEN_TEXT
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    batch = dict(
+        image_embeds=torch.randn((b, cfg.n_image_tokens, cfg.d_vision),
+                                 generator=gen, device="cuda"),
+        tokens=torch.randint(1, cfg.vocab_size, (b, text), generator=gen,
+                             device="cuda"))
+    cache_len = cfg.n_image_tokens + text + chip_smoke.GEN_NEW
+    out = {}
+    for bits in (16, 8):
+        cfg_b = dataclasses.replace(cfg, kv_cache_bits=bits)
+        logits, caches = sd.prefill(params, cfg_b, batch, cache_len)
+        step = sd.make_serve_step(cfg_b)
+        state = {"tok": logits[:, -1].argmax(dim=-1), "i": 0}
+
+        def one() -> bool:
+            qpos = torch.full((b,), cfg.n_image_tokens + text + state["i"],
+                              dtype=torch.int32, device="cuda")
+            logits, _ = step(params, caches,
+                             dict(tokens=state["tok"][:, None]), qpos)
+            state["tok"] = logits[:, -1].argmax(dim=-1)  # the next input
+            state["i"] += 1
+            return True
+
+        for _ in range(2):  # first-call set-up untraced
+            one()
+        torch.cuda.synchronize()
+        out[f"{bits}-bit caches"] = _trace(one, TICKS, "step",
+                                           chip_smoke.smi())
+    out["rows"], out["cache_len"] = b, cache_len
+    return out
+
+
 def profile_train(chip_smoke) -> dict:
     import torch
     from repro_torch.configs import get_config
@@ -155,17 +206,25 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--train", action="store_true",
-                    help="profile full-width training steps instead of "
-                         "decode ticks")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--train", action="store_true",
+                      help="profile full-width training steps instead of "
+                           "decode ticks")
+    mode.add_argument("--generate", action="store_true",
+                      help="profile static decode steps over ring caches "
+                           "instead of the engine's decode ticks")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
         return 1
     import chip_smoke
 
-    out = profile_train(chip_smoke) if args.train \
-        else profile_serve(chip_smoke)
+    if args.train:
+        out = profile_train(chip_smoke)
+    elif args.generate:
+        out = profile_generate(chip_smoke)
+    else:
+        out = profile_serve(chip_smoke)
     print(json.dumps(out, indent=1))
     return 0
 

@@ -1,12 +1,17 @@
 """Wrappers of the attention kernels K1 (flash forward), K2 / K3 (flash
-backward) and K8 (paged decode) (port of ``repro/kernels/attention_ops.py``:
-``flash_pallas`` with its custom VJP, and ``decode_paged_pallas``).
+backward), K6 / K7 (ring-cache decode, bf16 / int8) and K8 / K9 (paged
+decode, bf16 / int8) (port of ``repro/kernels/attention_ops.py``:
+``flash_pallas`` with its custom VJP, ``decode_pallas``,
+``decode_q8_pallas``, ``decode_paged_pallas`` and
+``decode_paged_q8_pallas``).
 
 For a CUDA tensor a wrapper launches its kernel from ``csrc/flash_fwd.cu``,
-``csrc/flash_bwd.cu`` or ``csrc/decode_paged.cu``, or raises on what the
-kernel does not take; for a CPU tensor it runs the plain version in
-``attention_ref.py``.  No shape gate or environment variable sends a CUDA
-tensor to the plain version.
+``csrc/flash_bwd.cu``, ``csrc/decode.cu`` or ``csrc/decode_paged.cu``, or
+raises on what the kernel does not take; for a CPU tensor it runs the
+plain version in ``attention_ref.py``.  No shape gate or environment
+variable sends a CUDA tensor to the plain version.  The reference's
+decode wrappers fall back to jnp where no block divides the cache length;
+the decode kernels here take any length.
 """
 from __future__ import annotations
 
@@ -214,6 +219,108 @@ def flash(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return FlashAttention.apply(qs, k, v, qpos, kpos, window)
 
 
+def _check_decode(name: str, qf, k, v, scales, pos, qpos, code_dtype
+                  ) -> torch.Tensor:
+    """The checks every decode kernel makes of its operands: qf (R, KH, G,
+    64) bf16; k / v (N, T, KH, 64) of ``code_dtype``; ``scales`` the
+    (N, T, KH) fp16 K and V scales of an int8 cache (empty otherwise); pos
+    (N, T) int32; qpos (R,).  Returns qpos as contiguous int32."""
+    r, kh, g, d = qf.shape
+    lead = tuple(k.shape[:2])
+    _check_bf16(name, qf)
+    if k.dtype != code_dtype or v.dtype != code_dtype:
+        raise TypeError(f"{name} takes {code_dtype} caches, got {k.dtype}")
+    if any(t.dtype != torch.float16 for t in scales):
+        raise TypeError(f"{name} takes fp16 scales")
+    if pos.dtype != torch.int32:
+        raise TypeError(f"{name} takes int32 key positions")
+    _check_device(name, qf, k, v, *scales, pos, qpos)
+    if d != HEAD_DIM or k.shape[-1] != HEAD_DIM or v.shape[-1] != HEAD_DIM:
+        raise ValueError(f"{name} is compiled for head_dim {HEAD_DIM}")
+    if k.shape != lead + (kh, d) or v.shape != k.shape \
+            or pos.shape != lead \
+            or any(t.shape != lead + (kh,) for t in scales):
+        raise ValueError(f"{name}: cache shapes disagree")
+    if g > _MAX_G:
+        raise ValueError(f"{name} takes G <= {_MAX_G}, got {g}")
+    if qpos.shape != (r,):
+        raise ValueError(f"{name}: qpos does not match the row axis")
+    _check_contiguous(name, qf, k, v, *scales, pos)
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError(f"{name} takes 16-byte aligned caches")
+    return qpos.to(torch.int32).contiguous()
+
+
+def _ring_decode(kernel: str, fn_name: str, qf, k, v, scales, kpos, qpos,
+                 window, code_dtype) -> torch.Tensor:
+    qpos = _check_decode(kernel, qf, k, v, scales, kpos, qpos, code_dtype)
+    b, kh, g, _ = qf.shape
+    if k.shape[0] != b:
+        raise ValueError(f"{kernel}: the cache does not match the batch")
+    out = torch.empty((b, kh, g, HEAD_DIM), dtype=torch.float32,
+                      device=qf.device)
+    has_window, win = _window_args(window)
+    build.launch(kernel, fn_name, qf.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 *[t.data_ptr() for t in scales], kpos.data_ptr(),
+                 qpos.data_ptr(), out.data_ptr(), b, k.shape[1], kh, g,
+                 has_window, win, build.current_stream())
+    return out
+
+
+def decode(qf: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+           kpos: torch.Tensor, qpos: torch.Tensor, *,
+           window: Optional[int] = None) -> torch.Tensor:
+    """K6.  qf: (B, KH, G, D) pre-scaled; caches (B, L, KH, D/Dv) in the
+    ring layout, any L; kpos (B, L) int32 (-1 empty); qpos (B,).  Returns
+    (B, KH, G, Dv) fp32; a row with no visible key gives 0."""
+    if not qf.is_cuda:
+        return attention_ref.decode_attention_ref(
+            qf, k_cache, v_cache, kpos, qpos, window=window)
+    return _ring_decode("decode", "decode_bf16", qf, k_cache, v_cache, (),
+                        kpos, qpos, window, torch.bfloat16)
+
+
+def decode_q8(qf: torch.Tensor, k_codes: torch.Tensor,
+              v_codes: torch.Tensor, k_scale: torch.Tensor,
+              v_scale: torch.Tensor, kpos: torch.Tensor, qpos: torch.Tensor,
+              *, window: Optional[int] = None) -> torch.Tensor:
+    """K7.  As ``decode`` over int8 codes (B, L, KH, D) with fp16 scales
+    (B, L, KH), which the kernel reads where they lie (the reference's
+    wrapper makes an fp32 (B, KH, L) copy first).  Returns (B, KH, G, D)
+    fp32."""
+    if not qf.is_cuda:
+        return attention_ref.decode_attention_q8_ref(
+            qf, k_codes, v_codes, k_scale, v_scale, kpos, qpos,
+            window=window)
+    return _ring_decode("decode_q8", "decode_q8", qf, k_codes, v_codes,
+                        (k_scale, v_scale), kpos, qpos, window, torch.int8)
+
+
+def _paged_decode(kernel: str, fn_name: str, qf, k_pool, v_pool, scales,
+                  pos_pool, page_table, qpos, window, code_dtype
+                  ) -> torch.Tensor:
+    qpos = _check_decode(kernel, qf, k_pool, v_pool, scales, pos_pool, qpos,
+                         code_dtype)
+    s, kh, g, _ = qf.shape
+    pg = k_pool.shape[1]
+    if pg > _MAX_PAGE:
+        raise ValueError(f"{kernel} takes pages of <= {_MAX_PAGE} tokens, "
+                         f"got {pg}")
+    if page_table.ndim != 2 or page_table.shape[0] != s:
+        raise ValueError(f"{kernel}: page_table does not match the slots")
+    _check_device(kernel, qf, page_table)
+    page_table = page_table.to(torch.int32).contiguous()
+    out = torch.empty((s, kh, g, HEAD_DIM), dtype=torch.float32,
+                      device=qf.device)
+    has_window, win = _window_args(window)
+    build.launch(kernel, fn_name, qf.data_ptr(), k_pool.data_ptr(),
+                 v_pool.data_ptr(), *[t.data_ptr() for t in scales],
+                 pos_pool.data_ptr(), page_table.data_ptr(), qpos.data_ptr(),
+                 out.data_ptr(), s, kh, g, pg, page_table.shape[1],
+                 has_window, win, build.current_stream())
+    return out
+
+
 def decode_paged(qf: torch.Tensor, k_pool: torch.Tensor,
                  v_pool: torch.Tensor, pos_pool: torch.Tensor,
                  page_table: torch.Tensor, qpos: torch.Tensor, *,
@@ -226,35 +333,23 @@ def decode_paged(qf: torch.Tensor, k_pool: torch.Tensor,
     if not qf.is_cuda:
         return attention_ref.decode_attention_paged_ref(
             qf, k_pool, v_pool, pos_pool, page_table, qpos, window=window)
-    s, kh, g, d = qf.shape
-    n_pages, pg = k_pool.shape[:2]
-    _check_bf16("decode_paged", qf, k_pool, v_pool)
-    _check_device("decode_paged", qf, k_pool, v_pool, pos_pool, page_table,
-                  qpos)
-    if d != HEAD_DIM or k_pool.shape[-1] != HEAD_DIM \
-            or v_pool.shape[-1] != HEAD_DIM:
-        raise ValueError(f"decode_paged is compiled for head_dim {HEAD_DIM}")
-    if k_pool.shape != (n_pages, pg, kh, d) or v_pool.shape != k_pool.shape \
-            or pos_pool.shape != (n_pages, pg):
-        raise ValueError("pool shapes disagree")
-    if g > _MAX_G or pg > _MAX_PAGE:
-        raise ValueError(f"decode_paged takes G <= {_MAX_G} and pages of "
-                         f"<= {_MAX_PAGE} tokens, got G={g}, pg={pg}")
-    if page_table.shape[0] != s or qpos.shape != (s,):
-        raise ValueError("page_table / qpos do not match the slot axis")
-    if pos_pool.dtype != torch.int32:
-        raise TypeError("pos_pool must be int32")
-    page_table = page_table.to(torch.int32)
-    qpos = qpos.to(torch.int32)
-    _check_contiguous("decode_paged", qf, k_pool, v_pool, pos_pool,
-                      page_table, qpos)
-    out = torch.empty((s, kh, g, HEAD_DIM), dtype=torch.float32,
-                      device=qf.device)
-    has_window, win = _window_args(window)
-    build.launch(
-        "decode_paged", "decode_paged_bf16",
-        qf.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        pos_pool.data_ptr(), page_table.data_ptr(), qpos.data_ptr(),
-        out.data_ptr(), s, kh, g, pg, page_table.shape[1], has_window, win,
-        build.current_stream())
-    return out
+    return _paged_decode("decode_paged", "decode_paged_bf16", qf, k_pool,
+                         v_pool, (), pos_pool, page_table, qpos, window,
+                         torch.bfloat16)
+
+
+def decode_paged_q8(qf: torch.Tensor, k_pool: torch.Tensor,
+                    v_pool: torch.Tensor, k_scale_pool: torch.Tensor,
+                    v_scale_pool: torch.Tensor, pos_pool: torch.Tensor,
+                    page_table: torch.Tensor, qpos: torch.Tensor, *,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """K9.  As ``decode_paged`` over int8 code pools (P, pg, KH, D) with
+    fp16 scale pools (P, pg, KH), read where they lie.  Returns
+    (S, KH, G, D) fp32."""
+    if not qf.is_cuda:
+        return attention_ref.decode_attention_paged_q8_ref(
+            qf, k_pool, v_pool, k_scale_pool, v_scale_pool, pos_pool,
+            page_table, qpos, window=window)
+    return _paged_decode("decode_paged_q8", "decode_paged_q8", qf, k_pool,
+                         v_pool, (k_scale_pool, v_scale_pool), pos_pool,
+                         page_table, qpos, window, torch.int8)

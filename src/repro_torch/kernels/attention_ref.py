@@ -1,6 +1,7 @@
-"""Plain PyTorch versions of the attention kernels K1, K2 / K3 and K8
-(port of ``repro/kernels/attention_ref.py``: ``flash_reference`` forward
-and backward, and the paged decode reference).
+"""Plain PyTorch versions of the attention kernels K1, K2 / K3 and
+K6 - K9 (port of ``repro/kernels/attention_ref.py``: ``flash_reference``
+forward and backward, and the ring-cache and paged decode references,
+bf16 and int8).
 
 ``kernels/attention_ops.py`` runs these on CPU tensors; on the card they
 are what the CUDA kernels are held against.  Scores and sums are fp32
@@ -20,6 +21,12 @@ masked entry of P is exactly 0, where the reference gives exp(-1e30 -
 (-1e30)) = 1 on a row that saw no key.  That matters only where such a
 row's output gradient is non-zero, which ``flash_attention`` never
 produces, because it slices those rows off.
+
+The decode versions follow the same convention: a row with no visible
+key (an inactive slot, qpos = -1) returns exactly 0, as the CUDA kernels
+K6 - K9 and the reference's Pallas decode kernels do.  The reference's
+ring-cache ``decode_attention_ref`` returns a uniform mean of the cache
+there; its paged references zero such rows, as here.
 """
 from __future__ import annotations
 
@@ -110,21 +117,49 @@ def flash_backward_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # single-token decode
 # ---------------------------------------------------------------------------
 
-def decode_attention_ref(qf, k_cache, v_cache, kpos, qpos, *, window=None):
-    """Single-token attention against a contiguous cache.
-
-    qf: (B, KH, G, D) pre-scaled grouped query; caches (B, L, KH, D/Dv);
-    kpos (B, L) absolute position of each slot (-1 empty); qpos (B,).
-    Returns (B, KH, G, Dv) fp32.
-    """
-    s = torch.einsum("bkgd,bskd->bkgs", qf.float(), k_cache.float())
+def _decode_valid(kpos: torch.Tensor, qpos: torch.Tensor,
+                  window: Optional[int]) -> torch.Tensor:
+    """(B, L) mask: slot written, causal, in window."""
     valid = (kpos >= 0) & (kpos <= qpos[:, None])
     if window is not None:
         valid &= qpos[:, None] - kpos < window
+    return valid
+
+
+def _softmax_rows(s: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Softmax of (B, KH, G, L) scores over the visible keys; a row with
+    none gives all-zero probabilities."""
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
+    return torch.where(valid.any(dim=-1)[:, None, None, None], p, 0.0)
+
+
+def decode_attention_ref(qf, k_cache, v_cache, kpos, qpos, *, window=None):
+    """Single-token attention against a contiguous (ring) cache, K6.
+
+    qf: (B, KH, G, D) pre-scaled grouped query; caches (B, L, KH, D/Dv);
+    kpos (B, L) absolute position of each slot (-1 empty); qpos (B,).
+    Returns (B, KH, G, Dv) fp32; a row with no visible key gives 0.
+    """
+    s = torch.einsum("bkgd,bskd->bkgs", qf.float(), k_cache.float())
+    p = _softmax_rows(s, _decode_valid(kpos, qpos, window))
     return torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(),
                         v_cache.float())
+
+
+def decode_attention_q8_ref(qf, k_codes, v_codes, k_scale, v_scale, kpos,
+                            qpos, *, window=None):
+    """Int8-cache decode, K7.  Codes (B, L, KH, D) int8, scales (B, L, KH)
+    fp16; the scales fold into the dots in the reference's order: s =
+    (q . codes) * k_scale in fp32, softmax over s, then ((p * v_scale) in
+    q's dtype) . codes in fp32.  The codes are exact in any float dtype.
+    Returns (B, KH, G, D) fp32; a row with no visible key gives 0."""
+    s = torch.einsum("bkgd,bskd->bkgs", qf.float(), k_codes.float())
+    s = s * k_scale.float().transpose(1, 2)[:, :, None, :]
+    p = _softmax_rows(s, _decode_valid(kpos, qpos, window))
+    pv = p * v_scale.float().transpose(1, 2)[:, :, None, :]
+    return torch.einsum("bkgs,bskd->bkgd", pv.to(qf.dtype).float(),
+                        v_codes.float())
 
 
 def gather_pages(pool: torch.Tensor, page_table: torch.Tensor
@@ -147,25 +182,28 @@ def paged_kpos(pos_pool: torch.Tensor, page_table: torch.Tensor
     return torch.where(alloc, kpos, -1)
 
 
-def _zero_fully_masked(out, kpos, qpos, window):
-    """Slots with no visible key (inactive, qpos = -1) return exactly 0."""
-    valid = (kpos >= 0) & (kpos <= qpos[:, None])
-    if window is not None:
-        valid &= qpos[:, None] - kpos < window
-    any_valid = valid.any(dim=-1)
-    return torch.where(any_valid[:, None, None, None], out, 0.0)
-
-
 def decode_attention_paged_ref(qf, k_pool, v_pool, pos_pool, page_table,
                                qpos, *, window=None):
-    """Single-token attention against a paged KV pool.
+    """Single-token attention against a paged KV pool, K8.
 
     qf: (S, KH, G, D) pre-scaled; pools (P, pg, KH, D/Dv); pos_pool
     (P, pg) (-1 empty); page_table (S, npp) (-1 unallocated); qpos (S,)
-    (-1 inactive).  Returns (S, KH, G, Dv) fp32.
+    (-1 inactive: the slot's output is 0).  Returns (S, KH, G, Dv) fp32.
     """
-    k = gather_pages(k_pool, page_table)
-    v = gather_pages(v_pool, page_table)
-    kpos = paged_kpos(pos_pool, page_table)
-    out = decode_attention_ref(qf, k, v, kpos, qpos, window=window)
-    return _zero_fully_masked(out, kpos, qpos, window)
+    return decode_attention_ref(
+        qf, gather_pages(k_pool, page_table),
+        gather_pages(v_pool, page_table), paged_kpos(pos_pool, page_table),
+        qpos, window=window)
+
+
+def decode_attention_paged_q8_ref(qf, k_pool, v_pool, k_scale_pool,
+                                  v_scale_pool, pos_pool, page_table, qpos,
+                                  *, window=None):
+    """Paged int8-pool decode, K9.  Codes (P, pg, KH, D) int8, scale pools
+    (P, pg, KH) fp16; otherwise as ``decode_attention_paged_ref``."""
+    return decode_attention_q8_ref(
+        qf, gather_pages(k_pool, page_table),
+        gather_pages(v_pool, page_table),
+        gather_pages(k_scale_pool, page_table),
+        gather_pages(v_scale_pool, page_table),
+        paged_kpos(pos_pool, page_table), qpos, window=window)

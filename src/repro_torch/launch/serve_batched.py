@@ -1,0 +1,157 @@
+"""Batched serving demo (port of ``examples/serve_batched.py`` for the vlm
+configs): prefill + the static decode loop over ring KV caches, with the
+split compressor on the decode path, or the continuous-batching engine.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve_batched
+    PYTHONPATH=src python -m repro_torch.launch.serve_batched --engine \
+        --split-serve
+
+Runs on CUDA unless ``--device cpu`` is given, at the reduced config
+unless ``--full`` is given.  Without ``--engine`` it runs ``prefill`` and
+the ``make_serve_step`` loop (kernels K1 then K6, or K7 for an int8 KV
+cache); with ``--engine`` it runs ``ServeEngine`` (K1 and K8 / K9, plus
+K4 / K5 with ``--split-serve``).  The static ring holds the image tokens
+too: its length is image + prompt + new tokens (or the window), where the
+reference's example leaves the image out and so drops the oldest image
+positions.  ``--weight-quant`` is ROADMAP queue M, item M10, and raises.
+"""
+from __future__ import annotations
+
+import argparse
+import statistics
+import time
+
+
+def _sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def run_engine(cfg, params, args, device) -> None:
+    import torch
+
+    from repro_torch.serve.engine import ServeEngine
+
+    gen = torch.Generator().manual_seed(0)
+    page_size = 8
+    max_target = cfg.n_image_tokens + args.prompt_len + args.new_tokens
+    eng = ServeEngine(
+        params, cfg, n_slots=max(2, args.batch // 2), page_size=page_size,
+        n_pages=1 + args.batch * -(-max_target // page_size),
+        window=args.window,
+        split_wire=cfg.split.quant if args.split_serve else None,
+        device=device)
+    for i in range(args.batch):
+        toks = torch.randint(0, cfg.vocab_size, (args.prompt_len,),
+                             generator=gen)
+        img = torch.randn((cfg.n_image_tokens, cfg.d_vision), generator=gen)
+        # staggered budgets: early retirements open slots for admissions
+        eng.submit(toks.tolist(),
+                   max_new=max(1, args.new_tokens - (i % 3) * 2),
+                   image_embeds=img.to(device))
+    t0 = time.perf_counter()
+    results = eng.run()
+    _sync(device)
+    dt = time.perf_counter() - t0
+    total = sum(len(v) for v in results.values())
+    print(f"[{cfg.name}] engine: {len(results)} requests over "
+          f"{eng.scheduler.n_slots} slots -> {total} tokens in "
+          f"{dt * 1e3:.0f} ms ({total / dt:.1f} tok/s); "
+          f"prefill_batches={eng.stats['prefill_batches']} "
+          f"decode_ticks={eng.stats['decode_ticks']} "
+          f"page_buckets={sorted(eng.stats['page_table_buckets'])}")
+    if args.split_serve:
+        print(f"  split-serve wire: {eng.stats['wire_bytes']} bytes of "
+              f"quantized connector activations shipped")
+
+
+def run_static(cfg, params, args, device) -> None:
+    import torch
+
+    from repro_torch.serve.decode import cache_length, make_serve_step, \
+        prefill
+
+    gen = torch.Generator().manual_seed(0)
+    n_img = cfg.n_image_tokens
+    cache_len = cache_length(cfg, n_img + args.prompt_len + args.new_tokens,
+                             args.window)
+    batch = dict(
+        image_embeds=torch.randn((args.batch, n_img, cfg.d_vision),
+                                 generator=gen).to(device),
+        tokens=torch.randint(0, cfg.vocab_size,
+                             (args.batch, args.prompt_len),
+                             generator=gen).to(device))
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, cfg, batch, cache_len,
+                             window=args.window)
+    _sync(device)
+    print(f"[{cfg.name}] prefill({args.batch}x{args.prompt_len}) "
+          f"in {(time.perf_counter() - t0) * 1e3:.1f} ms; "
+          f"cache_len={cache_len}")
+
+    serve_step = make_serve_step(cfg, window=args.window)
+    tok = logits[:, -1].argmax(dim=-1)
+    pos0 = n_img + args.prompt_len
+    times = []
+    for i in range(args.new_tokens):
+        qpos = torch.full((args.batch,), pos0 + i, dtype=torch.int32,
+                          device=device)
+        t0 = time.perf_counter()
+        logits, caches = serve_step(params, caches,
+                                    dict(tokens=tok[:, None]), qpos)
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+        tok = logits[:, -1].argmax(dim=-1)
+    steady = statistics.median(times[1:] or times)
+    print(f"decoded {args.new_tokens} tokens; median step "
+          f"{steady * 1e3:.2f} ms ({args.batch / steady:.1f} tok/s "
+          f"aggregate)")
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="tinyllava")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--window", type=int, default=None)
+    ap.add_argument("--engine", action="store_true",
+                    help="continuous-batching ServeEngine instead of the "
+                         "manual static loop")
+    ap.add_argument("--split-serve", action="store_true",
+                    help="(with --engine) ship connector activations over "
+                         "the quantized wire")
+    ap.add_argument("--weight-quant", default=None,
+                    choices=("int4", "int3"),
+                    help="weight-only quantized serving: not ported")
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--device", default=None,
+                    help="torch device; CUDA unless 'cpu' is asked for")
+    args = ap.parse_args(argv)
+    if args.weight_quant:
+        raise NotImplementedError(
+            "weight-only quantized serving is ROADMAP queue M, item M10 "
+            "(kernel K12)")
+    if args.split_serve and not args.engine:
+        ap.error("--split-serve needs --engine")
+
+    from repro_torch.configs import get_config
+    from repro_torch.device import resolve_device
+    from repro_torch.models import transformer as tf
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    device = resolve_device(args.device)
+    params = tf.init_params(cfg, seed=0, device=device)
+    if args.engine:
+        run_engine(cfg, params, args, device)
+    else:
+        run_static(cfg, params, args, device)
+
+
+if __name__ == "__main__":
+    main()

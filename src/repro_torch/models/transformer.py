@@ -1,8 +1,9 @@
 """The decoder stack for the ``dense`` block and the ``vlm`` modality (port
 of ``repro/models/transformer.py``: ``init_params``, ``_embed_inputs``,
 ``block_forward``, ``_fill_kv_cache``, ``_run_segments`` with its remat
-policies, ``forward``, the paged branch of ``block_decode``,
-``decode_step_paged`` and ``init_paged_caches``).
+policies, ``forward``, ``block_decode`` over a ring cache or a paged pool,
+``decode_step``, ``decode_step_paged``, ``init_block_cache``,
+``init_caches`` and ``init_paged_caches``; 16-bit or int8 KV caches).
 
 Parameters are a plain dict keyed like the reference's tree, with each
 segment's layers stacked on a leading axis (``models/stack.py``).  The
@@ -50,9 +51,6 @@ def _check_supported(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: this slice ports dense GQA blocks with the vlm "
             "modality; the rest is ROADMAP queue M, item M11")
-    if cfg.kv_cache_bits != 16:
-        raise NotImplementedError(
-            "the int8 KV cache is the K7/K9 slice (ROADMAP queue K)")
 
 
 # ---------------------------------------------------------------------------
@@ -146,10 +144,9 @@ def _fill_kv_cache(cfg: ArchConfig, kv, cache_len: int,
                                    bits=cfg.kv_cache_bits, device=k.device)
     keep = min(s, cache_len)
     pos = positions[-keep:]
-    slots = (pos % cache_len).long()
-    cache["k"][:, slots] = k[:, -keep:]
-    cache["v"][:, slots] = v[:, -keep:]
-    cache["pos"][:, slots] = pos.to(torch.int32).expand(b, keep)
+    where = (slice(None), (pos % cache_len).long())
+    attn_mod.write_kv(cache, where, k[:, -keep:], v[:, -keep:])
+    cache["pos"][where] = pos.to(torch.int32).expand(b, keep)
     return cache
 
 
@@ -182,14 +179,19 @@ def block_forward(cfg: ArchConfig, p: Dict, x: torch.Tensor, *,
 
 
 def block_decode(cfg: ArchConfig, p: Dict, x: torch.Tensor, cache: Dict, *,
-                 qpos: torch.Tensor, page_table: torch.Tensor,
-                 window: Optional[int]) -> torch.Tensor:
-    """One-token dense block over the paged pool; ``cache`` (this layer's
-    (P, pg, ...) pools) is updated in place.  Returns x."""
+                 qpos: torch.Tensor, window: Optional[int],
+                 page_table: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One-token dense block; ``cache`` (this layer's ring cache, or with
+    ``page_table`` its (P, pg, ...) pools, the batch axis of ``x`` then
+    being the scheduler's slot axis) is updated in place.  Returns x."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    a, _ = attn_mod.gqa_decode_paged(p["attn"], h, cache, qpos=qpos,
-                                     page_table=page_table, window=window,
-                                     **_attn_kwargs(cfg))
+    if page_table is None:
+        a, _ = attn_mod.gqa_decode(p["attn"], h, cache, qpos=qpos,
+                                   window=window, **_attn_kwargs(cfg))
+    else:
+        a, _ = attn_mod.gqa_decode_paged(p["attn"], h, cache, qpos=qpos,
+                                         page_table=page_table,
+                                         window=window, **_attn_kwargs(cfg))
     x = x + a
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + swiglu_forward(p["ffn"], h2)
@@ -199,6 +201,42 @@ def block_decode(cfg: ArchConfig, p: Dict, x: torch.Tensor, cache: Dict, *,
 # caches
 # ---------------------------------------------------------------------------
 
+def _stacked(cfg: ArchConfig, make_one) -> Dict:
+    """One cache per layer, stacked per segment and keyed like the
+    parameters; ``make_one()`` builds a layer's cache."""
+    out = {}
+    for side, segs in zip(("client", "server"),
+                          cfg.client_server_segments()):
+        out[side] = {}
+        for i, (_, n) in enumerate(segs):
+            one = make_one()
+            out[side][f"seg{i}"] = {
+                k: v.unsqueeze(0).repeat((n,) + (1,) * v.ndim)
+                for k, v in one.items()}
+    return out
+
+
+def init_block_cache(cfg: ArchConfig, batch: int, cache_len: int,
+                     dtype=torch.bfloat16, device: DeviceLike = None
+                     ) -> Dict:
+    """One dense block's ring cache (B, cache_len, ...), 16-bit or int8 as
+    ``cfg.kv_cache_bits`` says, on ``device`` (CUDA unless
+    ``device="cpu"``)."""
+    _check_supported(cfg)
+    return attn_mod.init_kv_cache(batch, cache_len, cfg.n_kv_heads,
+                                  cfg.head_dim, dtype,
+                                  bits=cfg.kv_cache_bits, device=device)
+
+
+def init_caches(cfg: ArchConfig, batch: int, cache_len: int,
+                dtype=torch.bfloat16, device: DeviceLike = None) -> Dict:
+    """Stacked ring caches per segment, keyed like the parameters, on
+    ``device`` (CUDA unless ``device="cpu"``)."""
+    device = resolve_device(device)
+    return _stacked(cfg, lambda: init_block_cache(cfg, batch, cache_len,
+                                                  dtype, device))
+
+
 def init_paged_caches(cfg: ArchConfig, n_pages: int, page_size: int,
                       dtype=torch.bfloat16, device: DeviceLike = None
                       ) -> Dict:
@@ -207,18 +245,9 @@ def init_paged_caches(cfg: ArchConfig, n_pages: int, page_size: int,
     ``device`` (CUDA unless ``device="cpu"``)."""
     _check_supported(cfg)
     device = resolve_device(device)
-    client_segs, server_segs = cfg.client_server_segments()
-    out = {}
-    for side, segs in (("client", client_segs), ("server", server_segs)):
-        out[side] = {}
-        for i, (_, n) in enumerate(segs):
-            one = attn_mod.init_paged_kv_pool(
-                n_pages, page_size, cfg.n_kv_heads, cfg.head_dim, dtype,
-                bits=cfg.kv_cache_bits, device=device)
-            out[side][f"seg{i}"] = {
-                k: v.unsqueeze(0).repeat((n,) + (1,) * v.ndim)
-                for k, v in one.items()}
-    return out
+    return _stacked(cfg, lambda: attn_mod.init_paged_kv_pool(
+        n_pages, page_size, cfg.n_kv_heads, cfg.head_dim, dtype,
+        bits=cfg.kv_cache_bits, device=device))
 
 
 # ---------------------------------------------------------------------------
@@ -319,6 +348,44 @@ def forward(params: Dict, cfg: ArchConfig, batch: Dict, *,
     return logits, aux
 
 
+def _decode(params: Dict, cfg: ArchConfig, caches: Dict, batch: Dict,
+            qpos: torch.Tensor, window: Optional[int],
+            page_table: Optional[torch.Tensor]) -> torch.Tensor:
+    """One token through every layer and the compressor at the cut; the
+    caches (ring, or paged with ``page_table``) are updated in place.
+    Returns the logits."""
+    x = embed(params["embed"], batch["tokens"], cdtype(cfg))
+    client_segs, server_segs = cfg.client_server_segments()
+
+    def run_side(side, segs, x):
+        for i, _ in enumerate(segs):
+            def body(carry, pc):
+                p, c = pc
+                return block_decode(cfg, p, carry, c, qpos=qpos,
+                                    window=window, page_table=page_table)
+
+            x, _ = stack_mod.run_decode_stack(
+                body, x, params[side][f"seg{i}"], caches[side][f"seg{i}"])
+        return x
+
+    x = run_side("client", client_segs, x)
+    x, _ = split_mod.compressor_roundtrip(params.get("codec"), cfg.split, x)
+    x = run_side("server", server_segs, x)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return head_logits(params["head"], x)
+
+
+def decode_step(params: Dict, cfg: ArchConfig, caches: Dict, batch: Dict,
+                qpos: torch.Tensor, *, window: Optional[int] = None):
+    """One-token serve step against the ring caches.
+
+    batch: {tokens: (B, 1)} (the images were consumed at prefill); qpos
+    (B,) absolute positions.  The caches are updated in place (the
+    reference donates them).  Returns (logits, caches).
+    """
+    return _decode(params, cfg, caches, batch, qpos, window, None), caches
+
+
 def decode_step_paged(params: Dict, cfg: ArchConfig, pools: Dict,
                       batch: Dict, qpos: torch.Tensor,
                       page_table: torch.Tensor, *,
@@ -330,22 +397,5 @@ def decode_step_paged(params: Dict, cfg: ArchConfig, pools: Dict,
     trash page).  The pools are updated in place.  Returns (logits,
     pools).
     """
-    x = embed(params["embed"], batch["tokens"], cdtype(cfg))
-    client_segs, server_segs = cfg.client_server_segments()
-
-    def run_side(side, segs, x):
-        for i, _ in enumerate(segs):
-            def body(carry, pc):
-                p, c = pc
-                return block_decode(cfg, p, carry, c, qpos=qpos,
-                                    page_table=page_table, window=window)
-
-            x, _ = stack_mod.run_decode_stack(
-                body, x, params[side][f"seg{i}"], pools[side][f"seg{i}"])
-        return x
-
-    x = run_side("client", client_segs, x)
-    x, _ = split_mod.compressor_roundtrip(params.get("codec"), cfg.split, x)
-    x = run_side("server", server_segs, x)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return head_logits(params["head"], x), pools
+    return _decode(params, cfg, pools, batch, qpos, window,
+                   page_table), pools

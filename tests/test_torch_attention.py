@@ -289,8 +289,3 @@ def test_gqa_decode_paged_pool_writes_match_reference():
                                        np.asarray(jpool[leaf])[1:],
                                        atol=ATOL)
     assert np.all(tpool["pos"].numpy()[0] == -1)
-
-
-def test_int8_kv_cache_raises():
-    with pytest.raises(NotImplementedError, match="K7/K9"):
-        tattn.init_paged_kv_pool(4, 4, 2, 16, bits=8)

@@ -179,9 +179,6 @@ def test_cache_constructors_raise_without_cuda(make):
 def test_unported_model_features_raise():
     import dataclasses
 
-    with pytest.raises(NotImplementedError, match="K7/K9"):
-        ttf.init_paged_caches(dataclasses.replace(TCFG, kv_cache_bits=8),
-                              4, 4, device="cpu")
     with pytest.raises(NotImplementedError, match="M11"):
         ttf.init_params(dataclasses.replace(TCFG, modality="text"),
                         device="cpu")
