@@ -9,12 +9,12 @@ non-zero:
 1. build   -- compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
               (first use), print the build time and the card.
 2. kernels -- hold K1 (flash forward), K2 / K3 (flash backward), K4 / K5
-              (RD-FSQ wire), K6 / K7 (ring-cache decode, bf16 / int8) and
-              K8 / K9 (paged decode, bf16 / int8) against their plain
-              PyTorch versions on the card, at the main paths' shapes plus
-              edge cases; time each (CUDA events, median), its plain
-              version and, where one PyTorch call computes the same
-              function, that call.
+              (RD-FSQ wire), K10 / K11 (NF-b wire), K6 / K7 (ring-cache
+              decode, bf16 / int8) and K8 / K9 (paged decode, bf16 / int8)
+              against their plain PyTorch versions on the card, at the main
+              paths' shapes plus edge cases; time each (CUDA events,
+              median), its plain version and, where one PyTorch call
+              computes the same function, that call.
 3. serve   -- full-width tinyllava (16 layers, d 1280, bf16, random weights
               from a seed) behind ServeEngine with the 2-bit RD-FSQ split
               wire: 8 requests through 4 slots until all finish.  Launch
@@ -22,21 +22,30 @@ non-zero:
 4. int8 serve -- the same requests through ServeEngine with the int8 KV
               pools (kv_cache_bits=8): K9 every tick, never K8; the same
               wire bytes; K/V pool bytes 0.515625x the bf16 pools'.
-5. generate -- the static serve path: generate() for 4 requests (729 image
+5. nf serve -- the same requests through the NF-4 wire (block 64, double
+              quantization): K10 / K11 once per prefill batch, wire bytes
+              35 NB + 2 ceil(NB / 256) per batch, and the first batch's
+              payload and decode on the card equal to the plain codec's on
+              the CPU from the same connector features.
+6. adaptive serve -- the same requests through the entropy-adaptive
+              RD-FSQ wire (budget 2.0 bits, 8 groups of 160 channels): every
+              adopted plan legal, wire bytes of the plans shipped, K4 / K5
+              once per group of width 1, 2, 4 or 8.
+7. generate -- the static serve path: generate() for 4 requests (729 image
               + 64 prompt tokens, 32 new, greedy, ring caches of 825), with
               bf16 caches (K6) and with int8 caches (K7); exact launch
               counts, then ms per decode step of make_serve_step.
-6. parity  -- one request's prefill logits on the card against the port's
+8. parity  -- one request's prefill logits on the card against the port's
               own CPU path in fp32 from the same weights, then three
               teacher-forced decode steps on ring caches (K6, and K7 with
               int8 caches) against the CPU path, with the 2-bit cut off
               (it moves a lone token's codes under bf16 rounding).
-7. train   -- the paper's training step on the same model: 30 steps of
+9. train   -- the paper's training step on the same model: 30 steps of
               make_train_step (composite loss through the 2-bit RD-FSQ
               compressor, remat, warmup-cosine AdamW) on batches of 4 x 793
               positions from the port's data pipeline.  Launch counts are
               zeroed right before and read right after.
-8. train parity -- one step's loss, gradient norm and per-leaf gradient
+10. train parity -- one step's loss, gradient norm and per-leaf gradient
               cosine on the card against the port's fp32 CPU path.
 
 The last lines are the card (nvidia-smi), the per-kernel JSON line and
@@ -69,6 +78,8 @@ REPLACES = {
     "decode_q8": "src/repro/kernels/decode_kernel.py:177",
     "decode_paged": "src/repro/kernels/decode_kernel.py:262",
     "decode_paged_q8": "src/repro/kernels/decode_kernel.py:331",
+    "nf_quantize": "src/repro/kernels/nf_kernel.py:70",
+    "nf_dequantize": "src/repro/kernels/nf_kernel.py:98",
 }
 SOURCES = {"flash_fwd": SRC + "flash_fwd.cu",
            "flash_bwd_dq": SRC + "flash_bwd.cu",
@@ -78,7 +89,9 @@ SOURCES = {"flash_fwd": SRC + "flash_fwd.cu",
            "decode": SRC + "decode.cu",
            "decode_q8": SRC + "decode.cu",
            "decode_paged": SRC + "decode_paged.cu",
-           "decode_paged_q8": SRC + "decode_paged.cu"}
+           "decode_paged_q8": SRC + "decode_paged.cu",
+           "nf_quantize": SRC + "nf.cu",
+           "nf_dequantize": SRC + "nf.cu"}
 
 # tolerances of kernel vs plain version, bf16 operands on the card
 FLASH_OUT_ATOL = 2e-2   # P is rounded to bf16 at different running maxima
@@ -376,6 +389,75 @@ def check_wire(gen, results):
         library_ms=None, bound=bound(r * c * (bits / 8 + 2)))
 
 
+def check_nf(gen, results):
+    """K10 / K11 against their plain versions: words, m and rng
+    bit-identical, K11's output exact, at the NF-4 wire's shape and at
+    1 / 2 / 8 bits on a ragged NB (1 003 blocks, a partial last block),
+    each case with a block of equal values (range 0)."""
+    import torch
+    from repro_torch.core.quantizers.nf import codebook_tensor
+    from repro_torch.kernels import ops
+
+    block = 64
+    cases = {"serve shape 4 x 729 x 1280, 4 bits, bf16":
+             (4 * 729 * 1280, 4, torch.bfloat16)}
+    for b in (1, 2, 4, 8):
+        cases[f"ragged n 64 129 (NB 1 003), {b} bits, fp32"] = (
+            64129, b, torch.float32)
+    cases["ragged n 64 129 (NB 1 003), 4 bits, bf16"] = (
+        64129, 4, torch.bfloat16)
+    worst_q, worst_d = 0.0, 0.0
+    for name, (n, bits, dtype) in cases.items():
+        x = (torch.randn((n,), generator=gen, device="cuda") * 0.7
+             + 0.1).to(dtype)
+        x[:3] = 25.0  # an outlier block
+        x[block:2 * block] = 0.5  # range 0
+        book = codebook_tensor(bits, x.device)
+        out = ops.nf_quantize_kernel(x, book, bits, block)
+        ref = ops.nf_quantize_plain(x, book, bits, block)
+        torch.cuda.synchronize()
+        same = [torch.equal(a, r) for a, r in zip(out, ref)]
+        n_diff = int((out[0] != ref[0]).sum())
+        words, m, rng = out
+        y = ops.nf_dequantize_kernel(words, m, rng, book, bits, block, n,
+                                     dtype)
+        ry = ops.nf_dequantize_plain(words, m, rng, book, bits, block, n,
+                                     dtype)
+        torch.cuda.synchronize()
+        e_d = max_err(y, ry)
+        print(f"[kernels] K10 nf_quantize {name}: words / m / rng "
+              f"bit-identical {same} ({n_diff} differing bytes of "
+              f"{words.numel()}); K11 nf_dequantize max|out-plain| "
+              f"{e_d:.3e} (exact: {e_d == 0.0})")
+        require(all(same) and e_d == 0.0 and y.shape == (n,),
+                f"K10/K11 {name}")
+        worst_q = max(worst_q, max_err(words, ref[0]))
+        worst_d = max(worst_d, e_d)
+        if name.startswith("serve"):
+            main = x, book, bits, words, m, rng, n, dtype
+
+    x, book, bits, words, m, rng, n, dtype = main
+    nb = words.shape[0]
+    side = _nbytes(m, rng, book)
+    results["nf_quantize"] = dict(
+        max_abs_err=worst_q,
+        ms=time_ms(lambda: ops.nf_quantize_kernel(x, book, bits, block)),
+        plain_ms=time_ms(lambda: ops.nf_quantize_plain(x, book, bits,
+                                                       block),
+                         reps=5, inner=1),
+        library_ms=None, bound=bound(_nbytes(x, words) + side))
+    results["nf_dequantize"] = dict(
+        max_abs_err=worst_d,
+        ms=time_ms(lambda: ops.nf_dequantize_kernel(
+            words, m, rng, book, bits, block, n, dtype)),
+        plain_ms=time_ms(lambda: ops.nf_dequantize_plain(
+            words, m, rng, book, bits, block, n, dtype), reps=5, inner=1),
+        library_ms=None, bound=bound(_nbytes(words) + side
+                                     + n * x.element_size()))
+    print(f"[kernels] K10 / K11 main shape: NB {nb}, words "
+          f"{words.numel()} B, input {_nbytes(x)} B")
+
+
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -577,6 +659,7 @@ def phase_kernels():
     check_flash(gen, results)
     check_flash_bwd(gen, results)
     check_wire(gen, results)
+    check_nf(gen, results)
     check_ring_decode(gen, results)
     check_decode(gen, results)
     for name, r in results.items():
@@ -588,7 +671,8 @@ def phase_kernels():
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the split-serve engine at full width
+# phases 3-6: the split-serve engine at full width (2-bit, int8 pools,
+# NF-4 and adaptive wires)
 # ---------------------------------------------------------------------------
 
 def _requests(cfg, n, seed):
@@ -615,21 +699,61 @@ def _kv_bytes(pools) -> int:
     return sum(_kv_bytes(sub) for sub in pools.values())
 
 
-def phase_serve(cfg, params, reqs, tag="serve"):
-    """``reqs`` through ServeEngine with the 2-bit wire; returns the launch
-    counts, the tokens of each request, the wire bytes and the K / V pool
-    bytes."""
+def _wire_expectations(cfg, wire, shipped):
+    """The wire bytes and wire-kernel launches that the shipments must come
+    to; ``shipped`` holds (rows, widths of the plan shipped) per prefill
+    batch.
+
+    - RD-FSQ: per group of ``gs`` channels at width w, each row ships
+      ``n_img * gs * w / 8`` B of codes (exact at every width here) plus
+      its fp16 (lo, hi); K4 and K5 launch once per group whose width is
+      1, 2, 4 or 8, and the other widths take the plain bitstream codec.
+    - NF-b: NB = rows * n_img * d / G blocks ship G * bits / 8 B of codes,
+      a uint8 range code and an fp16 minimum each, plus one fp16 scale per
+      ``dq_group`` blocks; K10 and K11 launch once per batch."""
+    n_img, d = cfg.n_image_tokens, cfg.d_model
+    total = 0
+    launches = dict(rdfsq_quantize=0, rdfsq_dequantize=0, nf_quantize=0,
+                    nf_dequantize=0)
+    for rows, widths in shipped:
+        if wire.method == "nf":
+            nb = rows * n_img * d // wire.block_size
+            total += nb * (wire.block_size * wire.bits // 8 + 3) \
+                + 2 * -(-nb // wire.dq_group)
+            launches["nf_quantize"] += 1
+            launches["nf_dequantize"] += 1
+            continue
+        widths = widths or (wire.bits,)
+        gs = d // len(widths)
+        for w in widths:
+            require(n_img * gs * w % 8 == 0, "a row's codes fill whole bytes")
+            total += rows * (n_img * gs * w // 8 + 2 * 2)
+            if w in (1, 2, 4, 8):
+                launches["rdfsq_quantize"] += 1
+                launches["rdfsq_dequantize"] += 1
+    return total, launches
+
+
+def phase_serve(cfg, params, reqs, tag="serve", wire=None,
+                budget_bits=None):
+    """``reqs`` through ServeEngine with the split wire ``wire`` (the
+    config's 2-bit RD-FSQ wire by default; ``budget_bits`` makes it
+    entropy-adaptive); returns the launch counts, the tokens of each
+    request, the wire bytes, the K / V pool bytes, the shipments and the
+    first batch's image embeddings."""
     import torch
     from repro_torch.kernels import build
     from repro_torch.serve.engine import ServeEngine
 
+    wire = wire or cfg.split.quant
     page_size, n_slots = 16, 4
     need = sum(-(-(cfg.n_image_tokens + len(t) + m) // page_size)
                for t, m, _ in reqs)
 
     def engine():
         return ServeEngine(params, cfg, n_slots=n_slots, page_size=page_size,
-                           n_pages=1 + need, split_wire=cfg.split.quant)
+                           n_pages=1 + need, split_wire=wire,
+                           split_wire_budget_bits=budget_bits)
 
     warm = engine()  # first-call set-up (cuBLAS, allocator) off the clock
     warm.submit(reqs[0][0], max_new=2, image_embeds=reqs[0][2])
@@ -637,6 +761,19 @@ def phase_serve(cfg, params, reqs, tag="serve"):
     del warm
 
     eng = engine()
+    # record (rows, plan widths, plan permutation) of every shipment
+    shipped, first_imgs = [], []
+    ship = eng._ship_image_features
+
+    def recording_ship(imgs):
+        out = ship(imgs)
+        shipped.append((imgs.shape[0], eng.split_wire.group_widths,
+                        eng.split_wire.channel_perm))
+        if not first_imgs:
+            first_imgs.append(imgs)
+        return out
+
+    eng._ship_image_features = recording_ship
     rids = [eng.submit(t, max_new=m, image_embeds=img) for t, m, img in reqs]
     torch.cuda.synchronize()
     build.reset_launches()
@@ -654,19 +791,23 @@ def phase_serve(cfg, params, reqs, tag="serve"):
     eng.page_pool.check_invariants()
     require(eng.page_pool.n_live == 0, "pages still live after the run")
     n_pb, n_dt = st["prefill_batches"], st["decode_ticks"]
-    row_bytes = -(-cfg.n_image_tokens * cfg.d_model * 2 // 8) + 2 * 2
-    require(st["wire_bytes"] == st["prefill_rows"] * row_bytes,
-            f"wire bytes {st}")
+    require(len(shipped) == n_pb
+            and sum(r for r, _, _ in shipped) == st["prefill_rows"],
+            f"shipments {len(shipped)} of {n_pb} batches")
+    wire_bytes, wire_launches = _wire_expectations(
+        cfg, wire, [(r, w) for r, w, _ in shipped])
+    require(st["wire_bytes"] == wire_bytes,
+            f"wire bytes {st['wire_bytes']}, expected {wire_bytes}")
     bf16_bytes = st["prefill_rows"] * cfg.n_image_tokens * cfg.d_model * 2
     decode_kernel = "decode_paged_q8" if cfg.kv_cache_bits == 8 \
         else "decode_paged"
     expect = dict.fromkeys(launches, 0)
-    expect.update({"flash_fwd": cfg.n_layers * n_pb, "rdfsq_quantize": n_pb,
-                   "rdfsq_dequantize": n_pb,
+    expect.update(wire_launches)
+    expect.update({"flash_fwd": cfg.n_layers * n_pb,
                    decode_kernel: cfg.n_layers * n_dt})
     print(f"[{tag}] launches {launches}, expected {expect}")
-    require(launches == expect and all(launches[k] for k in (
-        "flash_fwd", "rdfsq_quantize", "rdfsq_dequantize", decode_kernel)),
+    path = [k for k, v in expect.items() if v]
+    require(launches == expect and all(launches[k] for k in path),
             f"launches {launches}, expected {expect}")
     pool_bytes = _kv_bytes(eng.pools)
     print(f"[{tag}] {len(reqs)} requests, {st['tokens_emitted']} tokens in "
@@ -676,11 +817,141 @@ def phase_serve(cfg, params, reqs, tag="serve"):
           f"{n_dt} decode ticks, "
           f"{1e3 * st['decode_seconds'] / n_dt:.2f} ms per tick; K/V pool "
           f"bytes {pool_bytes}")
-    print(f"[{tag}] wire_bytes {st['wire_bytes']} = {st['prefill_rows']} "
-          f"rows x {row_bytes} B; bf16 connector bytes {bf16_bytes}; ratio "
-          f"{st['wire_bytes'] / bf16_bytes:.6f}")
+    print(f"[{tag}] wire_bytes {st['wire_bytes']} (expected {wire_bytes}, "
+          f"rows per batch {[r for r, _, _ in shipped]}); bf16 connector "
+          f"bytes {bf16_bytes}; ratio {st['wire_bytes'] / bf16_bytes:.6f}")
     return dict(launches=launches, tokens=[eng.request(r).out for r in rids],
-                wire_bytes=st["wire_bytes"], pool_bytes=pool_bytes)
+                wire_bytes=st["wire_bytes"], pool_bytes=pool_bytes,
+                shipped=shipped, first_imgs=first_imgs[0])
+
+
+def _token_agreement(run, ref_run) -> str:
+    pairs = [(a, b) for ta, tb in zip(run["tokens"], ref_run["tokens"])
+             for a, b in zip(ta, tb)]
+    agree = sum(a == b for a, b in pairs) / len(pairs)
+    return f"{agree:.4f} of {len(pairs)}"
+
+
+def phase_serve_nf(cfg, params, reqs, bf16_run):
+    """The serve phase's requests through the NF-4 wire (block 64, double
+    quantization): K10 / K11 once per prefill batch, the payload formula's
+    bytes, and the first batch's payload on the card equal to the plain
+    encode of the same connector features on the CPU."""
+    import torch
+    from repro_torch.core import quantizers
+    from repro_torch.core.quantizers import QuantConfig
+    from repro_torch.models.layers.mlp import mlp_forward
+    from repro_torch.models.transformer import cdtype
+
+    wire = QuantConfig(method="nf", bits=4)
+    run = phase_serve(cfg, params, reqs, tag="nf serve", wire=wire)
+    print(f"[nf serve] tokens equal to the 2-bit serve phase's: "
+          f"{_token_agreement(run, bf16_run)} (not gated)")
+    with torch.inference_mode():
+        feats = mlp_forward(params["connector"],
+                            run["first_imgs"].to(cdtype(cfg)))
+        card = quantizers.encode(wire, feats)
+        plain = quantizers.encode(wire, feats.cpu())
+        same = [torch.equal(a.cpu(), b) for a, b in
+                zip(card.arrays(), plain.arrays())]
+        y_card = quantizers.decode(wire, card)
+        y_plain = quantizers.decode(wire, plain)
+    dec_same = torch.equal(y_card.cpu(), y_plain)
+    print(f"[nf serve] first batch {tuple(feats.shape)}: card payload "
+          f"{card.meta['impl']} equal to the CPU plain encode per array "
+          f"{same} ({card.wire_bytes()} B); card decode equal to the CPU "
+          f"plain decode: {dec_same}")
+    require(card.meta["impl"] == plain.meta["impl"] == "kernel"
+            and all(same) and dec_same, "nf first-batch payload / decode")
+    return run["launches"]
+
+
+def phase_serve_adaptive(cfg, params, reqs, bf16_run):
+    """The serve phase's requests through the entropy-adaptive RD-FSQ wire
+    (budget 2.0 bits, 8 groups): every plan legal, the bytes of the plans
+    shipped, K4 / K5 once per group of width 1, 2, 4 or 8."""
+    import torch
+    from repro_torch.core import entropy as entropy_mod
+    from repro_torch.core.quantizers import QuantConfig
+    from repro_torch.launch import schedules
+    from repro_torch.models.layers.mlp import mlp_forward
+    from repro_torch.models.transformer import cdtype
+
+    budget, groups = 2.0, 8
+    run = phase_serve(cfg, params, reqs, tag="adaptive serve",
+                      wire=QuantConfig(method="rdfsq", bits=2),
+                      budget_bits=budget)
+    d = cfg.d_model
+    for i, (rows, widths, perm) in enumerate(run["shipped"]):
+        print(f"[adaptive serve] batch {i}: {rows} rows, widths {widths}, "
+              f"mean {sum(widths) / len(widths):.3f} bits")
+        require(len(widths) == groups and all(1 <= w <= 8 for w in widths)
+                and sum(widths) / groups <= budget
+                and sorted(perm) == list(range(d)),
+                f"adaptive plan {widths}")
+    print(f"[adaptive serve] tokens equal to the 2-bit serve phase's: "
+          f"{_token_agreement(run, bf16_run)} (not gated)")
+    # the first plan from the same features on the CPU (printed only: a
+    # bin edge may move under another reduction order)
+    with torch.inference_mode():
+        feats = mlp_forward(params["connector"],
+                            run["first_imgs"].to(cdtype(cfg)))
+        plans = []
+        for x in (feats, feats.cpu()):
+            ema = entropy_mod.update_entropy_ema(
+                entropy_mod.init_entropy_ema(d, device=x.device), x)
+            plans.append(schedules.replan_grouped(
+                ema, budget * x.numel() / 8.0, n_groups=groups,
+                scalars_per_channel=x.numel() // d))
+    print(f"[adaptive serve] first plan on the card {plans[0][1]}, on the "
+          f"CPU {plans[1][1]}; widths equal {plans[0][1] == plans[1][1]}, "
+          f"channel order equal {plans[0][0] == plans[1][0]} (not gated)")
+    _mixed_plan_on_card(cfg, feats, plans[0][0])
+    return run["launches"]
+
+
+def _mixed_plan_on_card(cfg, feats, perm):
+    """The first batch's features through a fixed plan that mixes kernel
+    widths with odd ones (the plain bitstream codec on the card): exact
+    bytes, and a finite reconstruction within one grid step plus the
+    stats' difference of the CPU's.  The per-row mean and sigma are sums
+    in another order on the card, so (lo, hi) may differ by an ulp and a
+    code at a grid edge may move by one step; the arrays that agree
+    exactly are counted and printed."""
+    import torch
+    from repro_torch.core import quantizers
+    from repro_torch.core.quantizers import QuantConfig
+
+    widths = (1, 2, 3, 4, 5, 6, 7, 8)
+    wire = QuantConfig(method="rdfsq", group_widths=widths,
+                       channel_perm=perm)
+    with torch.inference_mode():
+        card = quantizers.encode(wire, feats)
+        plain = quantizers.encode(wire, feats.cpu())
+        y_card = quantizers.decode(wire, card).float().cpu()
+        y_plain = quantizers.decode(wire, plain).float()
+    rows, gs = feats.shape[0], cfg.d_model // len(widths)
+    expect = sum(rows * (cfg.n_image_tokens * gs * w // 8 + 4)
+                 for w in widths)
+    impls = [g.meta["impl"] for g in card.groups]
+    same = sum(torch.equal(a.cpu(), b) for a, b in
+               zip(card.arrays(), plain.arrays()))
+    step = max(float((g.scales[:, 1].float() - g.scales[:, 0].float()).max())
+               / (2 ** w - 1) for g, w in zip(plain.groups, widths))
+    stats = max(float((a.scales.float().cpu() - b.scales.float()).abs().max())
+                for a, b in zip(card.groups, plain.groups))
+    err = float((y_card - y_plain).abs().max())
+    print(f"[adaptive serve] fixed plan {widths} on the first batch: impls "
+          f"{impls}; wire bytes {card.wire_bytes()} (expected {expect}); "
+          f"{same} of {len(card.arrays())} payload arrays equal to the CPU "
+          f"codec's; max|decode card - CPU| {err:.3e} (largest grid step "
+          f"{step:.3e}, max stats difference {stats:.3e})")
+    require(card.wire_bytes() == plain.wire_bytes() == expect
+            and impls == ["kernel", "kernel", "plain", "kernel", "plain",
+                          "plain", "plain", "kernel"]
+            and bool(torch.isfinite(y_card).all()) and err <= step + stats,
+            f"fixed mixed plan on the card: err {err}, step {step}, stats "
+            f"{stats}")
 
 
 def phase_serve_int8(cfg, params, reqs, bf16_run):
@@ -695,16 +966,13 @@ def phase_serve_int8(cfg, params, reqs, bf16_run):
           f"{bf16_run['pool_bytes']} bf16: ratio {ratio} (expected "
           f"{INT8_POOL_RATIO})")
     require(ratio == INT8_POOL_RATIO, f"int8 pool ratio {ratio}")
-    pairs = [(a, b) for ta, tb in zip(run["tokens"], bf16_run["tokens"])
-             for a, b in zip(ta, tb)]
-    agree = sum(a == b for a, b in pairs) / len(pairs)
-    print(f"[int8 serve] tokens equal to the bf16 engine's: {agree:.4f} of "
-          f"{len(pairs)} (not gated)")
+    print(f"[int8 serve] tokens equal to the bf16 engine's: "
+          f"{_token_agreement(run, bf16_run)} (not gated)")
     return run["launches"]
 
 
 # ---------------------------------------------------------------------------
-# phase 5: static generate over ring caches, bf16 and int8
+# phase 7: static generate over ring caches, bf16 and int8
 # ---------------------------------------------------------------------------
 
 def _step_ms(cfg, params, batch, cache_len, toks) -> float:
@@ -783,7 +1051,7 @@ def phase_generate(cfg, params):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: parity of the card path with the CPU fp32 path
+# phase 8: parity of the card path with the CPU fp32 path
 # ---------------------------------------------------------------------------
 
 def phase_parity(cfg, params, req):
@@ -875,7 +1143,7 @@ def _decode_parity(cfg, params, cfg32, params32, tokens, shipped, bits):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the training step at full width
+# phase 9: the training step at full width
 # ---------------------------------------------------------------------------
 
 def phase_train(cfg):
@@ -938,7 +1206,7 @@ def phase_train(cfg):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: one training step on the card against the fp32 CPU path
+# phase 10: one training step on the card against the fp32 CPU path
 # ---------------------------------------------------------------------------
 
 def phase_train_parity(cfg, params):
@@ -1012,6 +1280,9 @@ def main() -> int:
     serve = phase_serve(cfg, params, reqs)
     paths = {"serve": serve["launches"],
              "int8 serve": phase_serve_int8(cfg, params, reqs, serve),
+             "nf serve": phase_serve_nf(cfg, params, reqs, serve),
+             "adaptive serve": phase_serve_adaptive(cfg, params, reqs,
+                                                    serve),
              "generate": phase_generate(cfg, params)}
     phase_parity(cfg, params, reqs[0])
     paths["train"] = phase_train(cfg)

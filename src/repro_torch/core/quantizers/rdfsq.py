@@ -6,23 +6,22 @@ symmetric levels; the cosine commitment loss regularises the distortion.
 The wire payload is the packed codes plus two fp16 scalars (lo, hi) per
 statistics group.
 
-``encode`` here packs one flat code stream (the reference's jnp layout);
-for the power-of-two widths this slice ships it is the same slot layout
-the kernels write per row.  Odd widths need the cross-byte bitstream
-packers, which are ROADMAP item M8.
+``encode`` here packs one flat code stream with the exact bitstream
+packer at every width 1-8 (the reference's jnp layout), with statistics
+per sample row or, for ``stats_axis="tensor"``, over the whole tensor.
+The per-row kernel codec is ``kernel_codecs.py``.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.packing import (KERNEL_SLOT_BITS, packed_size,
-                                      storage_bits)
+from repro_torch.core.packing import pack_bits, unpack_bits
 from repro_torch.core.payload import CommPayload
 from repro_torch.core.quantizers import base
-from repro_torch.kernels.ref import _pack_slots, _unpack_slots, div_exact
+from repro_torch.kernels.ref import div_exact
 from repro_torch.utils.tree import ste
 
 _EPS = 1e-6
@@ -70,25 +69,13 @@ def _reconstruct(cfg: base.QuantConfig, idx: torch.Tensor, lo, hi):
     return (c + 1.0) / 2.0 * (hi - lo) + lo
 
 
-def _check_slot_bits(bits: int) -> None:
-    if bits not in KERNEL_SLOT_BITS:
-        raise NotImplementedError(
-            f"{bits}-bit RD-FSQ needs the cross-byte bitstream packers "
-            "(ROADMAP queue M, item M8)")
-
-
-def encode(cfg: base.QuantConfig, x: torch.Tensor) -> CommPayload:
-    _check_slot_bits(cfg.bits)
+def encode(cfg: base.QuantConfig, x: torch.Tensor,
+           rng: Optional[torch.Generator] = None) -> CommPayload:
     _, _, idx, lo, hi = _quantize(cfg, x)
-    n = idx.numel()
-    per = 8 // storage_bits(cfg.bits)
-    flat = torch.nn.functional.pad(idx.reshape(1, -1), (0, (-n) % per))
-    words = _pack_slots(flat, cfg.bits).reshape(-1)
-    assert words.numel() == packed_size(n, cfg.bits)
     scales = torch.stack([lo.reshape(-1), hi.reshape(-1)],
                          dim=-1).to(torch.float16)
     return CommPayload(
-        data=words,
+        data=pack_bits(idx, cfg.bits),
         scales=scales,
         meta=dict(method="rdfsq", impl="plain", bits=cfg.bits,
                   shape=tuple(x.shape), dtype=x.dtype,
@@ -97,20 +84,17 @@ def encode(cfg: base.QuantConfig, x: torch.Tensor) -> CommPayload:
 
 
 def decode(cfg: base.QuantConfig, payload: CommPayload) -> torch.Tensor:
-    _check_slot_bits(cfg.bits)
     shape = payload.meta["shape"]
     stats_shape = payload.meta["stats_shape"]
-    n = math.prod(shape)
-    per = 8 // storage_bits(cfg.bits)
-    words = payload.data.reshape(1, -1)
-    idx = _unpack_slots(words, cfg.bits, words.shape[1] * per)
-    idx = idx.reshape(-1)[:n].reshape(shape)
+    idx = unpack_bits(payload.data, cfg.bits, math.prod(shape)
+                      ).reshape(shape)
     lo = payload.scales[:, 0].float().reshape(stats_shape)
     hi = payload.scales[:, 1].float().reshape(stats_shape)
     return _reconstruct(cfg, idx, lo, hi).to(payload.meta["dtype"])
 
 
-def roundtrip(cfg: base.QuantConfig, x: torch.Tensor
+def roundtrip(cfg: base.QuantConfig, x: torch.Tensor,
+              rng: Optional[torch.Generator] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     e, z, idx, lo, hi = _quantize(cfg, x)
     # the wire carries fp16 lo/hi: round them the same way in-graph so the

@@ -1,12 +1,15 @@
 """Split-learning boundary: the in-graph compressor (port of
-``repro/core/split.py``, lines 31-133).
+``repro/core/split.py``, lines 31-133 and 530-554).
 
 ``compressor_roundtrip`` is the paper's Figure-2 path with the wire
-replaced by identity: learnable linear encoder, RD-FSQ roundtrip with the
-straight-through estimator and the commitment loss, learnable linear
-decoder.  The real wire (``quantized_ship``, ``WireLink``) is ROADMAP item
-M6; the serving engine ships its connector activations through
-``quantizers.encode`` / ``decode`` instead.
+replaced by identity: learnable linear encoder, the quantizer's roundtrip
+with the straight-through estimator (RD-FSQ adds its commitment loss),
+learnable linear decoder.  Any registered method serves, through its plain
+roundtrip; no kernel runs in-graph.  ``wire_payload`` is the client's
+wire form for byte accounting and ``analytic_bits_per_scalar`` the
+Table-2 closed forms.  The real wire (``quantized_ship``, ``WireLink``) is
+ROADMAP item M6; the serving engine ships its connector activations
+through ``quantizers.encode`` / ``decode`` instead.
 """
 from __future__ import annotations
 
@@ -16,7 +19,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import quantizers
+from repro_torch.core.payload import CommPayload
 from repro_torch.core.quantizers import QuantConfig
+from repro_torch.core.quantizers.topk import budget as topk_budget
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,11 +61,30 @@ def compressor_roundtrip(params: Optional[Dict], cfg: SplitConfig,
                          x: torch.Tensor,
                          rng: Optional[torch.Generator] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (server-side feature, commitment loss).  ``rng`` is the
-    reference's argument for the randomized quantizers (M8); RD-FSQ, the
-    one this slice ports, is deterministic and ignores it."""
+    """Returns (server-side feature, commitment loss).  ``rng`` feeds the
+    randomized quantizer (Top-K); the others ignore it."""
     if not cfg.enabled or cfg.quant.method == "none":
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
     h = client_encode_pre(params, cfg, x)
-    h_hat, commit = quantizers.roundtrip(cfg.quant, h)
+    h_hat, commit = quantizers.roundtrip(cfg.quant, h, rng)
     return server_decode_post(params, cfg, h_hat), commit
+
+
+def wire_payload(cfg: SplitConfig, params: Optional[Dict], x: torch.Tensor,
+                 rng: Optional[torch.Generator] = None) -> CommPayload:
+    """Client-side wire form (for byte accounting)."""
+    h = client_encode_pre(params, cfg, x)
+    return quantizers.encode(cfg.quant, h, rng)
+
+
+def analytic_bits_per_scalar(q: QuantConfig, h_dim: int) -> float:
+    """Paper Table 2 closed forms; a grouped plan's rate is its mean width
+    (exact: the bitstream packers charge every width its true cost)."""
+    if q.method in ("fsq", "rdfsq", "nf"):
+        return q.mean_bits() if q.grouped else float(q.bits)
+    if q.method == "topk":
+        k_det, k_rand = topk_budget(q, h_dim)
+        return 16.0 * (k_det + k_rand) / h_dim
+    if q.method == "identity":
+        return 16.0
+    raise ValueError(q.method)

@@ -1,5 +1,5 @@
-"""Wrappers of the RD-FSQ wire kernels K4 / K5 (port of
-``repro/kernels/ops.py``, RD-FSQ part).
+"""Wrappers of the wire kernels: RD-FSQ K4 / K5 and NF-b K10 / K11 (port
+of ``repro/kernels/ops.py``, RD-FSQ and NF parts).
 
 The statistics pass stays outside the kernel, in PyTorch, as in the
 reference; the streaming clip -> scale -> round -> pack (K4) and
@@ -13,6 +13,15 @@ Padding: the reference pads columns with zeros to a multiple of
 1.0), runs the kernel and slices the words back to ``ceil(C / per)``.
 The plain path does exactly that; the CUDA kernel reads the ragged last
 tile as zeros itself, which gives the same words without a padded copy.
+
+NF-b: the flat input is read as blocks of G values, its ragged tail as
+zeros (the reference pads with zeros to a multiple of G, and the blocks
+to a multiple of 128 that it slices off again; the plain version pads to
+G only, since every block stands alone).  K10 writes the slot-packed
+words and per-block fp16 (m, rng); the double quantization of the ranges
+(1/G of the data) runs outside the kernel, in PyTorch, as in the
+reference.  Dequantize rebuilds the ranges and rounds them to fp16
+before K11, as the reference wrapper does.
 """
 from __future__ import annotations
 
@@ -23,7 +32,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.packing import KERNEL_SLOT_BITS, storage_bits
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import (rdfsq_dequantize_ref,
+from repro_torch.kernels.ref import (div_exact, nf_dequantize_ref,
+                                     nf_quantize_ref, rdfsq_dequantize_ref,
                                      rdfsq_quantize_ref, rdfsq_stats)
 
 ROWS = 8
@@ -41,16 +51,20 @@ def _pad_to(x: torch.Tensor, mult: int, axis: int,
     return F.pad(x, widths, value=value)
 
 
-def _check_cuda(bits: int, r: int, *tensors: torch.Tensor) -> None:
+def _check_operands(bits: int, *tensors: torch.Tensor) -> None:
     if bits not in KERNEL_SLOT_BITS:
         raise ValueError(f"the wire kernels pack {KERNEL_SLOT_BITS} bits")
-    if not 0 < r <= _MAX_ROWS:
-        raise ValueError(f"{r} rows: the wire kernels take 1..{_MAX_ROWS}")
     if not tensors[0].is_cuda or \
             any(t.device != tensors[0].device for t in tensors):
         raise ValueError("wire kernel operands must lie on one CUDA device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("wire kernels take contiguous operands")
+
+
+def _check_cuda(bits: int, r: int, *tensors: torch.Tensor) -> None:
+    _check_operands(bits, *tensors)
+    if not 0 < r <= _MAX_ROWS:
+        raise ValueError(f"{r} rows: the wire kernels take 1..{_MAX_ROWS}")
 
 
 def quantize_kernel(x2d: torch.Tensor, stats: torch.Tensor, bits: int
@@ -130,3 +144,141 @@ def rdfsq_dequantize(words: torch.Tensor, stats: torch.Tensor, bits: int,
     (B, ceil(n_cols/per)) uint8, stats (B, 2) -> (B, n_cols)."""
     dequantize = dequantize_kernel if words.is_cuda else dequantize_plain
     return dequantize(words, stats.float(), bits, n_cols, out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# NF-b (QLoRA): K10 / K11
+# ---------------------------------------------------------------------------
+
+_NF_EPS = 1e-8
+
+
+def _nf_check_cuda(bits: int, block: int, *tensors: torch.Tensor) -> None:
+    if block <= 0 or block % (8 // storage_bits(bits)):
+        raise ValueError(f"block {block} does not hold whole {bits}-bit "
+                         "words")
+    _check_operands(bits, *tensors)
+
+
+def nf_quantize_kernel(flat: torch.Tensor, book: torch.Tensor, bits: int,
+                       block: int):
+    """K10 launch: flat (n,) bf16/fp32 CUDA, read as ceil(n / block)
+    blocks (the ragged tail as zeros); book (2^bits,) fp32 -> words
+    (NB, block / per) uint8, m (NB, 1) fp16, rng (NB, 1) fp16."""
+    _nf_check_cuda(bits, block, flat, book)
+    if flat.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"K10 reads bf16 or fp32, got {flat.dtype}")
+    if book.dtype != torch.float32 or book.shape != (2 ** bits,):
+        raise ValueError("K10 takes a (2^bits,) fp32 codebook")
+    n = flat.numel()
+    nb = -(-n // block)
+    per = 8 // storage_bits(bits)
+    words = torch.empty((nb, block // per), dtype=torch.uint8,
+                        device=flat.device)
+    m = torch.empty((nb, 1), dtype=torch.float16, device=flat.device)
+    rng = torch.empty_like(m)
+    build.launch("nf_quantize", "nf_quantize", flat.data_ptr(),
+                 int(flat.dtype == torch.bfloat16), book.data_ptr(),
+                 words.data_ptr(), m.data_ptr(), rng.data_ptr(), n, block,
+                 bits, build.current_stream())
+    return words, m, rng
+
+
+def nf_quantize_plain(flat: torch.Tensor, book: torch.Tensor, bits: int,
+                      block: int):
+    """K10's plain version: the same outputs on any device."""
+    blocks = F.pad(flat.float(), (0, (-flat.numel()) % block))
+    words, m, rng = nf_quantize_ref(blocks.reshape(-1, block), book, bits)
+    return words, m.to(torch.float16), rng.to(torch.float16)
+
+
+def _nf_double_quant(rng: torch.Tensor, dq_group: int):
+    """8-bit codes (NB, 1) of the fp16 block ranges, one fp16 scale per
+    ``dq_group`` blocks (``ceil(NB / dq_group)``,)."""
+    nb = rng.shape[0]
+    groups = F.pad(rng.float(), (0, 0, 0, (-nb) % dq_group)
+                   ).reshape(-1, dq_group)
+    gscale = groups.abs().amax(dim=-1, keepdim=True)
+    codes = torch.round(groups / (gscale + _NF_EPS) * 255.0
+                        ).to(torch.uint8)
+    return codes.reshape(-1, 1)[:nb], gscale[:, 0].to(torch.float16)
+
+
+def nf_quantize(x: torch.Tensor, bits: int, block: int = 64,
+                double_quant: bool = True, dq_group: int = 256):
+    """Blockwise NF-b quantize + pack of ``x`` flattened.  Returns (words
+    (NB, block * sb / 8) uint8, scales, aux): with double quantization the
+    scales are (NB, 1) uint8 codes and ``aux["dq_scale"]`` the fp16 group
+    scales, else the (NB, 1) fp16 ranges; ``aux["block_min"]`` is (NB, 1)
+    fp16."""
+    from repro_torch.core.quantizers.nf import codebook_tensor
+
+    flat = x.reshape(-1)
+    book = codebook_tensor(bits, flat.device)
+    quantize = nf_quantize_kernel if flat.is_cuda else nf_quantize_plain
+    words, m, rng = quantize(flat, book, bits, block)
+    aux = dict(block_min=m)
+    if not double_quant:
+        return words, rng, aux
+    scales, aux["dq_scale"] = _nf_double_quant(rng, dq_group)
+    return words, scales, aux
+
+
+def nf_dequantize_kernel(words: torch.Tensor, m: torch.Tensor,
+                         rng: torch.Tensor, book: torch.Tensor, bits: int,
+                         block: int, n: int, out_dtype) -> torch.Tensor:
+    """K11 launch: words (NB, block / per) uint8, m and rng (NB, 1) fp16,
+    book (2^bits,) fp32 -> the first ``n`` values (n,) in ``out_dtype``
+    (bf16 or fp32)."""
+    _nf_check_cuda(bits, block, words, m, rng, book)
+    nb = words.shape[0]
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"K11 writes bf16 or fp32, got {out_dtype}")
+    if words.dtype != torch.uint8 or \
+            words.shape[1] != block // (8 // storage_bits(bits)):
+        raise ValueError("words do not hold blocks of this size")
+    if not (nb - 1) * block < n <= nb * block:
+        raise ValueError(f"{nb} blocks of {block} do not hold {n} values")
+    if any(t.dtype != torch.float16 or t.shape != (nb, 1) for t in (m, rng)):
+        raise ValueError("K11 takes (NB, 1) fp16 m and rng")
+    if book.dtype != torch.float32 or book.shape != (2 ** bits,):
+        raise ValueError("K11 takes a (2^bits,) fp32 codebook")
+    out = torch.empty((n,), dtype=out_dtype, device=words.device)
+    build.launch("nf_dequantize", "nf_dequantize", words.data_ptr(),
+                 m.data_ptr(), rng.data_ptr(), book.data_ptr(),
+                 out.data_ptr(), int(out_dtype == torch.bfloat16), n, block,
+                 bits, build.current_stream())
+    return out
+
+
+def nf_dequantize_plain(words: torch.Tensor, m: torch.Tensor,
+                        rng: torch.Tensor, book: torch.Tensor, bits: int,
+                        block: int, n: int, out_dtype) -> torch.Tensor:
+    """K11's plain version."""
+    x = nf_dequantize_ref(words, m.float(), rng.float(), book, bits, block)
+    return x.reshape(-1)[:n].to(out_dtype)
+
+
+def nf_dequantize(words: torch.Tensor, scales: torch.Tensor, aux: dict,
+                  bits: int, n: int, block: int = 64,
+                  double_quant: bool = True, dq_group: int = 256,
+                  out_dtype=torch.float32) -> torch.Tensor:
+    """The first ``n`` values (n,) of the blocks.  With double
+    quantization the ranges are rebuilt from their codes and rounded to
+    fp16 before the kernel, as the reference wrapper does."""
+    from repro_torch.core.quantizers.nf import codebook_tensor
+
+    nb = words.shape[0]
+    if double_quant:
+        codes = F.pad(scales, (0, 0, 0, (-nb) % dq_group)
+                      ).reshape(-1, dq_group)
+        gscale = aux["dq_scale"].float()
+        rng = (div_exact(codes.float(), 255.0) * gscale[:, None]
+               ).reshape(-1, 1)[:nb].to(torch.float16)
+    else:
+        rng = scales
+    book = codebook_tensor(bits, words.device)
+    dequantize = nf_dequantize_kernel if words.is_cuda \
+        else nf_dequantize_plain
+    return dequantize(words, aux["block_min"], rng, book, bits, block, n,
+                      out_dtype)

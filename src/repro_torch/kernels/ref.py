@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the wire kernels K4 / K5 (port of
-``repro/kernels/ref.py``, RD-FSQ part).
+"""Plain PyTorch versions of the wire kernels K4 / K5 (RD-FSQ) and K10 /
+K11 (NF-b) (port of ``repro/kernels/ref.py``, RD-FSQ and NF parts).
 
 ``kernels/ops.py`` runs these on CPU tensors; on the card they are what
 the CUDA kernels are held against.  The kernels pack one code per
@@ -78,3 +78,33 @@ def rdfsq_dequantize_ref(packed: torch.Tensor, lo, hi, bits: int,
     codes = _unpack_slots(packed, bits, n_cols)
     cvals = div_exact(codes.float() - half, half)
     return (cvals + 1.0) / 2.0 * (hi - lo) + lo
+
+
+# ---------------------------------------------------------------------------
+# NF-b blockwise quantization (K10 / K11)
+# ---------------------------------------------------------------------------
+
+def nf_codes_ref(blocks: torch.Tensor, book: torch.Tensor):
+    """blocks (NB, G) -> (codes (NB, G) uint8, m (NB, 1), rng (NB, 1)) in
+    fp32: the nearest codebook entry, the first one on a tie (as
+    ``jnp.argmin`` and ``torch.argmin``)."""
+    xf = blocks.float()
+    m = xf.amin(dim=1, keepdim=True)
+    rng = xf.amax(dim=1, keepdim=True) - m
+    norm = 2.0 * (xf - m) / (rng + 1e-8) - 1.0
+    dist = (norm[..., None] - book.float()).abs()
+    return dist.argmin(dim=-1).to(torch.uint8), m, rng
+
+
+def nf_quantize_ref(blocks: torch.Tensor, book: torch.Tensor, bits: int):
+    """(words (NB, G / per) in the slot layout, m, rng) in fp32."""
+    codes, m, rng = nf_codes_ref(blocks, book)
+    return _pack_slots(codes, bits), m, rng
+
+
+def nf_dequantize_ref(packed: torch.Tensor, m: torch.Tensor,
+                      rng: torch.Tensor, book: torch.Tensor, bits: int,
+                      g: int) -> torch.Tensor:
+    """(NB, G) fp32 from slot-packed codes and per-block (m, rng)."""
+    norm = book.float()[_unpack_slots(packed, bits, g).long()]
+    return (norm + 1.0) / 2.0 * rng + m

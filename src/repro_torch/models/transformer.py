@@ -320,8 +320,8 @@ def forward(params: Dict, cfg: ArchConfig, batch: Dict, *,
 
     Returns (logits, aux) or (logits, aux, caches) when ``collect_cache``
     (a cache length) is given; aux = {commit, load_balance, router_z,
-    drop_fraction}.  ``rng`` is the reference's argument, handed to the
-    compressor; RD-FSQ draws no randomness.
+    drop_fraction}.  ``rng`` is handed to the compressor (a
+    ``torch.Generator`` for Top-K's random picks; the others draw none).
     """
     _check_supported(cfg)
     x = _embed_inputs(params, cfg, batch)

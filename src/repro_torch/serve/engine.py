@@ -13,13 +13,23 @@ connector client-side, ships its activations through the wire codec
 (``quantizers.encode`` -> ``decode``: on CUDA the kernels K4 / K5), feeds
 the reconstruction to the server prefill through the ``image_features``
 bypass, and counts the payload bytes, padded rows included, in
-``stats["wire_bytes"]``.
+``stats["wire_bytes"]``.  Any registered codec serves: the 2-bit RD-FSQ
+wire (K4 / K5), NF-b (K10 / K11), or a grouped plan (``group_widths``),
+which ships a mixed-width ``GroupedPayload``.
+
+Entropy-adaptive mode (``split_wire_budget_bits``): before each shipment
+the connector features advance a per-channel entropy EMA, and the wire is
+re-planned (entropy-sorted channel order and per-group widths, budgeted at
+that many mean code bits per scalar over ``split_plan_groups`` groups).
+A changed plan replaces ``split_wire`` and is recorded in
+``stats["wire_plan"]``.
 
 Everything runs under ``torch.inference_mode()``; the KV pools are
 updated in place.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, List, Optional
 
@@ -27,9 +37,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import entropy as entropy_mod
 from repro_torch.core import quantizers
 from repro_torch.core.quantizers import QuantConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch import schedules
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers.mlp import mlp_forward
 from repro_torch.serve import decode as sd
@@ -55,11 +67,9 @@ class ServeEngine:
                  eos_id: Optional[int] = None, seed: int = 0,
                  split_wire: Optional[QuantConfig] = None,
                  split_wire_budget_bits: Optional[float] = None,
+                 split_plan_groups: int = 8,
                  lora_adapters=None, weight_quant: Optional[str] = None,
                  device: DeviceLike = None):
-        if split_wire_budget_bits is not None:
-            raise NotImplementedError(
-                "the entropy-adaptive split wire is ROADMAP queue M, item M8")
         if lora_adapters is not None:
             raise NotImplementedError(
                 "SplitLoRA serving is ROADMAP queue M, item M9")
@@ -75,6 +85,14 @@ class ServeEngine:
         self.temperature = temperature
         self.eos_id = eos_id
         self.split_wire = split_wire
+        self.split_wire_budget_bits = split_wire_budget_bits
+        self.split_plan_groups = split_plan_groups
+        self._wire_ema = None
+        if split_wire_budget_bits is not None:
+            if split_wire is None:
+                raise ValueError("split_wire_budget_bits needs split_wire")
+            self._wire_ema = entropy_mod.init_entropy_ema(
+                cfg.d_model, device=self.device)
         with torch.inference_mode():
             self.pools = paged.init_pools(cfg, n_pages, page_size,
                                           device=self.device)
@@ -134,9 +152,25 @@ class ServeEngine:
     def _ship_image_features(self, image_embeds: torch.Tensor
                              ) -> torch.Tensor:
         """Client-side connector -> quantized wire -> server-side
-        reconstruction, with payload byte accounting."""
+        reconstruction, with payload byte accounting.  In adaptive mode the
+        features first advance the entropy EMA and may re-plan the wire for
+        this and later shipments."""
         feats = mlp_forward(self.params["connector"],
                             image_embeds.to(tf.cdtype(self.cfg)))
+        if self.split_wire_budget_bits is not None:
+            self._wire_ema = entropy_mod.update_entropy_ema(self._wire_ema,
+                                                            feats)
+            d = feats.shape[-1]
+            perm, plan = schedules.replan_grouped(
+                self._wire_ema,
+                self.split_wire_budget_bits * feats.numel() / 8.0,
+                n_groups=self.split_plan_groups,
+                scalars_per_channel=feats.numel() // d)
+            if (plan != self.split_wire.group_widths
+                    or perm != self.split_wire.channel_perm):
+                self.split_wire = dataclasses.replace(
+                    self.split_wire, group_widths=plan, channel_perm=perm)
+                self.stats["wire_plan"] = plan
         payload = quantizers.encode(self.split_wire, feats)
         self.stats["wire_bytes"] += payload.wire_bytes()
         return quantizers.decode(self.split_wire, payload)

@@ -39,7 +39,9 @@ def test_port_imports_with_jax_blocked():
             "repro_torch.kernels.build, repro_torch.train.loop, "
             "repro_torch.launch.train, repro_torch.launch.e2e, "
             "repro_torch.checkpoint, repro_torch.serve.decode, "
-            "repro_torch.launch.serve_batched; print('ok')")
+            "repro_torch.launch.serve_batched, repro_torch.launch.schedules, "
+            "repro_torch.core.entropy, repro_torch.core.quantizers.nf; "
+            "print('ok')")
     env = dict(os.environ, PYTHONPATH=str(PORT.parent))
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)

@@ -86,7 +86,6 @@ def test_engine_requires_cuda_unless_cpu_is_asked_for(case):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(split_wire_budget_bits=2.0), "M8"),
     (dict(lora_adapters={}), "M9"),
     (dict(weight_quant="int4"), "M10")])
 def test_engine_unported_options_raise(case, kw, item):

@@ -187,6 +187,31 @@ def test_train_step_grads_match_reference(remat, remat_group, deep):
     _assert_grads_close(tg, jg)
 
 
+@pytest.mark.parametrize("method,bits", [("nf", 4), ("fsq", 3),
+                                         ("identity", 2)])
+def test_train_step_other_codecs_match_reference(method, bits):
+    """One step with the cut's compressor swapped, as ``launch/train.py
+    --method`` swaps it (identity turns the split off): the codecs' plain
+    roundtrips in-graph, loss and gradients against the reference's."""
+    def swap(cfg, qcls):
+        split = dataclasses.replace(cfg.split,
+                                    quant=qcls(method=method, bits=bits),
+                                    enabled=method != "identity")
+        return dataclasses.replace(cfg, split=split)
+
+    jcfg = swap(CFG, jsplit.QuantConfig)
+    tcfg = swap(TCFG, tsplit.QuantConfig)
+    jp, batch, _, _ = _reference(False)
+    (_, jm), jg = _jax_value_and_grad(jp, jcfg, batch)
+    tg, tm = tloop.make_grad_fn(tcfg)(from_jax_params(jp, "cpu"),
+                                      tloop.batch_to(batch,
+                                                     torch.device("cpu")))
+    for k in ("loss", "ce", "commit"):
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
+    _assert_grads_close(tg, jg)
+
+
 def test_grad_accumulation_matches_one_batch():
     """grad_accum=2 (positions broadcast, not split) against the reference's
     gradient of the whole batch: every microbatch holds the same number of

@@ -149,14 +149,52 @@ def test_compressor_roundtrip_matches_reference():
 
 
 def test_unsupported_wire_configs_raise():
+    """What no codec takes raises: widths outside 1-8, an unknown
+    statistics axis, an unknown method or backend, a group width outside
+    1-8."""
     x = torch.as_tensor(_x(7))
-    with pytest.raises(NotImplementedError, match="M8"):
-        tq.encode(QuantConfig(bits=3), x)
-    with pytest.raises(NotImplementedError, match="M8"):
-        tq.encode(QuantConfig(bits=3), x, impl="plain")
-    with pytest.raises(NotImplementedError):
-        tq.encode(QuantConfig(stats_axis="tensor"), x)
-    with pytest.raises(NotImplementedError, match="M8"):
-        tq.encode(QuantConfig(group_widths=(2, 4)), x)
-    with pytest.raises(NotImplementedError, match="M8"):
-        tq.encode(QuantConfig(method="nf"), x)
+    with pytest.raises(ValueError, match="bits"):
+        tq.encode(QuantConfig(bits=9), x)
+    with pytest.raises(ValueError, match="stats_axis"):
+        tq.encode(QuantConfig(bits=3, stats_axis="channel"), x)
+    with pytest.raises(ValueError, match="quantizer"):
+        tq.encode(QuantConfig(method="vq"), x)
+    with pytest.raises(ValueError, match="impl"):
+        tq.encode(QuantConfig(), x, impl="pallas")
+    with pytest.raises(ValueError, match="group widths"):
+        tq.encode(QuantConfig(group_widths=(2, 9, 2, 2, 2)), x)
+
+
+@pytest.mark.parametrize("cfg", [
+    QuantConfig(bits=3), QuantConfig(bits=5),
+    QuantConfig(stats_axis="tensor"),
+    QuantConfig(method="nf", bits=3), QuantConfig(method="fsq", bits=2)],
+    ids=["3-bit", "5-bit", "tensor-stats", "nf-3-bit", "fsq"])
+def test_configs_without_a_kernel_take_the_plain_codec(cfg):
+    """Configs that no wire kernel covers encode and decode through the
+    flat-stream codec, by the static rule on the config (their payloads
+    say ``impl="plain"``), with the reference's bytes and values."""
+    x = _x(8, (ROWS, 4, 375))
+    tp = tq.encode(cfg, torch.as_tensor(x))
+    assert tp.meta["impl"] == "plain"
+    jcfg = jq.QuantConfig(**{f: getattr(cfg, f) for f in
+                             ("method", "bits", "stats_axis")})
+    jp = jq.encode(jcfg, jnp.asarray(x), impl="pallas")
+    assert tp.wire_bytes() == jp.wire_bytes()
+    np.testing.assert_allclose(tq.decode(cfg, tp).numpy(),
+                               np.asarray(jq.decode(jcfg, jp)), rtol=0,
+                               atol=1e-6)
+
+
+def test_grouped_wire_mixes_kernel_and_plain_groups():
+    """A grouped plan sends each group through the dispatch on its own:
+    the 2- and 4-bit groups take the kernel codec, the 3-bit group the
+    plain bitstream."""
+    cfg = QuantConfig(group_widths=(2, 3, 4, 2))
+    x = torch.as_tensor(_x(9, (ROWS, 6, 64)))
+    payload = tq.encode(cfg, x)
+    assert [g.meta["impl"] for g in payload.groups] == \
+        ["kernel", "plain", "kernel", "kernel"]
+    y = tq.decode(cfg, payload)
+    ry, _ = tq.roundtrip(cfg, x)
+    np.testing.assert_allclose(y.numpy(), ry.numpy(), rtol=0, atol=1e-5)
