@@ -10,11 +10,12 @@ non-zero:
               (first use), print the build time and the card.
 2. kernels -- hold K1 (flash forward), K2 / K3 (flash backward), K4 / K5
               (RD-FSQ wire), K10 / K11 (NF-b wire), K6 / K7 (ring-cache
-              decode, bf16 / int8) and K8 / K9 (paged decode, bf16 / int8)
-              against their plain PyTorch versions on the card, at the main
-              paths' shapes plus edge cases; time each (CUDA events,
-              median), its plain version and, where one PyTorch call
-              computes the same function, that call.
+              decode, bf16 / int8), K8 / K9 (paged decode, bf16 / int8)
+              and K12 (packed int2/3/4 dequant-matmul) against their plain
+              PyTorch versions on the card, at the main paths' shapes plus
+              edge cases; time each (CUDA events, median), its plain
+              version and, where one PyTorch call computes the same
+              function, that call (K12: cuBLAS on the dense bf16 weight).
 3. serve   -- full-width tinyllava (16 layers, d 1280, bf16, random weights
               from a seed) behind ServeEngine with the 2-bit RD-FSQ split
               wire: 8 requests through 4 slots until all finish.  Launch
@@ -31,21 +32,30 @@ non-zero:
               RD-FSQ wire (budget 2.0 bits, 8 groups of 160 channels): every
               adopted plan legal, wire bytes of the plans shipped, K4 / K5
               once per group of width 1, 2, 4 or 8.
-7. generate -- the static serve path: generate() for 4 requests (729 image
+7. wq serve -- the same requests through ServeEngine(weight_quant="int4",
+              wq_group=128), RTN: the 112 w* sites of the 16 blocks packed
+              at exactly 0.265625x their bf16 bytes, K12 112 times per
+              prefill batch and per decode tick, the 2-bit wire's bytes.
+8. wq gptq -- the same with GPTQ and act-order, calibrated on a 2-row
+              batch of the data pipeline: host seconds of calibration and
+              quantization, the bytes with each site's int32 permutation.
+9. generate -- the static serve path: generate() for 4 requests (729 image
               + 64 prompt tokens, 32 new, greedy, ring caches of 825), with
               bf16 caches (K6) and with int8 caches (K7); exact launch
               counts, then ms per decode step of make_serve_step.
-8. parity  -- one request's prefill logits on the card against the port's
+10. parity -- one request's prefill logits on the card against the port's
               own CPU path in fp32 from the same weights, then three
               teacher-forced decode steps on ring caches (K6, and K7 with
               int8 caches) against the CPU path, with the 2-bit cut off
-              (it moves a lone token's codes under bf16 rounding).
-9. train   -- the paper's training step on the same model: 30 steps of
+              (it moves a lone token's codes under bf16 rounding); then the
+              prefill through int4 RTN stores (K12 on the card, the plain
+              K12 in fp32 on the CPU).
+11. train  -- the paper's training step on the same model: 30 steps of
               make_train_step (composite loss through the 2-bit RD-FSQ
               compressor, remat, warmup-cosine AdamW) on batches of 4 x 793
               positions from the port's data pipeline.  Launch counts are
               zeroed right before and read right after.
-10. train parity -- one step's loss, gradient norm and per-leaf gradient
+12. train parity -- one step's loss, gradient norm and per-leaf gradient
               cosine on the card against the port's fp32 CPU path.
 
 The last lines are the card (nvidia-smi), the per-kernel JSON line and
@@ -80,6 +90,7 @@ REPLACES = {
     "decode_paged_q8": "src/repro/kernels/decode_kernel.py:331",
     "nf_quantize": "src/repro/kernels/nf_kernel.py:70",
     "nf_dequantize": "src/repro/kernels/nf_kernel.py:98",
+    "wq_matmul": "src/repro/kernels/wq_kernel.py:86",
 }
 SOURCES = {"flash_fwd": SRC + "flash_fwd.cu",
            "flash_bwd_dq": SRC + "flash_bwd.cu",
@@ -91,7 +102,8 @@ SOURCES = {"flash_fwd": SRC + "flash_fwd.cu",
            "decode_paged": SRC + "decode_paged.cu",
            "decode_paged_q8": SRC + "decode_paged.cu",
            "nf_quantize": SRC + "nf.cu",
-           "nf_dequantize": SRC + "nf.cu"}
+           "nf_dequantize": SRC + "nf.cu",
+           "wq_matmul": SRC + "wq.cu"}
 
 # tolerances of kernel vs plain version, bf16 operands on the card
 FLASH_OUT_ATOL = 2e-2   # P is rounded to bf16 at different running maxima
@@ -111,6 +123,16 @@ GEN_BATCH, GEN_TEXT, GEN_NEW = 4, 64, 32  # ring caches of 729 + 64 + 32
 PARITY_STEPS = 3
 # int8 K/V bytes per (token, kv head) over bf16: (64 + 2) / 128
 INT8_POOL_RATIO = 0.515625
+# K12 against its plain version, relative to max |plain|: the dequantized
+# weights are the same bits and the products of bf16 (or fp32) operands
+# the same, so only the fp32 summation order differs
+WQ_RTOL = 1e-4
+# int4 codes + an fp16 (scale, min) pair per 128 rows, over bf16:
+# (4 + 32 / 128) / 16
+WQ_RATIO = 0.265625
+# the K12 shapes of the serve path: (d_in, d_out) of wq / wo, wk / wv,
+# w_gate / w_up, w_down
+WQ_SITES = ((1280, 1280), (1280, 320), (1280, 3456), (3456, 1280))
 
 
 def smi() -> str:
@@ -651,6 +673,99 @@ def check_decode(gen, results):
         bound=bound(_decode_bytes(n_vis, kh, 2 * (d + 2), rest), flops))
 
 
+def _wq_case(gen, m, d_in, d_out, bits, group, dtype=None, perm=False):
+    """x (m, d_in) and an RTN-packed (d_in, d_out) store on the card."""
+    import torch
+    from repro_torch import wq
+
+    dev = "cuda"
+    w = torch.randn((d_in, d_out), generator=gen, device=dev) * d_in ** -0.5
+    store = wq.rtn_quantize(w.bfloat16(), wq.WqConfig(bits=bits,
+                                                      group=group))
+    if perm:
+        store.perm = torch.randperm(d_in, generator=gen, device=dev).int()
+    x = torch.randn((m, d_in), generator=gen, device=dev).to(
+        dtype or torch.bfloat16)
+    return x, store
+
+
+def check_wq(gen, results):
+    """K12 against its plain version: the serve path's four (d_in, d_out)
+    pairs at M 4 (a decode tick) and M 4 096 (a prefill batch of 4 rows x
+    1 024 positions), int4 / g128, bf16; int3 and int2; act-order (the
+    wrapper's gather, then K12); a ragged case; fp32 activations."""
+    import torch
+    from repro_torch import wq
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.wq_ops import wq_matmul_kernel
+
+    cases = {}
+    for d_in, d_out in WQ_SITES:
+        for m in (4, 4096):
+            cases[f"M {m} ({d_in}, {d_out}) int4/g128 bf16"] = (
+                m, d_in, d_out, 4, 128, None, False)
+    cases.update({
+        "M 64 (1280, 3456) int3/g128 bf16": (64, 1280, 3456, 3, 128, None,
+                                             False),
+        "M 64 (3456, 1280) int2/g64 bf16": (64, 3456, 1280, 2, 64, None,
+                                            False),
+        "M 4 (3456, 1280) int4/g128 bf16, act-order": (4, 3456, 1280, 4, 128,
+                                                       None, True),
+        "ragged M 9 (100, 130) int3/g32 bf16": (9, 100, 130, 3, 32, None,
+                                                False),
+        "ragged M 9 (100, 130) int3/g32 fp32": (9, 100, 130, 3, 32,
+                                                torch.float32, False),
+        "M 4 (1280, 3456) int4/g128 fp32": (4, 1280, 3456, 4, 128,
+                                            torch.float32, False),
+    })
+    worst = 0.0
+    for name, (m, d_in, d_out, bits, group, dtype, perm) in cases.items():
+        x, store = _wq_case(gen, m, d_in, d_out, bits, group, dtype, perm)
+        xs = x if store.perm is None \
+            else torch.index_select(x, -1, store.perm).contiguous()
+        args = (xs, store.codes, store.scales, store.mins)
+        kw = dict(bits=bits, group=group, d_in=d_in)
+        y = wq_matmul_kernel(*args, **kw)
+        plain = ref.wq_matmul_ref(*args, **kw)
+        # the entry point: the act-order gather, K12, the cast to x.dtype
+        same = torch.equal(wq.wq_matmul(x, store), y.to(x.dtype))
+        torch.cuda.synchronize()
+        err = max_err(y, plain)
+        rel = err / float(plain.abs().max())
+        print(f"[kernels] K12 wq_matmul {name}: max|out-plain|/max|plain| "
+              f"{rel:.3e} (tol {WQ_RTOL}); wq_matmul equal to the launch "
+              f"{same}")
+        require(y.shape == (m, d_out) and rel <= WQ_RTOL and same,
+                f"K12 {name}")
+        worst = max(worst, err)
+
+    # times at w_gate / w_up: a decode tick (M 4) and a prefill batch (M
+    # 4 096); the yardstick is cuBLAS on the pre-dequantized bf16 weight
+    d_in, d_out = 1280, 3456
+    timed = {}
+    for m in (4, 4096):
+        x, store = _wq_case(gen, m, d_in, d_out, 4, 128)
+        args = (x, store.codes, store.scales, store.mins)
+        kw = dict(bits=4, group=128, d_in=d_in)
+        dense = store.dequantize().bfloat16()
+        n_bytes = _nbytes(x, store.codes, store.scales, store.mins) \
+            + m * d_out * 4
+        timed[m] = dict(
+            ms=time_ms(lambda: wq_matmul_kernel(*args, **kw)),
+            plain_ms=time_ms(lambda: ref.wq_matmul_ref(*args, **kw),
+                             reps=5, inner=1),
+            library_ms=time_ms(lambda: torch.matmul(x, dense)),
+            bound=bound(n_bytes, 2 * m * d_in * d_out))
+        r = timed[m]
+        print(f"[kernels] K12 wq_matmul M {m} ({d_in}, {d_out}) int4/g128: "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, cuBLAS on "
+              f"the dense bf16 weight {r['library_ms']:.4f} ms, bound "
+              f"{r['bound'][0]:.5f} ms ({r['bound'][1]}, {n_bytes} B)")
+    # the line reports the decode tick's shape: the serve path's launches
+    # are mostly ticks
+    results["wq_matmul"] = dict(max_abs_err=worst, **timed[4])
+
+
 def phase_kernels():
     import torch
 
@@ -662,6 +777,7 @@ def phase_kernels():
     check_nf(gen, results)
     check_ring_decode(gen, results)
     check_decode(gen, results)
+    check_wq(gen, results)
     for name, r in results.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"[kernels] {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
@@ -671,8 +787,8 @@ def phase_kernels():
 
 
 # ---------------------------------------------------------------------------
-# phases 3-6: the split-serve engine at full width (2-bit, int8 pools,
-# NF-4 and adaptive wires)
+# phases 3-8: the split-serve engine at full width (2-bit, int8 pools,
+# NF-4 and adaptive wires, int4 weights by RTN and by GPTQ)
 # ---------------------------------------------------------------------------
 
 def _requests(cfg, n, seed):
@@ -735,32 +851,39 @@ def _wire_expectations(cfg, wire, shipped):
 
 
 def phase_serve(cfg, params, reqs, tag="serve", wire=None,
-                budget_bits=None):
+                budget_bits=None, **wq_kw):
     """``reqs`` through ServeEngine with the split wire ``wire`` (the
     config's 2-bit RD-FSQ wire by default; ``budget_bits`` makes it
-    entropy-adaptive); returns the launch counts, the tokens of each
-    request, the wire bytes, the K / V pool bytes, the shipments and the
-    first batch's image embeddings."""
+    entropy-adaptive; ``wq_kw`` the weight-only quantization arguments);
+    returns the launch counts, the tokens of each request, the wire bytes,
+    the K / V pool bytes, the shipments, the first batch's image
+    embeddings, the engine's stats and the device memory its construction
+    took."""
     import torch
     from repro_torch.kernels import build
     from repro_torch.serve.engine import ServeEngine
+    from repro_torch.utils.tree import tree_bytes
 
     wire = wire or cfg.split.quant
     page_size, n_slots = 16, 4
     need = sum(-(-(cfg.n_image_tokens + len(t) + m) // page_size)
                for t, m, _ in reqs)
 
-    def engine():
+    def engine(**kw):
         return ServeEngine(params, cfg, n_slots=n_slots, page_size=page_size,
                            n_pages=1 + need, split_wire=wire,
-                           split_wire_budget_bits=budget_bits)
+                           split_wire_budget_bits=budget_bits, **kw)
 
     warm = engine()  # first-call set-up (cuBLAS, allocator) off the clock
     warm.submit(reqs[0][0], max_new=2, image_embeds=reqs[0][2])
     warm.run()
     del warm
 
-    eng = engine()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    eng = engine(**wq_kw)
+    torch.cuda.synchronize()
+    mem = torch.cuda.memory_allocated() - mem0
     # record (rows, plan widths, plan permutation) of every shipment
     shipped, first_imgs = [], []
     ship = eng._ship_image_features
@@ -805,6 +928,9 @@ def phase_serve(cfg, params, reqs, tag="serve", wire=None,
     expect.update(wire_launches)
     expect.update({"flash_fwd": cfg.n_layers * n_pb,
                    decode_kernel: cfg.n_layers * n_dt})
+    sites = _packed_sites(eng.params)
+    if sites:  # every packed per-layer site, every forward
+        expect["wq_matmul"] = sites * (n_pb + n_dt)
     print(f"[{tag}] launches {launches}, expected {expect}")
     path = [k for k, v in expect.items() if v]
     require(launches == expect and all(launches[k] for k in path),
@@ -822,7 +948,9 @@ def phase_serve(cfg, params, reqs, tag="serve", wire=None,
           f"bytes {bf16_bytes}; ratio {st['wire_bytes'] / bf16_bytes:.6f}")
     return dict(launches=launches, tokens=[eng.request(r).out for r in rids],
                 wire_bytes=st["wire_bytes"], pool_bytes=pool_bytes,
-                shipped=shipped, first_imgs=first_imgs[0])
+                shipped=shipped, first_imgs=first_imgs[0], stats=st,
+                engine_mem=mem, param_bytes=tree_bytes(eng.params),
+                sites=sites)
 
 
 def _token_agreement(run, ref_run) -> str:
@@ -971,8 +1099,72 @@ def phase_serve_int8(cfg, params, reqs, bf16_run):
     return run["launches"]
 
 
+def _packed_sites(params) -> int:
+    """Per-layer packed weight stores of a param tree: the K12 launches of
+    one forward."""
+    from repro_torch.utils.tree import tree_leaves
+    from repro_torch.wq import PackedLinear
+
+    return sum(math.prod(leaf.batch_shape) for leaf in tree_leaves(params)
+               if isinstance(leaf, PackedLinear))
+
+
+def _wq_expect(cfg, act_order: bool):
+    """(dense, packed) bytes of the block stacks' w* sites at int4 / g128:
+    bf16 weights; uint8 codes, an fp16 (scale, min) per 128 rows and, with
+    act-order, an int32 permutation of d_in per site."""
+    hd, d, ff = cfg.head_dim, cfg.d_model, cfg.d_ff
+    sites = [(d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd),
+             (d, cfg.n_kv_heads * hd), (cfg.n_heads * hd, d), (d, ff),
+             (d, ff), (ff, d)]
+    dense = packed = 0
+    for d_in, d_out in sites:
+        dense += d_in * d_out * 2
+        packed += -(-d_in * 4 // 8) * d_out + 2 * -(-d_in // 128) * d_out * 2
+        packed += 4 * d_in * act_order
+    return dense * cfg.n_layers, packed * cfg.n_layers
+
+
+def phase_serve_wq(cfg, params, reqs, bf16_run, tag, act_order=False,
+                   calib=None):
+    """The serve phase's requests through ServeEngine(weight_quant="int4",
+    wq_group=128): RTN, or GPTQ with act-order from a calibration batch.
+    Every w* site of the 16 blocks is packed (112 stores), K12 runs at
+    each of them once per prefill batch and per decode tick, and the
+    connector and its wire are untouched."""
+    run = phase_serve(cfg, params, reqs, tag=tag, weight_quant="int4",
+                      wq_group=128, wq_act_order=act_order, wq_calib=calib)
+    st = run["stats"]
+    dense, packed = _wq_expect(cfg, act_order)
+    ratio = st["weight_bytes_packed"] / st["weight_bytes_dense"]
+    print(f"[{tag}] {run['sites']} packed sites: weight_bytes_dense "
+          f"{st['weight_bytes_dense']} (expected {dense}), "
+          f"weight_bytes_packed {st['weight_bytes_packed']} (expected "
+          f"{packed}); ratio {ratio}; host seconds: calibration "
+          f"{st['wq_calib_seconds']:.2f}, quantization "
+          f"{st['wq_quantize_seconds']:.2f}")
+    require(run["sites"] == 7 * cfg.n_layers
+            and st["weight_bytes_dense"] == dense
+            and st["weight_bytes_packed"] == packed
+            and (act_order or ratio == WQ_RATIO),
+            f"{tag} weight bytes {st['weight_bytes_dense']} -> "
+            f"{st['weight_bytes_packed']}")
+    require(run["wire_bytes"] == bf16_run["wire_bytes"],
+            f"{tag} wire bytes {run['wire_bytes']} != bf16 "
+            f"{bf16_run['wire_bytes']}")
+    print(f"[{tag}] device memory taken by the engine's construction "
+          f"{run['engine_mem']} B (the bf16 engine's {bf16_run['engine_mem']}"
+          f" B: K/V pools; the packed stores are the difference, "
+          f"{run['engine_mem'] - bf16_run['engine_mem']} B); the engine's "
+          f"params {run['param_bytes']} B (bf16 engine "
+          f"{bf16_run['param_bytes']} B)")
+    print(f"[{tag}] tokens equal to the bf16 serve phase's: "
+          f"{_token_agreement(run, bf16_run)} (not gated)")
+    return run["launches"]
+
+
 # ---------------------------------------------------------------------------
-# phase 7: static generate over ring caches, bf16 and int8
+# phase 9: static generate over ring caches, bf16 and int8
 # ---------------------------------------------------------------------------
 
 def _step_ms(cfg, params, batch, cache_len, toks) -> float:
@@ -1051,10 +1243,14 @@ def phase_generate(cfg, params):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: parity of the card path with the CPU fp32 path
+# phase 10: parity of the card path with the CPU fp32 path (dense, int4)
 # ---------------------------------------------------------------------------
 
-def phase_parity(cfg, params, req):
+def phase_parity(cfg, params, req, tag="parity", decode=True):
+    """One request's prefill logits on the card against the port's own CPU
+    path in fp32 from the same weights (packed stores stay packed: on the
+    CPU their matmul is the plain K12 in fp32); then, with ``decode``, the
+    teacher-forced decode steps."""
     import torch
     from repro_torch.core import quantizers
     from repro_torch.models.layers.mlp import mlp_forward
@@ -1075,7 +1271,7 @@ def phase_parity(cfg, params, req):
                                           image_features=shipped), lb)
     cfg32 = dataclasses.replace(cfg, param_dtype="float32",
                                 compute_dtype="float32")
-    params32 = _tree(params, lambda t: t.float().cpu())
+    params32 = _tree(params, _cpu32)
     cpu, _ = sd.prefill(params32, cfg32,
                         dict(tokens=tokens,
                              image_features=shipped.float().cpu()), lb)
@@ -1085,15 +1281,33 @@ def phase_parity(cfg, params, req):
     rel = float((g - c).norm() / c.norm())
     top2 = torch.topk(c[-1], 2).values
     agree = int(g[-1].argmax()) == int(c[-1].argmax())
-    print(f"[parity] prefill logits, {n} positions: relative error "
+    print(f"[{tag}] prefill logits, {n} positions: relative error "
           f"{rel:.3e} (tol {PARITY_RTOL}); last-position argmax card "
           f"{int(g[-1].argmax())} cpu {int(c[-1].argmax())} agree {agree} "
           f"(cpu top-2 gap {float(top2[0] - top2[1]):.4f})")
     require(math.isfinite(rel) and rel < PARITY_RTOL and agree,
-            f"parity: rel {rel}, argmax agree {agree}")
+            f"{tag}: rel {rel}, argmax agree {agree}")
+    if not decode:
+        return
     tokens = torch.tensor([toks])
     for bits in (16, 8):
         _decode_parity(cfg, params, cfg32, params32, tokens, shipped, bits)
+
+
+def phase_wq_parity(cfg, params, req):
+    """The prefill parity check through int4 / g128 RTN stores: K12 on the
+    card (once per packed site) against the plain K12 in fp32 on the CPU
+    from the same stores."""
+    from repro_torch import wq
+    from repro_torch.kernels import build
+
+    qparams, _ = wq.quantize_params(params, wq.parse_weight_quant("int4"))
+    build.reset_launches()
+    phase_parity(cfg, qparams, req, tag="wq parity", decode=False)
+    n, sites = build.launches["wq_matmul"], _packed_sites(qparams)
+    print(f"[wq parity] K12 launches in the card's prefill: {n} (expected "
+          f"{sites})")
+    require(n == sites, f"wq parity K12 launches {n}")
 
 
 def _decode_parity(cfg, params, cfg32, params32, tokens, shipped, bits):
@@ -1143,7 +1357,7 @@ def _decode_parity(cfg, params, cfg32, params32, tokens, shipped, bits):
 
 
 # ---------------------------------------------------------------------------
-# phase 9: the training step at full width
+# phase 11: the training step at full width
 # ---------------------------------------------------------------------------
 
 def phase_train(cfg):
@@ -1206,7 +1420,7 @@ def phase_train(cfg):
 
 
 # ---------------------------------------------------------------------------
-# phase 10: one training step on the card against the fp32 CPU path
+# phase 12: one training step on the card against the fp32 CPU path
 # ---------------------------------------------------------------------------
 
 def phase_train_parity(cfg, params):
@@ -1253,6 +1467,16 @@ def _tree(tree, fn):
     return fn(tree)
 
 
+def _cpu32(leaf):
+    """A leaf for the fp32 CPU path: a tensor in fp32, a packed store as it
+    is (its matmul follows the activation dtype)."""
+    from repro_torch.wq import PackedLinear
+
+    if isinstance(leaf, PackedLinear):
+        return leaf.to("cpu")
+    return leaf.float().cpu()
+
+
 def main() -> int:
     import torch
 
@@ -1267,6 +1491,7 @@ def main() -> int:
     results = phase_kernels()
 
     from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_pipeline
     from repro_torch.models.transformer import init_params
 
     cfg = get_config("tinyllava")
@@ -1283,8 +1508,14 @@ def main() -> int:
              "nf serve": phase_serve_nf(cfg, params, reqs, serve),
              "adaptive serve": phase_serve_adaptive(cfg, params, reqs,
                                                     serve),
+             "wq serve": phase_serve_wq(cfg, params, reqs, serve,
+                                        tag="wq serve"),
+             "wq gptq": phase_serve_wq(
+                 cfg, params, reqs, serve, tag="wq gptq", act_order=True,
+                 calib=next(make_pipeline(cfg, 2, 32, seed=0))),
              "generate": phase_generate(cfg, params)}
     phase_parity(cfg, params, reqs[0])
+    phase_wq_parity(cfg, params, reqs[0])
     paths["train"] = phase_train(cfg)
     phase_train_parity(cfg, params)
     for path, launches in paths.items():

@@ -3,13 +3,16 @@
 step, or a training step spends its time.
 
     python3 scripts/profile_torch_serve.py               # decode ticks
+    python3 scripts/profile_torch_serve.py --weight-quant int4  # int4 ticks
     python3 scripts/profile_torch_serve.py --generate    # static steps
     python3 scripts/profile_torch_serve.py --train       # training steps
 
 Needs one CUDA device.  By default it builds the same full-width
 tinyllava engine and requests as ``chip_smoke.py``'s serve phase, steps it
 until every request has been admitted (so no prefill runs afterwards),
-then traces ``TICKS`` pure decode ticks.  With ``--generate`` it prefills
+then traces ``TICKS`` pure decode ticks; ``--weight-quant int4`` builds
+the engine with RTN int4 weights (K12 at every w* site of the blocks).
+With ``--generate`` it prefills
 the generate phase's 4 requests into its ring caches of 825 and traces
 ``TICKS`` steps of ``make_serve_step`` after two untraced ones, once with
 bf16 caches (K6 each layer) and once with int8 caches (K7).  With ``--train`` it builds the state, batches and step of
@@ -49,6 +52,7 @@ GROUPS = (("flash_fwd_kernel", "K1 flash_fwd"),
           ("ring_decode_kernel<signed char", "K7 decode_q8"),
           ("paged_decode_kernel<__nv_bfloat16", "K8 decode_paged"),
           ("paged_decode_kernel<signed char", "K9 decode_paged_q8"),
+          ("wq_matmul", "K12 wq_matmul"),
           ("nvjet", "cuBLAS GEMM"), ("gemm", "cuBLAS GEMM"))
 
 
@@ -102,7 +106,7 @@ def _trace(run_one, n: int, unit: str, card: str) -> dict:
                         for name, (k, us) in top]}
 
 
-def profile_serve(chip_smoke) -> dict:
+def profile_serve(chip_smoke, weight_quant=None) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import init_params
@@ -114,7 +118,8 @@ def profile_serve(chip_smoke) -> dict:
     need = sum(-(-(cfg.n_image_tokens + len(t) + m) // 16)
                for t, m, _ in reqs)
     eng = ServeEngine(params, cfg, n_slots=4, page_size=16,
-                      n_pages=1 + need, split_wire=cfg.split.quant)
+                      n_pages=1 + need, split_wire=cfg.split.quant,
+                      weight_quant=weight_quant)
     for t, m, img in reqs:
         eng.submit(t, max_new=m, image_embeds=img)
     while eng.scheduler.waiting:
@@ -213,6 +218,8 @@ def main() -> int:
     mode.add_argument("--generate", action="store_true",
                       help="profile static decode steps over ring caches "
                            "instead of the engine's decode ticks")
+    ap.add_argument("--weight-quant", choices=("int4", "int3"), default=None,
+                    help="(decode ticks) serve RTN-quantized packed weights")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
@@ -224,7 +231,7 @@ def main() -> int:
     elif args.generate:
         out = profile_generate(chip_smoke)
     else:
-        out = profile_serve(chip_smoke)
+        out = profile_serve(chip_smoke, args.weight_quant)
     print(json.dumps(out, indent=1))
     return 0
 

@@ -4,7 +4,10 @@ The tests compare the port with the JAX package from the same weights,
 so they never depend on the two frameworks' random generators agreeing.
 The bridge imports neither ``jax`` nor ``repro``: it takes any nested
 dict whose leaves ``numpy.asarray`` accepts (the reference's
-``init_params`` tree does).
+``init_params`` tree does), and a packed weight store of the reference's
+``repro.wq.PackedLinear``, recognised by its fields, becomes the port's
+``PackedLinear`` with its uint8 codes, fp16 scales / mins and int32
+``perm`` (or ``None``) as they are, whatever ``dtype`` says.
 """
 from __future__ import annotations
 
@@ -14,6 +17,10 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.wq.packed import PackedLinear
+
+_PACKED_FIELDS = ("codes", "scales", "mins", "perm", "bits", "group",
+                  "d_in", "d_out")
 
 
 def _leaf(a, device: torch.device, dtype: Optional[torch.dtype]
@@ -37,6 +44,15 @@ def from_jax_params(tree, device: DeviceLike, dtype=None) -> Dict:
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
+        if all(hasattr(node, f) for f in _PACKED_FIELDS):
+            return PackedLinear(
+                codes=_leaf(node.codes, dev, None),
+                scales=_leaf(node.scales, dev, None),
+                mins=_leaf(node.mins, dev, None),
+                perm=None if node.perm is None
+                else _leaf(node.perm, dev, None),
+                bits=int(node.bits), group=int(node.group),
+                d_in=int(node.d_in), d_out=int(node.d_out))
         return _leaf(node, dev, dtype)
 
     return conv(tree)

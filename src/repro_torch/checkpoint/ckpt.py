@@ -5,7 +5,11 @@ The layout is the reference's: keys are '/'-joined paths (dict keys,
 dataclass field names), and bf16 leaves are stored as a uint16 view under
 ``<path>__bf16__``.  A checkpoint of the reference's ``TrainState`` thus
 restores into the port's (``train/loop.py``), and the reverse, exactly.
-The adapter checkpoints (``save_adapters`` / ``load_adapters``) are
+A packed weight store (``wq.PackedLinear``) is saved as the reference's
+pytree node is: its ``codes``, ``scales``, ``mins`` and, when present,
+``perm`` under ``<path>/<field>`` (JAX flattens a ``None`` child away);
+its layout fields come from the template on restore.  The adapter
+checkpoints (``save_adapters`` / ``load_adapters``) are
 ROADMAP item M9.
 """
 from __future__ import annotations
@@ -17,12 +21,19 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
+from repro_torch.wq.packed import PackedLinear
+
 _BF16_TAG = "__bf16__"
+_PACKED_CHILDREN = ("codes", "scales", "mins", "perm")
 
 
 def _flatten(tree, prefix: Tuple[str, ...] = ()
              ) -> List[Tuple[str, Any]]:
     """('/'-joined path, leaf) pairs of dicts and dataclasses."""
+    if isinstance(tree, PackedLinear):
+        return [("/".join(prefix + (name,)), getattr(tree, name))
+                for name in _PACKED_CHILDREN
+                if getattr(tree, name) is not None]
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         out = []
         for f in dataclasses.fields(tree):
@@ -38,6 +49,11 @@ def _flatten(tree, prefix: Tuple[str, ...] = ()
 
 def _unflatten(template, leaves: Dict[str, Any],
                prefix: Tuple[str, ...] = ()):
+    if isinstance(template, PackedLinear):
+        return dataclasses.replace(template, **{
+            name: leaves["/".join(prefix + (name,))]
+            for name in _PACKED_CHILDREN
+            if getattr(template, name) is not None})
     if dataclasses.is_dataclass(template) and not isinstance(template,
                                                              type):
         return dataclasses.replace(template, **{

@@ -31,7 +31,7 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "rdfsq_quantize",
            "rdfsq_dequantize", "decode", "decode_q8", "decode_paged",
-           "decode_paged_q8", "nf_quantize", "nf_dequantize")
+           "decode_paged_q8", "nf_quantize", "nf_dequantize", "wq_matmul")
 launches: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -47,6 +47,8 @@ _ARGTYPES = {
     "decode_paged_q8": [_P] * 9 + [_I] * 7 + [_P],
     "nf_quantize": [_P, _I, _P, _P, _P, _P, _LL, _I, _I, _P],
     "nf_dequantize": [_P, _P, _P, _P, _P, _I, _LL, _I, _I, _P],
+    "wq_matmul_bf16": [_P] * 5 + [_I] * 5 + [_P],
+    "wq_matmul_f32": [_P] * 5 + [_I] * 5 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

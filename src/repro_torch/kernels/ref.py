@@ -1,13 +1,15 @@
 """Plain PyTorch versions of the wire kernels K4 / K5 (RD-FSQ) and K10 /
-K11 (NF-b) (port of ``repro/kernels/ref.py``, RD-FSQ and NF parts).
+K11 (NF-b), and of the packed dequant-matmul K12 (port of
+``repro/kernels/ref.py``, RD-FSQ, NF and wq parts).
 
-``kernels/ops.py`` runs these on CPU tensors; on the card they are what
-the CUDA kernels are held against.  The kernels pack one code per
-power-of-two slot of a uint8 word, LSB first.
+``kernels/ops.py`` and ``wq/ops.py`` run these on CPU tensors; on the
+card they are what the CUDA kernels are held against.  The wire kernels
+pack one code per power-of-two slot of a uint8 word, LSB first.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.packing import storage_bits
 
@@ -108,3 +110,53 @@ def nf_dequantize_ref(packed: torch.Tensor, m: torch.Tensor,
     """(NB, G) fp32 from slot-packed codes and per-block (m, rng)."""
     norm = book.float()[_unpack_slots(packed, bits, g).long()]
     return (norm + 1.0) / 2.0 * rng + m
+
+
+# ---------------------------------------------------------------------------
+# weight-only packed dequant-matmul (K12)
+# ---------------------------------------------------------------------------
+#
+# The packed weight store lays the exact core.packing bitstream down the
+# input axis PER OUTPUT COLUMN: 8 consecutive codes of a column span
+# exactly ``bits`` whole bytes, read here as one little-endian word (held
+# in int64), independent of core/packing.py and of the CUDA kernel.
+
+def wq_unpack_ref(words: torch.Tensor, bits: int, d_in: int) -> torch.Tensor:
+    """(packed_rows, C) uint8 column bitstreams -> (d_in, C) uint8 codes."""
+    nb = (d_in + 7) // 8  # 8-code octets per column
+    c = words.shape[1]
+    pad = nb * bits - words.shape[0]
+    w = F.pad(words, (0, 0, 0, max(pad, 0))).long().reshape(nb, bits, c)
+    byte_shifts = (torch.arange(bits, device=words.device) * 8)[None, :, None]
+    word = (w << byte_shifts).sum(dim=1)  # (nb, C): 8 codes each
+    code_shifts = (torch.arange(8, device=words.device) * bits)[None, :, None]
+    codes = (word[:, None, :] >> code_shifts) & (2 ** bits - 1)
+    return codes.reshape(nb * 8, c)[:d_in].to(torch.uint8)
+
+
+def wq_dequant_ref(words: torch.Tensor, scales: torch.Tensor,
+                   mins: torch.Tensor, *, bits: int, group: int,
+                   d_in: int) -> torch.Tensor:
+    """fp32 (d_in, C) weights in STORAGE channel order: ``code * scale``
+    then ``+ min``, each rounded (two operations, no fused multiply-add)."""
+    codes = wq_unpack_ref(words, bits, d_in).float()
+    n_groups, c = scales.shape
+    cf = F.pad(codes, (0, 0, 0, n_groups * group - d_in))
+    w = cf.reshape(n_groups, group, c) * scales.float()[:, None, :] \
+        + mins.float()[:, None, :]
+    return w.reshape(n_groups * group, c)[:d_in]
+
+
+def wq_matmul_ref(x2d: torch.Tensor, words: torch.Tensor,
+                  scales: torch.Tensor, mins: torch.Tensor, *, bits: int,
+                  group: int, d_in: int) -> torch.Tensor:
+    """(M, d_in) @ dequant(words) -> (M, C) fp32.
+
+    The weights are rounded to the activation dtype, as the dense
+    ``x @ w.to(x.dtype)`` path rounds them, and the product accumulates in
+    fp32: bf16 operands are exact in fp32, so an fp32 product of the
+    upcast operands is the bf16 contraction with an fp32 accumulator.
+    """
+    w = wq_dequant_ref(words, scales, mins, bits=bits, group=group,
+                       d_in=d_in).to(x2d.dtype)
+    return torch.matmul(x2d.float(), w.float())

@@ -13,7 +13,9 @@ cache); with ``--engine`` it runs ``ServeEngine`` (K1 and K8 / K9, plus
 K4 / K5 with ``--split-serve``).  The static ring holds the image tokens
 too: its length is image + prompt + new tokens (or the window), where the
 reference's example leaves the image out and so drops the oldest image
-positions.  ``--weight-quant`` is ROADMAP queue M, item M10, and raises.
+positions.  ``--engine --weight-quant int4`` (or ``int3``) serves from
+GPTQ-quantized packed weights, calibrated on a 4-row batch of the data
+pipeline; every w* matmul of the block stacks then runs K12.
 """
 from __future__ import annotations
 
@@ -37,12 +39,18 @@ def run_engine(cfg, params, args, device) -> None:
     gen = torch.Generator().manual_seed(0)
     page_size = 8
     max_target = cfg.n_image_tokens + args.prompt_len + args.new_tokens
+    wq_calib = None
+    if args.weight_quant:
+        # a small GPTQ calibration sample; without one the engine takes
+        # round-to-nearest
+        from repro_torch.data.pipeline import make_pipeline
+        wq_calib = next(make_pipeline(cfg, 4, 32))
     eng = ServeEngine(
         params, cfg, n_slots=max(2, args.batch // 2), page_size=page_size,
         n_pages=1 + args.batch * -(-max_target // page_size),
         window=args.window,
         split_wire=cfg.split.quant if args.split_serve else None,
-        device=device)
+        weight_quant=args.weight_quant, wq_calib=wq_calib, device=device)
     for i in range(args.batch):
         toks = torch.randint(0, cfg.vocab_size, (args.prompt_len,),
                              generator=gen)
@@ -65,6 +73,11 @@ def run_engine(cfg, params, args, device) -> None:
     if args.split_serve:
         print(f"  split-serve wire: {eng.stats['wire_bytes']} bytes of "
               f"quantized connector activations shipped")
+    if args.weight_quant:
+        d, p = eng.stats["weight_bytes_dense"], \
+            eng.stats["weight_bytes_packed"]
+        print(f"  {args.weight_quant} weights: {p} B packed vs {d} B "
+              f"dense ({d / p:.2f}x smaller, GPTQ-calibrated)")
 
 
 def run_static(cfg, params, args, device) -> None:
@@ -125,18 +138,17 @@ def main(argv=None) -> None:
                          "the quantized wire")
     ap.add_argument("--weight-quant", default=None,
                     choices=("int4", "int3"),
-                    help="weight-only quantized serving: not ported")
+                    help="(with --engine) serve from GPTQ-quantized packed "
+                         "weights (repro_torch.wq, kernel K12)")
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full", dest="reduced", action="store_false")
     ap.add_argument("--device", default=None,
                     help="torch device; CUDA unless 'cpu' is asked for")
     args = ap.parse_args(argv)
-    if args.weight_quant:
-        raise NotImplementedError(
-            "weight-only quantized serving is ROADMAP queue M, item M10 "
-            "(kernel K12)")
     if args.split_serve and not args.engine:
         ap.error("--split-serve needs --engine")
+    if args.weight_quant and not args.engine:
+        ap.error("--weight-quant needs --engine")
 
     from repro_torch.configs import get_config
     from repro_torch.device import resolve_device

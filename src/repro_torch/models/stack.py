@@ -33,6 +33,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.wq.packed import PackedLinear
+
 Body = Callable[[Any, Any], Tuple[Any, Tuple[Any, Any]]]
 
 # Per-device byte budget for single-level-remat stored layer inputs before
@@ -82,7 +84,10 @@ def layer_forward_count(n: int, remat: bool, remat_group: int) -> int:
 
 
 def stack_len(stacked: Dict) -> int:
-    """Leading (layer) axis length of a stacked parameter tree."""
+    """Leading (layer) axis length of a stacked parameter tree.
+
+    These helpers take a layer-stacked ``PackedLinear`` (weight-only
+    quantized serving) wherever they take a tensor leaf."""
     leaf = stacked
     while isinstance(leaf, dict):
         leaf = next(iter(leaf.values()))
@@ -103,6 +108,8 @@ def tree_unbind(tree) -> List:
         per_key = {k: tree_unbind(v) for k, v in tree.items()}
         n = len(next(iter(per_key.values())))
         return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    if isinstance(tree, PackedLinear):
+        return tree.unbind()
     return list(torch.unbind(tree))
 
 
@@ -110,6 +117,8 @@ def tree_stack(trees):
     """Stack a list of same-structure trees on a new leading axis."""
     if isinstance(trees[0], dict):
         return {k: tree_stack([t[k] for t in trees]) for k in trees[0]}
+    if isinstance(trees[0], PackedLinear):
+        return PackedLinear.stack(trees)
     return torch.stack(trees)
 
 

@@ -24,6 +24,15 @@ that many mean code bits per scalar over ``split_plan_groups`` groups).
 A changed plan replaces ``split_wire`` and is recorded in
 ``stats["wire_plan"]``.
 
+Weight-only quantized serving (``weight_quant="int4" | "int3" |
+"int2"``): once the params are on the device, every w* matmul site of the
+block stacks is replaced with a packed ``wq.PackedLinear`` store, by GPTQ
+from the Hessians of a calibration batch (``wq_calib``) or else by
+round-to-nearest; its matmuls run the packed dequant-matmul (K12 on
+CUDA).  ``stats["weight_bytes_dense"]`` / ``["weight_bytes_packed"]``
+hold the sites' bytes before and after, and ``["wq_calib_seconds"]`` /
+``["wq_quantize_seconds"]`` the host time of the two passes.
+
 Everything runs under ``torch.inference_mode()``; the KV pools are
 updated in place.
 """
@@ -37,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch import wq
 from repro_torch.core import entropy as entropy_mod
 from repro_torch.core import quantizers
 from repro_torch.core.quantizers import QuantConfig
@@ -69,16 +79,33 @@ class ServeEngine:
                  split_wire_budget_bits: Optional[float] = None,
                  split_plan_groups: int = 8,
                  lora_adapters=None, weight_quant: Optional[str] = None,
+                 wq_group: int = 128, wq_act_order: bool = False,
+                 wq_calib: Optional[Dict] = None,
                  device: DeviceLike = None):
         if lora_adapters is not None:
             raise NotImplementedError(
                 "SplitLoRA serving is ROADMAP queue M, item M9")
-        if weight_quant is not None:
-            raise NotImplementedError(
-                "weight-only quantized serving is ROADMAP queue M, item M10 "
-                "(kernel K12)")
         self.device = resolve_device(device)
         self.params = _to_device(params, self.device)
+        self.wq_report = None
+        wq_stats = {}
+        if weight_quant is not None:
+            wcfg = wq.parse_weight_quant(weight_quant, group=wq_group,
+                                         act_order=wq_act_order)
+            hessians = None
+            t0 = time.perf_counter()
+            if wq_calib is not None:
+                hessians = wq.collect_hessians(self.params, cfg, wq_calib,
+                                               window=window)
+            t1 = time.perf_counter()
+            self.params, self.wq_report = wq.quantize_params(
+                self.params, wcfg, hessians=hessians)
+            wq_stats = dict(
+                weight_bytes_dense=sum(d for d, _ in self.wq_report.values()),
+                weight_bytes_packed=sum(
+                    p for _, p in self.wq_report.values()),
+                wq_calib_seconds=t1 - t0,
+                wq_quantize_seconds=time.perf_counter() - t1)
         self.cfg = cfg
         self.page_size = page_size
         self.window = window
@@ -105,7 +132,8 @@ class ServeEngine:
         self.stats = dict(wire_bytes=0, prefill_batches=0, prefill_rows=0,
                           decode_ticks=0, tokens_emitted=0, admitted=0,
                           retired=0, page_table_buckets=set(),
-                          prefill_seconds=0.0, decode_seconds=0.0)
+                          prefill_seconds=0.0, decode_seconds=0.0,
+                          **wq_stats)
 
     # -- request intake -------------------------------------------------
     def submit(self, tokens: List[int], *, max_new: int,

@@ -1,5 +1,6 @@
 """Tree and numeric helpers (port of ``repro/utils/tree.py``:
-``tree_bytes``, ``tree_count``, ``ste``).
+``tree_bytes``, ``tree_count``, ``is_weight_site``, ``weight_sites``,
+``ste``).
 
 A tree here is a nested dict whose leaves are tensors (or anything else
 that is not a dict); ``tree_map`` / ``tree_leaves`` stand in for
@@ -36,15 +37,40 @@ def tree_leaves(tree) -> List[Any]:
 
 
 def tree_bytes(tree) -> int:
-    """Total bytes of all tensor leaves of a tree."""
-    return sum(x.numel() * x.element_size() for x in tree_leaves(tree)
-               if isinstance(x, torch.Tensor))
+    """Total bytes of all tensor leaves of a tree; a packed weight store
+    (``wq.PackedLinear``) counts its ``packed_bytes``."""
+    from repro_torch.wq.packed import PackedLinear  # wq imports this module
+
+    total = 0
+    for x in tree_leaves(tree):
+        if isinstance(x, PackedLinear):
+            total += x.packed_bytes()
+        elif isinstance(x, torch.Tensor):
+            total += x.numel() * x.element_size()
+    return total
 
 
 def tree_count(tree) -> int:
     """Total number of scalar parameters of a tree."""
     return sum(x.numel() for x in tree_leaves(tree)
                if isinstance(x, torch.Tensor))
+
+
+def is_weight_site(name: str, leaf) -> bool:
+    """A projection weight: dict key ``w*`` with >= 2 dims.
+
+    The one structural rule that selects weight-quantization sites (and
+    LoRA sites, ROADMAP item M9): the last two axes are read as ``(d_in,
+    d_out)`` and any in front (layer axes) are batch.  Norm scales, biases
+    and the codec's ``enc_b`` / ``dec_b`` are skipped.
+    """
+    return name.startswith("w") and getattr(leaf, "ndim", 0) >= 2
+
+
+def weight_sites(tree) -> List[Tuple[Tuple[str, ...], Any]]:
+    """``(path, leaf)`` for every weight site in ``tree`` (sorted keys)."""
+    return [(path, leaf) for path, leaf in tree_flatten_with_path(tree)
+            if path and is_weight_site(path[-1], leaf)]
 
 
 def ste(x: torch.Tensor, x_hat: torch.Tensor) -> torch.Tensor:

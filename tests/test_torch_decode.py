@@ -522,9 +522,14 @@ def test_serve_batched_launcher_runs(capsys, extra):
         assert "prefill(2x5)" in text and "decoded 3 tokens" in text
 
 
-def test_serve_batched_weight_quant_raises():
+def test_serve_batched_weight_quant_raises(capsys):
+    """``--weight-quant`` no longer raises (M10 is ported): the launcher
+    serves from GPTQ-quantized packed weights and reports their bytes."""
     from repro_torch.launch import serve_batched
 
-    with pytest.raises(NotImplementedError, match="M10"):
-        serve_batched.main(["--device", "cpu", "--engine", "--weight-quant",
-                            "int4"])
+    serve_batched.main(["--device", "cpu", "--engine", "--weight-quant",
+                        "int4", "--batch", "2", "--prompt-len", "5",
+                        "--new-tokens", "3"])
+    text = capsys.readouterr().out
+    assert "engine: 2 requests" in text
+    assert "int4 weights:" in text and "B packed vs" in text

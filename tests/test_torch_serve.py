@@ -89,10 +89,19 @@ def test_engine_requires_cuda_unless_cpu_is_asked_for(case):
     (dict(lora_adapters={}), "M9"),
     (dict(weight_quant="int4"), "M10")])
 def test_engine_unported_options_raise(case, kw, item):
-    _, tp, _, n_pages = case
-    with pytest.raises(NotImplementedError, match=item):
-        ServeEngine(tp, TCFG, n_slots=2, page_size=PAGE, n_pages=n_pages,
-                    device="cpu", **kw)
+    """M9 is not ported and raises; M10 (weight-only quantization) is, and
+    the engine serves from packed int4 stores and reports their bytes."""
+    _, tp, reqs, n_pages = case
+    if item == "M9":
+        with pytest.raises(NotImplementedError, match=item):
+            ServeEngine(tp, TCFG, n_slots=2, page_size=PAGE,
+                        n_pages=n_pages, device="cpu", **kw)
+        return
+    out, eng = _run(ServeEngine, tp, TCFG, reqs[:2], n_pages, device="cpu",
+                    **kw)
+    assert [len(o) for o in out] == [m for _, m, _ in reqs[:2]]
+    assert 0 < eng.stats["weight_bytes_packed"] < \
+        eng.stats["weight_bytes_dense"]
 
 
 # ---------------------------------------------------------------------------
