@@ -11,11 +11,16 @@ non-zero:
 2. kernels -- hold K1 (flash forward), K2 / K3 (flash backward), K4 / K5
               (RD-FSQ wire), K10 / K11 (NF-b wire), K6 / K7 (ring-cache
               decode, bf16 / int8), K8 / K9 (paged decode, bf16 / int8)
-              and K12 (packed int2/3/4 dequant-matmul) against their plain
+              and K12 (packed int2/3/4 dequant-matmul: its split-K GEMV at
+              M 1 - 16 and its wgmma kernel above, each bf16 output within
+              one bf16 step of the plain fp32 result) against their plain
               PyTorch versions on the card, at the main paths' shapes plus
               edge cases; time each (CUDA events, median), its plain
               version and, where one PyTorch call computes the same
-              function, that call (K12: cuBLAS on the dense bf16 weight).
+              function, that call.  K1 against SDPA and K12 against cuBLAS
+              on the dense bf16 weight (at M 4, 1 024 and 4 096, the M 4
+              stores in rotation past the L2) are timed as device time,
+              replayed from a CUDA graph, with the eager times beside.
 3. serve   -- full-width tinyllava (16 layers, d 1280, bf16, random weights
               from a seed) behind ServeEngine with the 2-bit RD-FSQ split
               wire: 8 requests through 4 slots until all finish.  Launch
@@ -163,6 +168,37 @@ def time_ms(fn, reps: int = 15, inner: int = 5) -> float:
     return statistics.median(times)
 
 
+def time_graph_ms(fn, calls: int, reps: int = 15) -> float:
+    """Device time per call: ``calls`` calls of ``fn`` captured in one CUDA
+    graph, replayed ``reps`` times (median, CUDA events).  Without the host's
+    launch overhead, which sets the eager time of a call of a few us."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return statistics.median(times)
+
+
 def bound(n_bytes: float, flops: float = 0.0):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOP_PER_S * 1e3
@@ -263,11 +299,21 @@ def check_flash(gen, results):
     q, k, v, qpos, kpos, window = cases["serve shape B4 S1024"]
     b, h, sq, d = q.shape
     kh, skv = k.shape[1], k.shape[2]
-    ms = time_ms(lambda: attention_ops.flash_forward(q, k, v, qpos, kpos))
+    # device time (CUDA graph replay) for K1 and SDPA alike, the number in
+    # the kernels line; eager times beside them
+    def k1():
+        attention_ops.flash_forward(q, k, v, qpos, kpos)
+
+    def sdpa():
+        F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                       enable_gqa=True, scale=1.0)
+
+    ms, lib_ms = time_graph_ms(k1, 8), time_graph_ms(sdpa, 8)
     plain_ms = time_ms(lambda: attention_ref.flash_forward_ref(
         q, k, v, qpos, kpos), reps=5, inner=1)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True, scale=1.0))
+    print(f"[kernels] K1 flash_fwd serve shape: device {ms:.4f} ms, SDPA "
+          f"causal GQA {lib_ms:.4f} ms (K1 / SDPA {ms / lib_ms:.2f}); eager "
+          f"{time_ms(k1):.4f} ms, SDPA {time_ms(sdpa):.4f} ms")
     flops = 2 * 2 * b * h * sq * skv * d * 0.5  # causal: half the products
     n_bytes = (q.numel() + k.numel() + v.numel()) * 2 \
         + b * h * sq * (d + 2) * 4  # out fp32 + m, l
@@ -689,30 +735,55 @@ def _wq_case(gen, m, d_in, d_out, bits, group, dtype=None, perm=False):
     return x, store
 
 
+def _bf16_step(p):
+    """One bf16 rounding step (ulp) at each element of the bf16 tensor
+    ``p``, as fp32 (0 where p is 0)."""
+    import torch
+
+    mant, exp = torch.frexp(p.float().abs())
+    return torch.where(p == 0, torch.zeros_like(mant),
+                       torch.ldexp(torch.ones_like(mant), exp - 8))
+
+
 def check_wq(gen, results):
-    """K12 against its plain version: the serve path's four (d_in, d_out)
-    pairs at M 4 (a decode tick) and M 4 096 (a prefill batch of 4 rows x
-    1 024 positions), int4 / g128, bf16; int3 and int2; act-order (the
-    wrapper's gather, then K12); a ragged case; fp32 activations."""
+    """K12 against its plain version, both variants: the serve path's four
+    (d_in, d_out) pairs at M 1, 4, 16 (split-K GEMV) and 17, 1 024, 4 096
+    (TMA + wgmma), int4 / g128, bf16; int3 and int2 on each variant;
+    act-order through the folded gather (M 4) and the wrapper's gather (M
+    4 096); ragged cases; fp32 activations.  Then times at w_gate."""
+    import itertools
+
     import torch
     from repro_torch import wq
     from repro_torch.kernels import ref
-    from repro_torch.kernels.wq_ops import wq_matmul_kernel
+    from repro_torch.kernels.wq_ops import variant, wq_matmul_kernel
 
     cases = {}
     for d_in, d_out in WQ_SITES:
-        for m in (4, 4096):
+        for m in (1, 4, 16, 17, 1024, 4096):
             cases[f"M {m} ({d_in}, {d_out}) int4/g128 bf16"] = (
                 m, d_in, d_out, 4, 128, None, False)
     cases.update({
+        "M 4 (1280, 3456) int3/g128 bf16": (4, 1280, 3456, 3, 128, None,
+                                            False),
         "M 64 (1280, 3456) int3/g128 bf16": (64, 1280, 3456, 3, 128, None,
                                              False),
-        "M 64 (3456, 1280) int2/g64 bf16": (64, 3456, 1280, 2, 64, None,
-                                            False),
+        "M 4 (3456, 1280) int2/g64 bf16": (4, 3456, 1280, 2, 64, None,
+                                           False),
+        "M 1024 (3456, 1280) int2/g64 bf16": (1024, 3456, 1280, 2, 64, None,
+                                              False),
         "M 4 (3456, 1280) int4/g128 bf16, act-order": (4, 3456, 1280, 4, 128,
                                                        None, True),
+        "M 4096 (3456, 1280) int4/g128 bf16, act-order": (
+            4096, 3456, 1280, 4, 128, None, True),
         "ragged M 9 (100, 130) int3/g32 bf16": (9, 100, 130, 3, 32, None,
                                                 False),
+        "ragged M 40 (100, 130) int3/g32 bf16": (40, 100, 130, 3, 32, None,
+                                                 False),
+        "ragged M 300 (1216, 336) int4/g128 bf16": (300, 1216, 336, 4, 128,
+                                                    None, False),
+        "ragged M 300 (1216, 336) int2/g8 bf16, act-order": (
+            300, 1216, 336, 2, 8, None, True),
         "ragged M 9 (100, 130) int3/g32 fp32": (9, 100, 130, 3, 32,
                                                 torch.float32, False),
         "M 4 (1280, 3456) int4/g128 fp32": (4, 1280, 3456, 4, 128,
@@ -723,44 +794,88 @@ def check_wq(gen, results):
         x, store = _wq_case(gen, m, d_in, d_out, bits, group, dtype, perm)
         xs = x if store.perm is None \
             else torch.index_select(x, -1, store.perm).contiguous()
-        args = (xs, store.codes, store.scales, store.mins)
         kw = dict(bits=bits, group=group, d_in=d_in)
-        y = wq_matmul_kernel(*args, **kw)
-        plain = ref.wq_matmul_ref(*args, **kw)
-        # the entry point: the act-order gather, K12, the cast to x.dtype
-        same = torch.equal(wq.wq_matmul(x, store), y.to(x.dtype))
+        y = wq_matmul_kernel(x, store.codes, store.scales, store.mins,
+                             perm=store.perm, **kw)
+        again = wq_matmul_kernel(x, store.codes, store.scales, store.mins,
+                                 perm=store.perm, **kw)
+        plain = ref.wq_matmul_ref(xs, store.codes, store.scales,
+                                  store.mins, **kw)
+        # the entry point: K12 in x's dtype, the gather where the variant
+        # does it
+        same = torch.equal(wq.wq_matmul(x, store), y) \
+            and torch.equal(again, y)
         torch.cuda.synchronize()
-        err = max_err(y, plain)
-        rel = err / float(plain.abs().max())
-        print(f"[kernels] K12 wq_matmul {name}: max|out-plain|/max|plain| "
-              f"{rel:.3e} (tol {WQ_RTOL}); wq_matmul equal to the launch "
-              f"{same}")
-        require(y.shape == (m, d_out) and rel <= WQ_RTOL and same,
-                f"K12 {name}")
-        worst = max(worst, err)
+        top = float(plain.abs().max())
+        if x.dtype == torch.bfloat16:
+            # one bf16 step of the element; at elements so small that the
+            # fp32 order of summation alone moves them a step, the fp32
+            # kernel's bound WQ_RTOL of max |plain|
+            p16 = plain.bfloat16()
+            diff = (y.float() - p16.float()).abs()
+            allowed = torch.clamp_min(_bf16_step(p16), WQ_RTOL * top)
+            ok = bool((diff <= allowed).all())
+            kind = variant(m, d_in, d_out)
+            what = (f"max|out-bf16(plain)| {float(diff.max()):.3e}, "
+                    f"{int((diff > 0).sum())} of {diff.numel()} one step "
+                    f"off (tol one bf16 step, floor {WQ_RTOL} x max|plain|)")
+        else:
+            rel = max_err(y, plain) / top
+            ok = rel <= WQ_RTOL
+            kind = "f32"
+            what = f"max|out-plain|/max|plain| {rel:.3e} (tol {WQ_RTOL})"
+        print(f"[kernels] K12 wq_matmul {name} [{kind}]: {what}; "
+              f"wq_matmul equal to the launch and run to run {same}")
+        require(y.shape == (m, d_out) and y.dtype == x.dtype and ok
+                and same, f"K12 {name}")
+        worst = max(worst, max_err(y, plain))
 
-    # times at w_gate / w_up: a decode tick (M 4) and a prefill batch (M
-    # 4 096); the yardstick is cuBLAS on the pre-dequantized bf16 weight
+    # times at w_gate / w_up: a decode tick (M 4), a one-request prefill
+    # batch (M 1 024) and a full one (M 4 096); the yardstick is cuBLAS on
+    # the pre-dequantized bf16 weight.  Both are timed the same two ways:
+    # eager (host and device, as the engine calls them) and as device time
+    # (CUDA graph replay, the number in the kernels line).  At M 4 both
+    # rotate over 24 stores (58 MB packed, 212 MB dense: more than the 50 MB
+    # L2), as a tick streams 112 distinct stores.
     d_in, d_out = 1280, 3456
     timed = {}
-    for m in (4, 4096):
-        x, store = _wq_case(gen, m, d_in, d_out, 4, 128)
-        args = (x, store.codes, store.scales, store.mins)
+    for m in (4, 1024, 4096):
+        n_st = 24 if m == 4 else 1
+        stores = [_wq_case(gen, m, d_in, d_out, 4, 128)[1]
+                  for _ in range(n_st)]
+        x = _wq_case(gen, m, d_in, d_out, 4, 128)[0]
+        dense = [st.dequantize().bfloat16() for st in stores]
         kw = dict(bits=4, group=128, d_in=d_in)
-        dense = store.dequantize().bfloat16()
-        n_bytes = _nbytes(x, store.codes, store.scales, store.mins) \
-            + m * d_out * 4
+        ring = itertools.cycle(stores)
+        dring = itertools.cycle(dense)
+
+        def kernel():
+            st = next(ring)
+            wq_matmul_kernel(x, st.codes, st.scales, st.mins, **kw)
+
+        def cublas():
+            torch.matmul(x, next(dring))
+
+        one = stores[0]
+        n_bytes = _nbytes(x, one.codes, one.scales, one.mins) \
+            + m * d_out * 2
+        calls = 24 if m == 4 else 4
         timed[m] = dict(
-            ms=time_ms(lambda: wq_matmul_kernel(*args, **kw)),
-            plain_ms=time_ms(lambda: ref.wq_matmul_ref(*args, **kw),
-                             reps=5, inner=1),
-            library_ms=time_ms(lambda: torch.matmul(x, dense)),
+            ms=time_graph_ms(kernel, calls),
+            plain_ms=time_ms(lambda: ref.wq_matmul_ref(
+                x, one.codes, one.scales, one.mins, **kw), reps=5, inner=1),
+            library_ms=time_graph_ms(cublas, calls),
             bound=bound(n_bytes, 2 * m * d_in * d_out))
         r = timed[m]
-        print(f"[kernels] K12 wq_matmul M {m} ({d_in}, {d_out}) int4/g128: "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, cuBLAS on "
-              f"the dense bf16 weight {r['library_ms']:.4f} ms, bound "
-              f"{r['bound'][0]:.5f} ms ({r['bound'][1]}, {n_bytes} B)")
+        eager, eager_lib = time_ms(kernel), time_ms(cublas)
+        print(f"[kernels] K12 wq_matmul M {m} ({d_in}, {d_out}) int4/g128 "
+              f"[{variant(m, d_in, d_out)}], {n_st} stores in rotation: "
+              f"device {r['ms']:.4f} ms, cuBLAS on the dense bf16 weight "
+              f"{r['library_ms']:.4f} ms (K12 / cuBLAS "
+              f"{r['ms'] / r['library_ms']:.2f}); eager {eager:.4f} ms, "
+              f"cuBLAS {eager_lib:.4f} ms; plain {r['plain_ms']:.4f} ms; "
+              f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]}, {n_bytes} B)")
+        del stores, dense
     # the line reports the decode tick's shape: the serve path's launches
     # are mostly ticks
     results["wq_matmul"] = dict(max_abs_err=worst, **timed[4])
@@ -1319,8 +1434,15 @@ def _decode_parity(cfg, params, cfg32, params32, tokens, shipped, bits):
     its own, so bf16 rounding before it moves some of that token's codes
     by a whole level, and the step's logits part from the fp32 path by
     several percent (6.4e-2 at the first 16-bit step on the H100, argmax
-    still equal) whatever the decode path does.  The prefill check above
-    holds the model with its cut."""
+    still equal).  The reference does the same: on the CPU, one decode
+    step of tinyllava.reduced() departs from its own fp32 step by 0.118
+    in the reference and 0.117 in the port with the cut on (0.011 both
+    with it off), and bf16 flips 0.51% and 0.46% of the decode token's
+    codes (tests/test_torch_decode.py::
+    test_bf16_cut_departure_is_the_reference_s and
+    ::test_bf16_cut_code_flips_match_reference).  So this check would
+    measure the reference's amplification, not the port; the prefill
+    check above holds the model with its cut."""
     import torch
     from repro_torch.serve import decode as sd
 

@@ -52,6 +52,8 @@ GROUPS = (("flash_fwd_kernel", "K1 flash_fwd"),
           ("ring_decode_kernel<signed char", "K7 decode_q8"),
           ("paged_decode_kernel<__nv_bfloat16", "K8 decode_paged"),
           ("paged_decode_kernel<signed char", "K9 decode_paged_q8"),
+          ("wq_gemv_kernel", "K12 wq_matmul"),
+          ("wq_wgmma_kernel", "K12 wq_matmul"),
           ("wq_matmul", "K12 wq_matmul"),
           ("nvjet", "cuBLAS GEMM"), ("gemm", "cuBLAS GEMM"))
 

@@ -47,7 +47,8 @@ _ARGTYPES = {
     "decode_paged_q8": [_P] * 9 + [_I] * 7 + [_P],
     "nf_quantize": [_P, _I, _P, _P, _P, _P, _LL, _I, _I, _P],
     "nf_dequantize": [_P, _P, _P, _P, _P, _I, _LL, _I, _I, _P],
-    "wq_matmul_bf16": [_P] * 5 + [_I] * 5 + [_P],
+    "wq_matmul_bf16_gemv": [_P] * 6 + [_I] * 8 + [_P],
+    "wq_matmul_bf16_wgmma": [_P] * 5 + [_I] * 6 + [_P],
     "wq_matmul_f32": [_P] * 5 + [_I] * 5 + [_P],
 }
 
@@ -139,5 +140,9 @@ def launch(kernel: str, fn_name: str, *args) -> None:
     launches[kernel] += 1
 
 
-def current_stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def current_stream(device_index: Optional[int] = None) -> int:
+    """The handle of PyTorch's current stream on the device (the current
+    device by default), read without building a Stream object."""
+    if device_index is None:
+        device_index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(device_index)

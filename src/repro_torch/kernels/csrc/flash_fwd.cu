@@ -5,108 +5,254 @@
 //
 // Bound on the H100: at the serve shape (B 4, H 20, KH 5, Sq = Skv = 1024,
 // D 64) the bytes it must move (bf16 q/k/v in, fp32 out, m, l) and its
-// causal half of the bf16 operations give the same least time, about
-// 0.011 ms; k/v tiles are reread from L2 by every q tile.  Design: one
-// block of four warps per
-// (q tile of 64 rows, head, batch row); the loop over kv tiles sits inside
-// the block, because Hopper runs blocks in no order and cannot carry the
-// (m, l, acc) state across a sequential grid axis as the TPU kernel does
-// (flash_kernel.py:71-77).  The state stays in registers: each warp owns 16
-// query rows, computes S = Q K^T and O += P V with mma.sync m16n8k16 (bf16
-// operands, fp32 accumulation), and P goes from the S accumulators straight
-// into the A operand of the PV product without touching shared memory.
-// A kv tile whose position extrema make it invisible to the whole q tile is
-// skipped (the reference's _visible); every score is then masked with the
-// runtime qpos / kpos, so the +-2^30 sentinels of padding and kv_valid_len
-// keep working.  Masked scores add exactly 0 to l, so a row with no visible
-// key ends with l = 0 and out = acc / max(l, 1e-30) = 0.  GQA reads kv head
-// h / (H / KH).  Simple first: no TMA, no wgmma, no double buffering.
+// causal half of the bf16 operations give about the same least time,
+// 0.011 ms; k/v tiles are reread from L2 by every q tile of a head.
+//
+// Design for Hopper.  One block per (q tile of 128 rows, head, batch row):
+// two consumer warpgroups of 64 query rows each and one producer warp.
+// - Before the roles split, the block finds the kv tiles that its q tile
+//   can see from the position extrema (the reference's _visible) and lists
+//   them in shared memory; invisible tiles are never loaded.
+// - The producer warp's lane 0 loads the q tile once and keeps a ring of
+//   kStages K/V tile pairs (64 keys each) filled with TMA, one "full" and
+//   one "empty" mbarrier per stage.  q, k and v are strided views of
+//   (B, S, H, D) buffers: each gets a 4-D tensor map over its own strides
+//   (flash_attention passes transposed views, so nothing is copied), with
+//   128-byte swizzle.
+// - Each consumer warpgroup computes S = Q K^T with wgmma m64n64k16 (both
+//   operands in shared memory), masks every score with the runtime qpos /
+//   kpos (so the +-2^30 sentinels of padding and kv_valid_len keep
+//   working) and the window, runs the online softmax in registers with
+//   exp2f (log2 e folded into one multiply), then O += P V with wgmma, P
+//   taken from the S accumulators rounded to bf16 in registers and V read
+//   MN-major from shared memory (the transposed-B form).  It releases the
+//   stage to the producer once its wgmmas are done.
+// - The grid walks q tiles longest first (the last causal q tiles see the
+//   most keys), so the short tiles fill in the tail.
+// Masked scores add exactly 0 to l, so a row with no visible key ends with
+// l = 0, m = -1e30 and out = acc / max(l, 1e-30) = 0.  GQA reads kv head
+// h / (H / KH).  out, m and l are fp32.
+//
+// The head width is a template parameter; only HD = 64 is instantiated
+// and checked.  Width 128 needs two 64-column swizzle atoms per tile and an
+// m64n128 product for P V.  What is left: each warpgroup waits on its
+// Q K^T before the softmax and on its P V before the next tile, so the
+// tensor cores idle while a warpgroup's softmax runs unless the other
+// warpgroups fill them.  Not yet: setmaxnreg, overlap of the softmax with
+// the next Q K^T inside a warpgroup (FA3's ping-pong), a TMA store of out.
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using namespace flash;
+constexpr int kBQ = 128, kBKV = 64, kStages = 3;
+constexpr int kConsumers = 256, kThreads = kConsumers + 32;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kFullTile = 1 << 30;  // list flag: every key visible to every
+                                    // real row of the q tile
 
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Which of dims 1..3 of a tensor map holds the sequence, head and batch
+// axis (two bits each).
+struct Axes {
+  int s, h, b;
+};
+
+__device__ __forceinline__ Axes unpack_axes(int code) {
+  return Axes{code & 3, (code >> 2) & 3, (code >> 4) & 3};
+}
+
+__device__ __forceinline__ void load_rows(void* dst, const CUtensorMap* map,
+                                          uint64_t* bar, Axes ax, int row0,
+                                          int head, int batch) {
+  int c[4] = {0, 0, 0, 0};
+  c[ax.s] = row0;
+  c[ax.h] = head;
+  c[ax.b] = batch;
+  hopper::tma_load_4d(dst, map, bar, c[0], c[1], c[2], c[3]);
+}
+
+template <int HD>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const int* __restrict__ qpos,
-    const int* __restrict__ kpos, float* __restrict__ out,
-    float* __restrict__ m_out, float* __restrict__ l_out, int H, int KH,
-    int Sq, int Skv, long long q_sb, long long q_sh, long long q_ss,
-    long long k_sb, long long k_sh, long long k_ss, long long v_sb,
-    long long v_sh, long long v_ss, long long o_sb, long long o_sh,
-    long long o_ss, int has_window, int window) {
-  __shared__ __align__(16) __nv_bfloat16 q_s[kBQ * kLds];
-  __shared__ __align__(16) __nv_bfloat16 k_s[kBKV * kLds];
-  __shared__ __align__(16) __nv_bfloat16 v_s[kBKV * kLds];
-  __shared__ int qp_s[kBQ];
-  __shared__ int kp_s[kBKV];
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, int q_axes, int k_axes,
+    int v_axes, const int* __restrict__ qpos, const int* __restrict__ kpos,
+    float* __restrict__ out, float* __restrict__ m_out,
+    float* __restrict__ l_out, int H, int KH, int Sq, int Skv,
+    long long o_sb, long long o_sh, long long o_ss, int has_window,
+    int window) {
+  static_assert(HD == 64, "K1 is instantiated for head width 64 only");
+  constexpr int kTile = kBKV * HD * 2;  // bytes of one K or V tile
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  // 1 024-aligned for the 128-byte swizzle; offset from smem_raw so that
+  // the compiler still reads through it with shared-memory loads
+  uint8_t* smem = smem_raw + ((1024u - hopper::smem_u32(smem_raw)) & 1023u);
+  uint8_t* q_s = smem;                          // [128][64] bf16
+  uint8_t* k_s = q_s + kBQ * HD * 2;            // [stage][64][64]
+  uint8_t* v_s = k_s + kStages * kTile;         // [stage][64][64]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(v_s + kStages * kTile);
+  uint64_t* qbar = bars;                        // 1
+  uint64_t* full = bars + 1;                    // kStages
+  uint64_t* empty = bars + 1 + kStages;         // kStages
+  int* red = reinterpret_cast<int*>(bars + 1 + 2 * kStages);  // 2 x 9 + 1
+  int* list = red + 20;                         // ceil(Skv / 64)
 
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.x % H, b = blockIdx.x / H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest first
   const int kh = h / (H / KH);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
+  const int nt = (Skv + kBKV - 1) / kBKV;
 
-  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
-  const __nv_bfloat16* kb = k + b * k_sb + kh * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + kh * v_sh;
-
-  load_tile(q_s, qb, q_ss, q0, Sq, tid);
-  if (tid < kBQ) qp_s[tid] = q0 + tid < Sq ? qpos[q0 + tid] : -kFar;
+  // q tile position extrema over its real rows
+  {
+    int lo = flash::kFar, hi = -flash::kFar;
+    for (int r = tid; r < kBQ && q0 + r < Sq; r += kThreads) {
+      const int p = qpos[q0 + r];
+      lo = min(lo, p);
+      hi = max(hi, p);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+    }
+    if (lane == 0) {
+      red[warp] = lo;
+      red[9 + warp] = hi;
+    }
+  }
+  if (tid == 0) {
+    hopper::mbar_init(qbar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumers);
+    }
+    hopper::fence_barrier_init();
+  }
   __syncthreads();
-
-  // q tile position extrema over its real rows (block-level skip test)
-  long long qmin, qmax;
-  extrema(qp_s, min(kBQ, Sq - q0), qmin, qmax);
-  const long long qp0 = qp_s[r0], qp1 = qp_s[r0 + 8];
-
-  uint32_t qa[D / 16][4];  // A fragments of this warp's 16 x 64 q rows
-  load_a_frags(qa, q_s, warp * 16, g, t);
-
-  float m0 = kNeg, m1 = kNeg, l0 = 0.0f, l1 = 0.0f;
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
-
-  for (int k0 = 0; k0 < Skv; k0 += kBKV) {
-    __syncthreads();  // the previous tile's smem reads are done
-    if (tid < kBKV) kp_s[tid] = k0 + tid < Skv ? kpos[k0 + tid] : kFar;
-    __syncthreads();
-    long long kmin, kmax;
-    extrema(kp_s, min(kBKV, Skv - k0), kmin, kmax);
-    if (!tiles_visible(qmin, qmax, kmin, kmax, has_window, window))
-      continue;  // uniform across the block
-    load_tile(k_s, kb, k_ss, k0, Skv, tid);
-    load_tile(v_s, vb, v_ss, k0, Skv, tid);
-    __syncthreads();
-
-    // S = Q K^T for 16 rows x 64 keys per warp: 8 n-tiles of 8 keys
-    float s[kBKV / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBKV / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const __nv_bfloat16* kr = k_s + (n * 8 + g) * kLds + kk * 16 + t * 2;
-        mma_16816(s[n], qa[kk], ld32(kr), ld32(kr + 8));
+  long long qmin = flash::kFar, qmax = -flash::kFar;
+  for (int w = 0; w < kThreads / 32; ++w) {
+    qmin = min(qmin, (long long)red[w]);
+    qmax = max(qmax, (long long)red[9 + w]);
+  }
+  // which kv tiles the q tile can see: one warp per tile
+  for (int t = warp; t < nt; t += kThreads / 32) {
+    int lo = flash::kFar, hi = -flash::kFar;
+    for (int j = lane; j < kBKV; j += 32) {
+      const int k = t * kBKV + j;
+      if (k < Skv) {
+        const int p = kpos[k];
+        lo = min(lo, p);
+        hi = max(hi, p);
       }
     }
-
-    // mask, row max, online-softmax update (rows r0: e = 0,1; r0+8: e = 2,3)
-    uint32_t vis = 0u;
-    float mx0 = kNeg, mx1 = kNeg;
 #pragma unroll
-    for (int n = 0; n < kBKV / 8; ++n) {
+    for (int off = 16; off > 0; off >>= 1) {
+      lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+    }
+    if (lane == 0) {
+      const bool full = (t + 1) * kBKV <= Skv && hi <= qmin &&
+                        (!has_window || qmax - lo < window);
+      list[t] = !flash::tiles_visible(qmin, qmax, lo, hi, has_window, window)
+                    ? -1
+                    : t | (full ? kFullTile : 0);
+    }
+  }
+  __syncthreads();
+  if (tid == 0) {  // compact in place: the visible tiles in order
+    int n = 0;
+    for (int t = 0; t < nt; ++t)
+      if (list[t] >= 0) list[n++] = list[t];
+    red[18] = n;
+  }
+  __syncthreads();
+  const int n_vis = red[18];
+
+  if (warp == kConsumers / 32) {
+    // ---------------------------------------------------- producer warp
+    if (lane == 0) {
+      const Axes qa = unpack_axes(q_axes), ka = unpack_axes(k_axes),
+                 va = unpack_axes(v_axes);
+      hopper::mbar_expect_tx(qbar, kBQ * HD * 2);
+      load_rows(q_s, &qmap, qbar, qa, q0, h, b);
+      for (int i = 0; i < n_vis; ++i) {
+        const int s = i % kStages;
+        if (i >= kStages) hopper::mbar_wait(&empty[s], (i / kStages - 1) & 1);
+        hopper::mbar_expect_tx(&full[s], 2 * kTile);
+        const int k0 = (list[i] & ~kFullTile) * kBKV;
+        load_rows(k_s + s * kTile, &kmap, &full[s], ka, k0, kh, b);
+        load_rows(v_s + s * kTile, &vmap, &full[s], va, k0, kh, b);
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------ consumer warpgroups
+  const int wg = tid / 128, wt = tid % 128, wi = wt / 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row0 = q0 + wg * 64 + wi * 16 + g, row1 = row0 + 8;
+  const long long qp0 = row0 < Sq ? qpos[row0] : -flash::kFar;
+  const long long qp1 = row1 < Sq ? qpos[row1] : -flash::kFar;
+
+  float m0 = flash::kNeg, m1 = flash::kNeg, l0 = 0.0f, l1 = 0.0f;
+  float o[32], sc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.0f;
+
+  hopper::mbar_wait(qbar, 0);
+  const uint64_t dq = hopper::desc_sw128(q_s + wg * 64 * HD * 2);
+
+  for (int i = 0; i < n_vis; ++i) {
+    const int s = i % kStages, entry = list[i];
+    const int k0 = (entry & ~kFullTile) * kBKV;
+    // the masks of a tile on the diagonal or the window's edge, from the
+    // runtime positions, read while the tile lands
+    uint32_t vis = 0xFFFFFFFFu;
+    if (!(entry & kFullTile)) {
+      vis = 0u;
+#pragma unroll
+      for (int j = 0; j < kBKV / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int k = k0 + j * 8 + t4 * 2 + e;
+          const long long kp = k < Skv ? kpos[k] : flash::kFar;
+          if (flash::visible_pos(qp0, kp, has_window, window))
+            vis |= 1u << (j * 4 + e);
+          if (flash::visible_pos(qp1, kp, has_window, window))
+            vis |= 1u << (j * 4 + 2 + e);
+        }
+      }
+    }
+    hopper::mbar_wait(&full[s], (i / kStages) & 1);
+
+    // S = Q K^T: 64 rows x 64 keys per warpgroup
+    const uint64_t dk = hopper::desc_sw128(k_s + s * kTile);
+    hopper::wgmma_fence();
+    hopper::fence_regs(sc);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      hopper::wgmma_m64n64_ss<0>(sc, dq + 2 * kk, dk + 2 * kk, kk > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+
+    // row max and online-softmax update over the visible scores (element
+    // 4 j + e: row r0 for e < 2, r0 + 8 otherwise; key 8 j + 2 t + (e & 1))
+    float mx0 = flash::kNeg, mx1 = flash::kNeg;
+#pragma unroll
+    for (int j = 0; j < kBKV / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const long long kp = kp_s[n * 8 + t * 2 + (e & 1)];
-        if (visible_pos(e < 2 ? qp0 : qp1, kp, has_window, window)) {
-          vis |= 1u << (n * 4 + e);
-          if (e < 2) mx0 = fmaxf(mx0, s[n][e]);
-          else mx1 = fmaxf(mx1, s[n][e]);
-        }
+        if (!((vis >> (j * 4 + e)) & 1u)) continue;
+        if (e < 2) mx0 = fmaxf(mx0, sc[j * 4 + e]);
+        else mx1 = fmaxf(mx1, sc[j * 4 + e]);
       }
     }
 #pragma unroll
@@ -115,15 +261,20 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
     }
     const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float corr0 = expf(m0 - mn0), corr1 = expf(m1 - mn1);
+    const float b0 = mn0 * kLog2e, b1 = mn1 * kLog2e;
+    // (not an fma: m0 = mn0 = -1e30 must give exactly 1)
+    const float corr0 = exp2_approx((m0 - mn0) * kLog2e);
+    const float corr1 = exp2_approx((m1 - mn1) * kLog2e);
     float sum0 = 0.0f, sum1 = 0.0f;
 #pragma unroll
-    for (int n = 0; n < kBKV / 8; ++n) {
+    for (int j = 0; j < kBKV / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const bool on = (vis >> (n * 4 + e)) & 1u;
-        const float p = on ? expf(s[n][e] - (e < 2 ? mn0 : mn1)) : 0.0f;
-        s[n][e] = p;
+        const bool on = (vis >> (j * 4 + e)) & 1u;
+        const float p =
+            on ? exp2_approx(fmaf(sc[j * 4 + e], kLog2e, e < 2 ? -b0 : -b1))
+               : 0.0f;
+        sc[j * 4 + e] = p;
         if (e < 2) sum0 += p;
         else sum1 += p;
       }
@@ -138,45 +289,44 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     m0 = mn0;
     m1 = mn1;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      acc[n][0] *= corr0;
-      acc[n][1] *= corr0;
-      acc[n][2] *= corr1;
-      acc[n][3] *= corr1;
+    for (int j = 0; j < HD / 8; ++j) {
+      o[j * 4] *= corr0;
+      o[j * 4 + 1] *= corr0;
+      o[j * 4 + 2] *= corr1;
+      o[j * 4 + 3] *= corr1;
     }
 
-    // O += P V: P (bf16) from the S accumulators as A fragments
+    // O += P V: P (bf16) from the S accumulators as A fragments, V MN-major
+    uint32_t pa[kBKV / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kBKV / 16; ++kk) {
-      uint32_t pa[4];
-      acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-      const __nv_bfloat16* vr = v_s + (kk * 16 + t * 2) * kLds + g;
+    for (int kk = 0; kk < kBKV / 16; ++kk)
+      flash::acc_to_a(pa[kk], &sc[kk * 8], &sc[kk * 8 + 4]);
+    const uint64_t dv = hopper::desc_sw128(v_s + s * kTile);
+    hopper::wgmma_fence();
+    hopper::fence_regs(o);
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const __nv_bfloat16* c = vr + n * 8;
-        mma_16816(acc[n], pa, pack_bf16(c[0], c[kLds]),
-                  pack_bf16(c[8 * kLds], c[9 * kLds]));
-      }
-    }
+    for (int kk = 0; kk < kBKV / 16; ++kk)
+      hopper::wgmma_m64n64_rs<1>(o, pa[kk], dv + 128 * kk, 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o);
+    hopper::mbar_arrive(&empty[s]);
   }
 
-  // out = acc / max(l, 1e-30); rows past Sq are not written
+  // out = o / max(l, 1e-30); rows past Sq are not written
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-  const int row0 = q0 + r0, row1 = q0 + r0 + 8;
   float* ob = out + b * o_sb + h * o_sh;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int col = n * 8 + t * 2;
-    if (row0 < Sq) {
-      ob[row0 * o_ss + col] = acc[n][0] / d0;
-      ob[row0 * o_ss + col + 1] = acc[n][1] / d0;
-    }
-    if (row1 < Sq) {
-      ob[row1 * o_ss + col] = acc[n][2] / d1;
-      ob[row1 * o_ss + col + 1] = acc[n][3] / d1;
-    }
+  for (int j = 0; j < HD / 8; ++j) {
+    const int col = j * 8 + t4 * 2;
+    if (row0 < Sq)
+      *reinterpret_cast<float2*>(ob + row0 * o_ss + col) =
+          make_float2(o[j * 4] / d0, o[j * 4 + 1] / d0);
+    if (row1 < Sq)
+      *reinterpret_cast<float2*>(ob + row1 * o_ss + col) =
+          make_float2(o[j * 4 + 2] / d1, o[j * 4 + 3] / d1);
   }
-  if (t == 0) {
+  if (t4 == 0) {
     const long long base = ((long long)b * H + h) * Sq;
     if (row0 < Sq) {
       m_out[base + row0] = m0;
@@ -189,12 +339,44 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   }
 }
 
+// A 4-D tensor map of a (B, S, heads, HD) bf16 view given by element
+// strides: dim 0 is the contiguous head axis, dims 1..3 the sequence, head
+// and batch axes in increasing stride order.  Box: `rows` positions of one
+// head of one batch row.  Returns the Axes code, or -1.
+int map_bshd(CUtensorMap* map, const void* base, int hd, int S, int heads,
+             int B, long long ss, long long sh, long long sb, int rows) {
+  struct Ax {
+    uint64_t n, stride;
+    uint32_t box;
+    int which;
+  } ax[3] = {{(uint64_t)S, 2ull * ss, (uint32_t)rows, 0},
+             {(uint64_t)heads, 2ull * sh, 1u, 1},
+             {(uint64_t)B, 2ull * sb, 1u, 2}};
+  for (int i = 1; i < 3; ++i)  // stable insertion sort by stride
+    for (int j = i; j > 0 && ax[j].stride < ax[j - 1].stride; --j) {
+      const Ax t = ax[j];
+      ax[j] = ax[j - 1];
+      ax[j - 1] = t;
+    }
+  const uint64_t dims[4] = {(uint64_t)hd, ax[0].n, ax[1].n, ax[2].n};
+  const uint64_t strides[3] = {ax[0].stride, ax[1].stride, ax[2].stride};
+  const uint32_t box[4] = {(uint32_t)hd, ax[0].box, ax[1].box, ax[2].box};
+  if (!hopper::make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims,
+                        strides, box, CU_TENSOR_MAP_SWIZZLE_128B))
+    return -1;
+  int pos[3];
+  for (int i = 0; i < 3; ++i) pos[ax[i].which] = i + 1;
+  return pos[0] | (pos[1] << 2) | (pos[2] << 4);
+}
+
 }  // namespace
 
 // q (B, H, Sq, D), k / v (B, KH, Skv, D) bf16 given by pointer and element
-// strides (batch, head, sequence; the last axis is contiguous, rows 16-byte
-// aligned); qpos (Sq,), kpos (Skv,) int32; out (B, H, Sq, D) fp32 by
-// strides; m / l (B, H, Sq) fp32 contiguous.  Returns cudaGetLastError().
+// strides (batch, head, sequence; the last axis is contiguous, strides
+// multiples of 8, bases 16-byte aligned); qpos (Sq,), kpos (Skv,) int32;
+// out (B, H, Sq, D) fp32 by strides; m / l (B, H, Sq) fp32 contiguous.
+// Returns cudaGetLastError() (cudaErrorInvalidValue for a shape or layout
+// the kernel does not take).
 extern "C" int flash_fwd_bf16(
     const void* q, const void* k, const void* v, const void* qpos,
     const void* kpos, void* out, void* m, void* l, int B, int H, int KH,
@@ -202,17 +384,28 @@ extern "C" int flash_fwd_bf16(
     long long k_sb, long long k_sh, long long k_ss, long long v_sb,
     long long v_sh, long long v_ss, long long o_sb, long long o_sh,
     long long o_ss, int has_window, int window, void* stream) {
+  constexpr int HD = 64;
   if (B <= 0 || H <= 0 || KH <= 0 || H % KH || Sq <= 0 || Skv <= 0 ||
-      B > 65535 || H > 65535)
+      (long long)B * H > 0x7fffffffLL || (Sq + kBQ - 1) / kBQ > 65535)
     return (int)cudaErrorInvalidValue;
-  dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(qpos),
+  CUtensorMap qm, km, vm;
+  const int qa = map_bshd(&qm, q, HD, Sq, H, B, q_ss, q_sh, q_sb, kBQ);
+  const int ka = map_bshd(&km, k, HD, Skv, KH, B, k_ss, k_sh, k_sb, kBKV);
+  const int va = map_bshd(&vm, v, HD, Skv, KH, B, v_ss, v_sh, v_sb, kBKV);
+  if (qa < 0 || ka < 0 || va < 0) return (int)cudaErrorInvalidValue;
+  const int nt = (Skv + kBKV - 1) / kBKV;
+  const int smem = 1024 + kBQ * HD * 2 + 2 * kStages * kBKV * HD * 2 +
+                   (1 + 2 * kStages) * 8 + 20 * 4 + nt * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
+  flash_fwd_kernel<HD><<<grid, kThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      qm, km, vm, qa, ka, va, static_cast<const int*>(qpos),
       static_cast<const int*>(kpos), static_cast<float*>(out),
-      static_cast<float*>(m), static_cast<float*>(l), H, KH, Sq, Skv, q_sb,
-      q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
-      has_window, window);
+      static_cast<float*>(m), static_cast<float*>(l), H, KH, Sq, Skv, o_sb,
+      o_sh, o_ss, has_window, window);
   return (int)cudaGetLastError();
 }

@@ -19,8 +19,9 @@ def wq_matmul(x: torch.Tensor, w) -> torch.Tensor:
     """``x @ w`` for a :class:`~repro_torch.wq.packed.PackedLinear` ``w``.
 
     ``x``: (..., d_in) activations; returns (..., d_out) in ``x.dtype``
-    (fp32 accumulation on both paths).  A stacked store must be sliced to
-    its 2-D per-layer form first (the stack executor does).
+    (fp32 accumulation on both paths, rounded once to ``x.dtype``).  A
+    stacked store must be sliced to its 2-D per-layer form first (the
+    stack executor does).
     """
     if w.codes.ndim != 2:
         raise ValueError(
@@ -28,12 +29,16 @@ def wq_matmul(x: torch.Tensor, w) -> torch.Tensor:
             f"(codes ndim {w.codes.ndim}) to one layer first")
     if x.shape[-1] != w.d_in:
         raise ValueError(f"x feature dim {x.shape[-1]} != d_in {w.d_in}")
-    if w.perm is not None:
-        # act-order: gather the activations into the storage channel order
-        x = torch.index_select(x, -1, w.perm)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, w.d_in).contiguous()
-    matmul = wq_matmul_kernel if x2.is_cuda else wq_matmul_ref
-    y = matmul(x2, w.codes, w.scales, w.mins, bits=w.bits, group=w.group,
-               d_in=w.d_in)
-    return y.reshape(lead + (w.d_out,)).to(x.dtype)
+    kw = dict(bits=w.bits, group=w.group, d_in=w.d_in)
+    if x2.is_cuda:
+        # K12 reads the act-order gather itself and writes x.dtype
+        y = wq_matmul_kernel(x2, w.codes, w.scales, w.mins, perm=w.perm,
+                             **kw)
+    else:
+        if w.perm is not None:
+            # act-order: gather the activations into the storage order
+            x2 = torch.index_select(x2, -1, w.perm)
+        y = wq_matmul_ref(x2, w.codes, w.scales, w.mins, **kw).to(x.dtype)
+    return y.reshape(lead + (w.d_out,))

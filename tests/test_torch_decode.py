@@ -1,8 +1,9 @@
 """The port's static serve path and int8 KV cache against the JAX
 reference, on the CPU: ``quantize_kv_token``, the plain versions of the
 decode kernels K6 (ring), K7 (int8 ring) and K9 (int8 paged), the ring
-decode layer, ``decode_step``, ``generate``, the int8 ``ServeEngine`` and
-the ``serve_batched`` launcher.
+decode layer, ``decode_step``, ``generate``, the int8 ``ServeEngine``, the
+``serve_batched`` launcher, and how far bf16 moves a decode step through
+the 2-bit cut in each package.
 
 Tolerances: 1e-5 absolute on attention outputs (fp32, sums in another
 order); codes, scales and tokens exact.
@@ -19,6 +20,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro.configs import get_config  # noqa: E402
+from repro.core.quantizers import rdfsq as jrdfsq  # noqa: E402
 from repro.kernels import attention_ref as jref  # noqa: E402
 from repro.kernels import decode_kernel  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
@@ -27,6 +29,7 @@ from repro.serve import decode as jsd  # noqa: E402
 from repro.serve.engine import ServeEngine as JaxServeEngine  # noqa: E402
 from repro_torch.bridge import from_jax_params  # noqa: E402
 from repro_torch.configs import get_config as torch_get_config  # noqa: E402
+from repro_torch.core.quantizers import rdfsq as trdfsq  # noqa: E402
 from repro_torch.kernels import attention_ops as tops  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
 from repro_torch.models.layers import attention as tattn  # noqa: E402
@@ -533,3 +536,118 @@ def test_serve_batched_weight_quant_raises(capsys):
     text = capsys.readouterr().out
     assert "engine: 2 requests" in text
     assert "int4 weights:" in text and "B packed vs" in text
+
+
+# ---------------------------------------------------------------------------
+# bf16 through the 2-bit cut: the reference's own departure
+# ---------------------------------------------------------------------------
+
+CUT_ROWS = 16  # 2 rows give one-sample ratios of 0.45 - 2.25
+
+
+def _bf16_tree(tree):
+    return jax.tree_util.tree_map(
+        lambda a: a.astype(jnp.bfloat16)
+        if jnp.issubdtype(a.dtype, jnp.floating) else a, tree)
+
+
+def _rel(a, b):
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+@pytest.fixture(scope="module")
+def cut_runs():
+    """One teacher-forced decode step after a prefill, in bf16 and in fp32,
+    in both packages, with the 2-bit cut off and on (tinyllava.reduced(),
+    the cut after layer 1).  The step's token is the fp32 reference's pick
+    on every run.  Returns per cut: the relative L2 departure of each
+    package's bf16 step logits from its own fp32 ones, and with the cut on
+    the RD-FSQ codes of the decode token's rows in each run."""
+    rng = np.random.default_rng(11)
+    n_tok = 9
+    img = rng.normal(size=(CUT_ROWS, CFG.n_image_tokens, CFG.d_vision)
+                     ).astype(np.float32)
+    toks = rng.integers(1, CFG.vocab_size, (CUT_ROWS, n_tok)).astype(
+        np.int32)
+    jp32 = jtf.init_params(jax.random.PRNGKey(0), CFG)
+    jp = {"float32": jp32, "bfloat16": _bf16_tree(jp32)}
+    tp = {k: from_jax_params(v, "cpu") for k, v in jp.items()}
+    n = CFG.n_image_tokens + n_tok
+    codes = {"j": [], "t": []}
+    quant = {"j": jrdfsq._quantize, "t": trdfsq._quantize}
+
+    def hook(pkg):
+        def quantize(cfg, x):
+            out = quant[pkg](cfg, x)
+            codes[pkg].append(out[2])
+            return out
+        return quantize
+
+    jrdfsq._quantize, trdfsq._quantize = hook("j"), hook("t")
+    try:
+        out = {}
+        for cut in (False, True):
+            logits, rows, tok = {}, {}, None
+            for dt in ("float32", "bfloat16"):
+                split = dataclasses.replace(CFG.split, enabled=cut)
+                jc = dataclasses.replace(CFG, param_dtype=dt,
+                                         compute_dtype=dt, split=split)
+                tc = dataclasses.replace(TCFG, param_dtype=dt,
+                                         compute_dtype=dt, split=split)
+                jl, jcache = jsd.prefill(jp[dt], jc, dict(
+                    tokens=jnp.asarray(toks), image_embeds=jnp.asarray(img)),
+                    n + 1)
+                tl, tcache = tsd.prefill(tp[dt], tc, dict(
+                    tokens=_t(toks), image_embeds=_t(img)), n + 1)
+                if tok is None:  # the fp32 reference's picks
+                    tok = np.asarray(jnp.argmax(jl[:, -1], -1), np.int32)
+                codes["j"].clear()
+                codes["t"].clear()
+                jl, _ = jsd.make_serve_step(jc)(
+                    jp[dt], jcache, dict(tokens=jnp.asarray(tok[:, None])),
+                    jnp.full((CUT_ROWS,), n, jnp.int32))
+                tl, _ = tsd.make_serve_step(tc)(
+                    tp[dt], tcache, dict(tokens=_t(tok[:, None])),
+                    torch.full((CUT_ROWS,), n, dtype=torch.int32))
+                logits[dt] = (np.asarray(jl[:, -1], np.float32),
+                              tl[:, -1].float().numpy())
+                rows[dt] = {k: [np.asarray(c) for c in v]
+                            for k, v in codes.items()}
+            out[cut] = dict(
+                ref=_rel(logits["bfloat16"][0], logits["float32"][0]),
+                port=_rel(logits["bfloat16"][1], logits["float32"][1]),
+                fp32=_rel(logits["float32"][1], logits["float32"][0]),
+                codes=rows)
+        return out
+    finally:
+        jrdfsq._quantize, trdfsq._quantize = quant["j"], quant["t"]
+
+
+def test_bf16_cut_departure_is_the_reference_s(cut_runs):
+    """bf16 against fp32 for one decode step.  With the cut off both
+    packages stay near 1e-2; with it on, each departs several times more
+    and the port within a factor 2 of the reference: the amplification is
+    the reference's own, not a fault of the port (the reason
+    ``chip_smoke.py``'s decode parity check runs with the cut off)."""
+    off, on = cut_runs[False], cut_runs[True]
+    assert off["fp32"] < 1e-5 and on["fp32"] < 1e-5
+    assert off["port"] < 3e-2 and off["ref"] < 3e-2
+    assert 0.5 <= on["port"] / on["ref"] <= 2.0
+    assert on["port"] > off["port"] and on["ref"] > off["ref"]
+
+
+def test_bf16_cut_code_flips_match_reference(cut_runs):
+    """The code-level count behind the departure: the share of the decode
+    token's 2-bit RD-FSQ codes that bf16 moves from their fp32 level, in
+    each package.  The fp32 codes of the two packages are equal; bf16
+    flips a share of them in both, the two shares within a factor 2."""
+    rows = cut_runs[True]["codes"]
+    flips = {}
+    for pkg in ("j", "t"):
+        (c32,), (c16,) = rows["float32"][pkg], rows["bfloat16"][pkg]
+        assert c32.shape[:2] == (CUT_ROWS, 1) and c16.shape == c32.shape
+        flips[pkg] = float(np.mean(c16 != c32))
+    np.testing.assert_array_equal(rows["float32"]["t"][0],
+                                  rows["float32"]["j"][0])
+    assert flips["j"] > 0 and flips["t"] > 0
+    assert 0.5 <= flips["t"] / flips["j"] <= 2.0

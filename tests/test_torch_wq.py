@@ -31,6 +31,7 @@ from repro_torch.checkpoint import ckpt  # noqa: E402
 from repro_torch.configs import get_config as torch_get_config  # noqa: E402
 from repro_torch.data.pipeline import make_pipeline  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels import wq_ops  # noqa: E402
 from repro_torch.kernels.wq_ops import wq_matmul_kernel  # noqa: E402
 from repro_torch.models import stack  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
@@ -199,11 +200,106 @@ def test_matmul_rejects_stacked_and_mismatched():
 
 
 def test_kernel_wrapper_takes_cuda_tensors_only():
+    """The wrapper launches or raises: CPU operands, and a perm of the wrong
+    dtype, length or device, are refused before any launch."""
     store = wq.rtn_quantize(torch.from_numpy(_normal(0, (64, 32))),
                             wq.WqConfig(bits=4, group=32))
+    args = (torch.zeros((3, 64)), store.codes, store.scales, store.mins)
+    kw = dict(bits=4, group=32, d_in=64)
     with pytest.raises(ValueError, match="CUDA"):
-        wq_matmul_kernel(torch.zeros((3, 64)), store.codes, store.scales,
-                         store.mins, bits=4, group=32, d_in=64)
+        wq_matmul_kernel(*args, **kw)
+    perm = torch.randperm(64, generator=torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="CUDA"):
+        wq_matmul_kernel(*args, perm=perm.int(), **kw)
+    with pytest.raises(ValueError, match="perm"):
+        wq_matmul_kernel(*args, perm=perm, **kw)  # int64
+    with pytest.raises(ValueError, match="perm"):
+        wq_matmul_kernel(*args, perm=perm[:63].int(), **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        wq_matmul_kernel(*args, perm=perm.int().to("meta"), **kw)
+
+
+# the serve path's K12 sites (d_in, d_out) and ragged shapes
+K12_SHAPES = [(1280, 1280), (1280, 320), (1280, 3456), (3456, 1280),
+              (100, 130), (1216, 336), (8, 16), (10000, 64)]
+
+
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 1024, 4096])
+@pytest.mark.parametrize("d_in,d_out", K12_SHAPES)
+def test_k12_variant_by_m(m, d_in, d_out):
+    """The split-K GEMV up to 16 rows; above that the TMA + wgmma kernel
+    wherever the tensor maps can describe the operands (d_in a multiple
+    of 64, d_out of 16), the GEMV elsewhere."""
+    want = "wgmma" if m > 16 and d_in % 64 == 0 and d_out % 16 == 0 \
+        else "gemv"
+    assert wq_ops.variant(m, d_in, d_out) == want
+
+
+@pytest.mark.parametrize("m", [1, 4, 16, 40])
+@pytest.mark.parametrize("d_in,d_out", K12_SHAPES)
+def test_gemv_plan_covers_k_exactly(m, d_in, d_out):
+    """The GEMV's grid: every column and row chunk has a cluster; the
+    blocks of a cluster and the warps of a block take k16 steps that
+    cover ceil(d_in / 16) exactly once, every block at least one; the
+    launcher's own conditions hold."""
+    tiles, chunks, splits, sps, spw = wq_ops.gemv_plan(m, d_in, d_out)
+    steps = -(-d_in // 16)
+    assert tiles * wq_ops.GEMV_COLS >= d_out > (tiles - 1) * wq_ops.GEMV_COLS
+    assert chunks * wq_ops.GEMV_ROWS >= m > (chunks - 1) * wq_ops.GEMV_ROWS
+    assert 1 <= splits <= wq_ops.GEMV_MAX_SPLITS
+    assert splits * sps >= steps and wq_ops.GEMV_WARPS * spw >= sps
+    seen = []
+    for ks in range(splits):
+        assert ks * sps < steps  # no empty block
+        for w in range(wq_ops.GEMV_WARPS):  # the kernel's loop bounds
+            seen += [ks * sps + st for st in range(w * spw,
+                                                   min((w + 1) * spw, sps))]
+    assert sorted(s for s in seen if s < steps) == list(range(steps))
+    assert len(seen) == len(set(seen))
+
+
+@pytest.mark.parametrize("d_in,d_out", K12_SHAPES[:4])
+def test_gemv_shared_memory_fits(d_in, d_out):
+    """A GEMV block's shared memory (its K slice of the store, of x's 16
+    rows, and the warps' sums) fits the 227 KB at every serve site."""
+    for bits, group in ((4, 128), (3, 128), (2, 64), (4, 8)):
+        need = wq_ops.gemv_smem_bytes(16, d_in, d_out, bits, group)
+        _, _, _, sps, _ = wq_ops.gemv_plan(16, d_in, d_out)
+        assert sps * 2 * bits * wq_ops.GEMV_COLS < need \
+            <= wq_ops.GEMV_SMEM_MAX
+
+
+@pytest.mark.parametrize("m,d_out,want", [
+    (4096, 3456, 256), (4096, 1280, 256), (4096, 320, 128),
+    (1024, 3456, 256), (1024, 1280, 128), (1024, 320, 64), (17, 3456, 64)])
+def test_wgmma_tokens_fill_the_card(m, d_out, want):
+    """The largest block of x's rows that still keeps the 132 SMs busy:
+    256 rows (one block per SM) for three quarters of them, 128 (two per
+    SM) for half, else 64."""
+    assert wq_ops.wgmma_tokens(m, d_out) == want
+
+
+@pytest.mark.parametrize("act_order", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wq_matmul_returns_x_dtype(dtype, act_order):
+    """``wq_matmul`` returns x's dtype: the plain K12's fp32 sum on the
+    act-order gather of x, rounded once to x's dtype."""
+    d_in, d_out = 128, 96
+    xs = _normal(1, (256, d_in))
+    store = wq.gptq_quantize(torch.from_numpy(_normal(0, (d_in, d_out), 0.3)),
+                             xs.T @ xs,
+                             wq.WqConfig(bits=4, group=32,
+                                         act_order=act_order))
+    assert (store.perm is not None) == act_order
+    x = torch.from_numpy(_normal(2, (2, 5, d_in))).to(dtype)
+    y = wq.wq_matmul(x, store)
+    x2 = x.reshape(-1, d_in)
+    if act_order:
+        x2 = torch.index_select(x2, -1, store.perm)
+    plain = tref.wq_matmul_ref(x2, store.codes, store.scales, store.mins,
+                               bits=4, group=32, d_in=d_in)
+    assert y.dtype == dtype and y.shape == (2, 5, d_out)
+    assert torch.equal(y, plain.to(dtype).reshape(2, 5, d_out))
 
 
 # ---------------------------------------------------------------------------
