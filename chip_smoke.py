@@ -17,10 +17,13 @@ non-zero:
               PyTorch versions on the card, at the main paths' shapes plus
               edge cases; time each (CUDA events, median), its plain
               version and, where one PyTorch call computes the same
-              function, that call.  K1 against SDPA and K12 against cuBLAS
-              on the dense bf16 weight (at M 4, 1 024 and 4 096, the M 4
-              stores in rotation past the L2) are timed as device time,
-              replayed from a CUDA graph, with the eager times beside.
+              function, that call.  K1 against SDPA, K2 / K3 against
+              SDPA's backward (autograd.grad, its backend pinned and named)
+              and K12 against cuBLAS on the dense bf16 weight (at M 4,
+              1 024 and 4 096, the M 4 stores in rotation past the L2) are
+              timed as device time, replayed from a CUDA graph, with the
+              eager times beside.  K2 / K3 also run twice on the training
+              shape and must give the same bits.
 3. serve   -- full-width tinyllava (16 layers, d 1280, bf16, random weights
               from a seed) behind ServeEngine with the 2-bit RD-FSQ split
               wire: 8 requests through 4 slots until all finish.  Launch
@@ -168,20 +171,22 @@ def time_ms(fn, reps: int = 15, inner: int = 5) -> float:
     return statistics.median(times)
 
 
-def time_graph_ms(fn, calls: int, reps: int = 15) -> float:
+def time_graph_ms(fn, calls: int, reps: int = 15, stream=None) -> float:
     """Device time per call: ``calls`` calls of ``fn`` captured in one CUDA
     graph, replayed ``reps`` times (median, CUDA events).  Without the host's
-    launch overhead, which sets the eager time of a call of a few us."""
+    launch overhead, which sets the eager time of a call of a few us.
+    ``stream``: the stream to warm up and capture on (a fresh side stream by
+    default); an autograd backward is captured on its forward's stream."""
     import torch
 
-    side = torch.cuda.Stream()
+    side = torch.cuda.Stream() if stream is None else stream
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(2):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(calls):
             fn()
     graph.replay()
@@ -345,6 +350,10 @@ def check_flash_bwd(gen, results):
             _flash_case(gen, 2, 777, 20, 5, kv_valid_len=700),
         "window 256": _flash_case(gen, 1, 1024, 20, 5, window=256),
         "ragged tiles S100": _flash_case(gen, 1, 100, 20, 5),
+        "G 1 (16 / 16 heads) B2 S512": _flash_case(gen, 2, 512, 16, 16),
+        "G 3 (24 / 8 heads) B2 S1000": _flash_case(gen, 2, 1000, 24, 8),
+        "G 16 (32 / 2 heads: clusters of 8, 2 heads a block) B1 S1024":
+            _flash_case(gen, 1, 1024, 32, 2),
     }
     worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     for name, (q, k, v, qpos, kpos, window) in cases.items():
@@ -377,26 +386,70 @@ def check_flash_bwd(gen, results):
     q, k, v, go, m, l, di, qpos, kpos = args
     b, h, sq, d = q.shape
     kh, skv = k.shape[1], k.shape[2]
+    # run to run: no sum uses atomics, so the same bits
+    dq = attention_ops.flash_backward_dq(*args)
+    dk, dv = attention_ops.flash_backward_dkv(*args)
+    dq2 = attention_ops.flash_backward_dq(*args)
+    dk2, dv2 = attention_ops.flash_backward_dkv(*args)
+    torch.cuda.synchronize()
+    same = {n: bool(torch.equal(a, a2)) for n, a, a2 in
+            (("dq", dq, dq2), ("dk", dk, dk2), ("dv", dv, dv2))}
+    print(f"[kernels] K2/K3 flash_bwd train shape, two runs bitwise equal: "
+          f"{same}")
+    require(all(same.values()), f"K2/K3 not deterministic: {same}")
+
     plain_ms = time_ms(lambda: attention_ref.flash_backward_ref(*args),
                        reps=5, inner=1)
-    # the yardstick: SDPA's backward (K2 + K3 together) on a saved graph
-    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
-    o = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
-                                       enable_gqa=True, scale=1.0)
-    lib_ms = time_ms(lambda: torch.autograd.grad(o, (qr, kr, vr), go,
-                                                 retain_graph=True))
+
+    def k2():
+        attention_ops.flash_backward_dq(*args)
+
+    def k3():
+        attention_ops.flash_backward_dkv(*args)
+
+    ms2, ms3 = time_graph_ms(k2, 8), time_graph_ms(k3, 8)
+    # the yardstick: SDPA's backward (K2 + K3 together) by graph replay too,
+    # under each backend that serves bf16, causal, enable_gqa, pinned; the
+    # faster is the library time.  The backward runs on its forward's
+    # stream, so both go on the capture stream.
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    lib = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+        with torch.cuda.stream(side), sdpa_kernel([backend]):
+            o = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
+                                               enable_gqa=True, scale=1.0)
+
+        def sdpa_bwd(o=o, inputs=(qr, kr, vr)):
+            torch.autograd.grad(o, inputs, go, retain_graph=True)
+
+        lib[backend.name] = (time_graph_ms(sdpa_bwd, 8, stream=side),
+                             time_ms(sdpa_bwd))
+    name = min(lib, key=lambda n: lib[n][0])
+    lib_ms = lib[name][0]
+    dq_plan, dkv_plan = attention_ops.flash_bwd_plan(b, h, kh, sq, skv)
+    print(f"[kernels] K2/K3 flash_bwd train shape: device K2 {ms2:.4f} + K3 "
+          f"{ms3:.4f} = {ms2 + ms3:.4f} ms (K2 {len(dq_plan.heads[0])} heads "
+          f"a block, K3 clusters of {dkv_plan.cluster} x "
+          f"{len(dkv_plan.heads[0])} heads), SDPA backward " + ", ".join(
+              f"{n} {t:.4f} ms" for n, (t, _) in lib.items())
+          + f"; library: {name} (K2+K3 / SDPA {(ms2 + ms3) / lib_ms:.2f}); "
+          f"eager K2 {time_ms(k2):.4f}, K3 {time_ms(k3):.4f} ms, SDPA "
+          "backward " + ", ".join(f"{n} {e:.4f} ms"
+                                  for n, (_, e) in lib.items()))
     pairs = b * h * _visible_pairs(qpos, kpos)
     prod = 2 * pairs * d  # FLOPs of one (Sq x Skv x D) product, causal
     n_in = (q.numel() + k.numel() + v.numel() + go.numel()) * 2 \
         + 3 * b * h * sq * 4  # bf16 operands, fp32 m, l, di
     results["flash_bwd_dq"] = dict(
-        max_abs_err=worst["flash_bwd_dq"],
-        ms=time_ms(lambda: attention_ops.flash_backward_dq(*args)),
+        max_abs_err=worst["flash_bwd_dq"], ms=ms2,
         plain_ms=plain_ms, library_ms=lib_ms,
         bound=bound(n_in + q.numel() * 4, 3 * prod))
     results["flash_bwd_dkv"] = dict(
-        max_abs_err=worst["flash_bwd_dkv"],
-        ms=time_ms(lambda: attention_ops.flash_backward_dkv(*args)),
+        max_abs_err=worst["flash_bwd_dkv"], ms=ms3,
         plain_ms=plain_ms, library_ms=lib_ms,
         bound=bound(n_in + 2 * b * kh * skv * d * 4, 4 * prod))
 

@@ -15,7 +15,8 @@ the decode kernels here take any length.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -116,6 +117,77 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, m, l
 
 
+# K2 / K3 launch geometry (csrc/flash_bwd.cu): K2 takes q tiles of 128
+# rows against kv tiles of 64 keys, K3 kv tiles of 128 keys against q tiles
+# of 64 rows; both keep a ring of 3 stages
+BWD_DQ_ROWS, BWD_DQ_KEYS = 128, 64
+BWD_DKV_KEYS, BWD_DKV_ROWS = 128, 64
+BWD_STAGES = 3
+BWD_MAX_CLUSTER = 8  # portable thread block cluster size
+SMS = 132  # the H100 SXM's streaming multiprocessors
+SMEM_MAX = 232448  # dynamic shared memory a block may use on the H100
+
+
+class LaunchPlan(NamedTuple):
+    """One kernel's launch: ``grid`` (x, y); blocks in clusters of
+    ``cluster`` along x; ``tiles[y]`` the tile that grid row y takes (in
+    launch order, longest first); ``heads[r]`` the heads of its GQA group
+    that cluster rank r sweeps, in order, relative to the block's first;
+    ``smem`` the dynamic shared-memory bytes of a block."""
+    grid: Tuple[int, int]
+    cluster: int
+    tiles: Tuple[int, ...]
+    heads: Tuple[Tuple[int, ...], ...]
+    smem: int
+
+
+def bwd_heads_per_block(g: int, b: int, h: int, n: int,
+                        max_cluster: Optional[int] = None) -> int:
+    """How many of a group's G query heads one block of K2 / K3 sweeps in
+    turn: the most (a divisor p of G) whose sweep, p n tiles for the longest
+    block (n tiles of 64 positions on the swept axis), stays within the
+    causal work per SM, B H n^2 / (4 SMS) tiles.  More heads per block
+    means fewer blocks paying a block's fixed cost (its visible-tile list,
+    first loads, epilogue); the bound keeps the longest block from setting
+    the kernel's time.  With ``max_cluster`` (K3, whose G / p blocks of a
+    group form a cluster) p is at least G / max_cluster."""
+    divisors = [p for p in range(1, g + 1) if g % p == 0
+                and (max_cluster is None or g // p <= max_cluster)]
+    fits = [p for p in divisors if 4 * SMS * p <= b * h * n]
+    return max(fits) if fits else min(divisors)
+
+
+@functools.lru_cache(maxsize=None)
+def flash_bwd_plan(b: int, h: int, kh: int, sq: int,
+                   skv: int) -> Tuple[LaunchPlan, LaunchPlan]:
+    """(K2, K3) launch plans.  K2: one block per (q tile of 128 rows, run of
+    p heads of one group, batch row), grid (B H / p, q tiles), the last q
+    tile first (causally the longest).  K3: one block per (kv tile of 128
+    keys, run of p query heads, batch row), the G / p blocks of a (kv tile,
+    kv head, batch row) in one cluster; grid (G / p KH B, kv tiles), kv
+    tile 0 (causally the longest) first.  p from ``bwd_heads_per_block``.
+    Shared memory: the tiles (K2: two Q / dO slots), the mbarriers, the
+    list of visible tiles."""
+    g = h // kh
+    nq, nkv = -(-sq // BWD_DQ_ROWS), -(-skv // BWD_DKV_KEYS)
+    tile_q, tile_k = BWD_DQ_ROWS * HEAD_DIM * 2, BWD_DQ_KEYS * HEAD_DIM * 2
+    p = bwd_heads_per_block(g, b, h, -(-skv // BWD_DQ_KEYS))
+    dq = LaunchPlan(
+        grid=(b * h // p, nq), cluster=1, tiles=tuple(range(nq - 1, -1, -1)),
+        heads=(tuple(range(p)),),
+        smem=1024 + 4 * tile_q + 2 * BWD_STAGES * tile_k
+        + (4 + 2 * BWD_STAGES) * 8 + 8 * 4 + -(-skv // BWD_DQ_KEYS) * 4)
+    p = bwd_heads_per_block(g, b, h, -(-sq // BWD_DKV_ROWS), BWD_MAX_CLUSTER)
+    c = g // p
+    ring = (2 * BWD_DKV_KEYS + 2 * BWD_STAGES * BWD_DKV_ROWS) * HEAD_DIM * 2
+    dkv = LaunchPlan(
+        grid=(c * kh * b, nkv), cluster=c, tiles=tuple(range(nkv)),
+        heads=tuple(tuple(range(r * p, (r + 1) * p)) for r in range(c)),
+        smem=1024 + ring + BWD_STAGES * 3 * BWD_DKV_ROWS * 4
+        + (1 + 2 * BWD_STAGES) * 8 + 8 * 4 + -(-sq // BWD_DKV_ROWS) * 4)
+    return dq, dkv
+
+
 def flash_backward_dq(q, k, v, go, m, l, di, qpos, kpos, *,
                       window: Optional[int] = None) -> torch.Tensor:
     """K2.  Operands as ``flash_forward`` plus go (B, H, Sq, Dv) and the
@@ -129,6 +201,7 @@ def flash_backward_dq(q, k, v, go, m, l, di, qpos, kpos, *,
     kh, skv = k.shape[1], k.shape[2]
     qpos, kpos = _check_flash("flash_backward_dq", q, k, v, qpos, kpos, go)
     m, l, di = _row_stats("flash_backward_dq", q, m, l, di)
+    plan = flash_bwd_plan(b, h, kh, sq, skv)[0]
     dq = torch.empty((b, sq, h, HEAD_DIM), dtype=torch.float32,
                      device=q.device).transpose(1, 2)
     has_window, win = _window_args(window)
@@ -139,7 +212,7 @@ def flash_backward_dq(q, k, v, go, m, l, di, qpos, kpos, *,
         kpos.data_ptr(), dq.data_ptr(), b, h, kh, sq, skv,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *go.stride()[:3], *dq.stride()[:3], has_window, win,
-        build.current_stream())
+        plan.grid[1], len(plan.heads[0]), plan.smem, build.current_stream())
     return dq
 
 
@@ -157,6 +230,7 @@ def flash_backward_dkv(q, k, v, go, m, l, di, qpos, kpos, *,
     kh, skv = k.shape[1], k.shape[2]
     qpos, kpos = _check_flash("flash_backward_dkv", q, k, v, qpos, kpos, go)
     m, l, di = _row_stats("flash_backward_dkv", q, m, l, di)
+    plan = flash_bwd_plan(b, h, kh, sq, skv)[1]
     dk = torch.empty((b, skv, kh, HEAD_DIM), dtype=torch.float32,
                      device=q.device).transpose(1, 2)
     dv = torch.empty_like(dk)
@@ -168,7 +242,7 @@ def flash_backward_dkv(q, k, v, go, m, l, di, qpos, kpos, *,
         kpos.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, kh, sq, skv,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *go.stride()[:3], *dk.stride()[:3], *dv.stride()[:3], has_window,
-        win, build.current_stream())
+        win, plan.grid[1], plan.cluster, plan.smem, build.current_stream())
     return dk, dv
 
 

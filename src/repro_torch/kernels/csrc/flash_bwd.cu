@@ -9,327 +9,748 @@
 // with delta = rowsum(dO o O) computed by the wrapper, and never hold an
 // (Sq x Skv) tensor in device memory.  P and dS are rounded to bf16 before
 // their products, as the reference rounds them; masked entries of P are
-// exactly 0 (the port's forward convention, attention_ref.py).
+// exactly 0 (the port's forward convention, attention_ref.py).  Both fold
+// the row statistics into one number per row, lse2 = m log2 e +
+// log2 max(l, 1e-30), so that P = exp2(S log2 e - lse2) costs one fma and
+// one ex2 per score.
 //
-// Bound on the H100 at the training shape (B 4, H 20, KH 5, Sq = Skv =
-// 1024, D 64): operations.  K2 runs three products (S, dP, dQ), K3 four
-// (S, dP, dV, dK), each over the causally visible (q, key) pairs only:
-// about 16 and 21 GFLOP against some 48 and 38 MB of bytes to move.
+// Bound on the H100 at the training shape (B 4, H 20, KH 5, 793 positions
+// padded to Sq = Skv = 1024, D 64): 80 x 314 821 visible (q, key) pairs.
+// K2 runs three products over them (S, dP, dQ; 9.7 GFLOP, 0.0098 ms at
+// 989 TFLOP/s) and moves some 48 MB (0.0144 ms at 3.35 TB/s): bytes.  K3
+// runs four (S^T, dP^T, dV, dK; 12.9 GFLOP, 0.0130 ms) against some 38 MB
+// (0.0113 ms): operations.
 //
-// Design, simple first (no TMA, no wgmma, no double buffering):
-// * K2: one block of four warps per (q tile of 64 rows, head, batch row)
-//   loops over the kv tiles itself, since Hopper has no sequential grid
-//   axis.  Each warp owns 16 query rows; S and dP are mma.sync m16n8k16
-//   accumulators (bf16 operands, fp32 accumulation), dS is formed in those
-//   registers and feeds the A operand of dQ += dS K straight from the
-//   accumulator layout.  dQ stays in fp32 registers and is written once.
-// * K3: one block per (kv tile of 64 rows, kv head, batch row) loops over
-//   the G query heads of its group and every visible q tile, the TPU
-//   kernel's kv-major order (flash_kernel.py:276-281).  Each warp owns 16
-//   key rows and computes the transposed scores S^T = K Q^T and
-//   dP^T = V dO^T, so P^T and dS^T land in the accumulator layout and feed
-//   the A operand of dV += P^T dO and dK += dS^T Q without a trip through
-//   shared memory; m, l and delta are then per column, read per q tile.
-//   dK and dV stay in fp32 registers across the whole loop: no atomics,
-//   and the result is the same from run to run.
-// Both skip tiles that their position extrema make invisible (the
-// reference's _visible), then mask every score with the runtime qpos /
-// kpos, which covers the +-2^30 sentinels, kv_valid_len and the window.
+// Design for Hopper, on K1's skeleton (flash_fwd.cu): a producer warp
+// keeps a ring of kStages tiles filled with TMA (4-D tensor maps over the
+// strided (B, S, H, D) views, axes sorted by stride, 128-byte swizzle; one
+// "full" and one "empty" mbarrier per stage), two consumer warpgroups run
+// every product on wgmma m64n64k16, and the tiles a block can see are
+// listed from the position extrema before the roles split, with a flag per
+// warpgroup for "sees some key" and "every score visible" (which skips the
+// per-score mask).  Neither kernel sums with atomics: dq, dk and dv are the
+// same bits on every run.
+// * K2: one block per (q tile of 128 rows, run of p heads of one GQA
+//   group, batch row), q tiles longest first.  The producer loads each
+//   head's Q and dO tiles once, into two slots so that the next head's land
+//   during this one's sweep, and streams the visible K / V tile pairs (64
+//   keys).  Each warpgroup (64 rows) computes S = Q K^T and dP = dO V^T
+//   from shared memory, forms P and dS = P (dP - delta) in the
+//   accumulators (m, l and delta of its rows in registers, fetched a head
+//   ahead), rounds dS to bf16 A fragments in registers and runs dQ += dS K
+//   with K read MN-major, K1's P V form.  Each head's dQ is written once.
+// * K3: one block per (kv tile of 128 keys, run of p query heads, batch
+//   row); the G / p blocks of one (kv tile, kv head, batch row) are one
+//   thread block cluster (G / p <= 8), each sweeping its p heads in order.
+//   kv tiles run longest first (tile 0 sees the most q tiles).  The
+//   producer loads the K and V tiles once and streams (Q, dO) tile pairs of
+//   64 rows over the visible q tiles; its lanes bring each pair's lse2,
+//   delta and qpos (3 x 256 B) with plain loads into the stage.  Each
+//   warpgroup (64 keys) computes S^T = K Q^T and dP^T = V dO^T, forms P^T
+//   and dS^T in the accumulators and runs dV += P^T dO and dK += dS^T Q
+//   with dO and Q read MN-major; dK and dV stay in fp32 registers across
+//   the sweep.  After it, each block puts its partials in the ring's shared
+//   memory and the cluster adds them through distributed shared memory in
+//   rank order, each block a slice of the rows, written once.
+// * p, the heads a block sweeps (attention_ops.py::bwd_heads_per_block):
+//   the most, a divisor of G, for which the longest block's sweep stays
+//   within the causal work per SM.  A block's fixed cost (listing its
+//   tiles, its first loads, K3's cluster sum) idles its SM, since the
+//   registers allow one block per SM; timing-only variants
+//   (scripts/flash_bwd_variants.py, "no main loop") show it as a large
+//   share of each kernel.  At the training shape p = 2 is faster than
+//   p = 1 and p = 4, whose longest block sets the time (PERF.md §6); the
+//   longest K3 block there sweeps 2 x 13 q tiles.
+// Both issue S (S^T) and dP (dP^T) as two commit groups, so that the
+// exponentials run under the second product; K3 issues dV before it forms
+// dS^T.
+//
+// The head width is a template parameter; only HD = 64 is instantiated.
+// What is left: a block's fixed cost is still paid 2 - 3 times per SM
+// (a persistent grid would overlap it with the previous tile's sweep);
+// each warpgroup waits on its products before the next tile (an FA3
+// ping-pong of the two warpgroups measured no gain); no setmaxnreg;
+// delta = rowsum(dO o O) is a separate PyTorch reduction and could be
+// fused into K2; a fused backward with a deterministic order of dQ sums
+// would run S and dP once for both.
+#include <cooperative_groups.h>
+#include <math_constants.h>
+
 #include "flash_common.cuh"
 
 namespace {
 
-using namespace flash;
+namespace cg = cooperative_groups;
+using flash::kFar;
+using flash::kLog2e;
 
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ go,
-    const float* __restrict__ m_in, const float* __restrict__ l_in,
-    const float* __restrict__ di_in, const int* __restrict__ qpos,
-    const int* __restrict__ kpos, float* __restrict__ dq, int H, int KH,
-    int Sq, int Skv, long long q_sb, long long q_sh, long long q_ss,
-    long long k_sb, long long k_sh, long long k_ss, long long v_sb,
-    long long v_sh, long long v_ss, long long go_sb, long long go_sh,
-    long long go_ss, long long dq_sb, long long dq_sh, long long dq_ss,
-    int has_window, int window) {
-  __shared__ __align__(16) __nv_bfloat16 q_s[kBQ * kLds];
-  __shared__ __align__(16) __nv_bfloat16 do_s[kBQ * kLds];
-  __shared__ __align__(16) __nv_bfloat16 k_s[kBKV * kLds];
-  __shared__ __align__(16) __nv_bfloat16 v_s[kBKV * kLds];
-  __shared__ int qp_s[kBQ];
-  __shared__ int kp_s[kBKV];
+constexpr int kStages = 3;
+constexpr int kConsumers = 256, kThreads = kConsumers + 32;
+constexpr int kDqRows = 128, kDqKeys = 64;    // K2 tiles
+constexpr int kDkvKeys = 128, kDkvRows = 64;  // K3 tiles
+constexpr int kMaxCluster = 8;
+// list entry: the tile in the low 24 bits; per warpgroup w, bit 24 + 2 w
+// "sees some score" and bit 25 + 2 w "sees every score"
+constexpr int kTileBits = (1 << 24) - 1;
+constexpr int kRed = 8;  // ints of scratch before the list
+constexpr int kHd = 64;  // the instantiated head width
 
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / (H / KH);
+__device__ __forceinline__ int sees_flag(int wg) { return 1 << (24 + 2 * wg); }
+__device__ __forceinline__ int full_flag(int wg) { return 1 << (25 + 2 * wg); }
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+// Compacts list[0 .. n) in place to its entries >= 0, in order, with one
+// warp; returns their count to every lane.
+__device__ __forceinline__ int compact_list(int* list, int n, int lane) {
+  int kept = 0;
+  for (int base = 0; base < n; base += 32) {
+    const int e = base + lane < n ? list[base + lane] : -1;
+    const unsigned keep = __ballot_sync(0xffffffffu, e >= 0);
+    if (e >= 0) list[kept + __popc(keep & ((1u << lane) - 1u))] = e;
+    kept += __popc(keep);
+    __syncwarp();
+  }
+  return kept;
+}
+
+// lse2 of one row: P = exp2(S log2 e - lse2).
+__device__ __forceinline__ float row_lse2(float m, float l) {
+  return m * kLog2e + log2f(fmaxf(l, 1e-30f));
+}
+
+// Shared-memory layouts (bytes from the 1 024-aligned base), the host's
+// sizes included.
+template <int HD>
+struct DqSmem {
+  static constexpr int kQ = kDqRows * HD * 2, kK = kDqKeys * HD * 2;
+  // two Q / dO slots (one head's while the next head's lands)
+  static constexpr int q = 0, go = kQ, slot = 2 * kQ;
+  static constexpr int k = 2 * slot, v = k + kStages * kK;
+  static constexpr int bars = v + kStages * kK;
+  static constexpr int red = bars + (4 + 2 * kStages) * 8;
+  static constexpr int list = red + kRed * 4;
+  static int bytes(int n_tiles) { return 1024 + list + n_tiles * 4; }
+};
+
+template <int HD>
+struct DkvSmem {
+  static constexpr int kKV = kDkvKeys * HD * 2, kQ = kDkvRows * HD * 2;
+  static constexpr int kLdp = HD + 8;  // partial row stride, floats
+  static constexpr int kStat = 3 * kDkvRows * 4;  // lse2, delta, qpos
+  static constexpr int k = 0, v = kKV, q = 2 * kKV, go = q + kStages * kQ;
+  static constexpr int ring = go + kStages * kQ;
+  static constexpr int part = kDkvKeys * kLdp * 4;  // one partial, bytes
+  static_assert(2 * part <= ring, "the partials overlay the tiles");
+  static constexpr int stat = ring;
+  static constexpr int bars = stat + kStages * kStat;
+  static constexpr int red = bars + (1 + 2 * kStages) * 8;
+  static constexpr int list = red + kRed * 4;
+  static int bytes(int n_tiles) { return 1024 + list + n_tiles * 4; }
+};
+
+// ------------------------------------------------------------------ K2 ---
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap,
+    const __grid_constant__ CUtensorMap gomap, int q_axes, int k_axes,
+    int v_axes, int go_axes, const float* __restrict__ m_in,
+    const float* __restrict__ l_in, const float* __restrict__ di_in,
+    const int* __restrict__ qpos, const int* __restrict__ kpos,
+    float* __restrict__ dq, int H, int KH, int Sq, int Skv, long long dq_sb,
+    long long dq_sh, long long dq_ss, int has_window, int window, int hpb) {
+  static_assert(HD == 64, "K2 is instantiated for head width 64 only");
+  using L = DqSmem<HD>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024u - hopper::smem_u32(smem_raw)) & 1023u);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* qfull = bars;       // 2: the Q / dO slots
+  uint64_t* qempty = bars + 2;  // 2
+  uint64_t* full = bars + 4;
+  uint64_t* empty = bars + 4 + kStages;
+  int* red = reinterpret_cast<int*>(smem + L::red);
+  int* list = reinterpret_cast<int*>(smem + L::list);
+
+  // the block's heads h0 .. h0 + hpb - 1 share one kv head (hpb divides G)
+  const int groups = H / hpb;
+  const int h0 = (blockIdx.x % groups) * hpb, b = blockIdx.x / groups;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kDqRows;  // longest first
+  const int kh = h0 / (H / KH);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
+  const int nt = (Skv + kDqKeys - 1) / kDqKeys;
+  const int wg = tid / 128, wi = (tid % 128) / 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row0 = q0 + wg * 64 + wi * 16 + g, row1 = row0 + 8;
+  // a consumer's m, l, delta of rows row0 / row1 of the next head, fetched
+  // a head ahead (the first while the block lists its tiles)
+  float raw[6];
+  auto fetch = [&](int h) {
+    const long long base = ((long long)b * H + h) * Sq;
+    const bool in0 = row0 < Sq, in1 = row1 < Sq;
+    raw[0] = in0 ? m_in[base + row0] : 0.0f;
+    raw[1] = in0 ? l_in[base + row0] : 0.0f;
+    raw[2] = in0 ? di_in[base + row0] : 0.0f;
+    raw[3] = in1 ? m_in[base + row1] : 0.0f;
+    raw[4] = in1 ? l_in[base + row1] : 0.0f;
+    raw[5] = in1 ? di_in[base + row1] : 0.0f;
+  };
+  if (tid < kConsumers) fetch(h0);
+  const flash::Axes qa = flash::unpack_axes(q_axes),
+                    ga = flash::unpack_axes(go_axes);
+  auto load_q = [&](int j) {  // head h0 + j's Q and dO into slot j % 2
+    const int slot = j & 1;
+    hopper::mbar_expect_tx(&qfull[slot], 2 * L::kQ);
+    flash::load_rows(smem + L::q + slot * L::slot, &qmap, &qfull[slot], qa,
+                     q0, h0 + j, b);
+    flash::load_rows(smem + L::go + slot * L::slot, &gomap, &qfull[slot], ga,
+                     q0, h0 + j, b);
+  };
 
-  const __nv_bfloat16* kb = k + b * k_sb + kh * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + kh * v_sh;
-  load_tile(q_s, q + b * q_sb + h * q_sh, q_ss, q0, Sq, tid);
-  load_tile(do_s, go + b * go_sb + h * go_sh, go_ss, q0, Sq, tid);
-  if (tid < kBQ) qp_s[tid] = q0 + tid < Sq ? qpos[q0 + tid] : -kFar;
+  // position extrema of each warpgroup's 64 rows
+  if (warp < 2) {
+    int lo, hi;
+    flash::warp_extrema(qpos, q0 + 64 * warp, Sq, lane, lo, hi);
+    if (lane == 0) {
+      red[2 * warp] = lo;
+      red[2 * warp + 1] = hi;
+    }
+  }
+  if (tid == 0) {
+    for (int j = 0; j < 2; ++j) {
+      hopper::mbar_init(&qfull[j], 1);
+      hopper::mbar_init(&qempty[j], kConsumers);
+    }
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumers);
+    }
+    hopper::fence_barrier_init();
+  }
   __syncthreads();
-
-  long long qmin, qmax;
-  extrema(qp_s, min(kBQ, Sq - q0), qmin, qmax);
-  const long long qp0 = qp_s[r0], qp1 = qp_s[r0 + 8];
-
-  // row statistics of rows r0, r0 + 8; rows past Sq see no key anyway
-  const long long rbase = ((long long)b * H + h) * Sq;
-  const int row0 = q0 + r0, row1 = row0 + 8;
-  float m0 = 0.0f, m1 = 0.0f, li0 = 0.0f, li1 = 0.0f, d0 = 0.0f, d1 = 0.0f;
-  if (row0 < Sq) {
-    m0 = m_in[rbase + row0];
-    li0 = 1.0f / fmaxf(l_in[rbase + row0], 1e-30f);
-    d0 = di_in[rbase + row0];
-  }
-  if (row1 < Sq) {
-    m1 = m_in[rbase + row1];
-    li1 = 1.0f / fmaxf(l_in[rbase + row1], 1e-30f);
-    d1 = di_in[rbase + row1];
-  }
-
-  uint32_t qa[D / 16][4], da[D / 16][4];  // this warp's q and dO rows
-  load_a_frags(qa, q_s, warp * 16, g, t);
-  load_a_frags(da, do_s, warp * 16, g, t);
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
-
-  for (int k0 = 0; k0 < Skv; k0 += kBKV) {
-    __syncthreads();  // the previous tile's smem reads are done
-    if (tid < kBKV) kp_s[tid] = k0 + tid < Skv ? kpos[k0 + tid] : kFar;
-    __syncthreads();
-    long long kmin, kmax;
-    extrema(kp_s, min(kBKV, Skv - k0), kmin, kmax);
-    if (!tiles_visible(qmin, qmax, kmin, kmax, has_window, window))
-      continue;  // uniform across the block
-    load_tile(k_s, kb, k_ss, k0, Skv, tid);
-    load_tile(v_s, vb, v_ss, k0, Skv, tid);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T, 16 rows x 64 keys per warp
-    float s[kBKV / 8][4], dp[kBKV / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBKV / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
-      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const int off = (n * 8 + g) * kLds + kk * 16 + t * 2;
-        mma_16816(s[n], qa[kk], ld32(k_s + off), ld32(k_s + off + 8));
-        mma_16816(dp[n], da[kk], ld32(v_s + off), ld32(v_s + off + 8));
+  if (tid == kConsumers) load_q(0);  // lands while the tiles are listed
+  // which kv tiles each warpgroup can see (the same for every head): one
+  // warp per tile
+  for (int t = warp; t < nt; t += kThreads / 32) {
+    int lo, hi;
+    flash::warp_extrema(kpos, t * kDqKeys, Skv, lane, lo, hi);
+    if (lane == 0) {
+      int entry = t;
+      for (int w = 0; w < 2; ++w) {
+        const long long qlo = red[2 * w], qhi = red[2 * w + 1];
+        if (flash::tiles_visible(qlo, qhi, lo, hi, has_window, window))
+          entry |= sees_flag(w);
+        if ((t + 1) * kDqKeys <= Skv &&
+            flash::tiles_all_visible(qlo, qhi, lo, hi, has_window, window))
+          entry |= full_flag(w);
       }
-    }
-
-    // P (exactly 0 where masked) and dS = P (dP - delta), into s
-#pragma unroll
-    for (int n = 0; n < kBKV / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool lo = e < 2;
-        const long long kp = kp_s[n * 8 + t * 2 + (e & 1)];
-        const float p = visible_pos(lo ? qp0 : qp1, kp, has_window, window)
-                            ? expf(s[n][e] - (lo ? m0 : m1)) * (lo ? li0 : li1)
-                            : 0.0f;
-        s[n][e] = p * (dp[n][e] - (lo ? d0 : d1));
-      }
-    }
-
-    // dQ += dS K: dS (bf16) from the accumulators as A fragments
-#pragma unroll
-    for (int kk = 0; kk < kBKV / 16; ++kk) {
-      uint32_t sa[4];
-      acc_to_a(sa, s[2 * kk], s[2 * kk + 1]);
-      const __nv_bfloat16* kr = k_s + (kk * 16 + t * 2) * kLds + g;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const __nv_bfloat16* c = kr + n * 8;
-        mma_16816(acc[n], sa, pack_bf16(c[0], c[kLds]),
-                  pack_bf16(c[8 * kLds], c[9 * kLds]));
-      }
+      list[t] = entry > kTileBits ? entry : -1;
     }
   }
+  __syncthreads();
+  if (warp == 0) {  // compact in place: the visible tiles in order
+    const int n = compact_list(list, nt, lane);
+    if (lane == 0) red[4] = n;
+  }
+  __syncthreads();
+  const int n_vis = red[4];
 
-  float* dqb = dq + b * dq_sb + h * dq_sh;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int col = n * 8 + t * 2;
-    if (row0 < Sq) {
-      dqb[row0 * dq_ss + col] = acc[n][0];
-      dqb[row0 * dq_ss + col + 1] = acc[n][1];
+  if (warp == kConsumers / 32) {
+    // ---------------------------------------------------- producer warp
+    if (lane == 0) {
+      const flash::Axes ka = flash::unpack_axes(k_axes),
+                        va = flash::unpack_axes(v_axes);
+      int it = 0;  // ring position, over the heads' sweeps
+      for (int j = 0; j < hpb; ++j) {
+        if (j >= 2) hopper::mbar_wait(&qempty[j & 1], ((j >> 1) - 1) & 1);
+        if (j > 0) load_q(j);
+        for (int i = 0; i < n_vis; ++i, ++it) {
+          const int s = it % kStages;
+          if (it >= kStages)
+            hopper::mbar_wait(&empty[s], (it / kStages - 1) & 1);
+          hopper::mbar_expect_tx(&full[s], 2 * L::kK);
+          const int k0 = (list[i] & kTileBits) * kDqKeys;
+          flash::load_rows(smem + L::k + s * L::kK, &kmap, &full[s], ka, k0,
+                           kh, b);
+          flash::load_rows(smem + L::v + s * L::kK, &vmap, &full[s], va, k0,
+                           kh, b);
+        }
+      }
     }
-    if (row1 < Sq) {
-      dqb[row1 * dq_ss + col] = acc[n][2];
-      dqb[row1 * dq_ss + col + 1] = acc[n][3];
+    return;
+  }
+
+  // ------------------------------------------------ consumer warpgroups
+  const long long qp0 = row0 < Sq ? qpos[row0] : -kFar;
+  const long long qp1 = row1 < Sq ? qpos[row1] : -kFar;
+  int it = 0;
+  for (int j = 0; j < hpb; ++j) {
+    const int slot = j & 1, h = h0 + j;
+    // rows past Sq: lse2 = +inf gives P = 0
+    const float lse0 = row0 < Sq ? row_lse2(raw[0], raw[1]) : CUDART_INF_F;
+    const float lse1 = row1 < Sq ? row_lse2(raw[3], raw[4]) : CUDART_INF_F;
+    const float d0 = raw[2], d1 = raw[5];
+    if (j + 1 < hpb) fetch(h + 1);
+
+    float acc[32], sc[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+    hopper::mbar_wait(&qfull[slot], (j >> 1) & 1);
+    const uint64_t dqa = hopper::desc_sw128(smem + L::q + slot * L::slot +
+                                            wg * 64 * HD * 2);
+    const uint64_t dga = hopper::desc_sw128(smem + L::go + slot * L::slot +
+                                            wg * 64 * HD * 2);
+
+    for (int i = 0; i < n_vis; ++i, ++it) {
+      const int s = it % kStages, entry = list[i];
+      if (!(entry & sees_flag(wg))) {  // nothing visible to these rows
+        hopper::mbar_wait(&full[s], (it / kStages) & 1);
+        hopper::mbar_arrive(&empty[s]);
+        continue;
+      }
+      const int k0 = (entry & kTileBits) * kDqKeys;
+      // the masks of a tile on the diagonal or the window's edge, read
+      // while the tile lands (element 4 j + e: row r0 for e < 2, r0 + 8
+      // otherwise; key 8 j + 2 t + (e & 1))
+      uint32_t vis = 0xFFFFFFFFu;
+      if (!(entry & full_flag(wg))) {
+        vis = 0u;
+#pragma unroll
+        for (int jj = 0; jj < kDqKeys / 8; ++jj) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int k = k0 + jj * 8 + t4 * 2 + e;
+            const long long kp = k < Skv ? kpos[k] : kFar;
+            if (flash::visible_pos(qp0, kp, has_window, window))
+              vis |= 1u << (jj * 4 + e);
+            if (flash::visible_pos(qp1, kp, has_window, window))
+              vis |= 1u << (jj * 4 + 2 + e);
+          }
+        }
+      }
+      hopper::mbar_wait(&full[s], (it / kStages) & 1);
+
+      // S = Q K^T and dP = dO V^T: 64 rows x 64 keys per warpgroup, in two
+      // commit groups: P is formed while dP is still running
+      const uint64_t dk = hopper::desc_sw128(smem + L::k + s * L::kK);
+      const uint64_t dv = hopper::desc_sw128(smem + L::v + s * L::kK);
+      hopper::wgmma_fence();
+      hopper::fence_regs(sc);
+      hopper::fence_regs(dp);
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        hopper::wgmma_m64n64_ss<0>(sc, dqa + 2 * kk, dk + 2 * kk, kk > 0);
+      hopper::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        hopper::wgmma_m64n64_ss<0>(dp, dga + 2 * kk, dv + 2 * kk, kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(sc);
+
+      // P, exactly 0 where masked
+#pragma unroll
+      for (int jj = 0; jj < kDqKeys / 8; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[jj * 4 + e] =
+              (vis >> (jj * 4 + e)) & 1u
+                  ? flash::exp2_approx(fmaf(sc[jj * 4 + e], kLog2e,
+                                            e < 2 ? -lse0 : -lse1))
+                  : 0.0f;
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dp);
+      // dS = P (dP - delta)
+#pragma unroll
+      for (int jj = 0; jj < kDqKeys / 8; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[jj * 4 + e] *= dp[jj * 4 + e] - (e < 2 ? d0 : d1);
+      }
+
+      // dQ += dS K: dS (bf16) from the accumulators as A fragments, K read
+      // MN-major
+      uint32_t da[kDqKeys / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kDqKeys / 16; ++kk)
+        flash::acc_to_a(da[kk], &sc[kk * 8], &sc[kk * 8 + 4]);
+      hopper::wgmma_fence();
+      hopper::fence_regs(acc);
+#pragma unroll
+      for (int kk = 0; kk < kDqKeys / 16; ++kk)
+        hopper::wgmma_m64n64_rs<1>(acc, da[kk], dk + 128 * kk, 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      hopper::mbar_arrive(&empty[s]);
+    }
+    hopper::mbar_arrive(&qempty[slot]);  // its products have retired
+
+    // rows past Sq are not written
+    float* out = dq + b * dq_sb + h * dq_sh;
+#pragma unroll
+    for (int jj = 0; jj < HD / 8; ++jj) {
+      const int col = jj * 8 + t4 * 2;
+      if (row0 < Sq)
+        *reinterpret_cast<float2*>(out + row0 * dq_ss + col) =
+            make_float2(acc[jj * 4], acc[jj * 4 + 1]);
+      if (row1 < Sq)
+        *reinterpret_cast<float2*>(out + row1 * dq_ss + col) =
+            make_float2(acc[jj * 4 + 2], acc[jj * 4 + 3]);
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ go,
-    const float* __restrict__ m_in, const float* __restrict__ l_in,
-    const float* __restrict__ di_in, const int* __restrict__ qpos,
-    const int* __restrict__ kpos, float* __restrict__ dk,
-    float* __restrict__ dv, int H, int KH, int Sq, int Skv, long long q_sb,
-    long long q_sh, long long q_ss, long long k_sb, long long k_sh,
-    long long k_ss, long long v_sb, long long v_sh, long long v_ss,
-    long long go_sb, long long go_sh, long long go_ss, long long dk_sb,
-    long long dk_sh, long long dk_ss, long long dv_sb, long long dv_sh,
-    long long dv_ss, int has_window, int window) {
-  __shared__ __align__(16) __nv_bfloat16 q_s[kBQ * kLds];
-  __shared__ __align__(16) __nv_bfloat16 do_s[kBQ * kLds];
-  __shared__ __align__(16) __nv_bfloat16 k_s[kBKV * kLds];
-  __shared__ __align__(16) __nv_bfloat16 v_s[kBKV * kLds];
-  __shared__ int qp_s[kBQ];
-  __shared__ int kp_s[kBKV];
-  __shared__ float m_s[kBQ], li_s[kBQ], di_s[kBQ];
+// ------------------------------------------------------------------ K3 ---
 
-  const int k0 = blockIdx.x * kBKV, kh = blockIdx.y, b = blockIdx.z;
-  const int G = H / KH;
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap,
+    const __grid_constant__ CUtensorMap gomap, int q_axes, int k_axes,
+    int v_axes, int go_axes, const float* __restrict__ m_in,
+    const float* __restrict__ l_in, const float* __restrict__ di_in,
+    const int* __restrict__ qpos, const int* __restrict__ kpos,
+    float* __restrict__ dk, float* __restrict__ dv, int H, int KH, int Sq,
+    int Skv, long long dk_sb, long long dk_sh, long long dk_ss,
+    long long dv_sb, long long dv_sh, long long dv_ss, int has_window,
+    int window) {
+  static_assert(HD == 64, "K3 is instantiated for head width 64 only");
+  using L = DkvSmem<HD>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024u - hopper::smem_u32(smem_raw)) & 1023u);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* kvbar = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
+  int* red = reinterpret_cast<int*>(smem + L::red);
+  int* list = reinterpret_cast<int*>(smem + L::list);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int grp = blockIdx.x / c, kh = grp % KH, b = grp / KH;
+  const int k0 = blockIdx.y * kDkvKeys;  // tile 0 sees the most q tiles
+  const int gpb = H / KH / c;            // query heads per block
+  const int h_first = kh * (H / KH) + rank * gpb;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = warp * 16 + g;  // this thread's key rows: r0 and r0 + 8
+  const int nq = (Sq + kDkvRows - 1) / kDkvRows;
 
-  load_tile(k_s, k + b * k_sb + kh * k_sh, k_ss, k0, Skv, tid);
-  load_tile(v_s, v + b * v_sb + kh * v_sh, v_ss, k0, Skv, tid);
-  if (tid < kBKV) kp_s[tid] = k0 + tid < Skv ? kpos[k0 + tid] : kFar;
-  __syncthreads();
-
-  long long kmin, kmax;
-  extrema(kp_s, min(kBKV, Skv - k0), kmin, kmax);
-  const long long kp0 = kp_s[r0], kp1 = kp_s[r0 + 8];
-
-  uint32_t ka[D / 16][4], va[D / 16][4];  // this warp's k and v rows
-  load_a_frags(ka, k_s, warp * 16, g, t);
-  load_a_frags(va, v_s, warp * 16, g, t);
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    dk_acc[n][0] = dk_acc[n][1] = dk_acc[n][2] = dk_acc[n][3] = 0.0f;
-    dv_acc[n][0] = dv_acc[n][1] = dv_acc[n][2] = dv_acc[n][3] = 0.0f;
+  // position extrema of each warpgroup's 64 keys
+  if (warp < 2) {
+    int lo, hi;
+    flash::warp_extrema(kpos, k0 + 64 * warp, Skv, lane, lo, hi);
+    if (lane == 0) {
+      red[2 * warp] = lo;
+      red[2 * warp + 1] = hi;
+    }
   }
-
-  for (int gi = 0; gi < G; ++gi) {
-    const int h = kh * G + gi;
-    const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
-    const __nv_bfloat16* gob = go + b * go_sb + h * go_sh;
-    const long long rbase = ((long long)b * H + h) * Sq;
-    for (int q0 = 0; q0 < Sq; q0 += kBQ) {
-      __syncthreads();  // the previous tile's smem reads are done
-      if (tid < kBQ) {
-        const int r = q0 + tid;
-        const bool in = r < Sq;  // rows past Sq see no key: P = 0
-        qp_s[tid] = in ? qpos[r] : -kFar;
-        m_s[tid] = in ? m_in[rbase + r] : 0.0f;
-        li_s[tid] = in ? 1.0f / fmaxf(l_in[rbase + r], 1e-30f) : 0.0f;
-        di_s[tid] = in ? di_in[rbase + r] : 0.0f;
+  if (tid == 0) {
+    hopper::mbar_init(kvbar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 32);  // the producer warp's lanes
+      hopper::mbar_init(&empty[s], kConsumers);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == kConsumers) {  // lands while the tiles are listed
+    hopper::mbar_expect_tx(kvbar, 2 * L::kKV);
+    flash::load_rows(smem + L::k, &kmap, kvbar, flash::unpack_axes(k_axes),
+                     k0, kh, b);
+    flash::load_rows(smem + L::v, &vmap, kvbar, flash::unpack_axes(v_axes),
+                     k0, kh, b);
+  }
+  // which q tiles each warpgroup's keys can see: one warp per tile
+  for (int t = warp; t < nq; t += kThreads / 32) {
+    int lo, hi;
+    flash::warp_extrema(qpos, t * kDkvRows, Sq, lane, lo, hi);
+    if (lane == 0) {
+      int entry = t;
+      for (int w = 0; w < 2; ++w) {
+        const long long klo = red[2 * w], khi = red[2 * w + 1];
+        if (flash::tiles_visible(lo, hi, klo, khi, has_window, window))
+          entry |= sees_flag(w);
+        if ((t + 1) * kDkvRows <= Sq &&
+            flash::tiles_all_visible(lo, hi, klo, khi, has_window, window))
+          entry |= full_flag(w);
       }
-      __syncthreads();
-      long long qmin, qmax;
-      extrema(qp_s, min(kBQ, Sq - q0), qmin, qmax);
-      if (!tiles_visible(qmin, qmax, kmin, kmax, has_window, window))
-        continue;  // uniform across the block
-      load_tile(q_s, qb, q_ss, q0, Sq, tid);
-      load_tile(do_s, gob, go_ss, q0, Sq, tid);
-      __syncthreads();
+      list[t] = entry > kTileBits ? entry : -1;
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int n = compact_list(list, nq, lane);
+    if (lane == 0) red[4] = n;
+  }
+  __syncthreads();
+  const int n_list = red[4], total = gpb * n_list;
 
-      // 32 query columns at a time keeps S^T and dP^T at 32 registers
+  float dka[32], dva[32];
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        // S^T = K Q^T and dP^T = V dO^T: 16 key rows x 32 q columns
-        float st[4][4], dpt[4][4];
+  for (int i = 0; i < 32; ++i) dka[i] = dva[i] = 0.0f;
+  const int wg = tid / 128, wi = (tid % 128) / 32;
+  const int g = lane >> 2, t4 = lane & 3;
+
+  if (warp == kConsumers / 32) {
+    // ---------------------------------------------------- producer warp
+    const flash::Axes qa = flash::unpack_axes(q_axes),
+                      ga = flash::unpack_axes(go_axes);
+    for (int i = 0; i < total; ++i) {
+      const int s = i % kStages, h = h_first + i / n_list;
+      const int q0 = (list[i % n_list] & kTileBits) * kDkvRows;
+      // the pair's row statistics, loaded before the stage frees; rows
+      // past Sq see no key
+      const long long rbase = ((long long)b * H + h) * Sq;
+      float lse[2], d[2];
+      int qp[2];
 #pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          st[n][0] = st[n][1] = st[n][2] = st[n][3] = 0.0f;
-          dpt[n][0] = dpt[n][1] = dpt[n][2] = dpt[n][3] = 0.0f;
-#pragma unroll
-          for (int kk = 0; kk < D / 16; ++kk) {
-            const int off = ((half * 4 + n) * 8 + g) * kLds + kk * 16 + t * 2;
-            mma_16816(st[n], ka[kk], ld32(q_s + off), ld32(q_s + off + 8));
-            mma_16816(dpt[n], va[kk], ld32(do_s + off),
-                      ld32(do_s + off + 8));
-          }
+      for (int u = 0; u < 2; ++u) {
+        const int row = q0 + lane + 32 * u;
+        lse[u] = CUDART_INF_F;
+        d[u] = 0.0f;
+        qp[u] = -kFar;
+        if (row < Sq) {
+          lse[u] = row_lse2(m_in[rbase + row], l_in[rbase + row]);
+          d[u] = di_in[rbase + row];
+          qp[u] = qpos[row];
         }
-
-        // P^T (exactly 0 where masked) into st, dS^T into dpt
+      }
+      if (i >= kStages) hopper::mbar_wait(&empty[s], (i / kStages - 1) & 1);
+      if (lane == 0) {
+        hopper::mbar_add_tx(&full[s], 2 * L::kQ);
+        flash::load_rows(smem + L::q + s * L::kQ, &qmap, &full[s], qa, q0, h,
+                         b);
+        flash::load_rows(smem + L::go + s * L::kQ, &gomap, &full[s], ga, q0,
+                         h, b);
+      }
+      float* st = reinterpret_cast<float*>(smem + L::stat + s * L::kStat);
 #pragma unroll
-        for (int n = 0; n < 4; ++n) {
+      for (int u = 0; u < 2; ++u) {
+        st[lane + 32 * u] = lse[u];
+        st[kDkvRows + lane + 32 * u] = d[u];
+        reinterpret_cast<int*>(st)[2 * kDkvRows + lane + 32 * u] = qp[u];
+      }
+      hopper::mbar_arrive(&full[s]);  // after this lane's stores
+    }
+  } else {
+    // ---------------------------------------------- consumer warpgroups
+    const int key0 = k0 + wg * 64 + wi * 16 + g, key1 = key0 + 8;
+    const long long kp0 = key0 < Skv ? kpos[key0] : kFar;
+    const long long kp1 = key1 < Skv ? kpos[key1] : kFar;
+    float sc[32], dp[32];
+    hopper::mbar_wait(kvbar, 0);
+    const uint64_t dka_s = hopper::desc_sw128(smem + L::k + wg * 64 * HD * 2);
+    const uint64_t dva_s = hopper::desc_sw128(smem + L::v + wg * 64 * HD * 2);
+
+    for (int i = 0; i < total; ++i) {
+      const int s = i % kStages, entry = list[i % n_list];
+      hopper::mbar_wait(&full[s], (i / kStages) & 1);
+      if (!(entry & sees_flag(wg))) {  // nothing visible to these keys
+        hopper::mbar_arrive(&empty[s]);
+        continue;
+      }
+      const float* st =
+          reinterpret_cast<const float*>(smem + L::stat + s * L::kStat);
+      const int* qps = reinterpret_cast<const int*>(st + 2 * kDkvRows);
+      // element 4 j + e: key row r0 for e < 2, r0 + 8 otherwise; q row
+      // 8 j + 2 t + (e & 1) of the tile
+      uint32_t vis = 0xFFFFFFFFu;
+      if (!(entry & full_flag(wg))) {
+        vis = 0u;
+#pragma unroll
+        for (int j = 0; j < kDkvRows / 8; ++j) {
+          const int2 qp = *reinterpret_cast<const int2*>(qps + j * 8 + t4 * 2);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int c = (half * 4 + n) * 8 + t * 2 + (e & 1);
-            const long long kp = e < 2 ? kp0 : kp1;
-            const float p =
-                visible_pos(qp_s[c], kp, has_window, window)
-                    ? expf(st[n][e] - m_s[c]) * li_s[c]
-                    : 0.0f;
-            st[n][e] = p;
-            dpt[n][e] = p * (dpt[n][e] - di_s[c]);
+            const long long q = (e & 1) ? qp.y : qp.x;
+            if (flash::visible_pos(q, e < 2 ? kp0 : kp1, has_window, window))
+              vis |= 1u << (j * 4 + e);
           }
         }
+      }
 
-        // dV += P^T dO and dK += dS^T Q, A operands from the accumulators
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 q rows per warpgroup
+      const uint64_t dq_s = hopper::desc_sw128(smem + L::q + s * L::kQ);
+      const uint64_t dg_s = hopper::desc_sw128(smem + L::go + s * L::kQ);
+      // three commit groups: P^T is formed while dP^T runs, dS^T while
+      // dV += P^T dO runs
+      hopper::wgmma_fence();
+      hopper::fence_regs(sc);
+      hopper::fence_regs(dp);
 #pragma unroll
-        for (int kk = 0; kk < 2; ++kk) {
-          uint32_t pa[4], sa[4];
-          acc_to_a(pa, st[2 * kk], st[2 * kk + 1]);
-          acc_to_a(sa, dpt[2 * kk], dpt[2 * kk + 1]);
-          const int qrow = half * 32 + kk * 16 + t * 2;
-          const __nv_bfloat16* dor = do_s + qrow * kLds + g;
-          const __nv_bfloat16* qr = q_s + qrow * kLds + g;
+      for (int kk = 0; kk < HD / 16; ++kk)
+        hopper::wgmma_m64n64_ss<0>(sc, dka_s + 2 * kk, dq_s + 2 * kk, kk > 0);
+      hopper::wgmma_commit();
 #pragma unroll
-          for (int n = 0; n < D / 8; ++n) {
-            const __nv_bfloat16* c = dor + n * 8;
-            mma_16816(dv_acc[n], pa, pack_bf16(c[0], c[kLds]),
-                      pack_bf16(c[8 * kLds], c[9 * kLds]));
-            c = qr + n * 8;
-            mma_16816(dk_acc[n], sa, pack_bf16(c[0], c[kLds]),
-                      pack_bf16(c[8 * kLds], c[9 * kLds]));
-          }
-        }
+      for (int kk = 0; kk < HD / 16; ++kk)
+        hopper::wgmma_m64n64_ss<0>(dp, dva_s + 2 * kk, dg_s + 2 * kk, kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(sc);
+
+      // P^T, exactly 0 where masked (element 4 j + e: q row
+      // 8 j + 2 t + (e & 1)), kept in sc for dS^T
+#pragma unroll
+      for (int j = 0; j < kDkvRows / 8; ++j) {
+        const float2 lse =
+            *reinterpret_cast<const float2*>(st + j * 8 + t4 * 2);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[j * 4 + e] = (vis >> (j * 4 + e)) & 1u
+                              ? flash::exp2_approx(fmaf(
+                                    sc[j * 4 + e], kLog2e,
+                                    (e & 1) ? -lse.y : -lse.x))
+                              : 0.0f;
+      }
+      // dV += P^T dO: P^T (bf16) from the accumulators as A fragments, dO
+      // read MN-major
+      uint32_t pa[kDkvRows / 16][4], sa[kDkvRows / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kDkvRows / 16; ++kk)
+        flash::acc_to_a(pa[kk], &sc[kk * 8], &sc[kk * 8 + 4]);
+      hopper::wgmma_fence();
+      hopper::fence_regs(dva);
+#pragma unroll
+      for (int kk = 0; kk < kDkvRows / 16; ++kk)
+        hopper::wgmma_m64n64_rs<1>(dva, pa[kk], dg_s + 128 * kk, 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();  // dP^T (groups retire in order)
+      hopper::fence_regs(dp);
+
+      // dK += dS^T Q, dS^T = P^T (dP^T - delta), Q read MN-major
+#pragma unroll
+      for (int j = 0; j < kDkvRows / 8; ++j) {
+        const float2 dd =
+            *reinterpret_cast<const float2*>(st + kDkvRows + j * 8 + t4 * 2);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[j * 4 + e] =
+              sc[j * 4 + e] * (dp[j * 4 + e] - ((e & 1) ? dd.y : dd.x));
+      }
+#pragma unroll
+      for (int kk = 0; kk < kDkvRows / 16; ++kk)
+        flash::acc_to_a(sa[kk], &dp[kk * 8], &dp[kk * 8 + 4]);
+      hopper::wgmma_fence();
+      hopper::fence_regs(dka);
+#pragma unroll
+      for (int kk = 0; kk < kDkvRows / 16; ++kk)
+        hopper::wgmma_m64n64_rs<1>(dka, sa[kk], dq_s + 128 * kk, 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dva);
+      hopper::fence_regs(dka);
+      // the A fragments stay put until the products reading them retire
+#pragma unroll
+      for (int kk = 0; kk < kDkvRows / 16; ++kk) {
+        hopper::keep_regs(pa[kk]);
+        hopper::keep_regs(sa[kk]);
+      }
+      hopper::mbar_arrive(&empty[s]);
+    }
+
+    // the block's partials, over the tiles every consumer is done with
+    consumers_sync();
+    float* part_k = reinterpret_cast<float*>(smem);
+    float* part_v = part_k + kDkvKeys * L::kLdp;
+    const int r0 = wg * 64 + wi * 16 + g;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const int off = (r0 + 4 * e) * L::kLdp + j * 8 + t4 * 2;
+        *reinterpret_cast<float2*>(part_k + off) =
+            make_float2(dka[j * 4 + e], dka[j * 4 + e + 1]);
+        *reinterpret_cast<float2*>(part_v + off) =
+            make_float2(dva[j * 4 + e], dva[j * 4 + e + 1]);
       }
     }
   }
 
-  const int row0 = k0 + r0, row1 = row0 + 8;
-  float* dkb = dk + b * dk_sb + kh * dk_sh;
-  float* dvb = dv + b * dv_sb + kh * dv_sh;
+  // the cluster's sum, rank by rank: block `rank` adds and writes rows
+  // [rank per, (rank + 1) per) of the tile
+  __syncwarp();
+  hopper::cluster_arrive(true);
+  hopper::cluster_wait();
+  {
+    const int per = (kDkvKeys + c - 1) / c;
+    const int lo = rank * per, n = min(kDkvKeys, lo + per) - lo;
+    const float* part = reinterpret_cast<const float*>(smem);
+    float* dkb = dk + b * dk_sb + kh * dk_sh;
+    float* dvb = dv + b * dv_sb + kh * dv_sh;
+    constexpr int kVec = HD / 4;  // float4 per row
+    for (int i = tid; i < 2 * n * kVec; i += kThreads) {
+      const int which = i / (n * kVec), r = lo + (i / kVec) % n,
+                col = (i % kVec) * 4;
+      const int off = which * kDkvKeys * L::kLdp + r * L::kLdp + col;
+      // every rank's load in flight at once, then the sum in rank order
+      float4 x[kMaxCluster];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int col = n * 8 + t * 2;
-    if (row0 < Skv) {
-      dkb[row0 * dk_ss + col] = dk_acc[n][0];
-      dkb[row0 * dk_ss + col + 1] = dk_acc[n][1];
-      dvb[row0 * dv_ss + col] = dv_acc[n][0];
-      dvb[row0 * dv_ss + col + 1] = dv_acc[n][1];
-    }
-    if (row1 < Skv) {
-      dkb[row1 * dk_ss + col] = dk_acc[n][2];
-      dkb[row1 * dk_ss + col + 1] = dk_acc[n][3];
-      dvb[row1 * dv_ss + col] = dv_acc[n][2];
-      dvb[row1 * dv_ss + col + 1] = dv_acc[n][3];
+      for (int q = 0; q < kMaxCluster; ++q)
+        if (q < c)
+          x[q] = *reinterpret_cast<const float4*>(
+              cluster.map_shared_rank(part, q) + off);
+      float4 a = x[0];
+#pragma unroll
+      for (int q = 1; q < kMaxCluster; ++q) {
+        if (q < c) {
+          a.x += x[q].x;
+          a.y += x[q].y;
+          a.z += x[q].z;
+          a.w += x[q].w;
+        }
+      }
+      const int key = k0 + r;
+      if (key < Skv)
+        *reinterpret_cast<float4*>(
+            (which ? dvb + key * dv_ss : dkb + key * dk_ss) + col) = a;
     }
   }
+  // the other blocks' shared memory outlives their readers
+  hopper::cluster_arrive(false);
+  hopper::cluster_wait();
 }
 
 bool bad_shape(int B, int H, int KH, int Sq, int Skv) {
   return B <= 0 || H <= 0 || KH <= 0 || H % KH || Sq <= 0 || Skv <= 0 ||
-         B > 65535 || H > 65535;
+         (long long)B * H > 0x7fffffffLL;
+}
+
+// The four operand maps; false if TMA cannot describe a layout.
+bool make_maps(CUtensorMap* m, int* axes, const void* q, const void* k,
+               const void* v, const void* go, int B, int H, int KH, int Sq,
+               int Skv, const long long* qs, const long long* ks,
+               const long long* vs, const long long* gs, int q_rows,
+               int kv_rows) {
+  axes[0] = flash::map_bshd(&m[0], q, kHd, Sq, H, B, qs[2], qs[1], qs[0],
+                            q_rows);
+  axes[1] = flash::map_bshd(&m[1], k, kHd, Skv, KH, B, ks[2], ks[1], ks[0],
+                            kv_rows);
+  axes[2] = flash::map_bshd(&m[2], v, kHd, Skv, KH, B, vs[2], vs[1], vs[0],
+                            kv_rows);
+  axes[3] = flash::map_bshd(&m[3], go, kHd, Sq, H, B, gs[2], gs[1], gs[0],
+                            q_rows);
+  return axes[0] >= 0 && axes[1] >= 0 && axes[2] >= 0 && axes[3] >= 0;
 }
 
 }  // namespace
 
 // K2.  q (B, H, Sq, D), k / v (B, KH, Skv, D), go (B, H, Sq, D) bf16 given
 // by pointer and element strides (batch, head, sequence; the last axis is
-// contiguous, rows 16-byte aligned); m / l / di (B, H, Sq) fp32
-// contiguous; qpos (Sq,), kpos (Skv,) int32; dq (B, H, Sq, D) fp32 by
-// strides.  Returns cudaGetLastError().
+// contiguous, strides multiples of 8, bases 16-byte aligned); m / l / di
+// (B, H, Sq) fp32 contiguous; qpos (Sq,), kpos (Skv,) int32; dq
+// (B, H, Sq, D) fp32 by strides (multiples of 2, base 8-byte aligned).
+// The plan (attention_ops.py::flash_bwd_plan): q_tiles = ceil(Sq / 128)
+// grid rows of B H / heads_per_block blocks, each sweeping heads_per_block
+// heads of one GQA group (a divisor of G), `smem` bytes of dynamic shared
+// memory.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for a shape, layout
+// or plan the kernel does not take.
 extern "C" int flash_bwd_dq_bf16(
     const void* q, const void* k, const void* v, const void* go,
     const void* m, const void* l, const void* di, const void* qpos,
@@ -338,25 +759,41 @@ extern "C" int flash_bwd_dq_bf16(
     long long k_sh, long long k_ss, long long v_sb, long long v_sh,
     long long v_ss, long long go_sb, long long go_sh, long long go_ss,
     long long dq_sb, long long dq_sh, long long dq_ss, int has_window,
-    int window, void* stream) {
-  if (bad_shape(B, H, KH, Sq, Skv)) return (int)cudaErrorInvalidValue;
-  dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_bwd_dq_kernel<<<grid, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(go), static_cast<const float*>(m),
-      static_cast<const float*>(l), static_cast<const float*>(di),
-      static_cast<const int*>(qpos), static_cast<const int*>(kpos),
-      static_cast<float*>(dq), H, KH, Sq, Skv, q_sb, q_sh, q_ss, k_sb, k_sh,
-      k_ss, v_sb, v_sh, v_ss, go_sb, go_sh, go_ss, dq_sb, dq_sh, dq_ss,
-      has_window, window);
+    int window, int q_tiles, int heads_per_block, int smem, void* stream) {
+  if (bad_shape(B, H, KH, Sq, Skv) || heads_per_block < 1 ||
+      (H / KH) % heads_per_block ||
+      q_tiles != (Sq + kDqRows - 1) / kDqRows || q_tiles > 65535 ||
+      smem != DqSmem<kHd>::bytes((Skv + kDqKeys - 1) / kDqKeys) ||
+      smem > 232448 || (dq_sb | dq_sh | dq_ss) & 1 ||
+      reinterpret_cast<uintptr_t>(dq) & 7)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[4];
+  int axes[4];
+  const long long qs[3] = {q_sb, q_sh, q_ss}, ks[3] = {k_sb, k_sh, k_ss},
+                  vs[3] = {v_sb, v_sh, v_ss}, gs[3] = {go_sb, go_sh, go_ss};
+  if (!make_maps(maps, axes, q, k, v, go, B, H, KH, Sq, Skv, qs, ks, vs, gs,
+                 kDqRows, kDqKeys))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<kHd>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * (H / heads_per_block), q_tiles);
+  flash_bwd_dq_kernel<kHd><<<grid, kThreads, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], maps[2], maps[3], axes[0], axes[1], axes[2], axes[3],
+      static_cast<const float*>(m), static_cast<const float*>(l),
+      static_cast<const float*>(di), static_cast<const int*>(qpos),
+      static_cast<const int*>(kpos), static_cast<float*>(dq), H, KH, Sq, Skv,
+      dq_sb, dq_sh, dq_ss, has_window, window, heads_per_block);
   return (int)cudaGetLastError();
 }
 
-// K3.  Operands as K2; dk / dv (B, KH, Skv, D) fp32 by strides, each the
-// sum over the G = H / KH query heads of the group.
+// K3.  Operands as K2; dk / dv (B, KH, Skv, D) fp32 by strides (multiples
+// of 4, bases 16-byte aligned), each the sum over the G = H / KH query
+// heads of the group.  The plan: kv_tiles = ceil(Skv / 128) grid rows of
+// cluster KH B blocks in clusters of `cluster` (a divisor of G, at most
+// 8), `smem` bytes of dynamic shared memory.
 extern "C" int flash_bwd_dkv_bf16(
     const void* q, const void* k, const void* v, const void* go,
     const void* m, const void* l, const void* di, const void* qpos,
@@ -366,20 +803,46 @@ extern "C" int flash_bwd_dkv_bf16(
     long long v_ss, long long go_sb, long long go_sh, long long go_ss,
     long long dk_sb, long long dk_sh, long long dk_ss, long long dv_sb,
     long long dv_sh, long long dv_ss, int has_window, int window,
-    void* stream) {
-  if (bad_shape(B, H, KH, Sq, Skv) || KH > 65535)
+    int kv_tiles, int cluster, int smem, void* stream) {
+  if (bad_shape(B, H, KH, Sq, Skv) || cluster < 1 ||
+      cluster > kMaxCluster || (H / KH) % cluster ||
+      (long long)cluster * KH * B > 0x7fffffffLL ||
+      kv_tiles != (Skv + kDkvKeys - 1) / kDkvKeys || kv_tiles > 65535 ||
+      smem != DkvSmem<kHd>::bytes((Sq + kDkvRows - 1) / kDkvRows) ||
+      smem > 232448 || (dk_sb | dk_sh | dk_ss | dv_sb | dv_sh | dv_ss) & 3 ||
+      (reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv)) &
+          15)
     return (int)cudaErrorInvalidValue;
-  dim3 grid((Skv + kBKV - 1) / kBKV, KH, B);
-  flash_bwd_dkv_kernel<<<grid, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(go), static_cast<const float*>(m),
+  CUtensorMap maps[4];
+  int axes[4];
+  const long long qs[3] = {q_sb, q_sh, q_ss}, ks[3] = {k_sb, k_sh, k_ss},
+                  vs[3] = {v_sb, v_sh, v_ss}, gs[3] = {go_sb, go_sh, go_ss};
+  if (!make_maps(maps, axes, q, k, v, go, B, H, KH, Sq, Skv, qs, ks, vs, gs,
+                 kDkvRows, kDkvKeys))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel<kHd>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster * KH * B, kv_tiles);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, flash_bwd_dkv_kernel<kHd>, maps[0], maps[1], maps[2], maps[3],
+      axes[0], axes[1], axes[2], axes[3], static_cast<const float*>(m),
       static_cast<const float*>(l), static_cast<const float*>(di),
       static_cast<const int*>(qpos), static_cast<const int*>(kpos),
-      static_cast<float*>(dk), static_cast<float*>(dv), H, KH, Sq, Skv, q_sb,
-      q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, go_sb, go_sh, go_ss,
-      dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss, has_window, window);
+      static_cast<float*>(dk), static_cast<float*>(dv), H, KH, Sq, Skv, dk_sb,
+      dk_sh, dk_ss, dv_sb, dv_sh, dv_ss, has_window, window);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

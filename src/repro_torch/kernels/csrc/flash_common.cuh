@@ -1,30 +1,29 @@
-// Tile geometry and mma.sync helpers shared by the flash-attention kernels
-// K1 (flash_fwd.cu) and K2 / K3 (flash_bwd.cu).
+// Position masks, TMA tensor maps of (B, S, H, D) views and fragment
+// helpers shared by the flash-attention kernels K1 (flash_fwd.cu) and
+// K2 / K3 (flash_bwd.cu); K12 (wq.cu) uses the mma.sync product and ld32.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace flash {
 
-constexpr int D = 64;         // head dim of q/k and of v
-constexpr int kBQ = 64;       // query rows per tile: 4 warps x 16
-constexpr int kBKV = 64;      // keys per kv tile
-constexpr int kLds = D + 8;   // smem row stride (bf16): conflict-free frags
-constexpr int kThreads = 128;
 constexpr float kNeg = -1e30f;
 constexpr int kFar = 1 << 30;
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
 }
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
@@ -39,21 +38,6 @@ __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragments of rows [r0, r0 + 16) of a (64, D) smem tile, for the
-// m16n8k16 product over the D axis (g = lane / 4, t = lane % 4).
-__device__ __forceinline__ void load_a_frags(uint32_t a[D / 16][4],
-                                             const __nv_bfloat16* tile,
-                                             int r0, int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const __nv_bfloat16* base = tile + kk * 16 + t * 2;
-    a[kk][0] = ld32(base + (r0 + g) * kLds);
-    a[kk][1] = ld32(base + (r0 + g + 8) * kLds);
-    a[kk][2] = ld32(base + (r0 + g) * kLds + 8);
-    a[kk][3] = ld32(base + (r0 + g + 8) * kLds + 8);
-  }
 }
 
 // A fragments of one k-step (16 columns) taken straight from two fp32
@@ -79,32 +63,88 @@ __device__ __forceinline__ bool tiles_visible(long long qmin, long long qmax,
   return kmin <= qmax && (!has_window || kmax > qmin - window);
 }
 
-// Extrema of the first n (<= 64) positions of a smem tile.  Every thread
-// computes the same values, so a branch on them is uniform.
-__device__ __forceinline__ void extrema(const int* pos, int n, long long& lo,
-                                        long long& hi) {
+// Does every row of a q tile see every key of a kv tile?
+__device__ __forceinline__ bool tiles_all_visible(long long qmin,
+                                                  long long qmax,
+                                                  long long kmin,
+                                                  long long kmax,
+                                                  int has_window,
+                                                  int window) {
+  return kmax <= qmin && (!has_window || qmax - kmin < window);
+}
+
+// Extrema of pos[i0 .. i0 + 64) below n over one warp; every lane gets
+// them, (kFar, -kFar) for an empty range.
+__device__ __forceinline__ void warp_extrema(const int* __restrict__ pos,
+                                             int i0, int n, int lane,
+                                             int& lo, int& hi) {
   lo = kFar;
   hi = -kFar;
-  for (int i = 0; i < n; ++i) {
-    lo = min(lo, (long long)pos[i]);
-    hi = max(hi, (long long)pos[i]);
+  for (int j = lane; j < 64; j += 32) {
+    if (i0 + j < n) {
+      const int p = pos[i0 + j];
+      lo = min(lo, p);
+      hi = max(hi, p);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
   }
 }
 
-// Copies rows [row0, row0 + 64) of a (rows, D) bf16 matrix with row stride
-// `ld` (elements) into smem; rows at or past `n_rows` are zero.
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long ld, int row0, int n_rows,
-                                          int tid) {
-  for (int i = tid; i < 64 * (D / 8); i += kThreads) {
-    const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * ld +
-                                            c8);
-    *reinterpret_cast<uint4*>(dst + r * kLds + c8) = val;
-  }
+// Which of dims 1..3 of a tensor map holds the sequence, head and batch
+// axis (two bits each).
+struct Axes {
+  int s, h, b;
+};
+
+__device__ __forceinline__ Axes unpack_axes(int code) {
+  return Axes{code & 3, (code >> 2) & 3, (code >> 4) & 3};
+}
+
+// TMA load of the map's box at (row0, head, batch).
+__device__ __forceinline__ void load_rows(void* dst, const CUtensorMap* map,
+                                          uint64_t* bar, Axes ax, int row0,
+                                          int head, int batch) {
+  int c[4] = {0, 0, 0, 0};
+  c[ax.s] = row0;
+  c[ax.h] = head;
+  c[ax.b] = batch;
+  hopper::tma_load_4d(dst, map, bar, c[0], c[1], c[2], c[3]);
+}
+
+// A 4-D tensor map of a (B, S, heads, hd) bf16 view given by element
+// strides: dim 0 is the contiguous head axis, dims 1..3 the sequence, head
+// and batch axes in increasing stride order, 128-byte swizzle.  Box:
+// `rows` positions of one head of one batch row.  Returns the Axes code,
+// or -1.
+inline int map_bshd(CUtensorMap* map, const void* base, int hd, int S,
+                    int heads, int B, long long ss, long long sh,
+                    long long sb, int rows) {
+  struct Ax {
+    uint64_t n, stride;
+    uint32_t box;
+    int which;
+  } ax[3] = {{(uint64_t)S, 2ull * ss, (uint32_t)rows, 0},
+             {(uint64_t)heads, 2ull * sh, 1u, 1},
+             {(uint64_t)B, 2ull * sb, 1u, 2}};
+  for (int i = 1; i < 3; ++i)  // stable insertion sort by stride
+    for (int j = i; j > 0 && ax[j].stride < ax[j - 1].stride; --j) {
+      const Ax t = ax[j];
+      ax[j] = ax[j - 1];
+      ax[j - 1] = t;
+    }
+  const uint64_t dims[4] = {(uint64_t)hd, ax[0].n, ax[1].n, ax[2].n};
+  const uint64_t strides[3] = {ax[0].stride, ax[1].stride, ax[2].stride};
+  const uint32_t box[4] = {(uint32_t)hd, ax[0].box, ax[1].box, ax[2].box};
+  if (!hopper::make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims,
+                        strides, box, CU_TENSOR_MAP_SWIZZLE_128B))
+    return -1;
+  int pos[3];
+  for (int i = 0; i < 3; ++i) pos[ax[i].which] = i + 1;
+  return pos[0] | (pos[1] << 2) | (pos[2] << 4);
 }
 
 }  // namespace flash

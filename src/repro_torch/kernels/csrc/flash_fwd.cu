@@ -41,41 +41,20 @@
 // warpgroups fill them.  Not yet: setmaxnreg, overlap of the softmax with
 // the next Q K^T inside a warpgroup (FA3's ping-pong), a TMA store of out.
 #include "flash_common.cuh"
-#include "hopper.cuh"
 
 namespace {
 
 constexpr int kBQ = 128, kBKV = 64, kStages = 3;
 constexpr int kConsumers = 256, kThreads = kConsumers + 32;
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kFullTile = 1 << 30;  // list flag: every key visible to every
                                     // real row of the q tile
 
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Which of dims 1..3 of a tensor map holds the sequence, head and batch
-// axis (two bits each).
-struct Axes {
-  int s, h, b;
-};
-
-__device__ __forceinline__ Axes unpack_axes(int code) {
-  return Axes{code & 3, (code >> 2) & 3, (code >> 4) & 3};
-}
-
-__device__ __forceinline__ void load_rows(void* dst, const CUtensorMap* map,
-                                          uint64_t* bar, Axes ax, int row0,
-                                          int head, int batch) {
-  int c[4] = {0, 0, 0, 0};
-  c[ax.s] = row0;
-  c[ax.h] = head;
-  c[ax.b] = batch;
-  hopper::tma_load_4d(dst, map, bar, c[0], c[1], c[2], c[3]);
-}
+using flash::Axes;
+using flash::exp2_approx;
+using flash::kLog2e;
+using flash::load_rows;
+using flash::map_bshd;
+using flash::unpack_axes;
 
 template <int HD>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
@@ -337,36 +316,6 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       l_out[base + row1] = l1;
     }
   }
-}
-
-// A 4-D tensor map of a (B, S, heads, HD) bf16 view given by element
-// strides: dim 0 is the contiguous head axis, dims 1..3 the sequence, head
-// and batch axes in increasing stride order.  Box: `rows` positions of one
-// head of one batch row.  Returns the Axes code, or -1.
-int map_bshd(CUtensorMap* map, const void* base, int hd, int S, int heads,
-             int B, long long ss, long long sh, long long sb, int rows) {
-  struct Ax {
-    uint64_t n, stride;
-    uint32_t box;
-    int which;
-  } ax[3] = {{(uint64_t)S, 2ull * ss, (uint32_t)rows, 0},
-             {(uint64_t)heads, 2ull * sh, 1u, 1},
-             {(uint64_t)B, 2ull * sb, 1u, 2}};
-  for (int i = 1; i < 3; ++i)  // stable insertion sort by stride
-    for (int j = i; j > 0 && ax[j].stride < ax[j - 1].stride; --j) {
-      const Ax t = ax[j];
-      ax[j] = ax[j - 1];
-      ax[j - 1] = t;
-    }
-  const uint64_t dims[4] = {(uint64_t)hd, ax[0].n, ax[1].n, ax[2].n};
-  const uint64_t strides[3] = {ax[0].stride, ax[1].stride, ax[2].stride};
-  const uint32_t box[4] = {(uint32_t)hd, ax[0].box, ax[1].box, ax[2].box};
-  if (!hopper::make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims,
-                        strides, box, CU_TENSOR_MAP_SWIZZLE_128B))
-    return -1;
-  int pos[3];
-  for (int i = 0; i < 3; ++i) pos[ax[i].which] = i + 1;
-  return pos[0] | (pos[1] << 2) | (pos[2] << 4);
 }
 
 }  // namespace

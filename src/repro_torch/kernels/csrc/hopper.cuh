@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels K1
-// (flash_fwd.cu) and K12 (wq.cu): mbarriers, TMA tensor maps and loads,
-// wgmma shared-memory descriptors and the m64nNk16 bf16 products.
+// (flash_fwd.cu), K2 / K3 (flash_bwd.cu) and K12 (wq.cu): mbarriers, TMA
+// tensor maps and loads, cluster barriers, wgmma shared-memory descriptors
+// and the m64nNk16 bf16 products.
 //
 // Tensor maps are encoded on the host with the CUDA driver API's
 // cuTensorMapEncodeTiled, reached through the runtime's driver entry point
@@ -80,6 +81,16 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
                                                uint32_t bytes) {
   asm volatile(
       "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Adds `bytes` to the transactions the barrier's phase waits for, without
+// an arrival.
+__device__ __forceinline__ void mbar_add_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(
           smem_u32(bar)),
       "r"(bytes)
       : "memory");

@@ -1,5 +1,7 @@
 """The port's attention (kernels K1, K2 / K3 and K8, and the layers around
 them) against the JAX reference, on the CPU, in fp32."""
+from collections import Counter
+
 import pytest
 
 pytest.importorskip("jax")
@@ -41,6 +43,7 @@ FLASH_CASES = [
     (40, 40, 4, 2, None, None, 16),   # padded q / kv tail
     (32, 48, 4, 2, None, 24, 16),     # kv_valid_len + longer kv
     (48, 48, 4, 2, 12, None, 16),     # window
+    (48, 48, 6, 2, None, None, 16),   # G = 3 (K3's clusters of 3)
 ]
 
 
@@ -214,6 +217,116 @@ def test_flash_attention_function_gradcheck(window):
         lambda a, b_, c: tops.FlashAttention.apply(a, b_, c, qpos, kpos,
                                                    window),
         (qs, k, v), eps=1e-6, atol=1e-6)
+
+
+# (b, h, kh, sq, skv) of K2 / K3's launch plans: tinyllava's training
+# shape, llama's grouping (G = 3), G = 1, G = 16 (clusters of 8, two heads
+# a block) and ragged tiles
+PLAN_SHAPES = [(4, 20, 5, 1024, 1024), (2, 24, 8, 1024, 1024),
+               (2, 16, 16, 512, 512), (1, 32, 2, 1024, 1024),
+               (1, 20, 5, 100, 100)]
+
+
+def _plan_blocks(b, h, kh, sq, skv):
+    """The (tile, query head, batch row) items each block of K2 and of K3
+    takes, in order, blocks in launch order (grid x fastest), as the
+    kernels map blockIdx from the plan (csrc/flash_bwd.cu)."""
+    dq, dkv = tops.flash_bwd_plan(b, h, kh, sq, skv)
+    g, p = h // kh, len(dq.heads[0])
+    dq_blocks = [[(dq.tiles[y], x % (h // p) * p + j, x // (h // p))
+                  for j in dq.heads[0]]
+                 for y in range(dq.grid[1]) for x in range(dq.grid[0])]
+    dkv_blocks = []
+    for y in range(dkv.grid[1]):
+        for x in range(dkv.grid[0]):
+            rank, grp = x % dkv.cluster, x // dkv.cluster
+            dkv_blocks.append([(dkv.tiles[y], (grp % kh) * g + i, grp // kh)
+                               for i in dkv.heads[rank]])
+    return dq_blocks, dkv_blocks
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_flash_bwd_plan_covers_every_tile_once(shape):
+    """K2's blocks take every (q tile of 128 rows, head, batch row) once and
+    K3's every (kv tile of 128 keys, query head, batch row) once; the
+    blocks of a K3 cluster share one (kv tile, kv head, batch row), each
+    sweeping its heads in increasing order."""
+    b, h, kh, sq, skv = shape
+    dq, dkv = tops.flash_bwd_plan(*shape)
+    dq_blocks, dkv_blocks = _plan_blocks(*shape)
+    assert len(dq_blocks) == dq.grid[0] * dq.grid[1]
+    assert len(dkv_blocks) == dkv.grid[0] * dkv.grid[1]
+    every = lambda n_tiles: Counter(  # noqa: E731
+        (t, hh, bb) for t in range(n_tiles) for hh in range(h)
+        for bb in range(b))
+    assert Counter(i for blk in dq_blocks for i in blk) == every(-(-sq // 128))
+    assert Counter(i for blk in dkv_blocks for i in blk) \
+        == every(-(-skv // 128))
+    g, c = h // kh, dkv.cluster
+    for j in range(0, len(dkv_blocks), c):
+        cluster = dkv_blocks[j:j + c]
+        assert len({(t, hh // g, bb) for blk in cluster
+                    for t, hh, bb in blk}) == 1
+        assert all([hh for _, hh, _ in blk] == sorted(hh for _, hh, _ in blk)
+                   for blk in cluster)
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_flash_bwd_plan_cluster_divides_group(shape):
+    """Each kernel's blocks sweep p heads of one GQA group, p a divisor of
+    G: the most whose longest sweep (p n tiles of 64 positions) stays within
+    the causal work per SM, B H n^2 / (4 x 132) tiles.  K3's cluster of
+    c = G / p blocks is at most 8; its ranks split the group's heads."""
+    b, h, kh, sq, skv = shape
+    g = h // kh
+    dq, dkv = tops.flash_bwd_plan(*shape)
+
+    def rule(n, limit):
+        allowed = [p for p in range(1, g + 1)
+                   if g % p == 0 and g // p <= limit]
+        fits = [p for p in allowed if p * n * 4 * 132 <= b * h * n * n]
+        return max(fits) if fits else min(allowed)
+
+    assert dq.cluster == 1 and len(dq.heads) == 1
+    assert dq.heads[0] == tuple(range(rule(-(-skv // 64), g)))
+    c = dkv.cluster
+    assert 1 <= c <= 8 and g % c == 0 and g // c == rule(-(-sq // 64), 8)
+    assert [hh for hs in dkv.heads for hh in hs] == list(range(g))
+    assert all(len(hs) == g // c for hs in dkv.heads)
+    if shape == (4, 20, 5, 1024, 1024):  # the training shape: 2 heads a block
+        assert len(dq.heads[0]) == 2 and c == 2
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_flash_bwd_plan_fits_shared_memory(shape):
+    """Both kernels' dynamic shared memory fits a block on the H100 (227
+    KB), at the shape and at a 32k sequence (the visible-tile list grows
+    with it)."""
+    b, h, kh, sq, skv = shape
+    for plan in tops.flash_bwd_plan(*shape) + tops.flash_bwd_plan(
+            b, h, kh, 32768, 32768):
+        assert 48 * 1024 < plan.smem <= tops.SMEM_MAX == 232448
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_flash_bwd_plan_runs_longest_first(shape):
+    """Under causal positions (query i sees keys <= i) the tiles a block
+    must sweep never grow along the launch order: K2's last q tile first,
+    K3's kv tile 0 first."""
+    b, h, kh, sq, skv = shape
+    dq_blocks, dkv_blocks = _plan_blocks(*shape)
+
+    def dq_work(tile):  # kv tiles of 64 keys its last row sees
+        last = min((tile + 1) * 128, sq) - 1
+        return min(last // 64 + 1, -(-skv // 64))
+
+    def dkv_work(tile):  # q tiles of 64 rows that see its first key
+        first = tile * 128
+        return max(0, -(-sq // 64) - first // 64) if first < sq else 0
+
+    for blocks, work in ((dq_blocks, dq_work), (dkv_blocks, dkv_work)):
+        seq = [sum(work(t) for t, _, _ in blk) for blk in blocks]
+        assert seq == sorted(seq, reverse=True) and seq[0] > 0
 
 
 def _paged_fixture():
