@@ -23,7 +23,11 @@ non-zero:
               1 024 and 4 096, the M 4 stores in rotation past the L2) are
               timed as device time, replayed from a CUDA graph, with the
               eager times beside.  K2 / K3 also run twice on the training
-              shape and must give the same bits.
+              shape and must give the same bits.  K8 / K9 run eight paged
+              cases (npp 1 - 128, pages of 8 - 64, G 1 - 16, windows
+              that empty whole cluster ranks), each the same bits twice,
+              timed by graph replay and eager at the mixed case and at
+              the serve shape.
 3. serve   -- full-width tinyllava (16 layers, d 1280, bf16, random weights
               from a seed) behind ServeEngine with the 2-bit RD-FSQ split
               wire: 8 requests through 4 slots until all finish.  Launch
@@ -684,28 +688,32 @@ def check_ring_decode(gen, results):
         bound=bound(_decode_bytes(n_vis, kh, 2 * (d + 2), rest), flops))
 
 
-def check_decode(gen, results):
-    """K8 and K9 on one set of pools: K9 reads the codes and fp16 scales
-    that ``quantize_kv_token`` makes of K8's bf16 pools on the card."""
+def _paged_case(gen, lens, n_pages=None, npp=64, pg=16, kh=5, g=4,
+                holes=()):
+    """Pools of (n_pages, pg, kh, 64) random bf16 rows; slot i holds
+    ``lens[i]`` tokens (0: inactive, qpos = -1) on pages drawn in a random
+    order, its positions 0 .. lens[i] - 1; ``holes``: (slot, j) table
+    entries set to -1 (unallocated).  Returns (qf, k_pool, v_pool, q8,
+    pos_pool, page_table, qpos) with q8 the int8 codes and fp16 scales that
+    ``quantize_kv_token`` makes of the bf16 pools on the card."""
     import torch
-    from repro_torch.kernels import attention_ops, attention_ref
     from repro_torch.models.layers.attention import quantize_kv_token
 
-    dev = "cuda"
-    s, kh, g, d, pg, n_pages, npp = 4, 5, 4, 64, 16, 433, 64
+    dev, d, s = gen.device, 64, len(lens)
+    if n_pages is None:
+        n_pages = 1 + sum(-(-n // pg) for n in lens)
     k_pool = torch.randn((n_pages, pg, kh, d), generator=gen,
                          device=dev).bfloat16()
     v_pool = torch.randn((n_pages, pg, kh, d), generator=gen,
                          device=dev).bfloat16()
     pos_pool = torch.full((n_pages, pg), -1, dtype=torch.int32, device=dev)
     page_table = torch.full((s, npp), -1, dtype=torch.int32, device=dev)
-    # slot 0: 854 tokens; slot 1: 500 tokens with an unallocated (-1) page
-    # in its table; slot 2: inactive (qpos = -1); slot 3: 100 tokens
-    qpos = torch.tensor([853, 499, -1, 99], dtype=torch.int32, device=dev)
+    qpos = torch.tensor([n - 1 if n else -1 for n in lens],
+                        dtype=torch.int32, device=dev)
     perm = torch.randperm(n_pages - 1, generator=torch.Generator()
                           .manual_seed(0)) + 1
     nxt = 0
-    for slot, n_tok in ((0, 854), (1, 500), (3, 100)):
+    for slot, n_tok in enumerate(lens):
         for j in range(-(-n_tok // pg)):
             page = int(perm[nxt])
             nxt += 1
@@ -713,63 +721,138 @@ def check_decode(gen, results):
             ln = min(pg, n_tok - j * pg)
             pos_pool[page, :ln] = torch.arange(j * pg, j * pg + ln,
                                                dtype=torch.int32)
-    page_table[1, 5] = -1
+    for slot, j in holes:
+        page_table[slot, j] = -1
     qf = (torch.randn((s, kh, g, d), generator=gen, device=dev)
           * d ** -0.5).bfloat16()
     kc, ks = quantize_kv_token(k_pool)
     vc, vs = quantize_kv_token(v_pool)
-    q8 = (kc, vc, ks, vs)
-    worst = {"decode_paged": 0.0, "decode_paged_q8": 0.0}
-    for window in (None, 200):
-        outs = {
-            "decode_paged": (
-                attention_ops.decode_paged(qf, k_pool, v_pool, pos_pool,
-                                           page_table, qpos, window=window),
-                attention_ref.decode_attention_paged_ref(
-                    qf, k_pool, v_pool, pos_pool, page_table, qpos,
-                    window=window)),
-            "decode_paged_q8": (
-                attention_ops.decode_paged_q8(qf, *q8, pos_pool, page_table,
-                                              qpos, window=window),
-                attention_ref.decode_attention_paged_q8_ref(
-                    qf, *q8, pos_pool, page_table, qpos, window=window)),
-        }
-        torch.cuda.synchronize()
-        for kernel, (out, ref) in outs.items():
-            e = max_err(out, ref)
-            inactive0 = bool((out[2] == 0).all())
-            tag = "K8" if kernel == "decode_paged" else "K9"
-            print(f"[kernels] {tag} {kernel} S4 KH5 G4 pg16 npp64 (a -1 "
-                  f"page, an inactive slot), window {window}: max|out-plain|"
-                  f" {e:.3e} (tol {DECODE_ATOL}), inactive slot exact 0: "
-                  f"{inactive0}")
-            require(e <= DECODE_ATOL and inactive0, f"{tag} window {window}")
-            worst[kernel] = max(worst[kernel], e)
+    return qf, k_pool, v_pool, (kc, vc, ks, vs), pos_pool, page_table, qpos
 
-    # the bytes the kernels must read: K and V of the visible keys, the
-    # positions of every table entry, the table, q; out written
+
+def _paged_bound(case, row_bytes):
+    """The least time of K8 (``row_bytes`` 2 * 64 * 2) or K9 (2 * 66):
+    K and V of the visible keys, the positions of every table entry, the
+    table, q; out written.  Returns (bound, operations)."""
+    from repro_torch.kernels import attention_ref
+
+    qf, _, _, _, pos_pool, page_table, qpos = case
+    s, kh, g, d = qf.shape
     kpos = attention_ref.paged_kpos(pos_pool, page_table)
     n_vis = int(attention_ref._decode_valid(kpos, qpos, None).sum())
-    rest = s * npp * pg * 4 + _nbytes(page_table, qpos, qf,
-                                      outs["decode_paged"][0])
-    flops = n_vis * kh * 4 * g * d
-    results["decode_paged"] = dict(
-        max_abs_err=worst["decode_paged"],
-        ms=time_ms(lambda: attention_ops.decode_paged(
-            qf, k_pool, v_pool, pos_pool, page_table, qpos)),
-        plain_ms=time_ms(lambda: attention_ref.decode_attention_paged_ref(
-            qf, k_pool, v_pool, pos_pool, page_table, qpos), reps=5,
-            inner=1),
-        library_ms=None,
-        bound=bound(_decode_bytes(n_vis, kh, 2 * d * 2, rest), flops))
-    results["decode_paged_q8"] = dict(
-        max_abs_err=worst["decode_paged_q8"],
-        ms=time_ms(lambda: attention_ops.decode_paged_q8(
-            qf, *q8, pos_pool, page_table, qpos)),
-        plain_ms=time_ms(lambda: attention_ref.decode_attention_paged_q8_ref(
-            qf, *q8, pos_pool, page_table, qpos), reps=5, inner=1),
-        library_ms=None,
-        bound=bound(_decode_bytes(n_vis, kh, 2 * (d + 2), rest), flops))
+    rest = page_table.numel() * pos_pool.shape[1] * 4 \
+        + _nbytes(page_table, qpos, qf) + s * kh * g * d * 4
+    return bound(_decode_bytes(n_vis, kh, row_bytes, rest),
+                 n_vis * kh * 4 * g * d)
+
+
+def check_decode(gen, results):
+    """K8 and K9 against their plain versions over one set of pools per
+    case (K9 reads the codes and fp16 scales of K8's bf16 pools): the mixed
+    case (slots of 854, 500 with a -1 page, 0 and 100 tokens; timed since
+    the kernels were first ported), the serve shape (4 active
+    slots of 760 - 860 tokens), npp 1 and 128, pages of 8 and 64, G 1 and
+    16, each at window None and (where it empties whole cluster ranks) 200.
+    Every output within DECODE_ATOL, exactly 0 on a slot with no visible
+    key, the same bits on two runs.  Timed as device time by CUDA-graph
+    replay and eager, at the mixed case (the kernels line) and the serve
+    shape."""
+    import torch
+    from repro_torch.kernels import attention_ops, attention_ref
+
+    holes = ((1, 5),)
+    cases = {
+        "S4 KH5 G4 pg16 npp64 (a -1 page, an inactive slot)": (
+            _paged_case(gen, (854, 500, 0, 100), n_pages=433, holes=holes),
+            (None, 200)),
+        "serve shape: 4 slots of 760-860 tokens, npp64": (
+            _paged_case(gen, (857, 790, 823, 761)), (None,)),
+        "npp1 (one page a slot)": (
+            _paged_case(gen, (16, 9, 0, 1), npp=1), (None, 8)),
+        "npp128 (2000 tokens)": (
+            _paged_case(gen, (2000, 1500, 0, 37), npp=128, holes=holes),
+            (None, 200)),
+        "pg8 npp128": (_paged_case(gen, (854, 500, 0, 100), npp=128, pg=8,
+                                   holes=holes), (None, 200)),
+        "pg64 npp16": (_paged_case(gen, (854, 500, 0, 100), npp=16, pg=64,
+                                   holes=((1, 2),)), (None, 200)),
+        "G1 (KH5)": (_paged_case(gen, (854, 500, 0, 100), g=1,
+                                 holes=holes), (None,)),
+        "G16 (KH2)": (_paged_case(gen, (854, 500, 0, 100), kh=2, g=16,
+                                  holes=holes), (None, 200)),
+    }
+    worst = {"decode_paged": 0.0, "decode_paged_q8": 0.0}
+    for name, (case, windows) in cases.items():
+        qf, k_pool, v_pool, q8, pos_pool, page_table, qpos = case
+        plan = attention_ops.decode_paged_plan(
+            qf.shape[0], qf.shape[1], page_table.shape[1], k_pool.shape[1],
+            qf.shape[2], 2)
+        for window in windows:
+            kw = dict(window=window)
+            runs = {
+                "decode_paged": (
+                    lambda: attention_ops.decode_paged(
+                        qf, k_pool, v_pool, pos_pool, page_table, qpos, **kw),
+                    attention_ref.decode_attention_paged_ref(
+                        qf, k_pool, v_pool, pos_pool, page_table, qpos,
+                        **kw)),
+                "decode_paged_q8": (
+                    lambda: attention_ops.decode_paged_q8(
+                        qf, *q8, pos_pool, page_table, qpos, **kw),
+                    attention_ref.decode_attention_paged_q8_ref(
+                        qf, *q8, pos_pool, page_table, qpos, **kw)),
+            }
+            kpos = attention_ref.paged_kpos(pos_pool, page_table)
+            dead = ~attention_ref._decode_valid(kpos, qpos,
+                                                window).any(dim=1)
+            for kernel, (run, ref) in runs.items():
+                out, again = run(), run()
+                torch.cuda.synchronize()
+                e = max_err(out, ref)
+                exact0 = bool((out[dead] == 0).all())
+                same = bool(torch.equal(out, again))
+                tag = "K8" if kernel == "decode_paged" else "K9"
+                print(f"[kernels] {tag} {kernel} {name}, window {window} "
+                      f"(clusters of {plan.cluster}, {plan.pages_per_rank} "
+                      f"pages a rank): max|out-plain| {e:.3e} (tol "
+                      f"{DECODE_ATOL}), slots with no key exact 0: {exact0}"
+                      f", same bits twice: {same}")
+                require(e <= DECODE_ATOL and exact0 and same,
+                        f"{tag} {name} window {window}")
+                worst[kernel] = max(worst[kernel], e)
+
+    card = smi()
+    for label, key in (("mixed case", next(iter(cases))),
+                       ("serve shape", "serve shape: 4 slots of 760-860 "
+                        "tokens, npp64")):
+        qf, k_pool, v_pool, q8, pos_pool, page_table, qpos = \
+            cases[key][0]
+        fns = {
+            "decode_paged": (
+                lambda: attention_ops.decode_paged(
+                    qf, k_pool, v_pool, pos_pool, page_table, qpos),
+                lambda: attention_ref.decode_attention_paged_ref(
+                    qf, k_pool, v_pool, pos_pool, page_table, qpos),
+                2 * 64 * 2),
+            "decode_paged_q8": (
+                lambda: attention_ops.decode_paged_q8(
+                    qf, *q8, pos_pool, page_table, qpos),
+                lambda: attention_ref.decode_attention_paged_q8_ref(
+                    qf, *q8, pos_pool, page_table, qpos),
+                2 * (64 + 2)),
+        }
+        for kernel, (fn, plain, row_bytes) in fns.items():
+            dev_ms, eager = time_graph_ms(fn, 16), time_ms(fn)
+            b = _paged_bound(cases[key][0], row_bytes)
+            tag = "K8" if kernel == "decode_paged" else "K9"
+            print(f"[kernels] {tag} {kernel} {label}: device {dev_ms:.4f} ms"
+                  f" (graph replay), eager {eager:.4f} ms, bound "
+                  f"{b[0]:.5f} ms ({b[1]}); {card}")
+            if label == "mixed case":  # the kernels line's row
+                results[kernel] = dict(
+                    max_abs_err=worst[kernel], ms=dev_ms,
+                    plain_ms=time_ms(plain, reps=5, inner=1),
+                    library_ms=None, bound=b)
 
 
 def _wq_case(gen, m, d_in, d_out, bits, group, dtype=None, perm=False):

@@ -4,6 +4,7 @@ step, or a training step spends its time.
 
     python3 scripts/profile_torch_serve.py               # decode ticks
     python3 scripts/profile_torch_serve.py --weight-quant int4  # int4 ticks
+    python3 scripts/profile_torch_serve.py --kv-bits 8  # int8 KV pool ticks
     python3 scripts/profile_torch_serve.py --generate    # static steps
     python3 scripts/profile_torch_serve.py --train       # training steps
 
@@ -11,7 +12,8 @@ Needs one CUDA device.  By default it builds the same full-width
 tinyllava engine and requests as ``chip_smoke.py``'s serve phase, steps it
 until every request has been admitted (so no prefill runs afterwards),
 then traces ``TICKS`` pure decode ticks; ``--weight-quant int4`` builds
-the engine with RTN int4 weights (K12 at every w* site of the blocks).
+the engine with RTN int4 weights (K12 at every w* site of the blocks),
+``--kv-bits 8`` with int8 KV pools (K9 in place of K8).
 With ``--generate`` it prefills
 the generate phase's 4 requests into its ring caches of 825 and traces
 ``TICKS`` steps of ``make_serve_step`` after two untraced ones, once with
@@ -108,13 +110,15 @@ def _trace(run_one, n: int, unit: str, card: str) -> dict:
                         for name, (k, us) in top]}
 
 
-def profile_serve(chip_smoke, weight_quant=None) -> dict:
+def profile_serve(chip_smoke, weight_quant=None, kv_bits=16) -> dict:
+    import dataclasses
+
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import init_params
     from repro_torch.serve.engine import ServeEngine
 
-    cfg = get_config("tinyllava")
+    cfg = dataclasses.replace(get_config("tinyllava"), kv_cache_bits=kv_bits)
     params = init_params(cfg, seed=0)
     reqs = chip_smoke._requests(cfg, 8, seed=7)
     need = sum(-(-(cfg.n_image_tokens + len(t) + m) // 16)
@@ -222,6 +226,8 @@ def main() -> int:
                            "instead of the engine's decode ticks")
     ap.add_argument("--weight-quant", choices=("int4", "int3"), default=None,
                     help="(decode ticks) serve RTN-quantized packed weights")
+    ap.add_argument("--kv-bits", type=int, choices=(16, 8), default=16,
+                    help="(decode ticks) bits of the engine's KV pools")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
@@ -233,7 +239,7 @@ def main() -> int:
     elif args.generate:
         out = profile_generate(chip_smoke)
     else:
-        out = profile_serve(chip_smoke, args.weight_quant)
+        out = profile_serve(chip_smoke, args.weight_quant, args.kv_bits)
     print(json.dumps(out, indent=1))
     return 0
 

@@ -370,6 +370,62 @@ def decode_q8(qf: torch.Tensor, k_codes: torch.Tensor,
                         (k_scale, v_scale), kpos, qpos, window, torch.int8)
 
 
+# K8 / K9 launch geometry (csrc/decode_paged.cu): 128 threads (4 warps) a
+# block; a rank's pages go in rounds of at most this many K and V bytes
+PAGED_ROUND_BYTES = 32768
+PAGED_WARPS = 4
+PAGED_MAX_CLUSTER = 8  # portable thread block cluster size
+
+
+class PagedPlan(NamedTuple):
+    """K8 / K9's launch: ``grid`` blocks in clusters of ``cluster`` (one
+    cluster per (slot, kv head)); cluster rank r takes pages
+    [r ppr, (r + 1) ppr) of the slot's table row, ``ppr`` =
+    ``pages_per_rank``; a rank's visible pages go in rounds of
+    ``pages_per_round`` through ``buffers`` shared-memory buffers; ``smem``
+    the dynamic shared-memory bytes of a block."""
+    grid: int
+    cluster: int
+    pages_per_rank: int
+    pages_per_round: int
+    buffers: int
+    smem: int
+
+
+def _r16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+@functools.lru_cache(maxsize=None)
+def decode_paged_plan(s: int, kh: int, npp: int, pg: int, g: int,
+                      elem: int) -> PagedPlan:
+    """K8 (``elem`` 2, bf16 pools) / K9 (``elem`` 1, int8 codes with
+    scales) launch plan for S slots, KH kv heads, npp table entries of
+    pg-token pages and G query heads per kv head.  The cluster is the
+    fewest ranks, a power of two up to 8 and at most npp, that put a block
+    on every SM; the ranks split the table row into equal ranges.  A round
+    holds as many pages as fit PAGED_ROUND_BYTES of K and V (at least
+    one); a rank whose pages may take more than one round gets two
+    buffers.  Shared memory as ``Layout`` in the kernel: the round buffers
+    (reused for the warps' partials), a visibility byte and (K9) two fp32
+    scales per buffered row, the rank's table entries, its list of visible
+    pages, a flag per page and per key, the block's partial, a count."""
+    want = -(-SMS // (s * kh))
+    c = 1
+    while c < want and 2 * c <= min(PAGED_MAX_CLUSTER, npp):
+        c *= 2
+    ppr = -(-npp // c)
+    rnd = min(ppr, max(1, PAGED_ROUND_BYTES // (2 * pg * HEAD_DIM * elem)))
+    nbuf = 1 if rnd >= ppr else 2
+    kr = _r16(rnd * pg)
+    part = (2 * _MAX_G + g * HEAD_DIM) * 4
+    smem = (_r16(max(nbuf * 2 * kr * HEAD_DIM * elem, PAGED_WARPS * part))
+            + _r16(nbuf * kr) + (nbuf * kr * 8 if elem == 1 else 0)
+            + 2 * _r16(ppr * 4) + _r16(ppr) + _r16(ppr * pg) + part + 16)
+    return PagedPlan(grid=s * kh * c, cluster=c, pages_per_rank=ppr,
+                     pages_per_round=rnd, buffers=nbuf, smem=smem)
+
+
 def _paged_decode(kernel: str, fn_name: str, qf, k_pool, v_pool, scales,
                   pos_pool, page_table, qpos, window, code_dtype
                   ) -> torch.Tensor:
@@ -382,16 +438,24 @@ def _paged_decode(kernel: str, fn_name: str, qf, k_pool, v_pool, scales,
                          f"got {pg}")
     if page_table.ndim != 2 or page_table.shape[0] != s:
         raise ValueError(f"{kernel}: page_table does not match the slots")
+    if qf.data_ptr() % 16:
+        raise ValueError(f"{kernel} takes a 16-byte aligned query")
     _check_device(kernel, qf, page_table)
     page_table = page_table.to(torch.int32).contiguous()
+    npp = page_table.shape[1]
+    plan = decode_paged_plan(s, kh, npp, pg, g, k_pool.element_size())
+    if plan.smem > SMEM_MAX:
+        raise ValueError(f"{kernel}: {npp} pages of {pg} need "
+                         f"{plan.smem} B of shared memory a block")
     out = torch.empty((s, kh, g, HEAD_DIM), dtype=torch.float32,
                       device=qf.device)
     has_window, win = _window_args(window)
     build.launch(kernel, fn_name, qf.data_ptr(), k_pool.data_ptr(),
                  v_pool.data_ptr(), *[t.data_ptr() for t in scales],
                  pos_pool.data_ptr(), page_table.data_ptr(), qpos.data_ptr(),
-                 out.data_ptr(), s, kh, g, pg, page_table.shape[1],
-                 has_window, win, build.current_stream())
+                 out.data_ptr(), s, kh, g, pg, npp, has_window, win,
+                 plan.cluster, plan.pages_per_rank, plan.pages_per_round,
+                 plan.buffers, plan.smem, build.current_stream())
     return out
 
 

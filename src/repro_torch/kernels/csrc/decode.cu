@@ -19,8 +19,10 @@
 // see are the same, and one elementwise pass per layer and step is saved.
 //
 // With B * KH = 4 * 5 = 20 blocks the card is mostly idle at the generate
-// shapes; splitting the L sweep across blocks (flash-decoding) is a later
-// redesign.
+// shapes.  The paged kernels K8 / K9 (decode_paged.cu) already split a
+// slot's sweep over a thread-block cluster with all of a rank's loads in
+// flight at once and mma.sync products; doing the same for the ring sweep
+// here is the next redesign.
 #include "decode_common.cuh"
 
 namespace {

@@ -1,34 +1,32 @@
-// Single-token GQA decode attention: the per-block online-softmax sweep
-// shared by K6 (ring cache, bf16), K7 (ring cache, int8), K8 (paged pool,
-// bf16) and K9 (paged pool, int8).
+// Single-token GQA decode attention over a ring cache: the per-block
+// online-softmax sweep of K6 (bf16) and K7 (int8), decode.cu.  K8 / K9, the
+// paged kernels, split each slot's pages over a thread-block cluster
+// instead (decode_paged.cu).
 //
-// Replaces the body the four Pallas kernels of
+// Replaces the body the Pallas kernels of
 // src/repro/kernels/decode_kernel.py share (_decode_kernel,
-// _decode_q8_kernel, _decode_paged_kernel, _decode_paged_q8_kernel with
-// _online_update): the TPU kernels carry (m, l, acc) in VMEM across a
-// sequential grid axis over the cache; here one block of 128 threads owns
-// one (row, kv head) and loops over the cache's tiles itself.
+// _decode_q8_kernel with _online_update): the TPU kernels carry (m, l,
+// acc) in VMEM across a sequential grid axis over the cache; here one
+// block of 128 threads owns one (row, kv head) and loops over the cache's
+// tiles itself.
 //
 // Bound on the H100: bytes.  G = 4 query heads share each kv head, so each
 // cache byte read feeds about 4 flops (8 for int8 codes), far below the
 // ~295 flop/byte where the bf16 tensor cores become the limit.  The sweep
 // therefore reads every visible key's K and V row once, with 16-byte loads,
-// straight from where it lies (the ring row, or the pool page named by the
-// page table: no gathered copy of the cache), and never touches a tile with
-// no visible key.  Rows that are not visible are not read at all: their K
-// and V stay 0 in shared memory, so their p = 0 adds exactly 0.
+// straight from where it lies in the ring row, and never touches a tile
+// with no visible key.  Rows that are not visible are not read at all:
+// their K and V stay 0 in shared memory, so their p = 0 adds exactly 0.
 //
-// Instantiated twice over:
-//  * on the element type: bf16, or int8 codes whose per-(token, kv head)
-//    fp16 absmax scales fold into the two dots in the reference's order:
-//    s = (q . codes) * k_scale in fp32; softmax over s with l summing the
-//    unscaled p; (p * v_scale) rounded to bf16, then . codes in fp32;
-//  * on the tile address: a 64-row tile of a (B, L, KH, D) ring cache, the
-//    last tile ragged (any L), or one page of a (P, pg, KH, D) pool reached
-//    through the slot's page-table row (-1 clamped to page 0 and masked).
+// Instantiated on the element type: bf16, or int8 codes whose
+// per-(token, kv head) fp16 absmax scales fold into the two dots in the
+// reference's order: s = (q . codes) * k_scale in fp32; softmax over s with
+// l summing the unscaled p; (p * v_scale) rounded to bf16, then . codes in
+// fp32.  The tiles are 64-row tiles of a (B, L, KH, D) ring cache, the
+// last tile ragged (any L).
 //
 // Masked scores add exactly 0, so a row with no visible key (an inactive
-// slot, qpos = -1) returns 0.
+// row, qpos = -1) returns 0.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -40,7 +38,7 @@ namespace decode {
 
 constexpr int D = 64;        // head dim of q/k and of v
 constexpr int kMaxG = 16;    // query heads per kv head
-constexpr int kTile = 64;    // keys per tile (ring rows, or one page)
+constexpr int kTile = 64;    // keys per tile of ring rows
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kAccPerThread = kMaxG * D / kThreads;
@@ -67,12 +65,10 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // One tile: its first token slot (the index into the flat token axis that
-// the K/V rows, the scales and the positions share), its row count, and
-// whether it exists at all (a -1 page-table entry does not).
+// the K/V rows, the scales and the positions share) and its row count.
 struct Tile {
   long long slot0;
   int rows;
-  bool allocated;
 };
 
 // The 64-row tiles of one batch row of a (B, L, KH, D) ring cache.
@@ -83,18 +79,7 @@ struct RingTiles {
     return (L + kTile - 1) / kTile;
   }
   __device__ __forceinline__ Tile operator[](int j) const {
-    return {row0 + (long long)j * kTile, min(kTile, L - j * kTile), true};
-  }
-};
-
-// The pages of one slot of a (P, pg, KH, D) pool, through its table row.
-struct PagedTiles {
-  const int* table_row;  // (npp,) physical pages, -1 none
-  int npp, pg;
-  __device__ __forceinline__ int count() const { return npp; }
-  __device__ __forceinline__ Tile operator[](int j) const {
-    const int entry = table_row[j];
-    return {(long long)(entry < 0 ? 0 : entry) * pg, pg, entry >= 0};
+    return {row0 + (long long)j * kTile, min(kTile, L - j * kTile)};
   }
 };
 
@@ -102,9 +87,9 @@ struct PagedTiles {
 // point at the flat (tokens, KH, D) cache; k_scale / v_scale at the flat
 // (tokens, KH) fp16 scales (unused unless kScaled); pos at the (tokens,)
 // key positions; out: (G, D) fp32.  Every thread of the block calls it.
-template <typename Elem, bool kScaled, class Tiles>
+template <typename Elem, bool kScaled>
 __device__ __forceinline__ void sweep(
-    const Tiles& tiles, const __nv_bfloat16* __restrict__ q,
+    const RingTiles& tiles, const __nv_bfloat16* __restrict__ q,
     const Elem* __restrict__ k, const Elem* __restrict__ v,
     const __half* __restrict__ k_scale, const __half* __restrict__ v_scale,
     const int* __restrict__ pos, int KH, int kh, int G, long long qp,
@@ -136,7 +121,7 @@ __device__ __forceinline__ void sweep(
     const int rows = tile.rows;
     bool valid = false;
     if (tid < kTile) {
-      if (tid < rows && tile.allocated) {
+      if (tid < rows) {
         const long long kp = pos[tile.slot0 + tid];
         valid = kp >= 0 && kp <= qp && (!has_window || qp - kp < window);
       }

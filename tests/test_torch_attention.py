@@ -1,5 +1,7 @@
 """The port's attention (kernels K1, K2 / K3 and K8, and the layers around
-them) against the JAX reference, on the CPU, in fp32."""
+them) against the JAX reference, on the CPU, in fp32; the launch plans of
+K2 / K3 and of K8 / K9; and a plain model of K8 / K9's split of a slot's
+pages over a cluster's ranks."""
 from collections import Counter
 
 import pytest
@@ -13,6 +15,7 @@ import torch  # noqa: E402
 
 from repro.kernels import attention_ops as jops  # noqa: E402
 from repro.kernels import attention_ref as jref  # noqa: E402
+from repro.kernels import decode_kernel  # noqa: E402
 from repro.kernels import flash_kernel  # noqa: E402
 from repro.models.layers import attention as jattn  # noqa: E402
 from repro_torch.kernels import attention_ops as tops  # noqa: E402
@@ -402,3 +405,193 @@ def test_gqa_decode_paged_pool_writes_match_reference():
                                        np.asarray(jpool[leaf])[1:],
                                        atol=ATOL)
     assert np.all(tpool["pos"].numpy()[0] == -1)
+
+
+# ---------------------------------------------------------------------------
+# K8 / K9: the launch plan and a plain model of the split over the cluster
+# ---------------------------------------------------------------------------
+
+SERVE_SLOTS, SERVE_KV_HEADS = 4, 5
+PAGED_PLAN_SHAPES = [(npp, pg, g) for npp in (1, 2, 64, 128)
+                     for pg in (8, 16, 64) for g in (1, 4, 16)]
+
+
+def _rank_pages(plan, npp):
+    return [list(range(r * plan.pages_per_rank,
+                       min(npp, (r + 1) * plan.pages_per_rank)))
+            for r in range(plan.cluster)]
+
+
+@pytest.mark.parametrize("shape", PAGED_PLAN_SHAPES)
+def test_decode_paged_plan_covers_every_page_once(shape):
+    """The ranks of a cluster (a power of two, at most 8 and at most npp)
+    take contiguous ranges of the table row, in rank order, every page in
+    exactly one; the grid is one cluster per (slot, kv head)."""
+    npp, pg, g = shape
+    for elem in (2, 1):
+        plan = tops.decode_paged_plan(SERVE_SLOTS, SERVE_KV_HEADS, npp, pg,
+                                      g, elem)
+        c = plan.cluster
+        assert c in (1, 2, 4, 8) and c <= npp
+        assert plan.grid == SERVE_SLOTS * SERVE_KV_HEADS * c
+        pages = _rank_pages(plan, npp)
+        assert [j for rank in pages for j in rank] == list(range(npp))
+        assert all(rank for rank in pages[:-1])  # only the last may be empty
+
+
+@pytest.mark.parametrize("shape", PAGED_PLAN_SHAPES)
+def test_decode_paged_plan_fits_shared_memory(shape):
+    """A round holds at least one page and at most PAGED_ROUND_BYTES of K
+    and V (or one page, if a page is larger), a rank of several rounds gets
+    two buffers, and a block's shared memory (the buffers and everything
+    beside them) fits the H100's 227 KB."""
+    npp, pg, g = shape
+    for elem in (2, 1):
+        plan = tops.decode_paged_plan(SERVE_SLOTS, SERVE_KV_HEADS, npp, pg,
+                                      g, elem)
+        rnd, page = plan.pages_per_round, 2 * pg * tops.HEAD_DIM * elem
+        assert 1 <= rnd <= plan.pages_per_rank
+        assert rnd * page <= max(tops.PAGED_ROUND_BYTES, page)
+        assert plan.buffers == (1 if rnd == plan.pages_per_rank else 2)
+        kv = plan.buffers * 2 * (-(-rnd * pg // 16) * 16) * tops.HEAD_DIM \
+            * elem
+        assert kv < plan.smem <= tops.SMEM_MAX == 232448
+
+
+@pytest.mark.parametrize("elem", [2, 1])
+def test_decode_paged_plan_fills_the_card_at_the_serve_shape(elem):
+    """At the serve shape (4 slots, 5 kv heads, 64 entries of 16-token
+    pages) the split puts a block on every one of the 132 SMs: clusters of
+    8, 8 pages a rank, all of them in one round."""
+    plan = tops.decode_paged_plan(4, 5, 64, 16, 4, elem)
+    assert plan.grid >= 132 and plan.cluster == 8
+    assert plan.pages_per_rank == plan.pages_per_round == 8
+
+
+def _split_model(qf, k, v, pos, pt, qpos, window, cluster, ppr, rnd,
+                 ks=None, vs=None):
+    """K8 / K9's order of work in plain PyTorch (fp32): each cluster rank
+    lists the visible pages of its range of the table row, sweeps them in
+    rounds of ``rnd`` with the online softmax (m, l, acc), and the ranks'
+    partials are combined in rank order.  ``ks`` / ``vs``: K9's fp16 scale
+    pools, folded as the kernel folds them."""
+    s, kh, g, d = qf.shape
+    npp = pt.shape[1]
+    out = torch.zeros((s, kh, g, d))
+    for slot in range(s):
+        qp = int(qpos[slot])
+        for h in range(kh):
+            parts = []
+            for r in range(cluster):
+                m = torch.full((g,), -1e30)
+                l, acc = torch.zeros(g), torch.zeros((g, d))
+                listed = []
+                for j in range(r * ppr, min(npp, (r + 1) * ppr)):
+                    e = int(pt[slot, j])
+                    if e < 0:
+                        continue
+                    kp = pos[e].long()
+                    vis = (kp >= 0) & (kp <= qp)
+                    if window is not None:
+                        vis &= qp - kp < window
+                    if bool(vis.any()):
+                        listed.append((e, vis))
+                for i in range(0, len(listed), rnd):
+                    rows = listed[i:i + rnd]
+                    pages = [e for e, _ in rows]
+                    vis = torch.cat([vv for _, vv in rows])
+                    sc = qf[slot, h] @ k[pages, :, h].reshape(-1, d).T
+                    if ks is not None:
+                        sc = sc * ks[pages, :, h].reshape(-1).float()
+                    sc = torch.where(vis, sc, -1e30)
+                    m_new = torch.maximum(m, sc.max(dim=1).values)
+                    p = torch.where(vis, torch.exp(sc - m_new[:, None]), 0.0)
+                    corr = torch.exp(m - m_new)
+                    l = l * corr + p.sum(dim=1)
+                    if vs is not None:
+                        p = p * vs[pages, :, h].reshape(-1).float()
+                    acc = acc * corr[:, None] \
+                        + p @ v[pages, :, h].reshape(-1, d).float()
+                    m = m_new
+                parts.append((m, l, acc))
+            mx = torch.stack([pm for pm, _, _ in parts]).max(dim=0).values
+            a, total = torch.zeros((g, d)), torch.zeros(g)
+            for pm, pl, pa in parts:  # rank order
+                f = torch.exp(pm - mx)
+                a = a + pa * f[:, None]
+                total = total + pl * f
+            out[slot, h] = a / torch.clamp_min(total, 1e-30)[:, None]
+    return out
+
+
+def _split_fixture():
+    """4 slots of 16-token pages, 16 table entries: slot 0 holds 250 tokens
+    with entry 3 unallocated (-1), slot 1 100 tokens (ranks 4 - 7 of 8 hold
+    no page), slot 2 is inactive, slot 3 holds 40.  With window 200 slot 0's
+    ranks 0 and 1 see no key."""
+    rng = np.random.default_rng(5)
+    pg, npp, kh, g, d = 16, 16, 2, 4, 64
+    lens = (250, 100, 0, 40)
+    n_pages = 1 + sum(-(-n // pg) for n in lens)
+    pos = np.full((n_pages, pg), -1, np.int32)
+    pt = np.full((len(lens), npp), -1, np.int32)
+    pages = iter(rng.permutation(np.arange(1, n_pages)))
+    for slot, n in enumerate(lens):
+        for j in range(-(-n // pg)):
+            page = next(pages)
+            pt[slot, j] = page
+            ln = min(pg, n - j * pg)
+            pos[page, :ln] = np.arange(j * pg, j * pg + ln)
+    pt[0, 3] = -1
+    qpos = np.array([n - 1 if n else -1 for n in lens], np.int32)
+    qf = (rng.normal(size=(len(lens), kh, g, d)) / np.sqrt(d)) \
+        .astype(np.float32)
+    k = rng.normal(size=(n_pages, pg, kh, d)).astype(np.float32)
+    v = rng.normal(size=(n_pages, pg, kh, d)).astype(np.float32)
+    return qf, k, v, pos, pt, qpos
+
+
+@pytest.mark.parametrize("rounds", ["plan", "one page a round"])
+@pytest.mark.parametrize("kind", ["K8", "K9"])
+@pytest.mark.parametrize("window", [None, 200])
+def test_decode_paged_split_model_matches_reference(window, kind, rounds):
+    """The split as K8 / K9 run it (the plan's ranks, rounds of the plan's
+    size or of one page, the ranks combined in rank order) against the
+    Pallas kernels in interpret mode and the port's plain versions, within
+    1e-5 (fp32, sums in another order); slot 2 (inactive) exactly 0."""
+    qf, k, v, pos, pt, qpos = _split_fixture()
+    s, kh, g, _ = qf.shape
+    plan = tops.decode_paged_plan(s, kh, pt.shape[1], k.shape[1], g,
+                                  2 if kind == "K8" else 1)
+    assert plan.cluster == 8 and plan.pages_per_rank == 2
+    rnd = plan.pages_per_round if rounds == "plan" else 1
+    if kind == "K8":
+        j = [jnp.asarray(a) for a in (qf, k, v, pos, pt, qpos)]
+        ref = decode_kernel.decode_paged(
+            j[0], j[1], j[2], j[3], j[4], j[5].reshape(-1, 1), window=window,
+            interpret=True)
+        plain = tops.decode_paged(*[_t(a) for a in (qf, k, v, pos, pt, qpos)],
+                                  window=window)
+        model = _split_model(_t(qf), _t(k), _t(v), _t(pos), _t(pt),
+                             _t(qpos), window, plan.cluster,
+                             plan.pages_per_rank, rnd)
+    else:
+        kc, ks = (np.asarray(a) for a in jattn.quantize_kv_token(
+            jnp.asarray(k * 2)))
+        vc, vs = (np.asarray(a) for a in jattn.quantize_kv_token(
+            jnp.asarray(v)))
+        j = [jnp.asarray(a) for a in (qf, kc, vc, ks, vs, pos, pt, qpos)]
+        ref = decode_kernel.decode_paged_q8(
+            j[0], j[1], j[2], j[3].astype(jnp.float32).transpose(0, 2, 1),
+            j[4].astype(jnp.float32).transpose(0, 2, 1), j[5], j[6],
+            j[7].reshape(-1, 1), window=window, interpret=True)
+        plain = tops.decode_paged_q8(
+            *[_t(a) for a in (qf, kc, vc, ks, vs, pos, pt, qpos)],
+            window=window)
+        model = _split_model(_t(qf), _t(kc).float(), _t(vc).float(),
+                             _t(pos), _t(pt), _t(qpos), window,
+                             plan.cluster, plan.pages_per_rank, rnd,
+                             ks=_t(ks), vs=_t(vs))
+    np.testing.assert_allclose(model.numpy(), np.asarray(ref), atol=ATOL)
+    np.testing.assert_allclose(model.numpy(), plain.numpy(), atol=ATOL)
+    assert np.all(model.numpy()[2] == 0.0)
