@@ -109,8 +109,8 @@ SOURCES = {"flash_fwd": SRC + "flash_fwd.cu",
            "flash_bwd_dkv": SRC + "flash_bwd.cu",
            "rdfsq_quantize": SRC + "rdfsq.cu",
            "rdfsq_dequantize": SRC + "rdfsq.cu",
-           "decode": SRC + "decode.cu",
-           "decode_q8": SRC + "decode.cu",
+           "decode": SRC + "decode_paged.cu",
+           "decode_q8": SRC + "decode_paged.cu",
            "decode_paged": SRC + "decode_paged.cu",
            "decode_paged_q8": SRC + "decode_paged.cu",
            "nf_quantize": SRC + "nf.cu",
@@ -595,13 +595,17 @@ def _decode_bytes(n_visible: int, kh: int, row_bytes: int,
     return n_visible * kh * row_bytes + other_bytes
 
 
-def _ring_case(gen, b, length, qpos, window=None):
-    """A (B, L, KH, D) bf16 ring cache at the generate widths, each row
-    holding every position up to its qpos that still fits (position p at
-    slot p mod L); a row with qpos = -1 holds nothing."""
+def _ring_case(gen, b, length, qpos, kh=5, g=4):
+    """A (B, L, KH, D) bf16 ring cache (the generate widths by default),
+    each row holding every position up to its qpos that still fits
+    (position p at slot p mod L); a row with qpos = -1 holds nothing.
+    Returns (qf, k, v, q8, kpos, qpos) with q8 the int8 codes and fp16
+    scales that ``quantize_kv_token`` makes of the bf16 cache on the
+    card."""
     import torch
+    from repro_torch.models.layers.attention import quantize_kv_token
 
-    dev, kh, g, d = "cuda", 5, 4, 64
+    dev, d = "cuda", 64
     k = torch.randn((b, length, kh, d), generator=gen, device=dev).bfloat16()
     v = torch.randn((b, length, kh, d), generator=gen, device=dev).bfloat16()
     kpos = torch.full((b, length), -1, dtype=torch.int32)
@@ -610,57 +614,92 @@ def _ring_case(gen, b, length, qpos, window=None):
         kpos[row, p.long() % length] = p
     qf = (torch.randn((b, kh, g, d), generator=gen, device=dev)
           * d ** -0.5).bfloat16()
-    return (qf, k, v, kpos.to(dev),
-            torch.tensor(qpos, dtype=torch.int32, device=dev), window)
+    kc, ks = quantize_kv_token(k)
+    vc, vs = quantize_kv_token(v)
+    return (qf, k, v, (kc, vc, ks, vs), kpos.to(dev),
+            torch.tensor(qpos, dtype=torch.int32, device=dev))
+
+
+def _hold_decode(tag, what, plan, run, ref, dead) -> float:
+    """Run a decode kernel twice and hold it: within DECODE_ATOL of its
+    plain version ``ref``, exactly 0 on the ``dead`` rows (no visible
+    key), the same bits both times.  Returns max |out - plain|."""
+    import torch
+
+    out, again = run(), run()
+    torch.cuda.synchronize()
+    e = max_err(out, ref)
+    exact0 = bool((out[dead] == 0).all())
+    same = bool(torch.equal(out, again))
+    print(f"[kernels] {tag} {what} (clusters of {plan.cluster}, "
+          f"{plan.pages_per_rank} pages a rank, {plan.pages_per_round} a "
+          f"round): max|out-plain| {e:.3e} (tol {DECODE_ATOL}), rows with "
+          f"no key exact 0: {exact0}, same bits twice: {same}")
+    require(e <= DECODE_ATOL and exact0 and same, f"{tag} {what}")
+    return e
 
 
 def check_ring_decode(gen, results):
-    """K6 and K7 against their plain versions; K7 reads the codes and fp16
-    scales that ``quantize_kv_token`` makes of the same cache on the
-    card."""
+    """K6 and K7 against their plain versions over one ring cache per case
+    (K7 reads the codes and fp16 scales of K6's bf16 cache): the generate
+    shape (B 4, L 825, timed since the kernels were first ported) at
+    window None and at window 200 (which empties whole cluster ranks), a
+    wrapped ring, a prime L with a row of no key, L 2000 (K6's ranks take
+    two rounds through two buffers, K7's one), G 1 and G 16, and L 37
+    (fewer virtual pages than 8 ranks).  Every output within DECODE_ATOL,
+    exactly 0 on a row with no visible key, the same bits on two runs.
+    Timed as device time by CUDA-graph replay and eager at the generate
+    shape, with SDPA over the same cache as the yardstick."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import attention_ops, attention_ref
-    from repro_torch.models.layers.attention import quantize_kv_token
 
     cases = {
-        "generate shape B4 L825": _ring_case(gen, 4, 825,
-                                             [824, 792, 500, 100]),
-        "wrapped ring L256, window 256":
-            _ring_case(gen, 4, 256, [1000, 700, 255, 300], window=256),
-        "prime L509, a row with no key":
-            _ring_case(gen, 4, 509, [508, 1200, 37, -1]),
+        "generate shape B4 L825": (
+            _ring_case(gen, 4, 825, [824, 792, 500, 100]), (None, 200)),
+        "wrapped ring L256": (
+            _ring_case(gen, 4, 256, [1000, 700, 255, 300]), (256,)),
+        "prime L509, a row with no key": (
+            _ring_case(gen, 4, 509, [508, 1200, 37, -1]), (None,)),
+        "L2000 (two rounds for K6)": (
+            _ring_case(gen, 4, 2000, [1999, 3100, 700, -1]), (None, 200)),
+        "G1 (KH5)": (_ring_case(gen, 4, 825, [824, 792, 500, 100], g=1),
+                     (None,)),
+        "G16 (KH2)": (_ring_case(gen, 4, 825, [824, 792, 500, 100], kh=2,
+                                 g=16), (None, 200)),
+        "L37 (3 virtual pages)": (_ring_case(gen, 4, 37, [36, 80, 2, -1]),
+                                  (None, 8)),
     }
     worst = {"decode": 0.0, "decode_q8": 0.0}
-    for name, (qf, k, v, kpos, qpos, window) in cases.items():
-        kc, ks = quantize_kv_token(k)
-        vc, vs = quantize_kv_token(v)
-        q8 = (kc, vc, ks, vs)
-        outs = {
-            "decode": (attention_ops.decode(qf, k, v, kpos, qpos,
-                                            window=window),
-                       attention_ref.decode_attention_ref(
-                           qf, k, v, kpos, qpos, window=window)),
-            "decode_q8": (attention_ops.decode_q8(qf, *q8, kpos, qpos,
-                                                  window=window),
-                          attention_ref.decode_attention_q8_ref(
-                              qf, *q8, kpos, qpos, window=window)),
-        }
-        torch.cuda.synchronize()
-        dead = ~attention_ref._decode_valid(kpos, qpos, window).any(dim=1)
-        for kernel, (out, ref) in outs.items():
-            e = max_err(out, ref)
-            exact0 = bool((out[dead] == 0).all())
-            tag = "K6" if kernel == "decode" else "K7"
-            print(f"[kernels] {tag} {kernel} {name}: max|out-plain| "
-                  f"{e:.3e} (tol {DECODE_ATOL}), rows with no key exact "
-                  f"0: {exact0}")
-            require(e <= DECODE_ATOL and exact0, f"{tag} {name}")
-            worst[kernel] = max(worst[kernel], e)
-        if name.startswith("generate"):
-            main = qf, k, v, kpos, qpos, q8
+    for name, (case, windows) in cases.items():
+        qf, k, v, q8, kpos, qpos = case
+        b, kh, g, _ = qf.shape
+        plans = {kernel: attention_ops.decode_paged_plan(
+            b, kh, -(-k.shape[1] // attention_ops.RING_PAGE),
+            attention_ops.RING_PAGE, g, elem)
+            for kernel, elem in (("decode", 2), ("decode_q8", 1))}
+        for window in windows:
+            kw = dict(window=window)
+            runs = {
+                "decode": (
+                    lambda: attention_ops.decode(qf, k, v, kpos, qpos, **kw),
+                    attention_ref.decode_attention_ref(qf, k, v, kpos, qpos,
+                                                       **kw)),
+                "decode_q8": (
+                    lambda: attention_ops.decode_q8(qf, *q8, kpos, qpos,
+                                                    **kw),
+                    attention_ref.decode_attention_q8_ref(qf, *q8, kpos,
+                                                          qpos, **kw)),
+            }
+            dead = ~attention_ref._decode_valid(kpos, qpos,
+                                                window).any(dim=1)
+            for kernel, (run, ref) in runs.items():
+                tag = "K6" if kernel == "decode" else "K7"
+                e = _hold_decode(tag, f"{kernel} {name}, window {window}",
+                                 plans[kernel], run, ref, dead)
+                worst[kernel] = max(worst[kernel], e)
 
-    qf, k, v, kpos, qpos, q8 = main
+    qf, k, v, q8, kpos, qpos = cases["generate shape B4 L825"][0]
     b, kh, g, d = qf.shape
     valid = attention_ref._decode_valid(kpos, qpos, None)
     n_vis = int(valid.sum())
@@ -670,22 +709,35 @@ def check_ring_decode(gen, results):
     q4 = qf.reshape(b, kh * g, 1, d)
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
     mask = valid[:, None, None, :]
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q4, kt, vt, attn_mask=mask, enable_gqa=True, scale=1.0))
-    results["decode"] = dict(
-        max_abs_err=worst["decode"],
-        ms=time_ms(lambda: attention_ops.decode(qf, k, v, kpos, qpos)),
-        plain_ms=time_ms(lambda: attention_ref.decode_attention_ref(
-            qf, k, v, kpos, qpos), reps=5, inner=1),
-        library_ms=lib_ms,
-        bound=bound(_decode_bytes(n_vis, kh, 2 * d * 2, rest), flops))
-    results["decode_q8"] = dict(
-        max_abs_err=worst["decode_q8"],
-        ms=time_ms(lambda: attention_ops.decode_q8(qf, *q8, kpos, qpos)),
-        plain_ms=time_ms(lambda: attention_ref.decode_attention_q8_ref(
-            qf, *q8, kpos, qpos), reps=5, inner=1),
-        library_ms=None,
-        bound=bound(_decode_bytes(n_vis, kh, 2 * (d + 2), rest), flops))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q4, kt, vt, attn_mask=mask, enable_gqa=True, scale=1.0)
+
+    card = smi()
+    lib_ms, lib_eager = time_graph_ms(sdpa, 16), time_ms(sdpa)
+    print(f"[kernels] SDPA (GQA, bool mask) generate shape: device "
+          f"{lib_ms:.4f} ms (graph replay), eager {lib_eager:.4f} ms; "
+          f"{card}")
+    fns = {
+        "decode": (lambda: attention_ops.decode(qf, k, v, kpos, qpos),
+                   lambda: attention_ref.decode_attention_ref(
+                       qf, k, v, kpos, qpos), 2 * d * 2, lib_ms),
+        "decode_q8": (lambda: attention_ops.decode_q8(qf, *q8, kpos, qpos),
+                      lambda: attention_ref.decode_attention_q8_ref(
+                          qf, *q8, kpos, qpos), 2 * (d + 2), None),
+    }
+    for kernel, (fn, plain, row_bytes, lib) in fns.items():
+        dev_ms, eager = time_graph_ms(fn, 16), time_ms(fn)
+        bnd = bound(_decode_bytes(n_vis, kh, row_bytes, rest), flops)
+        tag = "K6" if kernel == "decode" else "K7"
+        print(f"[kernels] {tag} {kernel} generate shape: device "
+              f"{dev_ms:.4f} ms (graph replay), eager {eager:.4f} ms, bound "
+              f"{bnd[0]:.5f} ms ({bnd[1]}); {card}")
+        results[kernel] = dict(
+            max_abs_err=worst[kernel], ms=dev_ms,
+            plain_ms=time_ms(plain, reps=5, inner=1), library_ms=lib,
+            bound=bnd)
 
 
 def _paged_case(gen, lens, n_pages=None, npp=64, pg=16, kh=5, g=4,
@@ -784,9 +836,10 @@ def check_decode(gen, results):
     worst = {"decode_paged": 0.0, "decode_paged_q8": 0.0}
     for name, (case, windows) in cases.items():
         qf, k_pool, v_pool, q8, pos_pool, page_table, qpos = case
-        plan = attention_ops.decode_paged_plan(
+        plans = {kernel: attention_ops.decode_paged_plan(
             qf.shape[0], qf.shape[1], page_table.shape[1], k_pool.shape[1],
-            qf.shape[2], 2)
+            qf.shape[2], elem)
+            for kernel, elem in (("decode_paged", 2), ("decode_paged_q8", 1))}
         for window in windows:
             kw = dict(window=window)
             runs = {
@@ -806,19 +859,9 @@ def check_decode(gen, results):
             dead = ~attention_ref._decode_valid(kpos, qpos,
                                                 window).any(dim=1)
             for kernel, (run, ref) in runs.items():
-                out, again = run(), run()
-                torch.cuda.synchronize()
-                e = max_err(out, ref)
-                exact0 = bool((out[dead] == 0).all())
-                same = bool(torch.equal(out, again))
                 tag = "K8" if kernel == "decode_paged" else "K9"
-                print(f"[kernels] {tag} {kernel} {name}, window {window} "
-                      f"(clusters of {plan.cluster}, {plan.pages_per_rank} "
-                      f"pages a rank): max|out-plain| {e:.3e} (tol "
-                      f"{DECODE_ATOL}), slots with no key exact 0: {exact0}"
-                      f", same bits twice: {same}")
-                require(e <= DECODE_ATOL and exact0 and same,
-                        f"{tag} {name} window {window}")
+                e = _hold_decode(tag, f"{kernel} {name}, window {window}",
+                                 plans[kernel], run, ref, dead)
                 worst[kernel] = max(worst[kernel], e)
 
     card = smi()

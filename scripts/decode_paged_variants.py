@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
-"""Where K8 / K9 (``csrc/decode_paged.cu``) spend their time: device time
-at the serve shape under other cluster sizes and under timing-only edits
-of the source.
+"""Where the decode kernels (``csrc/decode_paged.cu``: K6 / K7 over ring
+caches, K8 / K9 over paged pools) spend their time: device time at the
+generate and serve shapes under other cluster sizes and under timing-only
+edits of the source.
 
     python3 scripts/decode_paged_variants.py
 
 Needs one CUDA device and nvcc.  On ``chip_smoke.py``'s serve-shaped
 paged case (4 active slots of 760 - 860 tokens, 5 kv heads, G 4, 64
-table entries of 16-token pages) it times K8 and K9 by CUDA-graph replay
-(``chip_smoke.time_graph_ms``), in the order given, then in reverse, so
-that drift shows:
+table entries of 16-token pages) it times K8 and K9, and on its
+generate-shaped ring case (B 4, L 825, 5 kv heads, G 4) K6 and K7, by
+CUDA-graph replay (``chip_smoke.time_graph_ms``), in the order given,
+then in reverse, so that drift shows:
 
 * ``c8`` / ``c4`` / ``c2`` / ``c1``: the kernels as built, with clusters
   of at most 8, 4, 2 or 1 blocks (``attention_ops.PAGED_MAX_CLUSTER``
-  overridden; 8, 16, 32 or 64 pages a rank);
+  overridden; K8 / K9 8, 16, 32 or 64 pages a rank, K6 / K7 7, 13, 26 or
+  52 virtual pages);
 * ``empty``: every block returns at once: the launch of the clusters;
 * ``nocompute``: no products or softmax (the scan, the copies, the
   combine stay);
@@ -25,7 +28,7 @@ that drift shows:
 The edited variants compute garbage (their error against the plain
 version is printed) and exist only to be timed; each is built into its
 own library under ``build/decode_paged_variants/``.  One line per run:
-the variant, K8 and K9 ms, and max |out - plain| of each.
+the variant, K8, K9, K6 and K7 ms, and max |out - plain| of each.
 """
 from __future__ import annotations
 
@@ -53,7 +56,7 @@ EDITS = {
 }
 CLUSTERS = {"c8": 8, "c4": 4, "c2": 2, "c1": 1}
 ORDER = ["c8", "c4", "c2", "c1", "empty", "nocompute", "nocopy", "nodsmem"]
-FNS = ("decode_paged_bf16", "decode_paged_q8")
+FNS = ("decode_paged_bf16", "decode_paged_q8", "decode_bf16", "decode_q8")
 
 
 def _variant_libs(build) -> dict:
@@ -103,21 +106,31 @@ def main() -> int:
     ref8 = attention_ref.decode_attention_paged_ref(qf, k, v, pos, pt, qpos)
     ref9 = attention_ref.decode_attention_paged_q8_ref(qf, *q8, pos, pt,
                                                        qpos)
-
-    def k8():
-        return attention_ops.decode_paged(qf, k, v, pos, pt, qpos)
-
-    def k9():
-        return attention_ops.decode_paged_q8(qf, *q8, pos, pt, qpos)
+    rq, rk, rv, r8, kpos, rpos = cs._ring_case(gen, 4, 825,
+                                                [824, 792, 500, 100])
+    kernels = {
+        "K8": (lambda: attention_ops.decode_paged(qf, k, v, pos, pt, qpos),
+               ref8),
+        "K9": (lambda: attention_ops.decode_paged_q8(qf, *q8, pos, pt,
+                                                     qpos), ref9),
+        "K6": (lambda: attention_ops.decode(rq, rk, rv, kpos, rpos),
+               attention_ref.decode_attention_ref(rq, rk, rv, kpos, rpos)),
+        "K7": (lambda: attention_ops.decode_q8(rq, *r8, kpos, rpos),
+               attention_ref.decode_attention_q8_ref(rq, *r8, kpos, rpos)),
+    }
 
     for name in ORDER + ORDER[::-1]:
         build._lib = libs[name]
         attention_ops.PAGED_MAX_CLUSTER = CLUSTERS.get(name, 8)
         attention_ops.decode_paged_plan.cache_clear()
-        e8, e9 = cs.max_err(k8(), ref8), cs.max_err(k9(), ref9)
-        t8, t9 = cs.time_graph_ms(k8, 16), cs.time_graph_ms(k9, 16)
-        print(f"{name:9s} K8 {t8:.4f} ms, K9 {t9:.4f} ms; errors {e8:.1e} "
-              f"{e9:.1e}", flush=True)
+        errs = {tag: cs.max_err(fn(), ref)
+                for tag, (fn, ref) in kernels.items()}
+        times = {tag: cs.time_graph_ms(fn, 16)
+                 for tag, (fn, _) in kernels.items()}
+        print(f"{name:9s} " + ", ".join(
+            f"{tag} {times[tag]:.4f} ms" for tag in kernels)
+            + "; errors " + " ".join(f"{errs[tag]:.1e}" for tag in kernels),
+            flush=True)
     attention_ops.PAGED_MAX_CLUSTER = 8
     attention_ops.decode_paged_plan.cache_clear()
     return 0

@@ -45,24 +45,29 @@ sys.path.insert(0, str(ROOT / "src"))
 
 TICKS = 10
 STEPS = 3
-# kernel-name fragment -> group (the port's kernels by their K number)
-GROUPS = (("flash_fwd_kernel", "K1 flash_fwd"),
-          ("flash_bwd_dq_kernel", "K2 flash_bwd_dq"),
-          ("flash_bwd_dkv_kernel", "K3 flash_bwd_dkv"),
-          ("rdfsq", "K4/K5 rdfsq"),
-          ("ring_decode_kernel<__nv_bfloat16", "K6 decode"),
-          ("ring_decode_kernel<signed char", "K7 decode_q8"),
-          ("paged_decode_kernel<__nv_bfloat16", "K8 decode_paged"),
-          ("paged_decode_kernel<signed char", "K9 decode_paged_q8"),
-          ("wq_gemv_kernel", "K12 wq_matmul"),
-          ("wq_wgmma_kernel", "K12 wq_matmul"),
-          ("wq_matmul", "K12 wq_matmul"),
-          ("nvjet", "cuBLAS GEMM"), ("gemm", "cuBLAS GEMM"))
+# kernel-name fragments (all present) -> group (the port's kernels by their
+# K number; the four decode kernels are one template, told apart by its
+# element type and address source)
+GROUPS = ((("flash_fwd_kernel",), "K1 flash_fwd"),
+          (("flash_bwd_dq_kernel",), "K2 flash_bwd_dq"),
+          (("flash_bwd_dkv_kernel",), "K3 flash_bwd_dkv"),
+          (("rdfsq",), "K4/K5 rdfsq"),
+          (("paged_decode_kernel<__nv_bfloat16", "RingPages"), "K6 decode"),
+          (("paged_decode_kernel<signed char", "RingPages"),
+           "K7 decode_q8"),
+          (("paged_decode_kernel<__nv_bfloat16", "TablePages"),
+           "K8 decode_paged"),
+          (("paged_decode_kernel<signed char", "TablePages"),
+           "K9 decode_paged_q8"),
+          (("wq_gemv_kernel",), "K12 wq_matmul"),
+          (("wq_wgmma_kernel",), "K12 wq_matmul"),
+          (("wq_matmul",), "K12 wq_matmul"),
+          (("nvjet",), "cuBLAS GEMM"), (("gemm",), "cuBLAS GEMM"))
 
 
 def _group(name: str) -> str:
-    for frag, group in GROUPS:
-        if frag in name:
+    for frags, group in GROUPS:
+        if all(frag in name for frag in frags):
             return group
     return "elementwise, copies, reductions"
 
@@ -104,7 +109,7 @@ def _trace(run_one, n: int, unit: str, card: str) -> dict:
         f"kernel_launches_per_{unit}": launches / done,
         f"device_ms_per_{unit}_by_group": dict(
             sorted(groups.items(), key=lambda kv: -kv[1])),
-        "top_kernels": [{"name": name[:90],
+        "top_kernels": [{"name": name[:120],
                          f"launches_per_{unit}": k / done,
                          f"device_ms_per_{unit}": us / 1e3 / done}
                         for name, (k, us) in top]}

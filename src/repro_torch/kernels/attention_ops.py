@@ -6,12 +6,18 @@ decode, bf16 / int8) (port of ``repro/kernels/attention_ops.py``:
 ``decode_paged_q8_pallas``).
 
 For a CUDA tensor a wrapper launches its kernel from ``csrc/flash_fwd.cu``,
-``csrc/flash_bwd.cu``, ``csrc/decode.cu`` or ``csrc/decode_paged.cu``, or
-raises on what the kernel does not take; for a CPU tensor it runs the
-plain version in ``attention_ref.py``.  No shape gate or environment
-variable sends a CUDA tensor to the plain version.  The reference's
-decode wrappers fall back to jnp where no block divides the cache length;
-the decode kernels here take any length.
+``csrc/flash_bwd.cu`` or ``csrc/decode_paged.cu``, or raises on what the
+kernel does not take; for a CPU tensor it runs the plain version in
+``attention_ref.py``.  No shape gate or environment variable sends a CUDA
+tensor to the plain version.
+
+The four decode kernels are one kernel body (``csrc/decode_paged.cu``)
+with one launch plan, ``decode_paged_plan``: a thread-block cluster per
+(row, kv head) whose ranks split the row's pages.  K8 / K9 take the pages
+of a slot's table row; K6 / K7 take a ring row as ``ceil(L / RING_PAGE)``
+virtual pages, the last one ragged.  The reference's ring wrappers fall
+back to jnp where no block divides the cache length; K6 / K7 take any
+length whose plan fits a block's shared memory.
 """
 from __future__ import annotations
 
@@ -320,9 +326,80 @@ def _check_decode(name: str, qf, k, v, scales, pos, qpos, code_dtype
     if qpos.shape != (r,):
         raise ValueError(f"{name}: qpos does not match the row axis")
     _check_contiguous(name, qf, k, v, *scales, pos)
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError(f"{name} takes 16-byte aligned caches")
+    if qf.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError(f"{name} takes a 16-byte aligned query and caches")
     return qpos.to(torch.int32).contiguous()
+
+
+# K6 - K9 launch geometry (csrc/decode_paged.cu): 128 threads (4 warps) a
+# block; a rank's pages go in rounds of at most this many K and V bytes
+PAGED_ROUND_BYTES = 32768
+PAGED_WARPS = 4
+PAGED_MAX_CLUSTER = 8  # portable thread block cluster size
+RING_PAGE = 16  # K6 / K7: keys in a virtual page of a ring row
+
+
+class PagedPlan(NamedTuple):
+    """K6 - K9's launch: ``grid`` blocks in clusters of ``cluster`` (one
+    cluster per (row, kv head)); cluster rank r takes pages
+    [r ppr, (r + 1) ppr) of the row (a slot's table row, or a ring row's
+    virtual pages), ``ppr`` = ``pages_per_rank``; a rank's visible pages
+    go in rounds of ``pages_per_round`` through ``buffers`` shared-memory
+    buffers; ``smem`` the dynamic shared-memory bytes of a block."""
+    grid: int
+    cluster: int
+    pages_per_rank: int
+    pages_per_round: int
+    buffers: int
+    smem: int
+
+
+def _r16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+@functools.lru_cache(maxsize=None)
+def decode_paged_plan(s: int, kh: int, npp: int, pg: int, g: int,
+                      elem: int) -> PagedPlan:
+    """K6 / K8 (``elem`` 2, bf16 caches) and K7 / K9 (``elem`` 1, int8
+    codes with scales) launch plan for S rows, KH kv heads, npp pages of
+    pg tokens a row (K8 / K9: table entries; K6 / K7: ``ceil(L /
+    RING_PAGE)`` of ``RING_PAGE``) and G query heads per kv head.  The
+    cluster is the fewest ranks, a power of two up to 8 and at most npp,
+    that put a block on every SM; the ranks split the row's pages into
+    equal ranges.  A round holds as many pages as fit PAGED_ROUND_BYTES of
+    K and V (at least one); a rank whose pages may take more than one
+    round gets two buffers.  Shared memory as ``Layout`` in the kernel:
+    the round buffers (reused for the warps' partials), a visibility byte
+    and (K7 / K9) two fp32 scales per buffered row, the rank's page
+    entries, its list of visible pages, a flag per page and per key, the
+    block's partial, a count."""
+    want = -(-SMS // (s * kh))
+    c = 1
+    while c < want and 2 * c <= min(PAGED_MAX_CLUSTER, npp):
+        c *= 2
+    ppr = -(-npp // c)
+    rnd = min(ppr, max(1, PAGED_ROUND_BYTES // (2 * pg * HEAD_DIM * elem)))
+    nbuf = 1 if rnd >= ppr else 2
+    kr = _r16(rnd * pg)
+    part = (2 * _MAX_G + g * HEAD_DIM) * 4
+    smem = (_r16(max(nbuf * 2 * kr * HEAD_DIM * elem, PAGED_WARPS * part))
+            + _r16(nbuf * kr) + (nbuf * kr * 8 if elem == 1 else 0)
+            + 2 * _r16(ppr * 4) + _r16(ppr) + _r16(ppr * pg) + part + 16)
+    return PagedPlan(grid=s * kh * c, cluster=c, pages_per_rank=ppr,
+                     pages_per_round=rnd, buffers=nbuf, smem=smem)
+
+
+def _decode_plan(kernel: str, qf: torch.Tensor, npp: int, pg: int,
+                 elem: int) -> PagedPlan:
+    """The plan of a decode kernel's launch; raises if it needs more shared
+    memory than a block has (a row of some 800 000 keys at G 4)."""
+    r, kh, g, _ = qf.shape
+    plan = decode_paged_plan(r, kh, npp, pg, g, elem)
+    if plan.smem > SMEM_MAX:
+        raise ValueError(f"{kernel}: {npp} pages of {pg} need "
+                         f"{plan.smem} B of shared memory a block")
+    return plan
 
 
 def _ring_decode(kernel: str, fn_name: str, qf, k, v, scales, kpos, qpos,
@@ -331,13 +408,17 @@ def _ring_decode(kernel: str, fn_name: str, qf, k, v, scales, kpos, qpos,
     b, kh, g, _ = qf.shape
     if k.shape[0] != b:
         raise ValueError(f"{kernel}: the cache does not match the batch")
+    length = k.shape[1]
+    plan = _decode_plan(kernel, qf, -(-length // RING_PAGE), RING_PAGE,
+                        k.element_size())
     out = torch.empty((b, kh, g, HEAD_DIM), dtype=torch.float32,
                       device=qf.device)
     has_window, win = _window_args(window)
     build.launch(kernel, fn_name, qf.data_ptr(), k.data_ptr(), v.data_ptr(),
                  *[t.data_ptr() for t in scales], kpos.data_ptr(),
-                 qpos.data_ptr(), out.data_ptr(), b, k.shape[1], kh, g,
-                 has_window, win, build.current_stream())
+                 qpos.data_ptr(), out.data_ptr(), b, length, kh, g,
+                 RING_PAGE, has_window, win, *plan[1:],
+                 build.current_stream())
     return out
 
 
@@ -370,62 +451,6 @@ def decode_q8(qf: torch.Tensor, k_codes: torch.Tensor,
                         (k_scale, v_scale), kpos, qpos, window, torch.int8)
 
 
-# K8 / K9 launch geometry (csrc/decode_paged.cu): 128 threads (4 warps) a
-# block; a rank's pages go in rounds of at most this many K and V bytes
-PAGED_ROUND_BYTES = 32768
-PAGED_WARPS = 4
-PAGED_MAX_CLUSTER = 8  # portable thread block cluster size
-
-
-class PagedPlan(NamedTuple):
-    """K8 / K9's launch: ``grid`` blocks in clusters of ``cluster`` (one
-    cluster per (slot, kv head)); cluster rank r takes pages
-    [r ppr, (r + 1) ppr) of the slot's table row, ``ppr`` =
-    ``pages_per_rank``; a rank's visible pages go in rounds of
-    ``pages_per_round`` through ``buffers`` shared-memory buffers; ``smem``
-    the dynamic shared-memory bytes of a block."""
-    grid: int
-    cluster: int
-    pages_per_rank: int
-    pages_per_round: int
-    buffers: int
-    smem: int
-
-
-def _r16(x: int) -> int:
-    return -(-x // 16) * 16
-
-
-@functools.lru_cache(maxsize=None)
-def decode_paged_plan(s: int, kh: int, npp: int, pg: int, g: int,
-                      elem: int) -> PagedPlan:
-    """K8 (``elem`` 2, bf16 pools) / K9 (``elem`` 1, int8 codes with
-    scales) launch plan for S slots, KH kv heads, npp table entries of
-    pg-token pages and G query heads per kv head.  The cluster is the
-    fewest ranks, a power of two up to 8 and at most npp, that put a block
-    on every SM; the ranks split the table row into equal ranges.  A round
-    holds as many pages as fit PAGED_ROUND_BYTES of K and V (at least
-    one); a rank whose pages may take more than one round gets two
-    buffers.  Shared memory as ``Layout`` in the kernel: the round buffers
-    (reused for the warps' partials), a visibility byte and (K9) two fp32
-    scales per buffered row, the rank's table entries, its list of visible
-    pages, a flag per page and per key, the block's partial, a count."""
-    want = -(-SMS // (s * kh))
-    c = 1
-    while c < want and 2 * c <= min(PAGED_MAX_CLUSTER, npp):
-        c *= 2
-    ppr = -(-npp // c)
-    rnd = min(ppr, max(1, PAGED_ROUND_BYTES // (2 * pg * HEAD_DIM * elem)))
-    nbuf = 1 if rnd >= ppr else 2
-    kr = _r16(rnd * pg)
-    part = (2 * _MAX_G + g * HEAD_DIM) * 4
-    smem = (_r16(max(nbuf * 2 * kr * HEAD_DIM * elem, PAGED_WARPS * part))
-            + _r16(nbuf * kr) + (nbuf * kr * 8 if elem == 1 else 0)
-            + 2 * _r16(ppr * 4) + _r16(ppr) + _r16(ppr * pg) + part + 16)
-    return PagedPlan(grid=s * kh * c, cluster=c, pages_per_rank=ppr,
-                     pages_per_round=rnd, buffers=nbuf, smem=smem)
-
-
 def _paged_decode(kernel: str, fn_name: str, qf, k_pool, v_pool, scales,
                   pos_pool, page_table, qpos, window, code_dtype
                   ) -> torch.Tensor:
@@ -438,15 +463,10 @@ def _paged_decode(kernel: str, fn_name: str, qf, k_pool, v_pool, scales,
                          f"got {pg}")
     if page_table.ndim != 2 or page_table.shape[0] != s:
         raise ValueError(f"{kernel}: page_table does not match the slots")
-    if qf.data_ptr() % 16:
-        raise ValueError(f"{kernel} takes a 16-byte aligned query")
     _check_device(kernel, qf, page_table)
     page_table = page_table.to(torch.int32).contiguous()
     npp = page_table.shape[1]
-    plan = decode_paged_plan(s, kh, npp, pg, g, k_pool.element_size())
-    if plan.smem > SMEM_MAX:
-        raise ValueError(f"{kernel}: {npp} pages of {pg} need "
-                         f"{plan.smem} B of shared memory a block")
+    plan = _decode_plan(kernel, qf, npp, pg, k_pool.element_size())
     out = torch.empty((s, kh, g, HEAD_DIM), dtype=torch.float32,
                       device=qf.device)
     has_window, win = _window_args(window)
@@ -454,8 +474,7 @@ def _paged_decode(kernel: str, fn_name: str, qf, k_pool, v_pool, scales,
                  v_pool.data_ptr(), *[t.data_ptr() for t in scales],
                  pos_pool.data_ptr(), page_table.data_ptr(), qpos.data_ptr(),
                  out.data_ptr(), s, kh, g, pg, npp, has_window, win,
-                 plan.cluster, plan.pages_per_rank, plan.pages_per_round,
-                 plan.buffers, plan.smem, build.current_stream())
+                 *plan[1:], build.current_stream())
     return out
 
 

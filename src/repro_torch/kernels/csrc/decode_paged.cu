@@ -1,34 +1,56 @@
-// Paged single-token GQA decode attention: K8 (bf16 pools) and K9 (int8
-// pools with fp16 absmax scale pools).
+// Single-token GQA decode attention, all four decode kernels on one body:
+// K6 (ring cache, bf16), K7 (ring cache, int8 codes with fp16 absmax
+// scales), K8 (paged pools, bf16) and K9 (paged pools, int8 with fp16 scale
+// pools).
 //
-// Replaces src/repro/kernels/decode_kernel.py::decode_paged (K8) and
-// ::decode_paged_q8 (K9), the Pallas kernels behind every decode tick of
-// the serving engine with 16-bit and int8 KV pools.  The TPU kernels sweep
-// a slot's pages in order on one core, carrying (m, l, acc) in VMEM across
-// the grid's page axis, with the page table as a scalar-prefetch operand.
+// Replaces src/repro/kernels/decode_kernel.py::decode (K6), ::decode_q8
+// (K7), ::decode_paged (K8) and ::decode_paged_q8 (K9), the Pallas kernels
+// behind every step of the static generate loop over ring caches and every
+// decode tick of the serving engine over paged pools.  The TPU kernels
+// sweep a row's cache (ring blocks, or pages through the table row) in
+// order on one core, carrying (m, l, acc) in VMEM across a sequential grid
+// axis.
 //
-// Bound on the H100: bytes, and at the serve shape (4 slots of some 800
-// tokens, 5 kv heads, 16-token pages) mostly latency.  Each cache byte read
-// feeds about 4 flops (G = 4 query heads per kv head), far below the ~295
-// flop/byte of the bf16 tensor cores; the whole call moves about 4 MB, a
+// One kernel, templated on where a row's keys lie (the address source):
+//
+// * TablePages (K8 / K9): page j of a slot is entry e = page_table[slot,
+//   j] of the (P, pg, KH, 64) pools (-1: unallocated), its key t the flat
+//   token e pg + t, its position pos_pool[e pg + t].
+// * RingPages (K6 / K7): row b of a (B, L, KH, 64) ring cache is
+//   ceil(L / pg) virtual pages of pg keys; key t of page j is the flat
+//   token b L + j pg + t, present while j pg + t < L (the last page is
+//   ragged, so any L is taken), its position kpos[b L + j pg + t].  No
+//   table is read.  Which keys are visible is decided by the positions
+//   alone, never by slot order, so a wrapped ring needs nothing more.
+//
+// Both sources keep the scales of an int8 cache at the flat token x KH +
+// kh, where the cache keeps them; the reference's wrappers first make
+// (N, KH, T) fp32 transposed copies.
+//
+// Bound on the H100: bytes, and at the serve and generate shapes (4 rows of
+// some 800 keys, 5 kv heads) mostly latency.  Each cache byte read feeds
+// about 4 flops (G = 4 query heads per kv head), far below the ~295
+// flop/byte of the bf16 tensor cores; a call moves 1 - 4 MB, about a
 // microsecond at 3.35 TB/s, so what sets its time is how many memory
 // latencies lie one after another.  The design cuts that chain:
 //
 // * Split-L over a thread-block cluster.  One cluster of C blocks (a
-//   power of two, at most 8) per (slot, kv head); rank r takes pages
-//   [r ppr, (r + 1) ppr) of the slot's page-table row.  C and ppr come from
+//   power of two, at most 8) per (row, kv head); rank r takes pages
+//   [r ppr, (r + 1) ppr) of the row.  C and ppr come from
 //   attention_ops.decode_paged_plan: the fewest ranks that put a block on
-//   every SM (C = 8, 160 blocks, 8 pages a rank at the serve shape).
-// * All of a rank's loads in flight at once.  A rank reads its table
-//   entries and its keys' positions in one pass (one latency after the
-//   table's), lists the pages that hold a visible key (unallocated pages,
-//   pages past qpos and pages outside the window are never read), then
-//   issues 16-byte cp.async copies of every listed page's K and V rows into
-//   shared memory (rows of keys that are not visible are zero-filled, not
-//   read) and waits once.  The listed pages go in rounds of `rnd` pages,
-//   32 KB of K and V at most (the whole rank at the serve shape); with more
-//   than one round the next round's copies fly while this one is computed
-//   (two buffers).  K9's fp16 scales come with plain loads beside them.
+//   every SM (C = 8, 160 blocks, 8 pages a rank at the serve shape; 7
+//   virtual pages of 16 keys a rank at the generate shape, L 825).
+// * All of a rank's loads in flight at once.  A rank reads its keys'
+//   positions in one pass (after its table entries, for K8 / K9), lists the
+//   pages that hold a visible key (unallocated pages, pages past qpos and
+//   pages outside the window are never read), then issues 16-byte cp.async
+//   copies of every listed page's K and V rows into shared memory (rows of
+//   keys that are not visible, or past a ragged ring row's end, are
+//   zero-filled, not read) and waits once.  The listed pages go in rounds
+//   of `rnd` pages, 32 KB of K and V at most (the whole rank at the serve
+//   and generate shapes); with more than one round the next round's copies
+//   fly while this one is computed (two buffers).  K7 / K9's fp16 scales
+//   come with plain loads beside them.
 // * Products on the tensor cores: mma.sync m16n8k16, S = Q K^T with the
 //   query heads as the 16 rows (G <= 16; rows past G are zero) and 8 keys
 //   a column tile, then O += P V with P taken straight from S's
@@ -37,30 +59,28 @@
 //   contiguous elements of a K row; O's columns are permuted so that each
 //   thread reads one 16-byte chunk of a V row.  bf16 rows are stored with
 //   their 16-byte chunks swizzled by the row, so neither read conflicts.
-//   K9's int8 codes convert to bf16 exactly in registers.  The rounding is
-//   the reference's: s = (q . k) [x k_scale] in fp32, l sums the unscaled
-//   p, p [x v_scale] is rounded to bf16 before the PV product.
+//   int8 codes convert to bf16 exactly in registers.  The rounding is the
+//   reference's: s = (q . k) [x k_scale] in fp32, l sums the unscaled p,
+//   p [x v_scale] is rounded to bf16 before the PV product.
 // * Each warp of a block takes every fourth 16-key chunk of a round and
 //   keeps its own (m, l, acc); the four warps' partials combine in warp
 //   order, then the cluster's ranks combine theirs in rank order through
 //   distributed shared memory, each rank writing a disjoint slice of the
 //   (G, 64) output once.  No atomics, no second kernel: the same bits on
 //   every run, one launch per call.  A rank with no visible key holds
-//   m = -1e30, l = 0, acc = 0 and adds exactly 0; a slot with no visible
-//   key (qpos = -1) returns exactly 0, as the reference's paged references
-//   do.
+//   m = -1e30, l = 0, acc = 0 and adds exactly 0; a row with no visible
+//   key (qpos = -1, or every key outside the window) returns exactly 0, as
+//   the reference's Pallas decode kernels and paged references do.
 //
-// K9 reads the (P, pg, KH) fp16 scale pools where they lie, where the
-// reference's wrapper first makes a (P, KH, pg) fp32 transposed copy.
-//
-// What is left (scripts/decode_paged_variants.py times the parts): the
-// table -> positions -> K / V chain is still three dependent memory
-// latencies, then the products, then two cluster barriers around the
-// combine.  On an H100 SXM at 700 W, of K8's 0.0106 ms at the serve shape
-// an empty cluster launch took 0.0015, the copies about 0.004, the
-// products and softmax about 0.0015 and the combine through distributed
-// shared memory about 0.001; halving the cluster cost 0.0035 ms or more.
-// K6 / K7 (decode.cu) still sweep a whole ring row per block.
+// What is left (scripts/decode_paged_variants.py times the parts, for the
+// paged serve shape and the ring generate shape): the positions -> K / V
+// chain (table -> positions -> K / V for K8 / K9) is still two (three)
+// dependent memory latencies, then the products, then two cluster barriers
+// around the combine.  On an H100 SXM at 700 W, of K8's 0.0106 ms at the
+// serve shape an empty cluster launch took 0.0015, the copies about 0.004,
+// the products and softmax about 0.0015 and the combine through
+// distributed shared memory about 0.001; halving the cluster cost 0.0035
+// ms or more.
 #include <cooperative_groups.h>
 #include <cuda_fp16.h>
 
@@ -88,7 +108,8 @@ __host__ __device__ constexpr int round16(int x) { return (x + 15) & ~15; }
 //          rows) reuse it
 //   rv     per buffer, one visibility byte per row
 //   sc     (K9) per buffer, the rows' K then V scales in fp32
-//   entry  the rank's table entries; list: its visible pages, in order;
+//   entry  the rank's page entries (table entries, or ring page indices);
+//          list: its visible pages, in order;
 //   pv     a flag per page: holds a visible key; vis: a flag per key
 //   part   the block's partial (m, l of 16 rows, acc of G rows), which the
 //          cluster's ranks read
@@ -236,18 +257,48 @@ struct Rows<int8_t> {
   }
 };
 
-template <typename Elem, bool kScaled>
+// Address sources: where a rank's pages lie.  `entry(j)` names page j of
+// the rank's range (-1: no page), `has(e, t)` says whether page e holds a
+// key t, and `token(e, t)` is that key's flat token index: K and V rows lie
+// at (token KH + kh) 64, positions at token, scales at token KH + kh.
+struct TablePages {  // K8 / K9: a slot's row of the page table
+  const int* table;  // the rank's first entry
+  int pg;
+  __device__ TablePages(const int* page_table, int slot, int npp, int p0,
+                        int pg_, int)
+      : table(page_table + (long long)slot * npp + p0), pg(pg_) {}
+  __device__ int entry(int j) const { return table[j]; }
+  __device__ bool has(int e, int) const { return e >= 0; }
+  __device__ long long token(int e, int t) const {
+    return (long long)e * pg + t;
+  }
+};
+
+struct RingPages {  // K6 / K7: row b of a ring cache, as virtual pages
+  long long row;    // b L, the row's first token
+  int p0, pg, L;
+  __device__ RingPages(const int*, int b, int, int p0_, int pg_, int L_)
+      : row((long long)b * L_), p0(p0_), pg(pg_), L(L_) {}
+  __device__ int entry(int j) const { return p0 + j; }
+  __device__ bool has(int e, int t) const { return e * pg + t < L; }
+  __device__ long long token(int e, int t) const {
+    return row + e * pg + t;
+  }
+};
+
+template <typename Elem, bool kScaled, typename Src>
 __global__ void __launch_bounds__(kThreads)
     paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                         const Elem* __restrict__ k_pool,
                         const Elem* __restrict__ v_pool,
                         const __half* __restrict__ k_scale,
                         const __half* __restrict__ v_scale,
-                        const int* __restrict__ pos_pool,
+                        const int* __restrict__ pos,
                         const int* __restrict__ page_table,
                         const int* __restrict__ qpos, float* __restrict__ out,
-                        int KH, int G, int pg, int npp, int has_window,
-                        int window, int ppr, int rnd, int nbuf) {
+                        int KH, int G, int pg, int npp, int len,
+                        int has_window, int window, int ppr, int rnd,
+                        int nbuf) {
   using R = Rows<Elem>;
   extern __shared__ __align__(128) uint8_t smem[];
   const Layout L(sizeof(Elem), kScaled, G, pg, ppr, rnd, nbuf);
@@ -259,14 +310,14 @@ __global__ void __launch_bounds__(kThreads)
 
   cg::cluster_group cluster = cg::this_cluster();
   const int c = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
-  const int head = blockIdx.x / c;  // slot * KH + kv head
+  const int head = blockIdx.x / c;  // row * KH + kv head
   const int slot = head / KH, kh = head % KH;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g4 = lane / 4, q4 = lane % 4;  // mma row group, thread in group
   const long long qp = qpos[slot];
   const int p0 = rank * ppr;
   const int np = max(0, min(ppr, npp - p0));  // this rank's pages
-  const int* table = page_table + (long long)slot * npp + p0;
+  const Src pages(page_table, slot, npp, p0, pg, len);
 
   // Q as S's A fragments, query heads as rows (g4, g4 + 8; zero past G),
   // the head dimension permuted as K's: k-step kk, logical columns
@@ -301,10 +352,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll 4
     for (int i = tid; i < np * pg; i += kThreads) {
       const int j = i / pg, t = i - j * pg;
-      const int e = table[j];
+      const int e = pages.entry(j);
       bool v = false;
-      if (e >= 0) {
-        const long long kp = pos_pool[(long long)e * pg + t];
+      if (pages.has(e, t)) {
+        const long long kp = pos[pages.token(e, t)];
         v = kp >= 0 && flash::visible_pos(qp, kp, has_window, window);
       }
       vis_s[i] = v;
@@ -344,10 +395,12 @@ __global__ void __launch_bounds__(kThreads)
       if (row < nkeys) {
         const int j = list_s[first + row / pg], t = row % pg;
         v = vis_s[j * pg + t];
-        tok = (long long)entry_s[j] * pg + t;
+        tok = pages.token(entry_s[j], t);
       }
-      const Elem* src = (is_v ? v_pool : k_pool) + (tok * KH + kh) * kD +
-                        ch * kPer;
+      // a key that is not visible is not read, and its address (past the
+      // end of a ragged ring row, perhaps) is not handed to the copy
+      const Elem* src = (is_v ? v_pool : k_pool) +
+                        ((v ? tok : 0) * KH + kh) * kD + ch * kPer;
       Elem* dst = (is_v ? vb : kb) + row * kD + R::chunk(row, ch) * kPer;
       cp_async16(dst, src, v);
     }
@@ -360,7 +413,7 @@ __global__ void __launch_bounds__(kThreads)
       if (row < nkeys) {
         const int j = list_s[first + row / pg], t = row % pg;
         v = vis_s[j * pg + t];
-        tok = (long long)entry_s[j] * pg + t;
+        tok = pages.token(entry_s[j], t);
       }
       rv[row] = v;
       if constexpr (kScaled) {
@@ -558,12 +611,14 @@ __global__ void __launch_bounds__(kThreads)
   hopper::cluster_wait();
 }
 
-template <typename Elem, bool kScaled>
+// `len`: a ring row's length (RingPages; TablePages ignores it).
+template <typename Elem, bool kScaled, typename Src>
 int launch(const void* q, const void* k_pool, const void* v_pool,
-           const void* k_scale, const void* v_scale, const void* pos_pool,
+           const void* k_scale, const void* v_scale, const void* pos,
            const void* page_table, const void* qpos, void* out, int S,
-           int KH, int G, int pg, int npp, int has_window, int window,
-           int cluster, int ppr, int rnd, int nbuf, int smem, void* stream) {
+           int KH, int G, int pg, int npp, int len, int has_window,
+           int window, int cluster, int ppr, int rnd, int nbuf, int smem,
+           void* stream) {
   if (G < 1 || G > kMaxG || pg < 1 || pg > kMaxPage || S <= 0 || KH <= 0 ||
       npp < 1 || cluster < 1 || cluster > kMaxCluster ||
       (cluster & (cluster - 1)) || ppr < 1 ||
@@ -573,8 +628,8 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
       (long long)ppr * pg > kSmemMax || smem > kSmemMax ||
       smem != Layout(sizeof(Elem), kScaled, G, pg, ppr, rnd, nbuf).bytes)
     return (int)cudaErrorInvalidValue;
-  auto kernel = paged_decode_kernel<Elem, kScaled>;
-  static int smem_set = 48 * 1024;  // the default a block may take
+  auto kernel = paged_decode_kernel<Elem, kScaled, Src>;
+  static int smem_set = 48 * 1024;  // per instantiation, as the attribute
   if (smem > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -597,24 +652,60 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
       &cfg, kernel, static_cast<const __nv_bfloat16*>(q),
       static_cast<const Elem*>(k_pool), static_cast<const Elem*>(v_pool),
       static_cast<const __half*>(k_scale),
-      static_cast<const __half*>(v_scale), static_cast<const int*>(pos_pool),
+      static_cast<const __half*>(v_scale), static_cast<const int*>(pos),
       static_cast<const int*>(page_table), static_cast<const int*>(qpos),
-      static_cast<float*>(out), KH, G, pg, npp, has_window, window, ppr, rnd,
-      nbuf);
+      static_cast<float*>(out), KH, G, pg, npp, len, has_window, window,
+      ppr, rnd, nbuf);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
+// A ring row of L keys as virtual pages of pg; 0 for an L it cannot take.
+int ring_pages(int L, int pg) {
+  return L < 1 || pg < 1 ? 0 : (int)(((long long)L + pg - 1) / pg);
+}
+
 }  // namespace
 
-// q (S, KH, G, D) bf16 pre-scaled, 16-byte aligned; pools (P, pg, KH, D)
-// bf16, 16-byte aligned; pos_pool (P, pg) int32; page_table (S, npp)
-// int32; qpos (S,) int32; out (S, KH, G, D) fp32.  Requires G <= 16,
-// pg <= 64, D = 64.  The plan (attention_ops.decode_paged_plan): clusters
-// of `cluster` blocks (1, 2, 4 or 8) per (slot, kv head), `ppr` pages a
-// rank, rounds of `rnd` pages in `nbuf` buffers, `smem` bytes of dynamic
-// shared memory.  Returns cudaGetLastError(), or cudaErrorInvalidValue for
-// a shape or plan the kernel does not take.
+// The plan, for every entry point (attention_ops.decode_paged_plan):
+// clusters of `cluster` blocks (1, 2, 4 or 8) per (row, kv head), `ppr`
+// pages a rank, rounds of `rnd` pages in `nbuf` buffers, `smem` bytes of
+// dynamic shared memory.  Each returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a shape or plan the kernel does not take.
+// Requires G <= 16, D = 64, pages of at most 64 keys, and 16-byte aligned
+// q and caches (the wrappers check).
+
+// K6.  q (B, KH, G, D) bf16 pre-scaled; caches (B, L, KH, D) bf16 in the
+// ring layout, any L; kpos (B, L) int32 (-1 empty); qpos (B,) int32; out
+// (B, KH, G, D) fp32.  The row is ceil(L / pg) virtual pages of pg keys.
+extern "C" int decode_bf16(const void* q, const void* k, const void* v,
+                           const void* kpos, const void* qpos, void* out,
+                           int B, int L, int KH, int G, int pg,
+                           int has_window, int window, int cluster, int ppr,
+                           int rnd, int nbuf, int smem, void* stream) {
+  return launch<__nv_bfloat16, false, RingPages>(
+      q, k, v, nullptr, nullptr, kpos, nullptr, qpos, out, B, KH, G, pg,
+      ring_pages(L, pg), L, has_window, window, cluster, ppr, rnd, nbuf, smem,
+      stream);
+}
+
+// K7.  As decode_bf16 over int8 codes (B, L, KH, D) with fp16 scales
+// (B, L, KH).
+extern "C" int decode_q8(const void* q, const void* k, const void* v,
+                         const void* k_scale, const void* v_scale,
+                         const void* kpos, const void* qpos, void* out, int B,
+                         int L, int KH, int G, int pg, int has_window,
+                         int window, int cluster, int ppr, int rnd, int nbuf,
+                         int smem, void* stream) {
+  return launch<int8_t, true, RingPages>(
+      q, k, v, k_scale, v_scale, kpos, nullptr, qpos, out, B, KH, G, pg,
+      ring_pages(L, pg), L, has_window, window, cluster, ppr, rnd, nbuf, smem,
+      stream);
+}
+
+// K8.  q (S, KH, G, D) bf16 pre-scaled; pools (P, pg, KH, D) bf16;
+// pos_pool (P, pg) int32; page_table (S, npp) int32; qpos (S,) int32; out
+// (S, KH, G, D) fp32.
 extern "C" int decode_paged_bf16(const void* q, const void* k_pool,
                                  const void* v_pool, const void* pos_pool,
                                  const void* page_table, const void* qpos,
@@ -622,14 +713,14 @@ extern "C" int decode_paged_bf16(const void* q, const void* k_pool,
                                  int npp, int has_window, int window,
                                  int cluster, int ppr, int rnd, int nbuf,
                                  int smem, void* stream) {
-  return launch<__nv_bfloat16, false>(
+  return launch<__nv_bfloat16, false, TablePages>(
       q, k_pool, v_pool, nullptr, nullptr, pos_pool, page_table, qpos, out,
-      S, KH, G, pg, npp, has_window, window, cluster, ppr, rnd, nbuf, smem,
+      S, KH, G, pg, npp, 0, has_window, window, cluster, ppr, rnd, nbuf, smem,
       stream);
 }
 
-// As decode_paged_bf16 over int8 code pools (P, pg, KH, D) with fp16 scale
-// pools (P, pg, KH).
+// K9.  As decode_paged_bf16 over int8 code pools (P, pg, KH, D) with fp16
+// scale pools (P, pg, KH).
 extern "C" int decode_paged_q8(const void* q, const void* k_pool,
                                const void* v_pool, const void* k_scale,
                                const void* v_scale, const void* pos_pool,
@@ -638,8 +729,8 @@ extern "C" int decode_paged_q8(const void* q, const void* k_pool,
                                int npp, int has_window, int window,
                                int cluster, int ppr, int rnd, int nbuf,
                                int smem, void* stream) {
-  return launch<int8_t, true>(q, k_pool, v_pool, k_scale, v_scale, pos_pool,
-                              page_table, qpos, out, S, KH, G, pg, npp,
-                              has_window, window, cluster, ppr, rnd, nbuf,
-                              smem, stream);
+  return launch<int8_t, true, TablePages>(
+      q, k_pool, v_pool, k_scale, v_scale, pos_pool, page_table, qpos, out,
+      S, KH, G, pg, npp, 0, has_window, window, cluster, ppr, rnd, nbuf, smem,
+      stream);
 }

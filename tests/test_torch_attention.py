@@ -1,7 +1,8 @@
 """The port's attention (kernels K1, K2 / K3 and K8, and the layers around
 them) against the JAX reference, on the CPU, in fp32; the launch plans of
-K2 / K3 and of K8 / K9; and a plain model of K8 / K9's split of a slot's
-pages over a cluster's ranks."""
+K2 / K3 and of K6 - K9; and a plain model of the decode kernels' split of
+a row's pages (a slot's table row, or a ring row's virtual pages) over a
+cluster's ranks."""
 from collections import Counter
 
 import pytest
@@ -468,15 +469,47 @@ def test_decode_paged_plan_fills_the_card_at_the_serve_shape(elem):
     assert plan.pages_per_rank == plan.pages_per_round == 8
 
 
+def _table_pages(pt, pg):
+    """K8 / K9's pages: page j of slot ``row`` is table entry e, its keys
+    the flat tokens e pg + t of the pools; None where unallocated."""
+    def pages(row, j):
+        e = int(pt[row, j])
+        if e < 0:
+            return None
+        return e * pg + torch.arange(pg), torch.ones(pg, dtype=torch.bool)
+    return pages
+
+
+def _ring_pages(length, pg=tops.RING_PAGE):
+    """K6 / K7's virtual pages of a ring row: key t of page j is the flat
+    token row L + j pg + t, present while j pg + t < L."""
+    def pages(row, j):
+        t = j * pg + torch.arange(pg)
+        return row * length + torch.clamp_max(t, length - 1), t < length
+    return pages
+
+
 def _split_model(qf, k, v, pos, pt, qpos, window, cluster, ppr, rnd,
-                 ks=None, vs=None):
-    """K8 / K9's order of work in plain PyTorch (fp32): each cluster rank
-    lists the visible pages of its range of the table row, sweeps them in
-    rounds of ``rnd`` with the online softmax (m, l, acc), and the ranks'
-    partials are combined in rank order.  ``ks`` / ``vs``: K9's fp16 scale
-    pools, folded as the kernel folds them."""
+                 ks=None, vs=None, ring=False):
+    """The decode kernels' order of work in plain PyTorch (fp32): each
+    cluster rank lists the pages of its range of the row that hold a
+    visible key, sweeps them in rounds of ``rnd`` with the online softmax
+    (m, l, acc), and the ranks' partials are combined in rank order.  K8 /
+    K9: pools (P, pg, KH, D), ``pt`` the (S, npp) page table; K6 / K7
+    (``ring``): caches (B, L, KH, D) as ``RING_PAGE``-key virtual pages,
+    ``pt`` unused.  ``ks`` / ``vs``: the int8 caches' fp16 scales, folded
+    as the kernels fold them."""
     s, kh, g, d = qf.shape
-    npp = pt.shape[1]
+    if ring:
+        npp = -(-k.shape[1] // tops.RING_PAGE)
+        pages = _ring_pages(k.shape[1])
+    else:
+        npp = pt.shape[1]
+        pages = _table_pages(pt, k.shape[1])
+    k, v = k.reshape(-1, kh, d), v.reshape(-1, kh, d)
+    pos = pos.reshape(-1)
+    if ks is not None:
+        ks, vs = ks.reshape(-1, kh).float(), vs.reshape(-1, kh).float()
     out = torch.zeros((s, kh, g, d))
     for slot in range(s):
         qp = int(qpos[slot])
@@ -487,31 +520,31 @@ def _split_model(qf, k, v, pos, pt, qpos, window, cluster, ppr, rnd,
                 l, acc = torch.zeros(g), torch.zeros((g, d))
                 listed = []
                 for j in range(r * ppr, min(npp, (r + 1) * ppr)):
-                    e = int(pt[slot, j])
-                    if e < 0:
+                    page = pages(slot, j)
+                    if page is None:
                         continue
-                    kp = pos[e].long()
-                    vis = (kp >= 0) & (kp <= qp)
+                    tok, present = page
+                    kp = pos[tok].long()
+                    vis = present & (kp >= 0) & (kp <= qp)
                     if window is not None:
                         vis &= qp - kp < window
                     if bool(vis.any()):
-                        listed.append((e, vis))
+                        listed.append((tok, vis))
                 for i in range(0, len(listed), rnd):
                     rows = listed[i:i + rnd]
-                    pages = [e for e, _ in rows]
+                    tok = torch.cat([t for t, _ in rows])
                     vis = torch.cat([vv for _, vv in rows])
-                    sc = qf[slot, h] @ k[pages, :, h].reshape(-1, d).T
+                    sc = qf[slot, h] @ k[tok, h].T
                     if ks is not None:
-                        sc = sc * ks[pages, :, h].reshape(-1).float()
+                        sc = sc * ks[tok, h]
                     sc = torch.where(vis, sc, -1e30)
                     m_new = torch.maximum(m, sc.max(dim=1).values)
                     p = torch.where(vis, torch.exp(sc - m_new[:, None]), 0.0)
                     corr = torch.exp(m - m_new)
                     l = l * corr + p.sum(dim=1)
                     if vs is not None:
-                        p = p * vs[pages, :, h].reshape(-1).float()
-                    acc = acc * corr[:, None] \
-                        + p @ v[pages, :, h].reshape(-1, d).float()
+                        p = p * vs[tok, h]
+                    acc = acc * corr[:, None] + p @ v[tok, h].float()
                     m = m_new
                 parts.append((m, l, acc))
             mx = torch.stack([pm for pm, _, _ in parts]).max(dim=0).values
@@ -595,3 +628,114 @@ def test_decode_paged_split_model_matches_reference(window, kind, rounds):
     np.testing.assert_allclose(model.numpy(), np.asarray(ref), atol=ATOL)
     np.testing.assert_allclose(model.numpy(), plain.numpy(), atol=ATOL)
     assert np.all(model.numpy()[2] == 0.0)
+
+
+# ---------------------------------------------------------------------------
+# K6 / K7: the ring row as virtual pages, on the same plan and split
+# ---------------------------------------------------------------------------
+
+RING_LENGTHS = (1, 15, 16, 17, 37, 100, 509, 825, 2000, 4096)
+
+
+def _ring_plan(b, kh, length, g, elem):
+    return tops.decode_paged_plan(b, kh, -(-length // tops.RING_PAGE),
+                                  tops.RING_PAGE, g, elem)
+
+
+@pytest.mark.parametrize("length", RING_LENGTHS)
+def test_decode_ring_plan_covers_every_key_once(length):
+    """The ranks' virtual pages cover every key slot of [0, L) exactly
+    once, in rank order; no page starts at or past L (only the last may be
+    ragged); the cluster is a power of two, at most 8 and at most the
+    number of pages; the plan fits a block's shared memory."""
+    pg = tops.RING_PAGE
+    npp = -(-length // pg)
+    for g in (1, 4, 16):
+        for elem in (2, 1):
+            plan = _ring_plan(SERVE_SLOTS, SERVE_KV_HEADS, length, g, elem)
+            assert plan.cluster in (1, 2, 4, 8) and plan.cluster <= npp
+            assert plan.grid == SERVE_SLOTS * SERVE_KV_HEADS * plan.cluster
+            pages = _rank_pages(plan, npp)
+            assert all(j * pg < length for rank in pages for j in rank)
+            keys = [j * pg + t for rank in pages for j in rank
+                    for t in range(pg) if j * pg + t < length]
+            assert keys == list(range(length))
+            assert plan.smem <= tops.SMEM_MAX
+
+
+@pytest.mark.parametrize("elem", [2, 1])
+def test_decode_ring_plan_at_the_generate_shape(elem):
+    """At the generate shape (B 4, KH 5, G 4, ring caches of 825) the split
+    puts a block on every SM: clusters of 8 (160 blocks), 7 virtual pages
+    (112 keys) a rank, all in one round (bf16 K + V: 28 KB)."""
+    plan = _ring_plan(4, 5, 825, 4, elem)
+    assert plan.grid == 160 and plan.cluster == 8
+    assert plan.pages_per_rank == plan.pages_per_round == 7
+    assert plan.buffers == 1
+
+
+def _ring_split_fixture():
+    """A ring of ragged L 100 (6 full virtual pages and one of 4 keys) for
+    B 4, KH 2, G 4: row 0 holds positions 0 - 99 (full, unwrapped), row 1
+    has wrapped (positions 151 - 250, slot p mod 100), row 2 is inactive
+    (qpos = -1), row 3 holds positions 0 - 40.  With window 30 rows 0 and
+    1 see 30 keys, and the ranks of row 0 that hold slots 0 - 63 see
+    none."""
+    rng = np.random.default_rng(9)
+    b, length, kh, g, d = 4, 100, 2, 4, 64
+    qpos = np.array([99, 250, -1, 40], np.int32)
+    kpos = np.full((b, length), -1, np.int32)
+    for row, qp in enumerate(qpos):
+        for p in range(max(0, qp - length + 1), qp + 1):
+            kpos[row, p % length] = p
+    qf = (rng.normal(size=(b, kh, g, d)) / np.sqrt(d)).astype(np.float32)
+    k = rng.normal(size=(b, length, kh, d)).astype(np.float32)
+    v = rng.normal(size=(b, length, kh, d)).astype(np.float32)
+    return qf, k, v, kpos, qpos
+
+
+@pytest.mark.parametrize("rounds", ["plan", "one page a round"])
+@pytest.mark.parametrize("kind", ["K6", "K7"])
+@pytest.mark.parametrize("window", [None, 30])
+def test_decode_ring_split_model_matches_reference(window, kind, rounds):
+    """K6 / K7's split (the plan's clusters over the ring row's virtual
+    pages, rounds of the plan's size or of one page, the ranks combined in
+    rank order) against the Pallas kernels in interpret mode and the
+    port's plain versions, and those two against each other, within 1e-5
+    (fp32, sums in another order); the inactive row exactly 0."""
+    qf, k, v, kpos, qpos = _ring_split_fixture()
+    b, kh, g, _ = qf.shape
+    plan = _ring_plan(b, kh, k.shape[1], g, 2 if kind == "K6" else 1)
+    assert plan.cluster == 4 and plan.pages_per_rank == 2
+    rnd = plan.pages_per_round if rounds == "plan" else 1
+    split = dict(window=window, cluster=plan.cluster,
+                 ppr=plan.pages_per_rank, rnd=rnd, ring=True)
+    if kind == "K6":
+        j = [jnp.asarray(a) for a in (qf, k, v, kpos, qpos)]
+        ref = decode_kernel.decode(*j[:4], j[4].reshape(-1, 1),
+                                   window=window, block=20, interpret=True)
+        plain = tops.decode(*[_t(a) for a in (qf, k, v, kpos, qpos)],
+                            window=window)
+        model = _split_model(_t(qf), _t(k), _t(v), _t(kpos), None,
+                             _t(qpos), **split)
+    else:
+        kc, ks = (np.asarray(a) for a in jattn.quantize_kv_token(
+            jnp.asarray(k * 2)))
+        vc, vs = (np.asarray(a) for a in jattn.quantize_kv_token(
+            jnp.asarray(v)))
+        j = [jnp.asarray(a) for a in (qf, kc, vc, ks, vs, kpos, qpos)]
+        ref = decode_kernel.decode_q8(
+            j[0], j[1], j[2], j[3].astype(jnp.float32).transpose(0, 2, 1),
+            j[4].astype(jnp.float32).transpose(0, 2, 1), j[5],
+            j[6].reshape(-1, 1), window=window, block=20, interpret=True)
+        plain = tops.decode_q8(
+            *[_t(a) for a in (qf, kc, vc, ks, vs, kpos, qpos)],
+            window=window)
+        model = _split_model(_t(qf), _t(kc).float(), _t(vc).float(),
+                             _t(kpos), None, _t(qpos), ks=_t(ks), vs=_t(vs),
+                             **split)
+    np.testing.assert_allclose(model.numpy(), np.asarray(ref), atol=ATOL)
+    np.testing.assert_allclose(model.numpy(), plain.numpy(), atol=ATOL)
+    np.testing.assert_allclose(plain.numpy(), np.asarray(ref), atol=ATOL)
+    assert np.all(model.numpy()[2] == 0.0)
+    assert np.all(plain.numpy()[2] == 0.0)
