@@ -22,7 +22,13 @@ non-zero:
               and K12 against cuBLAS on the dense bf16 weight (at M 4,
               1 024 and 4 096, the M 4 stores in rotation past the L2) are
               timed as device time, replayed from a CUDA graph, with the
-              eager times beside.  K2 / K3 also run twice on the training
+              eager times beside.  K4 / K5 run on both of their paths
+              (vector: the serve shape and the adaptive wire's groups;
+              scalar: ragged rows, a misaligned view), words bit-identical,
+              outputs exact, the same bits twice, and are timed by replay
+              at the serve and group shapes warm (one input) and cold (8
+              inputs in rotation, past the L2), eager beside, with the
+              whole wire encode (stats pass + K4) and decode.  K2 / K3 also run twice on the training
               shape and must give the same bits.  K8 / K9 run eight paged
               cases (npp 1 - 128, pages of 8 - 64, G 1 - 16, windows
               that empty whole cluster ranks), each the same bits twice,
@@ -206,6 +212,26 @@ def time_graph_ms(fn, calls: int, reps: int = 15, stream=None) -> float:
         times.append(start.elapsed_time(end) / calls)
     del graph
     return statistics.median(times)
+
+
+def time_graph_cold_ms(fn, inputs, reps: int = 15) -> float:
+    """Device time per call of ``fn(*args)``, ``args`` rotating over the
+    tuples of ``inputs``, one call each per graph replay.  Every call's
+    output stays alive through the capture, so the graph's pool gives each
+    call a buffer of its own: inputs and outputs that sum past the 50 MB
+    L2 then come from and go to HBM, as a cold caller's would."""
+    import itertools
+
+    ring = itertools.cycle(inputs)
+    keep = []
+
+    def call():
+        keep.append(fn(*next(ring)))
+
+    try:
+        return time_graph_ms(call, len(inputs), reps)
+    finally:
+        keep.clear()
 
 
 def bound(n_bytes: float, flops: float = 0.0):
@@ -458,60 +484,145 @@ def check_flash_bwd(gen, results):
         bound=bound(n_in + 2 * b * kh * skv * d * 4, 4 * prod))
 
 
+WIRE_COLD = 8  # inputs in rotation for a cold time (60 MB at the serve shape)
+
+
+def _wire_times(gen, name, r, c, bits, x, stats, words, st16):
+    """K4 / K5 at one shape, 2 bits, bf16: device time by graph replay,
+    warm (one input, L2-resident, as after the connector's write) and cold
+    (``WIRE_COLD`` fresh inputs in rotation, outputs kept: past the L2 at
+    the serve shape), the eager time, and the whole ``ops.rdfsq_quantize``
+    (stats pass + K4) and ``ops.rdfsq_dequantize`` by replay."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import rdfsq_stats
+
+    def k4(x, stats):
+        return ops.quantize_kernel(x, stats, bits)
+
+    def k5(words, st16):
+        return ops.dequantize_kernel(words, st16, bits, c, torch.bfloat16)
+
+    cold4, cold5 = [(x, stats)], [(words, st16)]
+    for _ in range(WIRE_COLD - 1):
+        xi = (torch.randn((r, c), generator=gen, device="cuda") * 0.7
+              + 0.1).bfloat16()
+        lo, hi = rdfsq_stats(xi)
+        si = torch.cat([lo, hi], 1).float()
+        cold4.append((xi, si))
+        cold5.append((k4(xi, si), si.half().float()))
+    out = {}
+    for tag, fn, args in (("K4", k4, cold4), ("K5", k5, cold5)):
+        out[tag] = dict(warm=time_graph_ms(lambda: fn(*args[0]), 32),
+                        cold=time_graph_cold_ms(fn, args * 4),
+                        eager=time_ms(lambda: fn(*args[0])))
+    whole_q = time_graph_ms(lambda: ops.rdfsq_quantize(x, bits), 32)
+    whole_d = time_graph_ms(lambda: ops.rdfsq_dequantize(
+        words, st16, bits, c, torch.bfloat16), 32)
+    n_bytes = r * c * (2 + bits / 8) + stats.numel() * 4
+    b = bound(n_bytes)
+    for tag in ("K4", "K5"):
+        t = out[tag]
+        print(f"[kernels] {tag} {name}: cold {t['cold']:.5f} ms, warm "
+              f"{t['warm']:.5f} ms (graph replay), eager {t['eager']:.5f} "
+              f"ms; bound {b[0]:.5f} ms ({b[1]}, {n_bytes:.0f} B), cold / "
+              f"bound {t['cold'] / b[0]:.2f}")
+    print(f"[kernels] wire {name}: ops.rdfsq_quantize (stats pass + K4) "
+          f"{whole_q:.5f} ms, ops.rdfsq_dequantize {whole_d:.5f} ms (graph "
+          f"replay, warm; not gated)")
+    return out, b
+
+
 def check_wire(gen, results):
+    """K4 / K5 against their plain versions: words bit-identical, outputs
+    exact, the same bits twice, on both paths: the serve shape and the
+    adaptive wire's group shape (widths 1 - 8), 96 such rows (blocks that
+    take two rows), fp32 rows that take the vector path (a ragged last
+    group at 1 bit), and ragged 3 x 1001 rows and a misaligned view that
+    take the scalar path."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import rdfsq_stats
 
     worst_q, worst_d = 0.0, 0.0
-    # the serve path ships bf16 at 2 bits (ragged last 1024-column tile);
-    # the small fp32 cases cover the other slot widths and a partial word
+    serve, group = (4, 729 * 1280), (4, 729 * 160)
+    # (rows, cols, bits, dtype, path the 2-bit main shapes must take)
     cases = {"serve shape 4 x 729*1280, 2 bits, bf16":
-             (4, 729 * 1280, 2, torch.bfloat16)}
+             (*serve, 2, torch.bfloat16, "vector")}
+    for b in (1, 2, 4, 8):
+        cases[f"adaptive group shape 4 x 729*160, {b} bits, bf16"] = (
+            *group, b, torch.bfloat16, "vector" if b == 2 else None)
+    # 1 440 runs of 256 groups: more than a wave of blocks, which then
+    # take a second run of another row
+    cases["96 x 729*160 (more runs than one wave), 2 bits, bf16"] = (
+        96, 729 * 160, 2, torch.bfloat16, None)
+    for b in (1, 2, 4, 8):
+        cases[f"3 x 4096, {b} bits, fp32"] = (3, 4096, b, torch.float32,
+                                              None)
+    cases["3 x 4092 (ragged last group), 1 bit, fp32"] = (
+        3, 4092, 1, torch.float32, None)
     for b in (1, 2, 4, 8):
         cases[f"3 x 1001 (partial last word), {b} bits, fp32"] = (
-            3, 1001, b, torch.float32)
-    for name, (r, c, bits, dtype) in cases.items():
+            3, 1001, b, torch.float32, None)
+    cases["3 x 4096 misaligned view, 2 bits, bf16"] = (
+        3, 4096, 2, torch.bfloat16, None)
+    main = {}
+    for name, (r, c, bits, dtype, must) in cases.items():
         x = (torch.randn((r, c), generator=gen, device="cuda") * 0.7
              + 0.1).to(dtype)
+        if "misaligned" in name:  # a contiguous view 2 bytes off
+            x = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(r, c)
         x[0, :7] = 25.0  # outliers: the 3-sigma clip is active
         lo, hi = rdfsq_stats(x)
         stats = torch.cat([lo, hi], 1).float()
+        # +-inf clip to hi / lo and NaN takes lo's code (fmaxf(NaN, lo));
+        # the plain version gets lo in NaN's place
+        x[-1, 3], x[-1, 4], x[-1, 5] = float("nan"), math.inf, -math.inf
         words = ops.quantize_kernel(x, stats, bits)
-        ref_words = ops.quantize_plain(x, stats, bits)
+        again = ops.quantize_kernel(x, stats, bits)
+        ref_words = ops.quantize_plain(torch.where(x.isnan(), lo, x), stats,
+                                       bits)
         torch.cuda.synchronize()
         same = torch.equal(words, ref_words)
         n_diff = int((words != ref_words).sum())
         e_q = max_err(words, ref_words)
         st16 = stats.half().float()
         y = ops.dequantize_kernel(words, st16, bits, c, dtype)
+        y2 = ops.dequantize_kernel(words, st16, bits, c, dtype)
         ref_y = ops.dequantize_plain(words, st16, bits, c, dtype)
+        paths = [ops.rdfsq_path(c, bits, dtype, t.data_ptr(),
+                                words.data_ptr()) for t in (x, y)]
         torch.cuda.synchronize()
         e_d = max_err(y, ref_y)
-        print(f"[kernels] K4 rdfsq_quantize {name}: words bit-identical "
-              f"{same} ({n_diff} differing bytes of {words.numel()}); "
-              f"K5 rdfsq_dequantize max|out-plain| {e_d:.3e} (exact: "
-              f"{e_d == 0.0})")
-        require(same and e_d == 0.0, f"K4/K5 {name}")
+        twice = torch.equal(words, again) and torch.equal(y, y2)
+        print(f"[kernels] K4 rdfsq_quantize {name} [{paths[0]}]: words "
+              f"bit-identical {same} ({n_diff} differing bytes of "
+              f"{words.numel()}); K5 rdfsq_dequantize [{paths[1]}] "
+              f"max|out-plain| "
+              f"{e_d:.3e} (exact: {e_d == 0.0}); the same bits twice "
+              f"{twice}")
+        require(same and e_d == 0.0 and twice
+                and (must is None or paths == [must] * 2),
+                f"K4/K5 {name}")
         worst_q = max(worst_q, e_q)
         worst_d = max(worst_d, e_d)
-        if name.startswith("serve"):
-            main = (x, stats, words, st16, r, c, bits)
+        if must:
+            main[name] = (r, c, bits, x, stats, words, st16)
 
-    x, stats, words, st16, r, c, bits = main
+    timed = {name: _wire_times(gen, name, *args)
+             for name, args in main.items()}
+    (r, c, bits, x, stats, words, st16) = main[next(iter(main))]
+    t, b = timed[next(iter(main))]
+    plain_q = time_ms(lambda: ops.quantize_plain(x, stats, bits), reps=5,
+                      inner=1)
+    plain_d = time_ms(lambda: ops.dequantize_plain(
+        words, st16, bits, c, torch.bfloat16), reps=5, inner=1)
     results["rdfsq_quantize"] = dict(
-        max_abs_err=worst_q,
-        ms=time_ms(lambda: ops.quantize_kernel(x, stats, bits)),
-        plain_ms=time_ms(lambda: ops.quantize_plain(x, stats, bits),
-                         reps=5, inner=1),
-        library_ms=None, bound=bound(r * c * (2 + bits / 8)))
+        max_abs_err=worst_q, ms=t["K4"]["cold"], plain_ms=plain_q,
+        library_ms=None, bound=b)
     results["rdfsq_dequantize"] = dict(
-        max_abs_err=worst_d,
-        ms=time_ms(lambda: ops.dequantize_kernel(words, st16, bits, c,
-                                                 torch.bfloat16)),
-        plain_ms=time_ms(lambda: ops.dequantize_plain(
-            words, st16, bits, c, torch.bfloat16), reps=5, inner=1),
-        library_ms=None, bound=bound(r * c * (bits / 8 + 2)))
+        max_abs_err=worst_d, ms=t["K5"]["cold"], plain_ms=plain_d,
+        library_ms=None, bound=b)
 
 
 def check_nf(gen, results):

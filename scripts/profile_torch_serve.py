@@ -7,6 +7,8 @@ step, or a training step spends its time.
     python3 scripts/profile_torch_serve.py --kv-bits 8  # int8 KV pool ticks
     python3 scripts/profile_torch_serve.py --generate    # static steps
     python3 scripts/profile_torch_serve.py --train       # training steps
+    python3 scripts/profile_torch_serve.py --prefill     # prefill batches
+    python3 scripts/profile_torch_serve.py --prefill --src DIR  # another tree
 
 Needs one CUDA device.  By default it builds the same full-width
 tinyllava engine and requests as ``chip_smoke.py``'s serve phase, steps it
@@ -19,8 +21,14 @@ the generate phase's 4 requests into its ring caches of 825 and traces
 ``TICKS`` steps of ``make_serve_step`` after two untraced ones, once with
 bf16 caches (K6 each layer) and once with int8 caches (K7).  With ``--train`` it builds the state, batches and step of
 ``chip_smoke.py``'s train phase, runs two steps untraced, then traces
-``STEPS`` steps.  All trace with ``torch.profiler`` (CPU + CUDA) and print
-one JSON object:
+``STEPS`` steps.  With ``--prefill`` it runs the serve phase's engine
+once untraced (first-call set-up), then a second engine on the same
+requests, traced until the last request is admitted; only the device
+time inside the prefill batches (``ServeEngine._prefill``: connector,
+2-bit wire, the server's forward, the KV scatter) is counted, grouped
+into the connector (its record_function range), the wire's stats pass
+(``rdfsq_stats``), K4, K5, K1, cuBLAS and the rest.  All trace with
+``torch.profiler`` (CPU + CUDA) and print one JSON object:
 
 * the wall time per tick (step) and the device busy share (sum of kernel
   durations over the wall time; kernels run on one stream, so they do not
@@ -51,7 +59,11 @@ STEPS = 3
 GROUPS = ((("flash_fwd_kernel",), "K1 flash_fwd"),
           (("flash_bwd_dq_kernel",), "K2 flash_bwd_dq"),
           (("flash_bwd_dkv_kernel",), "K3 flash_bwd_dkv"),
-          (("rdfsq",), "K4/K5 rdfsq"),
+          (("rdfsq_quantize",), "K4 rdfsq_quantize"),
+          (("rdfsq_dequantize",), "K5 rdfsq_dequantize"),
+          # the names of the first, scalar-only design
+          (("::quantize_kernel<",), "K4 rdfsq_quantize"),
+          (("::dequantize_kernel<",), "K5 rdfsq_dequantize"),
           (("paged_decode_kernel<__nv_bfloat16", "RingPages"), "K6 decode"),
           (("paged_decode_kernel<signed char", "RingPages"),
            "K7 decode_q8"),
@@ -147,6 +159,92 @@ def profile_serve(chip_smoke, weight_quant=None, kv_bits=16) -> dict:
     return _trace(tick, TICKS, "tick", chip_smoke.smi())
 
 
+def profile_prefill(chip_smoke) -> dict:
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import engine as engine_mod
+
+    cfg = get_config("tinyllava")
+    params = init_params(cfg, seed=0)
+    reqs = chip_smoke._requests(cfg, 8, seed=7)
+    need = sum(-(-(cfg.n_image_tokens + len(t) + m) // 16)
+               for t, m, _ in reqs)
+
+    def engine():
+        eng = engine_mod.ServeEngine(params, cfg, n_slots=4, page_size=16,
+                                     n_pages=1 + need,
+                                     split_wire=cfg.split.quant)
+        for t, m, img in reqs:
+            eng.submit(t, max_new=m, image_embeds=img)
+        return eng
+
+    def ranged(fn, name):
+        def wrapped(*args, **kw):
+            with record_function(name):
+                return fn(*args, **kw)
+        return wrapped
+
+    engine().run()  # first-call set-up untraced
+    torch.cuda.synchronize()
+    saved = engine_mod.mlp_forward, ops.rdfsq_stats
+    engine_mod.mlp_forward = ranged(engine_mod.mlp_forward, "connector")
+    ops.rdfsq_stats = ranged(ops.rdfsq_stats, "stats pass")
+    try:
+        eng = engine()
+        eng._prefill = ranged(eng._prefill, "prefill")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            while eng.scheduler.waiting:
+                eng.step()
+            torch.cuda.synchronize()
+    finally:
+        engine_mod.mlp_forward, ops.rdfsq_stats = saved
+
+    # the ranges as the profiler lays them on the device's timeline (each
+    # from the first kernel launched inside it to the last one's end): a
+    # kernel belongs to the ranges its start lies in
+    labels = ("prefill", "connector", "stats pass")
+    spans = {label: [] for label in labels}
+    kernels = []
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if ev.name in labels:
+            spans[ev.name].append((ev.time_range.start, ev.time_range.end))
+        else:
+            kernels.append((ev.time_range.start, ev.name,
+                            ev.time_range.elapsed_us()))
+
+    def inside(t, label) -> bool:
+        return any(a <= t <= b for a, b in spans[label])
+
+    batches = len(spans["prefill"])
+    if batches == 0:
+        raise RuntimeError("no prefill batch was traced on the device")
+    groups = defaultdict(float)
+    launches = 0
+    for t, name, us in kernels:
+        if inside(t, "prefill"):
+            launches += 1
+            label = next((lab for lab in labels[1:] if inside(t, lab)), None)
+            groups[label or _group(name)] += us / 1e3
+    stats = eng.stats
+    return {"card": chip_smoke.smi(), "prefill_batches": batches,
+            "rows": stats["prefill_rows"],
+            "wall_ms_per_prefill_batch":
+                1e3 * stats["prefill_seconds"] / stats["prefill_batches"],
+            "device_busy_ms_per_prefill_batch":
+                sum(groups.values()) / batches,
+            "kernel_launches_per_prefill_batch": launches / batches,
+            "device_ms_per_prefill_batch_by_group": {
+                g: ms / batches for g, ms in
+                sorted(groups.items(), key=lambda kv: -kv[1])}}
+
+
 def profile_generate(chip_smoke) -> dict:
     import dataclasses
 
@@ -229,20 +327,33 @@ def main() -> int:
     mode.add_argument("--generate", action="store_true",
                       help="profile static decode steps over ring caches "
                            "instead of the engine's decode ticks")
+    mode.add_argument("--prefill", action="store_true",
+                      help="profile the engine's prefill batches instead "
+                           "of its decode ticks")
     ap.add_argument("--weight-quant", choices=("int4", "int3"), default=None,
                     help="(decode ticks) serve RTN-quantized packed weights")
     ap.add_argument("--kv-bits", type=int, choices=(16, 8), default=16,
                     help="(decode ticks) bits of the engine's KV pools")
+    ap.add_argument("--src", default=None,
+                    help="profile the repro_torch of this tree (another "
+                         "checkout's src/) instead of this checkout's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
         return 1
     import chip_smoke
 
+    if args.src:  # ahead of this checkout's src/, which chip_smoke added
+        sys.path.insert(0, str(Path(args.src).resolve()))
+        from repro_torch.kernels import build
+        if not build.CSRC.is_relative_to(Path(args.src).resolve()):
+            raise RuntimeError(f"repro_torch came from {build.CSRC}")
     if args.train:
         out = profile_train(chip_smoke)
     elif args.generate:
         out = profile_generate(chip_smoke)
+    elif args.prefill:
+        out = profile_prefill(chip_smoke)
     else:
         out = profile_serve(chip_smoke, args.weight_quant, args.kv_bits)
     print(json.dumps(out, indent=1))

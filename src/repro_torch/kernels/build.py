@@ -41,8 +41,8 @@ _ARGTYPES = {
     + [_P],
     "flash_bwd_dkv_bf16": [_P] * 11 + [_I] * 5 + [_LL] * 18 + [_I] * 5
     + [_P],
-    "rdfsq_quantize": [_P, _I, _P, _P, _LL, _LL, _I, _P],
-    "rdfsq_dequantize": [_P, _P, _P, _I, _LL, _LL, _I, _P],
+    "rdfsq_quantize": [_P, _I, _P, _P, _LL, _LL, _I, _I, _P],
+    "rdfsq_dequantize": [_P, _P, _P, _I, _LL, _LL, _I, _I, _P],
     "decode_bf16": [_P] * 6 + [_I] * 12 + [_P],
     "decode_q8": [_P] * 8 + [_I] * 12 + [_P],
     "decode_paged_bf16": [_P] * 7 + [_I] * 12 + [_P],

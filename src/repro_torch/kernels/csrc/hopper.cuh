@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels K1
-// (flash_fwd.cu), K2 / K3 (flash_bwd.cu) and K12 (wq.cu): mbarriers, TMA
+// (flash_fwd.cu), K2 / K3 (flash_bwd.cu) and K12 (wq.cu), and the wire
+// kernels K4 / K5 (rdfsq.cu, mbarriers only): mbarriers, TMA
 // tensor maps and loads, cluster barriers, wgmma shared-memory descriptors
 // and the m64nNk16 bf16 products.
 //

@@ -14,6 +14,13 @@ Padding: the reference pads columns with zeros to a multiple of
 The plain path does exactly that; the CUDA kernel reads the ragged last
 tile as zeros itself, which gives the same words without a padded copy.
 
+K4 / K5 have two hand-written paths, chosen by :func:`rdfsq_path` from
+the shapes and the operands' addresses alone, before the launch: the
+vector path (16-byte loads and stores, 8 bytes of words a thread) when
+every dense row (``x`` for K4, the output for K5) starts 16-byte aligned
+and every word row 8-byte aligned; the scalar path (one thread per
+packed byte) otherwise.  Both give the same words and outputs.
+
 NF-b: the flat input is read as blocks of G values, its ragged tail as
 zeros (the reference pads with zeros to a multiple of G, and the blocks
 to a multiple of 128 that it slices off again; the plain version pads to
@@ -38,7 +45,7 @@ from repro_torch.kernels.ref import (div_exact, nf_dequantize_ref,
 
 ROWS = 8
 COLS = 1024
-_MAX_ROWS = 65535  # grid.y of the CUDA launch
+_MAX_ROWS = 65535  # grid.y of the scalar K4 / K5 launch
 
 
 def _pad_to(x: torch.Tensor, mult: int, axis: int,
@@ -67,6 +74,21 @@ def _check_cuda(bits: int, r: int, *tensors: torch.Tensor) -> None:
         raise ValueError(f"{r} rows: the wire kernels take 1..{_MAX_ROWS}")
 
 
+def rdfsq_path(cols: int, bits: int, dtype, dense_ptr: int,
+               words_ptr: int) -> str:
+    """Which K4 / K5 kernel takes (R, ``cols``) rows of ``dtype`` (bf16 or
+    fp32) at ``dense_ptr`` and their words at ``words_ptr``: ``"vector"``
+    when every dense row starts 16-byte aligned (``cols * itemsize`` and
+    the base a multiple of 16) and every word row 8-byte aligned
+    (``ceil(cols / per)`` and the base a multiple of 8), else
+    ``"scalar"``."""
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    n_words = -(-cols // (8 // storage_bits(bits)))
+    vector = (cols * itemsize % 16 == 0 and dense_ptr % 16 == 0
+              and n_words % 8 == 0 and words_ptr % 8 == 0)
+    return "vector" if vector else "scalar"
+
+
 def quantize_kernel(x2d: torch.Tensor, stats: torch.Tensor, bits: int
                     ) -> torch.Tensor:
     """K4 launch: x2d (R, C) bf16/fp32 CUDA, stats (R, 2) fp32 (lo, hi)
@@ -79,9 +101,11 @@ def quantize_kernel(x2d: torch.Tensor, stats: torch.Tensor, bits: int
         raise ValueError("K4 takes (R, 2) fp32 stats")
     words = torch.empty((r, -(-c // (8 // storage_bits(bits)))),
                         dtype=torch.uint8, device=x2d.device)
+    path = rdfsq_path(c, bits, x2d.dtype, x2d.data_ptr(), words.data_ptr())
     build.launch("rdfsq_quantize", "rdfsq_quantize", x2d.data_ptr(),
                  int(x2d.dtype == torch.bfloat16), stats.data_ptr(),
-                 words.data_ptr(), r, c, bits, build.current_stream())
+                 words.data_ptr(), r, c, bits, int(path == "vector"),
+                 build.current_stream())
     return words
 
 
@@ -120,10 +144,12 @@ def dequantize_kernel(words: torch.Tensor, stats: torch.Tensor, bits: int,
     if stats.dtype != torch.float32 or stats.shape != (r, 2):
         raise ValueError("K5 takes (R, 2) fp32 stats")
     out = torch.empty((r, n_cols), dtype=out_dtype, device=words.device)
+    path = rdfsq_path(n_cols, bits, out_dtype, out.data_ptr(),
+                      words.data_ptr())
     build.launch("rdfsq_dequantize", "rdfsq_dequantize", words.data_ptr(),
                  stats.data_ptr(), out.data_ptr(),
                  int(out_dtype == torch.bfloat16), r, n_cols, bits,
-                 build.current_stream())
+                 int(path == "vector"), build.current_stream())
     return out
 
 

@@ -198,3 +198,203 @@ def test_grouped_wire_mixes_kernel_and_plain_groups():
     y = tq.decode(cfg, payload)
     ry, _ = tq.roundtrip(cfg, x)
     np.testing.assert_allclose(y.numpy(), ry.numpy(), rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the vector path's methods, as plain models (csrc/rdfsq.cu)
+# ---------------------------------------------------------------------------
+
+def _k5_table_model(words, stats, bits, n_cols, out_dtype):
+    """K5's vector path in torch: the row's 2^bits outputs by the kernel's
+    op order, expanded into a 256-entry table (byte -> its 8 / bits
+    outputs, code i of a byte first at i), gathered by the word bytes."""
+    per = 8 // bits
+    half = (2 ** bits - 1) / 2.0
+    lo, hi = stats[:, :1].float(), stats[:, 1:].float()
+    codes = torch.arange(2 ** bits, dtype=torch.float32)[None, :]
+    c = tref.div_exact(codes - half, half)
+    levels = ((c + 1.0) / 2.0 * (hi - lo) + lo).to(out_dtype)  # (R, 2^b)
+    byte = torch.arange(256)[:, None]
+    shifts = torch.arange(per)[None, :] * bits
+    slots = (byte >> shifts) & (2 ** bits - 1)  # (256, per)
+    table = levels[:, slots]  # (R, 256, per)
+    rows = torch.arange(words.shape[0])[:, None]
+    out = table[rows, words.long()]  # (R, CW, per)
+    return out.reshape(words.shape[0], -1)[:, :n_cols]
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+def test_dequantize_table_model_exact(bits, out_dtype):
+    """K5's byte -> outputs table gives dequantize_plain's outputs and the
+    reference formula's in IEEE float32 (numpy), bit for bit."""
+    x = _x(20 + bits)
+    words, stats16 = tops.rdfsq_quantize(torch.as_tensor(x), bits)
+    stats = stats16.float()
+    y = _k5_table_model(words, stats, bits, COLS, out_dtype)
+    plain = tops.dequantize_plain(words, stats, bits, COLS, out_dtype)
+    assert torch.equal(y, plain)
+    half = np.float32((2 ** bits - 1) / 2.0)
+    w = words.numpy()
+    codes = ((w[..., None] >> (np.arange(8 // bits, dtype=np.uint8) * bits))
+             & (2 ** bits - 1)).reshape(ROWS, -1)[:, :COLS]
+    s = stats.numpy()
+    lo, hi = s[:, :1], s[:, 1:]
+    c = (codes.astype(np.float32) - half) / half
+    ieee = (c + np.float32(1.0)) / np.float32(2.0) * (hi - lo) + lo
+    np.testing.assert_array_equal(
+        y.float().numpy(), torch.as_tensor(ieee).to(out_dtype).float().numpy())
+
+
+SERVE, GROUP = (4, 729 * 1280), (4, 729 * 160)
+
+
+@pytest.mark.parametrize("cols,bits,dtype,offset,path", [
+    (SERVE[1], 2, torch.bfloat16, 0, "vector"),
+    (GROUP[1], 2, torch.bfloat16, 0, "vector"),
+    (GROUP[1], 4, torch.bfloat16, 0, "vector"),
+    (GROUP[1], 1, torch.bfloat16, 0, "scalar"),  # 14 580 B of words a row
+    (1001, 2, torch.float32, 0, "scalar"),  # 4 004 B of values a row
+    (4096, 2, torch.bfloat16, 2, "scalar"),  # a view 2 bytes off
+    (4092, 1, torch.float32, 0, "vector"),  # a ragged last group
+], ids=["serve", "group", "group-4bit", "group-1bit", "3x1001",
+        "misaligned-view", "ragged-group"])
+def test_rdfsq_path(cols, bits, dtype, offset, path):
+    """The path rule: 16-byte-aligned dense rows and 8-byte-aligned word
+    rows take the vector path, anything else the scalar one."""
+    assert tops.rdfsq_path(cols, bits, dtype, (1 << 20) + offset,
+                           1 << 20) == path
+    if cols < 5000:  # the same through a real (CPU) tensor's address
+        flat = torch.zeros(3 * cols + 8, dtype=dtype)
+        x = flat[offset // flat.element_size():][:3 * cols].view(3, cols)
+        words = torch.zeros((3, -(-cols // (8 // bits))), dtype=torch.uint8)
+        assert tops.rdfsq_path(cols, bits, dtype, x.data_ptr(),
+                               words.data_ptr()) == path
+
+
+def test_rdfsq_path_refuses_a_misaligned_word_row():
+    assert tops.rdfsq_path(4096, 2, torch.bfloat16, 1 << 20,
+                           (1 << 20) + 4) == "scalar"
+
+
+_F32 = np.float32
+
+
+def _fsq_codes(v, lo, hi, den, half):
+    """K4's op sequence in IEEE float32 (numpy), NaN clipped to lo as
+    fmaxf does."""
+    v = np.asarray(v, np.float32)
+    with np.errstate(invalid="ignore", over="ignore"):
+        c = np.fmin(np.fmax(v, lo), hi)
+        q = (_F32(2.0) * (c - lo)) / den
+        z = np.rint(half * (q - _F32(1.0)) - _F32(0.5)) + _F32(0.5)
+        z = np.fmin(np.fmax(z, -half), half)
+        return (z + half).astype(np.int64)
+
+
+def _key(f):
+    b = int(np.asarray(f, np.float32).view(np.int32))
+    return b if b >= 0 else b ^ 0x7fffffff
+
+
+def _key_float(k):
+    k = int(k)
+    return np.array(k if k >= 0 else k ^ 0x7fffffff,
+                    np.int64).astype(np.int32).view(np.float32)[()]
+
+
+def _code_threshold(k, lo, hi, den, half, miss=0.0):
+    """K4's per-row threshold search, lane for lane: the least float
+    (in key order) whose code reaches k, or NaN.  ``miss`` moves the
+    first round's bracket by that many widths, off the threshold, so that
+    the search starts again from [lo, hi]."""
+    def holds(keys):
+        return _fsq_codes([_key_float(p) for p in keys], lo, hi, den,
+                          half) >= k
+
+    est = lo + (_F32(k) - _F32(0.5)) * den / (_F32(2.0) * half)
+    d = _F32(2.0 ** -21) * (den + np.abs(lo) + np.abs(est))
+    est = est + _F32(2 * miss) * d
+    L, H = _key(np.fmax(est - d, lo)), _key(np.fmin(est + d, hi))
+    n = H - L
+    pts = [L + ((n * i) >> 5) for i in range(31)] + [H]
+    m = holds(pts)
+    if n > 0 and not m[0] and m[31]:
+        f = int(np.argmax(m))
+        H, L = pts[f], pts[f - 1]
+    else:
+        if not holds([_key(hi)])[0]:
+            return _F32(np.nan)
+        L, H = _key(lo), _key(hi)
+    while H - L > 1:
+        n = H - L
+        f = int(np.argmax(holds([L + ((n * (i + 1)) >> 5)
+                                 for i in range(32)])))
+        H, L = L + ((n * (f + 1)) >> 5), (L + ((n * f) >> 5) if f else L)
+    return _key_float(H)
+
+
+def _bf16_up(t):
+    """The least bf16 >= t (__float2bfloat16_ru); NaN stays NaN."""
+    r = torch.tensor([t]).to(torch.bfloat16)
+    if np.isnan(t) or r.float().item() >= t:
+        return r
+    raw = int(r.view(torch.int16))
+    raw = 1 if r.item() == 0 else raw + 1 if r.item() > 0 else raw - 1
+    return torch.tensor([raw], dtype=torch.int16).view(torch.bfloat16)
+
+
+# (lo, hi) rows: the serve path's, an offset row, a short span, a row
+# whose middle threshold sits at about zero, a degenerate row, a huge one
+_THRESHOLD_ROWS = [(-2.1, 2.3), (1000.0, 1000.5), (-3e-7, 4e-7),
+                   (-0.7, 0.7), (0.25, 0.25), (-3e30, 1e30)]
+
+
+@pytest.mark.parametrize("bits", [1, 2])
+def test_quantize_threshold_model_matches_reference(bits):
+    """K4's vector path at 1 and 2 bits: an element's code is the number
+    of the row's thresholds at or below it.  On every float32 pattern
+    within 64 ulps of each threshold, and NaN, +-inf, +-0, lo and hi, it
+    equals rdfsq_codes_ref; so does the paired bf16 compare against the
+    thresholds rounded up to bf16, on every bf16 value within 64 bf16
+    ulps of them."""
+    half = _F32((2 ** bits - 1) / 2.0)
+    for lo, hi in _THRESHOLD_ROWS:
+        lo, hi = _F32(lo), _F32(hi)
+        den = (hi - lo) + _F32(1e-6)
+        thr = [_code_threshold(k, lo, hi, den, half)
+               for k in range(1, 2 ** bits)]
+        for miss in (-3.0, 3.0):  # a bracket that misses: [lo, hi]
+            np.testing.assert_array_equal(
+                thr, [_code_threshold(k, lo, hi, den, half, miss)
+                      for k in range(1, 2 ** bits)])
+        keys = {_key(v) for v in (lo, hi, 0.0, -0.0, np.inf, -np.inf)}
+        for t in thr:
+            if not np.isnan(t):
+                keys |= set(range(_key(t) - 64, _key(t) + 65))
+        xs = np.array([_key_float(k) for k in sorted(keys)] + [np.nan],
+                      np.float32)
+        with np.errstate(invalid="ignore"):
+            model = sum((xs >= t).astype(np.int64) for t in thr)
+        ref = tref.rdfsq_codes_ref(torch.as_tensor(xs)[None, :],
+                                   torch.tensor([[lo]]), torch.tensor([[hi]]),
+                                   bits)[0].numpy()
+        np.testing.assert_array_equal(model, ref, err_msg=f"{lo}, {hi}")
+        # bf16 values against the thresholds rounded up to bf16, the
+        # 2-bit code as b1 = [x >= t2], b0 = [x >= t1] ^ [x >= t2] ^ [x >= t3]
+        up = [_bf16_up(t) for t in thr]
+        bkeys = set()
+        for u in up:
+            b = int(u.view(torch.int16))
+            bkeys |= set(range(b - 64, b + 65))
+        xb = torch.tensor(sorted(k for k in bkeys if -32768 <= k < 32768),
+                          dtype=torch.int16).view(torch.bfloat16)
+        masks = [(xb >= u) for u in up]
+        if bits == 1:
+            code = masks[0].long()
+        else:
+            code = masks[1].long() * 2 + (masks[0] ^ masks[1] ^ masks[2])
+        ref = tref.rdfsq_codes_ref(xb.float()[None, :], torch.tensor([[lo]]),
+                                   torch.tensor([[hi]]), bits)[0]
+        assert torch.equal(code.to(torch.uint8), ref), (lo, hi)
