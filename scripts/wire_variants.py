@@ -35,6 +35,8 @@ Variants, each in the order given, then in reverse, so that drift shows:
   path), twice as many blocks;
 * ``pf256`` / ``noalloc``: the vector path's 16-byte loads with an L2
   prefetch-size hint of 256 B, or without allocating in L1;
+* ``tma``: K4's vector path at 2 bits in bf16 fetches a run's values with
+  one TMA bulk copy into shared memory and reads its chunks from there;
 * ``nocompute``: K4's vector path at bf16 folds each chunk's loaded words
   into its code bits without comparing: the loads, staging and stores
   alone.
@@ -107,6 +109,48 @@ EDITS = {
     "pf256": [("ld.global.nc.v4.u32", "ld.global.nc.L2::256B.v4.u32")],
     "noalloc": [("ld.global.nc.v4.u32",
                  "ld.global.nc.L1::no_allocate.v4.u32")],
+    "tma": [  # K4 at 2 bits in bf16: the run's values by one bulk copy
+        ("  constexpr int NTHR = quantize_prologue_warps<SB>();  // thresholds\n",
+         "  constexpr int NTHR = quantize_prologue_warps<SB>();  // thresholds\n"
+         "  constexpr bool kTma = sizeof(T) == 2 && SB == 2;\n"
+         "  constexpr int kTileBytes =\n"
+         "      kTma ? kThreads * kGroups * CODES * (int)sizeof(T) : 16;\n"
+         "  __shared__ __align__(128) uint8_t tile_in[kTileBytes];\n"
+         "  __shared__ __align__(8) uint64_t loaded;\n"),
+        ("    if (threadIdx.x == 0) hopper::mbar_init(&published, 32 * NTHR);\n"
+         "    __syncthreads();\n  }\n",
+         "    if (threadIdx.x == 0) hopper::mbar_init(&published, 32 * NTHR);\n"
+         "    __syncthreads();\n  }\n"
+         "  if constexpr (kTma) {\n    if (threadIdx.x == 0) {\n"
+         "      hopper::mbar_init(&loaded, 1);\n"
+         "      hopper::fence_barrier_init();\n    }\n    __syncthreads();\n  }\n"
+         "  uint32_t ld_phase = 0;\n"),
+        ("      uint4 v[kGroups][LOADS];\n",
+         "      uint4 v[kGroups][LOADS];\n"
+         "      const int64_t col0 =\n"
+         "          (tile % tiles_per_row) * nthreads * kGroups * CODES;\n"
+         "      int64_t tile_bytes = 0;\n"
+         "      if constexpr (kTma) {\n"
+         "        const int64_t avail = (C - col0) * (int64_t)sizeof(T);\n"
+         "        const int64_t full = (int64_t)nthreads * kGroups * CODES * 2;\n"
+         "        tile_bytes = (full < avail ? full : avail) & ~(int64_t)15;\n"
+         "        if (threadIdx.x == 0) {\n"
+         "          hopper::mbar_expect_tx(&loaded, (uint32_t)tile_bytes);\n"
+         "          asm volatile(\"cp.async.bulk.shared::cluster.global.mbarrier\"\n"
+         "                       \"::complete_tx::bytes [%0], [%1], %2, [%3];\"\n"
+         "                       ::\"r\"(hopper::smem_u32(tile_in)), \"l\"(xr + col0),\n"
+         "                       \"r\"((uint32_t)tile_bytes),\n"
+         "                       \"r\"(hopper::smem_u32(&loaded)) : \"memory\");\n"
+         "        }\n"
+         "        hopper::mbar_wait(&loaded, ld_phase);\n"
+         "        ld_phase ^= 1u;\n"
+         "      }\n"),
+        ("          if (col + VEC <= C) {\n            v[g][j] = load16(xr + col);\n",
+         "          if (kTma && (col - col0) * 2 + 16 <= tile_bytes) {\n"
+         "            v[g][j] = *reinterpret_cast<const uint4*>(\n"
+         "                tile_in + (col - col0) * sizeof(T));\n"
+         "          } else if (col + VEC <= C) {\n"
+         "            v[g][j] = load16(xr + col);\n")],
     "nocompute": [("bits[0] = bf16_chunk_codes<SB>(v[g][j], T1, T2, T3);",
                    "bits[0] = v[g][j].x ^ v[g][j].y ^ v[g][j].z ^ v[g][j].w"
                    " ^ T1;")],
