@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""Where the RD-FSQ wire kernels (``csrc/rdfsq.cu``: K4 quantize + pack,
-K5 unpack + dequantize) spend their time: device time at the wire's two
-shapes under timing-only edits of the source.
+"""Where the wire kernels spend their time: device time at the wires'
+shapes under timing-only edits of the source, for the RD-FSQ wire
+(``csrc/rdfsq.cu``: K4 quantize + pack, K5 unpack + dequantize) and the
+NF-b wire (``csrc/nf.cu``: K10 quantize + pack, K11 unpack + dequantize).
 
-    python3 scripts/wire_variants.py
+    python3 scripts/wire_variants.py [--wire rdfsq|nf]
 
-Needs one CUDA device and nvcc.  At the serve shape (4 x 933 120 values,
+Needs one CUDA device and nvcc; by default it times both wires.
+
+RD-FSQ.  At the serve shape (4 x 933 120 values,
 729 image tokens x 1280 channels) and at the adaptive wire's group shape
 (4 x 116 640: 729 x 160), 2 bits, bf16, it times K4 and K5 on each of
 their two paths (``ops.rdfsq_path`` overridden: ``vector``, and
@@ -46,14 +49,32 @@ the same two ways: ``amax`` over groups of 8 values (K4's bytes: the
 values in, 1/8 of them out) and an 8-fold ``expand`` copied into the
 output (K5's: 1/8 in, the values out).
 
+NF-b.  At the NF-4 wire's serve shape (4 x 729 x 1280 values, 8 inputs in
+rotation for the cold time) and its one-row shape (729 x 1280, 32
+inputs), 4 bits, blocks of 64, bf16, it times K10 and K11 the same two
+ways under these variants:
+
+* ``built``, ``empty``, ``noload``, ``nostore``: as for RD-FSQ;
+* ``nodiv``: K10's division by the block's ``rng + 1e-8`` becomes a
+  product with its reciprocal, K11's division by 2 a product with 0.5;
+* ``noscan``: K10 takes ``norm > 0`` as the code in place of its scan
+  over the codebook (the division stays live);
+* ``nodivide64``: K11 finds its block index by a shift in place of the
+  64-bit division (right for the power-of-two words a block of these
+  shapes).
+
+Its yardstick: ``amax`` over groups of 4 bf16 values (K10's bytes: the
+values in, a quarter of their bytes out) and a 4-fold ``expand`` (K11's).
+
 The edited variants compute garbage (their error against the plain
-version is printed) and exist only to be timed; each is built from
-``rdfsq.cu`` alone into its own library under ``build/wire_variants/``.
-One line per run: the variant, the path, then K4 / K5 warm and cold ms at
-each shape, and max |out - plain| of each.
+version is printed) and exist only to be timed; each is built from its
+wire's source alone into its own library under ``build/wire_variants/``.
+One line per run: the variant, the path, then the two kernels' warm and
+cold ms at each shape, and max |out - plain| of each.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import subprocess
 import sys
@@ -155,6 +176,38 @@ EDITS = {
                    "bits[0] = v[g][j].x ^ v[g][j].y ^ v[g][j].z ^ v[g][j].w"
                    " ^ T1;")],
 }
+# NF-b: timing-only edits of nf.cu (the vector kernels' and the scalar
+# kernels', those of the first design)
+NF_EDITS = {
+    "built": [],
+    "empty": [("  load_book<SB>(book, sbook);\n",
+               "  if (n > 0) return;\n  load_book<SB>(book, sbook);\n")],
+    "noload": [("const float v = idx < n ? load_f32(x + idx) : 0.0f;",
+                "const float v = (float)(idx & 63) * 0.01f;"),
+               ("const unsigned int word = words[w];",
+                "const unsigned int word = (unsigned int)w * 37u;")],
+    "nostore": [("    words[blk * nbytes + j] = (uint8_t)word;",
+                 "    if (word == 0xDEADu) words[blk * nbytes + j] = "
+                 "(uint8_t)word;"),
+                ("    store_f32(out + idx, val);",
+                 "    if (val == -12345.0f) store_f32(out + idx, val);")],
+    "nodiv": [("  const float den = __fadd_rn(rng, 1e-8f);\n",
+               "  const float den = __fadd_rn(rng, 1e-8f);\n"
+               "  const float rden = 1.0f / den;\n"),
+              ("__fdiv_rn(__fmul_rn(2.0f, __fsub_rn(v, lo)), den)",
+               "__fmul_rn(__fmul_rn(2.0f, __fsub_rn(v, lo)), rden)"),
+              ("__fdiv_rn(__fadd_rn(norm, 1.0f), 2.0f)",
+               "__fmul_rn(__fadd_rn(norm, 1.0f), 0.5f)")],
+    "noscan": [("      int best = 0;\n", "      int best = norm > 0.0f;\n"),
+               ("for (int c = 1; c < LEVELS; ++c) {",
+                "for (int c = 1; c < 1; ++c) {")],
+    "nodivide64": [("const int64_t blk = w / (G / PER);",
+                    "const int64_t blk = w >> (__ffs(G / PER) - 1);")],
+}
+NF_FNS = ("nf_quantize", "nf_dequantize")
+# (values, inputs in rotation for the cold time)
+NF_SHAPES = {"serve": (4 * 729 * 1280, 8), "one-row": (729 * 1280, 32)}
+NF_BITS, NF_BLOCK = 4, 64
 ORDER = list(EDITS)
 FNS = ("rdfsq_quantize", "rdfsq_dequantize")
 SHAPES = {"serve": (4, 729 * 1280), "group": (4, 729 * 160)}
@@ -162,19 +215,20 @@ BITS, COLD, CALLS = 2, 8, 32
 PATHS = ("vector", "scalar")
 
 
-def _variant_libs(build) -> dict:
-    """Build every variant from ``rdfsq.cu``, one nvcc each, all started
-    together."""
+def _variant_libs(build, source: str, edits: dict, fns) -> dict:
+    """Build every variant from ``source`` (a file of ``csrc/``), one nvcc
+    each, all started together."""
     out = ROOT / "build" / "wire_variants"
     out.mkdir(parents=True, exist_ok=True)
+    stem = Path(source).stem
     procs = {}
-    for name, edits in EDITS.items():
-        src = (build.CSRC / "rdfsq.cu").read_text()
-        for old, new in edits:
+    for name, subs in edits.items():
+        src = (build.CSRC / source).read_text()
+        for old, new in subs:
             if old not in src:
-                raise RuntimeError(f"{name}: {old!r} not in rdfsq.cu")
+                raise RuntimeError(f"{name}: {old!r} not in {source}")
             src = src.replace(old, new)
-        cu, so = out / f"rdfsq_{name}.cu", out / f"lib_{name}.so"
+        cu, so = out / f"{stem}_{name}.cu", out / f"lib_{stem}_{name}.so"
         cu.write_text(src)
         procs[name] = (so, subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
@@ -189,7 +243,7 @@ def _variant_libs(build) -> dict:
             print("\n".join(line for line in log.splitlines()
                             if "registers" in line or "spill" in line))
         lib = ctypes.CDLL(str(so))
-        for fn in FNS:
+        for fn in fns:
             getattr(lib, fn).argtypes = build._ARGTYPES[fn]
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
@@ -197,8 +251,8 @@ def _variant_libs(build) -> dict:
 
 
 def _cases(gen):
-    """Per shape: COLD tuples of (x, stats) for K4 and of (words, stats16)
-    for K5, the words made by the plain version."""
+    """RD-FSQ, per shape: COLD tuples of (x, stats) for K4 and of (words,
+    stats16) for K5, the words made by the plain version."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import rdfsq_stats
@@ -236,27 +290,25 @@ def _run(cs, cases, refs, eager: bool) -> str:
         for tag, fn, args, ref in (("K4", q, k4, refs[label][0]),
                                    ("K5", d, k5, refs[label][1])):
             errs.append(f"{tag} {label} {cs.max_err(fn(*args[0]), ref):.1e}")
-            warm = cs.time_graph_ms(lambda: fn(*args[0]), CALLS)
-            cold = cs.time_graph_cold_ms(fn, args * (CALLS // COLD))
-            col = f"{tag} {label} warm {warm:.5f} cold {cold:.5f}"
-            if eager:
-                col += f" eager {cs.time_ms(lambda: fn(*args[0])):.5f}"
-            cols.append(col)
+            cols.append(_time(cs, fn, args, label, tag, eager))
     return ", ".join(cols) + " ms; errors " + ", ".join(errs)
 
 
-def main() -> int:
+def _time(cs, fn, args, label, tag, eager: bool) -> str:
+    """Warm and cold (and eager) ms of ``fn``: one input, then the inputs
+    of ``args`` in rotation, ``CALLS`` calls a graph."""
+    warm = cs.time_graph_ms(lambda: fn(*args[0]), CALLS)
+    cold = cs.time_graph_cold_ms(fn, args * (CALLS // len(args)))
+    col = f"{tag} {label} warm {warm:.5f} cold {cold:.5f}"
+    if eager:
+        col += f" eager {cs.time_ms(lambda: fn(*args[0])):.5f}"
+    return col
+
+
+def _rdfsq(cs, build, ops, gen) -> None:
     import torch
 
-    if not torch.cuda.is_available():
-        print("wire_variants: no CUDA device", file=sys.stderr)
-        return 1
-    import chip_smoke as cs
-    from repro_torch.kernels import build, ops
-
-    print(cs.smi())
-    libs = _variant_libs(build)
-    gen = torch.Generator(device="cuda").manual_seed(1234)
+    libs = _variant_libs(build, "rdfsq.cu", EDITS, FNS)
     cases = _cases(gen)
     for label, (r, c) in SHAPES.items():
         n_bytes = r * c * (2 + BITS / 8) + r * 2 * 4
@@ -289,12 +341,85 @@ def main() -> int:
             return out.view(r, c // 8, 8).copy_(
                 small[..., None].expand(r, c // 8, 8))
 
-        for tag, fn, args in (("amax over 8", reads, k4),
-                              ("expand x 8", writes, outs)):
-            warm = cs.time_graph_ms(lambda: fn(*args[0]), CALLS)
-            cold = cs.time_graph_cold_ms(fn, args * (CALLS // COLD))
-            cols.append(f"{tag} {label} warm {warm:.5f} cold {cold:.5f}")
+        cols += [_time(cs, reads, k4, label, "amax over 8", False),
+                 _time(cs, writes, outs, label, "expand x 8", False)]
     print("yardstick " + ", ".join(cols) + " ms", flush=True)
+
+
+def _nf(cs, build, ops, gen) -> None:
+    import torch
+    from repro_torch.core.quantizers.nf import codebook_tensor
+    from wire_ab import nf_inputs
+
+    libs = _variant_libs(build, "nf.cu", NF_EDITS, NF_FNS)
+    book = codebook_tensor(NF_BITS, torch.device("cuda"))
+    cases = {label: (n, *nf_inputs(gen, n, count, NF_BITS))
+             for label, (n, count) in NF_SHAPES.items()}
+    for label, (n, k10, k11) in cases.items():
+        n_bytes = cs._nbytes(k10[0][0], *k11[0], book)
+        print(f"bound NF {label} {n} values: {n_bytes} B, "
+              f"{cs.bound(n_bytes)[0]:.5f} ms (bytes) each of K10, K11")
+    refs = {label: (k11[0][0], ops.nf_dequantize_plain(
+        *k11[0], book, NF_BITS, NF_BLOCK, n, torch.bfloat16))
+        for label, (n, k10, k11) in cases.items()}
+    order = list(NF_EDITS)
+    for name in order + order[::-1]:
+        build._lib = libs[name]
+        cols, errs = [], []
+        for label, (n, k10, k11) in cases.items():
+            def q(x):
+                return ops.nf_quantize_kernel(x, book, NF_BITS, NF_BLOCK)
+
+            def d(words, m, rng, n=n):
+                return ops.nf_dequantize_kernel(words, m, rng, book, NF_BITS,
+                                                NF_BLOCK, n, torch.bfloat16)
+
+            errs += [f"K10 {label} "
+                     f"{cs.max_err(q(*k10[0])[0], refs[label][0]):.1e}",
+                     f"K11 {label} "
+                     f"{cs.max_err(d(*k11[0]), refs[label][1]):.1e}"]
+            cols += [_time(cs, q, k10, label, "K10", name == "built"),
+                     _time(cs, d, k11, label, "K11", name == "built")]
+        print(f"{name:10s} " + ", ".join(cols) + " ms; errors "
+              + ", ".join(errs), flush=True)
+    cols = []
+    for label, (n, k10, k11) in cases.items():
+        small = k10[0][0][:n // 4].contiguous()
+        outs = [(torch.empty_like(x),) for x, in k10]
+
+        def reads(x, n=n):  # K10's bytes: n values in, a quarter out
+            return x.view(n // 4, 4).amax(-1)
+
+        def writes(out, n=n, small=small):  # K11's: a quarter in, n out
+            return out.view(n // 4, 4).copy_(
+                small[:, None].expand(n // 4, 4))
+
+        cols += [_time(cs, reads, k10, label, "amax over 4", False),
+                 _time(cs, writes, outs, label, "expand x 4", False)]
+    print("yardstick NF " + ", ".join(cols) + " ms", flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--wire", choices=("rdfsq", "nf"), action="append",
+                    help="the wire whose kernels to time (default: both)")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("wire_variants: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import chip_smoke as cs
+    from repro_torch.kernels import build, ops
+
+    print(cs.smi())
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    wires = args.wire or ["rdfsq", "nf"]
+    if "rdfsq" in wires:
+        _rdfsq(cs, build, ops, gen)
+    if "nf" in wires:
+        _nf(cs, build, ops, gen)
     return 0
 
 
