@@ -625,72 +625,174 @@ def check_wire(gen, results):
         library_ms=None, bound=b)
 
 
-def check_nf(gen, results):
-    """K10 / K11 against their plain versions: words, m and rng
-    bit-identical, K11's output exact, at the NF-4 wire's shape and at
-    1 / 2 / 8 bits on a ragged NB (1 003 blocks, a partial last block),
-    each case with a block of equal values (range 0)."""
+def same_nan(a, b) -> bool:
+    """Equal, with NaN in the same places (``torch.equal`` is False on
+    NaN)."""
+    import torch
+
+    return a.shape == b.shape and bool(
+        torch.equal(a.isnan(), b.isnan())
+        and torch.equal(torch.nan_to_num(a, 0.0), torch.nan_to_num(b, 0.0)))
+
+
+def nf_edge_blocks(x, block: int) -> None:
+    """Write, in place, six blocks of ``block`` values at the start of the
+    flat ``x`` whose codes the edges of the arithmetic decide: a NaN, +inf,
+    -inf, range 0, an outlier, and ``linspace(-1e38, 2e38)``, whose
+    ``2 (x - m)`` overflows while its range is finite (its upper values'
+    norm is +inf: code 0, as the argmin over infinite distances gives)."""
+    import torch
+
+    x[17 % block] = math.nan
+    x[block + 40 % block] = math.inf
+    x[2 * block + 3] = -math.inf
+    x[3 * block:4 * block] = 0.5
+    x[4 * block:4 * block + 3] = 25.0
+    x[5 * block:6 * block] = torch.linspace(-1e38, 2e38, block)
+
+
+def _nf_times(gen, name, n, bits, block, x, words, m, rng):
+    """K10 / K11 at one shape, bf16: device time by graph replay, warm (one
+    input, L2-resident, as after the connector's write) and cold (fresh
+    inputs in rotation, outputs kept, together past the L2), and the eager
+    time; returns the ms and the byte bound."""
     import torch
     from repro_torch.core.quantizers.nf import codebook_tensor
     from repro_torch.kernels import ops
 
-    block = 64
+    book = codebook_tensor(bits, x.device)
+
+    def k10(x):
+        return ops.nf_quantize_kernel(x, book, bits, block)
+
+    def k11(words, m, rng):
+        return ops.nf_dequantize_kernel(words, m, rng, book, bits, block, n,
+                                        torch.bfloat16)
+
+    n_bytes = _nbytes(x, words, m, rng, book)
+    count = max(WIRE_COLD, -(-64_000_000 // n_bytes))
+    cold10, cold11 = [(x,)], [(words, m, rng)]
+    for _ in range(count - 1):
+        xi = (torch.randn((n,), generator=gen, device="cuda") * 0.7
+              + 0.1).bfloat16()
+        cold10.append((xi,))
+        cold11.append(k10(xi))
+    out = {}
+    for tag, fn, args in (("K10", k10, cold10), ("K11", k11, cold11)):
+        out[tag] = dict(warm=time_graph_ms(lambda: fn(*args[0]), 32),
+                        cold=time_graph_cold_ms(fn, args * (32 // count)),
+                        eager=time_ms(lambda: fn(*args[0])))
+    b = bound(n_bytes)
+    for tag in ("K10", "K11"):
+        t = out[tag]
+        print(f"[kernels] {tag} {name}: cold {t['cold']:.5f} ms, warm "
+              f"{t['warm']:.5f} ms (graph replay, {count} inputs cold), "
+              f"eager {t['eager']:.5f} ms; bound {b[0]:.5f} ms ({b[1]}, "
+              f"{n_bytes} B), cold / bound {t['cold'] / b[0]:.2f}")
+    return out, b
+
+
+def check_nf(gen, results):
+    """K10 / K11 against their plain versions on both paths: words
+    bit-identical, m and rng equal with NaN in the same places, K11's
+    output exact (NaN in the same places), the same bits twice.  Every
+    case carries the edge blocks of :func:`nf_edge_blocks` (a NaN, +-inf,
+    an overflowing block, range 0, an outlier).  Vector path: the NF-4
+    wire's serve and one-row shapes, every width in bf16 and fp32 on a
+    ragged NB (1 003 blocks, a partial last block), blocks of 32, 128,
+    256 (bf16) and 256 (fp32: two chunks a lane), 52 (fp32: a group of 13
+    lanes in 16); scalar path: blocks of 52 in bf16 and of 1 024, a
+    misaligned view of x (K10) and of the words (K11)."""
+    import torch
+    from repro_torch.core.quantizers.nf import codebook_tensor
+    from repro_torch.kernels import ops
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    serve, one_row = 4 * 729 * 1280, 729 * 1280
+    # name -> (n, bits, dtype, block, the path both kernels must take)
     cases = {"serve shape 4 x 729 x 1280, 4 bits, bf16":
-             (4 * 729 * 1280, 4, torch.bfloat16)}
+             (serve, 4, bf16, 64, "vector"),
+             "one-row shape 729 x 1280, 4 bits, bf16":
+             (one_row, 4, bf16, 64, "vector")}
     for b in (1, 2, 4, 8):
-        cases[f"ragged n 64 129 (NB 1 003), {b} bits, fp32"] = (
-            64129, b, torch.float32)
-    cases["ragged n 64 129 (NB 1 003), 4 bits, bf16"] = (
-        64129, 4, torch.bfloat16)
+        for dt in (bf16, f32):
+            cases[f"ragged n 64 129 (NB 1 003), {b} bits, {str(dt)[6:]}"] = (
+                64129, b, dt, 64, "vector")
+    for g in (32, 128, 256):
+        cases[f"G {g}, n 64 129, 4 bits, bf16"] = (64129, 4, bf16, g,
+                                                   "vector")
+    cases["G 256 (two chunks a lane), n 64 129, 8 bits, fp32"] = (
+        64129, 8, f32, 256, "vector")
+    cases["G 52 (13 lanes of 16), n 64 129, 2 bits, fp32"] = (
+        64129, 2, f32, 52, "vector")
+    cases["G 52, n 64 129, 2 bits, bf16"] = (64129, 2, bf16, 52, "scalar")
+    cases["G 1024, n 64 129, 4 bits, bf16"] = (64129, 4, bf16, 1024,
+                                               "scalar")
+    cases["misaligned views, n 64 129, 4 bits, bf16"] = (64129, 4, bf16, 64,
+                                                          "scalar")
     worst_q, worst_d = 0.0, 0.0
-    for name, (n, bits, dtype) in cases.items():
+    main = {}
+    for name, (n, bits, dtype, block, must) in cases.items():
         x = (torch.randn((n,), generator=gen, device="cuda") * 0.7
              + 0.1).to(dtype)
-        x[:3] = 25.0  # an outlier block
-        x[block:2 * block] = 0.5  # range 0
+        nf_edge_blocks(x, block)
+        if "misaligned" in name:  # a contiguous view 2 bytes off
+            x = torch.cat([x.new_zeros(1), x])[1:]
         book = codebook_tensor(bits, x.device)
         out = ops.nf_quantize_kernel(x, book, bits, block)
+        again = ops.nf_quantize_kernel(x, book, bits, block)
         ref = ops.nf_quantize_plain(x, book, bits, block)
         torch.cuda.synchronize()
-        same = [torch.equal(a, r) for a, r in zip(out, ref)]
+        same = [torch.equal(out[0], ref[0]), same_nan(out[1], ref[1]),
+                same_nan(out[2], ref[2])]
         n_diff = int((out[0] != ref[0]).sum())
-        words, m, rng = out
+        words, m, rng = ref
+        if "misaligned" in name:  # the words one byte off
+            words = torch.cat([words.new_zeros(1), words.reshape(-1)]
+                              )[1:].view(words.shape)
         y = ops.nf_dequantize_kernel(words, m, rng, book, bits, block, n,
                                      dtype)
+        y2 = ops.nf_dequantize_kernel(words, m, rng, book, bits, block, n,
+                                      dtype)
         ry = ops.nf_dequantize_plain(words, m, rng, book, bits, block, n,
                                      dtype)
+        paths = [ops.nf_path(block, dtype, t.data_ptr(), w.data_ptr())
+                 for t, w in ((x, out[0]), (y, words))]
         torch.cuda.synchronize()
-        e_d = max_err(y, ry)
-        print(f"[kernels] K10 nf_quantize {name}: words / m / rng "
-              f"bit-identical {same} ({n_diff} differing bytes of "
-              f"{words.numel()}); K11 nf_dequantize max|out-plain| "
-              f"{e_d:.3e} (exact: {e_d == 0.0})")
-        require(all(same) and e_d == 0.0 and y.shape == (n,),
-                f"K10/K11 {name}")
-        worst_q = max(worst_q, max_err(words, ref[0]))
-        worst_d = max(worst_d, e_d)
-        if name.startswith("serve"):
-            main = x, book, bits, words, m, rng, n, dtype
+        exact = same_nan(y, ry)
+        twice = (torch.equal(out[0], again[0]) and same_nan(out[1], again[1])
+                 and same_nan(out[2], again[2]) and same_nan(y, y2))
+        print(f"[kernels] K10 nf_quantize {name} [{paths[0]}]: words / m / "
+              f"rng equal {same} ({n_diff} differing bytes of "
+              f"{words.numel()}); K11 nf_dequantize [{paths[1]}] exact "
+              f"(NaN in the same places) {exact}; the same bits twice "
+              f"{twice}")
+        require(all(same) and exact and twice and y.shape == (n,)
+                and paths == [must] * 2, f"K10/K11 {name}")
+        finite = ~ry.isnan()
+        worst_q = max(worst_q, max_err(out[0], ref[0]))
+        worst_d = max(worst_d, max_err(y[finite], ry[finite]))
+        if name.startswith(("serve", "one-row")):
+            main[name] = (n, bits, block, x, words, m, rng)
 
-    x, book, bits, words, m, rng, n, dtype = main
-    nb = words.shape[0]
-    side = _nbytes(m, rng, book)
+    timed = {name: _nf_times(gen, name, *args) for name, args in main.items()}
+    name = next(iter(main))
+    n, bits, block, x, words, m, rng = main[name]
+    t, b = timed[name]
+    book = codebook_tensor(bits, x.device)
     results["nf_quantize"] = dict(
-        max_abs_err=worst_q,
-        ms=time_ms(lambda: ops.nf_quantize_kernel(x, book, bits, block)),
+        max_abs_err=worst_q, ms=t["K10"]["cold"],
         plain_ms=time_ms(lambda: ops.nf_quantize_plain(x, book, bits,
                                                        block),
                          reps=5, inner=1),
-        library_ms=None, bound=bound(_nbytes(x, words) + side))
+        library_ms=None, bound=b)
     results["nf_dequantize"] = dict(
-        max_abs_err=worst_d,
-        ms=time_ms(lambda: ops.nf_dequantize_kernel(
-            words, m, rng, book, bits, block, n, dtype)),
+        max_abs_err=worst_d, ms=t["K11"]["cold"],
         plain_ms=time_ms(lambda: ops.nf_dequantize_plain(
-            words, m, rng, book, bits, block, n, dtype), reps=5, inner=1),
-        library_ms=None, bound=bound(_nbytes(words) + side
-                                     + n * x.element_size()))
-    print(f"[kernels] K10 / K11 main shape: NB {nb}, words "
+            words, m, rng, book, bits, block, n, torch.bfloat16), reps=5,
+            inner=1),
+        library_ms=None, bound=b)
+    print(f"[kernels] K10 / K11 main shape: NB {words.shape[0]}, words "
           f"{words.numel()} B, input {_nbytes(x)} B")
 
 

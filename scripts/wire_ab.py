@@ -21,9 +21,9 @@ buffer of its own, together past the 50 MB L2;
   shape (729 x 1280, the smoke's one-row prefill batches: 32 inputs), and
   at 8 bits at the serve shape.
 
-NF-b also runs its edge blocks (a NaN, +inf, -inf, a range-0 block, an
-outlier block and ``linspace(-1e38, 2e38, 64)``, whose ``2 (x - m)``
-overflows) at 1, 2, 4 and 8 bits in bf16 and fp32 through K10 and K11
+NF-b also runs the edge blocks of ``chip_smoke.nf_edge_blocks`` (a NaN,
++inf, -inf, range 0, an outlier and ``linspace(-1e38, 2e38, 64)``, whose
+``2 (x - m)`` overflows) at 1, 2, 4 and 8 bits in bf16 and fp32 through K10 and K11
 and says whether words, m, rng (NaN in the same places) and K11's output
 equal the plain versions'.
 
@@ -37,7 +37,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
 import sys
 from pathlib import Path
 
@@ -107,41 +106,17 @@ def nf_inputs(gen, n: int, count: int, bits: int):
     return k10, k11
 
 
-def nf_edge_blocks(dtype):
-    """Blocks of 64 whose codes the edges of the arithmetic decide: a NaN,
-    +inf, -inf, a range-0 block, an outlier block and the block
-    ``linspace(-1e38, 2e38, 64)``, whose ``2 (x - m)`` overflows for its
-    upper values."""
-    import torch
-
-    gen = torch.Generator().manual_seed(5)
-    blocks = torch.randn((6, NF_BLOCK), generator=gen) * 0.7 + 0.1
-    blocks[0, 17] = math.nan
-    blocks[1, 40] = math.inf
-    blocks[2, 3] = -math.inf
-    blocks[3] = 0.5
-    blocks[4, :3] = 25.0
-    blocks[5] = torch.linspace(-1e38, 2e38, NF_BLOCK)
-    return blocks.to(dtype).reshape(-1).cuda()
-
-
-def same_nan(a, b) -> bool:
-    """Equal, with NaN in the same places (``torch.equal`` is False on
-    NaN)."""
-    import torch
-
-    return a.shape == b.shape and bool(
-        torch.equal(a.isnan(), b.isnan())
-        and torch.equal(torch.nan_to_num(a, 0.0), torch.nan_to_num(b, 0.0)))
-
-
-def nf_edges(bits: int, dtype) -> dict:
-    """K10 / K11 against their plain versions on :func:`nf_edge_blocks`."""
+def nf_edges(cs, bits: int, dtype) -> dict:
+    """K10 / K11 against their plain versions on the edge blocks of
+    ``chip_smoke.nf_edge_blocks``."""
     import torch
     from repro_torch.core.quantizers.nf import codebook_tensor
     from repro_torch.kernels import ops
 
-    x = nf_edge_blocks(dtype)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = (torch.randn((6 * NF_BLOCK,), generator=gen, device="cuda") * 0.7
+         + 0.1).to(dtype)
+    cs.nf_edge_blocks(x, NF_BLOCK)
     book = codebook_tensor(bits, x.device)
     words, m, rng = ops.nf_quantize_kernel(x, book, bits, NF_BLOCK)
     rw, rm, rr = ops.nf_quantize_plain(x, book, bits, NF_BLOCK)
@@ -150,8 +125,8 @@ def nf_edges(bits: int, dtype) -> dict:
     ry = ops.nf_dequantize_plain(rw, rm, rr, book, bits, NF_BLOCK,
                                  x.numel(), dtype)
     torch.cuda.synchronize()
-    return dict(words=bool(torch.equal(words, rw)), m=same_nan(m, rm),
-                rng=same_nan(rng, rr), out=same_nan(y, ry),
+    return dict(words=bool(torch.equal(words, rw)), m=cs.same_nan(m, rm),
+                rng=cs.same_nan(rng, rr), out=cs.same_nan(y, ry),
                 nan_block_m=float(m[0, 0]),
                 nan_block_words_zero=bool((words[0] == 0).all()))
 
@@ -182,7 +157,7 @@ def _nf(cs, gen, out) -> None:
                 lambda: fn(*inputs[0]), CALLS)
             out["ms"][f"{tag} {label} cold"] = cs.time_graph_cold_ms(
                 fn, inputs * (CALLS // count))
-    out["nf_edges"] = {f"{b} bits {str(dt)[6:]}": nf_edges(b, dt)
+    out["nf_edges"] = {f"{b} bits {str(dt)[6:]}": nf_edges(cs, b, dt)
                        for b in (1, 2, 4, 8)
                        for dt in (torch.bfloat16, torch.float32)}
 

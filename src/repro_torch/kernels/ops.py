@@ -28,12 +28,20 @@ G only, since every block stands alone).  K10 writes the slot-packed
 words and per-block fp16 (m, rng); the double quantization of the ranges
 (1/G of the data) runs outside the kernel, in PyTorch, as in the
 reference.  Dequantize rebuilds the ranges and rounds them to fp16
-before K11, as the reference wrapper does.
+before K11, as the reference wrapper does.  K10 / K11 also have two
+paths, chosen by :func:`nf_path`: the vector path (16-byte loads or
+stores, a lane group per block) takes K10's codes from a per-bits table
+of thresholds (:func:`nf_code_thresholds`) and K11's values from a
+per-bits table of ``(book + 1) / 2`` (:func:`nf_half_table`); the scalar
+path (a warp per block for K10, a thread per word byte for K11) is the
+first design.  Both give the plain version's bits.
 """
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -177,6 +185,79 @@ def rdfsq_dequantize(words: torch.Tensor, stats: torch.Tensor, bits: int,
 # ---------------------------------------------------------------------------
 
 _NF_EPS = 1e-8
+_NF_MAX_CHUNKS = 64  # 16-byte chunks of a block on K10 / K11's vector path
+
+
+def _float_keys(f: np.ndarray) -> np.ndarray:
+    """float32 -> int64 keys in the floats' order (-0 just below +0); the
+    map is its own inverse on the int32 patterns (:func:`_key_floats`)."""
+    b = np.asarray(f, np.float32).view(np.int32).astype(np.int64)
+    return np.where(b >= 0, b, b ^ 0x7fffffff)
+
+
+def _key_floats(k: np.ndarray) -> np.ndarray:
+    k = np.asarray(k, np.int64)
+    return np.where(k >= 0, k, k ^ 0x7fffffff).astype(np.int32).view(
+        np.float32)
+
+
+@lru_cache(maxsize=None)
+def nf_code_thresholds(bits: int) -> Tuple[float, ...]:
+    """K10's decision table: for c = 1 .. 2^bits - 1, the least float32
+    ``norm`` in [-1, 1] whose nearest codebook entry (``ref.nf_nearest``,
+    the first on a tie) is at least c, found by bisection over the ordered
+    float32 patterns.  ``norm = fl(fl(fl(2 fl(x - m)) / den) - 1)`` lies in
+    [-1, 1] whenever it is finite, and there the code is a nondecreasing
+    step function of it, so a finite ``norm``'s code is the number of
+    entries at or below it (the CPU tests hold this at every entry +-64
+    ulps); a NaN or +inf ``norm`` takes code 0."""
+    from repro_torch.core.quantizers.nf import nf_codebook
+
+    book = np.asarray(nf_codebook(bits), np.float32)
+
+    def codes(keys):
+        norm = _key_floats(keys)
+        return np.argmin(np.abs(norm[:, None] - book[None, :]), axis=1)
+
+    want = np.arange(1, 2 ** bits)
+    lo = np.full(want.shape, _float_keys(np.float32(-1.0)))  # code < c
+    hi = np.full(want.shape, _float_keys(np.float32(1.0)))   # code >= c
+    assert (codes(lo) < want).all() and (codes(hi) >= want).all()
+    while (hi - lo > 1).any():
+        mid = lo + (hi - lo) // 2
+        holds = codes(mid) >= want
+        hi, lo = np.where(holds, mid, hi), np.where(holds, lo, mid)
+    return tuple(float(t) for t in _key_floats(hi))
+
+
+@lru_cache(maxsize=None)
+def nf_threshold_tensor(bits: int, device: torch.device) -> torch.Tensor:
+    """:func:`nf_code_thresholds` as an fp32 tensor on ``device``, made
+    once per device (callers do not write to it)."""
+    return torch.tensor(nf_code_thresholds(bits), dtype=torch.float32,
+                        device=device)
+
+
+@lru_cache(maxsize=None)
+def nf_half_table(bits: int, device: torch.device) -> torch.Tensor:
+    """K11's table ``h_c = fl(fl(book_c + 1) / 2)`` (fp32, 2^bits), made
+    once per device: ``fl(fl(h_code rng) + m)`` is then the plain
+    ``(norm + 1) / 2 * rng + m`` operation for operation."""
+    from repro_torch.core.quantizers.nf import codebook_tensor
+
+    return div_exact(codebook_tensor(bits, device) + 1.0, 2.0)
+
+
+def nf_path(block: int, dtype, dense_ptr: int, words_ptr: int) -> str:
+    """Which K10 / K11 kernel takes blocks of ``block`` values of ``dtype``
+    (bf16 or fp32) at ``dense_ptr`` (K10's input, K11's output) and their
+    words at ``words_ptr``: ``"vector"`` when a block fills whole 16-byte
+    chunks, at most 64 of them, the dense base is 16-byte aligned and the
+    words' base 8-byte aligned, else ``"scalar"``."""
+    nbytes = block * (2 if dtype == torch.bfloat16 else 4)
+    vector = (nbytes % 16 == 0 and nbytes // 16 <= _NF_MAX_CHUNKS
+              and dense_ptr % 16 == 0 and words_ptr % 8 == 0)
+    return "vector" if vector else "scalar"
 
 
 def _nf_check_cuda(bits: int, block: int, *tensors: torch.Tensor) -> None:
@@ -203,10 +284,12 @@ def nf_quantize_kernel(flat: torch.Tensor, book: torch.Tensor, bits: int,
                         device=flat.device)
     m = torch.empty((nb, 1), dtype=torch.float16, device=flat.device)
     rng = torch.empty_like(m)
+    path = nf_path(block, flat.dtype, flat.data_ptr(), words.data_ptr())
     build.launch("nf_quantize", "nf_quantize", flat.data_ptr(),
                  int(flat.dtype == torch.bfloat16), book.data_ptr(),
+                 nf_threshold_tensor(bits, flat.device).data_ptr(),
                  words.data_ptr(), m.data_ptr(), rng.data_ptr(), n, block,
-                 bits, build.current_stream())
+                 bits, int(path == "vector"), build.current_stream())
     return words, m, rng
 
 
@@ -270,10 +353,12 @@ def nf_dequantize_kernel(words: torch.Tensor, m: torch.Tensor,
     if book.dtype != torch.float32 or book.shape != (2 ** bits,):
         raise ValueError("K11 takes a (2^bits,) fp32 codebook")
     out = torch.empty((n,), dtype=out_dtype, device=words.device)
+    path = nf_path(block, out_dtype, out.data_ptr(), words.data_ptr())
     build.launch("nf_dequantize", "nf_dequantize", words.data_ptr(),
                  m.data_ptr(), rng.data_ptr(), book.data_ptr(),
+                 nf_half_table(bits, words.device).data_ptr(),
                  out.data_ptr(), int(out_dtype == torch.bfloat16), n, block,
-                 bits, build.current_stream())
+                 bits, int(path == "vector"), build.current_stream())
     return out
 
 

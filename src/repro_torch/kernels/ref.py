@@ -86,16 +86,23 @@ def rdfsq_dequantize_ref(packed: torch.Tensor, lo, hi, bits: int,
 # NF-b blockwise quantization (K10 / K11)
 # ---------------------------------------------------------------------------
 
+def nf_nearest(norm: torch.Tensor, book: torch.Tensor) -> torch.Tensor:
+    """The nearest codebook entry to each fp32 ``norm`` (uint8), the first
+    one on a tie (as ``jnp.argmin`` and ``torch.argmin``); a NaN or an
+    infinite ``norm`` has every distance NaN or inf and takes entry 0."""
+    dist = (norm[..., None] - book.float()).abs()
+    return dist.argmin(dim=-1).to(torch.uint8)
+
+
 def nf_codes_ref(blocks: torch.Tensor, book: torch.Tensor):
     """blocks (NB, G) -> (codes (NB, G) uint8, m (NB, 1), rng (NB, 1)) in
-    fp32: the nearest codebook entry, the first one on a tie (as
-    ``jnp.argmin`` and ``torch.argmin``)."""
+    fp32: each value normalized onto [-1, 1] by its block's (min, range),
+    then :func:`nf_nearest`.  min and max propagate a NaN."""
     xf = blocks.float()
     m = xf.amin(dim=1, keepdim=True)
     rng = xf.amax(dim=1, keepdim=True) - m
     norm = 2.0 * (xf - m) / (rng + 1e-8) - 1.0
-    dist = (norm[..., None] - book.float()).abs()
-    return dist.argmin(dim=-1).to(torch.uint8), m, rng
+    return nf_nearest(norm, book), m, rng
 
 
 def nf_quantize_ref(blocks: torch.Tensor, book: torch.Tensor, bits: int):
