@@ -28,12 +28,20 @@ non-zero:
               outputs exact, the same bits twice, and are timed by replay
               at the serve and group shapes warm (one input) and cold (8
               inputs in rotation, past the L2), eager beside, with the
-              whole wire encode (stats pass + K4) and decode.  K2 / K3 also run twice on the training
-              shape and must give the same bits.  K8 / K9 run eight paged
-              cases (npp 1 - 128, pages of 8 - 64, G 1 - 16, windows
-              that empty whole cluster ranks), each the same bits twice,
-              timed by graph replay and eager at the mixed case and at
-              the serve shape.
+              whole wire encode (stats pass + K4) and decode.  K10 / K11
+              run on both of their paths too (vector: the NF-4 wire's
+              serve and one-row shapes, every width in bf16 and fp32,
+              blocks of 32 - 256; scalar: blocks of 52 in bf16 and of
+              1 024, misaligned views), every case with a NaN, +-inf,
+              overflowing, range-0 and outlier block: words
+              bit-identical, m, rng and outputs equal with NaN in the
+              same places, the same bits twice; timed by replay warm and
+              cold at both shapes, eager beside.  K2 / K3 also run twice
+              on the training shape and must give the same bits.  K8 / K9
+              run eight paged cases (npp 1 - 128, pages of 8 - 64, G 1 -
+              16, windows that empty whole cluster ranks), each the same
+              bits twice, timed by graph replay and eager at the mixed
+              case and at the serve shape.
 3. serve   -- full-width tinyllava (16 layers, d 1280, bf16, random weights
               from a seed) behind ServeEngine with the 2-bit RD-FSQ split
               wire: 8 requests through 4 slots until all finish.  Launch

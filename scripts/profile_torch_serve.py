@@ -8,6 +8,7 @@ step, or a training step spends its time.
     python3 scripts/profile_torch_serve.py --generate    # static steps
     python3 scripts/profile_torch_serve.py --train       # training steps
     python3 scripts/profile_torch_serve.py --prefill     # prefill batches
+    python3 scripts/profile_torch_serve.py --prefill --wire nf  # NF-4 wire
     python3 scripts/profile_torch_serve.py --prefill --src DIR  # another tree
 
 Needs one CUDA device.  By default it builds the same full-width
@@ -25,9 +26,13 @@ bf16 caches (K6 each layer) and once with int8 caches (K7).  With ``--train`` it
 once untraced (first-call set-up), then a second engine on the same
 requests, traced until the last request is admitted; only the device
 time inside the prefill batches (``ServeEngine._prefill``: connector,
-2-bit wire, the server's forward, the KV scatter) is counted, grouped
-into the connector (its record_function range), the wire's stats pass
-(``rdfsq_stats``), K4, K5, K1, cuBLAS and the rest.  All trace with
+wire, the server's forward, the KV scatter) is counted, grouped into the
+connector (its record_function range), the wire's stats pass
+(``rdfsq_stats``), K4, K5, K1, cuBLAS and the rest; ``--wire nf`` serves
+through the NF-4 wire (blocks of 64, double quantization) instead of the
+2-bit RD-FSQ one and splits the wire into K10, the double quantization
+of the ranges (``ops.nf_quantize`` outside K10), the ranges' rebuild
+(``ops.nf_dequantize`` outside K11) and K11.  All trace with
 ``torch.profiler`` (CPU + CUDA) and print one JSON object:
 
 * the wall time per tick (step) and the device busy share (sum of kernel
@@ -56,7 +61,9 @@ STEPS = 3
 # kernel-name fragments (all present) -> group (the port's kernels by their
 # K number; the four decode kernels are one template, told apart by its
 # element type and address source)
-GROUPS = ((("flash_fwd_kernel",), "K1 flash_fwd"),
+GROUPS = ((("nf_quantize",), "K10 nf_quantize"),
+          (("nf_dequantize",), "K11 nf_dequantize"),
+          (("flash_fwd_kernel",), "K1 flash_fwd"),
           (("flash_bwd_dq_kernel",), "K2 flash_bwd_dq"),
           (("flash_bwd_dkv_kernel",), "K3 flash_bwd_dkv"),
           (("rdfsq_quantize",), "K4 rdfsq_quantize"),
@@ -159,11 +166,19 @@ def profile_serve(chip_smoke, weight_quant=None, kv_bits=16) -> dict:
     return _trace(tick, TICKS, "tick", chip_smoke.smi())
 
 
-def profile_prefill(chip_smoke) -> dict:
+# a prefill range -> the group of the kernels inside it that are not one
+# of the port's own (K10, K11)
+RANGE_GROUPS = {"connector": "connector", "stats pass": "stats pass",
+                "nf encode": "double quantization",
+                "nf decode": "range rebuild"}
+
+
+def profile_prefill(chip_smoke, wire: str = "rdfsq") -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.configs import get_config
+    from repro_torch.core.quantizers import QuantConfig
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import init_params
     from repro_torch.serve import engine as engine_mod
@@ -173,11 +188,13 @@ def profile_prefill(chip_smoke) -> dict:
     reqs = chip_smoke._requests(cfg, 8, seed=7)
     need = sum(-(-(cfg.n_image_tokens + len(t) + m) // 16)
                for t, m, _ in reqs)
+    split_wire = QuantConfig(method="nf", bits=4) if wire == "nf" \
+        else cfg.split.quant
 
     def engine():
         eng = engine_mod.ServeEngine(params, cfg, n_slots=4, page_size=16,
                                      n_pages=1 + need,
-                                     split_wire=cfg.split.quant)
+                                     split_wire=split_wire)
         for t, m, img in reqs:
             eng.submit(t, max_new=m, image_embeds=img)
         return eng
@@ -190,9 +207,12 @@ def profile_prefill(chip_smoke) -> dict:
 
     engine().run()  # first-call set-up untraced
     torch.cuda.synchronize()
-    saved = engine_mod.mlp_forward, ops.rdfsq_stats
+    saved = (engine_mod.mlp_forward, ops.rdfsq_stats, ops.nf_quantize,
+             ops.nf_dequantize)
     engine_mod.mlp_forward = ranged(engine_mod.mlp_forward, "connector")
     ops.rdfsq_stats = ranged(ops.rdfsq_stats, "stats pass")
+    ops.nf_quantize = ranged(ops.nf_quantize, "nf encode")
+    ops.nf_dequantize = ranged(ops.nf_dequantize, "nf decode")
     try:
         eng = engine()
         eng._prefill = ranged(eng._prefill, "prefill")
@@ -202,12 +222,13 @@ def profile_prefill(chip_smoke) -> dict:
                 eng.step()
             torch.cuda.synchronize()
     finally:
-        engine_mod.mlp_forward, ops.rdfsq_stats = saved
+        (engine_mod.mlp_forward, ops.rdfsq_stats, ops.nf_quantize,
+         ops.nf_dequantize) = saved
 
     # the ranges as the profiler lays them on the device's timeline (each
     # from the first kernel launched inside it to the last one's end): a
     # kernel belongs to the ranges its start lies in
-    labels = ("prefill", "connector", "stats pass")
+    labels = ("prefill", *RANGE_GROUPS)
     spans = {label: [] for label in labels}
     kernels = []
     for ev in prof.events():
@@ -231,9 +252,13 @@ def profile_prefill(chip_smoke) -> dict:
         if inside(t, "prefill"):
             launches += 1
             label = next((lab for lab in labels[1:] if inside(t, lab)), None)
-            groups[label or _group(name)] += us / 1e3
+            group = _group(name)
+            if label and not group.startswith(("K10", "K11")):
+                group = RANGE_GROUPS[label]
+            groups[group] += us / 1e3
     stats = eng.stats
-    return {"card": chip_smoke.smi(), "prefill_batches": batches,
+    return {"card": chip_smoke.smi(), "wire": wire,
+            "prefill_batches": batches,
             "rows": stats["prefill_rows"],
             "wall_ms_per_prefill_batch":
                 1e3 * stats["prefill_seconds"] / stats["prefill_batches"],
@@ -334,6 +359,9 @@ def main() -> int:
                     help="(decode ticks) serve RTN-quantized packed weights")
     ap.add_argument("--kv-bits", type=int, choices=(16, 8), default=16,
                     help="(decode ticks) bits of the engine's KV pools")
+    ap.add_argument("--wire", choices=("rdfsq", "nf"), default="rdfsq",
+                    help="(prefill batches) the split wire: the config's "
+                         "2-bit RD-FSQ, or NF-4")
     ap.add_argument("--src", default=None,
                     help="profile the repro_torch of this tree (another "
                          "checkout's src/) instead of this checkout's")
@@ -353,7 +381,7 @@ def main() -> int:
     elif args.generate:
         out = profile_generate(chip_smoke)
     elif args.prefill:
-        out = profile_prefill(chip_smoke)
+        out = profile_prefill(chip_smoke, args.wire)
     else:
         out = profile_serve(chip_smoke, args.weight_quant, args.kv_bits)
     print(json.dumps(out, indent=1))

@@ -23,9 +23,9 @@ buffer of its own, together past the 50 MB L2;
 
 NF-b also runs the edge blocks of ``chip_smoke.nf_edge_blocks`` (a NaN,
 +inf, -inf, range 0, an outlier and ``linspace(-1e38, 2e38, 64)``, whose
-``2 (x - m)`` overflows) at 1, 2, 4 and 8 bits in bf16 and fp32 through K10 and K11
-and says whether words, m, rng (NaN in the same places) and K11's output
-equal the plain versions'.
+``2 (x - m)`` overflows) at 1, 2, 4 and 8 bits in bf16 and fp32 through
+K10 and K11 and says whether words, m, rng (NaN in the same places) and
+K11's output equal the plain versions'.
 
 The inputs come from fixed seeds, so two trees see the same data.  Prints
 the card's name and power limit, then one JSON line: the tag, the

@@ -52,16 +52,28 @@ output (K5's: 1/8 in, the values out).
 NF-b.  At the NF-4 wire's serve shape (4 x 729 x 1280 values, 8 inputs in
 rotation for the cold time) and its one-row shape (729 x 1280, 32
 inputs), 4 bits, blocks of 64, bf16, it times K10 and K11 the same two
-ways under these variants:
+ways on each of their paths (``ops.nf_path`` overridden: ``vector``, and
+``scalar``, the first design) under these variants:
 
-* ``built``, ``empty``, ``noload``, ``nostore``: as for RD-FSQ;
-* ``nodiv``: K10's division by the block's ``rng + 1e-8`` becomes a
-  product with its reciprocal, K11's division by 2 a product with 0.5;
+* ``built``, ``empty``, ``noload``, ``nostore``, ``b128``: as for RD-FSQ
+  (``nostore`` stores under a condition nvcc cannot prove false);
+* ``nodiv``: each division becomes a product with a reciprocal (K10's
+  by the block's ``rng + 1e-8``, the vector path's three-FMA quotient
+  one product; K11's division by 2 a product with 0.5);
 * ``noscan``: K10 takes ``norm > 0`` as the code in place of its scan
-  over the codebook (the division stays live);
-* ``nodivide64``: K11 finds its block index by a shift in place of the
-  64-bit division (right for the power-of-two words a block of these
-  shapes).
+  over the codebook (scalar) or its bucket lookup (vector); the division
+  stays live;
+* ``nodivide64``: K11's scalar path finds its block index by a shift in
+  place of the 64-bit division (right for the power-of-two words a block
+  of these shapes);
+* ``exactdiv``: K10's vector path divides every value by ``__fdiv_rn``,
+  as its blocks with an out-of-range ``den`` do;
+* ``fullgrid``: the vector kernels launch a warp for every warp tile
+  in place of striding over one occupancy-sized wave;
+* ``noreduce``: K10's vector path at bf16 skips the shuffles that reduce
+  a block's min / max over its lane group;
+* ``lb6`` / ``lb8``: the vector kernels compiled for at least 6 / 8
+  blocks of 256 threads an SM (at most 40 / 32 registers a thread).
 
 Its yardstick: ``amax`` over groups of 4 bf16 values (K10's bytes: the
 values in, a quarter of their bytes out) and a 4-fold ``expand`` (K11's).
@@ -181,28 +193,66 @@ EDITS = {
 NF_EDITS = {
     "built": [],
     "empty": [("  load_book<SB>(book, sbook);\n",
-               "  if (n > 0) return;\n  load_book<SB>(book, sbook);\n")],
+               "  if (n > 0) return;\n  load_book<SB>(book, sbook);\n"),
+              ("  constexpr int VEC = 16 / sizeof(T);  // values a chunk\n",
+               "  constexpr int VEC = 16 / sizeof(T);  // values a chunk\n"
+               "  if (n > 0) return;\n"),
+              ("  constexpr int VEC = 16 / sizeof(T);  // outputs a chunk\n",
+               "  constexpr int VEC = 16 / sizeof(T);  // outputs a chunk\n"
+               "  if (n > 0) return;\n")],
     "noload": [("const float v = idx < n ? load_f32(x + idx) : 0.0f;",
                 "const float v = (float)(idx & 63) * 0.01f;"),
                ("const unsigned int word = words[w];",
-                "const unsigned int word = (unsigned int)w * 37u;")],
+                "const unsigned int word = (unsigned int)w * 37u;"),
+               ("load_chunk<T>(x, idx + 32 * j * VEC, n)",
+                "make_uint4(0x3f003e00u + q, 0x3e803f40u + j, 0xbf00be00u,"
+                " 0x3c00bc00u + (unsigned int)blk)"),
+               ("d.bits[j][0] = reinterpret_cast<const unsigned int*>(wrow)"
+                "[c];", "d.bits[j][0] = (unsigned int)c * 2654435761u;")],
     "nostore": [("    words[blk * nbytes + j] = (uint8_t)word;",
-                 "    if (word == 0xDEADu) words[blk * nbytes + j] = "
-                 "(uint8_t)word;"),
+                 "    if (word == (unsigned int)n * 2654435761u)"
+                 " words[blk * nbytes + j] = (uint8_t)word;"),
                 ("    store_f32(out + idx, val);",
-                 "    if (val == -12345.0f) store_f32(out + idx, val);")],
+                 "    if (val == -12345.0f) store_f32(out + idx, val);"),
+                ("          reinterpret_cast<unsigned int*>(wrow)[c] = "
+                 "bits[0];\n",
+                 "        { if (bits[0] == (unsigned int)n * 2654435761u)"
+                 " reinterpret_cast<unsigned int*>(wrow)[c] = bits[0]; }\n"),
+                ("        store16(out + at, o);",
+                 "        if (o[0] == (unsigned int)n * 2654435761u)"
+                 " store16(out + at, o);")],
     "nodiv": [("  const float den = __fadd_rn(rng, 1e-8f);\n",
                "  const float den = __fadd_rn(rng, 1e-8f);\n"
                "  const float rden = 1.0f / den;\n"),
               ("__fdiv_rn(__fmul_rn(2.0f, __fsub_rn(v, lo)), den)",
                "__fmul_rn(__fmul_rn(2.0f, __fsub_rn(v, lo)), rden)"),
+              ("code = nf_code<SB>(div_fast(d, half_den, y), dt);",
+               "code = nf_code<SB>(__fmul_rn(d, y), dt);"),
               ("__fdiv_rn(__fadd_rn(norm, 1.0f), 2.0f)",
                "__fmul_rn(__fadd_rn(norm, 1.0f), 0.5f)")],
     "noscan": [("      int best = 0;\n", "      int best = norm > 0.0f;\n"),
                ("for (int c = 1; c < LEVELS; ++c) {",
-                "for (int c = 1; c < 1; ++c) {")],
+                "for (int c = 1; c < 1; ++c) {"),
+               ("code = nf_code<SB>(div_fast(d, half_den, y), dt);",
+                "code = div_fast(d, half_den, y) > 1.0f;")],
     "nodivide64": [("const int64_t blk = w / (G / PER);",
                     "const int64_t blk = w >> (__ffs(G / PER) - 1);")],
+    "b128": [("constexpr int kThreads = 256;",
+              "constexpr int kThreads = 128;")],
+    "exactdiv": [("const bool fast = __all_sync(kFull, den < 0x1p125f);",
+                  "const bool fast = __all_sync(kFull, den < 0.0f);")],
+    "fullgrid": [("return (unsigned int)(blocks < wave ? blocks : wave);",
+                  "return (unsigned int)blocks;")],
+    "noreduce": [("        if (off < P)  // P is the warp's",
+                  "        if (off < 0)  // P is the warp's")],
+    "lb6": [("__launch_bounds__(kThreads)\n    nf_quantize_vector(",
+             "__launch_bounds__(kThreads, 6)\n    nf_quantize_vector("),
+            ("__launch_bounds__(kThreads)\n    nf_dequantize_vector(",
+             "__launch_bounds__(kThreads, 6)\n    nf_dequantize_vector(")],
+    "lb8": [("__launch_bounds__(kThreads)\n    nf_quantize_vector(",
+             "__launch_bounds__(kThreads, 8)\n    nf_quantize_vector("),
+            ("__launch_bounds__(kThreads)\n    nf_dequantize_vector(",
+             "__launch_bounds__(kThreads, 8)\n    nf_dequantize_vector(")],
 }
 NF_FNS = ("nf_quantize", "nf_dequantize")
 # (values, inputs in rotation for the cold time)
@@ -346,6 +396,28 @@ def _rdfsq(cs, build, ops, gen) -> None:
     print("yardstick " + ", ".join(cols) + " ms", flush=True)
 
 
+def _run_nf(cs, ops, cases, refs, book, eager: bool) -> str:
+    """K10 / K11 warm and cold (and eager) ms at each shape, and the
+    errors."""
+    import torch
+
+    cols, errs = [], []
+    for label, (n, k10, k11) in cases.items():
+        def q(x):
+            return ops.nf_quantize_kernel(x, book, NF_BITS, NF_BLOCK)
+
+        def d(words, m, rng, n=n):
+            return ops.nf_dequantize_kernel(words, m, rng, book, NF_BITS,
+                                            NF_BLOCK, n, torch.bfloat16)
+
+        errs += [f"K10 {label} "
+                 f"{cs.max_err(q(*k10[0])[0], refs[label][0]):.1e}",
+                 f"K11 {label} {cs.max_err(d(*k11[0]), refs[label][1]):.1e}"]
+        cols += [_time(cs, q, k10, label, "K10", eager),
+                 _time(cs, d, k11, label, "K11", eager)]
+    return ", ".join(cols) + " ms; errors " + ", ".join(errs)
+
+
 def _nf(cs, build, ops, gen) -> None:
     import torch
     from repro_torch.core.quantizers.nf import codebook_tensor
@@ -363,25 +435,17 @@ def _nf(cs, build, ops, gen) -> None:
         *k11[0], book, NF_BITS, NF_BLOCK, n, torch.bfloat16))
         for label, (n, k10, k11) in cases.items()}
     order = list(NF_EDITS)
-    for name in order + order[::-1]:
-        build._lib = libs[name]
-        cols, errs = [], []
-        for label, (n, k10, k11) in cases.items():
-            def q(x):
-                return ops.nf_quantize_kernel(x, book, NF_BITS, NF_BLOCK)
-
-            def d(words, m, rng, n=n):
-                return ops.nf_dequantize_kernel(words, m, rng, book, NF_BITS,
-                                                NF_BLOCK, n, torch.bfloat16)
-
-            errs += [f"K10 {label} "
-                     f"{cs.max_err(q(*k10[0])[0], refs[label][0]):.1e}",
-                     f"K11 {label} "
-                     f"{cs.max_err(d(*k11[0]), refs[label][1]):.1e}"]
-            cols += [_time(cs, q, k10, label, "K10", name == "built"),
-                     _time(cs, d, k11, label, "K11", name == "built")]
-        print(f"{name:10s} " + ", ".join(cols) + " ms; errors "
-              + ", ".join(errs), flush=True)
+    chosen = ops.nf_path
+    try:
+        for name in order + order[::-1]:
+            build._lib = libs[name]
+            for path in PATHS:
+                ops.nf_path = lambda *args, path=path: path
+                print(f"{name:10s} {path:6s} "
+                      + _run_nf(cs, ops, cases, refs, book, name == "built"),
+                      flush=True)
+    finally:
+        ops.nf_path = chosen
     cols = []
     for label, (n, k10, k11) in cases.items():
         small = k10[0][0][:n // 4].contiguous()

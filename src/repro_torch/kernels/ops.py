@@ -31,8 +31,8 @@ reference.  Dequantize rebuilds the ranges and rounds them to fp16
 before K11, as the reference wrapper does.  K10 / K11 also have two
 paths, chosen by :func:`nf_path`: the vector path (16-byte loads or
 stores, a lane group per block) takes K10's codes from a per-bits table
-of thresholds (:func:`nf_code_thresholds`) and K11's values from a
-per-bits table of ``(book + 1) / 2`` (:func:`nf_half_table`); the scalar
+of decision points in buckets (:func:`nf_code_table`) and K11's values
+from a per-bits table of ``(book + 1) / 2`` (:func:`nf_half_table`); the scalar
 path (a warp per block for K10, a thread per word byte for K11) is the
 first design.  Both give the plain version's bits.
 """
@@ -203,25 +203,25 @@ def _key_floats(k: np.ndarray) -> np.ndarray:
 
 @lru_cache(maxsize=None)
 def nf_code_thresholds(bits: int) -> Tuple[float, ...]:
-    """K10's decision table: for c = 1 .. 2^bits - 1, the least float32
-    ``norm`` in [-1, 1] whose nearest codebook entry (``ref.nf_nearest``,
-    the first on a tie) is at least c, found by bisection over the ordered
-    float32 patterns.  ``norm = fl(fl(fl(2 fl(x - m)) / den) - 1)`` lies in
-    [-1, 1] whenever it is finite, and there the code is a nondecreasing
-    step function of it, so a finite ``norm``'s code is the number of
-    entries at or below it (the CPU tests hold this at every entry +-64
-    ulps); a NaN or +inf ``norm`` takes code 0."""
+    """K10's decision points: for c = 1 .. 2^bits - 1, the least float32
+    quotient ``q = fl(fl(2 fl(x - m)) / den)`` in [0, 2] whose code (the
+    nearest codebook entry to ``fl(q - 1)``, the first on a tie, as
+    ``ref.nf_nearest``) is at least c, found by bisection over the ordered
+    float32 patterns.  A finite ``q`` lies in [0, 2], where the code is a
+    nondecreasing step function of it, so its code is the number of these
+    points at or below it (the CPU tests hold this at every point +-64
+    ulps); a NaN or +inf ``q`` takes code 0."""
     from repro_torch.core.quantizers.nf import nf_codebook
 
     book = np.asarray(nf_codebook(bits), np.float32)
 
     def codes(keys):
-        norm = _key_floats(keys)
+        norm = _key_floats(keys) - np.float32(1.0)
         return np.argmin(np.abs(norm[:, None] - book[None, :]), axis=1)
 
     want = np.arange(1, 2 ** bits)
-    lo = np.full(want.shape, _float_keys(np.float32(-1.0)))  # code < c
-    hi = np.full(want.shape, _float_keys(np.float32(1.0)))   # code >= c
+    lo = np.full(want.shape, _float_keys(np.float32(0.0)))  # code < c
+    hi = np.full(want.shape, _float_keys(np.float32(2.0)))  # code >= c
     assert (codes(lo) < want).all() and (codes(hi) >= want).all()
     while (hi - lo > 1).any():
         mid = lo + (hi - lo) // 2
@@ -230,11 +230,45 @@ def nf_code_thresholds(bits: int) -> Tuple[float, ...]:
     return tuple(float(t) for t in _key_floats(hi))
 
 
+# K10 finds a quotient's code in one step: bucket b = RN(S q), one fused
+# multiply-add onto 1.5 * 2^23 (the bucket in the sum's low bits), holds
+# at most one decision point, so the code is base[b] + (q >= point[b]).
+# csrc/nf.cu's Decision holds the same scales and bucket counts.
+NF_BUCKET_SCALE = {1: 15.0, 2: 15.0, 4: 15.0, 8: 511.0}
+NF_BUCKETS = {1: 32, 2: 32, 4: 32, 8: 1024}
+_MAGIC = 12582912.0  # 1.5 * 2^23
+
+
+def nf_bucket(q, bits: int) -> np.ndarray:
+    """The kernel's bucket of float32 quotients ``q`` in [0, 2]:
+    ``fl(S q + 1.5 * 2^23) - 1.5 * 2^23``, the sum exact in float64 and
+    rounded once to float32, as the kernel's FMA rounds it."""
+    v = np.asarray(q, np.float64) * NF_BUCKET_SCALE[bits] + _MAGIC
+    return (v.astype(np.float32).astype(np.float64) - _MAGIC).astype(
+        np.int64)
+
+
 @lru_cache(maxsize=None)
-def nf_threshold_tensor(bits: int, device: torch.device) -> torch.Tensor:
-    """:func:`nf_code_thresholds` as an fp32 tensor on ``device``, made
-    once per device (callers do not write to it)."""
-    return torch.tensor(nf_code_thresholds(bits), dtype=torch.float32,
+def nf_code_table(bits: int) -> Tuple[float, ...]:
+    """K10's per-bits table, ``2 * NF_BUCKETS[bits]`` float32 values: the
+    decision point in each bucket (+inf where there is none), then the
+    number of points in the buckets below it."""
+    points = np.asarray(nf_code_thresholds(bits), np.float32)
+    n = NF_BUCKETS[bits]
+    b = nf_bucket(points, bits)
+    if len(set(b.tolist())) != len(b) or b.max() >= n:
+        raise AssertionError(f"{bits}-bit decision points share a bucket")
+    point = np.full(n, np.inf, np.float32)
+    point[b] = points
+    base = np.searchsorted(b, np.arange(n), side="left").astype(np.float32)
+    return tuple(float(v) for v in np.concatenate([point, base]))
+
+
+@lru_cache(maxsize=None)
+def nf_code_table_tensor(bits: int, device: torch.device) -> torch.Tensor:
+    """:func:`nf_code_table` as an fp32 tensor on ``device``, made once per
+    device (callers do not write to it)."""
+    return torch.tensor(nf_code_table(bits), dtype=torch.float32,
                         device=device)
 
 
@@ -260,11 +294,12 @@ def nf_path(block: int, dtype, dense_ptr: int, words_ptr: int) -> str:
     return "vector" if vector else "scalar"
 
 
-def _nf_check_cuda(bits: int, block: int, *tensors: torch.Tensor) -> None:
+def _nf_check_args(bits: int, block: int) -> None:
+    if bits not in KERNEL_SLOT_BITS:
+        raise ValueError(f"the wire kernels pack {KERNEL_SLOT_BITS} bits")
     if block <= 0 or block % (8 // storage_bits(bits)):
         raise ValueError(f"block {block} does not hold whole {bits}-bit "
                          "words")
-    _check_operands(bits, *tensors)
 
 
 def nf_quantize_kernel(flat: torch.Tensor, book: torch.Tensor, bits: int,
@@ -272,11 +307,12 @@ def nf_quantize_kernel(flat: torch.Tensor, book: torch.Tensor, bits: int,
     """K10 launch: flat (n,) bf16/fp32 CUDA, read as ceil(n / block)
     blocks (the ragged tail as zeros); book (2^bits,) fp32 -> words
     (NB, block / per) uint8, m (NB, 1) fp16, rng (NB, 1) fp16."""
-    _nf_check_cuda(bits, block, flat, book)
+    _nf_check_args(bits, block)
     if flat.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"K10 reads bf16 or fp32, got {flat.dtype}")
     if book.dtype != torch.float32 or book.shape != (2 ** bits,):
         raise ValueError("K10 takes a (2^bits,) fp32 codebook")
+    _check_operands(bits, flat, book)
     n = flat.numel()
     nb = -(-n // block)
     per = 8 // storage_bits(bits)
@@ -287,7 +323,7 @@ def nf_quantize_kernel(flat: torch.Tensor, book: torch.Tensor, bits: int,
     path = nf_path(block, flat.dtype, flat.data_ptr(), words.data_ptr())
     build.launch("nf_quantize", "nf_quantize", flat.data_ptr(),
                  int(flat.dtype == torch.bfloat16), book.data_ptr(),
-                 nf_threshold_tensor(bits, flat.device).data_ptr(),
+                 nf_code_table_tensor(bits, flat.device).data_ptr(),
                  words.data_ptr(), m.data_ptr(), rng.data_ptr(), n, block,
                  bits, int(path == "vector"), build.current_stream())
     return words, m, rng
@@ -339,7 +375,7 @@ def nf_dequantize_kernel(words: torch.Tensor, m: torch.Tensor,
     """K11 launch: words (NB, block / per) uint8, m and rng (NB, 1) fp16,
     book (2^bits,) fp32 -> the first ``n`` values (n,) in ``out_dtype``
     (bf16 or fp32)."""
-    _nf_check_cuda(bits, block, words, m, rng, book)
+    _nf_check_args(bits, block)
     nb = words.shape[0]
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"K11 writes bf16 or fp32, got {out_dtype}")
@@ -352,6 +388,7 @@ def nf_dequantize_kernel(words: torch.Tensor, m: torch.Tensor,
         raise ValueError("K11 takes (NB, 1) fp16 m and rng")
     if book.dtype != torch.float32 or book.shape != (2 ** bits,):
         raise ValueError("K11 takes a (2^bits,) fp32 codebook")
+    _check_operands(bits, words, m, rng, book)
     out = torch.empty((n,), dtype=out_dtype, device=words.device)
     path = nf_path(block, out_dtype, out.data_ptr(), words.data_ptr())
     build.launch("nf_dequantize", "nf_dequantize", words.data_ptr(),
