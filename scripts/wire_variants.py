@@ -72,6 +72,8 @@ ways on each of their paths (``ops.nf_path`` overridden: ``vector``, and
   in place of striding over one occupancy-sized wave;
 * ``noreduce``: K10's vector path at bf16 skips the shuffles that reduce
   a block's min / max over its lane group;
+* ``stcs``: K11's vector path stores with the streaming (evict-first)
+  cache hint;
 * ``lb6`` / ``lb8``: the vector kernels compiled for at least 6 / 8
   blocks of 256 threads an SM (at most 40 / 32 registers a thread).
 
@@ -245,6 +247,7 @@ NF_EDITS = {
                   "return (unsigned int)blocks;")],
     "noreduce": [("        if (off < P)  // P is the warp's",
                   "        if (off < 0)  // P is the warp's")],
+    "stcs": [("st.global.v4.u32", "st.global.cs.v4.u32")],
     "lb6": [("__launch_bounds__(kThreads)\n    nf_quantize_vector(",
              "__launch_bounds__(kThreads, 6)\n    nf_quantize_vector("),
             ("__launch_bounds__(kThreads)\n    nf_dequantize_vector(",
