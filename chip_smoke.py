@@ -8,7 +8,10 @@ non-zero:
 
 1. build   -- compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
               (first use), print the build time and the card.
-2. kernels -- hold K1 (flash forward), K2 / K3 (flash backward), K4 / K5
+2. kernels -- hold K1 (flash forward), K2 / K3 (flash backward; both at
+              head width 64 at tinyllava's shapes and at 128 at
+              llama3_2_3b's: B 2, 24 / 8 heads, S 1 024, a padded tail, a
+              window, a ragged S), K4 / K5
               (RD-FSQ wire), K10 / K11 (NF-b wire), K6 / K7 (ring-cache
               decode, bf16 / int8), K8 / K9 (paged decode, bf16 / int8)
               and K12 (packed int2/3/4 dequant-matmul: its split-K GEMV at
@@ -83,6 +86,24 @@ non-zero:
               zeroed right before and read right after.
 12. train parity -- one step's loss, gradient norm and per-leaf gradient
               cosine on the card against the port's fp32 CPU path.
+13. pipeline -- the split pipeline (launch/split_pipeline.py) on full-width
+              llama3_2_3b (28 layers, d 3072, 24 / 8 heads of width 128,
+              bf16, remat, weights from seed 0) as 2 stages of 14 layers,
+              after the tinyllava phases' tensors are freed: its loss
+              against the monolithic composition (embed, blocks, the cut's
+              codec roundtrip, head + CE) within 1e-3; 6 AdamW steps of
+              train_pipeline over the 2-bit RD-FSQ forward link with a raw
+              cotangent (4 microbatches of 2 x 1 024 tokens; the loss must
+              fall); one grad step with a 2-bit cotangent (K4 / K5 on the
+              backward link); one forward of the mixed 4-stage chain
+              (rdfsq-2 / nf-4 / rdfsq-2, 7 layers a stage: K10 / K11 at
+              the middle cut).  Every link's counted bytes equal
+              fwd_wire_bytes / bwd_wire_bytes x shipments, and the launch
+              counts of K1 - K5 (K10 / K11) are exact.  Then a full-width
+              two-layer pipeline against the fp32 CPU path: loss within 5%,
+              every gradient leaf at cosine >= 0.98.  K1 - K3 run at head
+              width 128 here; the kernels phase holds them against their
+              plain versions at llama's shapes too.
 
 The last lines are the card (nvidia-smi), the per-kernel JSON line and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
@@ -147,6 +168,14 @@ GRAD_COS_MIN = 0.98
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_TEXT = 30, 4, 64
 GEN_BATCH, GEN_TEXT, GEN_NEW = 4, 64, 32  # ring caches of 729 + 64 + 32
 PARITY_STEPS = 3
+# the split pipeline on llama3_2_3b: 6 AdamW steps of 4 microbatches of
+# 2 x 1 024 tokens through 2 stages of 14 layers
+PIPE_STEPS, PIPE_MICRO, PIPE_MB, PIPE_SEQ, PIPE_LR = 6, 4, 2, 1024, 3e-4
+# the pipeline's loss vs the monolithic composition on the card: the same
+# bf16 operations in the same order, so the same up to summation order
+PIPE_MONO_RTOL = 1e-3
+# the two-layer card-vs-CPU parity: 2 microbatches of 1 x 256 tokens
+PIPE_PARITY = (2, 1, 256)
 # int8 K/V bytes per (token, kv head) over bf16: (64 + 2) / 128
 INT8_POOL_RATIO = 0.515625
 # K12 against its plain version, relative to max |plain|: the dequantized
@@ -283,14 +312,14 @@ def phase_build():
 # ---------------------------------------------------------------------------
 
 def _flash_case(gen, b, sq, h, kh, window=None, kv_valid_len=None,
-                chunk=512):
+                chunk=512, d=64):
     """Operands as ``flash_attention`` builds them: (B, S, H, D) tensors,
     q pre-scaled then padded to the chunk, sentinel positions."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.attention_ref import FAR
 
-    dev, d = "cuda", 64
+    dev = "cuda"
     q = torch.randn((b, sq, h, d), generator=gen, device=dev).bfloat16()
     k = torch.randn((b, sq, kh, d), generator=gen, device=dev).bfloat16()
     v = torch.randn((b, sq, kh, d), generator=gen, device=dev).bfloat16()
@@ -309,18 +338,37 @@ def _flash_case(gen, b, sq, h, kh, window=None, kv_valid_len=None,
             qpos, kpos, window)
 
 
-def check_flash(gen, results):
+# K1 - K3 at head width 128 run at llama3_2_3b's shapes (24 / 8 heads, the
+# pipeline's microbatch of 2 x 1 024); their rows in the kernels line carry
+# this suffix
+D128 = "_d128"
+
+
+def check_flash(gen, results, d=64):
+    """K1 at the serve shape (D 64) or at llama's (D 128), the first case
+    timed."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import attention_ops, attention_ref
 
-    cases = {
-        "serve shape B4 S1024": _flash_case(gen, 4, 1024, 20, 5),
-        "padded q tail S777 + kv_valid_len 700":
-            _flash_case(gen, 2, 777, 20, 5, kv_valid_len=700),
-        "window 256": _flash_case(gen, 1, 1024, 20, 5, window=256),
-        "ragged tiles S100": _flash_case(gen, 1, 100, 20, 5),
-    }
+    if d == 64:
+        cases = {
+            "serve shape B4 S1024": _flash_case(gen, 4, 1024, 20, 5),
+            "padded q tail S777 + kv_valid_len 700":
+                _flash_case(gen, 2, 777, 20, 5, kv_valid_len=700),
+            "window 256": _flash_case(gen, 1, 1024, 20, 5, window=256),
+            "ragged tiles S100": _flash_case(gen, 1, 100, 20, 5),
+        }
+    else:
+        cases = {
+            "D128 llama shape B2 S1024":
+                _flash_case(gen, 2, 1024, 24, 8, d=d),
+            "D128 padded q tail S777 + kv_valid_len 700":
+                _flash_case(gen, 2, 777, 24, 8, kv_valid_len=700, d=d),
+            "D128 window 256": _flash_case(gen, 1, 1024, 24, 8, window=256,
+                                           d=d),
+            "D128 ragged tiles S100": _flash_case(gen, 1, 100, 24, 8, d=d),
+        }
     worst = 0.0
     for name, (q, k, v, qpos, kpos, window) in cases.items():
         out, m, l = attention_ops.flash_forward(q, k, v, qpos, kpos,
@@ -339,7 +387,8 @@ def check_flash(gen, results):
                 and e_l <= L_RTOL and exact0, f"K1 {name}")
         worst = max(worst, e_out)
 
-    q, k, v, qpos, kpos, window = cases["serve shape B4 S1024"]
+    timed = next(iter(cases))
+    q, k, v, qpos, kpos, window = cases[timed]
     b, h, sq, d = q.shape
     kh, skv = k.shape[1], k.shape[2]
     # device time (CUDA graph replay) for K1 and SDPA alike, the number in
@@ -351,18 +400,29 @@ def check_flash(gen, results):
         F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                        enable_gqa=True, scale=1.0)
 
-    ms, lib_ms = time_graph_ms(k1, 8), time_graph_ms(sdpa, 8)
+    # SDPA under each backend that serves bf16, causal, enable_gqa, pinned;
+    # the faster is the library time
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    lib = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION):
+        with sdpa_kernel([backend]):
+            lib[backend.name] = (time_graph_ms(sdpa, 8), time_ms(sdpa))
+    name = min(lib, key=lambda n: lib[n][0])
+    ms, lib_ms = time_graph_ms(k1, 8), lib[name][0]
     plain_ms = time_ms(lambda: attention_ref.flash_forward_ref(
         q, k, v, qpos, kpos), reps=5, inner=1)
-    print(f"[kernels] K1 flash_fwd serve shape: device {ms:.4f} ms, SDPA "
-          f"causal GQA {lib_ms:.4f} ms (K1 / SDPA {ms / lib_ms:.2f}); eager "
-          f"{time_ms(k1):.4f} ms, SDPA {time_ms(sdpa):.4f} ms")
+    print(f"[kernels] K1 flash_fwd {timed}: device {ms:.4f} ms, SDPA causal "
+          "GQA " + ", ".join(f"{n} {t:.4f} ms" for n, (t, _) in lib.items())
+          + f"; library: {name} (K1 / SDPA {ms / lib_ms:.2f}); eager "
+          f"{time_ms(k1):.4f} ms, SDPA " + ", ".join(
+              f"{n} {e:.4f} ms" for n, (_, e) in lib.items()))
     flops = 2 * 2 * b * h * sq * skv * d * 0.5  # causal: half the products
     n_bytes = (q.numel() + k.numel() + v.numel()) * 2 \
         + b * h * sq * (d + 2) * 4  # out fp32 + m, l
-    results["flash_fwd"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                                library_ms=lib_ms,
-                                bound=bound(n_bytes, flops))
+    results["flash_fwd" + ("" if d == 64 else D128)] = dict(
+        max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        bound=bound(n_bytes, flops))
 
 
 def _visible_pairs(qpos, kpos, window=None) -> int:
@@ -373,10 +433,11 @@ def _visible_pairs(qpos, kpos, window=None) -> int:
     return int(_mask(qpos, kpos, window).sum())
 
 
-def check_flash_bwd(gen, results):
+def check_flash_bwd(gen, results, d=64):
     """K2 / K3 against ``flash_backward_ref`` on the forward's own (out, m,
     l); rows that see no key get a zero output gradient, as
-    ``flash_attention`` gives them (it slices them off)."""
+    ``flash_attention`` gives them (it slices them off).  D 64 at the
+    training shape, D 128 at llama's; the first case timed and run twice."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import attention_ops, attention_ref
@@ -392,7 +453,14 @@ def check_flash_bwd(gen, results):
         "G 3 (24 / 8 heads) B2 S1000": _flash_case(gen, 2, 1000, 24, 8),
         "G 16 (32 / 2 heads: clusters of 8, 2 heads a block) B1 S1024":
             _flash_case(gen, 1, 1024, 32, 2),
+    } if d == 64 else {
+        "D128 llama shape B2 S1024": _flash_case(gen, 2, 1024, 24, 8, d=d),
+        "D128 padded q tail S777 + kv_valid_len 700":
+            _flash_case(gen, 2, 777, 24, 8, kv_valid_len=700, d=d),
+        "D128 window 256": _flash_case(gen, 1, 1024, 24, 8, window=256, d=d),
+        "D128 ragged tiles S100": _flash_case(gen, 1, 100, 24, 8, d=d),
     }
+    timed = next(iter(cases))
     worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     for name, (q, k, v, qpos, kpos, window) in cases.items():
         out, m, l = attention_ops.flash_forward(q, k, v, qpos, kpos,
@@ -417,7 +485,7 @@ def check_flash_bwd(gen, results):
         worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], max_err(dq, rq))
         worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"],
                                      max_err(dk, rk), max_err(dv, rv))
-        if name.startswith("train"):
+        if name == timed:
             main = args, window
 
     args, window = main
@@ -432,7 +500,7 @@ def check_flash_bwd(gen, results):
     torch.cuda.synchronize()
     same = {n: bool(torch.equal(a, a2)) for n, a, a2 in
             (("dq", dq, dq2), ("dk", dk, dk2), ("dv", dv, dv2))}
-    print(f"[kernels] K2/K3 flash_bwd train shape, two runs bitwise equal: "
+    print(f"[kernels] K2/K3 flash_bwd {timed}, two runs bitwise equal: "
           f"{same}")
     require(all(same.values()), f"K2/K3 not deterministic: {same}")
 
@@ -468,8 +536,8 @@ def check_flash_bwd(gen, results):
                              time_ms(sdpa_bwd))
     name = min(lib, key=lambda n: lib[n][0])
     lib_ms = lib[name][0]
-    dq_plan, dkv_plan = attention_ops.flash_bwd_plan(b, h, kh, sq, skv)
-    print(f"[kernels] K2/K3 flash_bwd train shape: device K2 {ms2:.4f} + K3 "
+    dq_plan, dkv_plan = attention_ops.flash_bwd_plan(b, h, kh, sq, skv, d)
+    print(f"[kernels] K2/K3 flash_bwd {timed}: device K2 {ms2:.4f} + K3 "
           f"{ms3:.4f} = {ms2 + ms3:.4f} ms (K2 {len(dq_plan.heads[0])} heads "
           f"a block, K3 clusters of {dkv_plan.cluster} x "
           f"{len(dkv_plan.heads[0])} heads), SDPA backward " + ", ".join(
@@ -482,11 +550,12 @@ def check_flash_bwd(gen, results):
     prod = 2 * pairs * d  # FLOPs of one (Sq x Skv x D) product, causal
     n_in = (q.numel() + k.numel() + v.numel() + go.numel()) * 2 \
         + 3 * b * h * sq * 4  # bf16 operands, fp32 m, l, di
-    results["flash_bwd_dq"] = dict(
+    suffix = "" if d == 64 else D128
+    results["flash_bwd_dq" + suffix] = dict(
         max_abs_err=worst["flash_bwd_dq"], ms=ms2,
         plain_ms=plain_ms, library_ms=lib_ms,
         bound=bound(n_in + q.numel() * 4, 3 * prod))
-    results["flash_bwd_dkv"] = dict(
+    results["flash_bwd_dkv" + suffix] = dict(
         max_abs_err=worst["flash_bwd_dkv"], ms=ms3,
         plain_ms=plain_ms, library_ms=lib_ms,
         bound=bound(n_in + 2 * b * kh * skv * d * 4, 4 * prod))
@@ -1288,6 +1357,8 @@ def phase_kernels():
     results = {}
     check_flash(gen, results)
     check_flash_bwd(gen, results)
+    check_flash(gen, results, d=128)
+    check_flash_bwd(gen, results, d=128)
     check_wire(gen, results)
     check_nf(gen, results)
     check_ring_decode(gen, results)
@@ -1942,6 +2013,250 @@ def phase_train(cfg):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the split pipeline on full-width llama3_2_3b
+# ---------------------------------------------------------------------------
+
+def _pipe_expect(n_layers, n_micro, steps, links):
+    """Exact launches of ``steps`` pipeline grad steps under single-level
+    remat (every layer's forward twice; ``steps`` 0: one forward) over
+    ``n_layers`` layers in all; ``links`` maps each kernel of the wire to
+    its payloads a microbatch."""
+    per_fwd = n_layers * n_micro
+    if steps == 0:
+        out = {"flash_fwd": per_fwd}
+    else:
+        out = {"flash_fwd": 2 * per_fwd * steps,
+               "flash_bwd_dq": per_fwd * steps,
+               "flash_bwd_dkv": per_fwd * steps}
+    for name, n in links.items():
+        out[name] = n * n_micro * max(steps, 1)
+    return out
+
+
+def _check_launches(tag, launches, expect):
+    full = dict.fromkeys(launches, 0)
+    full.update(expect)
+    print(f"[{tag}] launches {launches}, expected {full}")
+    require(launches == full, f"{tag} launches {launches}, expected {full}")
+
+
+def _check_link_bytes(tag, transport, table, shipments, bwd=True):
+    """Counted bytes of every link (and of its reverse, the cotangent) ==
+    the table's bytes x shipments, exactly."""
+    expect = {}
+    for (src, dst), entry in table["links"].items():
+        expect[(src, dst)] = entry["fwd"] * shipments
+        if bwd:
+            expect[(dst, src)] = entry["bwd"] * shipments
+        print(f"[{tag}] link {src}->{dst} {entry['quant']}-{entry['bits']}"
+              f": counted fwd {transport.bytes[(src, dst)]} B"
+              + (f", bwd {transport.bytes[(dst, src)]} B" if bwd else "")
+              + f"; fwd_wire_bytes {entry['fwd']} B"
+              + (f", bwd_wire_bytes {entry['bwd']} B" if bwd else "")
+              + f" x {shipments} shipments")
+    require(dict(transport.bytes) == expect,
+            f"{tag} counted bytes {dict(transport.bytes)}, expected {expect}")
+
+
+def _grad_parity(tag, loss, loss32, grads, g32):
+    from repro_torch.utils.tree import tree_flatten_with_path
+
+    rel = abs(loss - loss32) / abs(loss32)
+    cos = {}
+    for (path, g), (_, c) in zip(tree_flatten_with_path(grads),
+                                 tree_flatten_with_path(g32)):
+        a, b = g.double().cpu().reshape(-1), c.double().reshape(-1)
+        cos["/".join(path)] = float(a @ b / (a.norm() * b.norm()))
+    worst = min(cos, key=cos.get)
+    print(f"[{tag}] loss card {loss:.5f} cpu {loss32:.5f} (rel {rel:.3e}, "
+          f"tol {TRAIN_LOSS_RTOL}); per-leaf gradient cosine min "
+          f"{cos[worst]:.5f} ({worst}, tol {GRAD_COS_MIN})")
+    print(f"[{tag}] cosines " + " ".join(f"{k}={v:.5f}"
+                                        for k, v in cos.items()))
+    require(rel < TRAIN_LOSS_RTOL and cos[worst] >= GRAD_COS_MIN,
+            f"{tag}: loss rel {rel}, cosines {cos}")
+
+
+def phase_pipeline():
+    """Returns the launch counts of the phase's counted runs, by path."""
+    import torch
+    from repro_torch.core import quantizers
+    from repro_torch.core.quantizers import QuantConfig
+    from repro_torch.core.split import SplitConfig, Transport
+    from repro_torch.core.split_stage import (embed_tokens, head_ce,
+                                              run_blocks, stage_blocks)
+    from repro_torch.kernels import build
+    from repro_torch.launch import split_pipeline as sp
+    from repro_torch.models.transformer import cdtype
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.utils.tree import tree_count
+
+    t_phase = time.perf_counter()
+    cfg = sp._homogeneous_cfg("llama3_2_3b", n_stages=2)
+    r2 = QuantConfig(method="rdfsq", bits=2)
+    split = SplitConfig(quant=r2, learnable_codec=False, n_stages=2)
+    n_micro, mb, seq = PIPE_MICRO, PIPE_MB, PIPE_SEQ
+    t0 = time.perf_counter()
+    params = sp.init_pipeline_params(cfg, 2, seed=0)
+    torch.cuda.synchronize()
+    print(f"[pipeline] full-width {cfg.name}: {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of width "
+          f"{cfg.head_dim}, {tree_count(params)} parameters, bf16, remat "
+          f"{cfg.remat}; 2 stages of {cfg.n_layers // 2} layers; weights from "
+          f"seed 0 in {time.perf_counter() - t0:.1f} s")
+    batches = [(torch.as_tensor(t).cuda(), torch.as_tensor(lab).cuda())
+               for t, lab in sp.make_batches(cfg, PIPE_STEPS + 1, n_micro,
+                                             mb, seq)]
+    paths = {}
+
+    # the pipeline against the monolithic composition, same bf16 weights
+    tokens, labels = batches[-1]
+    with torch.no_grad():
+        build.reset_launches()
+        step = sp.build_pipeline_step(cfg, split, n_micro, mb, seq)
+        loss = float(step(params, tokens, labels)[0])
+        _check_launches("pipeline forward", dict(build.launches),
+                        _pipe_expect(cfg.n_layers, n_micro, 0,
+                                     {"rdfsq_quantize": 1,
+                                      "rdfsq_dequantize": 1}))
+        pos = torch.arange(seq, dtype=torch.int32, device="cuda")
+        mono = 0.0
+        for j in range(n_micro):
+            x = embed_tokens(cfg, params, tokens[j])
+            x = run_blocks(cfg, stage_blocks(params, 0), x, pos)
+            x = quantizers.decode(r2, quantizers.encode(r2, x))
+            x = run_blocks(cfg, stage_blocks(params, 1), x, pos)
+            mono += float(head_ce(cfg, params, x, labels[j]))
+        mono /= n_micro
+    rel = abs(loss - mono) / abs(mono)
+    print(f"[pipeline] loss {loss:.6f}, monolithic composition {mono:.6f}: "
+          f"|diff| {abs(loss - mono):.3e}, rel {rel:.3e} (tol "
+          f"{PIPE_MONO_RTOL})")
+    require(rel <= PIPE_MONO_RTOL, f"pipeline vs monolithic rel {rel}")
+
+    # 6 AdamW steps: the paper's scope, a 2-bit forward link, a raw
+    # cotangent; the batch iterator stamps each step's start (the loss
+    # read at a step's end waits for the card)
+    stamps = []
+
+    def feed():
+        for b in batches[:PIPE_STEPS]:
+            stamps.append(time.perf_counter())
+            yield b
+        stamps.append(time.perf_counter())
+
+    transport = Transport()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    params, opt, history, wire_b = sp.train_pipeline(
+        cfg, split, AdamWConfig(lr=PIPE_LR, weight_decay=0.0), feed(),
+        n_micro=n_micro, micro_batch=mb, seq=seq, params=params,
+        transport=transport)
+    torch.cuda.synchronize()
+    paths["pipeline"] = dict(build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    times = [b - a for a, b in zip(stamps, stamps[1:])]
+    del opt
+    print(f"[pipeline] {PIPE_STEPS} steps of {n_micro} x {mb} x {seq} "
+          f"tokens, lr {PIPE_LR}: loss " + " -> ".join(
+              f"{v:.4f}" for v in history))
+    require(all(math.isfinite(v) for v in history)
+            and history[-1] < history[0], f"pipeline loss {history}")
+    _check_launches("pipeline", paths["pipeline"],
+                    _pipe_expect(cfg.n_layers, n_micro, PIPE_STEPS,
+                                 {"rdfsq_quantize": 1,
+                                  "rdfsq_dequantize": 1}))
+    table = sp.pipeline_wire_bytes(cfg, split, mb, seq)
+    _check_link_bytes("pipeline", transport, table, PIPE_STEPS * n_micro)
+    link = table["links"][(0, 1)]
+    width = torch.empty((), dtype=cdtype(cfg)).element_size()
+    print(f"[pipeline] a shipment: 2-bit link {link['fwd']} B, the raw "
+          f"cotangent in {cfg.compute_dtype} {link['bwd']} B = {mb} x {seq} x "
+          f"{cfg.d_model} x {width}: ratio {link['fwd'] / link['bwd']:.8f}; "
+          f"wire bytes a tick {wire_b:.0f}")
+    require(link["bwd"] == mb * seq * cfg.d_model * width, "raw link bytes")
+    print(f"[pipeline] {1e3 * statistics.median(times[1:]):.1f} ms per step "
+          f"(median of steps 2-{PIPE_STEPS}; first step "
+          f"{1e3 * times[0]:.1f} ms), "
+          f"{n_micro * mb * seq / statistics.median(times[1:]):.0f} training "
+          f"tokens/s; peak device memory {peak / 2 ** 30:.2f} GiB")
+    torch.cuda.empty_cache()
+
+    # one grad step with the cotangent through 2-bit RD-FSQ too
+    transport = Transport()
+    build.reset_launches()
+    grad_step = sp.build_pipeline_grad_step(cfg, split, r2, n_micro, mb,
+                                            seq, transport=transport)
+    loss2, grads, wire2 = grad_step(params, *batches[-1])
+    torch.cuda.synchronize()
+    paths["pipeline bwd 2-bit"] = dict(build.launches)
+    del grads
+    print(f"[pipeline bwd 2-bit] loss {float(loss2):.4f}; wire bytes a tick "
+          f"(fwd + bwd) {wire2:.0f}")
+    _check_launches("pipeline bwd 2-bit", paths["pipeline bwd 2-bit"],
+                    _pipe_expect(cfg.n_layers, n_micro, 1,
+                                 {"rdfsq_quantize": 2,
+                                  "rdfsq_dequantize": 2}))
+    _check_link_bytes("pipeline bwd 2-bit", transport,
+                      sp.pipeline_wire_bytes(cfg, split, mb, seq, r2),
+                      n_micro)
+    torch.cuda.empty_cache()
+
+    # one forward of the mixed 4-stage chain, 7 layers a stage: the same
+    # weights, restacked (a view)
+    quants = (r2, QuantConfig(method="nf", bits=4), r2)
+    mixed = SplitConfig(quant=r2, learnable_codec=False, n_stages=4,
+                        stage_quants=quants)
+    params4 = dict(params, blocks=_tree(params["blocks"], lambda t: t.view(
+        (4, cfg.n_layers // 4) + tuple(t.shape[2:]))))
+    transport = Transport()
+    build.reset_launches()
+    with torch.no_grad():
+        loss4, wire4 = sp.build_pipeline_step(
+            cfg, mixed, n_micro, mb, seq, transport=transport)(
+                params4, *batches[-1])
+    torch.cuda.synchronize()
+    paths["pipeline mixed"] = dict(build.launches)
+    print(f"[pipeline mixed] 4 stages (rdfsq-2 / nf-4 / rdfsq-2): loss "
+          f"{float(loss4):.4f}, wire bytes a tick {wire4:.0f}")
+    require(math.isfinite(float(loss4)), "mixed chain loss")
+    _check_launches("pipeline mixed", paths["pipeline mixed"],
+                    _pipe_expect(cfg.n_layers, n_micro, 0,
+                                 {"rdfsq_quantize": 2, "rdfsq_dequantize": 2,
+                                  "nf_quantize": 1, "nf_dequantize": 1}))
+    _check_link_bytes("pipeline mixed", transport,
+                      sp.pipeline_wire_bytes(cfg, mixed, mb, seq), n_micro,
+                      bwd=False)
+    del params, params4
+    torch.cuda.empty_cache()
+
+    # a full-width two-layer pipeline, one layer a stage, on the card
+    # against the port's fp32 CPU path
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    n2, mb2, seq2 = PIPE_PARITY
+    params2 = sp.init_pipeline_params(cfg2, 2, seed=1)
+    tok, lab = (t[:n2, :mb2, :seq2].contiguous() for t in batches[0])
+    loss_c, grads_c, _ = sp.build_pipeline_grad_step(
+        cfg2, split, None, n2, mb2, seq2)(params2, tok, lab)
+    cfg32 = dataclasses.replace(cfg2, param_dtype="float32",
+                                compute_dtype="float32")
+    params32 = _tree(params2, lambda t: t.float().cpu())
+    del params2
+    t0 = time.perf_counter()
+    loss_32, grads_32, _ = sp.build_pipeline_grad_step(
+        cfg32, split, None, n2, mb2, seq2)(params32, tok.cpu(), lab.cpu())
+    print(f"[pipeline parity] two layers, {n2} x {mb2} x {seq2} tokens; the "
+          f"fp32 CPU step took {time.perf_counter() - t0:.1f} s")
+    _grad_parity("pipeline parity", float(loss_c), float(loss_32), grads_c,
+                 grads_32)
+    del grads_c, grads_32, params32
+    torch.cuda.empty_cache()
+    print(f"[pipeline] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return paths
+
+
+# ---------------------------------------------------------------------------
 # phase 12: one training step on the card against the fp32 CPU path
 # ---------------------------------------------------------------------------
 
@@ -1999,19 +2314,10 @@ def _cpu32(leaf):
     return leaf.float().cpu()
 
 
-def main() -> int:
+def run_tinyllava():
+    """Phases 3 - 12 on full-width tinyllava; returns their launch counts
+    by path.  Its tensors are freed when it returns."""
     import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
-        return 1
-    import repro_torch  # noqa: F401  (fails here outside a checkout)
-
-    print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__},"
-          f" cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
-    phase_build()
-    results = phase_kernels()
-
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import make_pipeline
     from repro_torch.models.transformer import init_params
@@ -2040,16 +2346,45 @@ def main() -> int:
     phase_wq_parity(cfg, params, reqs[0])
     paths["train"] = phase_train(cfg)
     phase_train_parity(cfg, params)
-    for path, launches in paths.items():
+    return paths
+
+
+def main() -> int:
+    import gc
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    import repro_torch  # noqa: F401  (fails here outside a checkout)
+
+    print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__},"
+          f" cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    phase_build()
+    results = phase_kernels()
+    paths = run_tinyllava()  # head width 64
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[pipeline] device memory before the phase: "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    pipe_paths = phase_pipeline()  # head width 128
+    for path, launches in {**paths, **pipe_paths}.items():
         print(f"[launches] {path}: {launches}")
 
+    flash = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
     kernels = []
-    for name in REPLACES:
+    for name in list(REPLACES) + [f + D128 for f in flash]:
         r = results[name]
+        kernel = name.removesuffix(D128)
+        # the flash rows count their width's paths (tinyllava: 64, the
+        # pipeline: 128); the wire kernels every path
+        counted = ({**paths, **pipe_paths} if kernel not in flash else
+                   pipe_paths if name.endswith(D128) else paths)
         kernels.append(dict(
-            name=name, route="cuda", source=SOURCES[name],
-            replaces=REPLACES[name],
-            launches=sum(launches[name] for launches in paths.values()),
+            name=name, route="cuda", source=SOURCES[kernel],
+            replaces=REPLACES[kernel],
+            launches=sum(launches[kernel] for launches in counted.values()),
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"]))

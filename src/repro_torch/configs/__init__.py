@@ -5,7 +5,7 @@ import importlib
 
 from repro_torch.configs.base import ArchConfig
 
-ARCHS = ("tinyllava",)
+ARCHS = ("llama3_2_3b", "tinyllava")
 
 
 def get_config(name: str) -> ArchConfig:

@@ -1,5 +1,5 @@
-"""Split-learning boundary: the in-graph compressor (port of
-``repro/core/split.py``, lines 31-133 and 530-554).
+"""Split-learning boundary: the in-graph compressor and the real wire
+(port of ``repro/core/split.py``, lines 31-133, 140-376 and 530-554).
 
 ``compressor_roundtrip`` is the paper's Figure-2 path with the wire
 replaced by identity: learnable linear encoder, the quantizer's roundtrip
@@ -7,28 +7,44 @@ with the straight-through estimator (RD-FSQ adds its commitment loss),
 learnable linear decoder.  Any registered method serves, through its plain
 roundtrip; no kernel runs in-graph.  ``wire_payload`` is the client's
 wire form for byte accounting and ``analytic_bits_per_scalar`` the
-Table-2 closed forms.  The real wire (``quantized_ship``, ``WireLink``) is
-ROADMAP item M6; the serving engine ships its connector activations
-through ``quantizers.encode`` / ``decode`` instead.
+Table-2 closed forms.
+
+The real wire: ``quantized_ship`` encodes an activation with the link's
+codec (on CUDA the fused kernels, K4 / K5 or K10 / K11), hands the packed
+payload across a :class:`Transport` and decodes it on the receiving side;
+its backward returns the cotangent over the reverse link, raw at its own
+dtype (the paper's scope) or through ``bwd_quant``.  Where the reference
+``ppermute``s across the ``pod`` mesh axis of one SPMD program, the port's
+stages share one process and one device, and the transport is an
+in-process send that counts every byte it carries (a ``torch.distributed``
+transport is ROADMAP item M9).  ``WireLink`` owns one directed cut with
+its shape-only byte accounting.  The SplitLoRA gradient return
+(``grad_quant``, ``grad_trip``) and the hub's ``HubConfig`` are M9.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core import quantizers
-from repro_torch.core.payload import CommPayload
+from repro_torch.core.payload import CommPayload, GroupedPayload
 from repro_torch.core.quantizers import QuantConfig
 from repro_torch.core.quantizers.topk import budget as topk_budget
+from repro_torch.utils.tree import tree_leaves
 
 
 @dataclasses.dataclass(frozen=True)
 class SplitConfig:
     """Where and how the model is cut; the reference's fields and
     defaults.  ``n_stages`` / ``stage_quants`` describe the pipeline
-    topology of ROADMAP item M6 and are carried, not used, here."""
+    topology (``launch/split_pipeline.py``): ``n_stages`` equal partitions
+    give ``n_stages - 1`` quantized cuts, ``stage_quants`` optionally one
+    compressor per cut (empty = ``quant`` everywhere).  The in-graph
+    single cut (``cut_layer`` + ``compressor_roundtrip``) reads neither."""
 
     cut_layer: int = -1  # boundary index into the block stack; -1 = L // 2
     quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
@@ -40,6 +56,29 @@ class SplitConfig:
     def resolve_cut(self, n_layers: int) -> int:
         cut = self.cut_layer if self.cut_layer >= 0 else n_layers // 2
         return min(max(cut, 0), n_layers)
+
+    def resolve_stage_quants(self) -> Tuple[QuantConfig, ...]:
+        """One QuantConfig per pipeline cut (length ``n_stages - 1``)."""
+        n_cuts = self.n_stages - 1
+        if not self.stage_quants:
+            return (self.quant,) * n_cuts
+        if len(self.stage_quants) != n_cuts:
+            raise ValueError(
+                f"stage_quants has {len(self.stage_quants)} entries for "
+                f"{n_cuts} cuts ({self.n_stages} stages)")
+        return tuple(self.stage_quants)
+
+    def with_plans(self, plans: Tuple[Tuple[int, ...], ...]
+                   ) -> "SplitConfig":
+        """The same topology carrying new per-cut allocation plans:
+        ``plans[c]`` becomes cut c's ``group_widths`` (empty reverts that
+        cut to its static width)."""
+        quants = self.resolve_stage_quants()
+        if len(plans) != len(quants):
+            raise ValueError(f"{len(plans)} plans for {len(quants)} cuts")
+        return dataclasses.replace(self, stage_quants=tuple(
+            dataclasses.replace(q, group_widths=tuple(p))
+            for q, p in zip(quants, plans)))
 
 
 def client_encode_pre(params: Optional[Dict], cfg: SplitConfig,
@@ -68,6 +107,222 @@ def compressor_roundtrip(params: Optional[Dict], cfg: SplitConfig,
     h = client_encode_pre(params, cfg, x)
     h_hat, commit = quantizers.roundtrip(cfg.quant, h, rng)
     return server_decode_post(params, cfg, h_hat), commit
+
+
+# ---------------------------------------------------------------------------
+# the real wire
+# ---------------------------------------------------------------------------
+
+_WIRE_INT = {2: torch.uint16, 4: torch.uint32, 8: torch.uint64}
+
+Link = Tuple[int, int]  # (source stage, destination stage)
+
+
+class Transport:
+    """The in-process send between stages that share a process and a
+    device: the counterpart of the reference's ``ppermute``.
+
+    ``send`` hands a tensor to the receiving stage as a fresh tensor (never
+    an alias of the sender's) and counts its bytes on the ``(src, dst)``
+    link: ``bytes[link]`` in all and ``payloads[link]`` payloads, a payload
+    being one ``send_payload`` or one raw ``send`` of a cotangent.
+    """
+
+    def __init__(self):
+        self.bytes: Dict[Link, int] = collections.Counter()
+        self.payloads: Dict[Link, int] = collections.Counter()
+
+    def _send_leaf(self, a: torch.Tensor, link: Link) -> torch.Tensor:
+        """One leaf at exactly its wire width: a float leaf crosses viewed
+        as the unsigned integer of its width, and is viewed back after, so
+        the bytes counted are the bytes of the payload's own dtype."""
+        self.bytes[link] += a.numel() * a.element_size()
+        if a.is_floating_point():
+            wire = a.view(_WIRE_INT[a.element_size()]).clone()
+            return wire.view(a.dtype)
+        return a.clone()
+
+    def send(self, a: torch.Tensor, src: int, dst: int) -> torch.Tensor:
+        """One raw tensor across ``src -> dst``."""
+        self.payloads[(src, dst)] += 1
+        return self._send_leaf(a, (src, dst))
+
+    def send_payload(self, payload, src: int, dst: int):
+        """Every array of a ``CommPayload`` / ``GroupedPayload`` across
+        ``src -> dst``; ``meta`` is the session handshake and is not
+        counted, as ``wire_bytes`` does not count it."""
+        link = (src, dst)
+        self.payloads[link] += 1
+
+        def one(p: CommPayload) -> CommPayload:
+            return CommPayload(
+                data=self._send_leaf(p.data, link),
+                scales=None if p.scales is None
+                else self._send_leaf(p.scales, link),
+                aux={k: self._send_leaf(v, link) for k, v in p.aux.items()},
+                meta=dict(p.meta))
+
+        if isinstance(payload, GroupedPayload):
+            return GroupedPayload(
+                groups=tuple(one(g) for g in payload.groups),
+                scale_meta=None if payload.scale_meta is None
+                else self._send_leaf(payload.scale_meta, link),
+                meta=dict(payload.meta))
+        return one(payload)
+
+
+class _QuantizedShip(torch.autograd.Function):
+    """Forward: encode, send ``src -> dst``, decode.  Backward: the
+    cotangent returns ``dst -> src``, raw or through ``bwd_cfg``."""
+
+    @staticmethod
+    def forward(ctx, x, cfg, transport, link, bwd_cfg):
+        ctx.transport, ctx.link, ctx.bwd_cfg = transport, link, bwd_cfg
+        payload = quantizers.encode(cfg, x)
+        shipped = transport.send_payload(payload, *link)
+        return quantizers.decode(cfg, shipped).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        src, dst = ctx.link
+        if ctx.bwd_cfg is None:
+            # the paper's scope: the cotangent returns uncompressed, at its
+            # own dtype
+            return ctx.transport.send(g, dst, src), None, None, None, None
+        payload = quantizers.encode(ctx.bwd_cfg, g)
+        shipped = ctx.transport.send_payload(payload, dst, src)
+        g_hat = quantizers.decode(ctx.bwd_cfg, shipped).to(g.dtype)
+        return g_hat, None, None, None, None
+
+
+def quantized_ship(cfg: QuantConfig, x: torch.Tensor, transport: Transport,
+                   perm: Tuple[Link, ...],
+                   bwd_cfg: Optional[QuantConfig] = None) -> torch.Tensor:
+    """Quantize -> pack -> send over ``transport`` -> decode; the gradient
+    crosses back as the reference's custom VJP sends it.  ``perm`` is the
+    reference's permutation; in one process an activation has one source
+    stage, so it holds one ``(src, dst)`` pair."""
+    if len(perm) != 1:
+        raise ValueError("the in-process transport ships one link's "
+                         f"activation at a time, got perm {perm}")
+    return _QuantizedShip.apply(x, cfg, transport, tuple(perm[0]), bwd_cfg)
+
+
+def _payload_bytes(q: QuantConfig, shape, dtype) -> int:
+    """Wire bytes of ``encode(q, x)`` for an ``x`` of this shape and dtype,
+    from shapes alone: the codec runs on a meta tensor.  Top-K draws its
+    random picks from a generator that has no meta device, so it encodes
+    zeros on the CPU; its payload's size does not depend on the data."""
+    if q.method == "topk":
+        x = torch.zeros(shape, dtype=dtype)
+        return quantizers.encode(
+            q, x, torch.Generator().manual_seed(0)).wire_bytes()
+    return quantizers.encode(
+        q, torch.empty(shape, dtype=dtype, device="meta")).wire_bytes()
+
+
+def _m9(what: str):
+    return NotImplementedError(
+        f"{what} is the SplitLoRA gradient return, ROADMAP queue M, item M9")
+
+
+@dataclasses.dataclass(frozen=True)
+class WireLink:
+    """One directed quantized edge of a split topology: the forward
+    ``QuantConfig``, the optional backward (cotangent) quant, and the
+    per-link byte accounting.  ``src`` / ``dst`` are stage indices;
+    ``client`` tags hub links (M9); ``grad_quant`` is carried for
+    SplitLoRA (M9).  Each link is counted once, on the stages that run
+    it."""
+
+    src: int
+    dst: int
+    quant: QuantConfig
+    bwd_quant: Optional[QuantConfig] = None
+    client: Optional[int] = None
+    grad_quant: Optional[QuantConfig] = None
+
+    @property
+    def perm(self) -> Tuple[Link, ...]:
+        return ((self.src, self.dst),)
+
+    @property
+    def plan(self) -> Tuple[int, ...]:
+        """The link's bit-allocation plan (empty = static single width)."""
+        return tuple(self.quant.group_widths)
+
+    def with_plan(self, widths: Tuple[int, ...],
+                  perm: Tuple[int, ...] = ()) -> "WireLink":
+        """The same link carrying a new allocation plan (and sorted
+        grouping ``perm``) on its forward quant; the backward quant is
+        untouched."""
+        return dataclasses.replace(
+            self, quant=dataclasses.replace(self.quant,
+                                            group_widths=tuple(widths),
+                                            channel_perm=tuple(perm)))
+
+    def ship(self, x: torch.Tensor, transport: Transport) -> torch.Tensor:
+        """The real wire: encode -> send src -> dst -> decode."""
+        return quantized_ship(self.quant, x, transport, self.perm,
+                              self.bwd_quant)
+
+    def fwd_wire_bytes(self, shape, dtype) -> int:
+        """Forward payload bytes for one activation of ``shape`` /
+        ``dtype``, from shapes alone."""
+        return _payload_bytes(self.quant, tuple(shape), dtype)
+
+    def bwd_wire_bytes(self, shape, dtype) -> int:
+        """Backward (cotangent) bytes: the packed payload when
+        ``bwd_quant`` is set, else the raw activation bytes."""
+        if self.bwd_quant is None:
+            return math.prod(shape) * torch.empty(
+                (), dtype=dtype).element_size()
+        return _payload_bytes(self.bwd_quant, tuple(shape), dtype)
+
+    def grad_wire_bytes(self, grad_tree_sds) -> int:
+        raise _m9("WireLink.grad_wire_bytes")
+
+    def grad_trip(self, grad_tree, transport: Transport):
+        raise _m9("WireLink.grad_trip")
+
+
+def tree_payload_bytes(q: Optional[QuantConfig], tree) -> int:
+    """Wire bytes of a quantized tree (one payload per leaf), from shapes
+    alone; ``q`` None (or identity) counts each leaf raw at its dtype.
+    Leaves are tensors (any device, ``meta`` included)."""
+    total = 0
+    for leaf in tree_leaves(tree):
+        if q is None or q.method == "identity":
+            total += leaf.numel() * leaf.element_size()
+        else:
+            total += _payload_bytes(q, tuple(leaf.shape), leaf.dtype)
+    return int(total)
+
+
+def pipeline_links(split: SplitConfig,
+                   bwd_quant: Optional[QuantConfig] = None
+                   ) -> Tuple[WireLink, ...]:
+    """Chain topology: cut c connects stage c -> c + 1."""
+    return tuple(WireLink(src=c, dst=c + 1, quant=q, bwd_quant=bwd_quant)
+                 for c, q in enumerate(split.resolve_stage_quants()))
+
+
+def group_links(links: Tuple[WireLink, ...]
+                ) -> Tuple[Tuple[QuantConfig, Optional[QuantConfig],
+                                 Tuple[WireLink, ...]], ...]:
+    """Links grouped by identical (quant, bwd_quant), in first-seen
+    order: the reference emits one collective per group.  The in-process
+    chain ships link by link and does not group; M9's hub schedules
+    will."""
+    groups: list = []
+    for link in links:
+        for i, (q, bq, ls) in enumerate(groups):
+            if q == link.quant and bq == link.bwd_quant:
+                groups[i] = (q, bq, ls + (link,))
+                break
+        else:
+            groups.append((link.quant, link.bwd_quant, (link,)))
+    return tuple(groups)
 
 
 def wire_payload(cfg: SplitConfig, params: Optional[Dict], x: torch.Tensor,

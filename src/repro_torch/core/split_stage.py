@@ -1,0 +1,139 @@
+"""Stage programs: what one split partition computes (port of
+``repro/core/split_stage.py``, lines 44-240).
+
+The split stack has three layers: the stage programs here (embed / body /
+head segments on the ``models/stack.py`` executor, with stage-stacked
+parameter trees), the wire links (``core/split.py``, ``WireLink``) and the
+schedulers (``launch/schedules.py``).  A stage program is a set of pure
+segment functions (:func:`embed_tokens`, :func:`run_blocks`,
+:func:`head_ce`) plus the :class:`StageProgram` record of which segments
+a partition owns.
+
+SplitLoRA stages (``lora_rank > 0``), the hub's programs
+(``hub_programs``) and the packed serving stage
+(``quantized_stage_blocks``) are ROADMAP queue M, item M9.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import DeviceLike
+from repro_torch.models import stack as stack_mod
+from repro_torch.models import transformer as tf
+from repro_torch.models.layers.embedding import embed, head_logits
+from repro_torch.models.layers.norms import rms_norm
+from repro_torch.train.losses import cross_entropy
+
+
+def check_lora_rank(lora_rank: int) -> None:
+    if lora_rank:
+        raise NotImplementedError(
+            f"lora_rank={lora_rank}: SplitLoRA stages are ROADMAP queue M, "
+            "item M9; the port's stages train every weight (lora_rank=0)")
+
+
+@dataclasses.dataclass(frozen=True)
+class StageProgram:
+    """One partition of the split topology: ``first`` stages own the token
+    embedding, ``last`` stages the final norm + head (they emit the CE
+    loss); every stage owns ``per_stage`` blocks."""
+
+    index: int
+    n_stages: int
+    per_stage: int
+    first: bool
+    last: bool
+    lora_rank: int = 0
+
+    @property
+    def name(self) -> str:
+        kind = ("client" if self.first else
+                "server" if self.last else "mid")
+        return f"stage{self.index}/{kind}"
+
+
+def chain_programs(cfg: ArchConfig, n_stages: int,
+                   lora_rank: int = 0) -> Tuple[StageProgram, ...]:
+    """The linear pipeline: stage s runs layers [s L / N, (s + 1) L / N)."""
+    check_lora_rank(lora_rank)
+    if cfg.n_layers % n_stages:
+        raise ValueError(f"{cfg.n_layers} layers do not divide into "
+                         f"{n_stages} stages")
+    per = cfg.n_layers // n_stages
+    return tuple(StageProgram(index=s, n_stages=n_stages, per_stage=per,
+                              first=(s == 0), last=(s == n_stages - 1))
+                 for s in range(n_stages))
+
+
+# ---------------------------------------------------------------------------
+# segment functions
+# ---------------------------------------------------------------------------
+
+def embed_tokens(cfg: ArchConfig, params: Dict, tokens: torch.Tensor,
+                 dtype=None) -> torch.Tensor:
+    """First-stage input segment: token ids -> (..., S, D) activations."""
+    return embed(params["embed"], tokens,
+                 dtype if dtype is not None else tf.cdtype(cfg))
+
+
+def run_blocks(cfg: ArchConfig, blocks: Dict, x: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    """Body segment: a layer-stacked block tree through the stack executor
+    with the config's remat policy (``cfg.remat``, ``cfg.remat_group``), as
+    the reference passes them, without a window.  The reference's
+    ``adapters`` (SplitLoRA) are M9."""
+
+    def body(h, p):
+        h, _, _ = tf.block_forward(cfg, p, h, positions=positions,
+                                   window=None)
+        return h, ({}, None)
+
+    x, _, _ = stack_mod.run_stack(body, x, blocks, remat=cfg.remat,
+                                  remat_group=cfg.remat_group)
+    return x
+
+
+def head_ce(cfg: ArchConfig, params: Dict, h: torch.Tensor,
+            labels: torch.Tensor) -> torch.Tensor:
+    """Last-stage output segment: final norm + vocab head + masked CE."""
+    out = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return cross_entropy(head_logits(params["head"], out), labels)
+
+
+# ---------------------------------------------------------------------------
+# stage-stacked parameters
+# ---------------------------------------------------------------------------
+
+def init_stage_params(cfg: ArchConfig, n_stages: int,
+                      per_stage: Optional[int] = None, lora_rank: int = 0,
+                      *, seed: int = 0, device: DeviceLike = None) -> Dict:
+    """Stage-stacked parameters: ``blocks`` leaves (n_stages, per_stage,
+    ...); ``embed`` / ``head`` / ``final_norm`` shared.  Random, with the
+    reference's shapes and scales, from a ``torch.Generator`` seeded with
+    ``seed`` on ``device`` (CUDA unless ``device="cpu"``); the draws differ
+    from the reference's, and tests carry its parameters across with
+    ``repro_torch.bridge.from_jax_params``."""
+    check_lora_rank(lora_rank)
+    if per_stage is None:
+        if cfg.n_layers % n_stages:
+            raise ValueError(f"{cfg.n_layers} layers do not divide into "
+                             f"{n_stages} stages")
+        per_stage = cfg.n_layers // n_stages
+    normal, const, _, _ = tf.leaf_makers(cfg, seed, device)
+    d = cfg.d_model
+    params = {"embed": {"emb": normal(cfg.vocab_size, d, scale=0.02)},
+              "head": {"w": normal(d, cfg.vocab_size, scale=d ** -0.5)},
+              "final_norm": const(1.0, d)}
+    stages = [tf.init_block_params(cfg, per_stage, normal, const)
+              for _ in range(n_stages)]
+    params["blocks"] = stack_mod.tree_stack(stages)
+    return params
+
+
+def stage_blocks(params: Dict, stage: int) -> Dict:
+    """Stage ``stage``'s layer-stacked block tree (views)."""
+    return stack_mod.tree_index(params["blocks"], stage)

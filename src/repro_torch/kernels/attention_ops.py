@@ -28,7 +28,8 @@ import torch
 
 from repro_torch.kernels import attention_ref, build
 
-HEAD_DIM = 64  # the kernels' compiled head width (q/k and v)
+HEAD_DIM = 64  # the decode kernels' compiled head width (q/k and v)
+FLASH_HEAD_DIMS = (64, 128)  # the flash kernels' compiled widths, D = Dv
 _MAX_G = 16
 _MAX_PAGE = 64
 
@@ -61,11 +62,15 @@ def _check_flash(name: str, q, k, v, qpos, kpos, *rest):
     kh, skv = k.shape[1], k.shape[2]
     _check_bf16(name, q, k, v, *rest)
     _check_device(name, q, k, v, qpos, kpos, *rest)
-    if d != HEAD_DIM or v.shape[-1] != HEAD_DIM or k.shape[-1] != HEAD_DIM:
-        raise ValueError(f"{name} is compiled for head_dim {HEAD_DIM}, got "
-                         f"q {d}, v {v.shape[-1]}")
+    if d not in FLASH_HEAD_DIMS or k.shape[-1] != d:
+        raise ValueError(f"{name} is compiled for head_dim "
+                         f"{FLASH_HEAD_DIMS}, got q {d}, k {k.shape[-1]}")
+    if v.shape[-1] != d:
+        raise ValueError(f"{name} takes Dv = D, got D {d}, Dv "
+                         f"{v.shape[-1]} (Dv != D is ROADMAP queue K, "
+                         "'Still to port', item 2)")
     if h % kh or k.shape[:3] != v.shape[:3] or k.shape[0] != b \
-            or any(t.shape != (b, h, sq, HEAD_DIM) for t in rest):
+            or any(t.shape != (b, h, sq, d) for t in rest):
         raise ValueError(f"bad GQA shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
     for i, t in enumerate((q, k, v) + rest):
@@ -105,10 +110,10 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not q.is_cuda:
         return attention_ref.flash_forward_ref(q, k, v, qpos, kpos,
                                                window=window)
-    b, h, sq, _ = q.shape
+    b, h, sq, d = q.shape
     kh, skv = k.shape[1], k.shape[2]
     qpos, kpos = _check_flash("flash_forward", q, k, v, qpos, kpos)
-    out = torch.empty((b, sq, h, HEAD_DIM), dtype=torch.float32,
+    out = torch.empty((b, sq, h, d), dtype=torch.float32,
                       device=q.device).transpose(1, 2)
     m = torch.empty((b, h, sq, 1), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
@@ -118,14 +123,14 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
         kpos.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
         b, h, kh, sq, skv, *q.stride()[:3], *k.stride()[:3],
-        *v.stride()[:3], *out.stride()[:3], has_window, win,
+        *v.stride()[:3], *out.stride()[:3], has_window, win, d,
         build.current_stream())
     return out, m, l
 
 
 # K2 / K3 launch geometry (csrc/flash_bwd.cu): K2 takes q tiles of 128
 # rows against kv tiles of 64 keys, K3 kv tiles of 128 keys against q tiles
-# of 64 rows; both keep a ring of 3 stages
+# of 64 rows; both keep a ring of 3 stages, but K2 only 2 at head width 128
 BWD_DQ_ROWS, BWD_DQ_KEYS = 128, 64
 BWD_DKV_KEYS, BWD_DKV_ROWS = 128, 64
 BWD_STAGES = 3
@@ -164,28 +169,32 @@ def bwd_heads_per_block(g: int, b: int, h: int, n: int,
 
 
 @functools.lru_cache(maxsize=None)
-def flash_bwd_plan(b: int, h: int, kh: int, sq: int,
-                   skv: int) -> Tuple[LaunchPlan, LaunchPlan]:
+def flash_bwd_plan(b: int, h: int, kh: int, sq: int, skv: int,
+                   hd: int = HEAD_DIM) -> Tuple[LaunchPlan, LaunchPlan]:
     """(K2, K3) launch plans.  K2: one block per (q tile of 128 rows, run of
     p heads of one group, batch row), grid (B H / p, q tiles), the last q
     tile first (causally the longest).  K3: one block per (kv tile of 128
     keys, run of p query heads, batch row), the G / p blocks of a (kv tile,
     kv head, batch row) in one cluster; grid (G / p KH B, kv tiles), kv
     tile 0 (causally the longest) first.  p from ``bwd_heads_per_block``.
-    Shared memory: the tiles (K2: two Q / dO slots), the mbarriers, the
-    list of visible tiles."""
+    Shared memory at head width ``hd``: the tiles (K2: two Q / dO slots),
+    the mbarriers, the list of visible tiles."""
+    if hd not in FLASH_HEAD_DIMS:
+        raise ValueError(f"K2 / K3 are compiled for head_dim "
+                         f"{FLASH_HEAD_DIMS}, got {hd}")
     g = h // kh
     nq, nkv = -(-sq // BWD_DQ_ROWS), -(-skv // BWD_DKV_KEYS)
-    tile_q, tile_k = BWD_DQ_ROWS * HEAD_DIM * 2, BWD_DQ_KEYS * HEAD_DIM * 2
+    tile_q, tile_k = BWD_DQ_ROWS * hd * 2, BWD_DQ_KEYS * hd * 2
+    stages = BWD_STAGES if hd == 64 else 2
     p = bwd_heads_per_block(g, b, h, -(-skv // BWD_DQ_KEYS))
     dq = LaunchPlan(
         grid=(b * h // p, nq), cluster=1, tiles=tuple(range(nq - 1, -1, -1)),
         heads=(tuple(range(p)),),
-        smem=1024 + 4 * tile_q + 2 * BWD_STAGES * tile_k
-        + (4 + 2 * BWD_STAGES) * 8 + 8 * 4 + -(-skv // BWD_DQ_KEYS) * 4)
+        smem=1024 + 4 * tile_q + 2 * stages * tile_k
+        + (4 + 2 * stages) * 8 + 8 * 4 + -(-skv // BWD_DQ_KEYS) * 4)
     p = bwd_heads_per_block(g, b, h, -(-sq // BWD_DKV_ROWS), BWD_MAX_CLUSTER)
     c = g // p
-    ring = (2 * BWD_DKV_KEYS + 2 * BWD_STAGES * BWD_DKV_ROWS) * HEAD_DIM * 2
+    ring = (2 * BWD_DKV_KEYS + 2 * BWD_STAGES * BWD_DKV_ROWS) * hd * 2
     dkv = LaunchPlan(
         grid=(c * kh * b, nkv), cluster=c, tiles=tuple(range(nkv)),
         heads=tuple(tuple(range(r * p, (r + 1) * p)) for r in range(c)),
@@ -203,12 +212,12 @@ def flash_backward_dq(q, k, v, go, m, l, di, qpos, kpos, *,
     if not q.is_cuda:
         return attention_ref.flash_backward_ref(
             q, k, v, go, m, l, di, qpos, kpos, window=window)[0]
-    b, h, sq, _ = q.shape
+    b, h, sq, d = q.shape
     kh, skv = k.shape[1], k.shape[2]
     qpos, kpos = _check_flash("flash_backward_dq", q, k, v, qpos, kpos, go)
     m, l, di = _row_stats("flash_backward_dq", q, m, l, di)
-    plan = flash_bwd_plan(b, h, kh, sq, skv)[0]
-    dq = torch.empty((b, sq, h, HEAD_DIM), dtype=torch.float32,
+    plan = flash_bwd_plan(b, h, kh, sq, skv, d)[0]
+    dq = torch.empty((b, sq, h, d), dtype=torch.float32,
                      device=q.device).transpose(1, 2)
     has_window, win = _window_args(window)
     build.launch(
@@ -218,7 +227,8 @@ def flash_backward_dq(q, k, v, go, m, l, di, qpos, kpos, *,
         kpos.data_ptr(), dq.data_ptr(), b, h, kh, sq, skv,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *go.stride()[:3], *dq.stride()[:3], has_window, win,
-        plan.grid[1], len(plan.heads[0]), plan.smem, build.current_stream())
+        plan.grid[1], len(plan.heads[0]), plan.smem, d,
+        build.current_stream())
     return dq
 
 
@@ -232,12 +242,12 @@ def flash_backward_dkv(q, k, v, go, m, l, di, qpos, kpos, *,
         _, dk, dv = attention_ref.flash_backward_ref(
             q, k, v, go, m, l, di, qpos, kpos, window=window)
         return dk, dv
-    b, h, sq, _ = q.shape
+    b, h, sq, d = q.shape
     kh, skv = k.shape[1], k.shape[2]
     qpos, kpos = _check_flash("flash_backward_dkv", q, k, v, qpos, kpos, go)
     m, l, di = _row_stats("flash_backward_dkv", q, m, l, di)
-    plan = flash_bwd_plan(b, h, kh, sq, skv)[1]
-    dk = torch.empty((b, skv, kh, HEAD_DIM), dtype=torch.float32,
+    plan = flash_bwd_plan(b, h, kh, sq, skv, d)[1]
+    dk = torch.empty((b, skv, kh, d), dtype=torch.float32,
                      device=q.device).transpose(1, 2)
     dv = torch.empty_like(dk)
     has_window, win = _window_args(window)
@@ -248,7 +258,8 @@ def flash_backward_dkv(q, k, v, go, m, l, di, qpos, kpos, *,
         kpos.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, kh, sq, skv,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *go.stride()[:3], *dk.stride()[:3], *dv.stride()[:3], has_window,
-        win, plan.grid[1], plan.cluster, plan.smem, build.current_stream())
+        win, plan.grid[1], plan.cluster, plan.smem, d,
+        build.current_stream())
     return dk, dv
 
 
@@ -316,7 +327,9 @@ def _check_decode(name: str, qf, k, v, scales, pos, qpos, code_dtype
         raise TypeError(f"{name} takes int32 key positions")
     _check_device(name, qf, k, v, *scales, pos, qpos)
     if d != HEAD_DIM or k.shape[-1] != HEAD_DIM or v.shape[-1] != HEAD_DIM:
-        raise ValueError(f"{name} is compiled for head_dim {HEAD_DIM}")
+        raise ValueError(f"{name} is compiled for head_dim {HEAD_DIM}, got "
+                         f"{d} (other widths: ROADMAP queue K, 'Still to "
+                         "port', item 1)")
     if k.shape != lead + (kh, d) or v.shape != k.shape \
             or pos.shape != lead \
             or any(t.shape != lead + (kh,) for t in scales):

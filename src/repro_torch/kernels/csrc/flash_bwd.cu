@@ -65,7 +65,14 @@
 // exponentials run under the second product; K3 issues dV before it forms
 // dS^T.
 //
-// The head width is a template parameter; only HD = 64 is instantiated.
+// The head width HD (q/k and v alike) is a template parameter,
+// instantiated for 64 and 128.  Every tile is HD / 64 column blocks of one
+// 128-byte swizzle atom (flash_common.cuh, load_rows): the products that
+// contract over HD step their descriptors along the blocks (kmajor_step),
+// and those whose output has HD columns (dQ, dK, dV) run one m64n64 product
+// per block into its own 32 accumulators.  At 128 K2 keeps a ring of 2
+// stages (3 with its two Q / dO slots would pass the H100's 227 KB), and
+// K3 holds 128 fp32 of dK and dV a thread.
 // What is left: a block's fixed cost is still paid 2 - 3 times per SM
 // (a persistent grid would overlap it with the previous tile's sweep);
 // each warpgroup waits on its products before the next tile (an FA3
@@ -93,7 +100,6 @@ constexpr int kMaxCluster = 8;
 // "sees some score" and bit 25 + 2 w "sees every score"
 constexpr int kTileBits = (1 << 24) - 1;
 constexpr int kRed = 8;  // ints of scratch before the list
-constexpr int kHd = 64;  // the instantiated head width
 
 __device__ __forceinline__ int sees_flag(int wg) { return 1 << (24 + 2 * wg); }
 __device__ __forceinline__ int full_flag(int wg) { return 1 << (25 + 2 * wg); }
@@ -126,11 +132,12 @@ __device__ __forceinline__ float row_lse2(float m, float l) {
 template <int HD>
 struct DqSmem {
   static constexpr int kQ = kDqRows * HD * 2, kK = kDqKeys * HD * 2;
+  static constexpr int kSt = HD == 64 ? kStages : 2;  // the K / V ring
   // two Q / dO slots (one head's while the next head's lands)
   static constexpr int q = 0, go = kQ, slot = 2 * kQ;
-  static constexpr int k = 2 * slot, v = k + kStages * kK;
-  static constexpr int bars = v + kStages * kK;
-  static constexpr int red = bars + (4 + 2 * kStages) * 8;
+  static constexpr int k = 2 * slot, v = k + kSt * kK;
+  static constexpr int bars = v + kSt * kK;
+  static constexpr int red = bars + (4 + 2 * kSt) * 8;
   static constexpr int list = red + kRed * 4;
   static int bytes(int n_tiles) { return 1024 + list + n_tiles * 4; }
 };
@@ -164,15 +171,16 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
     const int* __restrict__ qpos, const int* __restrict__ kpos,
     float* __restrict__ dq, int H, int KH, int Sq, int Skv, long long dq_sb,
     long long dq_sh, long long dq_ss, int has_window, int window, int hpb) {
-  static_assert(HD == 64, "K2 is instantiated for head width 64 only");
+  static_assert(HD == 64 || HD == 128, "K2 takes head width 64 or 128");
   using L = DqSmem<HD>;
+  constexpr int kSt = L::kSt;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024u - hopper::smem_u32(smem_raw)) & 1023u);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::bars);
   uint64_t* qfull = bars;       // 2: the Q / dO slots
   uint64_t* qempty = bars + 2;  // 2
   uint64_t* full = bars + 4;
-  uint64_t* empty = bars + 4 + kStages;
+  uint64_t* empty = bars + 4 + kSt;
   int* red = reinterpret_cast<int*>(smem + L::red);
   int* list = reinterpret_cast<int*>(smem + L::list);
 
@@ -205,10 +213,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
   auto load_q = [&](int j) {  // head h0 + j's Q and dO into slot j % 2
     const int slot = j & 1;
     hopper::mbar_expect_tx(&qfull[slot], 2 * L::kQ);
-    flash::load_rows(smem + L::q + slot * L::slot, &qmap, &qfull[slot], qa,
-                     q0, h0 + j, b);
-    flash::load_rows(smem + L::go + slot * L::slot, &gomap, &qfull[slot], ga,
-                     q0, h0 + j, b);
+    flash::load_rows<HD>(smem + L::q + slot * L::slot, &qmap, &qfull[slot],
+                         qa, q0, h0 + j, b, kDqRows);
+    flash::load_rows<HD>(smem + L::go + slot * L::slot, &gomap, &qfull[slot],
+                         ga, q0, h0 + j, b, kDqRows);
   };
 
   // position extrema of each warpgroup's 64 rows
@@ -225,7 +233,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
       hopper::mbar_init(&qfull[j], 1);
       hopper::mbar_init(&qempty[j], kConsumers);
     }
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < kSt; ++s) {
       hopper::mbar_init(&full[s], 1);
       hopper::mbar_init(&empty[s], kConsumers);
     }
@@ -269,15 +277,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
         if (j >= 2) hopper::mbar_wait(&qempty[j & 1], ((j >> 1) - 1) & 1);
         if (j > 0) load_q(j);
         for (int i = 0; i < n_vis; ++i, ++it) {
-          const int s = it % kStages;
-          if (it >= kStages)
-            hopper::mbar_wait(&empty[s], (it / kStages - 1) & 1);
+          const int s = it % kSt;
+          if (it >= kSt) hopper::mbar_wait(&empty[s], (it / kSt - 1) & 1);
           hopper::mbar_expect_tx(&full[s], 2 * L::kK);
           const int k0 = (list[i] & kTileBits) * kDqKeys;
-          flash::load_rows(smem + L::k + s * L::kK, &kmap, &full[s], ka, k0,
-                           kh, b);
-          flash::load_rows(smem + L::v + s * L::kK, &vmap, &full[s], va, k0,
-                           kh, b);
+          flash::load_rows<HD>(smem + L::k + s * L::kK, &kmap, &full[s], ka,
+                               k0, kh, b, kDqKeys);
+          flash::load_rows<HD>(smem + L::v + s * L::kK, &vmap, &full[s], va,
+                               k0, kh, b, kDqKeys);
         }
       }
     }
@@ -296,19 +303,19 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
     const float d0 = raw[2], d1 = raw[5];
     if (j + 1 < hpb) fetch(h + 1);
 
-    float acc[32], sc[32], dp[32];
+    float acc[HD / 2], sc[32], dp[32];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
     hopper::mbar_wait(&qfull[slot], (j >> 1) & 1);
     const uint64_t dqa = hopper::desc_sw128(smem + L::q + slot * L::slot +
-                                            wg * 64 * HD * 2);
+                                            wg * 64 * 128);
     const uint64_t dga = hopper::desc_sw128(smem + L::go + slot * L::slot +
-                                            wg * 64 * HD * 2);
+                                            wg * 64 * 128);
 
     for (int i = 0; i < n_vis; ++i, ++it) {
-      const int s = it % kStages, entry = list[i];
+      const int s = it % kSt, entry = list[i];
       if (!(entry & sees_flag(wg))) {  // nothing visible to these rows
-        hopper::mbar_wait(&full[s], (it / kStages) & 1);
+        hopper::mbar_wait(&full[s], (it / kSt) & 1);
         hopper::mbar_arrive(&empty[s]);
         continue;
       }
@@ -332,7 +339,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
           }
         }
       }
-      hopper::mbar_wait(&full[s], (it / kStages) & 1);
+      hopper::mbar_wait(&full[s], (it / kSt) & 1);
 
       // S = Q K^T and dP = dO V^T: 64 rows x 64 keys per warpgroup, in two
       // commit groups: P is formed while dP is still running
@@ -343,11 +350,15 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
       hopper::fence_regs(dp);
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk)
-        hopper::wgmma_m64n64_ss<0>(sc, dqa + 2 * kk, dk + 2 * kk, kk > 0);
+        hopper::wgmma_m64n64_ss<0>(sc, dqa + flash::kmajor_step(kk, kDqRows),
+                                   dk + flash::kmajor_step(kk, kDqKeys),
+                                   kk > 0);
       hopper::wgmma_commit();
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk)
-        hopper::wgmma_m64n64_ss<0>(dp, dga + 2 * kk, dv + 2 * kk, kk > 0);
+        hopper::wgmma_m64n64_ss<0>(dp, dga + flash::kmajor_step(kk, kDqRows),
+                                   dv + flash::kmajor_step(kk, kDqKeys),
+                                   kk > 0);
       hopper::wgmma_commit();
       hopper::wgmma_wait<1>();
       hopper::fence_regs(sc);
@@ -374,7 +385,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
       }
 
       // dQ += dS K: dS (bf16) from the accumulators as A fragments, K read
-      // MN-major
+      // MN-major, one product per 64 columns of dQ
       uint32_t da[kDqKeys / 16][4];
 #pragma unroll
       for (int kk = 0; kk < kDqKeys / 16; ++kk)
@@ -382,8 +393,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
       hopper::wgmma_fence();
       hopper::fence_regs(acc);
 #pragma unroll
-      for (int kk = 0; kk < kDqKeys / 16; ++kk)
-        hopper::wgmma_m64n64_rs<1>(acc, da[kk], dk + 128 * kk, 1);
+      for (int c = 0; c < HD / 64; ++c) {
+#pragma unroll
+        for (int kk = 0; kk < kDqKeys / 16; ++kk)
+          hopper::wgmma_m64n64_rs<1>(
+              flash::acc64(acc, c), da[kk],
+              dk + flash::column_block(c, kDqKeys) + 128 * kk, 1);
+      }
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(acc);
@@ -421,7 +437,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
     int Skv, long long dk_sb, long long dk_sh, long long dk_ss,
     long long dv_sb, long long dv_sh, long long dv_ss, int has_window,
     int window) {
-  static_assert(HD == 64, "K3 is instantiated for head width 64 only");
+  static_assert(HD == 64 || HD == 128, "K3 takes head width 64 or 128");
   using L = DkvSmem<HD>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024u - hopper::smem_u32(smem_raw)) & 1023u);
@@ -461,10 +477,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
   __syncthreads();
   if (tid == kConsumers) {  // lands while the tiles are listed
     hopper::mbar_expect_tx(kvbar, 2 * L::kKV);
-    flash::load_rows(smem + L::k, &kmap, kvbar, flash::unpack_axes(k_axes),
-                     k0, kh, b);
-    flash::load_rows(smem + L::v, &vmap, kvbar, flash::unpack_axes(v_axes),
-                     k0, kh, b);
+    flash::load_rows<HD>(smem + L::k, &kmap, kvbar,
+                         flash::unpack_axes(k_axes), k0, kh, b, kDkvKeys);
+    flash::load_rows<HD>(smem + L::v, &vmap, kvbar,
+                         flash::unpack_axes(v_axes), k0, kh, b, kDkvKeys);
   }
   // which q tiles each warpgroup's keys can see: one warp per tile
   for (int t = warp; t < nq; t += kThreads / 32) {
@@ -491,9 +507,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
   __syncthreads();
   const int n_list = red[4], total = gpb * n_list;
 
-  float dka[32], dva[32];
+  float dka[HD / 2], dva[HD / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dka[i] = dva[i] = 0.0f;
+  for (int i = 0; i < HD / 2; ++i) dka[i] = dva[i] = 0.0f;
   const int wg = tid / 128, wi = (tid % 128) / 32;
   const int g = lane >> 2, t4 = lane & 3;
 
@@ -524,10 +540,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
       if (i >= kStages) hopper::mbar_wait(&empty[s], (i / kStages - 1) & 1);
       if (lane == 0) {
         hopper::mbar_add_tx(&full[s], 2 * L::kQ);
-        flash::load_rows(smem + L::q + s * L::kQ, &qmap, &full[s], qa, q0, h,
-                         b);
-        flash::load_rows(smem + L::go + s * L::kQ, &gomap, &full[s], ga, q0,
-                         h, b);
+        flash::load_rows<HD>(smem + L::q + s * L::kQ, &qmap, &full[s], qa, q0,
+                             h, b, kDkvRows);
+        flash::load_rows<HD>(smem + L::go + s * L::kQ, &gomap, &full[s], ga,
+                             q0, h, b, kDkvRows);
       }
       float* st = reinterpret_cast<float*>(smem + L::stat + s * L::kStat);
 #pragma unroll
@@ -545,8 +561,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
     const long long kp1 = key1 < Skv ? kpos[key1] : kFar;
     float sc[32], dp[32];
     hopper::mbar_wait(kvbar, 0);
-    const uint64_t dka_s = hopper::desc_sw128(smem + L::k + wg * 64 * HD * 2);
-    const uint64_t dva_s = hopper::desc_sw128(smem + L::v + wg * 64 * HD * 2);
+    const uint64_t dka_s = hopper::desc_sw128(smem + L::k + wg * 64 * 128);
+    const uint64_t dva_s = hopper::desc_sw128(smem + L::v + wg * 64 * 128);
 
     for (int i = 0; i < total; ++i) {
       const int s = i % kStages, entry = list[i % n_list];
@@ -585,11 +601,15 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
       hopper::fence_regs(dp);
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk)
-        hopper::wgmma_m64n64_ss<0>(sc, dka_s + 2 * kk, dq_s + 2 * kk, kk > 0);
+        hopper::wgmma_m64n64_ss<0>(sc, dka_s + flash::kmajor_step(kk, kDkvKeys),
+                                   dq_s + flash::kmajor_step(kk, kDkvRows),
+                                   kk > 0);
       hopper::wgmma_commit();
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk)
-        hopper::wgmma_m64n64_ss<0>(dp, dva_s + 2 * kk, dg_s + 2 * kk, kk > 0);
+        hopper::wgmma_m64n64_ss<0>(dp, dva_s + flash::kmajor_step(kk, kDkvKeys),
+                                   dg_s + flash::kmajor_step(kk, kDkvRows),
+                                   kk > 0);
       hopper::wgmma_commit();
       hopper::wgmma_wait<1>();
       hopper::fence_regs(sc);
@@ -609,7 +629,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
                               : 0.0f;
       }
       // dV += P^T dO: P^T (bf16) from the accumulators as A fragments, dO
-      // read MN-major
+      // read MN-major, one product per 64 columns of dV
       uint32_t pa[kDkvRows / 16][4], sa[kDkvRows / 16][4];
 #pragma unroll
       for (int kk = 0; kk < kDkvRows / 16; ++kk)
@@ -617,8 +637,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
       hopper::wgmma_fence();
       hopper::fence_regs(dva);
 #pragma unroll
-      for (int kk = 0; kk < kDkvRows / 16; ++kk)
-        hopper::wgmma_m64n64_rs<1>(dva, pa[kk], dg_s + 128 * kk, 1);
+      for (int c = 0; c < HD / 64; ++c) {
+#pragma unroll
+        for (int kk = 0; kk < kDkvRows / 16; ++kk)
+          hopper::wgmma_m64n64_rs<1>(
+              flash::acc64(dva, c), pa[kk],
+              dg_s + flash::column_block(c, kDkvRows) + 128 * kk, 1);
+      }
       hopper::wgmma_commit();
       hopper::wgmma_wait<1>();  // dP^T (groups retire in order)
       hopper::fence_regs(dp);
@@ -639,8 +664,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
       hopper::wgmma_fence();
       hopper::fence_regs(dka);
 #pragma unroll
-      for (int kk = 0; kk < kDkvRows / 16; ++kk)
-        hopper::wgmma_m64n64_rs<1>(dka, sa[kk], dq_s + 128 * kk, 1);
+      for (int c = 0; c < HD / 64; ++c) {
+#pragma unroll
+        for (int kk = 0; kk < kDkvRows / 16; ++kk)
+          hopper::wgmma_m64n64_rs<1>(
+              flash::acc64(dka, c), sa[kk],
+              dq_s + flash::column_block(c, kDkvRows) + 128 * kk, 1);
+      }
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(dva);
@@ -723,34 +753,120 @@ bool bad_shape(int B, int H, int KH, int Sq, int Skv) {
 
 // The four operand maps; false if TMA cannot describe a layout.
 bool make_maps(CUtensorMap* m, int* axes, const void* q, const void* k,
-               const void* v, const void* go, int B, int H, int KH, int Sq,
-               int Skv, const long long* qs, const long long* ks,
+               const void* v, const void* go, int hd, int B, int H, int KH,
+               int Sq, int Skv, const long long* qs, const long long* ks,
                const long long* vs, const long long* gs, int q_rows,
                int kv_rows) {
-  axes[0] = flash::map_bshd(&m[0], q, kHd, Sq, H, B, qs[2], qs[1], qs[0],
+  axes[0] = flash::map_bshd(&m[0], q, hd, Sq, H, B, qs[2], qs[1], qs[0],
                             q_rows);
-  axes[1] = flash::map_bshd(&m[1], k, kHd, Skv, KH, B, ks[2], ks[1], ks[0],
+  axes[1] = flash::map_bshd(&m[1], k, hd, Skv, KH, B, ks[2], ks[1], ks[0],
                             kv_rows);
-  axes[2] = flash::map_bshd(&m[2], v, kHd, Skv, KH, B, vs[2], vs[1], vs[0],
+  axes[2] = flash::map_bshd(&m[2], v, hd, Skv, KH, B, vs[2], vs[1], vs[0],
                             kv_rows);
-  axes[3] = flash::map_bshd(&m[3], go, kHd, Sq, H, B, gs[2], gs[1], gs[0],
+  axes[3] = flash::map_bshd(&m[3], go, hd, Sq, H, B, gs[2], gs[1], gs[0],
                             q_rows);
   return axes[0] >= 0 && axes[1] >= 0 && axes[2] >= 0 && axes[3] >= 0;
+}
+
+template <int HD>
+int launch_dq(const void* q, const void* k, const void* v, const void* go,
+              const void* m, const void* l, const void* di, const void* qpos,
+              const void* kpos, void* dq, int B, int H, int KH, int Sq,
+              int Skv, const long long* qs, const long long* ks,
+              const long long* vs, const long long* gs, long long dq_sb,
+              long long dq_sh, long long dq_ss, int has_window, int window,
+              int q_tiles, int heads_per_block, int smem, void* stream) {
+  if (bad_shape(B, H, KH, Sq, Skv) || heads_per_block < 1 ||
+      (H / KH) % heads_per_block ||
+      q_tiles != (Sq + kDqRows - 1) / kDqRows || q_tiles > 65535 ||
+      smem != DqSmem<HD>::bytes((Skv + kDqKeys - 1) / kDqKeys) ||
+      smem > 232448 || (dq_sb | dq_sh | dq_ss) & 1 ||
+      reinterpret_cast<uintptr_t>(dq) & 7)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[4];
+  int axes[4];
+  if (!make_maps(maps, axes, q, k, v, go, HD, B, H, KH, Sq, Skv, qs, ks, vs,
+                 gs, kDqRows, kDqKeys))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * (H / heads_per_block), q_tiles);
+  flash_bwd_dq_kernel<HD><<<grid, kThreads, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], maps[2], maps[3], axes[0], axes[1], axes[2], axes[3],
+      static_cast<const float*>(m), static_cast<const float*>(l),
+      static_cast<const float*>(di), static_cast<const int*>(qpos),
+      static_cast<const int*>(kpos), static_cast<float*>(dq), H, KH, Sq, Skv,
+      dq_sb, dq_sh, dq_ss, has_window, window, heads_per_block);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_dkv(const void* q, const void* k, const void* v, const void* go,
+               const void* m, const void* l, const void* di,
+               const void* qpos, const void* kpos, void* dk, void* dv, int B,
+               int H, int KH, int Sq, int Skv, const long long* qs,
+               const long long* ks, const long long* vs, const long long* gs,
+               long long dk_sb, long long dk_sh, long long dk_ss,
+               long long dv_sb, long long dv_sh, long long dv_ss,
+               int has_window, int window, int kv_tiles, int cluster,
+               int smem, void* stream) {
+  if (bad_shape(B, H, KH, Sq, Skv) || cluster < 1 ||
+      cluster > kMaxCluster || (H / KH) % cluster ||
+      (long long)cluster * KH * B > 0x7fffffffLL ||
+      kv_tiles != (Skv + kDkvKeys - 1) / kDkvKeys || kv_tiles > 65535 ||
+      smem != DkvSmem<HD>::bytes((Sq + kDkvRows - 1) / kDkvRows) ||
+      smem > 232448 || (dk_sb | dk_sh | dk_ss | dv_sb | dv_sh | dv_ss) & 3 ||
+      (reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv)) &
+          15)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[4];
+  int axes[4];
+  if (!make_maps(maps, axes, q, k, v, go, HD, B, H, KH, Sq, Skv, qs, ks, vs,
+                 gs, kDkvRows, kDkvKeys))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster * KH * B, kv_tiles);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, flash_bwd_dkv_kernel<HD>, maps[0], maps[1], maps[2], maps[3],
+      axes[0], axes[1], axes[2], axes[3], static_cast<const float*>(m),
+      static_cast<const float*>(l), static_cast<const float*>(di),
+      static_cast<const int*>(qpos), static_cast<const int*>(kpos),
+      static_cast<float*>(dk), static_cast<float*>(dv), H, KH, Sq, Skv, dk_sb,
+      dk_sh, dk_ss, dv_sb, dv_sh, dv_ss, has_window, window);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // K2.  q (B, H, Sq, D), k / v (B, KH, Skv, D), go (B, H, Sq, D) bf16 given
 // by pointer and element strides (batch, head, sequence; the last axis is
-// contiguous, strides multiples of 8, bases 16-byte aligned); m / l / di
-// (B, H, Sq) fp32 contiguous; qpos (Sq,), kpos (Skv,) int32; dq
-// (B, H, Sq, D) fp32 by strides (multiples of 2, base 8-byte aligned).
-// The plan (attention_ops.py::flash_bwd_plan): q_tiles = ceil(Sq / 128)
-// grid rows of B H / heads_per_block blocks, each sweeping heads_per_block
-// heads of one GQA group (a divisor of G), `smem` bytes of dynamic shared
-// memory.
-// Returns cudaGetLastError(), or cudaErrorInvalidValue for a shape, layout
-// or plan the kernel does not take.
+// contiguous, strides multiples of 8, bases 16-byte aligned), D = hd, 64 or
+// 128; m / l / di (B, H, Sq) fp32 contiguous; qpos (Sq,), kpos (Skv,)
+// int32; dq (B, H, Sq, D) fp32 by strides (multiples of 2, base 8-byte
+// aligned).  The plan (attention_ops.py::flash_bwd_plan): q_tiles =
+// ceil(Sq / 128) grid rows of B H / heads_per_block blocks, each sweeping
+// heads_per_block heads of one GQA group (a divisor of G), `smem` bytes of
+// dynamic shared memory.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for a width, shape,
+// layout or plan the kernel does not take.
 extern "C" int flash_bwd_dq_bf16(
     const void* q, const void* k, const void* v, const void* go,
     const void* m, const void* l, const void* di, const void* qpos,
@@ -759,34 +875,20 @@ extern "C" int flash_bwd_dq_bf16(
     long long k_sh, long long k_ss, long long v_sb, long long v_sh,
     long long v_ss, long long go_sb, long long go_sh, long long go_ss,
     long long dq_sb, long long dq_sh, long long dq_ss, int has_window,
-    int window, int q_tiles, int heads_per_block, int smem, void* stream) {
-  if (bad_shape(B, H, KH, Sq, Skv) || heads_per_block < 1 ||
-      (H / KH) % heads_per_block ||
-      q_tiles != (Sq + kDqRows - 1) / kDqRows || q_tiles > 65535 ||
-      smem != DqSmem<kHd>::bytes((Skv + kDqKeys - 1) / kDqKeys) ||
-      smem > 232448 || (dq_sb | dq_sh | dq_ss) & 1 ||
-      reinterpret_cast<uintptr_t>(dq) & 7)
-    return (int)cudaErrorInvalidValue;
-  CUtensorMap maps[4];
-  int axes[4];
+    int window, int q_tiles, int heads_per_block, int smem, int hd,
+    void* stream) {
   const long long qs[3] = {q_sb, q_sh, q_ss}, ks[3] = {k_sb, k_sh, k_ss},
                   vs[3] = {v_sb, v_sh, v_ss}, gs[3] = {go_sb, go_sh, go_ss};
-  if (!make_maps(maps, axes, q, k, v, go, B, H, KH, Sq, Skv, qs, ks, vs, gs,
-                 kDqRows, kDqKeys))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<kHd>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * (H / heads_per_block), q_tiles);
-  flash_bwd_dq_kernel<kHd><<<grid, kThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      maps[0], maps[1], maps[2], maps[3], axes[0], axes[1], axes[2], axes[3],
-      static_cast<const float*>(m), static_cast<const float*>(l),
-      static_cast<const float*>(di), static_cast<const int*>(qpos),
-      static_cast<const int*>(kpos), static_cast<float*>(dq), H, KH, Sq, Skv,
-      dq_sb, dq_sh, dq_ss, has_window, window, heads_per_block);
-  return (int)cudaGetLastError();
+  if (hd == 64)
+    return launch_dq<64>(q, k, v, go, m, l, di, qpos, kpos, dq, B, H, KH, Sq,
+                         Skv, qs, ks, vs, gs, dq_sb, dq_sh, dq_ss, has_window,
+                         window, q_tiles, heads_per_block, smem, stream);
+  if (hd == 128)
+    return launch_dq<128>(q, k, v, go, m, l, di, qpos, kpos, dq, B, H, KH, Sq,
+                          Skv, qs, ks, vs, gs, dq_sb, dq_sh, dq_ss,
+                          has_window, window, q_tiles, heads_per_block, smem,
+                          stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // K3.  Operands as K2; dk / dv (B, KH, Skv, D) fp32 by strides (multiples
@@ -803,46 +905,18 @@ extern "C" int flash_bwd_dkv_bf16(
     long long v_ss, long long go_sb, long long go_sh, long long go_ss,
     long long dk_sb, long long dk_sh, long long dk_ss, long long dv_sb,
     long long dv_sh, long long dv_ss, int has_window, int window,
-    int kv_tiles, int cluster, int smem, void* stream) {
-  if (bad_shape(B, H, KH, Sq, Skv) || cluster < 1 ||
-      cluster > kMaxCluster || (H / KH) % cluster ||
-      (long long)cluster * KH * B > 0x7fffffffLL ||
-      kv_tiles != (Skv + kDkvKeys - 1) / kDkvKeys || kv_tiles > 65535 ||
-      smem != DkvSmem<kHd>::bytes((Sq + kDkvRows - 1) / kDkvRows) ||
-      smem > 232448 || (dk_sb | dk_sh | dk_ss | dv_sb | dv_sh | dv_ss) & 3 ||
-      (reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv)) &
-          15)
-    return (int)cudaErrorInvalidValue;
-  CUtensorMap maps[4];
-  int axes[4];
+    int kv_tiles, int cluster, int smem, int hd, void* stream) {
   const long long qs[3] = {q_sb, q_sh, q_ss}, ks[3] = {k_sb, k_sh, k_ss},
                   vs[3] = {v_sb, v_sh, v_ss}, gs[3] = {go_sb, go_sh, go_ss};
-  if (!make_maps(maps, axes, q, k, v, go, B, H, KH, Sq, Skv, qs, ks, vs, gs,
-                 kDkvRows, kDkvKeys))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<kHd>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster * KH * B, kv_tiles);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(
-      &cfg, flash_bwd_dkv_kernel<kHd>, maps[0], maps[1], maps[2], maps[3],
-      axes[0], axes[1], axes[2], axes[3], static_cast<const float*>(m),
-      static_cast<const float*>(l), static_cast<const float*>(di),
-      static_cast<const int*>(qpos), static_cast<const int*>(kpos),
-      static_cast<float*>(dk), static_cast<float*>(dv), H, KH, Sq, Skv, dk_sb,
-      dk_sh, dk_ss, dv_sb, dv_sh, dv_ss, has_window, window);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  if (hd == 64)
+    return launch_dkv<64>(q, k, v, go, m, l, di, qpos, kpos, dk, dv, B, H, KH,
+                          Sq, Skv, qs, ks, vs, gs, dk_sb, dk_sh, dk_ss, dv_sb,
+                          dv_sh, dv_ss, has_window, window, kv_tiles, cluster,
+                          smem, stream);
+  if (hd == 128)
+    return launch_dkv<128>(q, k, v, go, m, l, di, qpos, kpos, dk, dv, B, H,
+                           KH, Sq, Skv, qs, ks, vs, gs, dk_sb, dk_sh, dk_ss,
+                           dv_sb, dv_sh, dv_ss, has_window, window, kv_tiles,
+                           cluster, smem, stream);
+  return (int)cudaErrorInvalidValue;
 }

@@ -104,22 +104,51 @@ __device__ __forceinline__ Axes unpack_axes(int code) {
   return Axes{code & 3, (code >> 2) & 3, (code >> 4) & 3};
 }
 
-// TMA load of the map's box at (row0, head, batch).
+// TMA load of `rows` positions of one head of one batch row at (row0,
+// head, batch): HD / 64 boxes of one 128-byte swizzle atom (64 columns)
+// each, box j (columns 64 j ..) to dst + j rows 128 B.  A tile is so HD / 64
+// column blocks of `rows` 128-byte rows; a wgmma operand steps along them
+// with kmajor_step, or takes one block per 64 output columns.
+template <int HD>
 __device__ __forceinline__ void load_rows(void* dst, const CUtensorMap* map,
                                           uint64_t* bar, Axes ax, int row0,
-                                          int head, int batch) {
+                                          int head, int batch, int rows) {
   int c[4] = {0, 0, 0, 0};
   c[ax.s] = row0;
   c[ax.h] = head;
   c[ax.b] = batch;
-  hopper::tma_load_4d(dst, map, bar, c[0], c[1], c[2], c[3]);
+#pragma unroll
+  for (int j = 0; j < HD / 64; ++j)
+    hopper::tma_load_4d(static_cast<uint8_t*>(dst) + j * rows * 128, map,
+                        bar, 64 * j, c[1], c[2], c[3]);
+}
+
+// Descriptor offset (16-byte units) of k-step kk (16 columns) of a K-major
+// operand whose tile load_rows wrote with `rows` rows: +32 B within a
+// 64-column atom, then the next column block, rows x 128 B on.
+__device__ __forceinline__ uint64_t kmajor_step(int kk, int rows) {
+  return (uint64_t)((kk >> 2) * rows * 8 + 2 * (kk & 3));
+}
+
+// Descriptor offset (16-byte units) of column block c of a tile of `rows`
+// rows: the MN-major operand of the 64 output columns 64 c ..
+__device__ __forceinline__ uint64_t column_block(int c, int rows) {
+  return (uint64_t)(c * rows * 8);
+}
+
+// The 32 accumulators of output columns 64 c .. 64 c + 63 (one m64n64
+// product) of a row-of-64 accumulator array of HD / 2 floats.
+template <int R>
+__device__ __forceinline__ float (&acc64(float (&a)[R], int c))[32] {
+  return *reinterpret_cast<float(*)[32]>(&a[32 * c]);
 }
 
 // A 4-D tensor map of a (B, S, heads, hd) bf16 view given by element
 // strides: dim 0 is the contiguous head axis, dims 1..3 the sequence, head
 // and batch axes in increasing stride order, 128-byte swizzle.  Box:
-// `rows` positions of one head of one batch row.  Returns the Axes code,
-// or -1.
+// `rows` positions of one head of one batch row, 64 columns (the swizzle
+// atom; load_rows takes hd / 64 boxes).  Returns the Axes code, or -1 (also
+// for hd not a multiple of 64).
 inline int map_bshd(CUtensorMap* map, const void* base, int hd, int S,
                     int heads, int B, long long ss, long long sh,
                     long long sb, int rows) {
@@ -138,7 +167,8 @@ inline int map_bshd(CUtensorMap* map, const void* base, int hd, int S,
     }
   const uint64_t dims[4] = {(uint64_t)hd, ax[0].n, ax[1].n, ax[2].n};
   const uint64_t strides[3] = {ax[0].stride, ax[1].stride, ax[2].stride};
-  const uint32_t box[4] = {(uint32_t)hd, ax[0].box, ax[1].box, ax[2].box};
+  if (hd <= 0 || hd % 64) return -1;
+  const uint32_t box[4] = {64u, ax[0].box, ax[1].box, ax[2].box};
   if (!hopper::make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims,
                         strides, box, CU_TENSOR_MAP_SWIZZLE_128B))
     return -1;

@@ -33,9 +33,13 @@
 // l = 0, m = -1e30 and out = acc / max(l, 1e-30) = 0.  GQA reads kv head
 // h / (H / KH).  out, m and l are fp32.
 //
-// The head width is a template parameter; only HD = 64 is instantiated
-// and checked.  Width 128 needs two 64-column swizzle atoms per tile and an
-// m64n128 product for P V.  What is left: each warpgroup waits on its
+// The head width HD (q/k and v alike) is a template parameter,
+// instantiated for 64 and 128.  A tile row of 128 bf16 is two 128-byte
+// swizzle atoms, so every tile is HD / 64 column blocks (flash_common.cuh,
+// load_rows): Q K^T steps its descriptors along them (kmajor_step) and
+// O += P V runs one m64n64 product per block into its own 32 accumulators.
+// At 128 the block holds 129 KB of shared memory and 64 fp32 of O a thread.
+// What is left: each warpgroup waits on its
 // Q K^T before the softmax and on its P V before the next tile, so the
 // tensor cores idle while a warpgroup's softmax runs unless the other
 // warpgroups fill them.  Not yet: setmaxnreg, overlap of the softmax with
@@ -66,15 +70,15 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     float* __restrict__ l_out, int H, int KH, int Sq, int Skv,
     long long o_sb, long long o_sh, long long o_ss, int has_window,
     int window) {
-  static_assert(HD == 64, "K1 is instantiated for head width 64 only");
+  static_assert(HD == 64 || HD == 128, "K1 takes head width 64 or 128");
   constexpr int kTile = kBKV * HD * 2;  // bytes of one K or V tile
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   // 1 024-aligned for the 128-byte swizzle; offset from smem_raw so that
   // the compiler still reads through it with shared-memory loads
   uint8_t* smem = smem_raw + ((1024u - hopper::smem_u32(smem_raw)) & 1023u);
-  uint8_t* q_s = smem;                          // [128][64] bf16
-  uint8_t* k_s = q_s + kBQ * HD * 2;            // [stage][64][64]
-  uint8_t* v_s = k_s + kStages * kTile;         // [stage][64][64]
+  uint8_t* q_s = smem;                      // [HD / 64][128][64] bf16
+  uint8_t* k_s = q_s + kBQ * HD * 2;        // [stage][HD / 64][64][64]
+  uint8_t* v_s = k_s + kStages * kTile;     // [stage][HD / 64][64][64]
   uint64_t* bars = reinterpret_cast<uint64_t*>(v_s + kStages * kTile);
   uint64_t* qbar = bars;                        // 1
   uint64_t* full = bars + 1;                    // kStages
@@ -160,14 +164,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       const Axes qa = unpack_axes(q_axes), ka = unpack_axes(k_axes),
                  va = unpack_axes(v_axes);
       hopper::mbar_expect_tx(qbar, kBQ * HD * 2);
-      load_rows(q_s, &qmap, qbar, qa, q0, h, b);
+      load_rows<HD>(q_s, &qmap, qbar, qa, q0, h, b, kBQ);
       for (int i = 0; i < n_vis; ++i) {
         const int s = i % kStages;
         if (i >= kStages) hopper::mbar_wait(&empty[s], (i / kStages - 1) & 1);
         hopper::mbar_expect_tx(&full[s], 2 * kTile);
         const int k0 = (list[i] & ~kFullTile) * kBKV;
-        load_rows(k_s + s * kTile, &kmap, &full[s], ka, k0, kh, b);
-        load_rows(v_s + s * kTile, &vmap, &full[s], va, k0, kh, b);
+        load_rows<HD>(k_s + s * kTile, &kmap, &full[s], ka, k0, kh, b, kBKV);
+        load_rows<HD>(v_s + s * kTile, &vmap, &full[s], va, k0, kh, b, kBKV);
       }
     }
     return;
@@ -181,12 +185,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const long long qp1 = row1 < Sq ? qpos[row1] : -flash::kFar;
 
   float m0 = flash::kNeg, m1 = flash::kNeg, l0 = 0.0f, l1 = 0.0f;
-  float o[32], sc[32];
+  float o[HD / 2], sc[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.0f;
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
 
   hopper::mbar_wait(qbar, 0);
-  const uint64_t dq = hopper::desc_sw128(q_s + wg * 64 * HD * 2);
+  const uint64_t dq = hopper::desc_sw128(q_s + wg * 64 * 128);
 
   for (int i = 0; i < n_vis; ++i) {
     const int s = i % kStages, entry = list[i];
@@ -217,7 +221,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     hopper::fence_regs(sc);
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      hopper::wgmma_m64n64_ss<0>(sc, dq + 2 * kk, dk + 2 * kk, kk > 0);
+      hopper::wgmma_m64n64_ss<0>(sc, dq + flash::kmajor_step(kk, kBQ),
+                                 dk + flash::kmajor_step(kk, kBKV), kk > 0);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(sc);
@@ -275,7 +280,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       o[j * 4 + 3] *= corr1;
     }
 
-    // O += P V: P (bf16) from the S accumulators as A fragments, V MN-major
+    // O += P V: P (bf16) from the S accumulators as A fragments, V MN-major,
+    // one product per 64 columns of O
     uint32_t pa[kBKV / 16][4];
 #pragma unroll
     for (int kk = 0; kk < kBKV / 16; ++kk)
@@ -284,8 +290,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     hopper::wgmma_fence();
     hopper::fence_regs(o);
 #pragma unroll
-    for (int kk = 0; kk < kBKV / 16; ++kk)
-      hopper::wgmma_m64n64_rs<1>(o, pa[kk], dv + 128 * kk, 1);
+    for (int c = 0; c < HD / 64; ++c) {
+#pragma unroll
+      for (int kk = 0; kk < kBKV / 16; ++kk)
+        hopper::wgmma_m64n64_rs<1>(flash::acc64(o, c), pa[kk],
+                                   dv + flash::column_block(c, kBKV) +
+                                       128 * kk,
+                                   1);
+    }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(o);
@@ -320,20 +332,16 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 
 }  // namespace
 
-// q (B, H, Sq, D), k / v (B, KH, Skv, D) bf16 given by pointer and element
-// strides (batch, head, sequence; the last axis is contiguous, strides
-// multiples of 8, bases 16-byte aligned); qpos (Sq,), kpos (Skv,) int32;
-// out (B, H, Sq, D) fp32 by strides; m / l (B, H, Sq) fp32 contiguous.
-// Returns cudaGetLastError() (cudaErrorInvalidValue for a shape or layout
-// the kernel does not take).
-extern "C" int flash_fwd_bf16(
-    const void* q, const void* k, const void* v, const void* qpos,
-    const void* kpos, void* out, void* m, void* l, int B, int H, int KH,
-    int Sq, int Skv, long long q_sb, long long q_sh, long long q_ss,
-    long long k_sb, long long k_sh, long long k_ss, long long v_sb,
-    long long v_sh, long long v_ss, long long o_sb, long long o_sh,
-    long long o_ss, int has_window, int window, void* stream) {
-  constexpr int HD = 64;
+namespace {
+
+template <int HD>
+int launch_fwd(const void* q, const void* k, const void* v, const void* qpos,
+               const void* kpos, void* out, void* m, void* l, int B, int H,
+               int KH, int Sq, int Skv, long long q_sb, long long q_sh,
+               long long q_ss, long long k_sb, long long k_sh, long long k_ss,
+               long long v_sb, long long v_sh, long long v_ss, long long o_sb,
+               long long o_sh, long long o_ss, int has_window, int window,
+               void* stream) {
   if (B <= 0 || H <= 0 || KH <= 0 || H % KH || Sq <= 0 || Skv <= 0 ||
       (long long)B * H > 0x7fffffffLL || (Sq + kBQ - 1) / kBQ > 65535)
     return (int)cudaErrorInvalidValue;
@@ -357,4 +365,31 @@ extern "C" int flash_fwd_bf16(
       static_cast<float*>(m), static_cast<float*>(l), H, KH, Sq, Skv, o_sb,
       o_sh, o_ss, has_window, window);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q (B, H, Sq, D), k / v (B, KH, Skv, D) bf16 given by pointer and element
+// strides (batch, head, sequence; the last axis is contiguous, strides
+// multiples of 8, bases 16-byte aligned), D = hd, 64 or 128; qpos (Sq,),
+// kpos (Skv,) int32; out (B, H, Sq, D) fp32 by strides; m / l (B, H, Sq)
+// fp32 contiguous.  Returns cudaGetLastError() (cudaErrorInvalidValue for a
+// width, shape or layout the kernel does not take).
+extern "C" int flash_fwd_bf16(
+    const void* q, const void* k, const void* v, const void* qpos,
+    const void* kpos, void* out, void* m, void* l, int B, int H, int KH,
+    int Sq, int Skv, long long q_sb, long long q_sh, long long q_ss,
+    long long k_sb, long long k_sh, long long k_ss, long long v_sb,
+    long long v_sh, long long v_ss, long long o_sb, long long o_sh,
+    long long o_ss, int has_window, int window, int hd, void* stream) {
+  if (hd == 64)
+    return launch_fwd<64>(q, k, v, qpos, kpos, out, m, l, B, H, KH, Sq, Skv,
+                          q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
+                          v_ss, o_sb, o_sh, o_ss, has_window, window, stream);
+  if (hd == 128)
+    return launch_fwd<128>(q, k, v, qpos, kpos, out, m, l, B, H, KH, Sq, Skv,
+                           q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
+                           v_ss, o_sb, o_sh, o_ss, has_window, window,
+                           stream);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,5 @@
-"""The decoder stack for the ``dense`` block and the ``vlm`` modality (port
-of ``repro/models/transformer.py``: ``init_params``, ``_embed_inputs``,
+"""The decoder stack for the ``dense`` block and the ``text`` and ``vlm``
+modalities (port of ``repro/models/transformer.py``: ``init_params``, ``_embed_inputs``,
 ``block_forward``, ``_fill_kv_cache``, ``_run_segments`` with its remat
 policies, ``forward``, ``block_decode`` over a ring cache or a paged pool,
 ``decode_step``, ``decode_step_paged``, ``init_block_cache``,
@@ -16,7 +16,7 @@ reference's ``block_forward`` calls.  It keeps XLA from hoisting the
 layer-invariant attention masks out of its layer scan; PyTorch runs the
 layers eagerly and hoists nothing, so the barrier means nothing here.
 The MoE auxiliary losses are carried as zeros, which is what dense blocks
-give; the other block types and modalities are ROADMAP item M11.
+give; the other block types and the audio modality are ROADMAP item M11.
 """
 from __future__ import annotations
 
@@ -46,25 +46,43 @@ def cdtype(cfg: ArchConfig) -> torch.dtype:
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.modality != "vlm" or cfg.attn_type != "gqa" \
+    if cfg.modality not in ("text", "vlm") or cfg.attn_type != "gqa" \
             or set(cfg.block_pattern()) != {"dense"}:
         raise NotImplementedError(
-            f"{cfg.name}: this slice ports dense GQA blocks with the vlm "
-            "modality; the rest is ROADMAP queue M, item M11")
+            f"{cfg.name}: the port has dense GQA blocks with the text and "
+            "vlm modalities; the rest is ROADMAP queue M, item M11")
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
-def init_params(cfg: ArchConfig, *, seed: int = 0,
-                device: DeviceLike = None) -> Dict:
-    """Random parameters with the reference's shapes and scales, drawn
-    from a ``torch.Generator`` seeded with ``seed`` on ``device`` (CUDA
-    unless ``device="cpu"``).  The draws differ from the reference's
-    ``jax.random`` ones; tests carry the reference's own parameters
-    across with ``repro_torch.bridge.from_jax_params``."""
-    _check_supported(cfg)
+def init_block_params(cfg: ArchConfig, n: int, normal, const) -> Dict:
+    """``n`` layer-stacked dense blocks: ``normal(*shape, scale=)`` and
+    ``const(value, *shape)`` draw the leaves."""
+    d, hd = cfg.d_model, cfg.head_dim
+    dq, dkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    return {
+        "ln1": const(1.0, n, d),
+        "ln2": const(1.0, n, d),
+        "attn": {
+            "wq": normal(n, d, dq, scale=d ** -0.5),
+            "wk": normal(n, d, dkv, scale=d ** -0.5),
+            "wv": normal(n, d, dkv, scale=d ** -0.5),
+            "wo": normal(n, dq, d, scale=dq ** -0.5),
+        },
+        "ffn": {
+            "w_gate": normal(n, d, cfg.d_ff, scale=d ** -0.5),
+            "w_up": normal(n, d, cfg.d_ff, scale=d ** -0.5),
+            "w_down": normal(n, cfg.d_ff, d, scale=cfg.d_ff ** -0.5),
+        },
+    }
+
+
+def leaf_makers(cfg: ArchConfig, seed: int, device: DeviceLike):
+    """``(normal, const, gen, dev)``: leaf makers in the parameter dtype
+    drawing from a ``torch.Generator`` seeded with ``seed`` on ``device``
+    (CUDA unless ``device="cpu"``)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dtype = pdtype(cfg)
@@ -77,39 +95,36 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
     def const(value, *shape):
         return torch.full(shape, value, dtype=dtype, device=dev)
 
-    d, hd = cfg.d_model, cfg.head_dim
-    dq, dkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
-    d_conn = cfg.d_connector or d
-    params: Dict = {
-        "embed": {"emb": normal(cfg.vocab_size, d, scale=0.02)},
-        "connector": {
+    return normal, const, gen, dev
+
+
+def init_params(cfg: ArchConfig, *, seed: int = 0,
+                device: DeviceLike = None) -> Dict:
+    """Random parameters with the reference's shapes and scales, drawn
+    from a ``torch.Generator`` seeded with ``seed`` on ``device`` (CUDA
+    unless ``device="cpu"``).  The draws differ from the reference's
+    ``jax.random`` ones; tests carry the reference's own parameters
+    across with ``repro_torch.bridge.from_jax_params``.  A text model has
+    no connector."""
+    _check_supported(cfg)
+    normal, const, gen, dev = leaf_makers(cfg, seed, device)
+    dtype = pdtype(cfg)
+    d = cfg.d_model
+    params: Dict = {"embed": {"emb": normal(cfg.vocab_size, d, scale=0.02)}}
+    if cfg.modality == "vlm":
+        d_conn = cfg.d_connector or d
+        params["connector"] = {
             "w1": normal(cfg.d_vision, d_conn, scale=cfg.d_vision ** -0.5),
             "b1": const(0.0, d_conn),
             "w2": normal(d_conn, d, scale=d_conn ** -0.5),
             "b2": const(0.0, d),
-        },
-        "head": {"w": normal(d, cfg.vocab_size, scale=d ** -0.5)},
-        "final_norm": const(1.0, d),
-    }
+        }
+    params["head"] = {"w": normal(d, cfg.vocab_size, scale=d ** -0.5)}
+    params["final_norm"] = const(1.0, d)
     client_segs, server_segs = cfg.client_server_segments()
     for side, segs in (("client", client_segs), ("server", server_segs)):
-        params[side] = {
-            f"seg{i}": {
-                "ln1": const(1.0, n, d),
-                "ln2": const(1.0, n, d),
-                "attn": {
-                    "wq": normal(n, d, dq, scale=d ** -0.5),
-                    "wk": normal(n, d, dkv, scale=d ** -0.5),
-                    "wv": normal(n, d, dkv, scale=d ** -0.5),
-                    "wo": normal(n, dq, d, scale=dq ** -0.5),
-                },
-                "ffn": {
-                    "w_gate": normal(n, d, cfg.d_ff, scale=d ** -0.5),
-                    "w_up": normal(n, d, cfg.d_ff, scale=d ** -0.5),
-                    "w_down": normal(n, cfg.d_ff, d,
-                                     scale=cfg.d_ff ** -0.5),
-                },
-            } for i, (_, n) in enumerate(segs)}
+        params[side] = {f"seg{i}": init_block_params(cfg, n, normal, const)
+                        for i, (_, n) in enumerate(segs)}
     if cfg.split.enabled and cfg.split.learnable_codec:
         # near-identity, so the cut is transparent at step 0
         eye = torch.eye(d, dtype=torch.float32, device=dev)
@@ -257,6 +272,8 @@ def init_paged_caches(cfg: ArchConfig, n_pages: int, page_size: int,
 def _embed_inputs(params: Dict, cfg: ArchConfig, batch: Dict
                   ) -> torch.Tensor:
     dtype = cdtype(cfg)
+    if cfg.modality == "text":
+        return embed(params["embed"], batch["tokens"], dtype)
     if "image_features" in batch:
         # split-serve: the client ran the connector and shipped its
         # activations over the quantized wire; embed them as they are

@@ -4,7 +4,10 @@ Global-norm gradient clipping, decoupled weight decay (skipped for 1-D
 params: norms and biases), and a configurable moment dtype.  Parameters
 keep their dtype: the update runs in fp32 and is cast back, as in the
 reference.  The update is functional (new tensors), like the reference's,
-so a state can be stepped twice from the same point.
+so a state can be stepped twice from the same point; ``donate=True``
+writes the new values into the old tensors instead, leaf by leaf, the
+port's counterpart of a jit with donated buffers: the same values without
+a second copy of the parameters and moments in memory.
 """
 from __future__ import annotations
 
@@ -66,8 +69,11 @@ def _decay_mask(params):
 
 @torch.no_grad()
 def adamw_update(params, grads, state: Dict, cfg: AdamWConfig,
-                 lr_scale=1.0) -> Tuple[Any, Dict, Dict]:
-    """One AdamW step.  Returns (new_params, new_state, metrics)."""
+                 lr_scale=1.0, donate: bool = False
+                 ) -> Tuple[Any, Dict, Dict]:
+    """One AdamW step.  Returns (new_params, new_state, metrics); with
+    ``donate`` they are ``params`` and ``state``'s own tensors, updated in
+    place."""
     gnorm = global_norm(grads)
     scale = torch.clamp_max(cfg.clip_norm / (gnorm + 1e-9), 1.0)
     step = state["step"] + 1
@@ -87,6 +93,11 @@ def adamw_update(params, grads, state: Dict, cfg: AdamWConfig,
         if decay:
             delta = delta + cfg.weight_decay * p.float()
         p_new = p.float() - lr * delta
+        if donate:
+            p.copy_(p_new)
+            m.copy_(m_new)
+            v.copy_(v_new)
+            return p, m, v
         return p_new.to(p.dtype), m_new.to(m.dtype), v_new.to(v.dtype)
 
     out = tree_map(upd, params, grads, state["m"], state["v"],

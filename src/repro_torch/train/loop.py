@@ -46,15 +46,17 @@ def init_state(cfg: ArchConfig, opt_cfg: AdamWConfig, *, seed: int = 0,
 
 
 def apply_gradients(state: TrainState, grads, opt_cfg: AdamWConfig, *,
-                    warmup_steps: int = 0,
-                    total_steps: int = 0) -> Tuple[TrainState, Dict]:
+                    warmup_steps: int = 0, total_steps: int = 0,
+                    donate: bool = False) -> Tuple[TrainState, Dict]:
     """Warmup-cosine scheduled AdamW update of a TrainState.
-    ``total_steps == 0`` disables the schedule (constant lr)."""
+    ``total_steps == 0`` disables the schedule (constant lr).  ``donate``
+    updates the state's parameters and moments in place
+    (``adamw_update``)."""
     lr_scale = warmup_cosine(state.step, warmup_steps=warmup_steps,
                              total_steps=total_steps) \
         if total_steps else 1.0
     new_params, new_opt, opt_metrics = adamw_update(
-        state.params, grads, state.opt, opt_cfg, lr_scale)
+        state.params, grads, state.opt, opt_cfg, lr_scale, donate=donate)
     return TrainState(params=new_params, opt=new_opt,
                       step=state.step + 1), opt_metrics
 

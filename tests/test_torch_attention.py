@@ -1,7 +1,9 @@
 """The port's attention (kernels K1, K2 / K3 and K8, and the layers around
-them) against the JAX reference, on the CPU, in fp32; the launch plans of
-K2 / K3 and of K6 - K9; and a plain model of the decode kernels' split of
-a row's pages (a slot's table row, or a ring row's virtual pages) over a
+them) against the JAX reference, on the CPU, in fp32, K1 - K3 at head
+width 16 and 128; the launch plans of K2 / K3 (at the compiled widths 64
+and 128) and of K6 - K9; the wrappers' refusals of widths the kernels are
+not compiled for; and a plain model of the decode kernels' split of a
+row's pages (a slot's table row, or a ring row's virtual pages) over a
 cluster's ranks."""
 from collections import Counter
 
@@ -51,12 +53,24 @@ FLASH_CASES = [
 ]
 
 
-def _operands(sq, skv, h, kh, window, kv_valid_len, chunk, seed=0):
+# the head width of the FLASH_CASES checks; D128_CASES run them at the
+# width of llama3_2_3b, which K1 - K3 are compiled for on the card
+D = 16
+D128_CASES = [FLASH_CASES[i] for i in (1, 2, 3, 4, 5)]
+
+
+def _atol(d, ref):
+    """ATOL at D 16; at D 128, where every sum runs over 8x the terms and
+    the gradients reach ~10, ATOL relative to the largest |ref|."""
+    return ATOL if d == D else ATOL * max(1.0, float(np.abs(ref).max()))
+
+
+def _operands(sq, skv, h, kh, window, kv_valid_len, chunk, seed=0, d=D):
     """Pre-scaled, chunk-padded operands with sentinel positions, built as
     the reference's flash_attention builds them."""
-    q, k, v = _qkv(1, sq, h, kh, 16, seed, skv)
+    q, k, v = _qkv(1, sq, h, kh, d, seed, skv)
     pad_q, pad_kv = (-sq) % chunk, (-skv) % chunk
-    qs = np.pad(q * 16 ** -0.5, ((0, 0), (0, pad_q), (0, 0), (0, 0)))
+    qs = np.pad(q * d ** -0.5, ((0, 0), (0, pad_q), (0, 0), (0, 0)))
     k = np.pad(k, ((0, 0), (0, pad_kv), (0, 0), (0, 0)))
     v = np.pad(v, ((0, 0), (0, pad_kv), (0, 0), (0, 0)))
     qpos = np.pad(np.arange(sq, dtype=np.int32), (0, pad_q),
@@ -75,8 +89,19 @@ def test_flash_forward_plain_matches_reference_kernel(case):
     mode and the jnp reference, on every row that sees a key.  A row that
     sees none (a padded q row) is 0 with l = 0 in the port; the reference
     leaves a block-size-dependent value there (ROADMAP queue F)."""
+    _check_flash_forward(case, D)
+
+
+@pytest.mark.parametrize("case", D128_CASES)
+def test_flash_forward_plain_matches_reference_kernel_d128(case):
+    """As above at head width 128 (GQA, padded tails, kv_valid_len, a
+    window, G = 3)."""
+    _check_flash_forward(case, 128)
+
+
+def _check_flash_forward(case, d):
     sq, skv, h, kh, window, kvl, chunk = case
-    qs, k, v, qpos, kpos = _operands(*case)
+    qs, k, v, qpos, kpos = _operands(*case, d=d)
     bhsd = lambda a: np.ascontiguousarray(a.transpose(0, 2, 1, 3))  # noqa
     jo, jm, jl = flash_kernel.forward(
         jnp.asarray(bhsd(qs)), jnp.asarray(bhsd(k)), jnp.asarray(bhsd(v)),
@@ -87,9 +112,9 @@ def test_flash_forward_plain_matches_reference_kernel(case):
     seen = np.asarray(tl)[..., 0] > 0
     assert seen[:, :, :sq].all() and not seen[:, :, sq:].any()
     np.testing.assert_allclose(to.numpy()[seen], np.asarray(jo)[seen],
-                               atol=ATOL)
+                               atol=_atol(d, jo))
     np.testing.assert_allclose(tm.numpy()[seen], np.asarray(jm)[seen],
-                               atol=ATOL)
+                               atol=_atol(d, jm))
     np.testing.assert_allclose(tl.numpy()[seen], np.asarray(jl)[seen],
                                rtol=ATOL)
     assert np.all(to.numpy()[~seen] == 0) and np.all(tl.numpy()[~seen] == 0)
@@ -98,7 +123,7 @@ def test_flash_forward_plain_matches_reference_kernel(case):
                               jnp.asarray(kpos), window, chunk)
     port = tops.flash(_t(qs), _t(k), _t(v), _t(qpos), _t(kpos), window)
     np.testing.assert_allclose(port.numpy()[:, :sq], np.asarray(jr)[:, :sq],
-                               atol=ATOL)
+                               atol=_atol(d, jr))
 
 
 @pytest.mark.parametrize("case", FLASH_CASES)
@@ -144,8 +169,18 @@ def test_flash_backward_plain_matches_reference_kernels(case):
     all fed the JAX forward's own (m, l) and di.  Rows that see no key
     (padded q rows) get a zero output gradient, as flash_attention gives
     them; there the reference's P is not 0 (attention_ref docstring)."""
+    _check_flash_backward(case, D)
+
+
+@pytest.mark.parametrize("case", D128_CASES)
+def test_flash_backward_plain_matches_reference_kernels_d128(case):
+    """As above at head width 128."""
+    _check_flash_backward(case, 128)
+
+
+def _check_flash_backward(case, d):
     sq, skv, h, kh, window, kvl, chunk = case
-    qs, k, v, qpos, kpos = _operands(*case)
+    qs, k, v, qpos, kpos = _operands(*case, d=d)
     rng = np.random.default_rng(5)
     go = rng.normal(size=qs.shape).astype(np.float32)  # (B, S, H, D)
     go[:, sq:] = 0.0
@@ -167,7 +202,8 @@ def test_flash_backward_plain_matches_reference_kernels(case):
     dq, dk, dv = tref.flash_backward_ref(*targs, window=window)
     assert dq.dtype == dk.dtype == dv.dtype == torch.float32
     for port, ref in ((dq, jdq), (dk, jdk), (dv, jdv)):
-        np.testing.assert_allclose(port.numpy(), np.asarray(ref), atol=ATOL)
+        np.testing.assert_allclose(port.numpy(), np.asarray(ref),
+                                   atol=_atol(d, ref))
     # the wrappers run the same plain version on CPU tensors
     np.testing.assert_array_equal(
         tops.flash_backward_dq(*targs, window=window).numpy(), dq.numpy())
@@ -181,7 +217,7 @@ def test_flash_backward_plain_matches_reference_kernels(case):
     rq, rk, rv = vjp(jnp.asarray(go))
     for port, ref in ((dq, rq), (dk, rk), (dv, rv)):
         np.testing.assert_allclose(_bhsd(port.numpy()), np.asarray(ref),
-                                   atol=ATOL)
+                                   atol=_atol(d, ref))
 
 
 @pytest.mark.parametrize("case", FLASH_CASES)
@@ -229,13 +265,16 @@ def test_flash_attention_function_gradcheck(window):
 PLAN_SHAPES = [(4, 20, 5, 1024, 1024), (2, 24, 8, 1024, 1024),
                (2, 16, 16, 512, 512), (1, 32, 2, 1024, 1024),
                (1, 20, 5, 100, 100)]
+# the same shapes at each compiled head width: (b, h, kh, sq, skv, hd)
+PLAN_SHAPES_HD = [s + (64,) for s in PLAN_SHAPES] \
+    + [s + (128,) for s in PLAN_SHAPES]
 
 
-def _plan_blocks(b, h, kh, sq, skv):
+def _plan_blocks(b, h, kh, sq, skv, hd=64):
     """The (tile, query head, batch row) items each block of K2 and of K3
     takes, in order, blocks in launch order (grid x fastest), as the
     kernels map blockIdx from the plan (csrc/flash_bwd.cu)."""
-    dq, dkv = tops.flash_bwd_plan(b, h, kh, sq, skv)
+    dq, dkv = tops.flash_bwd_plan(b, h, kh, sq, skv, hd)
     g, p = h // kh, len(dq.heads[0])
     dq_blocks = [[(dq.tiles[y], x % (h // p) * p + j, x // (h // p))
                   for j in dq.heads[0]]
@@ -249,13 +288,13 @@ def _plan_blocks(b, h, kh, sq, skv):
     return dq_blocks, dkv_blocks
 
 
-@pytest.mark.parametrize("shape", PLAN_SHAPES)
+@pytest.mark.parametrize("shape", PLAN_SHAPES_HD)
 def test_flash_bwd_plan_covers_every_tile_once(shape):
     """K2's blocks take every (q tile of 128 rows, head, batch row) once and
     K3's every (kv tile of 128 keys, query head, batch row) once; the
     blocks of a K3 cluster share one (kv tile, kv head, batch row), each
-    sweeping its heads in increasing order."""
-    b, h, kh, sq, skv = shape
+    sweeping its heads in increasing order.  At head widths 64 and 128."""
+    b, h, kh, sq, skv, hd = shape
     dq, dkv = tops.flash_bwd_plan(*shape)
     dq_blocks, dkv_blocks = _plan_blocks(*shape)
     assert len(dq_blocks) == dq.grid[0] * dq.grid[1]
@@ -301,15 +340,73 @@ def test_flash_bwd_plan_cluster_divides_group(shape):
         assert len(dq.heads[0]) == 2 and c == 2
 
 
-@pytest.mark.parametrize("shape", PLAN_SHAPES)
+@pytest.mark.parametrize("shape", PLAN_SHAPES_HD)
 def test_flash_bwd_plan_fits_shared_memory(shape):
     """Both kernels' dynamic shared memory fits a block on the H100 (227
     KB), at the shape and at a 32k sequence (the visible-tile list grows
-    with it)."""
-    b, h, kh, sq, skv = shape
+    with it), at head widths 64 and 128 (K2 keeps 2 ring stages at 128)."""
+    b, h, kh, sq, skv, hd = shape
     for plan in tops.flash_bwd_plan(*shape) + tops.flash_bwd_plan(
-            b, h, kh, 32768, 32768):
+            b, h, kh, 32768, 32768, hd):
         assert 48 * 1024 < plan.smem <= tops.SMEM_MAX == 232448
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_flash_bwd_plan_shared_memory_at_each_width(shape):
+    """The plans' shared memory is the kernels' layout (csrc/flash_bwd.cu,
+    DqSmem / DkvSmem) at each width: K2 two Q / dO slots of 128 rows and a
+    ring of 3 (64) or 2 (128) K / V stages of 64 keys, K3 the K / V tiles
+    of 128 keys, 3 stages of Q / dO tiles of 64 rows and their row
+    statistics; both the mbarriers, 32 bytes of scratch and the tile
+    list.  The grid and the heads do not depend on the width."""
+    b, h, kh, sq, skv = shape
+    nkv64, nq64 = -(-skv // 64), -(-sq // 64)
+    for hd, stages in ((64, 3), (128, 2)):
+        dq, dkv = tops.flash_bwd_plan(b, h, kh, sq, skv, hd)
+        assert dq.smem == 1024 + 4 * 128 * hd * 2 + 2 * stages * 64 * hd * 2 \
+            + (4 + 2 * stages) * 8 + 32 + nkv64 * 4
+        assert dkv.smem == 1024 + (2 * 128 + 6 * 64) * hd * 2 \
+            + 3 * 3 * 64 * 4 + 7 * 8 + 32 + nq64 * 4
+        assert (dq.grid, dq.heads, dkv.grid, dkv.heads) == (
+            tops.flash_bwd_plan(*shape)[0].grid,
+            tops.flash_bwd_plan(*shape)[0].heads,
+            tops.flash_bwd_plan(*shape)[1].grid,
+            tops.flash_bwd_plan(*shape)[1].heads)
+
+
+def test_flash_wrappers_refuse_other_widths():
+    """CUDA-free argument checks: K1 - K3 take D = Dv in (64, 128) and
+    name queue K item 2 for Dv != D; the plan refuses other widths; the
+    decode kernels K6 - K9 take 64 only and name queue K item 1."""
+    def ops(d, dv=None):
+        q = torch.zeros(1, 4, 16, d, dtype=torch.bfloat16)
+        k = torch.zeros(1, 2, 16, d, dtype=torch.bfloat16)
+        v = torch.zeros(1, 2, 16, d if dv is None else dv,
+                        dtype=torch.bfloat16)
+        pos = torch.arange(16, dtype=torch.int32)
+        return q, k, v, pos, pos
+
+    for d in (64, 128):
+        qpos, _ = tops._check_flash("K1", *ops(d))
+        assert qpos.dtype == torch.int32
+    with pytest.raises(ValueError, match="head_dim"):
+        tops._check_flash("K1", *ops(96))
+    with pytest.raises(ValueError, match="item 2"):
+        tops._check_flash("K1", *ops(128, dv=64))
+    with pytest.raises(ValueError, match="head_dim"):
+        tops.flash_bwd_plan(1, 4, 2, 16, 16, 96)
+    for d in (64, 128):
+        qf = torch.zeros(2, 2, 2, d, dtype=torch.bfloat16)
+        cache = torch.zeros(2, 8, 2, d, dtype=torch.bfloat16)
+        pos = torch.zeros(2, 8, dtype=torch.int32)
+        qpos = torch.zeros(2, dtype=torch.int32)
+        if d == 64:
+            tops._check_decode("K6", qf, cache, cache, (), pos, qpos,
+                               torch.bfloat16)
+        else:
+            with pytest.raises(ValueError, match="item 1"):
+                tops._check_decode("K6", qf, cache, cache, (), pos, qpos,
+                                   torch.bfloat16)
 
 
 @pytest.mark.parametrize("shape", PLAN_SHAPES)

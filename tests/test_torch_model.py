@@ -180,5 +180,5 @@ def test_unported_model_features_raise():
     import dataclasses
 
     with pytest.raises(NotImplementedError, match="M11"):
-        ttf.init_params(dataclasses.replace(TCFG, modality="text"),
+        ttf.init_params(dataclasses.replace(TCFG, modality="audio"),
                         device="cpu")
