@@ -601,15 +601,15 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
       hopper::fence_regs(dp);
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk)
-        hopper::wgmma_m64n64_ss<0>(sc, dka_s + flash::kmajor_step(kk, kDkvKeys),
-                                   dq_s + flash::kmajor_step(kk, kDkvRows),
-                                   kk > 0);
+        hopper::wgmma_m64n64_ss<0>(
+            sc, dka_s + flash::kmajor_step(kk, kDkvKeys),
+            dq_s + flash::kmajor_step(kk, kDkvRows), kk > 0);
       hopper::wgmma_commit();
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk)
-        hopper::wgmma_m64n64_ss<0>(dp, dva_s + flash::kmajor_step(kk, kDkvKeys),
-                                   dg_s + flash::kmajor_step(kk, kDkvRows),
-                                   kk > 0);
+        hopper::wgmma_m64n64_ss<0>(
+            dp, dva_s + flash::kmajor_step(kk, kDkvKeys),
+            dg_s + flash::kmajor_step(kk, kDkvRows), kk > 0);
       hopper::wgmma_commit();
       hopper::wgmma_wait<1>();
       hopper::fence_regs(sc);

@@ -263,14 +263,17 @@ def main(argv=None) -> int:
           f"{args.micro_batch} x {args.seq} tokens)")
     wire = pipeline_wire_bytes(cfg, split, args.micro_batch, args.seq, bwd)
     shipments = args.steps * args.n_micro
+    bwd_codec = "raw" if bwd is None else f"{bwd.method}-{bwd.bits}bit"
     for (src, dst), entry in sorted(wire["links"].items()):
-        for direction, link, per in (("fwd", (src, dst), entry["fwd"]),
-                                     ("bwd", (dst, src), entry["bwd"])):
+        fwd_codec = f"{entry['quant']}-{entry['bits']}bit"
+        for direction, link, codec, per in (
+                ("fwd", (src, dst), fwd_codec, entry["fwd"]),
+                ("bwd", (dst, src), bwd_codec, entry["bwd"])):
             got = transport.bytes[link]
             print(f"[split-pipeline] link {link[0]}->{link[1]} "
-                  f"({direction}, {entry['quant']}-{entry['bits']}bit): "
-                  f"counted {got} B, chain_wire_bytes {per} B x "
-                  f"{shipments} shipments = {per * shipments} B")
+                  f"({direction}, {codec}): counted {got} B, "
+                  f"chain_wire_bytes {per} B x {shipments} shipments = "
+                  f"{per * shipments} B")
     print(f"[split-pipeline] wire bytes a tick (per device, fwd + bwd): "
           f"{wire_b:.0f}")
     return 0

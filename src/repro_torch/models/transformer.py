@@ -1,9 +1,10 @@
 """The decoder stack for the ``dense`` block and the ``text`` and ``vlm``
-modalities (port of ``repro/models/transformer.py``: ``init_params``, ``_embed_inputs``,
-``block_forward``, ``_fill_kv_cache``, ``_run_segments`` with its remat
-policies, ``forward``, ``block_decode`` over a ring cache or a paged pool,
-``decode_step``, ``decode_step_paged``, ``init_block_cache``,
-``init_caches`` and ``init_paged_caches``; 16-bit or int8 KV caches).
+modalities (port of ``repro/models/transformer.py``: ``init_params``,
+``_embed_inputs``, ``block_forward``, ``_fill_kv_cache``, ``_run_segments``
+with its remat policies, ``forward``, ``block_decode`` over a ring cache
+or a paged pool, ``decode_step``, ``decode_step_paged``,
+``init_block_cache``, ``init_caches`` and ``init_paged_caches``; 16-bit or
+int8 KV caches).
 
 Parameters are a plain dict keyed like the reference's tree, with each
 segment's layers stacked on a leading axis (``models/stack.py``).  The
