@@ -44,7 +44,11 @@ non-zero:
               run eight paged cases (npp 1 - 128, pages of 8 - 64, G 1 -
               16, windows that empty whole cluster ranks), each the same
               bits twice, timed by graph replay and eager at the mixed
-              case and at the serve shape.
+              case and at the serve shape.  K6 - K9 run again at head
+              width 128 at llama3_2_3b's shapes (8 kv heads, G 3: ring rows
+              of 1 088 with a padded tail, a wrapped ring, the paged mixed
+              case, the llama serve shape, npp 128, G 16), rows ``*_d128``
+              of the kernels line, K6 against SDPA.
 3. serve   -- full-width tinyllava (16 layers, d 1280, bf16, random weights
               from a seed) behind ServeEngine with the 2-bit RD-FSQ split
               wire: 8 requests through 4 slots until all finish.  Launch
@@ -104,8 +108,28 @@ non-zero:
               every gradient leaf at cosine >= 0.98.  K1 - K3 run at head
               width 128 here; the kernels phase holds them against their
               plain versions at llama's shapes too.
+14. lora pipeline -- SplitLoRA on the same 2-stage full-width pipeline:
+              rank-8 adapters, 4 AdamW steps of 4 microbatches of 2 x
+              1 024 tokens over the 2-bit link with a raw cotangent; the
+              loss falls (the last step's below the first's, and the
+              first batch's after the steps), every base leaf
+              bit-identical to a host copy taken before, AdamW's moments
+              one fp32 each per adapter parameter, exact launches of
+              K1 - K5 and link bytes, save_adapters -> load_adapters
+              bit-exact.
+15. llama serve -- full-width llama3_2_3b as configured (its 2-bit cut at
+              layer 14; weights from seed 0) with merged rank-8 adapters
+              (B at scale 0.05): ServeEngine(lora_adapters=) over bf16
+              pools (K1, K8 at head width 128) and int8 pools (K9), 8
+              requests through 4 slots of 16-token pages, exact launches
+              and pool bytes by formula; the merged weights bit-identical
+              to apply_lora's; generate() of 4 prompts of 512 tokens, 32
+              new, over bf16 and int8 ring caches (K6, K7); one request's
+              prefill and 4 teacher-forced decode steps against the fp32
+              CPU path, the cut off (within 5%, the same argmax).
 
-The last lines are the card (nvidia-smi), the per-kernel JSON line and
+Every phase prints its seconds and the device memory after it.  The last
+lines are the card (nvidia-smi), the per-kernel JSON line and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
@@ -176,6 +200,11 @@ PIPE_STEPS, PIPE_MICRO, PIPE_MB, PIPE_SEQ, PIPE_LR = 6, 4, 2, 1024, 3e-4
 PIPE_MONO_RTOL = 1e-3
 # the two-layer card-vs-CPU parity: 2 microbatches of 1 x 256 tokens
 PIPE_PARITY = (2, 1, 256)
+# SplitLoRA on the pipeline: 4 AdamW steps of the rank-8 adapters
+LORA_RANK, LORA_STEPS, LORA_LR = 8, 4, 3e-3
+# merged serving of llama3_2_3b: generate's 4 prompts of 512 tokens; the
+# card-vs-CPU parity's teacher-forced decode steps
+LLAMA_GEN_BATCH, LLAMA_GEN_TEXT, LLAMA_PARITY_STEPS = 4, 512, 4
 # int8 K/V bytes per (token, kv head) over bf16: (64 + 2) / 128
 INT8_POOL_RATIO = 0.515625
 # K12 against its plain version, relative to max |plain|: the dequantized
@@ -885,8 +914,9 @@ def _decode_bytes(n_visible: int, kh: int, row_bytes: int,
     return n_visible * kh * row_bytes + other_bytes
 
 
-def _ring_case(gen, b, length, qpos, kh=5, g=4):
-    """A (B, L, KH, D) bf16 ring cache (the generate widths by default),
+def _ring_case(gen, b, length, qpos, kh=5, g=4, d=64):
+    """A (B, L, KH, D) bf16 ring cache (tinyllava's generate widths by
+    default),
     each row holding every position up to its qpos that still fits
     (position p at slot p mod L); a row with qpos = -1 holds nothing.
     Returns (qf, k, v, q8, kpos, qpos) with q8 the int8 codes and fp16
@@ -895,7 +925,7 @@ def _ring_case(gen, b, length, qpos, kh=5, g=4):
     import torch
     from repro_torch.models.layers.attention import quantize_kv_token
 
-    dev, d = "cuda", 64
+    dev = "cuda"
     k = torch.randn((b, length, kh, d), generator=gen, device=dev).bfloat16()
     v = torch.randn((b, length, kh, d), generator=gen, device=dev).bfloat16()
     kpos = torch.full((b, length), -1, dtype=torch.int32)
@@ -929,22 +959,22 @@ def _hold_decode(tag, what, plan, run, ref, dead) -> float:
     return e
 
 
-def check_ring_decode(gen, results):
-    """K6 and K7 against their plain versions over one ring cache per case
-    (K7 reads the codes and fp16 scales of K6's bf16 cache): the generate
-    shape (B 4, L 825, timed since the kernels were first ported) at
-    window None and at window 200 (which empties whole cluster ranks), a
-    wrapped ring, a prime L with a row of no key, L 2000 (K6's ranks take
-    two rounds through two buffers, K7's one), G 1 and G 16, and L 37
-    (fewer virtual pages than 8 ranks).  Every output within DECODE_ATOL,
-    exactly 0 on a row with no visible key, the same bits on two runs.
-    Timed as device time by CUDA-graph replay and eager at the generate
-    shape, with SDPA over the same cache as the yardstick."""
-    import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import attention_ops, attention_ref
-
-    cases = {
+def _ring_cases(gen, d):
+    """check_ring_decode's cases, by name: (case, windows); the first is
+    timed."""
+    if d == 128:  # llama3_2_3b: 8 kv heads, G 3
+        return {
+            "D128 llama shape B4 L1088 (a padded tail)": (
+                _ring_case(gen, 4, 1088, [1087, 1000, 543, 100], kh=8, g=3,
+                           d=d), (None, 200)),
+            "D128 wrapped ring L1088, a row with no key": (
+                _ring_case(gen, 4, 1088, [2000, 1500, 1087, -1], kh=8, g=3,
+                           d=d), (None,)),
+            "D128 G16 (KH2) L2000": (
+                _ring_case(gen, 4, 2000, [1999, 3100, 700, -1], kh=2, g=16,
+                           d=d), (None, 200)),
+        }
+    return {
         "generate shape B4 L825": (
             _ring_case(gen, 4, 825, [824, 792, 500, 100]), (None, 200)),
         "wrapped ring L256": (
@@ -960,13 +990,35 @@ def check_ring_decode(gen, results):
         "L37 (3 virtual pages)": (_ring_case(gen, 4, 37, [36, 80, 2, -1]),
                                   (None, 8)),
     }
+
+
+def check_ring_decode(gen, results, d=64):
+    """K6 and K7 against their plain versions over one ring cache per case
+    (K7 reads the codes and fp16 scales of K6's bf16 cache).  Head width
+    64: the generate shape (B 4, L 825, timed since the kernels were first
+    ported) at window None and at window 200 (which empties whole cluster
+    ranks), a wrapped ring, a prime L with a row of no key, L 2000 (K6's
+    ranks take two rounds through two buffers, K7's one), G 1 and G 16,
+    and L 37 (fewer virtual pages than 8 ranks).  Head width 128 (rows
+    ``*_d128``): llama3_2_3b's shape (B 4, 8 kv heads, G 3, ring rows of
+    1 088 with a padded tail; timed), a wrapped ring with a row of no key,
+    G 16 at L 2000.  Every output within DECODE_ATOL, exactly 0 on a row
+    with no visible key, the same bits on two runs.  Timed as device time
+    by CUDA-graph replay and eager at the first case, with SDPA over the
+    same cache (GQA, boolean mask) as the yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import attention_ops, attention_ref
+
+    cases = _ring_cases(gen, d)
+    suffix = "" if d == 64 else D128
     worst = {"decode": 0.0, "decode_q8": 0.0}
     for name, (case, windows) in cases.items():
         qf, k, v, q8, kpos, qpos = case
         b, kh, g, _ = qf.shape
         plans = {kernel: attention_ops.decode_paged_plan(
             b, kh, -(-k.shape[1] // attention_ops.RING_PAGE),
-            attention_ops.RING_PAGE, g, elem)
+            attention_ops.RING_PAGE, g, elem, d)
             for kernel, elem in (("decode", 2), ("decode_q8", 1))}
         for window in windows:
             kw = dict(window=window)
@@ -989,7 +1041,8 @@ def check_ring_decode(gen, results):
                                  plans[kernel], run, ref, dead)
                 worst[kernel] = max(worst[kernel], e)
 
-    qf, k, v, q8, kpos, qpos = cases["generate shape B4 L825"][0]
+    timed = next(iter(cases))
+    qf, k, v, q8, kpos, qpos = cases[timed][0]
     b, kh, g, d = qf.shape
     valid = attention_ref._decode_valid(kpos, qpos, None)
     n_vis = int(valid.sum())
@@ -1006,7 +1059,7 @@ def check_ring_decode(gen, results):
 
     card = smi()
     lib_ms, lib_eager = time_graph_ms(sdpa, 16), time_ms(sdpa)
-    print(f"[kernels] SDPA (GQA, bool mask) generate shape: device "
+    print(f"[kernels] SDPA (GQA, bool mask) {timed}: device "
           f"{lib_ms:.4f} ms (graph replay), eager {lib_eager:.4f} ms; "
           f"{card}")
     fns = {
@@ -1021,18 +1074,18 @@ def check_ring_decode(gen, results):
         dev_ms, eager = time_graph_ms(fn, 16), time_ms(fn)
         bnd = bound(_decode_bytes(n_vis, kh, row_bytes, rest), flops)
         tag = "K6" if kernel == "decode" else "K7"
-        print(f"[kernels] {tag} {kernel} generate shape: device "
+        print(f"[kernels] {tag} {kernel} {timed}: device "
               f"{dev_ms:.4f} ms (graph replay), eager {eager:.4f} ms, bound "
               f"{bnd[0]:.5f} ms ({bnd[1]}); {card}")
-        results[kernel] = dict(
+        results[kernel + suffix] = dict(
             max_abs_err=worst[kernel], ms=dev_ms,
             plain_ms=time_ms(plain, reps=5, inner=1), library_ms=lib,
             bound=bnd)
 
 
 def _paged_case(gen, lens, n_pages=None, npp=64, pg=16, kh=5, g=4,
-                holes=()):
-    """Pools of (n_pages, pg, kh, 64) random bf16 rows; slot i holds
+                holes=(), d=64):
+    """Pools of (n_pages, pg, kh, d) random bf16 rows; slot i holds
     ``lens[i]`` tokens (0: inactive, qpos = -1) on pages drawn in a random
     order, its positions 0 .. lens[i] - 1; ``holes``: (slot, j) table
     entries set to -1 (unallocated).  Returns (qf, k_pool, v_pool, q8,
@@ -1041,7 +1094,7 @@ def _paged_case(gen, lens, n_pages=None, npp=64, pg=16, kh=5, g=4,
     import torch
     from repro_torch.models.layers.attention import quantize_kv_token
 
-    dev, d, s = gen.device, 64, len(lens)
+    dev, s = gen.device, len(lens)
     if n_pages is None:
         n_pages = 1 + sum(-(-n // pg) for n in lens)
     k_pool = torch.randn((n_pages, pg, kh, d), generator=gen,
@@ -1073,7 +1126,7 @@ def _paged_case(gen, lens, n_pages=None, npp=64, pg=16, kh=5, g=4,
 
 
 def _paged_bound(case, row_bytes):
-    """The least time of K8 (``row_bytes`` 2 * 64 * 2) or K9 (2 * 66):
+    """The least time of K8 (``row_bytes`` 2 * D * 2) or K9 (2 (D + 2)):
     K and V of the visible keys, the positions of every table entry, the
     table, q; out written.  Returns (bound, operations)."""
     from repro_torch.kernels import attention_ref
@@ -1088,22 +1141,26 @@ def _paged_bound(case, row_bytes):
                  n_vis * kh * 4 * g * d)
 
 
-def check_decode(gen, results):
-    """K8 and K9 against their plain versions over one set of pools per
-    case (K9 reads the codes and fp16 scales of K8's bf16 pools): the mixed
-    case (slots of 854, 500 with a -1 page, 0 and 100 tokens; timed since
-    the kernels were first ported), the serve shape (4 active
-    slots of 760 - 860 tokens), npp 1 and 128, pages of 8 and 64, G 1 and
-    16, each at window None and (where it empties whole cluster ranks) 200.
-    Every output within DECODE_ATOL, exactly 0 on a slot with no visible
-    key, the same bits on two runs.  Timed as device time by CUDA-graph
-    replay and eager, at the mixed case (the kernels line) and the serve
-    shape."""
-    import torch
-    from repro_torch.kernels import attention_ops, attention_ref
-
+def _paged_cases(gen, d):
+    """check_decode's cases, by name: (case, windows); the first two are
+    timed (the mixed case for the kernels line, then the serve shape)."""
     holes = ((1, 5),)
-    cases = {
+    if d == 128:  # llama3_2_3b: 8 kv heads, G 3; its serve slots
+        return {
+            "D128 S4 KH8 G3 pg16 npp64 (a -1 page, an inactive slot)": (
+                _paged_case(gen, (854, 500, 0, 100), n_pages=433,
+                            holes=holes, kh=8, g=3, d=d), (None, 200)),
+            "D128 serve shape: 4 slots of 75-128 tokens, npp8": (
+                _paged_case(gen, (112, 90, 128, 75), npp=8, kh=8, g=3, d=d),
+                (None,)),
+            "D128 npp128 (2000 tokens)": (
+                _paged_case(gen, (2000, 1500, 0, 37), npp=128, holes=holes,
+                            kh=8, g=3, d=d), (None, 200)),
+            "D128 pg64 npp16 G16 (KH2)": (
+                _paged_case(gen, (854, 500, 0, 100), npp=16, pg=64, kh=2,
+                            g=16, holes=((1, 2),), d=d), (None, 200)),
+        }
+    return {
         "S4 KH5 G4 pg16 npp64 (a -1 page, an inactive slot)": (
             _paged_case(gen, (854, 500, 0, 100), n_pages=433, holes=holes),
             (None, 200)),
@@ -1123,12 +1180,33 @@ def check_decode(gen, results):
         "G16 (KH2)": (_paged_case(gen, (854, 500, 0, 100), kh=2, g=16,
                                   holes=holes), (None, 200)),
     }
+
+
+def check_decode(gen, results, d=64):
+    """K8 and K9 against their plain versions over one set of pools per
+    case (K9 reads the codes and fp16 scales of K8's bf16 pools).  Head
+    width 64: the mixed case (slots of 854, 500 with a -1 page, 0 and 100
+    tokens; timed since the kernels were first ported), the serve shape
+    (4 active slots of 760 - 860 tokens), npp 1 and 128, pages of 8 and
+    64, G 1 and 16.  Head width 128 (rows ``*_d128``, llama3_2_3b's 8 kv
+    heads and G 3): the mixed case, the llama serve shape (4 slots of
+    75 - 128 tokens, 8 table entries), npp 128, pages of 64 at G 16.  Each
+    at window None and (where it empties whole cluster ranks) 200.  Every
+    output within DECODE_ATOL, exactly 0 on a slot with no visible key,
+    the same bits on two runs.  Timed as device time by CUDA-graph replay
+    and eager, at the mixed case (the kernels line) and the serve
+    shape."""
+    import torch
+    from repro_torch.kernels import attention_ops, attention_ref
+
+    cases = _paged_cases(gen, d)
+    suffix = "" if d == 64 else D128
     worst = {"decode_paged": 0.0, "decode_paged_q8": 0.0}
     for name, (case, windows) in cases.items():
         qf, k_pool, v_pool, q8, pos_pool, page_table, qpos = case
         plans = {kernel: attention_ops.decode_paged_plan(
             qf.shape[0], qf.shape[1], page_table.shape[1], k_pool.shape[1],
-            qf.shape[2], elem)
+            qf.shape[2], elem, d)
             for kernel, elem in (("decode_paged", 2), ("decode_paged_q8", 1))}
         for window in windows:
             kw = dict(window=window)
@@ -1155,9 +1233,7 @@ def check_decode(gen, results):
                 worst[kernel] = max(worst[kernel], e)
 
     card = smi()
-    for label, key in (("mixed case", next(iter(cases))),
-                       ("serve shape", "serve shape: 4 slots of 760-860 "
-                        "tokens, npp64")):
+    for label, key in zip(("mixed case", "serve shape"), cases):
         qf, k_pool, v_pool, q8, pos_pool, page_table, qpos = \
             cases[key][0]
         fns = {
@@ -1166,23 +1242,23 @@ def check_decode(gen, results):
                     qf, k_pool, v_pool, pos_pool, page_table, qpos),
                 lambda: attention_ref.decode_attention_paged_ref(
                     qf, k_pool, v_pool, pos_pool, page_table, qpos),
-                2 * 64 * 2),
+                2 * d * 2),
             "decode_paged_q8": (
                 lambda: attention_ops.decode_paged_q8(
                     qf, *q8, pos_pool, page_table, qpos),
                 lambda: attention_ref.decode_attention_paged_q8_ref(
                     qf, *q8, pos_pool, page_table, qpos),
-                2 * (64 + 2)),
+                2 * (d + 2)),
         }
         for kernel, (fn, plain, row_bytes) in fns.items():
             dev_ms, eager = time_graph_ms(fn, 16), time_ms(fn)
             b = _paged_bound(cases[key][0], row_bytes)
             tag = "K8" if kernel == "decode_paged" else "K9"
-            print(f"[kernels] {tag} {kernel} {label}: device {dev_ms:.4f} ms"
-                  f" (graph replay), eager {eager:.4f} ms, bound "
-                  f"{b[0]:.5f} ms ({b[1]}); {card}")
+            print(f"[kernels] {tag} {kernel}{suffix} {label}: device "
+                  f"{dev_ms:.4f} ms (graph replay), eager {eager:.4f} ms, "
+                  f"bound {b[0]:.5f} ms ({b[1]}); {card}")
             if label == "mixed case":  # the kernels line's row
-                results[kernel] = dict(
+                results[kernel + suffix] = dict(
                     max_abs_err=worst[kernel], ms=dev_ms,
                     plain_ms=time_ms(plain, reps=5, inner=1),
                     library_ms=None, bound=b)
@@ -1363,6 +1439,8 @@ def phase_kernels():
     check_nf(gen, results)
     check_ring_decode(gen, results)
     check_decode(gen, results)
+    check_ring_decode(gen, results, d=128)
+    check_decode(gen, results, d=128)
     check_wq(gen, results)
     for name, r in results.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -1378,6 +1456,8 @@ def phase_kernels():
 # ---------------------------------------------------------------------------
 
 def _requests(cfg, n, seed):
+    """``n`` (prompt of 16 - 96 tokens, budget of 16 - 32 new, image
+    embeddings or None for a text config) from ``seed``."""
     import torch
 
     gen = torch.Generator().manual_seed(seed)
@@ -1387,8 +1467,10 @@ def _requests(cfg, n, seed):
         plen = int(torch.randint(16, 97, (1,), generator=gen))
         max_new = int(torch.randint(16, 33, (1,), generator=gen))
         toks = torch.randint(1, cfg.vocab_size, (plen,), generator=gen)
-        img = torch.randn((cfg.n_image_tokens, cfg.d_vision),
-                          generator=img_gen, device="cuda")
+        img = None
+        if cfg.modality == "vlm":
+            img = torch.randn((cfg.n_image_tokens, cfg.d_vision),
+                              generator=img_gen, device="cuda")
         out.append((toks.tolist(), max_new, img))
     return out
 
@@ -2257,6 +2339,316 @@ def phase_pipeline():
 
 
 # ---------------------------------------------------------------------------
+# phase 14: SplitLoRA on the split pipeline at full width
+# ---------------------------------------------------------------------------
+
+def phase_lora_pipeline():
+    """SplitLoRA (rank LORA_RANK) on full-width llama3_2_3b as 2 stages of
+    14 layers: LORA_STEPS AdamW steps of the adapters over the 2-bit
+    forward link with a raw cotangent; returns the run's launch counts."""
+    import torch
+    from repro_torch import checkpoint
+    from repro_torch.core.quantizers import QuantConfig
+    from repro_torch.core.split import SplitConfig, Transport
+    from repro_torch.kernels import build
+    from repro_torch.launch import split_pipeline as sp
+    from repro_torch.optim import AdamWConfig, param_bytes
+    from repro_torch.peft import adapter_bytes, adapter_param_count
+    from repro_torch.utils.tree import tree_count, tree_flatten_with_path
+
+    cfg = sp._homogeneous_cfg("llama3_2_3b", n_stages=2)
+    split = SplitConfig(quant=QuantConfig(method="rdfsq", bits=2),
+                        learnable_codec=False, n_stages=2)
+    n_micro, mb, seq = PIPE_MICRO, PIPE_MB, PIPE_SEQ
+    params = sp.init_pipeline_params(cfg, 2, LORA_RANK, seed=0)
+    ad = params["adapters"]
+    n_ad = adapter_param_count(ad)
+    print(f"[lora pipeline] full-width {cfg.name}, 2 stages of "
+          f"{cfg.n_layers // 2} layers, rank {LORA_RANK}: {n_ad} adapter "
+          f"parameters ({adapter_bytes(ad)} B, {cfg.param_dtype}) on "
+          f"{tree_count(params) - n_ad} frozen ones")
+    # the frozen base on the host, to hold it bit for bit after the steps
+    base = {path: t.cpu() for path, t in tree_flatten_with_path(
+        {k: v for k, v in params.items() if k != "adapters"})}
+    batches = [(torch.as_tensor(t).cuda(), torch.as_tensor(lab).cuda())
+               for t, lab in sp.make_batches(cfg, LORA_STEPS, n_micro, mb,
+                                             seq, seed=1)]
+    stamps = []
+
+    def feed():
+        for b in batches:
+            stamps.append(time.perf_counter())
+            yield b
+        stamps.append(time.perf_counter())
+
+    transport = Transport()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    params, opt, history, _ = sp.train_pipeline(
+        cfg, split, AdamWConfig(lr=LORA_LR, weight_decay=0.0), feed(),
+        n_micro=n_micro, micro_batch=mb, seq=seq, params=params,
+        transport=transport, lora_rank=LORA_RANK)
+    torch.cuda.synchronize()
+    launches = dict(build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    times = [b - a for a, b in zip(stamps, stamps[1:])]
+    # the loss falls: the last step's below the first's, and on the first
+    # step's batch after the steps below before them (each step takes
+    # another batch, whose own loss moves with the data)
+    with torch.no_grad():
+        after = float(sp.build_pipeline_step(
+            cfg, split, n_micro, mb, seq, lora_rank=LORA_RANK)(
+                params, *batches[0])[0])
+    print(f"[lora pipeline] {LORA_STEPS} steps of {n_micro} x {mb} x {seq} "
+          f"tokens, lr {LORA_LR}: loss " + " -> ".join(
+              f"{v:.4f}" for v in history) + f"; the first batch's loss "
+          f"{history[0]:.4f} before the steps, {after:.4f} after")
+    require(all(math.isfinite(v) for v in history + [after])
+            and history[-1] < history[0] and after < history[0],
+            f"lora pipeline loss {history}, first batch after the steps "
+            f"{after}")
+    frozen = all(torch.equal(t.cpu(), base[path]) for path, t in
+                 tree_flatten_with_path({k: v for k, v in params.items()
+                                         if k != "adapters"}))
+    print(f"[lora pipeline] every base leaf bit-identical after the steps: "
+          f"{frozen} ({len(base)} leaves)")
+    require(frozen, "lora pipeline: the base moved")
+    # AdamW's moments cover the adapters alone: one fp32 m (and v) per
+    # adapter parameter, so m's bytes are adapter_bytes in fp32 (2 x the
+    # bf16 adapters' own)
+    m_bytes = param_bytes(opt["m"])
+    full = 2 * 4 * (tree_count(params) - n_ad)
+    print(f"[lora pipeline] AdamW m {m_bytes} B = {n_ad} adapter "
+          f"parameters x 4 B (adapter_bytes {adapter_bytes(params['adapters'])}"
+          f" B in {cfg.param_dtype}); m + v {2 * m_bytes} B against "
+          f"{full} B for full fine-tuning's fp32 moments "
+          f"({full / (2 * m_bytes):.0f}x)")
+    require(tree_count(opt["m"]) == n_ad and m_bytes == 4 * n_ad
+            and [p for p, _ in tree_flatten_with_path(opt["m"])]
+            == [p for p, _ in tree_flatten_with_path(params["adapters"])],
+            "lora pipeline: moments not sized by the adapters")
+    _check_launches("lora pipeline", launches,
+                    _pipe_expect(cfg.n_layers, n_micro, LORA_STEPS,
+                                 {"rdfsq_quantize": 1,
+                                  "rdfsq_dequantize": 1}))
+    _check_link_bytes("lora pipeline", transport,
+                      sp.pipeline_wire_bytes(cfg, split, mb, seq),
+                      LORA_STEPS * n_micro)
+    path = ROOT / "build" / "chip_smoke" / "adapters.npz"
+    checkpoint.save_adapters(str(path), params["adapters"])
+    back = checkpoint.load_adapters(str(path), params["adapters"])
+    exact = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        tree_flatten_with_path(params["adapters"]),
+        tree_flatten_with_path(back)))
+    print(f"[lora pipeline] save_adapters -> load_adapters bit-exact: "
+          f"{exact} ({path.stat().st_size} B on disk)")
+    require(exact, "lora pipeline: adapter checkpoint")
+    path.unlink()
+    print(f"[lora pipeline] {1e3 * statistics.median(times[1:]):.1f} ms per "
+          f"step (median of steps 2-{LORA_STEPS}; first step "
+          f"{1e3 * times[0]:.1f} ms), "
+          f"{n_micro * mb * seq / statistics.median(times[1:]):.0f} training "
+          f"tokens/s; peak device memory {peak / 2 ** 30:.2f} GiB")
+    del params, opt, back
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 15: merged serving of full-width llama3_2_3b
+# ---------------------------------------------------------------------------
+
+def _pool_bytes(cfg, n_pages, page_size) -> int:
+    """K / V pool bytes by formula: K and V of every layer, page, token and
+    kv head; D bf16 values, or D int8 codes and an fp16 scale."""
+    row = 2 * cfg.head_dim if cfg.kv_cache_bits == 16 else cfg.head_dim + 2
+    return 2 * cfg.n_layers * n_pages * page_size * cfg.n_kv_heads * row
+
+
+def _serve_llama(cfg, params, adapters, reqs, tag):
+    """``reqs`` through ServeEngine(lora_adapters=) with 4 slots of 16-token
+    pages; returns the launch counts and the engine."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.serve.engine import ServeEngine
+
+    page_size, n_slots = 16, 4
+    n_pages = 1 + sum(-(-(len(t) + m) // page_size) for t, m, _ in reqs)
+
+    def engine():
+        return ServeEngine(params, cfg, n_slots=n_slots, page_size=page_size,
+                           n_pages=n_pages, lora_adapters=adapters)
+
+    warm = engine()  # first-call set-up (cuBLAS, allocator) off the clock
+    warm.submit(reqs[0][0], max_new=2)
+    warm.run()
+    del warm
+    eng = engine()
+    rids = [eng.submit(t, max_new=m) for t, m, _ in reqs]
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.launches)
+    st = eng.stats
+    for rid, (_, m, _) in zip(rids, reqs):
+        r = eng.request(rid)
+        require(r.state == "done" and len(r.out) == m
+                and all(0 <= t < cfg.vocab_size for t in r.out),
+                f"{tag} request {rid}: {r.state}, {len(r.out)} of {m}")
+    eng.page_pool.check_invariants()
+    require(eng.page_pool.n_live == 0, f"{tag}: pages still live")
+    n_pb, n_dt = st["prefill_batches"], st["decode_ticks"]
+    kernel = "decode_paged_q8" if cfg.kv_cache_bits == 8 else "decode_paged"
+    _check_launches(tag, launches, {"flash_fwd": cfg.n_layers * n_pb,
+                                    kernel: cfg.n_layers * n_dt})
+    pool = _kv_bytes(eng.pools)
+    want = _pool_bytes(cfg, n_pages, page_size)
+    print(f"[{tag}] {len(reqs)} requests, {st['tokens_emitted']} tokens in "
+          f"{wall:.3f} s: {st['tokens_emitted'] / wall:.1f} tokens/s; {n_pb} "
+          f"prefill batches, {1e3 * st['prefill_seconds'] / n_pb:.2f} ms per "
+          f"prefill batch; {n_dt} decode ticks, "
+          f"{1e3 * st['decode_seconds'] / n_dt:.2f} ms per tick; K/V pool "
+          f"bytes {pool} (formula {want})")
+    require(pool == want, f"{tag} pool bytes {pool}, expected {want}")
+    return launches, eng
+
+
+def _llama_parity(cfg, params, toks):
+    """One request on the card (bf16) against the port's CPU path in fp32
+    from the same (merged) weights, with the cut off as in
+    ``_decode_parity``: the prefill's logits, then LLAMA_PARITY_STEPS
+    teacher-forced decode steps over bf16 ring caches (K6), each within
+    PARITY_RTOL and with the same argmax."""
+    import torch
+    from repro_torch.serve import decode as sd
+
+    no_cut = dict(split=dataclasses.replace(cfg.split, enabled=False))
+    cfg_b = dataclasses.replace(cfg, **no_cut)
+    cfg32 = dataclasses.replace(cfg_b, param_dtype="float32",
+                                compute_dtype="float32")
+    params32 = _tree(params, _cpu32)
+    tokens = torch.tensor([toks])
+    n = tokens.shape[1]
+    cache_len = n + LLAMA_PARITY_STEPS
+    gl, gcache = sd.prefill(params, cfg_b, dict(tokens=tokens.cuda()),
+                            cache_len)
+    t0 = time.perf_counter()
+    cl, ccache = sd.prefill(params32, cfg32, dict(tokens=tokens), cache_len)
+    print(f"[llama parity] the fp32 CPU prefill of {n} tokens took "
+          f"{time.perf_counter() - t0:.1f} s")
+    gstep, cstep = sd.make_serve_step(cfg_b), sd.make_serve_step(cfg32)
+    g, c = gl[0].float().cpu(), cl[0]
+    what = "prefill"
+    tok = cl[:, -1].argmax(dim=-1)
+    for i in range(LLAMA_PARITY_STEPS + 1):
+        if i:
+            qpos = torch.tensor([n + i - 1], dtype=torch.int32)
+            gl, _ = gstep(params, gcache, dict(tokens=tok[:, None].cuda()),
+                          qpos.cuda())
+            cl, _ = cstep(params32, ccache, dict(tokens=tok[:, None]), qpos)
+            g, c = gl[0].float().cpu(), cl[0]
+            what = f"decode step {i} (K6)"
+            tok = c[-1].argmax()[None]
+        rel = float((g - c).norm() / c.norm())
+        agree = int(g[-1].argmax()) == int(c[-1].argmax())
+        top2 = torch.topk(c[-1], 2).values
+        print(f"[llama parity] {what}, cut off: relative error {rel:.3e} "
+              f"(tol {PARITY_RTOL}); argmax card {int(g[-1].argmax())} cpu "
+              f"{int(c[-1].argmax())} agree {agree} (cpu top-2 gap "
+              f"{float(top2[0] - top2[1]):.4f})")
+        require(math.isfinite(rel) and rel < PARITY_RTOL and agree,
+                f"llama parity {what}: rel {rel}, argmax agree {agree}")
+    del params32
+
+
+def phase_serve_llama():
+    """Merged SplitLoRA serving of full-width llama3_2_3b (the config as it
+    stands: its 2-bit cut at layer 14, weights from seed 0, adapters of
+    rank LORA_RANK with B at scale 0.05): the engine over bf16 pools (K1,
+    K8 at 128) and int8 pools (K9), static ``generate`` over bf16 and int8
+    ring caches (K6, K7 at 128), the merge against ``apply_lora`` and a
+    card-vs-CPU parity check.  Returns the launch counts by path."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models.transformer import init_params
+    from repro_torch.peft import adapter_param_count, apply_lora, \
+        init_lora_params
+    from repro_torch.serve import decode as sd
+    from repro_torch.utils.tree import tree_count, tree_flatten_with_path
+
+    cfg = get_config("llama3_2_3b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0)
+    adapters = init_lora_params(torch.Generator(device="cuda")
+                                .manual_seed(0), params, LORA_RANK,
+                                b_scale=0.05)
+    torch.cuda.synchronize()
+    print(f"[llama serve] full-width {cfg.name}: {tree_count(params)} "
+          f"parameters, {cfg.n_heads}/{cfg.n_kv_heads} heads of width "
+          f"{cfg.head_dim}, the 2-bit cut at layer "
+          f"{cfg.split.resolve_cut(cfg.n_layers)}; {adapter_param_count(adapters)}"
+          f" adapter parameters of rank {LORA_RANK}; weights from seed 0 in "
+          f"{time.perf_counter() - t0:.1f} s")
+    reqs = _requests(cfg, 8, seed=7)
+    paths = {}
+    paths["llama serve"], eng = _serve_llama(cfg, params, adapters, reqs,
+                                             "llama serve")
+    merged = eng.params
+    del eng
+    applied = apply_lora(params, adapters)
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        tree_flatten_with_path(merged), tree_flatten_with_path(applied)))
+    print(f"[llama serve] the engine's merged weights bit-identical to "
+          f"apply_lora's: {same}")
+    require(same, "llama serve: merged weights differ from apply_lora's")
+    del applied
+    cfg8 = dataclasses.replace(cfg, kv_cache_bits=8)
+    paths["llama int8 serve"], _ = _serve_llama(cfg8, params, adapters, reqs,
+                                                "llama int8 serve")
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    batch = dict(tokens=torch.randint(1, cfg.vocab_size,
+                                      (LLAMA_GEN_BATCH, LLAMA_GEN_TEXT),
+                                      generator=gen, device="cuda"))
+    cache_len = LLAMA_GEN_TEXT + GEN_NEW
+    total = dict.fromkeys(build.KERNELS, 0)
+    for bits, kernel in ((16, "decode"), (8, "decode_q8")):
+        cfg_b = dataclasses.replace(cfg, kv_cache_bits=bits)
+        sd.generate(merged, cfg_b, batch, n_new=2, cache_len=cache_len)
+        torch.cuda.synchronize()  # first-call set-up off the clock
+        build.reset_launches()
+        t0 = time.perf_counter()
+        toks = sd.generate(merged, cfg_b, batch, n_new=GEN_NEW,
+                           cache_len=cache_len)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _check_launches(f"llama generate {bits}-bit", dict(build.launches),
+                        {"flash_fwd": cfg.n_layers,
+                         kernel: cfg.n_layers * GEN_NEW})
+        for k, n in build.launches.items():
+            total[k] += n
+        require(toks.shape == (LLAMA_GEN_BATCH, GEN_NEW) and bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()),
+            f"llama generate {bits}-bit tokens {toks.shape}")
+        step_ms = _step_ms(cfg_b, merged, batch, cache_len, toks)
+        print(f"[llama generate {bits}-bit] {LLAMA_GEN_BATCH} requests x "
+              f"{LLAMA_GEN_TEXT} prompt tokens, {GEN_NEW} new, ring caches "
+              f"of {cache_len}: {wall:.3f} s prefill + decode, "
+              f"{LLAMA_GEN_BATCH * GEN_NEW / wall:.1f} tokens/s end to end; "
+              f"{step_ms:.2f} ms per decode step (median of {GEN_NEW})")
+    paths["llama generate"] = total
+    _llama_parity(cfg, merged, reqs[0][0])
+    del params, adapters, merged
+    torch.cuda.empty_cache()
+    return paths
+
+
+# ---------------------------------------------------------------------------
 # phase 12: one training step on the card against the fp32 CPU path
 # ---------------------------------------------------------------------------
 
@@ -2349,6 +2741,19 @@ def run_tinyllava():
     return paths
 
 
+def _timed(name, fn, *args):
+    """Run one phase; print its seconds and the device memory after it."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    print(f"[phases] {name}: {time.perf_counter() - t0:.1f} s; device memory "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, "
+          f"peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return out
+
+
 def main() -> int:
     import gc
 
@@ -2361,26 +2766,30 @@ def main() -> int:
 
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__},"
           f" cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
-    phase_build()
-    results = phase_kernels()
-    paths = run_tinyllava()  # head width 64
+    _timed("build", phase_build)
+    results = _timed("kernels", phase_kernels)
+    paths = _timed("tinyllava", run_tinyllava)  # head width 64
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[pipeline] device memory before the phase: "
           f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
-    pipe_paths = phase_pipeline()  # head width 128
-    for path, launches in {**paths, **pipe_paths}.items():
+    # head width 128: the pipeline, SplitLoRA on it, merged llama serving
+    paths128 = _timed("pipeline", phase_pipeline)
+    paths128["lora pipeline"] = _timed("lora pipeline", phase_lora_pipeline)
+    paths128.update(_timed("llama serve", phase_serve_llama))
+    for path, launches in {**paths, **paths128}.items():
         print(f"[launches] {path}: {launches}")
 
-    flash = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    by_width = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "decode",
+                "decode_q8", "decode_paged", "decode_paged_q8")
     kernels = []
-    for name in list(REPLACES) + [f + D128 for f in flash]:
+    for name in list(REPLACES) + [k + D128 for k in by_width]:
         r = results[name]
         kernel = name.removesuffix(D128)
-        # the flash rows count their width's paths (tinyllava: 64, the
-        # pipeline: 128); the wire kernels every path
-        counted = ({**paths, **pipe_paths} if kernel not in flash else
-                   pipe_paths if name.endswith(D128) else paths)
+        # the attention rows count their width's paths (tinyllava: 64,
+        # llama3_2_3b: 128); the wire and weight kernels every path
+        counted = ({**paths, **paths128} if kernel not in by_width else
+                   paths128 if name.endswith(D128) else paths)
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[kernel],
             replaces=REPLACES[kernel],

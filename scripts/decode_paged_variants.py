@@ -43,8 +43,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # source edits of the timing-only variants: (old, new) replacements
 EDITS = {
-    "empty": [("  using R = Rows<Elem>;\n",
-               "  using R = Rows<Elem>;\n  if (npp > 0) return;\n")],
+    "empty": [("  using R = Rows<Elem, D>;\n",
+               "  using R = Rows<Elem, D>;\n  if (npp > 0) return;\n")],
     "nocompute": [("for (int chunk = warp; chunk < nch;",
                    "for (int chunk = warp; chunk < 0;")],
     "nocopy": [("      cp_async16(dst, src, v);\n", "")],

@@ -8,9 +8,9 @@ restores into the port's (``train/loop.py``), and the reverse, exactly.
 A packed weight store (``wq.PackedLinear``) is saved as the reference's
 pytree node is: its ``codes``, ``scales``, ``mins`` and, when present,
 ``perm`` under ``<path>/<field>`` (JAX flattens a ``None`` child away);
-its layout fields come from the template on restore.  The adapter
-checkpoints (``save_adapters`` / ``load_adapters``) are
-ROADMAP item M9.
+its layout fields come from the template on restore.  A SplitLoRA
+adapter checkpoint (``save_adapters`` / ``load_adapters``) holds the
+adapter tree alone, in the same layout.
 """
 from __future__ import annotations
 
@@ -105,3 +105,24 @@ def restore(path: str, template: Any) -> Any:
                 f"template {tuple(leaf.shape)}")
         leaves[key] = t.to(leaf.device)
     return _unflatten(template, leaves)
+
+
+def save_adapters(path: str, adapters: Any) -> None:
+    """Save a SplitLoRA adapter tree, and nothing else: every leaf's path
+    must end in ``lora_a`` / ``lora_b`` (``peft.init_lora_params``'s
+    layout), so the file stays the adapters' size, not the model's."""
+    flat = _flatten(adapters)
+    if not flat:
+        raise ValueError("empty adapter tree")
+    for key, _ in flat:
+        if key.rsplit("/", 1)[-1] not in ("lora_a", "lora_b"):
+            raise ValueError(f"not an adapter tree: leaf {key!r} is not a "
+                             "lora_a / lora_b entry")
+    save(path, adapters)
+
+
+def load_adapters(path: str, template: Any) -> Any:
+    """Restore an adapter tree saved by :func:`save_adapters` into the
+    structure of ``template`` (``init_lora_params(...)`` or
+    ``params["adapters"]``), bit for bit (bf16 through its uint16 view)."""
+    return restore(path, template)

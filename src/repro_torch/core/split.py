@@ -17,9 +17,10 @@ dtype (the paper's scope) or through ``bwd_quant``.  Where the reference
 ``ppermute``s across the ``pod`` mesh axis of one SPMD program, the port's
 stages share one process and one device, and the transport is an
 in-process send that counts every byte it carries (a ``torch.distributed``
-transport is ROADMAP item M9).  ``WireLink`` owns one directed cut with
-its shape-only byte accounting.  The SplitLoRA gradient return
-(``grad_quant``, ``grad_trip``) and the hub's ``HubConfig`` are M9.
+transport is the hub's, ROADMAP queue M item M9b).  ``WireLink`` owns one
+directed cut with its shape-only byte accounting.  The hub's
+adapter-gradient return (``grad_quant``, ``grad_trip``) and its
+``HubConfig`` are M9b.
 """
 from __future__ import annotations
 
@@ -221,9 +222,10 @@ def _payload_bytes(q: QuantConfig, shape, dtype) -> int:
         q, torch.empty(shape, dtype=dtype, device="meta")).wire_bytes()
 
 
-def _m9(what: str):
+def _m9b(what: str):
     return NotImplementedError(
-        f"{what} is the SplitLoRA gradient return, ROADMAP queue M, item M9")
+        f"{what} is the hub's adapter-gradient return, ROADMAP queue M, "
+        "item M9b")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -231,8 +233,8 @@ class WireLink:
     """One directed quantized edge of a split topology: the forward
     ``QuantConfig``, the optional backward (cotangent) quant, and the
     per-link byte accounting.  ``src`` / ``dst`` are stage indices;
-    ``client`` tags hub links (M9); ``grad_quant`` is carried for
-    SplitLoRA (M9).  Each link is counted once, on the stages that run
+    ``client`` tags hub links (M9b); ``grad_quant`` is carried for the
+    hub's adapter-gradient return (M9b).  Each link is counted once, on the stages that run
     it."""
 
     src: int
@@ -280,10 +282,10 @@ class WireLink:
         return _payload_bytes(self.bwd_quant, tuple(shape), dtype)
 
     def grad_wire_bytes(self, grad_tree_sds) -> int:
-        raise _m9("WireLink.grad_wire_bytes")
+        raise _m9b("WireLink.grad_wire_bytes")
 
     def grad_trip(self, grad_tree, transport: Transport):
-        raise _m9("WireLink.grad_trip")
+        raise _m9b("WireLink.grad_trip")
 
 
 def tree_payload_bytes(q: Optional[QuantConfig], tree) -> int:
@@ -312,8 +314,8 @@ def group_links(links: Tuple[WireLink, ...]
                                  Tuple[WireLink, ...]], ...]:
     """Links grouped by identical (quant, bwd_quant), in first-seen
     order: the reference emits one collective per group.  The in-process
-    chain ships link by link and does not group; M9's hub schedules
-    will."""
+    chain ships link by link and does not group; the hub's schedules
+    (M9b) will."""
     groups: list = []
     for link in links:
         for i, (q, bq, ls) in enumerate(groups):

@@ -9,9 +9,10 @@ segment functions (:func:`embed_tokens`, :func:`run_blocks`,
 :func:`head_ce`) plus the :class:`StageProgram` record of which segments
 a partition owns.
 
-SplitLoRA stages (``lora_rank > 0``), the hub's programs
-(``hub_programs``) and the packed serving stage
-(``quantized_stage_blocks``) are ROADMAP queue M, item M9.
+SplitLoRA stages (``lora_rank > 0``) carry a stage-stacked ``"adapters"``
+tree beside ``"blocks"`` and run each layer on ``w + A @ B``
+(``peft/lora.py``).  The hub's programs (``hub_programs``) and the packed
+serving stage (``quantized_stage_blocks``) are ROADMAP queue M, item M9b.
 """
 from __future__ import annotations
 
@@ -26,21 +27,17 @@ from repro_torch.models import stack as stack_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers.embedding import embed, head_logits
 from repro_torch.models.layers.norms import rms_norm
+from repro_torch.peft import apply_lora, init_lora_params
 from repro_torch.train.losses import cross_entropy
-
-
-def check_lora_rank(lora_rank: int) -> None:
-    if lora_rank:
-        raise NotImplementedError(
-            f"lora_rank={lora_rank}: SplitLoRA stages are ROADMAP queue M, "
-            "item M9; the port's stages train every weight (lora_rank=0)")
 
 
 @dataclasses.dataclass(frozen=True)
 class StageProgram:
     """One partition of the split topology: ``first`` stages own the token
     embedding, ``last`` stages the final norm + head (they emit the CE
-    loss); every stage owns ``per_stage`` blocks."""
+    loss); every stage owns ``per_stage`` blocks.  ``lora_rank`` is the
+    rank of the adapters the stage trains (SplitLoRA); 0 trains every
+    weight."""
 
     index: int
     n_stages: int
@@ -59,13 +56,13 @@ class StageProgram:
 def chain_programs(cfg: ArchConfig, n_stages: int,
                    lora_rank: int = 0) -> Tuple[StageProgram, ...]:
     """The linear pipeline: stage s runs layers [s L / N, (s + 1) L / N)."""
-    check_lora_rank(lora_rank)
     if cfg.n_layers % n_stages:
         raise ValueError(f"{cfg.n_layers} layers do not divide into "
                          f"{n_stages} stages")
     per = cfg.n_layers // n_stages
     return tuple(StageProgram(index=s, n_stages=n_stages, per_stage=per,
-                              first=(s == 0), last=(s == n_stages - 1))
+                              first=(s == 0), last=(s == n_stages - 1),
+                              lora_rank=lora_rank)
                  for s in range(n_stages))
 
 
@@ -81,19 +78,35 @@ def embed_tokens(cfg: ArchConfig, params: Dict, tokens: torch.Tensor,
 
 
 def run_blocks(cfg: ArchConfig, blocks: Dict, x: torch.Tensor,
-               positions: torch.Tensor) -> torch.Tensor:
+               positions: torch.Tensor, adapters: Optional[Dict] = None,
+               lora_scale: float = 1.0) -> torch.Tensor:
     """Body segment: a layer-stacked block tree through the stack executor
     with the config's remat policy (``cfg.remat``, ``cfg.remat_group``), as
-    the reference passes them, without a window.  The reference's
-    ``adapters`` (SplitLoRA) are M9."""
+    the reference passes them, without a window.
 
-    def body(h, p):
-        h, _, _ = tf.block_forward(cfg, p, h, positions=positions,
+    With ``adapters`` (a layer-stacked LoRA tree mirroring ``blocks``) the
+    executor steps through both stacks together, and each layer runs on
+    its effective weights ``w + lora_scale * A @ B`` (``apply_lora``):
+    the base leaves stay frozen, gradients reach the adapters only."""
+    if adapters is None:
+        def body(h, p):
+            h, _, _ = tf.block_forward(cfg, p, h, positions=positions,
+                                       window=None)
+            return h, ({}, None)
+
+        x, _, _ = stack_mod.run_stack(body, x, blocks, remat=cfg.remat,
+                                      remat_group=cfg.remat_group)
+        return x
+
+    def lora_body(h, pa):
+        p_eff = apply_lora(pa["blocks"], pa["adapters"], scale=lora_scale)
+        h, _, _ = tf.block_forward(cfg, p_eff, h, positions=positions,
                                    window=None)
         return h, ({}, None)
 
-    x, _, _ = stack_mod.run_stack(body, x, blocks, remat=cfg.remat,
-                                  remat_group=cfg.remat_group)
+    x, _, _ = stack_mod.run_stack(
+        lora_body, x, {"blocks": blocks, "adapters": adapters},
+        remat=cfg.remat, remat_group=cfg.remat_group)
     return x
 
 
@@ -116,14 +129,18 @@ def init_stage_params(cfg: ArchConfig, n_stages: int,
     reference's shapes and scales, from a ``torch.Generator`` seeded with
     ``seed`` on ``device`` (CUDA unless ``device="cpu"``); the draws differ
     from the reference's, and tests carry its parameters across with
-    ``repro_torch.bridge.from_jax_params``."""
-    check_lora_rank(lora_rank)
+    ``repro_torch.bridge.from_jax_params``.
+
+    With ``lora_rank > 0`` the dict gains ``"adapters"``: a LoRA tree
+    mirroring ``blocks`` (the same stage and layer stacking on every leaf),
+    drawn after the blocks from the same generator; the only parameters a
+    SplitLoRA run steps."""
     if per_stage is None:
         if cfg.n_layers % n_stages:
             raise ValueError(f"{cfg.n_layers} layers do not divide into "
                              f"{n_stages} stages")
         per_stage = cfg.n_layers // n_stages
-    normal, const, _, _ = tf.leaf_makers(cfg, seed, device)
+    normal, const, gen, _ = tf.leaf_makers(cfg, seed, device)
     d = cfg.d_model
     params = {"embed": {"emb": normal(cfg.vocab_size, d, scale=0.02)},
               "head": {"w": normal(d, cfg.vocab_size, scale=d ** -0.5)},
@@ -131,6 +148,9 @@ def init_stage_params(cfg: ArchConfig, n_stages: int,
     stages = [tf.init_block_params(cfg, per_stage, normal, const)
               for _ in range(n_stages)]
     params["blocks"] = stack_mod.tree_stack(stages)
+    if lora_rank > 0:
+        params["adapters"] = init_lora_params(gen, params["blocks"],
+                                              lora_rank)
     return params
 
 

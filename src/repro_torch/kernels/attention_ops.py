@@ -17,7 +17,9 @@ with one launch plan, ``decode_paged_plan``: a thread-block cluster per
 of a slot's table row; K6 / K7 take a ring row as ``ceil(L / RING_PAGE)``
 virtual pages, the last one ragged.  The reference's ring wrappers fall
 back to jnp where no block divides the cache length; K6 / K7 take any
-length whose plan fits a block's shared memory.
+length whose plan fits a block's shared memory.  The decode kernels are
+compiled for head widths ``DECODE_HEAD_DIMS`` (64 and 128), the flash
+kernels for ``FLASH_HEAD_DIMS``; the wrappers raise on any other width.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ import torch
 
 from repro_torch.kernels import attention_ref, build
 
-HEAD_DIM = 64  # the decode kernels' compiled head width (q/k and v)
+DECODE_HEAD_DIMS = (64, 128)  # the decode kernels' compiled widths, D = Dv
 FLASH_HEAD_DIMS = (64, 128)  # the flash kernels' compiled widths, D = Dv
 _MAX_G = 16
 _MAX_PAGE = 64
@@ -170,7 +172,7 @@ def bwd_heads_per_block(g: int, b: int, h: int, n: int,
 
 @functools.lru_cache(maxsize=None)
 def flash_bwd_plan(b: int, h: int, kh: int, sq: int, skv: int,
-                   hd: int = HEAD_DIM) -> Tuple[LaunchPlan, LaunchPlan]:
+                   hd: int = 64) -> Tuple[LaunchPlan, LaunchPlan]:
     """(K2, K3) launch plans.  K2: one block per (q tile of 128 rows, run of
     p heads of one group, batch row), grid (B H / p, q tiles), the last q
     tile first (causally the longest).  K3: one block per (kv tile of 128
@@ -313,7 +315,8 @@ def flash(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _check_decode(name: str, qf, k, v, scales, pos, qpos, code_dtype
                   ) -> torch.Tensor:
     """The checks every decode kernel makes of its operands: qf (R, KH, G,
-    64) bf16; k / v (N, T, KH, 64) of ``code_dtype``; ``scales`` the
+    D) bf16, D in ``DECODE_HEAD_DIMS``; k / v (N, T, KH, D) of
+    ``code_dtype``; ``scales`` the
     (N, T, KH) fp16 K and V scales of an int8 cache (empty otherwise); pos
     (N, T) int32; qpos (R,).  Returns qpos as contiguous int32."""
     r, kh, g, d = qf.shape
@@ -326,10 +329,14 @@ def _check_decode(name: str, qf, k, v, scales, pos, qpos, code_dtype
     if pos.dtype != torch.int32:
         raise TypeError(f"{name} takes int32 key positions")
     _check_device(name, qf, k, v, *scales, pos, qpos)
-    if d != HEAD_DIM or k.shape[-1] != HEAD_DIM or v.shape[-1] != HEAD_DIM:
-        raise ValueError(f"{name} is compiled for head_dim {HEAD_DIM}, got "
-                         f"{d} (other widths: ROADMAP queue K, 'Still to "
-                         "port', item 1)")
+    if d not in DECODE_HEAD_DIMS:
+        where = ("ROADMAP queue K, 'Still to port', item 3" if d == 80 else
+                 "a width no ROADMAP item queues")
+        raise ValueError(f"{name} is compiled for head_dim "
+                         f"{DECODE_HEAD_DIMS}, got {d} ({where})")
+    if k.shape[-1] != d or v.shape[-1] != d:
+        raise ValueError(f"{name} takes Dv = D, got q {d}, k {k.shape[-1]},"
+                         f" v {v.shape[-1]}")
     if k.shape != lead + (kh, d) or v.shape != k.shape \
             or pos.shape != lead \
             or any(t.shape != lead + (kh,) for t in scales):
@@ -373,11 +380,13 @@ def _r16(x: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def decode_paged_plan(s: int, kh: int, npp: int, pg: int, g: int,
-                      elem: int) -> PagedPlan:
+                      elem: int, d: int) -> PagedPlan:
     """K6 / K8 (``elem`` 2, bf16 caches) and K7 / K9 (``elem`` 1, int8
     codes with scales) launch plan for S rows, KH kv heads, npp pages of
     pg tokens a row (K8 / K9: table entries; K6 / K7: ``ceil(L /
-    RING_PAGE)`` of ``RING_PAGE``) and G query heads per kv head.  The
+    RING_PAGE)`` of ``RING_PAGE``), G query heads per kv head and head
+    width ``d`` (a page's K and V rows take ``2 pg d elem`` bytes, so a
+    round holds half the pages at 128 that it holds at 64).  The
     cluster is the fewest ranks, a power of two up to 8 and at most npp,
     that put a block on every SM; the ranks split the row's pages into
     equal ranges.  A round holds as many pages as fit PAGED_ROUND_BYTES of
@@ -392,11 +401,11 @@ def decode_paged_plan(s: int, kh: int, npp: int, pg: int, g: int,
     while c < want and 2 * c <= min(PAGED_MAX_CLUSTER, npp):
         c *= 2
     ppr = -(-npp // c)
-    rnd = min(ppr, max(1, PAGED_ROUND_BYTES // (2 * pg * HEAD_DIM * elem)))
+    rnd = min(ppr, max(1, PAGED_ROUND_BYTES // (2 * pg * d * elem)))
     nbuf = 1 if rnd >= ppr else 2
     kr = _r16(rnd * pg)
-    part = (2 * _MAX_G + g * HEAD_DIM) * 4
-    smem = (_r16(max(nbuf * 2 * kr * HEAD_DIM * elem, PAGED_WARPS * part))
+    part = (2 * _MAX_G + g * d) * 4
+    smem = (_r16(max(nbuf * 2 * kr * d * elem, PAGED_WARPS * part))
             + _r16(nbuf * kr) + (nbuf * kr * 8 if elem == 1 else 0)
             + 2 * _r16(ppr * 4) + _r16(ppr) + _r16(ppr * pg) + part + 16)
     return PagedPlan(grid=s * kh * c, cluster=c, pages_per_rank=ppr,
@@ -406,13 +415,37 @@ def decode_paged_plan(s: int, kh: int, npp: int, pg: int, g: int,
 def _decode_plan(kernel: str, qf: torch.Tensor, npp: int, pg: int,
                  elem: int) -> PagedPlan:
     """The plan of a decode kernel's launch; raises if it needs more shared
-    memory than a block has (a row of some 800 000 keys at G 4)."""
-    r, kh, g, _ = qf.shape
-    plan = decode_paged_plan(r, kh, npp, pg, g, elem)
+    memory than a block has.  Beside the round buffers a rank keeps 9 + pg
+    bytes a page (its entries, visible list and flags), so a row of more
+    than ``row_key_limit`` keys (some 800 000 at G 4 with clusters of 8,
+    at either width) does not fit."""
+    r, kh, g, d = qf.shape
+    plan = decode_paged_plan(r, kh, npp, pg, g, elem, d)
     if plan.smem > SMEM_MAX:
-        raise ValueError(f"{kernel}: {npp} pages of {pg} need "
-                         f"{plan.smem} B of shared memory a block")
+        limit = row_key_limit(r, kh, pg, g, elem, d)
+        raise ValueError(
+            f"{kernel}: {npp} pages of {pg} need {plan.smem} B of shared "
+            f"memory a block, over {SMEM_MAX}; at {r} rows of {kh} kv heads,"
+            f" G {g} and head width {d} a row takes at most {limit} keys")
     return plan
+
+
+@functools.lru_cache(maxsize=None)
+def row_key_limit(s: int, kh: int, pg: int, g: int, elem: int,
+                  d: int) -> int:
+    """The most keys (whole pages of ``pg``) a row may hold before its
+    launch plan exceeds ``SMEM_MAX``: the plan grows with the page count,
+    so the limit is found by bisection over it."""
+    def fits(npp):
+        return decode_paged_plan(s, kh, npp, pg, g, elem, d).smem <= SMEM_MAX
+
+    lo, hi = 1, 2
+    while fits(hi):
+        lo, hi = hi, 2 * hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    return lo * pg
 
 
 def _ring_decode(kernel: str, fn_name: str, qf, k, v, scales, kpos, qpos,
@@ -424,13 +457,12 @@ def _ring_decode(kernel: str, fn_name: str, qf, k, v, scales, kpos, qpos,
     length = k.shape[1]
     plan = _decode_plan(kernel, qf, -(-length // RING_PAGE), RING_PAGE,
                         k.element_size())
-    out = torch.empty((b, kh, g, HEAD_DIM), dtype=torch.float32,
-                      device=qf.device)
+    out = torch.empty(qf.shape, dtype=torch.float32, device=qf.device)
     has_window, win = _window_args(window)
     build.launch(kernel, fn_name, qf.data_ptr(), k.data_ptr(), v.data_ptr(),
                  *[t.data_ptr() for t in scales], kpos.data_ptr(),
                  qpos.data_ptr(), out.data_ptr(), b, length, kh, g,
-                 RING_PAGE, has_window, win, *plan[1:],
+                 RING_PAGE, has_window, win, *plan[1:], qf.shape[-1],
                  build.current_stream())
     return out
 
@@ -480,14 +512,13 @@ def _paged_decode(kernel: str, fn_name: str, qf, k_pool, v_pool, scales,
     page_table = page_table.to(torch.int32).contiguous()
     npp = page_table.shape[1]
     plan = _decode_plan(kernel, qf, npp, pg, k_pool.element_size())
-    out = torch.empty((s, kh, g, HEAD_DIM), dtype=torch.float32,
-                      device=qf.device)
+    out = torch.empty(qf.shape, dtype=torch.float32, device=qf.device)
     has_window, win = _window_args(window)
     build.launch(kernel, fn_name, qf.data_ptr(), k_pool.data_ptr(),
                  v_pool.data_ptr(), *[t.data_ptr() for t in scales],
                  pos_pool.data_ptr(), page_table.data_ptr(), qpos.data_ptr(),
                  out.data_ptr(), s, kh, g, pg, npp, has_window, win,
-                 *plan[1:], build.current_stream())
+                 *plan[1:], qf.shape[-1], build.current_stream())
     return out
 
 

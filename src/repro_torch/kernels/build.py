@@ -43,10 +43,10 @@ _ARGTYPES = {
     + [_P],
     "rdfsq_quantize": [_P, _I, _P, _P, _LL, _LL, _I, _I, _P],
     "rdfsq_dequantize": [_P, _P, _P, _I, _LL, _LL, _I, _I, _P],
-    "decode_bf16": [_P] * 6 + [_I] * 12 + [_P],
-    "decode_q8": [_P] * 8 + [_I] * 12 + [_P],
-    "decode_paged_bf16": [_P] * 7 + [_I] * 12 + [_P],
-    "decode_paged_q8": [_P] * 9 + [_I] * 12 + [_P],
+    "decode_bf16": [_P] * 6 + [_I] * 13 + [_P],
+    "decode_q8": [_P] * 8 + [_I] * 13 + [_P],
+    "decode_paged_bf16": [_P] * 7 + [_I] * 13 + [_P],
+    "decode_paged_q8": [_P] * 9 + [_I] * 13 + [_P],
     "nf_quantize": [_P, _I, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P],
     "nf_dequantize": [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _P],
     "wq_matmul_bf16_gemv": [_P] * 6 + [_I] * 8 + [_P],

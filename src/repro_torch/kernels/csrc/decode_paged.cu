@@ -14,9 +14,9 @@
 // One kernel, templated on where a row's keys lie (the address source):
 //
 // * TablePages (K8 / K9): page j of a slot is entry e = page_table[slot,
-//   j] of the (P, pg, KH, 64) pools (-1: unallocated), its key t the flat
+//   j] of the (P, pg, KH, D) pools (-1: unallocated), its key t the flat
 //   token e pg + t, its position pos_pool[e pg + t].
-// * RingPages (K6 / K7): row b of a (B, L, KH, 64) ring cache is
+// * RingPages (K6 / K7): row b of a (B, L, KH, D) ring cache is
 //   ceil(L / pg) virtual pages of pg keys; key t of page j is the flat
 //   token b L + j pg + t, present while j pg + t < L (the last page is
 //   ragged, so any L is taken), its position kpos[b L + j pg + t].  No
@@ -26,6 +26,12 @@
 // Both sources keep the scales of an int8 cache at the flat token x KH +
 // kh, where the cache keeps them; the reference's wrappers first make
 // (N, KH, T) fp32 transposed copies.
+//
+// The head width D (q / k and v alike) is a template parameter, 64
+// (tinyllava) or 128 (llama3_2_3b); the entry points dispatch on it.  A
+// row is D / 64 column blocks of 64, and every per-row step below (the
+// fragment loads, the k-steps of S, the n-tiles of O, the partials) runs
+// once a block, so D 64 compiles to the code of a single block.
 //
 // Bound on the H100: bytes, and at the serve and generate shapes (4 rows of
 // some 800 keys, 5 kv heads) mostly latency.  Each cache byte read feeds
@@ -66,7 +72,7 @@
 //   keeps its own (m, l, acc); the four warps' partials combine in warp
 //   order, then the cluster's ranks combine theirs in rank order through
 //   distributed shared memory, each rank writing a disjoint slice of the
-//   (G, 64) output once.  No atomics, no second kernel: the same bits on
+//   (G, D) output once.  No atomics, no second kernel: the same bits on
 //   every run, one launch per call.  A rank with no visible key holds
 //   m = -1e30, l = 0, acc = 0 and adds exactly 0; a row with no visible
 //   key (qpos = -1, or every key outside the window) returns exactly 0, as
@@ -90,7 +96,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kD = 64;  // head dim of q / k and of v
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxG = 16;  // query heads per kv head: one m16 tile
@@ -101,9 +106,9 @@ constexpr float kNeg = -1e30f;
 
 __host__ __device__ constexpr int round16(int x) { return (x + 15) & ~15; }
 
-// Byte offsets of a block's dynamic shared memory (mirrored by
-// attention_ops.decode_paged_plan, which the entry points check):
-//   kv     `nbuf` round buffers of K then V rows (kr rows of 64 elements);
+// Byte offsets of a block's dynamic shared memory at head width D (mirrored
+// by attention_ops.decode_paged_plan, which the entry points check):
+//   kv     `nbuf` round buffers of K then V rows (kr rows of D elements);
 //          after the sweep the warps' partials (m, l of 16 rows, acc of G
 //          rows) reuse it
 //   rv     per buffer, one visibility byte per row
@@ -116,11 +121,11 @@ __host__ __device__ constexpr int round16(int x) { return (x + 15) & ~15; }
 //   misc   the count of visible pages
 struct Layout {
   int kr, kv, rv, sc, entry, list, pv, vis, part, misc, bytes;
-  __host__ __device__ Layout(int elem, bool scaled, int G, int pg, int ppr,
-                             int rnd, int nbuf) {
+  __host__ __device__ Layout(int D, int elem, bool scaled, int G, int pg,
+                             int ppr, int rnd, int nbuf) {
     kr = round16(rnd * pg);
-    const int kv_bytes = nbuf * 2 * kr * kD * elem;
-    const int warp_part = kWarps * (2 * kMaxG + G * kD) * 4;
+    const int kv_bytes = nbuf * 2 * kr * D * elem;
+    const int warp_part = kWarps * (2 * kMaxG + G * D) * 4;
     int at = 0;
     kv = at;
     at += round16(kv_bytes > warp_part ? kv_bytes : warp_part);
@@ -137,7 +142,7 @@ struct Layout {
     vis = at;
     at += round16(ppr * pg);
     part = at;
-    at += (2 * kMaxG + G * kD) * 4;
+    at += (2 * kMaxG + G * D) * 4;
     misc = at;
     at += 16;
     bytes = at;
@@ -163,46 +168,49 @@ __device__ __forceinline__ uint32_t word(const uint4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-// Element type traits: 16-byte chunks per row, where chunk `ch` of row
-// `row` lies (bf16 rows swizzle their 8 chunks by the row), and the
-// fragments each thread reads.
-template <typename Elem>
+// Element type traits at head width D: 16-byte chunks per row, where chunk
+// `ch` of row `row` lies (bf16 rows swizzle each column block's 8 chunks by
+// the row), and the fragments each thread reads from column block cb (the
+// elements [64 cb, 64 cb + 64) of a row).
+template <typename Elem, int D>
 struct Rows;
 
-template <>
-struct Rows<__nv_bfloat16> {
-  static constexpr int kChunks = 8;
+template <int D>
+struct Rows<__nv_bfloat16, D> {
+  static constexpr int kChunks = D / 8;
   __device__ __forceinline__ static int chunk(int row, int ch) {
     return ch ^ (row & 7);
   }
-  // S's B fragments: elements [16 q4, 16 q4 + 16) of a K row, as pairs
+  // S's B fragments: elements 64 cb + [16 q4, 16 q4 + 16) of a K row, as
+  // pairs
   __device__ __forceinline__ static void k_frag(const __nv_bfloat16* k,
-                                                int row, int q4,
+                                                int row, int cb, int q4,
                                                 uint32_t b[8]) {
-    const __nv_bfloat16* r = k + row * kD;
-    const uint4 lo =
-        *reinterpret_cast<const uint4*>(r + chunk(row, 2 * q4) * 8);
-    const uint4 hi =
-        *reinterpret_cast<const uint4*>(r + chunk(row, 2 * q4 + 1) * 8);
+    const __nv_bfloat16* r = k + row * D;
+    const uint4 lo = *reinterpret_cast<const uint4*>(
+        r + chunk(row, 8 * cb + 2 * q4) * 8);
+    const uint4 hi = *reinterpret_cast<const uint4*>(
+        r + chunk(row, 8 * cb + 2 * q4 + 1) * 8);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       b[i] = word(lo, i);
       b[4 + i] = word(hi, i);
     }
   }
-  // PV's B fragments of O column tile nt (O column d = 8 g4 + nt): the
-  // elements [8 g4, 8 g4 + 8) of V rows r0, r0 + 1, r0 + 8, r0 + 9
+  // PV's B fragments of O column tile nt of block cb (O column d = 64 cb +
+  // 8 g4 + nt): the elements 64 cb + [8 g4, 8 g4 + 8) of V rows r0, r0 + 1,
+  // r0 + 8, r0 + 9
   struct VFrag {
     uint4 v[4];
   };
   __device__ __forceinline__ static VFrag v_frag(const __nv_bfloat16* v,
-                                                 int r0, int g4) {
+                                                 int r0, int cb, int g4) {
     VFrag f;
     const int rows[4] = {r0, r0 + 1, r0 + 8, r0 + 9};
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      f.v[i] = *reinterpret_cast<const uint4*>(v + rows[i] * kD +
-                                               chunk(rows[i], g4) * 8);
+      f.v[i] = *reinterpret_cast<const uint4*>(
+          v + rows[i] * D + chunk(rows[i], 8 * cb + g4) * 8);
     return f;
   }
   __device__ __forceinline__ static void v_b(const VFrag& f, int nt,
@@ -220,13 +228,15 @@ __device__ __forceinline__ uint32_t codes_bf16(uint32_t w, int i) {
   return flash::pack_bf16(lo, hi);
 }
 
-template <>
-struct Rows<int8_t> {
-  static constexpr int kChunks = 4;
+template <int D>
+struct Rows<int8_t, D> {
+  static constexpr int kChunks = D / 16;
   __device__ __forceinline__ static int chunk(int, int ch) { return ch; }
   __device__ __forceinline__ static void k_frag(const int8_t* k, int row,
-                                                int q4, uint32_t b[8]) {
-    const uint4 c = *reinterpret_cast<const uint4*>(k + row * kD + 16 * q4);
+                                                int cb, int q4,
+                                                uint32_t b[8]) {
+    const uint4 c = *reinterpret_cast<const uint4*>(k + row * D + 64 * cb +
+                                                    16 * q4);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       b[2 * i] = codes_bf16(word(c, i), 0);
@@ -237,12 +247,13 @@ struct Rows<int8_t> {
     uint2 v[4];
   };
   __device__ __forceinline__ static VFrag v_frag(const int8_t* v, int r0,
-                                                 int g4) {
+                                                 int cb, int g4) {
     VFrag f;
     const int rows[4] = {r0, r0 + 1, r0 + 8, r0 + 9};
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      f.v[i] = *reinterpret_cast<const uint2*>(v + rows[i] * kD + 8 * g4);
+      f.v[i] = *reinterpret_cast<const uint2*>(v + rows[i] * D + 64 * cb +
+                                               8 * g4);
     return f;
   }
   __device__ __forceinline__ static void v_b(const VFrag& f, int nt,
@@ -260,7 +271,7 @@ struct Rows<int8_t> {
 // Address sources: where a rank's pages lie.  `entry(j)` names page j of
 // the rank's range (-1: no page), `has(e, t)` says whether page e holds a
 // key t, and `token(e, t)` is that key's flat token index: K and V rows lie
-// at (token KH + kh) 64, positions at token, scales at token KH + kh.
+// at (token KH + kh) D, positions at token, scales at token KH + kh.
 struct TablePages {  // K8 / K9: a slot's row of the page table
   const int* table;  // the rank's first entry
   int pg;
@@ -286,7 +297,7 @@ struct RingPages {  // K6 / K7: row b of a ring cache, as virtual pages
   }
 };
 
-template <typename Elem, bool kScaled, typename Src>
+template <int D, typename Elem, bool kScaled, typename Src>
 __global__ void __launch_bounds__(kThreads)
     paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                         const Elem* __restrict__ k_pool,
@@ -299,9 +310,10 @@ __global__ void __launch_bounds__(kThreads)
                         int KH, int G, int pg, int npp, int len,
                         int has_window, int window, int ppr, int rnd,
                         int nbuf) {
-  using R = Rows<Elem>;
+  using R = Rows<Elem, D>;
+  constexpr int kBlocks = D / 64;  // column blocks of 64 a row
   extern __shared__ __align__(128) uint8_t smem[];
-  const Layout L(sizeof(Elem), kScaled, G, pg, ppr, rnd, nbuf);
+  const Layout L(D, sizeof(Elem), kScaled, G, pg, ppr, rnd, nbuf);
   int* entry_s = reinterpret_cast<int*>(smem + L.entry);
   int* list_s = reinterpret_cast<int*>(smem + L.list);
   uint8_t* pv_s = smem + L.pv;
@@ -320,27 +332,29 @@ __global__ void __launch_bounds__(kThreads)
   const Src pages(page_table, slot, npp, p0, pg, len);
 
   // Q as S's A fragments, query heads as rows (g4, g4 + 8; zero past G),
-  // the head dimension permuted as K's: k-step kk, logical columns
-  // (2 q4, 2 q4 + 1 | 2 q4 + 8, 2 q4 + 9) hold elements 16 q4 + 4 kk + (0, 1
-  // | 2, 3).  Loaded first, so that they land during the scan.
-  uint32_t qa[4][4];
-  {
-    const __nv_bfloat16* qh = q + (long long)head * G * kD + 16 * q4;
+  // the head dimension permuted as K's: k-step 4 cb + kk, logical columns
+  // (2 q4, 2 q4 + 1 | 2 q4 + 8, 2 q4 + 9) hold elements 64 cb + 16 q4 +
+  // 4 kk + (0, 1 | 2, 3).  Loaded first, so that they land during the scan.
+  uint32_t qa[4 * kBlocks][4];
+#pragma unroll
+  for (int cb = 0; cb < kBlocks; ++cb) {
+    const __nv_bfloat16* qh =
+        q + (long long)head * G * D + 64 * cb + 16 * q4;
     uint4 r0[2] = {}, r1[2] = {};
     if (g4 < G) {
-      r0[0] = *reinterpret_cast<const uint4*>(qh + g4 * kD);
-      r0[1] = *reinterpret_cast<const uint4*>(qh + g4 * kD + 8);
+      r0[0] = *reinterpret_cast<const uint4*>(qh + g4 * D);
+      r0[1] = *reinterpret_cast<const uint4*>(qh + g4 * D + 8);
     }
     if (g4 + 8 < G) {
-      r1[0] = *reinterpret_cast<const uint4*>(qh + (g4 + 8) * kD);
-      r1[1] = *reinterpret_cast<const uint4*>(qh + (g4 + 8) * kD + 8);
+      r1[0] = *reinterpret_cast<const uint4*>(qh + (g4 + 8) * D);
+      r1[1] = *reinterpret_cast<const uint4*>(qh + (g4 + 8) * D + 8);
     }
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      qa[kk][0] = word(r0[kk >> 1], 2 * (kk & 1));
-      qa[kk][1] = word(r1[kk >> 1], 2 * (kk & 1));
-      qa[kk][2] = word(r0[kk >> 1], 2 * (kk & 1) + 1);
-      qa[kk][3] = word(r1[kk >> 1], 2 * (kk & 1) + 1);
+      qa[4 * cb + kk][0] = word(r0[kk >> 1], 2 * (kk & 1));
+      qa[4 * cb + kk][1] = word(r1[kk >> 1], 2 * (kk & 1));
+      qa[4 * cb + kk][2] = word(r0[kk >> 1], 2 * (kk & 1) + 1);
+      qa[4 * cb + kk][3] = word(r1[kk >> 1], 2 * (kk & 1) + 1);
     }
   }
 
@@ -384,8 +398,8 @@ __global__ void __launch_bounds__(kThreads)
   auto issue = [&](int r) {
     const int b = r % nbuf, first = r * rnd, npr = min(rnd, nvis - first);
     const int nkeys = npr * pg, nrows = round16(nkeys);
-    Elem* kb = reinterpret_cast<Elem*>(smem + L.kv) + b * 2 * L.kr * kD;
-    Elem* vb = kb + L.kr * kD;
+    Elem* kb = reinterpret_cast<Elem*>(smem + L.kv) + b * 2 * L.kr * D;
+    Elem* vb = kb + L.kr * D;
     constexpr int kPer = 16 / sizeof(Elem);  // elements per chunk
     for (int i = tid; i < 2 * nrows * R::kChunks; i += kThreads) {
       const int ch = i % R::kChunks, row = (i / R::kChunks) % nrows;
@@ -400,8 +414,8 @@ __global__ void __launch_bounds__(kThreads)
       // a key that is not visible is not read, and its address (past the
       // end of a ragged ring row, perhaps) is not handed to the copy
       const Elem* src = (is_v ? v_pool : k_pool) +
-                        ((v ? tok : 0) * KH + kh) * kD + ch * kPer;
-      Elem* dst = (is_v ? vb : kb) + row * kD + R::chunk(row, ch) * kPer;
+                        ((v ? tok : 0) * KH + kh) * D + ch * kPer;
+      Elem* dst = (is_v ? vb : kb) + row * D + R::chunk(row, ch) * kPer;
       cp_async16(dst, src, v);
     }
     cp_async_commit();
@@ -427,9 +441,9 @@ __global__ void __launch_bounds__(kThreads)
   // this warp's online softmax state: rows g4 (m0, l0) and g4 + 8 (m1,
   // l1); l sums only this thread's columns until the end
   float m0 = kNeg, m1 = kNeg, l0 = 0.0f, l1 = 0.0f;
-  float acc[8][4];
+  float acc[8 * kBlocks][4];
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
+  for (int nt = 0; nt < 8 * kBlocks; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
 
@@ -445,8 +459,8 @@ __global__ void __launch_bounds__(kThreads)
     const int b = r % nbuf;
     const int nch = round16(min(rnd, nvis - r * rnd) * pg) / 16;
     const Elem* kb = reinterpret_cast<const Elem*>(smem + L.kv) +
-                     b * 2 * L.kr * kD;
-    const Elem* vb = kb + L.kr * kD;
+                     b * 2 * L.kr * D;
+    const Elem* vb = kb + L.kr * D;
     const uint8_t* rv = smem + L.rv + b * L.kr;
     const float* ks = reinterpret_cast<const float*>(smem + L.sc) +
                       b * 2 * L.kr;
@@ -458,11 +472,15 @@ __global__ void __launch_bounds__(kThreads)
       for (int nt = 0; nt < 2; ++nt) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
-        uint32_t kf[8];
-        R::k_frag(kb, k0 + 8 * nt + g4, q4, kf);
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          flash::mma_16816(s[nt], qa[kk], kf[2 * kk], kf[2 * kk + 1]);
+        for (int cb = 0; cb < kBlocks; ++cb) {
+          uint32_t kf[8];
+          R::k_frag(kb, k0 + 8 * nt + g4, cb, q4, kf);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            flash::mma_16816(s[nt], qa[4 * cb + kk], kf[2 * kk],
+                             kf[2 * kk + 1]);
+        }
       }
       // this thread's keys: k0 + 8 nt + 2 q4 + e, e = 0, 1
       bool ok[2][2];
@@ -508,17 +526,21 @@ __global__ void __launch_bounds__(kThreads)
       l1 = l1 * corr1 + sum1;
       uint32_t pa[4];
       flash::acc_to_a(pa, pv[0], pv[1]);
-      // O += P V over the same 16 keys; O column d = 8 g4 + nt
-      const typename R::VFrag vf = R::v_frag(vb, k0 + 2 * q4, g4);
+      // O += P V over the same 16 keys; O column d = 64 cb + 8 g4 + nt
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        acc[nt][0] *= corr0;
-        acc[nt][1] *= corr0;
-        acc[nt][2] *= corr1;
-        acc[nt][3] *= corr1;
-        uint32_t b0, b1;
-        R::v_b(vf, nt, b0, b1);
-        flash::mma_16816(acc[nt], pa, b0, b1);
+      for (int cb = 0; cb < kBlocks; ++cb) {
+        const typename R::VFrag vf = R::v_frag(vb, k0 + 2 * q4, cb, g4);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          float* a = acc[8 * cb + nt];
+          a[0] *= corr0;
+          a[1] *= corr0;
+          a[2] *= corr1;
+          a[3] *= corr1;
+          uint32_t b0, b1;
+          R::v_b(vf, nt, b0, b1);
+          flash::mma_16816(a, pa, b0, b1);
+        }
       }
     }
     __syncthreads();  // the buffer is free for round r + 2
@@ -532,7 +554,7 @@ __global__ void __launch_bounds__(kThreads)
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   float* wm = reinterpret_cast<float*>(smem + L.kv);  // [warp][16]
   float* wl = wm + kWarps * kMaxG;                    // [warp][16]
-  float* wacc = wl + kWarps * kMaxG;                  // [warp][G][64]
+  float* wacc = wl + kWarps * kMaxG;                  // [warp][G][D]
   if (q4 == 0) {
     wm[warp * kMaxG + g4] = m0;
     wm[warp * kMaxG + g4 + 8] = m1;
@@ -540,19 +562,19 @@ __global__ void __launch_bounds__(kThreads)
     wl[warp * kMaxG + g4 + 8] = l1;
   }
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
+  for (int nt = 0; nt < 8 * kBlocks; ++nt) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const int d = 8 * (2 * q4 + e) + nt;
-      if (g4 < G) wacc[(warp * G + g4) * kD + d] = acc[nt][e];
-      if (g4 + 8 < G) wacc[(warp * G + g4 + 8) * kD + d] = acc[nt][2 + e];
+      const int d = 64 * (nt / 8) + 8 * (2 * q4 + e) + nt % 8;
+      if (g4 < G) wacc[(warp * G + g4) * D + d] = acc[nt][e];
+      if (g4 + 8 < G) wacc[(warp * G + g4 + 8) * D + d] = acc[nt][2 + e];
     }
   }
   __syncthreads();
   // the block's partial: the warps' in warp order
   float* bm = reinterpret_cast<float*>(smem + L.part);  // [16]
-  for (int i = tid; i < G * kD; i += kThreads) {
-    const int row = i / kD;
+  for (int i = tid; i < G * D; i += kThreads) {
+    const int row = i / D;
     float mx = kNeg;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, wm[w * kMaxG + row]);
@@ -560,26 +582,26 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
       const float f = __expf(wm[w * kMaxG + row] - mx);
-      a += wacc[(w * G + row) * kD + i % kD] * f;
+      a += wacc[(w * G + row) * D + i % D] * f;
       l += wl[w * kMaxG + row] * f;
     }
     bm[2 * kMaxG + i] = a;
-    if (i % kD == 0) {
+    if (i % D == 0) {
       bm[row] = mx;
       bm[kMaxG + row] = l;
     }
   }
 
   // the cluster's combine, rank by rank: rank `rank` reads every rank's
-  // partial of its slice of the (G, 64) output and writes it once
+  // partial of its slice of the (G, D) output and writes it once
   hopper::cluster_arrive(true);
   hopper::cluster_wait();
   {
-    const int n = G * kD, per = (n + c - 1) / c;
+    const int n = G * D, per = (n + c - 1) / c;
     const int lo = min(n, rank * per), hi = min(n, lo + per);
     float* o = out + (long long)head * n;
     for (int i = lo + tid; i < hi; i += kThreads) {
-      const int row = i / kD;
+      const int row = i / D;
       float pm[kMaxCluster], pl[kMaxCluster], pa[kMaxCluster];
 #pragma unroll
       for (int r = 0; r < kMaxCluster; ++r) {
@@ -612,7 +634,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // `len`: a ring row's length (RingPages; TablePages ignores it).
-template <typename Elem, bool kScaled, typename Src>
+template <int D, typename Elem, bool kScaled, typename Src>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* k_scale, const void* v_scale, const void* pos,
            const void* page_table, const void* qpos, void* out, int S,
@@ -626,9 +648,9 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
       (nbuf != 1 && nbuf != 2) || (nbuf == 1 && rnd < ppr) ||
       (long long)S * KH * cluster > 0x7fffffffLL ||
       (long long)ppr * pg > kSmemMax || smem > kSmemMax ||
-      smem != Layout(sizeof(Elem), kScaled, G, pg, ppr, rnd, nbuf).bytes)
+      smem != Layout(D, sizeof(Elem), kScaled, G, pg, ppr, rnd, nbuf).bytes)
     return (int)cudaErrorInvalidValue;
-  auto kernel = paged_decode_kernel<Elem, kScaled, Src>;
+  auto kernel = paged_decode_kernel<D, Elem, kScaled, Src>;
   static int smem_set = 48 * 1024;  // per instantiation, as the attribute
   if (smem > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -660,6 +682,27 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
   return (int)cudaGetLastError();
 }
 
+// The head width's instantiation: D 64 or 128.
+template <typename Elem, bool kScaled, typename Src>
+int launch_d(int d, const void* q, const void* k_pool, const void* v_pool,
+             const void* k_scale, const void* v_scale, const void* pos,
+             const void* page_table, const void* qpos, void* out, int S,
+             int KH, int G, int pg, int npp, int len, int has_window,
+             int window, int cluster, int ppr, int rnd, int nbuf, int smem,
+             void* stream) {
+  if (d == 64)
+    return launch<64, Elem, kScaled, Src>(
+        q, k_pool, v_pool, k_scale, v_scale, pos, page_table, qpos, out, S,
+        KH, G, pg, npp, len, has_window, window, cluster, ppr, rnd, nbuf,
+        smem, stream);
+  if (d == 128)
+    return launch<128, Elem, kScaled, Src>(
+        q, k_pool, v_pool, k_scale, v_scale, pos, page_table, qpos, out, S,
+        KH, G, pg, npp, len, has_window, window, cluster, ppr, rnd, nbuf,
+        smem, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 // A ring row of L keys as virtual pages of pg; 0 for an L it cannot take.
 int ring_pages(int L, int pg) {
   return L < 1 || pg < 1 ? 0 : (int)(((long long)L + pg - 1) / pg);
@@ -670,10 +713,10 @@ int ring_pages(int L, int pg) {
 // The plan, for every entry point (attention_ops.decode_paged_plan):
 // clusters of `cluster` blocks (1, 2, 4 or 8) per (row, kv head), `ppr`
 // pages a rank, rounds of `rnd` pages in `nbuf` buffers, `smem` bytes of
-// dynamic shared memory.  Each returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a shape or plan the kernel does not take.
-// Requires G <= 16, D = 64, pages of at most 64 keys, and 16-byte aligned
-// q and caches (the wrappers check).
+// dynamic shared memory; `d` the head width D of q, K and V.  Each returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a shape or plan the
+// kernel does not take.  Requires G <= 16, D 64 or 128, pages of at most
+// 64 keys, and 16-byte aligned q and caches (the wrappers check).
 
 // K6.  q (B, KH, G, D) bf16 pre-scaled; caches (B, L, KH, D) bf16 in the
 // ring layout, any L; kpos (B, L) int32 (-1 empty); qpos (B,) int32; out
@@ -682,9 +725,10 @@ extern "C" int decode_bf16(const void* q, const void* k, const void* v,
                            const void* kpos, const void* qpos, void* out,
                            int B, int L, int KH, int G, int pg,
                            int has_window, int window, int cluster, int ppr,
-                           int rnd, int nbuf, int smem, void* stream) {
-  return launch<__nv_bfloat16, false, RingPages>(
-      q, k, v, nullptr, nullptr, kpos, nullptr, qpos, out, B, KH, G, pg,
+                           int rnd, int nbuf, int smem, int d,
+                           void* stream) {
+  return launch_d<__nv_bfloat16, false, RingPages>(
+      d, q, k, v, nullptr, nullptr, kpos, nullptr, qpos, out, B, KH, G, pg,
       ring_pages(L, pg), L, has_window, window, cluster, ppr, rnd, nbuf, smem,
       stream);
 }
@@ -696,9 +740,9 @@ extern "C" int decode_q8(const void* q, const void* k, const void* v,
                          const void* kpos, const void* qpos, void* out, int B,
                          int L, int KH, int G, int pg, int has_window,
                          int window, int cluster, int ppr, int rnd, int nbuf,
-                         int smem, void* stream) {
-  return launch<int8_t, true, RingPages>(
-      q, k, v, k_scale, v_scale, kpos, nullptr, qpos, out, B, KH, G, pg,
+                         int smem, int d, void* stream) {
+  return launch_d<int8_t, true, RingPages>(
+      d, q, k, v, k_scale, v_scale, kpos, nullptr, qpos, out, B, KH, G, pg,
       ring_pages(L, pg), L, has_window, window, cluster, ppr, rnd, nbuf, smem,
       stream);
 }
@@ -712,9 +756,9 @@ extern "C" int decode_paged_bf16(const void* q, const void* k_pool,
                                  void* out, int S, int KH, int G, int pg,
                                  int npp, int has_window, int window,
                                  int cluster, int ppr, int rnd, int nbuf,
-                                 int smem, void* stream) {
-  return launch<__nv_bfloat16, false, TablePages>(
-      q, k_pool, v_pool, nullptr, nullptr, pos_pool, page_table, qpos, out,
+                                 int smem, int d, void* stream) {
+  return launch_d<__nv_bfloat16, false, TablePages>(
+      d, q, k_pool, v_pool, nullptr, nullptr, pos_pool, page_table, qpos, out,
       S, KH, G, pg, npp, 0, has_window, window, cluster, ppr, rnd, nbuf, smem,
       stream);
 }
@@ -728,9 +772,9 @@ extern "C" int decode_paged_q8(const void* q, const void* k_pool,
                                void* out, int S, int KH, int G, int pg,
                                int npp, int has_window, int window,
                                int cluster, int ppr, int rnd, int nbuf,
-                               int smem, void* stream) {
-  return launch<int8_t, true, TablePages>(
-      q, k_pool, v_pool, k_scale, v_scale, pos_pool, page_table, qpos, out,
+                               int smem, int d, void* stream) {
+  return launch_d<int8_t, true, TablePages>(
+      d, q, k_pool, v_pool, k_scale, v_scale, pos_pool, page_table, qpos, out,
       S, KH, G, pg, npp, 0, has_window, window, cluster, ppr, rnd, nbuf, smem,
       stream);
 }

@@ -8,8 +8,11 @@ connector cut, warmup-cosine AdamW, a checkpoint at the end:
     PYTHONPATH=src python -m repro_torch.launch.e2e --device cpu \
         --steps 40 --batch 8 --seq 48
 
-Runs on CUDA unless ``--device cpu`` is given.  The hub and SplitLoRA
-modes of the example are ROADMAP item M9.
+Runs on CUDA unless ``--device cpu`` is given.  The example's
+``hub-async`` and ``lora`` modes both train through the many-client hub
+(``launch/split_hub.train_hub``), which is ROADMAP queue M item M9b;
+SplitLoRA on the chain pipeline is ``launch/split_pipeline.py
+--lora-rank``.
 """
 from __future__ import annotations
 

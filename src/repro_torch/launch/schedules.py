@@ -20,7 +20,14 @@ Wire-byte accounting: every table reports bytes per link, each link
 counted once.  ``fwd_tick`` / ``bwd_tick`` are one device's bytes a tick,
 the largest link slice (a stage sources at most one link a tick);
 ``links[(src, dst)]`` is a link's whole traffic a tick (slice x data
-shards).  The hub's schedules and the async mode are ROADMAP item M9.
+shards).  The hub's schedules and the async mode are ROADMAP queue M
+item M9b.
+
+SplitLoRA (``lora_rank > 0``): every stage runs its layers on ``w + A @ B``
+from the stage-stacked ``params["adapters"]``, and the grad step
+differentiates with respect to the adapters alone.  The base weights get
+no gradient and keep no autograd state; the cotangent still crosses every
+link (raw, or through ``bwd_qcfg``), since stage 0's adapters need it.
 """
 from __future__ import annotations
 
@@ -33,8 +40,8 @@ from repro_torch.core import entropy as entropy_mod
 from repro_torch.core.quantizers import QuantConfig
 from repro_torch.core.split import (SplitConfig, Transport, WireLink,
                                     pipeline_links)
-from repro_torch.core.split_stage import (check_lora_rank, embed_tokens,
-                                          head_ce, run_blocks, stage_blocks)
+from repro_torch.core.split_stage import (embed_tokens, head_ce, run_blocks,
+                                          stage_blocks)
 from repro_torch.models import stack as stack_mod
 from repro_torch.models import transformer as tf
 from repro_torch.utils.tree import tree_leaves, tree_map
@@ -47,12 +54,12 @@ from repro_torch.utils.tree import tree_leaves, tree_map
 def _link_bytes(links: Tuple[WireLink, ...], shape, dtype,
                 data_shards: int, grad_sds=None) -> Dict:
     """The per-link byte table of one device's activation slice of
-    ``shape`` / ``dtype``.  ``grad_sds`` (SplitLoRA's adapter-grad return)
-    is M9."""
+    ``shape`` / ``dtype``.  ``grad_sds`` (the hub's adapter-gradient
+    return) is ROADMAP queue M item M9b."""
     if grad_sds is not None:
         raise NotImplementedError(
-            "the adapter-grad return bytes are SplitLoRA, ROADMAP queue M, "
-            "item M9")
+            "the adapter-gradient return bytes are the hub's, ROADMAP queue "
+            "M, item M9b")
     table = {}
     fwd_slice, bwd_slice = [], []
     for link in links:
@@ -96,7 +103,8 @@ def boundary_probe(cfg: ArchConfig, params: Dict, tokens: torch.Tensor,
                    stage: int = 0) -> torch.Tensor:
     """One stage's boundary activation (what its outgoing link ships), as
     the reference probes it: embed + that stage's block stack on a (B, S)
-    token microbatch, between steps, outside autograd."""
+    token microbatch, between steps, outside autograd.  The base blocks
+    run without a SplitLoRA run's adapters, as in the reference."""
     x = embed_tokens(cfg, params, tokens, tf.cdtype(cfg))
     positions = torch.arange(tokens.shape[-1], dtype=torch.int32,
                              device=x.device)
@@ -142,9 +150,10 @@ def build_gpipe_step(cfg: ArchConfig, split: SplitConfig, n_micro: int,
     microbatches (differentiable) and ``wire_bytes`` the per-device
     per-tick forward payload bytes (from shapes, not measured).  The
     payloads cross ``transport`` (a fresh :class:`Transport` when None),
-    which counts them.
+    which counts them.  ``lora_rank > 0``: ``params`` carries an
+    ``"adapters"`` stack mirroring ``"blocks"``, and every stage runs on
+    the effective weights ``w + A @ B``.
     """
-    check_lora_rank(lora_rank)
     n_stages = split.n_stages
     if cfg.n_layers % n_stages:
         raise ValueError(f"{cfg.n_layers} layers do not divide into "
@@ -162,6 +171,13 @@ def build_gpipe_step(cfg: ArchConfig, split: SplitConfig, n_micro: int,
         # one view per stage; the stage axis is taken apart once, so its
         # gradient is one stack of the stages' gradients
         stages = stack_mod.tree_unbind(params["blocks"])
+        if lora_rank > 0:
+            if "adapters" not in params:
+                raise ValueError(f"lora_rank={lora_rank} needs "
+                                 "params['adapters']")
+            adapters = stack_mod.tree_unbind(params["adapters"])
+        else:
+            adapters = [None] * n_stages
         positions = torch.arange(seq, dtype=torch.int32,
                                  device=tokens.device)
         inbox = [None] * n_stages  # what each stage received last tick
@@ -174,7 +190,8 @@ def build_gpipe_step(cfg: ArchConfig, split: SplitConfig, n_micro: int,
                     continue  # a fill or drain tick: padding, skipped
                 x = (embed_tokens(cfg, params, tokens[j], dtype) if s == 0
                      else inbox[s].to(dtype))
-                h = run_blocks(cfg, stages[s], x, positions)
+                h = run_blocks(cfg, stages[s], x, positions,
+                               adapters=adapters[s])
                 if s == last:
                     ce = head_ce(cfg, params, h, labels[j])
                     ce_sum = ce if ce_sum is None else ce_sum + ce
@@ -196,7 +213,9 @@ def build_gpipe_grad_step(cfg: ArchConfig, split: SplitConfig,
     through the gradient-return wire.  Returns ``fn(params, tokens,
     labels) -> (loss, grads, wire_bytes)``, ``wire_bytes`` the per-device
     per-tick forward + backward payload bytes; ``fn.transport`` counts
-    both directions."""
+    both directions.  ``lora_rank > 0``: the gradient w.r.t.
+    ``params["adapters"]`` only (``grads`` mirrors the adapter tree); the
+    base leaves are passed detached, so autograd keeps nothing for them."""
     step = build_gpipe_step(cfg, split, n_micro, micro_batch, seq,
                             bwd_qcfg=bwd_qcfg, lora_rank=lora_rank,
                             transport=transport)
@@ -204,8 +223,16 @@ def build_gpipe_grad_step(cfg: ArchConfig, split: SplitConfig,
     tick_bytes = float(wire["fwd_tick"] + wire["bwd_tick"])
 
     def grad_step(params, tokens, labels):
-        leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
-        loss, _ = step(leaves, tokens, labels)
+        if lora_rank > 0:
+            leaves = tree_map(lambda p: p.detach().requires_grad_(),
+                              params["adapters"])
+            base = tree_map(lambda p: p.detach(),
+                            {k: v for k, v in params.items()
+                             if k != "adapters"})
+            loss, _ = step(dict(base, adapters=leaves), tokens, labels)
+        else:
+            leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+            loss, _ = step(leaves, tokens, labels)
         flat = tree_leaves(leaves)
         grads = torch.autograd.grad(loss, flat, allow_unused=True)
         # a leaf the loss does not reach gets a zero gradient, as in JAX

@@ -1,10 +1,14 @@
-"""Batched serving demo (port of ``examples/serve_batched.py`` for the vlm
-configs): prefill + the static decode loop over ring KV caches, with the
-split compressor on the decode path, or the continuous-batching engine.
+"""Batched serving demo (port of ``examples/serve_batched.py``): prefill +
+the static decode loop over ring KV caches, with the split compressor on
+the decode path, or the continuous-batching engine; a vlm config
+(``tinyllava``, requests with image embeddings) or a text one
+(``llama3_2_3b``, token prompts alone).
 
     PYTHONPATH=src python -m repro_torch.launch.serve_batched
     PYTHONPATH=src python -m repro_torch.launch.serve_batched --engine \
         --split-serve
+    PYTHONPATH=src python -m repro_torch.launch.serve_batched \
+        --arch llama3_2_3b --full --engine
 
 Runs on CUDA unless ``--device cpu`` is given, at the reduced config
 unless ``--full`` is given.  Without ``--engine`` it runs ``prefill`` and
@@ -31,6 +35,10 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
+def _n_image_tokens(cfg) -> int:
+    return cfg.n_image_tokens if cfg.modality == "vlm" else 0
+
+
 def run_engine(cfg, params, args, device) -> None:
     import torch
 
@@ -38,7 +46,7 @@ def run_engine(cfg, params, args, device) -> None:
 
     gen = torch.Generator().manual_seed(0)
     page_size = 8
-    max_target = cfg.n_image_tokens + args.prompt_len + args.new_tokens
+    max_target = _n_image_tokens(cfg) + args.prompt_len + args.new_tokens
     wq_calib = None
     if args.weight_quant:
         # a small GPTQ calibration sample; without one the engine takes
@@ -54,11 +62,14 @@ def run_engine(cfg, params, args, device) -> None:
     for i in range(args.batch):
         toks = torch.randint(0, cfg.vocab_size, (args.prompt_len,),
                              generator=gen)
-        img = torch.randn((cfg.n_image_tokens, cfg.d_vision), generator=gen)
+        img = None
+        if cfg.modality == "vlm":
+            img = torch.randn((cfg.n_image_tokens, cfg.d_vision),
+                              generator=gen).to(device)
         # staggered budgets: early retirements open slots for admissions
         eng.submit(toks.tolist(),
                    max_new=max(1, args.new_tokens - (i % 3) * 2),
-                   image_embeds=img.to(device))
+                   image_embeds=img)
     t0 = time.perf_counter()
     results = eng.run()
     _sync(device)
@@ -87,15 +98,16 @@ def run_static(cfg, params, args, device) -> None:
         prefill
 
     gen = torch.Generator().manual_seed(0)
-    n_img = cfg.n_image_tokens
+    n_img = _n_image_tokens(cfg)
     cache_len = cache_length(cfg, n_img + args.prompt_len + args.new_tokens,
                              args.window)
-    batch = dict(
-        image_embeds=torch.randn((args.batch, n_img, cfg.d_vision),
-                                 generator=gen).to(device),
-        tokens=torch.randint(0, cfg.vocab_size,
-                             (args.batch, args.prompt_len),
-                             generator=gen).to(device))
+    batch = {}
+    if cfg.modality == "vlm":
+        batch["image_embeds"] = torch.randn(
+            (args.batch, n_img, cfg.d_vision), generator=gen).to(device)
+    batch["tokens"] = torch.randint(0, cfg.vocab_size,
+                                    (args.batch, args.prompt_len),
+                                    generator=gen).to(device)
     t0 = time.perf_counter()
     logits, caches = prefill(params, cfg, batch, cache_len,
                              window=args.window)

@@ -14,7 +14,10 @@ partitions the chain has ``n_stages - 1`` cuts, each with its own codec
 ``train_pipeline`` runs AdamW (``train/loop.apply_gradients``) over it,
 with the entropy-adaptive re-plan between steps.  The stages share one
 process and one device (``launch/schedules.py`` says how the lockstep
-maps onto it); SplitLoRA (``lora_rank > 0``) is ROADMAP item M9.
+maps onto it).  SplitLoRA (``lora_rank > 0``) freezes the base weights
+and trains rank-r adapters on every stage (``peft/lora.py``), with AdamW
+moments over the adapters alone (``train/loop.init_adapter_state``,
+``apply_adapter_gradients``).
 
 The reference's ``__main__`` lowers the pipeline and checks its HLO
 collective bytes (XLA only).  Here ``__main__`` trains it for a few steps
@@ -23,6 +26,7 @@ link and the bytes ``chain_wire_bytes`` predicts for them:
 
     python -m repro_torch.launch.split_pipeline              # llama3_2_3b
     python -m repro_torch.launch.split_pipeline --device cpu --reduced
+    python -m repro_torch.launch.split_pipeline --lora-rank 8  # SplitLoRA
 """
 from __future__ import annotations
 
@@ -37,7 +41,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.quantizers import QuantConfig
 from repro_torch.core.split import SplitConfig, Transport
-from repro_torch.core.split_stage import check_lora_rank, init_stage_params
+from repro_torch.core.split_stage import init_stage_params
 from repro_torch.device import DeviceLike
 from repro_torch.launch import schedules
 from repro_torch.optim import AdamWConfig, init_opt_state
@@ -72,7 +76,8 @@ def init_pipeline_params(cfg: ArchConfig, n_stages: int = 2,
                          lora_rank: int = 0, *, seed: int = 0,
                          device: DeviceLike = None) -> Dict:
     """Stage-stacked parameters: blocks (N, L/N, ...); embed / head shared;
-    from ``seed`` on ``device`` (CUDA unless ``device="cpu"``)."""
+    ``lora_rank > 0`` adds the stage-stacked ``"adapters"`` tree; from
+    ``seed`` on ``device`` (CUDA unless ``device="cpu"``)."""
     return init_stage_params(cfg, n_stages, lora_rank=lora_rank, seed=seed,
                              device=device)
 
@@ -145,11 +150,18 @@ def train_pipeline(cfg: ArchConfig, split, opt_cfg: AdamWConfig,
     every cut's ``group_widths``.  ``plan_log`` receives (step, plan)
     whenever the plan changes.  ``transport`` (a fresh one when None)
     counts every shipped byte.
+
+    SplitLoRA: ``lora_rank > 0`` freezes the base weights and steps only
+    ``params["adapters"]`` (drawn with the parameters when ``params`` is
+    None); the grad step differentiates w.r.t. the adapters alone and the
+    AdamW moments are sized by them (``init_adapter_state``), updated in
+    place (``apply_adapter_gradients(donate=True)``).  The base leaves come
+    back as the same, unchanged tensors.
     """
     from repro_torch.core import entropy as entropy_mod
-    from repro_torch.train.loop import TrainState, apply_gradients
+    from repro_torch.train.loop import (TrainState, apply_adapter_gradients,
+                                        apply_gradients, init_adapter_state)
 
-    check_lora_rank(lora_rank)
     split = _as_split(split)
     adaptive = wire_budget_bytes is not None
     if adaptive and split.quant.method not in ("fsq", "rdfsq", "nf"):
@@ -161,15 +173,23 @@ def train_pipeline(cfg: ArchConfig, split, opt_cfg: AdamWConfig,
     def grad_step_for(split):
         return build_pipeline_grad_step(cfg, split, bwd_qcfg, n_micro,
                                         micro_batch, seq,
+                                        lora_rank=lora_rank,
                                         transport=transport)
 
     grad_step = grad_step_for(split)
     if params is None:
-        params = init_pipeline_params(cfg, split.n_stages, seed=seed,
-                                      device=device)
+        params = init_pipeline_params(cfg, split.n_stages, lora_rank,
+                                      seed=seed, device=device)
     dev = tree_leaves(params)[0].device
-    state = TrainState(params=params, opt=init_opt_state(params, opt_cfg),
-                       step=torch.zeros((), dtype=torch.int32, device=dev))
+    if lora_rank > 0:
+        state = init_adapter_state(params, opt_cfg)
+        update = apply_adapter_gradients
+    else:
+        state = TrainState(params=params,
+                           opt=init_opt_state(params, opt_cfg),
+                           step=torch.zeros((), dtype=torch.int32,
+                                            device=dev))
+        update = apply_gradients
     ema = entropy_mod.init_entropy_ema(cfg.d_model, device=dev) \
         if adaptive else None
     scalars_per_ch = micro_batch * seq
@@ -195,9 +215,8 @@ def train_pipeline(cfg: ArchConfig, split, opt_cfg: AdamWConfig,
                 split = split.with_plans((plan,) * n_cuts)
                 grad_step = grad_step_for(split)
         loss, grads, wire_b = grad_step(state.params, tokens, labels)
-        state, _ = apply_gradients(state, grads, opt_cfg,
-                                   warmup_steps=warmup_steps,
-                                   total_steps=total_steps, donate=True)
+        state, _ = update(state, grads, opt_cfg, warmup_steps=warmup_steps,
+                          total_steps=total_steps, donate=True)
         del grads
         history.append(float(loss))
     return state.params, state.opt, history, wire_b
@@ -238,6 +257,9 @@ def main(argv=None) -> int:
     ap.add_argument("--bwd-bits", type=int, default=0,
                     help="RD-FSQ bits of the cotangent (0: raw)")
     ap.add_argument("--lr", type=float, default=1e-4)
+    ap.add_argument("--lora-rank", type=int, default=0,
+                    help="SplitLoRA: train rank-r adapters on a frozen base "
+                         "(0: every weight)")
     args = ap.parse_args(argv)
 
     cfg = _homogeneous_cfg(args.arch, reduced=args.reduced,
@@ -252,15 +274,26 @@ def main(argv=None) -> int:
                            args.seq)
     transport = Transport()
     t0 = time.perf_counter()
-    _, _, history, wire_b = train_pipeline(
+    params, opt, history, wire_b = train_pipeline(
         cfg, split, AdamWConfig(lr=args.lr, weight_decay=0.0), batches,
         n_micro=args.n_micro, micro_batch=args.micro_batch, seq=args.seq,
-        bwd_qcfg=bwd, device=args.device, transport=transport)
+        bwd_qcfg=bwd, device=args.device, transport=transport,
+        lora_rank=args.lora_rank)
     seconds = time.perf_counter() - t0
-    print(f"[split-pipeline {cfg.name} N={args.stages}] loss "
+    lora = f" r={args.lora_rank}" if args.lora_rank else ""
+    print(f"[split-pipeline {cfg.name} N={args.stages}{lora}] loss "
           + " -> ".join(f"{v:.4f}" for v in history)
           + f" in {seconds:.1f} s ({args.steps} steps of {args.n_micro} x "
           f"{args.micro_batch} x {args.seq} tokens)")
+    if args.lora_rank:
+        from repro_torch.optim import param_bytes
+        from repro_torch.peft import adapter_bytes, adapter_param_count
+
+        ad = params["adapters"]
+        print(f"[split-pipeline] adapters {adapter_param_count(ad)} "
+              f"parameters, {adapter_bytes(ad)} B; AdamW m {param_bytes(opt['m'])}"
+              f" B; the frozen base {param_bytes(params) - adapter_bytes(ad)}"
+              " B")
     wire = pipeline_wire_bytes(cfg, split, args.micro_batch, args.seq, bwd)
     shipments = args.steps * args.n_micro
     bwd_codec = "raw" if bwd is None else f"{bwd.method}-{bwd.bits}bit"

@@ -24,6 +24,16 @@ that many mean code bits per scalar over ``split_plan_groups`` groups).
 A changed plan replaces ``split_wire`` and is recorded in
 ``stats["wire_plan"]``.
 
+SplitLoRA serving (``lora_adapters=``, ``lora_scale``): the adapters are
+folded into the base weights once, at construction, before any
+``weight_quant`` packing (the adapters must fold into the dense weights
+before they are frozen into codes); ``merge_lora`` is ``apply_lora``'s
+arithmetic, so serving merged params is token-exact against the adapter
+forward, at no cost a token.
+
+A text config (``llama3_2_3b``) takes requests of tokens alone; a vlm
+config (``tinyllava``) takes an image's embeddings with each.
+
 Weight-only quantized serving (``weight_quant="int4" | "int3" |
 "int2"``): once the params are on the device, every w* matmul site of the
 block stacks is replaced with a packed ``wq.PackedLinear`` store, by GPTQ
@@ -54,6 +64,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.launch import schedules
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers.mlp import mlp_forward
+from repro_torch.peft import merge_lora
 from repro_torch.serve import decode as sd
 from repro_torch.serve import paged
 from repro_torch.serve.pool import PagePool
@@ -78,15 +89,18 @@ class ServeEngine:
                  split_wire: Optional[QuantConfig] = None,
                  split_wire_budget_bits: Optional[float] = None,
                  split_plan_groups: int = 8,
-                 lora_adapters=None, weight_quant: Optional[str] = None,
+                 lora_adapters=None, lora_scale: float = 1.0,
+                 weight_quant: Optional[str] = None,
                  wq_group: int = 128, wq_act_order: bool = False,
                  wq_calib: Optional[Dict] = None,
                  device: DeviceLike = None):
-        if lora_adapters is not None:
-            raise NotImplementedError(
-                "SplitLoRA serving is ROADMAP queue M, item M9")
         self.device = resolve_device(device)
         self.params = _to_device(params, self.device)
+        if lora_adapters is not None:
+            with torch.no_grad():
+                self.params = merge_lora(
+                    self.params, _to_device(lora_adapters, self.device),
+                    scale=lora_scale)
         self.wq_report = None
         wq_stats = {}
         if weight_quant is not None:
@@ -124,7 +138,8 @@ class ServeEngine:
             self.pools = paged.init_pools(cfg, n_pages, page_size,
                                           device=self.device)
         self.page_pool = PagePool(n_pages)
-        self.n_image_tokens = cfg.n_image_tokens
+        self.n_image_tokens = cfg.n_image_tokens \
+            if cfg.modality == "vlm" else 0
         self.scheduler = SlotScheduler(n_slots, self.page_pool, page_size,
                                        n_image_tokens=self.n_image_tokens)
         self._gen = torch.Generator().manual_seed(seed)
@@ -140,7 +155,7 @@ class ServeEngine:
                image_embeds=None, arrival_time: float = 0.0) -> int:
         if max_new < 1:
             raise ValueError("max_new must be >= 1")
-        if image_embeds is None:
+        if self.cfg.modality == "vlm" and image_embeds is None:
             raise ValueError("vlm configs require image_embeds per request")
         rid = self._next_rid
         self._next_rid += 1
@@ -215,15 +230,16 @@ class ServeEngine:
         tokens = np.zeros((rows, lp), np.int64)
         for i, r in enumerate(admitted):
             tokens[i, :len(r.tokens)] = r.tokens
-        imgs = [torch.as_tensor(r.image_embeds, device=dev)
-                for r in admitted]
-        imgs += [torch.zeros_like(imgs[0])] * (rows - len(admitted))
-        imgs = torch.stack(imgs)
         batch: Dict = dict(tokens=torch.as_tensor(tokens, device=dev))
-        if self.split_wire is not None:
-            batch["image_features"] = self._ship_image_features(imgs)
-        else:
-            batch["image_embeds"] = imgs
+        if self.cfg.modality == "vlm":
+            imgs = [torch.as_tensor(r.image_embeds, device=dev)
+                    for r in admitted]
+            imgs += [torch.zeros_like(imgs[0])] * (rows - len(admitted))
+            imgs = torch.stack(imgs)
+            if self.split_wire is not None:
+                batch["image_features"] = self._ship_image_features(imgs)
+            else:
+                batch["image_embeds"] = imgs
         logits, caches = sd.prefill(self.params, self.cfg, batch, lb,
                                     window=self.window)
         # scatter the ring caches into each request's physical pages;

@@ -1,14 +1,15 @@
 """Training step builder + host-side loop (port of
 ``repro/train/loop.py``: ``TrainState``, ``init_state``,
-``apply_gradients``, ``make_train_step``, ``train_loop``).
+``apply_gradients``, ``init_adapter_state``, ``apply_adapter_gradients``,
+``make_train_step``, ``train_loop``).
 
 ``make_train_step(cfg, opt)`` returns ``(state, batch, rng) -> (state,
 metrics)`` implementing the paper's composite objective: the forward
 through K1, CE + alpha * L_comm through the in-graph RD-FSQ compressor,
 the backward through K2 / K3, warmup-cosine AdamW.  PyTorch runs it
-eagerly; there is no ``jit``.  The SplitLoRA adapter states
-(``init_adapter_state`` / ``apply_adapter_gradients``) are ROADMAP item
-M9.
+eagerly; there is no ``jit``.  SplitLoRA's state keeps AdamW moments over
+the ``"adapters"`` subtree alone and steps only it
+(``init_adapter_state`` / ``apply_adapter_gradients``).
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ from repro_torch.models import transformer as tf
 from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
 from repro_torch.optim.schedule import warmup_cosine
 from repro_torch.train.losses import composite_loss
-from repro_torch.utils.tree import tree_leaves, tree_map
+from repro_torch.utils.tree import (tree_flatten_with_path, tree_leaves,
+                                    tree_map)
 
 _ACCUM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -59,6 +61,42 @@ def apply_gradients(state: TrainState, grads, opt_cfg: AdamWConfig, *,
         state.params, grads, state.opt, opt_cfg, lr_scale, donate=donate)
     return TrainState(params=new_params, opt=new_opt,
                       step=state.step + 1), opt_metrics
+
+
+def init_adapter_state(params: Dict, opt_cfg: AdamWConfig) -> TrainState:
+    """SplitLoRA's TrainState: AdamW moments over ``params["adapters"]``
+    alone (``core/split_stage.init_stage_params(lora_rank=)``), so the
+    optimizer state is sized by the adapters, not the frozen base."""
+    if "adapters" not in params:
+        raise ValueError("init_adapter_state needs params['adapters']")
+    return TrainState(params=params,
+                      opt=init_opt_state(params["adapters"], opt_cfg),
+                      step=torch.zeros((), dtype=torch.int32,
+                                       device=tree_leaves(params)[0].device))
+
+
+def apply_adapter_gradients(state: TrainState, adapter_grads,
+                            opt_cfg: AdamWConfig, *, warmup_steps: int = 0,
+                            total_steps: int = 0, donate: bool = False
+                            ) -> Tuple[TrainState, Dict]:
+    """Adapter-only AdamW: steps ``params["adapters"]`` with gradients
+    that mirror it, and returns every other leaf of ``state.params``
+    unchanged (the same tensors: the base is bit-frozen).  ``donate``
+    updates the adapters and moments in place, as ``apply_gradients``
+    does."""
+    ad = state.params["adapters"]
+    paths = [p for p, _ in tree_flatten_with_path(ad)]
+    if [p for p, _ in tree_flatten_with_path(state.opt["m"])] != paths \
+            or [p for p, _ in tree_flatten_with_path(adapter_grads)] != paths:
+        raise ValueError("the optimizer state and the gradients must mirror "
+                         "params['adapters']")
+    lr_scale = warmup_cosine(state.step, warmup_steps=warmup_steps,
+                             total_steps=total_steps) \
+        if total_steps else 1.0
+    new_ad, new_opt, opt_metrics = adamw_update(
+        ad, adapter_grads, state.opt, opt_cfg, lr_scale, donate=donate)
+    return TrainState(params=dict(state.params, adapters=new_ad),
+                      opt=new_opt, step=state.step + 1), opt_metrics
 
 
 def batch_to(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:

@@ -59,8 +59,8 @@ def tree_count(tree) -> int:
 def is_weight_site(name: str, leaf) -> bool:
     """A projection weight: dict key ``w*`` with >= 2 dims.
 
-    The one structural rule that selects weight-quantization sites (and
-    LoRA sites, ROADMAP item M9): the last two axes are read as ``(d_in,
+    The one structural rule that selects weight-quantization sites and
+    LoRA sites (``peft/lora.py``): the last two axes are read as ``(d_in,
     d_out)`` and any in front (layer axes) are batch.  Norm scales, biases
     and the codec's ``enc_b`` / ``dec_b`` are skipped.
     """

@@ -377,7 +377,8 @@ def test_flash_bwd_plan_shared_memory_at_each_width(shape):
 def test_flash_wrappers_refuse_other_widths():
     """CUDA-free argument checks: K1 - K3 take D = Dv in (64, 128) and
     name queue K item 2 for Dv != D; the plan refuses other widths; the
-    decode kernels K6 - K9 take 64 only and name queue K item 1."""
+    decode kernels K6 - K9 take 64 and 128 and name queue K item 3 for
+    80."""
     def ops(d, dv=None):
         q = torch.zeros(1, 4, 16, d, dtype=torch.bfloat16)
         k = torch.zeros(1, 2, 16, d, dtype=torch.bfloat16)
@@ -395,16 +396,16 @@ def test_flash_wrappers_refuse_other_widths():
         tops._check_flash("K1", *ops(128, dv=64))
     with pytest.raises(ValueError, match="head_dim"):
         tops.flash_bwd_plan(1, 4, 2, 16, 16, 96)
-    for d in (64, 128):
+    for d in (64, 128, 80):
         qf = torch.zeros(2, 2, 2, d, dtype=torch.bfloat16)
         cache = torch.zeros(2, 8, 2, d, dtype=torch.bfloat16)
         pos = torch.zeros(2, 8, dtype=torch.int32)
         qpos = torch.zeros(2, dtype=torch.int32)
-        if d == 64:
+        if d in tops.DECODE_HEAD_DIMS:
             tops._check_decode("K6", qf, cache, cache, (), pos, qpos,
                                torch.bfloat16)
         else:
-            with pytest.raises(ValueError, match="item 1"):
+            with pytest.raises(ValueError, match="item 3"):
                 tops._check_decode("K6", qf, cache, cache, (), pos, qpos,
                                    torch.bfloat16)
 
@@ -524,11 +525,12 @@ def _rank_pages(plan, npp):
 def test_decode_paged_plan_covers_every_page_once(shape):
     """The ranks of a cluster (a power of two, at most 8 and at most npp)
     take contiguous ranges of the table row, in rank order, every page in
-    exactly one; the grid is one cluster per (slot, kv head)."""
+    exactly one; the grid is one cluster per (slot, kv head); at head
+    widths 64 and 128 alike."""
     npp, pg, g = shape
-    for elem in (2, 1):
+    for elem, d in ((e, d) for e in (2, 1) for d in tops.DECODE_HEAD_DIMS):
         plan = tops.decode_paged_plan(SERVE_SLOTS, SERVE_KV_HEADS, npp, pg,
-                                      g, elem)
+                                      g, elem, d)
         c = plan.cluster
         assert c in (1, 2, 4, 8) and c <= npp
         assert plan.grid == SERVE_SLOTS * SERVE_KV_HEADS * c
@@ -542,17 +544,16 @@ def test_decode_paged_plan_fits_shared_memory(shape):
     """A round holds at least one page and at most PAGED_ROUND_BYTES of K
     and V (or one page, if a page is larger), a rank of several rounds gets
     two buffers, and a block's shared memory (the buffers and everything
-    beside them) fits the H100's 227 KB."""
+    beside them) fits the H100's 227 KB, at head widths 64 and 128."""
     npp, pg, g = shape
-    for elem in (2, 1):
+    for elem, d in ((e, d) for e in (2, 1) for d in tops.DECODE_HEAD_DIMS):
         plan = tops.decode_paged_plan(SERVE_SLOTS, SERVE_KV_HEADS, npp, pg,
-                                      g, elem)
-        rnd, page = plan.pages_per_round, 2 * pg * tops.HEAD_DIM * elem
+                                      g, elem, d)
+        rnd, page = plan.pages_per_round, 2 * pg * d * elem
         assert 1 <= rnd <= plan.pages_per_rank
         assert rnd * page <= max(tops.PAGED_ROUND_BYTES, page)
         assert plan.buffers == (1 if rnd == plan.pages_per_rank else 2)
-        kv = plan.buffers * 2 * (-(-rnd * pg // 16) * 16) * tops.HEAD_DIM \
-            * elem
+        kv = plan.buffers * 2 * (-(-rnd * pg // 16) * 16) * d * elem
         assert kv < plan.smem <= tops.SMEM_MAX == 232448
 
 
@@ -561,7 +562,7 @@ def test_decode_paged_plan_fills_the_card_at_the_serve_shape(elem):
     """At the serve shape (4 slots, 5 kv heads, 64 entries of 16-token
     pages) the split puts a block on every one of the 132 SMs: clusters of
     8, 8 pages a rank, all of them in one round."""
-    plan = tops.decode_paged_plan(4, 5, 64, 16, 4, elem)
+    plan = tops.decode_paged_plan(4, 5, 64, 16, 4, elem, 64)
     assert plan.grid >= 132 and plan.cluster == 8
     assert plan.pages_per_rank == plan.pages_per_round == 8
 
@@ -692,7 +693,7 @@ def test_decode_paged_split_model_matches_reference(window, kind, rounds):
     qf, k, v, pos, pt, qpos = _split_fixture()
     s, kh, g, _ = qf.shape
     plan = tops.decode_paged_plan(s, kh, pt.shape[1], k.shape[1], g,
-                                  2 if kind == "K8" else 1)
+                                  2 if kind == "K8" else 1, qf.shape[-1])
     assert plan.cluster == 8 and plan.pages_per_rank == 2
     rnd = plan.pages_per_round if rounds == "plan" else 1
     if kind == "K8":
@@ -734,9 +735,9 @@ def test_decode_paged_split_model_matches_reference(window, kind, rounds):
 RING_LENGTHS = (1, 15, 16, 17, 37, 100, 509, 825, 2000, 4096)
 
 
-def _ring_plan(b, kh, length, g, elem):
+def _ring_plan(b, kh, length, g, elem, d=64):
     return tops.decode_paged_plan(b, kh, -(-length // tops.RING_PAGE),
-                                  tops.RING_PAGE, g, elem)
+                                  tops.RING_PAGE, g, elem, d)
 
 
 @pytest.mark.parametrize("length", RING_LENGTHS)
@@ -744,12 +745,15 @@ def test_decode_ring_plan_covers_every_key_once(length):
     """The ranks' virtual pages cover every key slot of [0, L) exactly
     once, in rank order; no page starts at or past L (only the last may be
     ragged); the cluster is a power of two, at most 8 and at most the
-    number of pages; the plan fits a block's shared memory."""
+    number of pages; the plan fits a block's shared memory; at head widths
+    64 and 128."""
     pg = tops.RING_PAGE
     npp = -(-length // pg)
     for g in (1, 4, 16):
-        for elem in (2, 1):
-            plan = _ring_plan(SERVE_SLOTS, SERVE_KV_HEADS, length, g, elem)
+        for elem, d in ((e, d) for e in (2, 1)
+                        for d in tops.DECODE_HEAD_DIMS):
+            plan = _ring_plan(SERVE_SLOTS, SERVE_KV_HEADS, length, g, elem,
+                              d)
             assert plan.cluster in (1, 2, 4, 8) and plan.cluster <= npp
             assert plan.grid == SERVE_SLOTS * SERVE_KV_HEADS * plan.cluster
             pages = _rank_pages(plan, npp)

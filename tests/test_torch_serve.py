@@ -16,6 +16,7 @@ from repro_torch.configs import get_config as torch_get_config  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.serve.pool import PagePool  # noqa: E402
 from repro_torch.serve.scheduler import Request, SlotScheduler  # noqa: E402
+from repro_torch.utils.tree import tree_leaves  # noqa: E402
 
 CFG = get_config("tinyllava").reduced()
 TCFG = torch_get_config("tinyllava").reduced()
@@ -86,16 +87,35 @@ def test_engine_requires_cuda_unless_cpu_is_asked_for(case):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(lora_adapters={}), "M9"),
+    (dict(lora_scale=0.5), "M9"),
     (dict(weight_quant="int4"), "M10")])
 def test_engine_unported_options_raise(case, kw, item):
-    """M9 is not ported and raises; M10 (weight-only quantization) is, and
-    the engine serves from packed int4 stores and reports their bytes."""
+    """Options that once raised as unported now serve.  M9 (SplitLoRA
+    serving, ROADMAP item M9a): ``lora_adapters=`` is merged once at
+    construction, so the engine's tokens equal an engine's on
+    ``merge_lora``'s params, and an empty adapter tree changes nothing;
+    M10: the engine serves from packed int4 stores and reports their
+    bytes."""
+    from repro_torch.peft import init_lora_params, merge_lora
+
     _, tp, reqs, n_pages = case
     if item == "M9":
-        with pytest.raises(NotImplementedError, match=item):
-            ServeEngine(tp, TCFG, n_slots=2, page_size=PAGE,
-                        n_pages=n_pages, device="cpu", **kw)
+        ad = init_lora_params(torch.Generator().manual_seed(1), tp, 2,
+                              b_scale=0.05)
+        out, eng = _run(ServeEngine, tp, TCFG, reqs[:2], n_pages,
+                        device="cpu", lora_adapters=ad, **kw)
+        merged, _ = _run(ServeEngine, merge_lora(tp, ad, scale=0.5), TCFG,
+                         reqs[:2], n_pages, device="cpu")
+        assert out == merged
+        assert [len(o) for o in out] == [m for _, m, _ in reqs[:2]]
+        assert all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(eng.params), tree_leaves(merge_lora(tp, ad,
+                                                            scale=0.5))))
+        none, _ = _run(ServeEngine, tp, TCFG, reqs[:2], n_pages,
+                       device="cpu", lora_adapters={})
+        base, _ = _run(ServeEngine, tp, TCFG, reqs[:2], n_pages,
+                       device="cpu")
+        assert none == base
         return
     out, eng = _run(ServeEngine, tp, TCFG, reqs[:2], n_pages, device="cpu",
                     **kw)

@@ -242,16 +242,28 @@ def test_links_and_groups_match_reference():
 
 
 def test_m9_parts_raise():
+    """The hub's parts (ROADMAP item M9b) still raise and name it: the
+    adapter-gradient return's ``grad_trip`` / ``grad_wire_bytes`` and
+    ``_link_bytes(grad_sds=)``.  SplitLoRA on the chain (M9a) runs:
+    ``chain_programs`` carries the rank, and the step takes the stage-
+    stacked adapters."""
     link = tsplit.WireLink(0, 1, TQC(), grad_quant=TQC())
     for call in (lambda: link.grad_trip({}, tsplit.Transport()),
-                 lambda: link.grad_wire_bytes({})):
-        with pytest.raises(NotImplementedError, match="M9"):
+                 lambda: link.grad_wire_bytes({}),
+                 lambda: tsched._link_bytes((link,), (2, 16, 256),
+                                            torch.float32, 1, grad_sds={})):
+        with pytest.raises(NotImplementedError, match="M9b"):
             call()
     cfg = get_config("llama3_2_3b").reduced()
-    with pytest.raises(NotImplementedError, match="M9"):
-        chain_programs(cfg, 2, lora_rank=2)
-    with pytest.raises(NotImplementedError, match="M9"):
-        tsp.build_pipeline_step(cfg, TQC(), 2, 2, 16, lora_rank=4)
+    assert {p.lora_rank for p in chain_programs(cfg, 2, lora_rank=2)} == {2}
+    params = init_stage_params(cfg, 2, lora_rank=4, device="cpu")
+    loss, _ = tsp.build_pipeline_step(cfg, TQC(), 2, 2, 16, lora_rank=4)(
+        params, *(t[:, :2, :16] for t in _batch(cfg, 0)))
+    assert np.isfinite(float(loss))
+    with pytest.raises(ValueError, match="adapters"):
+        tsp.build_pipeline_step(cfg, TQC(), 2, 2, 16, lora_rank=4)(
+            init_stage_params(cfg, 2, device="cpu"),
+            *(t[:, :2, :16] for t in _batch(cfg, 0)))
 
 
 # ---------------------------------------------------------------------------
