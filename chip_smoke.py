@@ -117,7 +117,22 @@ non-zero:
               one fp32 each per adapter parameter, exact launches of
               K1 - K5 and link bytes, save_adapters -> load_adapters
               bit-exact.
-15. llama serve -- full-width llama3_2_3b as configured (its 2-bit cut at
+15. hub    -- the lockstep many-client hub (launch/split_hub.py) on
+              full-width llama3_2_3b layers, 3 clients + 1 server of 7
+              layers each (the depth cut from 28 to 14 layers, printed
+              with its reason: 4 stages of 14 would need about 77 GB
+              before any activation): hub(N = 1) against the 2-stage
+              pipeline on the same weights within 1e-3; 4 AdamW steps of
+              train_hub over rdfsq-2 / nf-4 / rdfsq-2 links with raw
+              cotangents (2 microbatches of 2 x 1 024 tokens a client; the
+              server's K1 - K3 at B 6; the loss falls, and the first
+              batch's after the steps); a grad step with 2-bit cotangents;
+              2 steps of the adaptive wire (2.0 bits, 8 groups; every
+              plan legal); counted bytes of every link both ways = the
+              formula, exact launches of K1 - K5 and K10 / K11; a
+              full-width 2-layer hub against the fp32 CPU path (loss
+              within 5%, gradient cosines >= 0.98).
+16. llama serve -- full-width llama3_2_3b as configured (its 2-bit cut at
               layer 14; weights from seed 0) with merged rank-8 adapters
               (B at scale 0.05): ServeEngine(lora_adapters=) over bf16
               pools (K1, K8 at head width 128) and int8 pools (K9), 8
@@ -202,6 +217,14 @@ PIPE_MONO_RTOL = 1e-3
 PIPE_PARITY = (2, 1, 256)
 # SplitLoRA on the pipeline: 4 AdamW steps of the rank-8 adapters
 LORA_RANK, LORA_STEPS, LORA_LR = 8, 4, 3e-3
+# the lockstep hub: 3 clients and a server of 7 full-width llama3_2_3b
+# layers each (a depth cut: 4 stages of 14 layers would be 6.43 G
+# parameters, whose bf16 weights and gradients and fp32 AdamW moments come
+# to about 77 GB before any activation; 4 x 7 layers plus embed and head
+# are the pipeline's 3.6 G); 4 AdamW steps of 2 microbatches of 2 x 1 024
+# tokens a client, then 2 steps of the adaptive wire
+HUB_CLIENTS, HUB_LAYERS, HUB_STEPS, HUB_MICRO = 3, 14, 4, 2
+HUB_ADAPTIVE_STEPS, HUB_BUDGET_BITS, HUB_GROUPS = 2, 2.0, 8
 # merged serving of llama3_2_3b: generate's 4 prompts of 512 tokens; the
 # card-vs-CPU parity's teacher-forced decode steps
 LLAMA_GEN_BATCH, LLAMA_GEN_TEXT, LLAMA_PARITY_STEPS = 4, 512, 4
@@ -2456,7 +2479,231 @@ def phase_lora_pipeline():
 
 
 # ---------------------------------------------------------------------------
-# phase 15: merged serving of full-width llama3_2_3b
+# phase 15: the lockstep many-client hub on full-width llama3_2_3b layers
+# ---------------------------------------------------------------------------
+
+def _hub_wire_launches(hub):
+    """Wire kernel launches of one microbatch of ``hub``: each link's
+    encode and decode, and the cotangent's on the way back when
+    ``bwd_quant`` is set.  RD-FSQ launches K4 / K5 once per group (once
+    static) whose width is 1, 2, 4 or 8, the other widths taking the plain
+    bitstream codec; NF-4 launches K10 / K11 once."""
+    out = {}
+    quants = [link.quant for link in hub.links()]
+    if hub.bwd_quant is not None:
+        quants += [hub.bwd_quant] * hub.n_clients
+    for q in quants:
+        kernels = (("nf_quantize", "nf_dequantize") if q.method == "nf" else
+                   ("rdfsq_quantize", "rdfsq_dequantize"))
+        k = sum(w in (1, 2, 4, 8) for w in (q.group_widths or (q.bits,)))
+        for name in kernels:
+            out[name] = out.get(name, 0) + k
+    return out
+
+
+def phase_hub():
+    """The lockstep hub (launch/split_hub.py): returns the launch counts of
+    the phase's counted runs, by path."""
+    import torch
+    from repro_torch.core.quantizers import QuantConfig
+    from repro_torch.core.split import HubConfig, Transport
+    from repro_torch.kernels import build
+    from repro_torch.launch import split_hub as sh
+    from repro_torch.launch import split_pipeline as sp
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.utils.tree import tree_count
+
+    t_phase = time.perf_counter()
+    full = sp._homogeneous_cfg("llama3_2_3b", n_stages=2)
+    cfg = dataclasses.replace(full, n_layers=HUB_LAYERS)
+    per = cfg.n_layers // 2
+    n, n_micro, mb, seq = HUB_CLIENTS, HUB_MICRO, PIPE_MB, PIPE_SEQ
+    r2 = QuantConfig(method="rdfsq", bits=2)
+    hub = HubConfig(n_clients=n, client_quants=sh.hub_quants(n))
+    params = sh.init_hub_params(cfg, hub, seed=0)
+    torch.cuda.synchronize()
+    print(f"[hub] full-width {cfg.name} layers (d {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of width {cfg.head_dim}, "
+          f"bf16, remat {cfg.remat}, weights from seed 0): {n} clients + 1 "
+          f"server of {per} layers each, {tree_count(params)} parameters. "
+          f"Depth cut from {full.n_layers} to {cfg.n_layers} layers: 4 "
+          f"stages of {full.n_layers // 2} would be 6.43 G parameters, "
+          f"about 77 GB of bf16 weights and gradients and fp32 AdamW "
+          f"moments before any activation")
+    batches = [(torch.as_tensor(t).cuda(), torch.as_tensor(lab).cuda())
+               for t, lab in sh.make_batches(cfg, HUB_STEPS, n_micro, n, mb,
+                                             seq)]
+    paths = {}
+
+    # hub(N = 1) against the 2-stage pipeline on the same bf16 weights:
+    # client 0's stage and the server's (a view)
+    params1 = dict(params, blocks=_tree(params["blocks"],
+                                        lambda t: t[::n]))
+    tokens, labels = (t[:, :1].contiguous() for t in batches[0])
+    with torch.no_grad():
+        pipe = float(sp.build_pipeline_step(cfg, r2, n_micro, mb, seq)(
+            params1, tokens[:, 0], labels[:, 0])[0])
+        build.reset_launches()
+        one = float(sh.build_hub_step(cfg, HubConfig(n_clients=1, quant=r2),
+                                      n_micro, mb, seq)(
+            params1, tokens, labels)[0])
+        _check_launches("hub N=1", dict(build.launches), _pipe_expect(
+            2 * per, n_micro, 0, {"rdfsq_quantize": 1,
+                                  "rdfsq_dequantize": 1}))
+    rel = abs(one - pipe) / abs(pipe)
+    print(f"[hub N=1] loss {one:.6f}, the 2-stage pipeline's {pipe:.6f}: "
+          f"|diff| {abs(one - pipe):.3e}, rel {rel:.3e} (tol "
+          f"{PIPE_MONO_RTOL})")
+    require(rel <= PIPE_MONO_RTOL, f"hub(N=1) vs pipeline rel {rel}")
+    del params1
+
+    # HUB_STEPS AdamW steps over rdfsq-2 / nf-4 / rdfsq-2, raw cotangents;
+    # the batch iterator stamps each step's start
+    with torch.no_grad():
+        before = float(sh.build_hub_step(cfg, hub, n_micro, mb, seq)(
+            params, *batches[0])[0])
+    stamps = []
+
+    def feed():
+        for b in batches:
+            stamps.append(time.perf_counter())
+            yield b
+        stamps.append(time.perf_counter())
+
+    transport = Transport()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    out = sh.train_hub(cfg, hub, AdamWConfig(lr=PIPE_LR, weight_decay=0.0),
+                       feed(), micro_batch=mb, seq=seq, n_micro=n_micro,
+                       params=params, transport=transport)
+    torch.cuda.synchronize()
+    paths["hub"] = dict(build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    times = [b - a for a, b in zip(stamps, stamps[1:])]
+    params, history = out["params"], out["history"]
+    del out
+    with torch.no_grad():
+        after = float(sh.build_hub_step(cfg, hub, n_micro, mb, seq)(
+            params, *batches[0])[0])
+    print(f"[hub] {HUB_STEPS} steps of {n_micro} x {n} x {mb} x {seq} "
+          f"tokens, lr {PIPE_LR}: loss " + " -> ".join(
+              f"{v:.4f}" for v in history) + f"; the first batch's loss "
+          f"{before:.4f} before the steps, {after:.4f} after")
+    require(all(math.isfinite(v) for v in history + [after])
+            and history[-1] < history[0] and after < before,
+            f"hub loss {history}, first batch {before} -> {after}")
+    # the server's layers run once a microbatch, batched over the clients:
+    # (n + 1) x per layers in all
+    _check_launches("hub", paths["hub"], _pipe_expect(
+        (n + 1) * per, n_micro, HUB_STEPS, _hub_wire_launches(hub)))
+    table = sh.hub_wire_bytes(cfg, hub, mb, seq)
+    _check_link_bytes("hub", transport, table, HUB_STEPS * n_micro)
+    print(f"[hub] {1e3 * statistics.median(times[1:]):.1f} ms per step "
+          f"(median of steps 2-{HUB_STEPS}; first step "
+          f"{1e3 * times[0]:.1f} ms), "
+          f"{n_micro * n * mb * seq / statistics.median(times[1:]):.0f} "
+          f"training tokens/s; peak device memory {peak / 2 ** 30:.2f} GiB")
+    torch.cuda.empty_cache()
+
+    # one grad step with every cotangent through 2-bit RD-FSQ
+    hub_bwd = dataclasses.replace(hub, bwd_quant=r2)
+    transport = Transport()
+    build.reset_launches()
+    loss2, per_client, grads, wire2 = sh.build_hub_grad_step(
+        cfg, hub_bwd, n_micro, mb, seq, transport=transport)(
+            params, *batches[-1])
+    torch.cuda.synchronize()
+    paths["hub bwd 2-bit"] = dict(build.launches)
+    del grads
+    print(f"[hub bwd 2-bit] loss {float(loss2):.4f}, per client "
+          f"{[round(float(v), 4) for v in per_client]}; wire bytes a tick "
+          f"(fwd + bwd) {wire2:.0f}")
+    _check_launches("hub bwd 2-bit", paths["hub bwd 2-bit"], _pipe_expect(
+        (n + 1) * per, n_micro, 1, _hub_wire_launches(hub_bwd)))
+    _check_link_bytes("hub bwd 2-bit", transport,
+                      sh.hub_wire_bytes(cfg, hub_bwd, mb, seq), n_micro)
+    torch.cuda.empty_cache()
+
+    # the adaptive wire: each client's probe feeds its own entropy EMA and
+    # plan (HUB_GROUPS groups, HUB_BUDGET_BITS of code a scalar), over
+    # 2-bit RD-FSQ links as the reference's adaptive hub
+    adaptive = HubConfig(n_clients=n, quant=r2)
+    plan_log = []
+    transport = Transport()
+    build.reset_launches()
+    out = sh.train_hub(cfg, adaptive,
+                       AdamWConfig(lr=PIPE_LR, weight_decay=0.0),
+                       batches[:HUB_ADAPTIVE_STEPS], micro_batch=mb,
+                       seq=seq, n_micro=n_micro, params=params,
+                       transport=transport, plan_log=plan_log,
+                       wire_budget_bytes=mb * seq * cfg.d_model
+                       * HUB_BUDGET_BITS / 8, plan_groups=HUB_GROUPS)
+    torch.cuda.synchronize()
+    paths["hub adaptive"] = dict(build.launches)
+    params, history = out["params"], out["history"]
+    del out
+    print(f"[hub adaptive] {HUB_ADAPTIVE_STEPS} steps, loss "
+          + " -> ".join(f"{v:.4f}" for v in history) + "; plans "
+          + "; ".join(f"step {s}: {list(p)}" for s, p in plan_log))
+    require(plan_log and all(math.isfinite(v) for v in history),
+            f"hub adaptive: plans {plan_log}, loss {history}")
+    for _, plans in plan_log:
+        for p in plans:
+            require(len(p) == HUB_GROUPS and all(1 <= w <= 8 for w in p)
+                    and sum(p) / len(p) <= HUB_BUDGET_BITS,
+                    f"hub adaptive plan {p}")
+    # each plan holds from the step that adopted it to the next change;
+    # every step first probes each client's stage (a forward of per layers)
+    starts = [s for s, _ in plan_log] + [HUB_ADAPTIVE_STEPS]
+    spans = [(adaptive.with_plans(p), b - a)
+             for (a, p), b in zip(plan_log, starts[1:])]
+    expect = {"flash_fwd": n * per * HUB_ADAPTIVE_STEPS}
+    counted = {}
+    for h, k in spans:
+        for name, v in _pipe_expect((n + 1) * per, n_micro, k,
+                                    _hub_wire_launches(h)).items():
+            expect[name] = expect.get(name, 0) + v
+        for link, entry in sh.hub_wire_bytes(cfg, h, mb, seq)[
+                "links"].items():
+            counted[link] = counted.get(link, 0) + entry["fwd"] * k * n_micro
+            counted[link[::-1]] = (counted.get(link[::-1], 0)
+                                   + entry["bwd"] * k * n_micro)
+    _check_launches("hub adaptive", paths["hub adaptive"], expect)
+    print(f"[hub adaptive] counted bytes {dict(transport.bytes)}, the plans' "
+          f"hub_wire_bytes x shipments {counted}")
+    require(dict(transport.bytes) == counted, "hub adaptive link bytes")
+    del params
+    torch.cuda.empty_cache()
+
+    # a full-width two-layer hub, one layer a stage, on the card against
+    # the port's fp32 CPU path
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    n2, mb2, seq2 = PIPE_PARITY
+    params2 = sh.init_hub_params(cfg2, hub, seed=1)
+    tok, lab = (t[:n2, :, :mb2, :seq2].contiguous() for t in batches[0])
+    loss_c, _, grads_c, _ = sh.build_hub_grad_step(
+        cfg2, hub, n2, mb2, seq2)(params2, tok, lab)
+    cfg32 = dataclasses.replace(cfg2, param_dtype="float32",
+                                compute_dtype="float32")
+    params32 = _tree(params2, lambda t: t.float().cpu())
+    del params2
+    t0 = time.perf_counter()
+    loss_32, _, grads_32, _ = sh.build_hub_grad_step(
+        cfg32, hub, n2, mb2, seq2)(params32, tok.cpu(), lab.cpu())
+    print(f"[hub parity] two layers, {n} clients, {n2} x {mb2} x {seq2} "
+          f"tokens a client; the fp32 CPU step took "
+          f"{time.perf_counter() - t0:.1f} s")
+    _grad_parity("hub parity", float(loss_c), float(loss_32), grads_c,
+                 grads_32)
+    del grads_c, grads_32, params32
+    torch.cuda.empty_cache()
+    print(f"[hub] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# phase 16: merged serving of full-width llama3_2_3b
 # ---------------------------------------------------------------------------
 
 def _pool_bytes(cfg, n_pages, page_size) -> int:
@@ -2773,9 +3020,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"[pipeline] device memory before the phase: "
           f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
-    # head width 128: the pipeline, SplitLoRA on it, merged llama serving
+    # head width 128: the pipeline, SplitLoRA on it, the hub, merged llama
+    # serving
     paths128 = _timed("pipeline", phase_pipeline)
     paths128["lora pipeline"] = _timed("lora pipeline", phase_lora_pipeline)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths128.update(_timed("hub", phase_hub))
     paths128.update(_timed("llama serve", phase_serve_llama))
     for path, launches in {**paths, **paths128}.items():
         print(f"[launches] {path}: {launches}")

@@ -1,5 +1,6 @@
 """Split-learning boundary: the in-graph compressor and the real wire
-(port of ``repro/core/split.py``, lines 31-133, 140-376 and 530-554).
+(port of ``repro/core/split.py``, lines 31-133, 140-376, 381-454 and
+530-554).
 
 ``compressor_roundtrip`` is the paper's Figure-2 path with the wire
 replaced by identity: learnable linear encoder, the quantizer's roundtrip
@@ -16,11 +17,11 @@ its backward returns the cotangent over the reverse link, raw at its own
 dtype (the paper's scope) or through ``bwd_quant``.  Where the reference
 ``ppermute``s across the ``pod`` mesh axis of one SPMD program, the port's
 stages share one process and one device, and the transport is an
-in-process send that counts every byte it carries (a ``torch.distributed``
-transport is the hub's, ROADMAP queue M item M9b).  ``WireLink`` owns one
-directed cut with its shape-only byte accounting.  The hub's
-adapter-gradient return (``grad_quant``, ``grad_trip``) and its
-``HubConfig`` are M9b.
+in-process send that counts every byte it carries.  ``WireLink`` owns one
+directed cut with its shape-only byte accounting; ``HubConfig`` describes
+the many-client hub's star of links (client ``c`` -> the server stage).
+The hub's adapter-gradient return (``grad_quant``, ``grad_trip``) is
+ROADMAP queue M item M9b-3.
 """
 from __future__ import annotations
 
@@ -222,10 +223,10 @@ def _payload_bytes(q: QuantConfig, shape, dtype) -> int:
         q, torch.empty(shape, dtype=dtype, device="meta")).wire_bytes()
 
 
-def _m9b(what: str):
+def _m9b3(what: str):
     return NotImplementedError(
-        f"{what} is the hub's adapter-gradient return, ROADMAP queue M, "
-        "item M9b")
+        f"{what}: SplitLoRA on the hub (the adapter-gradient return) is "
+        "ROADMAP queue M, item M9b-3")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -233,9 +234,9 @@ class WireLink:
     """One directed quantized edge of a split topology: the forward
     ``QuantConfig``, the optional backward (cotangent) quant, and the
     per-link byte accounting.  ``src`` / ``dst`` are stage indices;
-    ``client`` tags hub links (M9b); ``grad_quant`` is carried for the
-    hub's adapter-gradient return (M9b).  Each link is counted once, on the stages that run
-    it."""
+    ``client`` tags hub links (``HubConfig.links``); ``grad_quant`` is
+    carried for the hub's adapter-gradient return (M9b-3).  Each link is
+    counted once, on the stages that run it."""
 
     src: int
     dst: int
@@ -282,10 +283,10 @@ class WireLink:
         return _payload_bytes(self.bwd_quant, tuple(shape), dtype)
 
     def grad_wire_bytes(self, grad_tree_sds) -> int:
-        raise _m9b("WireLink.grad_wire_bytes")
+        raise _m9b3("WireLink.grad_wire_bytes")
 
     def grad_trip(self, grad_tree, transport: Transport):
-        raise _m9b("WireLink.grad_trip")
+        raise _m9b3("WireLink.grad_trip")
 
 
 def tree_payload_bytes(q: Optional[QuantConfig], tree) -> int:
@@ -309,13 +310,79 @@ def pipeline_links(split: SplitConfig,
                  for c, q in enumerate(split.resolve_stage_quants()))
 
 
+@dataclasses.dataclass(frozen=True)
+class HubConfig:
+    """Many-client split-learning hub: N clients sharing one server stage.
+
+    Stages 0 .. N-1 are the clients' bottom halves (embed + L/2 blocks),
+    stage N the shared server half (L/2 blocks + head), batched over the
+    clients' arrivals.  ``client_quants`` optionally gives each client its
+    own wire codec (empty = ``quant`` everywhere); ``bwd_quant`` is the
+    cotangent's codec on every link (None = raw).  ``tick_rates`` drives
+    the async scheduler (ROADMAP queue M item M9b-2): client c produces a
+    microbatch every ``tick_rates[c]`` global ticks (empty = all 1).
+    ``grad_quant`` is the adapter-gradient return's codec, read only by a
+    SplitLoRA hub (M9b-3)."""
+
+    n_clients: int = 1
+    quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
+    client_quants: Tuple[QuantConfig, ...] = ()
+    bwd_quant: Optional[QuantConfig] = None
+    tick_rates: Tuple[int, ...] = ()
+    grad_quant: Optional[QuantConfig] = None
+
+    @property
+    def server_stage(self) -> int:
+        """Stage index of the shared server."""
+        return self.n_clients
+
+    def resolve_client_quants(self) -> Tuple[QuantConfig, ...]:
+        if not self.client_quants:
+            return (self.quant,) * self.n_clients
+        if len(self.client_quants) != self.n_clients:
+            raise ValueError(
+                f"client_quants has {len(self.client_quants)} entries for "
+                f"{self.n_clients} clients")
+        return tuple(self.client_quants)
+
+    def resolve_tick_rates(self) -> Tuple[int, ...]:
+        if not self.tick_rates:
+            return (1,) * self.n_clients
+        if len(self.tick_rates) != self.n_clients:
+            raise ValueError(
+                f"tick_rates has {len(self.tick_rates)} entries for "
+                f"{self.n_clients} clients")
+        if any(r < 1 for r in self.tick_rates):
+            raise ValueError(f"tick rates must be >= 1: {self.tick_rates}")
+        return tuple(self.tick_rates)
+
+    def links(self) -> Tuple[WireLink, ...]:
+        """Star topology: client c -> server, one link per client."""
+        return tuple(WireLink(src=c, dst=self.server_stage, quant=q,
+                              bwd_quant=self.bwd_quant, client=c,
+                              grad_quant=self.grad_quant)
+                     for c, q in enumerate(self.resolve_client_quants()))
+
+    def with_plans(self, plans: Tuple[Tuple[int, ...], ...]) -> "HubConfig":
+        """The same hub carrying new per-client allocation plans:
+        ``plans[c]`` becomes client c's ``group_widths`` (empty reverts
+        that client to its static width)."""
+        quants = self.resolve_client_quants()
+        if len(plans) != len(quants):
+            raise ValueError(
+                f"{len(plans)} plans for {len(quants)} clients")
+        return dataclasses.replace(self, client_quants=tuple(
+            dataclasses.replace(q, group_widths=tuple(p))
+            for q, p in zip(quants, plans)))
+
+
 def group_links(links: Tuple[WireLink, ...]
                 ) -> Tuple[Tuple[QuantConfig, Optional[QuantConfig],
                                  Tuple[WireLink, ...]], ...]:
     """Links grouped by identical (quant, bwd_quant), in first-seen
     order: the reference emits one collective per group.  The in-process
-    chain ships link by link and does not group; the hub's schedules
-    (M9b) will."""
+    schedules ship link by link and do not group (the reference's hub
+    cannot either: its links share a destination)."""
     groups: list = []
     for link in links:
         for i, (q, bq, ls) in enumerate(groups):

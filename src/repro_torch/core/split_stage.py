@@ -1,5 +1,5 @@
 """Stage programs: what one split partition computes (port of
-``repro/core/split_stage.py``, lines 44-240).
+``repro/core/split_stage.py``, lines 44-96 and 101-240).
 
 The split stack has three layers: the stage programs here (embed / body /
 head segments on the ``models/stack.py`` executor, with stage-stacked
@@ -11,8 +11,9 @@ a partition owns.
 
 SplitLoRA stages (``lora_rank > 0``) carry a stage-stacked ``"adapters"``
 tree beside ``"blocks"`` and run each layer on ``w + A @ B``
-(``peft/lora.py``).  The hub's programs (``hub_programs``) and the packed
-serving stage (``quantized_stage_blocks``) are ROADMAP queue M, item M9b.
+(``peft/lora.py``).  ``hub_programs`` is the many-client hub's star of
+stages.  The packed serving stage (``quantized_stage_blocks``) is ROADMAP
+queue M, item M9b-3.
 """
 from __future__ import annotations
 
@@ -64,6 +65,24 @@ def chain_programs(cfg: ArchConfig, n_stages: int,
                               first=(s == 0), last=(s == n_stages - 1),
                               lora_rank=lora_rank)
                  for s in range(n_stages))
+
+
+def hub_programs(cfg: ArchConfig, n_clients: int,
+                 lora_rank: int = 0) -> Tuple[StageProgram, ...]:
+    """The star topology: N client stages (embed + bottom half) feeding
+    one shared server stage (top half + head)."""
+    if cfg.n_layers % 2:
+        raise ValueError(f"{cfg.n_layers} layers do not split into a "
+                         "client and a server half")
+    per = cfg.n_layers // 2
+    clients = tuple(StageProgram(index=c, n_stages=n_clients + 1,
+                                 per_stage=per, first=True, last=False,
+                                 lora_rank=lora_rank)
+                    for c in range(n_clients))
+    server = StageProgram(index=n_clients, n_stages=n_clients + 1,
+                          per_stage=per, first=False, last=True,
+                          lora_rank=lora_rank)
+    return clients + (server,)
 
 
 # ---------------------------------------------------------------------------

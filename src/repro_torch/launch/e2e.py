@@ -9,10 +9,11 @@ connector cut, warmup-cosine AdamW, a checkpoint at the end:
         --steps 40 --batch 8 --seq 48
 
 Runs on CUDA unless ``--device cpu`` is given.  The example's
-``hub-async`` and ``lora`` modes both train through the many-client hub
-(``launch/split_hub.train_hub``), which is ROADMAP queue M item M9b;
-SplitLoRA on the chain pipeline is ``launch/split_pipeline.py
---lora-rank``.
+``hub-async`` and ``lora`` modes both train through the many-client hub's
+async and SplitLoRA modes (``launch/split_hub.train_hub``), which are
+ROADMAP queue M items M9b-2 and M9b-3; the lockstep hub is
+``launch/split_hub.py``, SplitLoRA on the chain pipeline
+``launch/split_pipeline.py --lora-rank``.
 """
 from __future__ import annotations
 

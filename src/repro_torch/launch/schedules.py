@@ -1,7 +1,9 @@
 """Schedulers: who ticks when (port of ``repro/launch/schedules.py``,
-lines 82-134, 191-205 and 246-376: ``_link_bytes``, ``chain_wire_bytes``,
-``boundary_probe``, ``replan_widths``, ``replan_grouped``,
-``build_gpipe_step`` and ``build_gpipe_grad_step``).
+lines 82-157, 191-205, 246-376 and 379-512: ``_link_bytes``,
+``chain_wire_bytes``, ``hub_wire_bytes``, ``boundary_probe``,
+``replan_widths``, ``replan_grouped``, ``build_gpipe_step``,
+``build_gpipe_grad_step``, ``build_hub_step`` and
+``build_hub_grad_step``).
 
 The reference's lockstep GPipe is one SPMD program: every stage runs every
 tick, over ``n_micro + n_stages - 1`` ticks, and ships across every cut
@@ -20,8 +22,15 @@ Wire-byte accounting: every table reports bytes per link, each link
 counted once.  ``fwd_tick`` / ``bwd_tick`` are one device's bytes a tick,
 the largest link slice (a stage sources at most one link a tick);
 ``links[(src, dst)]`` is a link's whole traffic a tick (slice x data
-shards).  The hub's schedules and the async mode are ROADMAP queue M
-item M9b.
+shards).
+
+The lockstep hub: N client stages share one server stage.  Each
+microbatch, every client embeds its own tokens, runs its bottom half and
+ships over its own link; the server then runs its half once, batched over
+the N arrivals ``(N B, S, D)``, and takes each client's CE apart.  As in
+the chain, the reference's one fill and one drain tick (padding) are
+skipped.  The async hub is ROADMAP queue M item M9b-2, SplitLoRA on the
+hub (the adapter-gradient return) M9b-3.
 
 SplitLoRA (``lora_rank > 0``): every stage runs its layers on ``w + A @ B``
 from the stage-stacked ``params["adapters"]``, and the grad step
@@ -38,8 +47,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import entropy as entropy_mod
 from repro_torch.core.quantizers import QuantConfig
-from repro_torch.core.split import (SplitConfig, Transport, WireLink,
-                                    pipeline_links)
+from repro_torch.core.split import (HubConfig, SplitConfig, Transport,
+                                    WireLink, _m9b3, pipeline_links)
 from repro_torch.core.split_stage import (embed_tokens, head_ce, run_blocks,
                                           stage_blocks)
 from repro_torch.models import stack as stack_mod
@@ -55,11 +64,9 @@ def _link_bytes(links: Tuple[WireLink, ...], shape, dtype,
                 data_shards: int, grad_sds=None) -> Dict:
     """The per-link byte table of one device's activation slice of
     ``shape`` / ``dtype``.  ``grad_sds`` (the hub's adapter-gradient
-    return) is ROADMAP queue M item M9b."""
+    return) is ROADMAP queue M item M9b-3."""
     if grad_sds is not None:
-        raise NotImplementedError(
-            "the adapter-gradient return bytes are the hub's, ROADMAP queue "
-            "M, item M9b")
+        raise _m9b3("the adapter-gradient return bytes")
     table = {}
     fwd_slice, bwd_slice = [], []
     for link in links:
@@ -90,6 +97,22 @@ def chain_wire_bytes(cfg: ArchConfig, split: SplitConfig, micro_batch: int,
         raise ValueError(f"micro_batch {micro_batch} does not split into "
                          f"{data_shards} data shards")
     return _link_bytes(pipeline_links(split, bwd_qcfg),
+                       (micro_batch // data_shards, seq, cfg.d_model),
+                       tf.cdtype(cfg), data_shards)
+
+
+def hub_wire_bytes(cfg: ArchConfig, hub: HubConfig, micro_batch: int,
+                   seq: int, data_shards: int = 1,
+                   lora_rank: int = 0) -> Dict:
+    """Per-link static wire bytes of the N-client hub, one link per client;
+    each device ships a ``micro_batch / data_shards`` slice.  A SplitLoRA
+    hub's adapter-gradient return (``lora_rank > 0``) is M9b-3."""
+    if lora_rank > 0:
+        raise _m9b3("the adapter-gradient return bytes")
+    if micro_batch % data_shards:
+        raise ValueError(f"micro_batch {micro_batch} does not split into "
+                         f"{data_shards} data shards")
+    return _link_bytes(hub.links(),
                        (micro_batch // data_shards, seq, cfg.d_model),
                        tf.cdtype(cfg), data_shards)
 
@@ -240,6 +263,101 @@ def build_gpipe_grad_step(cfg: ArchConfig, split: SplitConfig,
                  for p, g in zip(flat, grads)}
         return (loss.detach(), tree_map(lambda p: by_id[id(p)], leaves),
                 tick_bytes)
+
+    grad_step.transport = step.transport
+    return grad_step
+
+
+# ---------------------------------------------------------------------------
+# lockstep hub: N clients + 1 shared server stage
+# ---------------------------------------------------------------------------
+
+def build_hub_step(cfg: ArchConfig, hub: HubConfig, n_micro: int,
+                   micro_batch: int, seq: int, lora_rank: int = 0,
+                   transport: Optional[Transport] = None) -> Callable:
+    """The lockstep hub step: stages 0 .. N-1 are the clients, stage N the
+    server.
+
+    Returns ``fn(params, tokens, labels) -> (loss, per_client, wire_bytes)``
+    with ``tokens`` / ``labels`` (n_micro, N, B, S) int tensors on the
+    parameters' device, ``per_client`` (N,) each client's CE averaged over
+    the microbatches, ``loss`` their mean (both differentiable) and
+    ``wire_bytes`` the per-device per-tick forward payload bytes (from
+    shapes).  Each microbatch, client c embeds ``tokens[j, c]``, runs its
+    stage and ships over ``links[c]``; the server runs its stage once over
+    the arrivals concatenated in client order, ``(N B, S, D)``, and splits
+    the result per client for the head and the CE.  With one client this
+    is the 2-stage pipeline, operation for operation.  The payloads cross
+    ``transport`` (a fresh :class:`Transport` when None), which counts
+    them: ``n_micro`` a link a step."""
+    if lora_rank > 0:
+        raise _m9b3("build_hub_step(lora_rank > 0)")
+    n = hub.n_clients
+    if cfg.n_layers % 2:
+        raise ValueError(f"{cfg.n_layers} layers do not split into a "
+                         "client and a server half")
+    links = hub.links()
+    wire = hub_wire_bytes(cfg, hub, micro_batch, seq)
+    transport = Transport() if transport is None else transport
+    dtype = tf.cdtype(cfg)
+
+    def step(params, tokens, labels):
+        if tuple(tokens.shape) != (n_micro, n, micro_batch, seq):
+            raise ValueError(f"tokens {tuple(tokens.shape)}, expected "
+                             f"{(n_micro, n, micro_batch, seq)}")
+        stages = stack_mod.tree_unbind(params["blocks"])
+        if len(stages) != n + 1:
+            raise ValueError(f"{len(stages)} stages of blocks for {n} "
+                             "clients and a server")
+        positions = torch.arange(seq, dtype=torch.int32,
+                                 device=tokens.device)
+        ce_sums = [None] * n
+        for j in range(n_micro):
+            arrived = []
+            for c in range(n):
+                x = embed_tokens(cfg, params, tokens[j, c], dtype)
+                h = run_blocks(cfg, stages[c], x, positions)
+                arrived.append(links[c].ship(h, transport))
+            # the server's half once, batched over the N arrivals
+            hs = run_blocks(cfg, stages[n], torch.cat(arrived), positions)
+            for c, h in enumerate(hs.split(micro_batch)):
+                ce = head_ce(cfg, params, h, labels[j, c])
+                ce_sums[c] = ce if ce_sums[c] is None else ce_sums[c] + ce
+        per_client = torch.stack(ce_sums) / n_micro
+        return per_client.mean(), per_client, float(wire["fwd_tick"])
+
+    step.transport = transport
+    return step
+
+
+def build_hub_grad_step(cfg: ArchConfig, hub: HubConfig, n_micro: int,
+                        micro_batch: int, seq: int, lora_rank: int = 0,
+                        transport: Optional[Transport] = None
+                        ) -> Callable:
+    """The hub loss and its gradient w.r.t. every stage parameter and the
+    shared embed / head / final norm.  Each client's cotangent returns
+    over its own link, raw or through ``hub.bwd_quant``; the server's
+    parameters (and the shared leaves) accumulate their gradient over the
+    batched execution.  Returns ``fn(params, tokens, labels) -> (loss,
+    per_client, grads, wire_bytes)``, ``wire_bytes`` the per-device
+    per-tick forward + backward payload bytes; ``fn.transport`` counts
+    both directions."""
+    if lora_rank > 0:
+        raise _m9b3("build_hub_grad_step(lora_rank > 0)")
+    step = build_hub_step(cfg, hub, n_micro, micro_batch, seq,
+                          transport=transport)
+    wire = hub_wire_bytes(cfg, hub, micro_batch, seq)
+    tick_bytes = float(wire["fwd_tick"] + wire["bwd_tick"])
+
+    def grad_step(params, tokens, labels):
+        leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+        loss, per_client, _ = step(leaves, tokens, labels)
+        flat = tree_leaves(leaves)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        by_id = {id(p): torch.zeros_like(p) if g is None else g
+                 for p, g in zip(flat, grads)}
+        return (loss.detach(), per_client.detach(),
+                tree_map(lambda p: by_id[id(p)], leaves), tick_bytes)
 
     grad_step.transport = step.transport
     return grad_step

@@ -1,0 +1,293 @@
+"""The many-client split-learning hub: N clients sharing one server stage
+(port of ``repro/launch/split_hub.py``, lines 65-224, lockstep mode).
+
+The paper deploys one client and one server; the hub gives N clients,
+each with its own data, its own bottom half (embed + L/2 blocks) and its
+own wire codec, one shared server half (L/2 blocks + head):
+
+  stage 0 (client 0): embed + layers[:L/2] -> quantize -> ship  \\
+  stage 1 (client 1): embed + layers[:L/2] -> quantize -> ship   > star
+  ...                                                           /
+  stage N (server): decode x N -> layers[L/2:] -> head -> CE per client
+
+Each client -> server edge is its own ``core.split.WireLink``
+(``HubConfig.links``).  The server runs its half once a microbatch,
+batched over the N arrivals (``launch/schedules.py::build_hub_step``).
+With one client it is the 2-stage pipeline of ``launch/split_pipeline``.
+The stages share one process and one device, as the pipeline's do.
+
+``train_hub`` runs AdamW over the lockstep hub, with the entropy-adaptive
+wire re-planned per client between steps.  The async mode
+(``mode="async"``, ROADMAP queue M item M9b-2) and SplitLoRA on the hub
+(``lora_rank > 0``, M9b-3) raise.
+
+The reference's ``__main__`` lowers the hub on fake devices and checks
+its HLO collective bytes (XLA only).  Here ``__main__`` trains the
+lockstep hub for a few steps on the card and prints the loss, each
+client's CE, and the bytes the transport counted on each link in both
+directions beside ``hub_wire_bytes`` x shipments:
+
+    python -m repro_torch.launch.split_hub --layers 14  # llama3_2_3b width
+    python -m repro_torch.launch.split_hub --device cpu --reduced --seq 32
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Dict, Iterable, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.quantizers import QuantConfig
+from repro_torch.core.split import HubConfig, Transport
+from repro_torch.core.split_stage import init_stage_params
+from repro_torch.device import DeviceLike
+from repro_torch.launch import schedules
+from repro_torch.optim import AdamWConfig, init_opt_state
+from repro_torch.utils.tree import tree_leaves
+
+build_hub_step = schedules.build_hub_step
+build_hub_grad_step = schedules.build_hub_grad_step
+
+
+def init_hub_params(cfg: ArchConfig, hub: HubConfig, *, seed: int = 0,
+                    device: DeviceLike = None) -> Dict:
+    """Stage-stacked hub parameters: blocks (N + 1, L/2, ...), N client
+    bottom halves and the server's top half; embed / head / final norm
+    shared.  From ``seed`` on ``device`` (CUDA unless ``device="cpu"``)."""
+    if cfg.n_layers % 2:
+        raise ValueError(f"{cfg.n_layers} layers do not split into a "
+                         "client and a server half")
+    return init_stage_params(cfg, hub.n_clients + 1, cfg.n_layers // 2,
+                             seed=seed, device=device)
+
+
+def hub_wire_bytes(cfg: ArchConfig, hub: HubConfig, micro_batch: int,
+                   seq: int, data_shards: int = 1,
+                   lora_rank: int = 0) -> Dict:
+    """Per-link static wire bytes of the hub (``schedules.hub_wire_bytes``)."""
+    return schedules.hub_wire_bytes(cfg, hub, micro_batch, seq,
+                                    data_shards=data_shards,
+                                    lora_rank=lora_rank)
+
+
+def train_hub(cfg: ArchConfig, hub: HubConfig, opt_cfg: AdamWConfig,
+              batches: Iterable[Tuple], *, micro_batch: int, seq: int,
+              mode: str = "lockstep", n_micro: int = 1,
+              params: Optional[Dict] = None, warmup_steps: int = 0,
+              total_steps: int = 0, seed: int = 0,
+              wire_budget_bytes: Optional[float] = None,
+              plan_groups: int = 8, replan_every: int = 1,
+              plan_log: Optional[List] = None, lora_rank: int = 0,
+              device: DeviceLike = None,
+              transport: Optional[Transport] = None) -> Dict:
+    """Train the N-client hub in lockstep.
+
+    Each element of ``batches`` is a (tokens, labels) pair of shape
+    (n_micro, N, B, S), numpy or tensors; one AdamW step
+    (``train.loop.apply_gradients``, ``total_steps == 0``: constant lr)
+    takes one.  The update runs in place: the parameters passed in are
+    updated.  Without ``params`` they are drawn from ``seed`` on
+    ``device`` (CUDA unless ``device="cpu"``).  Returns dict(params, opt,
+    history, per_client, wire_bytes_per_tick): ``history`` the per-step
+    losses, ``per_client`` the last step's CE per client.
+
+    ``wire_budget_bytes`` turns on the adaptive wire: every
+    ``replan_every`` steps each client's boundary activation of the step's
+    first microbatch (``schedules.boundary_probe``) advances its own
+    per-channel entropy EMA, and ``replan_widths`` turns it into that
+    client's ``plan_groups``-group plan under the code-byte budget
+    (``hub.with_plans``).  ``plan_log`` receives (step, plans) whenever
+    the plans change.  ``transport`` (a fresh one when None) counts every
+    shipped byte.
+    """
+    from repro_torch.core import entropy as entropy_mod
+    from repro_torch.train.loop import TrainState, apply_gradients
+
+    if mode == "async":
+        raise NotImplementedError(
+            "the async hub is ROADMAP queue M, item M9b-2")
+    if mode != "lockstep":
+        raise ValueError(f"unknown hub mode {mode!r}")
+    if lora_rank > 0:
+        raise NotImplementedError(
+            "SplitLoRA on the hub is ROADMAP queue M, item M9b-3")
+    adaptive = wire_budget_bytes is not None
+    if adaptive:
+        for q in hub.resolve_client_quants():
+            if q.method not in ("fsq", "rdfsq", "nf"):
+                raise ValueError(f"adaptive wire needs a grouped-capable "
+                                 f"codec, not {q.method!r}")
+    transport = Transport() if transport is None else transport
+
+    def grad_step_for(hub):
+        return build_hub_grad_step(cfg, hub, n_micro, micro_batch, seq,
+                                   transport=transport)
+
+    grad_step = grad_step_for(hub)
+    if params is None:
+        params = init_hub_params(cfg, hub, seed=seed, device=device)
+    dev = tree_leaves(params)[0].device
+    state = TrainState(params=params, opt=init_opt_state(params, opt_cfg),
+                       step=torch.zeros((), dtype=torch.int32, device=dev))
+    n = hub.n_clients
+    emas = ([entropy_mod.init_entropy_ema(cfg.d_model, device=dev)
+             for _ in range(n)] if adaptive else None)
+    scalars_per_ch = micro_batch * seq  # one data shard
+    plans: Tuple[Tuple[int, ...], ...] = ((),) * n
+
+    history: List[float] = []
+    per_client: List[float] = []
+    wire_b = 0.0
+    for step_i, (tokens, labels) in enumerate(batches):
+        tokens = torch.as_tensor(tokens).to(dev)
+        labels = torch.as_tensor(labels).to(dev)
+        if adaptive and step_i % max(replan_every, 1) == 0:
+            new_plans = []
+            for c in range(n):
+                h = schedules.boundary_probe(cfg, state.params,
+                                             tokens[0, c], c)
+                emas[c] = entropy_mod.update_entropy_ema(emas[c], h)
+                new_plans.append(schedules.replan_widths(
+                    emas[c], wire_budget_bytes, n_groups=plan_groups,
+                    scalars_per_channel=scalars_per_ch))
+            if tuple(new_plans) != plans:
+                plans = tuple(new_plans)
+                if plan_log is not None:
+                    plan_log.append((step_i, plans))
+                hub = hub.with_plans(plans)
+                grad_step = grad_step_for(hub)
+        loss, pc, grads, wire_b = grad_step(state.params, tokens, labels)
+        state, _ = apply_gradients(state, grads, opt_cfg,
+                                   warmup_steps=warmup_steps,
+                                   total_steps=total_steps, donate=True)
+        del grads
+        history.append(float(loss))
+        per_client = [float(v) for v in pc]
+    return dict(params=state.params, opt=state.opt, history=history,
+                per_client=per_client, wire_bytes_per_tick=wire_b)
+
+
+# ---------------------------------------------------------------------------
+# a few steps on the card
+# ---------------------------------------------------------------------------
+
+def hub_quants(n_clients: int) -> Tuple[QuantConfig, ...]:
+    """Heterogeneous per-client codecs, as the reference's ``_hub_quants``:
+    2-bit RD-FSQ and 4-bit NF alternating, so neighbouring links carry
+    different payloads."""
+    return tuple(QuantConfig(method="rdfsq", bits=2) if c % 2 == 0
+                 else QuantConfig(method="nf", bits=4)
+                 for c in range(n_clients))
+
+
+def make_batches(cfg: ArchConfig, n_steps: int, n_micro: int,
+                 n_clients: int, micro_batch: int, seq: int, seed: int = 0):
+    """``n_steps`` (tokens, labels) pairs of (n_micro, N, B, S) from the
+    data pipeline's text stream."""
+    from repro_torch.data.pipeline import make_pipeline
+
+    pipe = make_pipeline(cfg, n_micro * n_clients * micro_batch, seq,
+                         seed=seed)
+    shape = (n_micro, n_clients, micro_batch, seq)
+    out = []
+    for _ in range(n_steps):
+        b = next(pipe)
+        out.append((b["tokens"].reshape(shape), b["labels"].reshape(shape)))
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="llama3_2_3b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--clients", type=int, default=3)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers, half a client "
+                         "and half the server (0: the config's)")
+    ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--n-micro", type=int, default=2)
+    ap.add_argument("--micro-batch", type=int, default=2)
+    ap.add_argument("--seq", type=int, default=1024)
+    ap.add_argument("--lr", type=float, default=1e-4)
+    ap.add_argument("--bwd-bits", type=int, default=0,
+                    help="RD-FSQ bits of the cotangent (0: raw)")
+    ap.add_argument("--wire-budget-bits", type=float, default=0.0,
+                    help="adaptive wire: code bits a scalar of every link, "
+                         "8 groups a client (0: the static codecs)")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    full = cfg.n_layers
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    if cfg.n_layers % 2:
+        raise SystemExit(f"{cfg.n_layers} layers do not split into a client "
+                         "and a server half")
+    n = args.clients
+    hub = HubConfig(n_clients=n, client_quants=hub_quants(n),
+                    bwd_quant=(QuantConfig(method="rdfsq",
+                                           bits=args.bwd_bits)
+                               if args.bwd_bits else None))
+    budget = None
+    if args.wire_budget_bits:
+        budget = (args.micro_batch * args.seq * cfg.d_model
+                  * args.wire_budget_bits / 8)
+    cut = (f"; depth cut from {full} to {cfg.n_layers} layers"
+           if cfg.n_layers != full else "")
+    print(f"[split-hub {cfg.name}] {n} clients + 1 server, "
+          f"{cfg.n_layers // 2} layers a stage, d {cfg.d_model}{cut}")
+    batches = make_batches(cfg, args.steps, args.n_micro, n,
+                           args.micro_batch, args.seq)
+    transport = Transport()
+    plan_log: List = []
+    t0 = time.perf_counter()
+    out = train_hub(cfg, hub, AdamWConfig(lr=args.lr, weight_decay=0.0),
+                    batches, micro_batch=args.micro_batch, seq=args.seq,
+                    n_micro=args.n_micro, device=args.device,
+                    wire_budget_bytes=budget, plan_log=plan_log,
+                    transport=transport)
+    seconds = time.perf_counter() - t0
+    print(f"[split-hub {cfg.name} N={n}] loss "
+          + " -> ".join(f"{v:.4f}" for v in out["history"])
+          + f" in {seconds:.1f} s ({args.steps} steps of {args.n_micro} x "
+          f"{n} x {args.micro_batch} x {args.seq} tokens)")
+    print("[split-hub] per-client CE at the last step: "
+          + ", ".join(f"client {c} {v:.4f}"
+                      for c, v in enumerate(out["per_client"])))
+    # the shipments of each plan: a plan adopted at step s holds until the
+    # next change
+    starts = [s for s, _ in plan_log] + [args.steps]
+    spans = ([(hub, args.steps)] if not plan_log else
+             [(hub.with_plans(p), b - a)
+              for (a, p), b in zip(plan_log, starts[1:])])
+    tables = [(hub_wire_bytes(cfg, h, args.micro_batch, args.seq)["links"],
+               k * args.n_micro) for h, k in spans]
+    shipments = args.steps * args.n_micro
+    bwd_codec = ("raw" if hub.bwd_quant is None else
+                 f"{hub.bwd_quant.method}-{hub.bwd_quant.bits}bit")
+    for c, link in enumerate(hub.links()):
+        codec = f"{link.quant.method}-{link.quant.bits}bit"
+        if plan_log:
+            codec += f", plans {[p[c] for _, p in plan_log]}"
+        for direction, (src, dst), name in (
+                (f"fwd, {codec}", (link.src, link.dst), "fwd"),
+                (f"bwd, {bwd_codec}", (link.dst, link.src), "bwd")):
+            predicted = sum(t[(link.src, link.dst)][name] * k
+                            for t, k in tables)
+            print(f"[split-hub] link {src}->{dst} ({direction}): counted "
+                  f"{transport.bytes[(src, dst)]} B, hub_wire_bytes x "
+                  f"{shipments} shipments = {predicted} B")
+    print(f"[split-hub] wire bytes a tick (per device, fwd + bwd): "
+          f"{out['wire_bytes_per_tick']:.0f}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

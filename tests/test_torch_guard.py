@@ -40,6 +40,7 @@ def test_port_imports_with_jax_blocked():
             "repro_torch.launch.train, repro_torch.launch.e2e, "
             "repro_torch.checkpoint, repro_torch.serve.decode, "
             "repro_torch.launch.serve_batched, repro_torch.launch.schedules, "
+            "repro_torch.launch.split_hub, "
             "repro_torch.core.entropy, repro_torch.core.quantizers.nf, "
             "repro_torch.wq; "
             "print('ok')")
