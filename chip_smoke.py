@@ -132,7 +132,21 @@ non-zero:
               formula, exact launches of K1 - K5 and K10 / K11; a
               full-width 2-layer hub against the fp32 CPU path (loss
               within 5%, gradient cosines >= 0.98).
-16. llama serve -- full-width llama3_2_3b as configured (its 2-bit cut at
+16. hub async -- the async many-client hub (train_hub(mode="async")) on
+              the same cut: rdfsq-2 / nf-4 / rdfsq-2 links, 2-bit RD-FSQ
+              cotangents (K4 / K5 through quantize_cotangent), tick rates
+              (1, 2, 3), 2 x 1 024 tokens a client a tick, every client's
+              slot computed every tick; 18 ticks (33 arrivals): the first
+              tick's batch's loss falls, every calibration count is its
+              client's arrivals; a tick where clients 1 and 2 do not
+              arrive leaves client 2's parameters, moments, step and
+              calibration bit-identical to host copies; a tick where every
+              client arrives gives the lockstep hub step's loss within
+              1e-3; a tick with NF-4 cotangents (K10 / K11); exact
+              launches of K1 - K5 and K10 / K11 per tick; a full-width
+              2-layer async tick with 8-bit cotangents against the fp32
+              CPU path (loss within 5%, gradient cosines >= 0.98).
+17. llama serve -- full-width llama3_2_3b as configured (its 2-bit cut at
               layer 14; weights from seed 0) with merged rank-8 adapters
               (B at scale 0.05): ServeEngine(lora_adapters=) over bf16
               pools (K1, K8 at head width 128) and int8 pools (K9), 8
@@ -225,6 +239,12 @@ LORA_RANK, LORA_STEPS, LORA_LR = 8, 4, 3e-3
 # tokens a client, then 2 steps of the adaptive wire
 HUB_CLIENTS, HUB_LAYERS, HUB_STEPS, HUB_MICRO = 3, 14, 4, 2
 HUB_ADAPTIVE_STEPS, HUB_BUDGET_BITS, HUB_GROUPS = 2, 2.0, 8
+# the async hub on the same cut: 18 ticks at rates (1, 2, 3), 33 arrivals;
+# the lr chosen on the card among 1e-4 / 3e-4 / 1e-3 by the first tick's
+# batch's loss after the ticks (12.2397 -> 11.5149 / 11.2703 / 14.0828);
+# the 2-layer parity's (micro_batch, seq)
+ASYNC_TICKS, ASYNC_RATES, ASYNC_LR = 18, (1, 2, 3), 3e-4
+ASYNC_PARITY = (1, 256)
 # merged serving of llama3_2_3b: generate's 4 prompts of 512 tokens; the
 # card-vs-CPU parity's teacher-forced decode steps
 LLAMA_GEN_BATCH, LLAMA_GEN_TEXT, LLAMA_PARITY_STEPS = 4, 512, 4
@@ -2703,7 +2723,224 @@ def phase_hub():
 
 
 # ---------------------------------------------------------------------------
-# phase 16: merged serving of full-width llama3_2_3b
+# phase 16: the async many-client hub on full-width llama3_2_3b layers
+# ---------------------------------------------------------------------------
+
+def _async_expect(n, per, ticks, bwd):
+    """Exact launches of ``ticks`` async ticks: every tick runs each
+    client's ``per`` layers and the server's ``per`` once, under
+    single-level remat (each layer's forward twice), and the cotangent's
+    codec once a client; the forward wire is the plain STE roundtrip,
+    which launches no kernel."""
+    layers = (n + 1) * per
+    out = {"flash_fwd": 2 * layers * ticks, "flash_bwd_dq": layers * ticks,
+           "flash_bwd_dkv": layers * ticks}
+    if bwd is not None:
+        for name in (("nf_quantize", "nf_dequantize") if bwd.method == "nf"
+                     else ("rdfsq_quantize", "rdfsq_dequantize")):
+            out[name] = n * ticks
+    return out
+
+
+def phase_hub_async():
+    """The async hub (train_hub(mode="async")): returns the launch counts
+    of the phase's counted runs, by path."""
+    import numpy as np
+    import torch
+    from repro_torch.core.quantizers import QuantConfig
+    from repro_torch.core.split import HubConfig
+    from repro_torch.kernels import build
+    from repro_torch.launch import schedules
+    from repro_torch.launch import split_hub as sh
+    from repro_torch.launch import split_pipeline as sp
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.utils.tree import tree_count, tree_leaves
+
+    t_phase = time.perf_counter()
+    full = sp._homogeneous_cfg("llama3_2_3b", n_stages=2)
+    cfg = dataclasses.replace(full, n_layers=HUB_LAYERS)
+    per = cfg.n_layers // 2
+    n, mb, seq = HUB_CLIENTS, PIPE_MB, PIPE_SEQ
+    r2 = QuantConfig(method="rdfsq", bits=2)
+    hub = HubConfig(n_clients=n, client_quants=sh.hub_quants(n),
+                    bwd_quant=r2, tick_rates=ASYNC_RATES)
+    params = sh.init_hub_params(cfg, hub, seed=0)
+    torch.cuda.synchronize()
+    print(f"[hub async] full-width {cfg.name} layers (d {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of width {cfg.head_dim}, "
+          f"bf16, remat {cfg.remat}, weights from seed 0): {n} clients + 1 "
+          f"server of {per} layers each, {tree_count(params)} parameters; "
+          f"links {[q.method + '-' + str(q.bits) for q in sh.hub_quants(n)]}"
+          f", cotangents rdfsq-2, tick rates {ASYNC_RATES}, {mb} x {seq} "
+          f"tokens a client a tick. Depth cut from {full.n_layers} to "
+          f"{cfg.n_layers} layers: 4 stages of {full.n_layers // 2} would be "
+          f"6.43 G parameters, about 77 GB of bf16 weights and gradients "
+          f"and fp32 AdamW moments before any activation")
+    batches = [(torch.as_tensor(t[0]).cuda(), torch.as_tensor(lab[0]).cuda())
+               for t, lab in sh.make_batches(cfg, ASYNC_TICKS, 1, n, mb, seq)]
+    opt = AdamWConfig(lr=ASYNC_LR, weight_decay=0.0)
+    paths = {}
+
+    def first_batch_loss():
+        # every client's CE on the first tick's batch, by the lockstep
+        # hub's forward on the same weights (the state holds views of them)
+        with torch.no_grad():
+            return float(sh.build_hub_step(cfg, hub, 1, mb, seq)(
+                params, batches[0][0][None], batches[0][1][None])[0])
+
+    before = first_batch_loss()
+    stamps = []
+
+    def feed():
+        for b in batches:
+            stamps.append(time.perf_counter())
+            yield b
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    out = sh.train_hub(cfg, hub, opt, feed(), micro_batch=mb, seq=seq,
+                       mode="async", n_ticks=ASYNC_TICKS, params=params)
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    paths["hub async"] = dict(build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    state, history, masks = out["state"], out["history"], out["masks"]
+    rel_err = out["quant_rel_err"]
+    del out
+    after = first_batch_loss()
+    arrivals = [int(sum(m[c] for m in masks)) for c in range(n)]
+    counts = [int(v) for v in state["calib"]["count"].tolist()]
+    print(f"[hub async] {ASYNC_TICKS} ticks, lr {ASYNC_LR}: loss "
+          + " -> ".join(f"{v:.4f}" for v in history)
+          + f"; arrivals per client {arrivals} ({sum(arrivals)}), "
+          f"calibration counts {counts}, client steps "
+          f"{state['client_opt']['step'].tolist()}, server step "
+          f"{int(state['server'].step)}; the first tick's batch's loss "
+          f"{before:.4f} before the ticks, {after:.4f} after")
+    require(all(math.isfinite(v) for v in history + [after])
+            and after < before and sum(arrivals) == 33
+            and counts == arrivals
+            and state["client_opt"]["step"].tolist() == arrivals
+            and int(state["server"].step) == ASYNC_TICKS,
+            f"hub async: loss {history}, first batch {before} -> {after}, "
+            f"arrivals {arrivals}, counts {counts}")
+    _check_launches("hub async", paths["hub async"],
+                    _async_expect(n, per, ASYNC_TICKS, r2))
+    times = [b - a for a, b in zip(stamps, stamps[1:])]
+    tick_s = statistics.median(times[1:])
+    print(f"[hub async] {1e3 * tick_s:.1f} ms per tick (median of ticks "
+          f"2-{ASYNC_TICKS}; first tick {1e3 * times[0]:.1f} ms), "
+          f"{n * mb * seq / tick_s:.0f} tokens/s computed, "
+          f"{sum(arrivals) * mb * seq / (ASYNC_TICKS * tick_s):.0f} arriving "
+          f"tokens/s; peak device memory {peak / 2 ** 30:.2f} GiB; the last "
+          f"tick's wire rel err per client "
+          f"{[round(float(v), 5) for v in rel_err]}; {smi()}")
+    update = schedules.build_async_update(cfg, hub, opt, mb, seq)
+
+    # tick ASYNC_TICKS + 1 of the schedule: client 0 alone; client 2's
+    # parameters, moments, step and calibration against host copies
+    mask = schedules.arrival_mask(ASYNC_RATES, ASYNC_TICKS + 2)[-1]
+    require(mask.tolist() == [True, False, False], f"mask {mask}")
+
+    def client2():
+        pick = [state["client_params"], state["client_opt"]["m"],
+                state["client_opt"]["v"], state["calib"]]
+        return [t[2].cpu() for tree in pick for t in tree_leaves(tree)] + [
+            state["client_opt"]["step"][2].cpu()]
+
+    host = client2()
+    host_bytes = sum(t.numel() * t.element_size() for t in host)
+    build.reset_launches()
+    state, metrics = update(state, *batches[1], mask)
+    torch.cuda.synchronize()
+    paths["hub async gate"] = dict(build.launches)
+    same = all(torch.equal(a, b) for a, b in zip(host, client2()))
+    del host
+    print(f"[hub async gate] clients arriving {mask.astype(int).tolist()}: "
+          f"loss {float(metrics['loss']):.4f}; client 2's parameters, "
+          f"moments, step and calibration ({host_bytes} B) bit-identical "
+          f"to host copies taken before the tick: {same}")
+    require(same, "hub async: a client that did not arrive moved")
+    _check_launches("hub async gate", paths["hub async gate"],
+                    _async_expect(n, per, 1, r2))
+
+    # every client arrives: the lockstep hub step's loss on the same
+    # weights and batch
+    tok, lab = batches[2]
+    with torch.no_grad():
+        lock = float(sh.build_hub_step(cfg, hub, 1, mb, seq)(
+            params, tok[None], lab[None])[0])
+    build.reset_launches()
+    state, metrics = update(state, tok, lab, np.ones(n, np.float32))
+    torch.cuda.synchronize()
+    paths["hub async all"] = dict(build.launches)
+    rel = abs(float(metrics["loss"]) - lock) / abs(lock)
+    print(f"[hub async all] every client arriving: loss "
+          f"{float(metrics['loss']):.6f}, the lockstep hub step's "
+          f"{lock:.6f} (rel {rel:.3e}, tol {PIPE_MONO_RTOL}); wire rel err "
+          f"per client "
+          f"{[round(float(v), 5) for v in metrics['quant_rel_err']]}")
+    require(rel <= PIPE_MONO_RTOL, f"hub async vs lockstep rel {rel}")
+    _check_launches("hub async all", paths["hub async all"],
+                    _async_expect(n, per, 1, r2))
+
+    # one tick with NF-4 cotangents: K10 / K11 on the async path
+    nf4 = QuantConfig(method="nf", bits=4)
+    build.reset_launches()
+    state, metrics = schedules.build_async_update(
+        cfg, dataclasses.replace(hub, bwd_quant=nf4), opt, mb, seq)(
+            state, *batches[3], np.ones(n, np.float32))
+    torch.cuda.synchronize()
+    paths["hub async nf"] = dict(build.launches)
+    print(f"[hub async nf] NF-4 cotangents: loss "
+          f"{float(metrics['loss']):.4f}, server grad norm "
+          f"{float(metrics['grad_norm']):.4f}")
+    require(math.isfinite(float(metrics["loss"]))
+            and math.isfinite(float(metrics["grad_norm"])),
+            "hub async nf: not finite")
+    _check_launches("hub async nf", paths["hub async nf"],
+                    _async_expect(n, per, 1, nf4))
+    del state, params, batches[1:], metrics
+    torch.cuda.empty_cache()
+
+    # a full-width two-layer async tick, one layer a stage, every client
+    # arriving, on the card against the port's fp32 CPU path.  The
+    # cotangent crosses 8-bit RD-FSQ (K4 / K5 at 8 bits): at 2 bits the
+    # bf16 and fp32 cotangents round to other codes, whose step is a
+    # third of the row's range (client gradient cosines 0.94 - 0.97)
+    hub8 = dataclasses.replace(hub, bwd_quant=QuantConfig(method="rdfsq",
+                                                          bits=8))
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    mb2, seq2 = ASYNC_PARITY
+    params2 = sh.init_hub_params(cfg2, hub8, seed=1)
+    tok, lab = (t[:, :mb2, :seq2].contiguous() for t in batches[0])
+    ones = np.ones(n, np.float32)
+    loss_c, _, grads_c, _, _ = schedules.build_async_grad_step(
+        cfg2, hub8, mb2, seq2)(*schedules.split_hub_params(params2, n), tok,
+                              lab, ones)
+    cfg32 = dataclasses.replace(cfg2, param_dtype="float32",
+                                compute_dtype="float32")
+    params32 = _tree(params2, lambda t: t.float().cpu())
+    del params2
+    t0 = time.perf_counter()
+    loss_32, _, grads_32, _, _ = schedules.build_async_grad_step(
+        cfg32, hub8, mb2, seq2)(*schedules.split_hub_params(params32, n),
+                               tok.cpu(), lab.cpu(), ones)
+    print(f"[hub async parity] two layers, {n} clients, {mb2} x {seq2} "
+          f"tokens a client, 8-bit cotangents; the fp32 CPU tick took "
+          f"{time.perf_counter() - t0:.1f} s")
+    _grad_parity("hub async parity", float(loss_c), float(loss_32), grads_c,
+                 grads_32)
+    del grads_c, grads_32, params32, batches
+    torch.cuda.empty_cache()
+    print(f"[hub async] phase seconds {time.perf_counter() - t_phase:.1f}; "
+          f"{smi()}")
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# phase 17: merged serving of full-width llama3_2_3b
 # ---------------------------------------------------------------------------
 
 def _pool_bytes(cfg, n_pages, page_size) -> int:
@@ -3027,6 +3264,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths128.update(_timed("hub", phase_hub))
+    paths128.update(_timed("hub async", phase_hub_async))
     paths128.update(_timed("llama serve", phase_serve_llama))
     for path, launches in {**paths, **paths128}.items():
         print(f"[launches] {path}: {launches}")

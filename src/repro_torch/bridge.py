@@ -8,6 +8,8 @@ dict whose leaves ``numpy.asarray`` accepts (the reference's
 ``repro.wq.PackedLinear``, recognised by its fields, becomes the port's
 ``PackedLinear`` with its uint8 codes, fp16 scales / mins and int32
 ``perm`` (or ``None``) as they are, whatever ``dtype`` says.
+``from_jax_hub_state`` carries the reference's async-hub state across,
+reading its server ``TrainState``'s ``params``, ``opt`` and ``step``.
 """
 from __future__ import annotations
 
@@ -56,3 +58,21 @@ def from_jax_params(tree, device: DeviceLike, dtype=None) -> Dict:
         return _leaf(node, dev, dtype)
 
     return conv(tree)
+
+
+def from_jax_hub_state(state, device: DeviceLike) -> Dict:
+    """The reference's async-hub state (``schedules.init_hub_state``'s
+    dict: the server's ``TrainState``, the N-stacked client blocks and
+    moments, the ``(N,)`` client steps, the N-stacked calibration) as the
+    port's (``repro_torch.launch.schedules.init_hub_state``'s layout),
+    every leaf at its own dtype."""
+    from repro_torch.train.loop import TrainState
+
+    server = state["server"]
+    return dict(
+        server=TrainState(params=from_jax_params(server.params, device),
+                          opt=from_jax_params(server.opt, device),
+                          step=from_jax_params(server.step, device)),
+        client_params=from_jax_params(state["client_params"], device),
+        client_opt=from_jax_params(state["client_opt"], device),
+        calib=from_jax_params(state["calib"], device))

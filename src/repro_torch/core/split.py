@@ -1,6 +1,5 @@
 """Split-learning boundary: the in-graph compressor and the real wire
-(port of ``repro/core/split.py``, lines 31-133, 140-376, 381-454 and
-530-554).
+(port of ``repro/core/split.py``, lines 31-133, 140-376, 381-554).
 
 ``compressor_roundtrip`` is the paper's Figure-2 path with the wire
 replaced by identity: learnable linear encoder, the quantizer's roundtrip
@@ -22,6 +21,12 @@ directed cut with its shape-only byte accounting; ``HubConfig`` describes
 the many-client hub's star of links (client ``c`` -> the server stage).
 The hub's adapter-gradient return (``grad_quant``, ``grad_trip``) is
 ROADMAP queue M item M9b-3.
+
+The async hub's pieces: per-client wire calibration states
+(``init_wire_calib``, ``update_wire_calib``, ``calib_scale_error``) and
+``quantize_cotangent``, the in-graph backward wire of a scheduler whose
+client and server halves share one graph: an identity forward whose
+cotangent crosses ``encode`` -> ``decode`` (on CUDA K4 / K5 or K10 / K11).
 """
 from __future__ import annotations
 
@@ -319,8 +324,9 @@ class HubConfig:
     clients' arrivals.  ``client_quants`` optionally gives each client its
     own wire codec (empty = ``quant`` everywhere); ``bwd_quant`` is the
     cotangent's codec on every link (None = raw).  ``tick_rates`` drives
-    the async scheduler (ROADMAP queue M item M9b-2): client c produces a
-    microbatch every ``tick_rates[c]`` global ticks (empty = all 1).
+    the async scheduler (``launch/schedules.py::build_async_update``):
+    client c produces a microbatch every ``tick_rates[c]`` global ticks
+    (empty = all 1).
     ``grad_quant`` is the adapter-gradient return's codec, read only by a
     SplitLoRA hub (M9b-3)."""
 
@@ -392,6 +398,87 @@ def group_links(links: Tuple[WireLink, ...]
         else:
             groups.append((link.quant, link.bwd_quant, (link,)))
     return tuple(groups)
+
+
+# ---------------------------------------------------------------------------
+# per-client wire calibration state
+# ---------------------------------------------------------------------------
+
+_CALIB_KEYS = ("mean", "std", "lo", "hi")
+
+
+def init_wire_calib() -> Dict[str, torch.Tensor]:
+    """Per-link codec calibration state: EMAs of the activation statistics
+    the wire codecs derive their scales from (RD-FSQ: mu / sigma and the
+    clipped min / max; NF-b: the per-block absmax is bounded by the same
+    range), as 0-dim fp32 tensors.  One state per (link, client); the hub
+    keeps them isolated, so one client's distribution never leaks into
+    another's codec."""
+    return {k: torch.zeros((), dtype=torch.float32)
+            for k in _CALIB_KEYS + ("count",)}
+
+
+@torch.no_grad()
+def update_wire_calib(calib: Dict[str, torch.Tensor], x: torch.Tensor,
+                      decay: float = 0.9) -> Dict[str, torch.Tensor]:
+    """EMA-update a calibration state with one activation batch.  The first
+    update (``count == 0``) adopts the batch statistics outright, so a
+    fresh state is usable at once; later ones blend with ``decay``.  The
+    std is the population std, as ``jnp.std``'s."""
+    xf = x.float()
+    batch = dict(mean=xf.mean(), std=xf.std(unbiased=False), lo=xf.min(),
+                 hi=xf.max())
+    count = calib["count"]
+    out = {k: torch.where(count > 0.0,
+                          decay * calib[k] + (1.0 - decay) * batch[k],
+                          batch[k])
+           for k in _CALIB_KEYS}
+    out["count"] = count + 1.0
+    return out
+
+
+def calib_scale_error(calib: Dict[str, torch.Tensor],
+                      other: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Relative distance between two calibration states' ranges: the
+    isolation metric of the hub's tests."""
+    span_a = calib["hi"] - calib["lo"]
+    span_b = other["hi"] - other["lo"]
+    return (span_a - span_b).abs() / (torch.maximum(span_a.abs(),
+                                                    span_b.abs()) + 1e-8)
+
+
+# ---------------------------------------------------------------------------
+# the in-graph cotangent wire (the async hub's backward)
+# ---------------------------------------------------------------------------
+
+class _QuantizeCotangent(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, cfg):
+        ctx.cfg = cfg
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        cfg = ctx.cfg
+        if cfg is None or cfg.method == "identity":
+            return g, None
+        g_hat = quantizers.decode(cfg, quantizers.encode(cfg, g))
+        return g_hat.to(g.dtype), None
+
+
+def quantize_cotangent(cfg: Optional[QuantConfig],
+                       x: torch.Tensor) -> torch.Tensor:
+    """Identity forward; on the way back the cotangent crosses ``cfg``'s
+    wire codec, ``encode`` -> ``decode`` with their default backend (on a
+    CUDA tensor K4 / K5 or K10 / K11 where ``kernel_codecs``' rule admits
+    the config, else the plain flat-stream codec).  ``cfg`` None or
+    ``identity``: the cotangent passes through untouched.
+
+    The in-graph twin of ``quantized_ship``'s ``bwd_cfg``, for schedulers
+    whose client and server halves share one graph (the async hub): the
+    forward activation already crossed by the STE roundtrip, and this
+    makes the gradient take the quantized wire form too."""
+    return _QuantizeCotangent.apply(x, cfg)
 
 
 def wire_payload(cfg: SplitConfig, params: Optional[Dict], x: torch.Tensor,

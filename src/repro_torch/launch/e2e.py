@@ -1,6 +1,6 @@
 """End-to-end driver: the paper's full training recipe on a small
-Quantized-TinyLLaVA (port of ``examples/split_training_e2e.py --mode
-e2e``: ``build_cfg`` and ``run_e2e``).
+Quantized-TinyLLaVA (port of ``examples/split_training_e2e.py``:
+``build_cfg``, ``run_e2e`` and ``run_hub_async``).
 
 Composite CE + alpha * L_comm loss, the 2-bit RD-FSQ compressor at the
 connector cut, warmup-cosine AdamW, a checkpoint at the end:
@@ -8,12 +8,19 @@ connector cut, warmup-cosine AdamW, a checkpoint at the end:
     PYTHONPATH=src python -m repro_torch.launch.e2e --device cpu \
         --steps 40 --batch 8 --seq 48
 
-Runs on CUDA unless ``--device cpu`` is given.  The example's
-``hub-async`` and ``lora`` modes both train through the many-client hub's
-async and SplitLoRA modes (``launch/split_hub.train_hub``), which are
-ROADMAP queue M items M9b-2 and M9b-3; the lockstep hub is
-``launch/split_hub.py``, SplitLoRA on the chain pipeline
-``launch/split_pipeline.py --lora-rank``.
+``--mode hub-async`` drives the many-client hub's async mode
+(``launch/split_hub.train_hub``): N clients with 2-bit RD-FSQ / 4-bit NF
+links alternating and tick rates ``1 + c % 3`` train their bottom halves
+against one shared server half, the server stepping per arrival, the
+cotangent through ``--method`` / ``--bits``:
+
+    PYTHONPATH=src python -m repro_torch.launch.e2e --device cpu \
+        --mode hub-async --clients 3 --steps 30
+
+Runs on CUDA unless ``--device cpu`` is given.  The example's ``lora``
+mode trains SplitLoRA on the async hub, ROADMAP queue M item M9b-3, and
+raises; SplitLoRA on the chain pipeline is ``launch/split_pipeline.py
+--lora-rank``.
 """
 from __future__ import annotations
 
@@ -23,7 +30,7 @@ import dataclasses
 from repro_torch import checkpoint
 from repro_torch.configs import get_config
 from repro_torch.core.quantizers import QuantConfig
-from repro_torch.core.split import SplitConfig
+from repro_torch.core.split import HubConfig, SplitConfig
 from repro_torch.data.pipeline import make_pipeline
 from repro_torch.models.transformer import init_params
 from repro_torch.optim import AdamWConfig
@@ -65,8 +72,48 @@ def run_e2e(cfg, args):
     print("checkpoint:", args.ckpt)
 
 
+def run_hub_async(cfg, args):
+    """The many-client hub on the split stack: clients alternate 2-bit
+    RD-FSQ / 4-bit NF links and tick at different rates; the shared server
+    steps per arrival and each client's wire calibration stays its own.
+    The hub schedules the LLM stack (embed, blocks, head), so the VLM
+    config runs in text modality and the cut is the block stack's
+    midpoint, not the connector."""
+    from repro_torch.launch.split_hub import train_hub
+
+    cfg = dataclasses.replace(cfg, modality="text")
+    n = args.clients
+    hub = HubConfig(
+        n_clients=n,
+        client_quants=tuple(
+            QuantConfig(method="rdfsq", bits=2) if c % 2 == 0
+            else QuantConfig(method="nf", bits=4) for c in range(n)),
+        bwd_quant=QuantConfig(method=args.method, bits=args.bits),
+        tick_rates=tuple(1 + c % 3 for c in range(n)))
+    pipe = make_pipeline(cfg, n * args.batch, args.seq, seed=0)
+
+    def batches():
+        while True:
+            b = next(pipe)
+            yield (b["tokens"].reshape(n, args.batch, -1),
+                   b["labels"].reshape(n, args.batch, -1))
+
+    out = train_hub(cfg, hub, AdamWConfig(lr=args.lr), batches(),
+                    micro_batch=args.batch, seq=args.seq, mode="async",
+                    n_ticks=args.steps, device=args.device)
+    hist = out["history"]
+    for i in range(0, len(hist), max(len(hist) // 10, 1)):
+        arrived = int(out["masks"][i].sum())
+        print(f"  tick {i:4d} loss={hist[i]:.4f} arrivals={arrived}/{n}")
+    print(f"hub loss {hist[0]:.4f} -> {hist[-1]:.4f} over {args.steps} "
+          f"ticks; per-client wire rel err "
+          + ", ".join(f"{v:.4f}" for v in out["quant_rel_err"]))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--mode", choices=("e2e", "hub-async", "lora"),
+                    default="e2e")
     ap.add_argument("--d-model", type=int, default=256)
     ap.add_argument("--layers", type=int, default=6)
     ap.add_argument("--steps", type=int, default=120)
@@ -75,16 +122,24 @@ def main(argv=None):
     ap.add_argument("--method", default="rdfsq")
     ap.add_argument("--bits", type=int, default=2)
     ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--clients", type=int, default=3)
     ap.add_argument("--ckpt", default="qtllava_e2e.npz")
     ap.add_argument("--device", default=None,
                     help="torch device; CUDA unless 'cpu' is asked for")
     args = ap.parse_args(argv)
+    if args.mode == "lora":
+        raise NotImplementedError(
+            "SplitLoRA on the async hub is ROADMAP queue M, item M9b-3")
 
     cfg = build_cfg(args.d_model, args.layers, args.method, args.bits)
     n = tree_count(init_params(cfg, device="cpu"))  # a throwaway CPU copy
     print(f"training {cfg.name}: ~{n / 1e6:.1f}M params, {args.method}-"
-          f"{args.bits}bit split compressor, {args.steps} steps, mode=e2e")
-    run_e2e(cfg, args)
+          f"{args.bits}bit split compressor, {args.steps} steps, "
+          f"mode={args.mode}")
+    if args.mode == "hub-async":
+        run_hub_async(cfg, args)
+    else:
+        run_e2e(cfg, args)
 
 
 if __name__ == "__main__":

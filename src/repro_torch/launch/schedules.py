@@ -1,9 +1,10 @@
 """Schedulers: who ticks when (port of ``repro/launch/schedules.py``,
-lines 82-157, 191-205, 246-376 and 379-512: ``_link_bytes``,
-``chain_wire_bytes``, ``hub_wire_bytes``, ``boundary_probe``,
-``replan_widths``, ``replan_grouped``, ``build_gpipe_step``,
-``build_gpipe_grad_step``, ``build_hub_step`` and
-``build_hub_grad_step``).
+lines 82-157, 191-205, 246-376, 379-512, 566-742 and 858-870:
+``_link_bytes``, ``chain_wire_bytes``, ``hub_wire_bytes``,
+``boundary_probe``, ``replan_widths``, ``replan_grouped``,
+``build_gpipe_step``, ``build_gpipe_grad_step``, ``build_hub_step``,
+``build_hub_grad_step``, ``arrival_mask``, ``init_hub_state``,
+``build_async_update`` and ``async_tick_stream``).
 
 The reference's lockstep GPipe is one SPMD program: every stage runs every
 tick, over ``n_micro + n_stages - 1`` ticks, and ships across every cut
@@ -29,8 +30,15 @@ microbatch, every client embeds its own tokens, runs its bottom half and
 ships over its own link; the server then runs its half once, batched over
 the N arrivals ``(N B, S, D)``, and takes each client's CE apart.  As in
 the chain, the reference's one fill and one drain tick (padding) are
-skipped.  The async hub is ROADMAP queue M item M9b-2, SplitLoRA on the
-hub (the adapter-gradient return) M9b-3.
+skipped.  SplitLoRA on the hub (the adapter-gradient return) is ROADMAP
+queue M item M9b-3.
+
+The async hub: clients arrive at their own tick rates; every tick computes
+every client's slot and the server's half once over ``(N B, S, D)``, as
+the reference does, with the in-graph wire (the STE roundtrip forward,
+``quantize_cotangent`` back).  The loss weighs the arrivals only; the
+server steps on a tick with an arrival, each arriving client steps its own
+AdamW state, and a client that does not arrive is not touched.
 
 SplitLoRA (``lora_rank > 0``): every stage runs its layers on ``w + A @ B``
 from the stage-stacked ``params["adapters"]``, and the grad step
@@ -40,19 +48,27 @@ link (raw, or through ``bwd_qcfg``), since stage 0's adapters need it.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import entropy as entropy_mod
+from repro_torch.core import quantizers
 from repro_torch.core.quantizers import QuantConfig
 from repro_torch.core.split import (HubConfig, SplitConfig, Transport,
-                                    WireLink, _m9b3, pipeline_links)
-from repro_torch.core.split_stage import (embed_tokens, head_ce, run_blocks,
+                                    WireLink, _m9b3, init_wire_calib,
+                                    pipeline_links, quantize_cotangent,
+                                    update_wire_calib)
+from repro_torch.core.split_stage import (embed_tokens, head_ce,
+                                          init_stage_params, run_blocks,
                                           stage_blocks)
+from repro_torch.device import DeviceLike
 from repro_torch.models import stack as stack_mod
 from repro_torch.models import transformer as tf
+from repro_torch.optim import (AdamWConfig, adamw_update, global_norm,
+                               init_opt_state)
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -159,6 +175,15 @@ def replan_grouped(ema_state: Dict, budget_bytes: float, *, n_groups: int,
 # ---------------------------------------------------------------------------
 # lockstep GPipe chain
 # ---------------------------------------------------------------------------
+def _grads_or_zeros(loss: torch.Tensor, leaves) -> Dict:
+    """d loss / d leaf for every leaf of ``leaves``; a leaf the loss does not
+    reach gets a zero gradient, as in JAX."""
+    flat = tree_leaves(leaves)
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    by_id = {id(p): torch.zeros_like(p) if g is None else g
+             for p, g in zip(flat, grads)}
+    return tree_map(lambda p: by_id[id(p)], leaves)
+
 
 def build_gpipe_step(cfg: ArchConfig, split: SplitConfig, n_micro: int,
                      micro_batch: int, seq: int,
@@ -256,13 +281,7 @@ def build_gpipe_grad_step(cfg: ArchConfig, split: SplitConfig,
         else:
             leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
             loss, _ = step(leaves, tokens, labels)
-        flat = tree_leaves(leaves)
-        grads = torch.autograd.grad(loss, flat, allow_unused=True)
-        # a leaf the loss does not reach gets a zero gradient, as in JAX
-        by_id = {id(p): torch.zeros_like(p) if g is None else g
-                 for p, g in zip(flat, grads)}
-        return (loss.detach(), tree_map(lambda p: by_id[id(p)], leaves),
-                tick_bytes)
+        return loss.detach(), _grads_or_zeros(loss, leaves), tick_bytes
 
     grad_step.transport = step.transport
     return grad_step
@@ -352,12 +371,216 @@ def build_hub_grad_step(cfg: ArchConfig, hub: HubConfig, n_micro: int,
     def grad_step(params, tokens, labels):
         leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
         loss, per_client, _ = step(leaves, tokens, labels)
-        flat = tree_leaves(leaves)
-        grads = torch.autograd.grad(loss, flat, allow_unused=True)
-        by_id = {id(p): torch.zeros_like(p) if g is None else g
-                 for p, g in zip(flat, grads)}
         return (loss.detach(), per_client.detach(),
-                tree_map(lambda p: by_id[id(p)], leaves), tick_bytes)
+                _grads_or_zeros(loss, leaves), tick_bytes)
 
     grad_step.transport = step.transport
     return grad_step
+
+
+# ---------------------------------------------------------------------------
+# async hub: per-arrival server updates, staleness-tolerant clients
+# ---------------------------------------------------------------------------
+
+def arrival_mask(tick_rates: Sequence[int], n_ticks: int) -> np.ndarray:
+    """(n_ticks, n_clients) bool: client c arrives when t % rate_c == 0."""
+    t = np.arange(n_ticks)[:, None]
+    rates = np.asarray(tick_rates)[None, :]
+    return (t % rates) == 0
+
+
+def split_hub_params(params: Dict, n_clients: int) -> Tuple[Dict, Dict]:
+    """The stage-stacked hub tree as the async hub's two halves, views of
+    it: the server's ``dict(blocks=<stage N>, embed, head, final_norm)``
+    and the clients' N-stacked blocks ``(N, L/2, ...)``."""
+    n_stages = tree_leaves(params["blocks"])[0].shape[0]
+    if n_stages != n_clients + 1:
+        raise ValueError(f"{n_stages} stages of blocks for {n_clients} "
+                         "clients and a server")
+    server = dict(blocks=tree_map(lambda a: a[n_clients], params["blocks"]),
+                  embed=params["embed"], head=params["head"],
+                  final_norm=params["final_norm"])
+    return server, tree_map(lambda a: a[:n_clients], params["blocks"])
+
+
+def init_hub_state(cfg: ArchConfig, hub: HubConfig, opt_cfg: AdamWConfig,
+                   *, seed: int = 0, device: DeviceLike = None,
+                   params: Optional[Dict] = None,
+                   lora_rank: int = 0) -> Dict:
+    """The async hub's training state.
+
+    ``server``: a ``TrainState`` of the shared pieces, ``dict(blocks=<stage
+    N>, embed, head, final_norm)``, with its own AdamW state, stepped per
+    tick with an arrival.  ``client_params``: the clients' bottom halves
+    N-stacked, ``(N, L/2, ...)``; ``client_opt``: their moments N-stacked
+    and ``step`` an ``(N,)`` int32 tensor, each client advancing only when
+    its own gradient arrives.  ``calib``: N-stacked wire calibration
+    states (``init_wire_calib``), isolated per client.
+
+    ``params`` is the stage-stacked tree of ``split_hub.init_hub_params``
+    (drawn from ``seed`` on ``device`` when None; CUDA unless
+    ``device="cpu"``); the state holds views of it
+    (:func:`split_hub_params`), not copies, so the in-place updates write
+    through to it.  ``lora_rank > 0`` (SplitLoRA on the hub) is ROADMAP
+    queue M item M9b-3."""
+    from repro_torch.train.loop import TrainState
+
+    if lora_rank > 0:
+        raise _m9b3("init_hub_state(lora_rank > 0)")
+    n = hub.n_clients
+    if params is None:
+        if cfg.n_layers % 2:
+            raise ValueError(f"{cfg.n_layers} layers do not split into a "
+                             "client and a server half")
+        params = init_stage_params(cfg, n + 1, cfg.n_layers // 2,
+                                   seed=seed, device=device)
+    server_params, client_params = split_hub_params(params, n)
+    dev = tree_leaves(params)[0].device
+    client_opt = init_opt_state(client_params, opt_cfg)
+    client_opt["step"] = torch.zeros((n,), dtype=torch.int32, device=dev)
+    calib = {k: torch.zeros((n,) + v.shape, dtype=v.dtype, device=dev)
+             for k, v in init_wire_calib().items()}
+    return dict(
+        server=TrainState(params=server_params,
+                          opt=init_opt_state(server_params, opt_cfg),
+                          step=torch.zeros((), dtype=torch.int32,
+                                           device=dev)),
+        client_params=client_params, client_opt=client_opt, calib=calib)
+
+
+def build_async_grad_step(cfg: ArchConfig, hub: HubConfig, micro_batch: int,
+                          seq: int) -> Callable:
+    """The async tick's loss and gradients, without an update.
+
+    Returns ``fn(server_params, client_params, tokens, labels, mask) ->
+    (loss, ces, grads, h_pre, h_q)``: ``tokens`` / ``labels`` (N, B, S) int
+    tensors on the parameters' device, ``mask`` (N,) on the host.  One
+    embed of ``(N, B, S)`` through the shared table; client c's half on
+    ``x[c]``, the STE roundtrip of its link's codec (plain ops, no wire
+    kernel) and ``quantize_cotangent(hub.bwd_quant)`` when set; the
+    server's half once over the ``(N B, S, D)`` stack; each client's CE.
+    ``loss = sum(ces * mask) / max(sum(mask), 1)``.  ``grads`` is
+    ``dict(server=<tree of server_params>, clients={c: <client c's
+    slice>})``; ``h_pre`` / ``h_q`` are each client's boundary activation
+    before and after the forward wire (detached)."""
+    n = hub.n_clients
+    links = hub.links()
+    dtype = tf.cdtype(cfg)
+
+    def grad_step(server_params, client_params, tokens, labels, mask):
+        if tuple(tokens.shape) != (n, micro_batch, seq):
+            raise ValueError(f"tokens {tuple(tokens.shape)}, expected "
+                             f"{(n, micro_batch, seq)}")
+        dev = tokens.device
+        mask_t = torch.as_tensor(np.asarray(mask, dtype=np.float32),
+                                 device=dev)
+        positions = torch.arange(seq, dtype=torch.int32, device=dev)
+        server = tree_map(lambda p: p.detach().requires_grad_(),
+                          server_params)
+        clients = {c: tree_map(lambda a, c=c: a[c].detach().requires_grad_(),
+                               client_params) for c in range(n)}
+        x = embed_tokens(cfg, server, tokens, dtype)  # (N, B, S, D)
+        h_pre, h_q = [], []
+        for c, link in enumerate(links):
+            hc = run_blocks(cfg, clients[c], x[c], positions)
+            h_hat, _ = quantizers.roundtrip(link.quant, hc)
+            if link.bwd_quant is not None:
+                h_hat = quantize_cotangent(link.bwd_quant, h_hat)
+            h_pre.append(hc)
+            h_q.append(h_hat)
+        # the shared server's half once, batched over all N slots
+        hs = run_blocks(cfg, server["blocks"], torch.cat(h_q), positions)
+        ces = torch.stack([head_ce(cfg, server, h, labels[c])
+                           for c, h in enumerate(hs.split(micro_batch))])
+        loss = (ces * mask_t).sum() / mask_t.sum().clamp_min(1.0)
+        grads = _grads_or_zeros(loss, dict(server=server, clients=clients))
+        return (loss.detach(), ces.detach(), grads,
+                [h.detach() for h in h_pre], [h.detach() for h in h_q])
+
+    return grad_step
+
+
+def build_async_update(cfg: ArchConfig, hub: HubConfig,
+                       opt_cfg: AdamWConfig, micro_batch: int, seq: int,
+                       calib_decay: float = 0.9,
+                       lora_rank: int = 0) -> Callable:
+    """One global tick of the async hub, gated per arrival.
+
+    Returns ``fn(state, tokens, labels, mask) -> (state, metrics)`` with
+    ``tokens`` / ``labels`` (N, B, S) int tensors on the state's device and
+    ``mask`` (N,) on the host (numpy or a sequence): 1 for the clients
+    whose microbatch arrives this tick.
+
+    Every tick computes every client's slot against the current server,
+    each client on its own (possibly stale) parameters
+    (:func:`build_async_grad_step`).  Then, in place (the state's tensors
+    are updated, as ``donate=True`` does):
+
+    - the server steps (``apply_gradients``) on a tick with at least one
+      arrival; on an empty tick its parameters, moments and step stay;
+    - each arriving client steps ``adamw_update`` on its own slice, so the
+      global-norm clip and the weight-decay mask are taken per client, as
+      the reference's ``vmap`` takes them;
+    - each arriving client's calibration advances by its boundary
+      activation (``update_wire_calib``);
+    - a client that does not arrive is not touched: AdamW on its zero
+      gradient would still decay its weights and moments.
+
+    ``metrics``: ``loss``, ``ces`` (N), ``quant_rel_err`` (N, the forward
+    wire's relative MSE), ``mask`` and the server's ``grad_norm``, as
+    detached tensors.  ``lora_rank > 0`` is ROADMAP queue M item M9b-3."""
+    from repro_torch.train.loop import apply_gradients
+
+    if lora_rank > 0:
+        raise _m9b3("build_async_update(lora_rank > 0)")
+    grad_step = build_async_grad_step(cfg, hub, micro_batch, seq)
+
+    def update(state, tokens, labels, mask):
+        arrived = np.asarray(mask, dtype=np.float32).reshape(hub.n_clients)
+        loss, ces, grads, h_pre, h_q = grad_step(
+            state["server"].params, state["client_params"], tokens, labels,
+            arrived)
+        if arrived.sum() > 0:
+            state["server"], opt_metrics = apply_gradients(
+                state["server"], grads["server"], opt_cfg, donate=True)
+            grad_norm = opt_metrics["grad_norm"]
+        else:
+            grad_norm = global_norm(grads["server"])
+        copt = state["client_opt"]
+        for c in np.flatnonzero(arrived):
+            def one(tree, c=c):
+                return tree_map(lambda a: a[c], tree)
+
+            _, news, _ = adamw_update(
+                one(state["client_params"]), grads["clients"][c],
+                dict(m=one(copt["m"]), v=one(copt["v"]),
+                     step=copt["step"][c]), opt_cfg, 1.0, donate=True)
+            copt["step"][c] = news["step"]
+            new = update_wire_calib(one(state["calib"]), h_pre[c],
+                                    decay=calib_decay)
+            for k, v in new.items():
+                state["calib"][k][c] = v
+        del grads
+        # each client's relative reconstruction error of the forward wire
+        rel = torch.stack([(p - q).float().square().mean()
+                           / (p.float().square().mean() + 1e-12)
+                           for p, q in zip(h_pre, h_q)])
+        metrics = dict(loss=loss, ces=ces, quant_rel_err=rel,
+                       mask=torch.as_tensor(arrived, device=loss.device),
+                       grad_norm=grad_norm)
+        return state, metrics
+
+    return update
+
+
+def async_tick_stream(batches: Iterable, tick_rates: Sequence[int],
+                      n_ticks: int):
+    """The host's arrival schedule: yields (tick, mask, (tokens, labels)).
+    ``batches`` yields (tokens, labels) of (N, B, S), one candidate
+    microbatch per client a global tick; ``mask`` (float32, (N,)) says
+    whose arrives (the others' slots are computed and gated in
+    :func:`build_async_update`)."""
+    pattern = arrival_mask(tick_rates, n_ticks)
+    it = iter(batches)
+    for t in range(n_ticks):
+        yield t, pattern[t].astype(np.float32), next(it)

@@ -1,5 +1,5 @@
 """The many-client split-learning hub: N clients sharing one server stage
-(port of ``repro/launch/split_hub.py``, lines 65-224, lockstep mode).
+(port of ``repro/launch/split_hub.py``, lines 65-258).
 
 The paper deploys one client and one server; the hub gives N clients,
 each with its own data, its own bottom half (embed + L/2 blocks) and its
@@ -17,18 +17,25 @@ With one client it is the 2-stage pipeline of ``launch/split_pipeline``.
 The stages share one process and one device, as the pipeline's do.
 
 ``train_hub`` runs AdamW over the lockstep hub, with the entropy-adaptive
-wire re-planned per client between steps.  The async mode
-(``mode="async"``, ROADMAP queue M item M9b-2) and SplitLoRA on the hub
-(``lora_rank > 0``, M9b-3) raise.
+wire re-planned per client between steps, or (``mode="async"``) the
+staleness-tolerant async hub: clients arrive at their own tick rates, the
+server steps per tick with an arrival, each arriving client steps its own
+AdamW state and advances its own wire calibration
+(``schedules.build_async_update``).  SplitLoRA on the hub
+(``lora_rank > 0``, ROADMAP queue M item M9b-3) raises.
 
 The reference's ``__main__`` lowers the hub on fake devices and checks
-its HLO collective bytes (XLA only).  Here ``__main__`` trains the
-lockstep hub for a few steps on the card and prints the loss, each
-client's CE, and the bytes the transport counted on each link in both
-directions beside ``hub_wire_bytes`` x shipments:
+its HLO collective bytes (XLA only).  Here ``__main__`` trains the hub for
+a few steps on the card.  Lockstep: the loss, each client's CE, and the
+bytes the transport counted on each link in both directions beside
+``hub_wire_bytes`` x shipments.  Async: the loss and arrivals of every
+tick, the head and tail means, each client's last wire error and
+calibration count:
 
     python -m repro_torch.launch.split_hub --layers 14  # llama3_2_3b width
     python -m repro_torch.launch.split_hub --device cpu --reduced --seq 32
+    python -m repro_torch.launch.split_hub --device cpu --reduced --seq 32 \
+        --micro-batch 4 --mode async --ticks 18 --lr 5e-3 --bwd-bits 2
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ import dataclasses
 import time
 from typing import Dict, Iterable, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_config
@@ -83,13 +91,14 @@ def train_hub(cfg: ArchConfig, hub: HubConfig, opt_cfg: AdamWConfig,
               plan_groups: int = 8, replan_every: int = 1,
               plan_log: Optional[List] = None, lora_rank: int = 0,
               device: DeviceLike = None,
-              transport: Optional[Transport] = None) -> Dict:
-    """Train the N-client hub in lockstep.
+              transport: Optional[Transport] = None,
+              n_ticks: Optional[int] = None) -> Dict:
+    """Train the N-client hub.
 
-    Each element of ``batches`` is a (tokens, labels) pair of shape
-    (n_micro, N, B, S), numpy or tensors; one AdamW step
-    (``train.loop.apply_gradients``, ``total_steps == 0``: constant lr)
-    takes one.  The update runs in place: the parameters passed in are
+    ``mode="lockstep"``: each element of ``batches`` is a (tokens,
+    labels) pair of shape (n_micro, N, B, S), numpy or tensors; one AdamW
+    step (``train.loop.apply_gradients``, ``total_steps == 0``: constant
+    lr) takes one.  The update runs in place: the parameters passed in are
     updated.  Without ``params`` they are drawn from ``seed`` on
     ``device`` (CUDA unless ``device="cpu"``).  Returns dict(params, opt,
     history, per_client, wire_bytes_per_tick): ``history`` the per-step
@@ -103,18 +112,37 @@ def train_hub(cfg: ArchConfig, hub: HubConfig, opt_cfg: AdamWConfig,
     (``hub.with_plans``).  ``plan_log`` receives (step, plans) whenever
     the plans change.  ``transport`` (a fresh one when None) counts every
     shipped byte.
+
+    ``mode="async"``: ``n_ticks`` global ticks of the async hub
+    (``schedules.build_async_update``) at ``hub.resolve_tick_rates()``.
+    ``batches`` yields (tokens, labels) of (N, B, S), one candidate
+    microbatch per client a tick, numpy or tensors.  The state is
+    ``schedules.init_hub_state`` over ``params`` (views: updated in place)
+    or, without them, drawn from ``seed`` on ``device``.  The wire is in
+    the graph, so no transport counts it.  Returns dict(state, history,
+    masks, quant_rel_err): the per-tick losses, the arrival masks and the
+    last tick's per-client relative wire error.  ``transport`` and the
+    adaptive wire belong to the lockstep mode.
+
+    ``lora_rank > 0`` (SplitLoRA on the hub) is ROADMAP queue M, item
+    M9b-3, in either mode.
     """
     from repro_torch.core import entropy as entropy_mod
     from repro_torch.train.loop import TrainState, apply_gradients
 
-    if mode == "async":
-        raise NotImplementedError(
-            "the async hub is ROADMAP queue M, item M9b-2")
-    if mode != "lockstep":
+    if mode not in ("lockstep", "async"):
         raise ValueError(f"unknown hub mode {mode!r}")
     if lora_rank > 0:
         raise NotImplementedError(
             "SplitLoRA on the hub is ROADMAP queue M, item M9b-3")
+    if mode == "async":
+        if wire_budget_bytes is not None or transport is not None:
+            raise ValueError("the adaptive wire and the transport belong "
+                             "to the lockstep hub")
+        if n_ticks is None:
+            raise ValueError("the async hub needs n_ticks")
+        return _train_async(cfg, hub, opt_cfg, batches, micro_batch, seq,
+                            n_ticks, params, seed, device)
     adaptive = wire_budget_bytes is not None
     if adaptive:
         for q in hub.resolve_client_quants():
@@ -171,6 +199,30 @@ def train_hub(cfg: ArchConfig, hub: HubConfig, opt_cfg: AdamWConfig,
                 per_client=per_client, wire_bytes_per_tick=wire_b)
 
 
+def _train_async(cfg, hub, opt_cfg, batches, micro_batch, seq, n_ticks,
+                 params, seed, device) -> Dict:
+    """``train_hub(mode="async")``: the reference's loop over the tick
+    stream."""
+    rates = hub.resolve_tick_rates()
+    state = schedules.init_hub_state(cfg, hub, opt_cfg, seed=seed,
+                                     device=device, params=params)
+    dev = tree_leaves(state["client_params"])[0].device
+    update = schedules.build_async_update(cfg, hub, opt_cfg, micro_batch,
+                                          seq)
+    history: List[float] = []
+    masks: List[np.ndarray] = []
+    rel_err = None
+    for _t, mask, (tokens, labels) in schedules.async_tick_stream(
+            batches, rates, n_ticks):
+        state, metrics = update(state, torch.as_tensor(tokens).to(dev),
+                                torch.as_tensor(labels).to(dev), mask)
+        history.append(float(metrics["loss"]))
+        masks.append(mask)
+        rel_err = metrics["quant_rel_err"].cpu().numpy()
+    return dict(state=state, history=history, masks=masks,
+                quant_rel_err=rel_err)
+
+
 # ---------------------------------------------------------------------------
 # a few steps on the card
 # ---------------------------------------------------------------------------
@@ -215,10 +267,19 @@ def main(argv=None) -> int:
     ap.add_argument("--seq", type=int, default=1024)
     ap.add_argument("--lr", type=float, default=1e-4)
     ap.add_argument("--bwd-bits", type=int, default=0,
-                    help="RD-FSQ bits of the cotangent (0: raw)")
+                    help="bits of the cotangent's codec (0: raw)")
+    ap.add_argument("--bwd-method", choices=("rdfsq", "nf"), default="rdfsq",
+                    help="the cotangent's codec")
     ap.add_argument("--wire-budget-bits", type=float, default=0.0,
                     help="adaptive wire: code bits a scalar of every link, "
                          "8 groups a client (0: the static codecs)")
+    ap.add_argument("--mode", choices=("lockstep", "async"),
+                    default="lockstep")
+    ap.add_argument("--ticks", type=int, default=18,
+                    help="async: global ticks")
+    ap.add_argument("--tick-rates", default="",
+                    help="async: comma-separated ticks between a client's "
+                         "arrivals (default 1 + c %% 3)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -231,10 +292,13 @@ def main(argv=None) -> int:
         raise SystemExit(f"{cfg.n_layers} layers do not split into a client "
                          "and a server half")
     n = args.clients
+    rates = (tuple(int(r) for r in args.tick_rates.split(","))
+             if args.tick_rates else tuple(1 + c % 3 for c in range(n)))
     hub = HubConfig(n_clients=n, client_quants=hub_quants(n),
-                    bwd_quant=(QuantConfig(method="rdfsq",
+                    bwd_quant=(QuantConfig(method=args.bwd_method,
                                            bits=args.bwd_bits)
-                               if args.bwd_bits else None))
+                               if args.bwd_bits else None),
+                    tick_rates=rates if args.mode == "async" else ())
     budget = None
     if args.wire_budget_bits:
         budget = (args.micro_batch * args.seq * cfg.d_model
@@ -243,6 +307,8 @@ def main(argv=None) -> int:
            if cfg.n_layers != full else "")
     print(f"[split-hub {cfg.name}] {n} clients + 1 server, "
           f"{cfg.n_layers // 2} layers a stage, d {cfg.d_model}{cut}")
+    if args.mode == "async":
+        return _main_async(cfg, hub, args)
     batches = make_batches(cfg, args.steps, args.n_micro, n,
                            args.micro_batch, args.seq)
     transport = Transport()
@@ -286,6 +352,39 @@ def main(argv=None) -> int:
                   f"{shipments} shipments = {predicted} B")
     print(f"[split-hub] wire bytes a tick (per device, fwd + bwd): "
           f"{out['wire_bytes_per_tick']:.0f}")
+    return 0
+
+
+def _main_async(cfg: ArchConfig, hub: HubConfig, args) -> int:
+    """The async hub's ticks, printed as the reference's
+    ``dryrun_train_async`` prints them."""
+    n = hub.n_clients
+    batches = [(t[0], lab[0]) for t, lab in make_batches(
+        cfg, args.ticks, 1, n, args.micro_batch, args.seq)]
+    t0 = time.perf_counter()
+    out = train_hub(cfg, hub, AdamWConfig(lr=args.lr, weight_decay=0.0),
+                    batches, micro_batch=args.micro_batch, seq=args.seq,
+                    mode="async", n_ticks=args.ticks, device=args.device)
+    seconds = time.perf_counter() - t0
+    hist = out["history"]
+    for t, (loss, mask) in enumerate(zip(hist, out["masks"])):
+        print(f"  tick {t:4d} loss={loss:.4f} arrivals="
+              f"{[c for c in range(n) if mask[c]]}")
+    k = max(3, args.ticks // 6)
+    n_arrivals = int(sum(m.sum() for m in out["masks"]))
+    bwd = ("raw" if hub.bwd_quant is None else
+           f"{hub.bwd_quant.method}-{hub.bwd_quant.bits}bit")
+    print(f"[split-hub async N={n}] rates {hub.resolve_tick_rates()}, "
+          f"cotangent {bwd}: first-{k} mean {np.mean(hist[:k]):.4f}, "
+          f"last-{k} mean {np.mean(hist[-k:]):.4f}; {n_arrivals} arrivals "
+          f"in {args.ticks} ticks of {args.micro_batch} x {args.seq} tokens "
+          f"a client, {seconds:.1f} s")
+    counts = out["state"]["calib"]["count"].tolist()
+    for c, link in enumerate(hub.links()):
+        print(f"[split-hub async] client {c} ({link.quant.method}-"
+              f"{link.quant.bits}bit): last wire rel err "
+              f"{out['quant_rel_err'][c]:.4e}, calibration count "
+              f"{counts[c]:.0f}")
     return 0
 
 

@@ -43,6 +43,16 @@ def test_port_imports_with_jax_blocked():
             "repro_torch.launch.split_hub, "
             "repro_torch.core.entropy, repro_torch.core.quantizers.nf, "
             "repro_torch.wq; "
+            # the async hub's path, run: its imports happen in calls
+            "from repro_torch.launch import split_hub as sh; "
+            "from repro_torch.configs import get_config; "
+            "from repro_torch.core.quantizers import QuantConfig as Q; "
+            "cfg = get_config('llama3_2_3b').reduced(); "
+            "hub = sh.HubConfig(n_clients=2, client_quants=(Q(), "
+            "Q(method='nf', bits=4)), bwd_quant=Q(), tick_rates=(1, 2)); "
+            "sh.train_hub(cfg, hub, sh.AdamWConfig(), "
+            "[(t[0], l[0]) for t, l in sh.make_batches(cfg, 2, 1, 2, 1, 8)],"
+            " micro_batch=1, seq=8, mode='async', n_ticks=2, device='cpu'); "
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=str(PORT.parent))
     res = subprocess.run([sys.executable, "-c", code], env=env,

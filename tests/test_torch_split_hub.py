@@ -171,16 +171,12 @@ def test_hub_wire_bytes_pins_the_results():
     assert grouped[(0, 3)]["fwd"] / grouped[(1, 3)]["fwd"] == 3 / 16
 
 
-def test_m9b_parts_raise():
-    """The async hub names M9b-2; SplitLoRA on the hub (the
-    adapter-gradient return) names M9b-3; an unknown mode is a
-    ValueError."""
+def test_m9b3_parts_raise():
+    """SplitLoRA on the hub (the adapter-gradient return), in the lockstep
+    and the async mode, names M9b-3; an unknown mode is a ValueError."""
     cfg = get_config("llama3_2_3b").reduced()
     hub = _hubs(TQC, tsplit.HubConfig)["het"]
     opt = thub.AdamWConfig()
-    with pytest.raises(NotImplementedError, match="M9b-2"):
-        thub.train_hub(cfg, hub, opt, [], micro_batch=2, seq=16,
-                       mode="async")
     with pytest.raises(ValueError, match="mode"):
         thub.train_hub(cfg, hub, opt, [], micro_batch=2, seq=16,
                        mode="sync")
@@ -188,6 +184,13 @@ def test_m9b_parts_raise():
     for call in (
             lambda: thub.train_hub(cfg, hub, opt, [], micro_batch=2,
                                    seq=16, lora_rank=4),
+            lambda: thub.train_hub(cfg, hub, opt, [], micro_batch=2,
+                                   seq=16, mode="async", n_ticks=1,
+                                   lora_rank=4),
+            lambda: tsched.build_async_update(cfg, hub, opt, 2, 16,
+                                              lora_rank=4),
+            lambda: tsched.init_hub_state(cfg, hub, opt, device="cpu",
+                                          lora_rank=4),
             lambda: tsched.build_hub_step(cfg, hub, 2, 2, 16, lora_rank=4),
             lambda: tsched.build_hub_grad_step(cfg, hub, 2, 2, 16,
                                                lora_rank=4),

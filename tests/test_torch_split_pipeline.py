@@ -417,6 +417,18 @@ CASES = {"two": ({}, 2, None), "two_bwd": ({}, 2, "r2"),
 
 
 @pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side on one torch thread, as in
+    tests/test_torch_split_hub.py: the suite runs a worker a core or so,
+    and a pool of a thread a core in each worker oversubscribes the
+    machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
 def _ref_run(tmp_path_factory):
     """Starts the reference's runs (about a minute on the CPU) with the
     module's first test, so that the tests before ``ref`` overlap them."""
