@@ -146,7 +146,30 @@ non-zero:
               launches of K1 - K5 and K10 / K11 per tick; a full-width
               2-layer async tick with 8-bit cotangents against the fp32
               CPU path (loss within 5%, gradient cosines >= 0.98).
-17. llama serve -- full-width llama3_2_3b as configured (its 2-bit cut at
+17. hub lora -- SplitLoRA on the many-client hub at full width, with no
+              depth cut: 3 clients + 1 server of 14 llama3_2_3b layers each
+              (the model's own split; the base is frozen, so no base
+              gradients or moments), rank-8 adapters on every block site,
+              links rdfsq-2 / nf-4 / rdfsq-2, each client's adapter
+              gradient returned through 8-bit RD-FSQ (stats over the
+              tensor: the plain codec, no kernel).  Lockstep: 4 AdamW steps
+              of 2 microbatches of 2 x 1 024 tokens a client; the first
+              batch's loss falls, every base leaf bit-identical to a host
+              copy, the moments sized by the adapters, counted bytes of
+              every link both ways = the shipments plus one gradient return
+              a step, the adapter payload under a quarter of one stage's
+              full one, exact launches.  Async: 18 ticks at rates (1, 2, 1)
+              with 2-bit cotangents; the first batch's loss falls, the base
+              bit-identical, calibration counts = arrivals, a tick where
+              client 1 does not arrive leaves its adapters, moments, step
+              and calibration bit-identical.  The packed server stage:
+              quantized_stage_blocks(int4, group 128) on the server's 14
+              layers, every site below its dense bytes, the CE of a 2 x
+              1 024 batch within 0.1 of the dense stage's, K12 launches =
+              packed sites x forwards exactly.  A 2-layer LoRA grad step at
+              8-bit links against the fp32 CPU path (loss within 5%,
+              adapter-gradient cosines >= 0.98).
+18. llama serve -- full-width llama3_2_3b as configured (its 2-bit cut at
               layer 14; weights from seed 0) with merged rank-8 adapters
               (B at scale 0.05): ServeEngine(lora_adapters=) over bf16
               pools (K1, K8 at head width 128) and int8 pools (K9), 8
@@ -245,6 +268,16 @@ HUB_ADAPTIVE_STEPS, HUB_BUDGET_BITS, HUB_GROUPS = 2, 2.0, 8
 # the 2-layer parity's (micro_batch, seq)
 ASYNC_TICKS, ASYNC_RATES, ASYNC_LR = 18, (1, 2, 3), 3e-4
 ASYNC_PARITY = (1, 256)
+# SplitLoRA on the hub: 3 clients + 1 server of 14 full-width llama3_2_3b
+# layers each, the model's own split (the frozen base is 6.43 G parameters,
+# 12.9 GB in bf16, with no gradients or moments); rank LORA_RANK; lockstep
+# HUB_STEPS steps of HUB_MICRO microbatches, then HUB_LORA_TICKS async
+# ticks at HUB_LORA_RATES; the lr chosen on the card among 1e-2 / 3e-3 /
+# 1e-3 by the first batch's loss after the steps
+HUB_LORA_LR, HUB_LORA_TICKS, HUB_LORA_RATES = 3e-3, 18, (1, 2, 1)
+# the packed server stage vs the dense one, CE of one batch
+# (tests/test_wq.py:273-292's gate)
+PACKED_CE_TOL = 0.1
 # merged serving of llama3_2_3b: generate's 4 prompts of 512 tokens; the
 # card-vs-CPU parity's teacher-forced decode steps
 LLAMA_GEN_BATCH, LLAMA_GEN_TEXT, LLAMA_PARITY_STEPS = 4, 512, 4
@@ -260,6 +293,8 @@ WQ_RATIO = 0.265625
 # the K12 shapes of the serve path: (d_in, d_out) of wq / wo, wk / wv,
 # w_gate / w_up, w_down
 WQ_SITES = ((1280, 1280), (1280, 320), (1280, 3456), (3456, 1280))
+# and of the packed llama3_2_3b server stage, at M 2 x 1 024
+WQ_LLAMA_SITES = ((3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072))
 
 
 def smi() -> str:
@@ -1351,6 +1386,9 @@ def check_wq(gen, results):
         for m in (1, 4, 16, 17, 1024, 4096):
             cases[f"M {m} ({d_in}, {d_out}) int4/g128 bf16"] = (
                 m, d_in, d_out, 4, 128, None, False)
+    for d_in, d_out in WQ_LLAMA_SITES:
+        cases[f"M 2048 ({d_in}, {d_out}) int4/g128 bf16, llama"] = (
+            2048, d_in, d_out, 4, 128, None, False)
     cases.update({
         "M 4 (1280, 3456) int3/g128 bf16": (4, 1280, 3456, 3, 128, None,
                                             False),
@@ -1464,6 +1502,23 @@ def check_wq(gen, results):
               f"cuBLAS {eager_lib:.4f} ms; plain {r['plain_ms']:.4f} ms; "
               f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]}, {n_bytes} B)")
         del stores, dense
+    # the packed llama server stage's w_gate / w_up at M 2 x 1 024, printed
+    d_in, d_out, m = 3072, 8192, 2048
+    x, store = _wq_case(gen, m, d_in, d_out, 4, 128)
+    kw = dict(bits=4, group=128, d_in=d_in)
+    dense = store.dequantize().bfloat16()
+    n_bytes = _nbytes(x, store.codes, store.scales, store.mins) \
+        + m * d_out * 2
+    ms = time_graph_ms(lambda: wq_matmul_kernel(
+        x, store.codes, store.scales, store.mins, **kw), 4)
+    lib = time_graph_ms(lambda: torch.matmul(x, dense), 4)
+    b = bound(n_bytes, 2 * m * d_in * d_out)
+    print(f"[kernels] K12 wq_matmul M {m} ({d_in}, {d_out}) int4/g128 "
+          f"[{variant(m, d_in, d_out)}], the packed llama server stage's "
+          f"w_gate: device {ms:.4f} ms, cuBLAS on the dense bf16 weight "
+          f"{lib:.4f} ms (K12 / cuBLAS {ms / lib:.2f}); bound {b[0]:.5f} "
+          f"ms ({b[1]})")
+    del x, store, dense
     # the line reports the decode tick's shape: the serve path's launches
     # are mostly ticks
     results["wq_matmul"] = dict(max_abs_err=worst, **timed[4])
@@ -2165,20 +2220,25 @@ def _check_launches(tag, launches, expect):
     require(launches == full, f"{tag} launches {launches}, expected {full}")
 
 
-def _check_link_bytes(tag, transport, table, shipments, bwd=True):
+def _check_link_bytes(tag, transport, table, shipments, bwd=True,
+                      returns=0):
     """Counted bytes of every link (and of its reverse, the cotangent) ==
-    the table's bytes x shipments, exactly."""
+    the table's bytes x shipments, plus, for a SplitLoRA hub, its
+    adapter-gradient return (``grad``) x ``returns`` each way, exactly."""
     expect = {}
     for (src, dst), entry in table["links"].items():
-        expect[(src, dst)] = entry["fwd"] * shipments
+        grad = entry["grad"] * returns
+        expect[(src, dst)] = entry["fwd"] * shipments + grad
         if bwd:
-            expect[(dst, src)] = entry["bwd"] * shipments
+            expect[(dst, src)] = entry["bwd"] * shipments + grad
         print(f"[{tag}] link {src}->{dst} {entry['quant']}-{entry['bits']}"
               f": counted fwd {transport.bytes[(src, dst)]} B"
               + (f", bwd {transport.bytes[(dst, src)]} B" if bwd else "")
               + f"; fwd_wire_bytes {entry['fwd']} B"
               + (f", bwd_wire_bytes {entry['bwd']} B" if bwd else "")
-              + f" x {shipments} shipments")
+              + f" x {shipments} shipments"
+              + (f"; gradient return {entry['grad']} B x {returns} each way"
+                 if returns else ""))
     require(dict(transport.bytes) == expect,
             f"{tag} counted bytes {dict(transport.bytes)}, expected {expect}")
 
@@ -2940,7 +3000,340 @@ def phase_hub_async():
 
 
 # ---------------------------------------------------------------------------
-# phase 17: merged serving of full-width llama3_2_3b
+# phase 17: SplitLoRA on the many-client hub, and the packed server stage
+# ---------------------------------------------------------------------------
+
+def _host_copy(trees):
+    """Host copies of every leaf of ``trees``, for bit-identity checks."""
+    from repro_torch.utils.tree import tree_leaves
+
+    return [t.cpu() for tree in trees for t in tree_leaves(tree)]
+
+
+def _lora_hub_loss(cfg, hub, params, batch):
+    """Every client's CE on one (1, N, B, S) batch by the lockstep LoRA
+    hub's forward on ``params`` (adapters included)."""
+    import torch
+    from repro_torch.launch import split_hub as sh
+
+    tokens, labels = batch
+    with torch.no_grad():
+        return float(sh.build_hub_step(cfg, hub, tokens.shape[0],
+                                       tokens.shape[2], tokens.shape[3],
+                                       lora_rank=LORA_RANK)(
+            params, tokens, labels)[0])
+
+
+def phase_hub_lora():
+    """SplitLoRA on the hub (train_hub(lora_rank=) in both modes) and the
+    packed server stage (quantized_stage_blocks): returns the launch
+    counts of the phase's counted runs, by path."""
+    import numpy as np
+    import torch
+    from repro_torch.core.quantizers import QuantConfig
+    from repro_torch.core.split import HubConfig, Transport, tree_payload_bytes
+    from repro_torch.core.split_stage import (embed_tokens, head_ce,
+                                              hub_programs,
+                                              quantized_stage_blocks,
+                                              run_blocks, stage_blocks)
+    from repro_torch.kernels import build
+    from repro_torch.launch import schedules
+    from repro_torch.launch import split_hub as sh
+    from repro_torch.launch import split_pipeline as sp
+    from repro_torch.models.stack import tree_index
+    from repro_torch.optim import AdamWConfig, param_bytes
+    from repro_torch.peft import adapter_bytes, adapter_param_count
+    from repro_torch.utils.tree import (tree_count, tree_flatten_with_path,
+                                        tree_leaves)
+
+    t_phase = time.perf_counter()
+    cfg = sp._homogeneous_cfg("llama3_2_3b", n_stages=2)
+    per = cfg.n_layers // 2
+    n, n_micro, mb, seq = HUB_CLIENTS, HUB_MICRO, PIPE_MB, PIPE_SEQ
+    r2 = QuantConfig(method="rdfsq", bits=2)
+    hub = HubConfig(n_clients=n, client_quants=sh.hub_quants(n),
+                    grad_quant=sh.GRAD_QUANT)
+    params = sh.init_hub_params(cfg, hub, seed=0, lora_rank=LORA_RANK)
+    ad = params["adapters"]
+    n_ad = adapter_param_count(ad)
+    torch.cuda.synchronize()
+    print(f"[hub lora] full-width {cfg.name} (d {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of width {cfg.head_dim}, "
+          f"bf16, remat {cfg.remat}, weights from seed 0): {n} clients + 1 "
+          f"server of {per} layers each, the model's own split, no depth "
+          f"cut; rank {LORA_RANK}: {n_ad} adapter parameters "
+          f"({adapter_bytes(ad)} B) on {tree_count(params) - n_ad} frozen "
+          f"ones; links "
+          f"{[q.method + '-' + str(q.bits) for q in sh.hub_quants(n)]}, the "
+          f"adapter gradient returned through rdfsq-8 (stats over the "
+          f"tensor)")
+    base = {k: v for k, v in params.items() if k != "adapters"}
+    host = _host_copy([base])
+
+    def frozen():
+        return all(torch.equal(a.cpu(), b)
+                   for a, b in zip(tree_leaves(base), host))
+
+    # the adapter-gradient payload against one stage's full gradient
+    # through the same codec (the reference's dryrun_lora check)
+    ad_payload = tree_payload_bytes(sh.GRAD_QUANT, tree_index(ad, 0))
+    full_payload = tree_payload_bytes(sh.GRAD_QUANT, stage_blocks(params, 0))
+    print(f"[hub lora] adapter-gradient payload {ad_payload} B a link and "
+          f"direction, one stage's full gradient {full_payload} B "
+          f"({full_payload / ad_payload:.1f}x)")
+    require(ad_payload < full_payload / 4,
+            f"hub lora payload {ad_payload} vs full {full_payload}")
+    paths = {}
+
+    # lockstep: HUB_STEPS AdamW steps of the adapters, raw cotangents, the
+    # gradient returned once a step; the batch iterator stamps each step
+    batches = [(torch.as_tensor(t).cuda(), torch.as_tensor(lab).cuda())
+               for t, lab in sh.make_batches(cfg, HUB_STEPS, n_micro, n, mb,
+                                             seq)]
+    first = (batches[0][0][:1], batches[0][1][:1])
+    before = _lora_hub_loss(cfg, hub, params, first)
+    stamps = []
+
+    def feed():
+        for b in batches:
+            stamps.append(time.perf_counter())
+            yield b
+        stamps.append(time.perf_counter())
+
+    transport = Transport()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    out = sh.train_hub(cfg, hub, AdamWConfig(lr=HUB_LORA_LR,
+                                             weight_decay=0.0),
+                       feed(), micro_batch=mb, seq=seq, n_micro=n_micro,
+                       params=params, transport=transport,
+                       lora_rank=LORA_RANK)
+    torch.cuda.synchronize()
+    paths["hub lora"] = dict(build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    times = [b - a for a, b in zip(stamps, stamps[1:])]
+    history, opt = out["history"], out["opt"]
+    del out
+    after = _lora_hub_loss(cfg, hub, params, first)
+    print(f"[hub lora] {HUB_STEPS} steps of {n_micro} x {n} x {mb} x {seq} "
+          f"tokens, lr {HUB_LORA_LR}: loss " + " -> ".join(
+              f"{v:.4f}" for v in history) + f"; the first batch's first "
+          f"microbatch's loss {before:.4f} before the steps, {after:.4f} "
+          f"after")
+    require(all(math.isfinite(v) for v in history + [after])
+            and after < before,
+            f"hub lora loss {history}, first batch {before} -> {after}")
+    same = frozen()
+    print(f"[hub lora] every base leaf bit-identical to its host copy "
+          f"after the steps: {same} ({len(host)} leaves)")
+    require(same, "hub lora: the base moved")
+    m_bytes = param_bytes(opt["m"])
+    print(f"[hub lora] AdamW m {m_bytes} B = {n_ad} adapter parameters x "
+          f"4 B (adapter_bytes {adapter_bytes(ad)} B in {cfg.param_dtype}); "
+          f"m + v {2 * m_bytes} B")
+    require(tree_count(opt["m"]) == n_ad and m_bytes == 4 * n_ad
+            and [p for p, _ in tree_flatten_with_path(opt["m"])]
+            == [p for p, _ in tree_flatten_with_path(ad)],
+            "hub lora: moments not sized by the adapters")
+    del opt
+    # the gradient codec takes the plain codec: the wire kernels are the
+    # forward links' alone
+    _check_launches("hub lora", paths["hub lora"], _pipe_expect(
+        (n + 1) * per, n_micro, HUB_STEPS, _hub_wire_launches(hub)))
+    _check_link_bytes("hub lora", transport,
+                      sh.hub_wire_bytes(cfg, hub, mb, seq,
+                                        lora_rank=LORA_RANK),
+                      HUB_STEPS * n_micro, returns=HUB_STEPS)
+    step_s = statistics.median(times[1:])
+    print(f"[hub lora] {1e3 * step_s:.1f} ms per step (median of steps "
+          f"2-{HUB_STEPS}; first step {1e3 * times[0]:.1f} ms), "
+          f"{n_micro * n * mb * seq / step_s:.0f} training tokens/s; peak "
+          f"device memory {peak / 2 ** 30:.2f} GiB")
+    del batches
+    torch.cuda.empty_cache()
+
+    # async: HUB_LORA_TICKS ticks at HUB_LORA_RATES with 2-bit cotangents,
+    # from the adapters the lockstep steps left
+    hub_a = dataclasses.replace(hub, bwd_quant=r2,
+                                tick_rates=HUB_LORA_RATES)
+    batches = [(torch.as_tensor(t[0]).cuda(), torch.as_tensor(lab[0]).cuda())
+               for t, lab in sh.make_batches(cfg, HUB_LORA_TICKS, 1, n, mb,
+                                             seq, seed=1)]
+    first = (batches[0][0][None], batches[0][1][None])
+    before = _lora_hub_loss(cfg, hub_a, params, first)
+    opt_a = AdamWConfig(lr=HUB_LORA_LR, weight_decay=0.0)
+    stamps = []
+
+    def feed_a():
+        for b in batches:
+            stamps.append(time.perf_counter())
+            yield b
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    out = sh.train_hub(cfg, hub_a, opt_a, feed_a(), micro_batch=mb, seq=seq,
+                       mode="async", n_ticks=HUB_LORA_TICKS, params=params,
+                       lora_rank=LORA_RANK)
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    paths["hub lora async"] = dict(build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    state, history, masks = out["state"], out["history"], out["masks"]
+    del out
+    after = _lora_hub_loss(cfg, hub_a, params, first)
+    arrivals = [int(sum(m[c] for m in masks)) for c in range(n)]
+    counts = [int(v) for v in state["calib"]["count"].tolist()]
+    steps = state["client_opt"]["step"].tolist()
+    print(f"[hub lora async] {HUB_LORA_TICKS} ticks at rates "
+          f"{HUB_LORA_RATES}, lr {HUB_LORA_LR}: loss " + " -> ".join(
+              f"{v:.4f}" for v in history) + f"; arrivals per client "
+          f"{arrivals}, calibration counts {counts}, client steps {steps}; "
+          f"the first tick's batch's loss {before:.4f} before the ticks, "
+          f"{after:.4f} after")
+    require(all(math.isfinite(v) for v in history + [after])
+            and after < before and counts == arrivals and steps == arrivals
+            and int(state["server"].step) == HUB_LORA_TICKS,
+            f"hub lora async: loss {history}, first batch {before} -> "
+            f"{after}, arrivals {arrivals}, counts {counts}")
+    same = frozen()
+    print(f"[hub lora async] every base leaf bit-identical to its host copy "
+          f"after the ticks: {same}")
+    require(same, "hub lora async: the base moved")
+    _check_launches("hub lora async", paths["hub lora async"],
+                    _async_expect(n, per, HUB_LORA_TICKS, r2))
+    times = [b - a for a, b in zip(stamps, stamps[1:])]
+    tick_s = statistics.median(times[1:])
+    print(f"[hub lora async] {1e3 * tick_s:.1f} ms per tick (median of "
+          f"ticks 2-{HUB_LORA_TICKS}; first tick {1e3 * times[0]:.1f} ms), "
+          f"{n * mb * seq / tick_s:.0f} tokens/s computed, "
+          f"{sum(arrivals) * mb * seq / (HUB_LORA_TICKS * tick_s):.0f} "
+          f"arriving tokens/s; peak device memory {peak / 2 ** 30:.2f} GiB")
+
+    # the next tick of the schedule leaves client 1 out: its adapters,
+    # moments, step and calibration against host copies
+    mask = schedules.arrival_mask(HUB_LORA_RATES, HUB_LORA_TICKS + 2)[-1]
+    require(mask.tolist() == [True, False, True], f"mask {mask}")
+
+    def client1():
+        return _host_copy([tree_index(t, 1) for t in (
+            state["client_adapters"], state["client_opt"]["m"],
+            state["client_opt"]["v"], state["calib"])]) + [
+                state["client_opt"]["step"][1].cpu()]
+
+    held = client1()
+    build.reset_launches()
+    state, metrics = schedules.build_async_update(
+        cfg, hub_a, opt_a, mb, seq, lora_rank=LORA_RANK)(
+            state, *batches[1], mask)
+    torch.cuda.synchronize()
+    paths["hub lora async gate"] = dict(build.launches)
+    same = all(torch.equal(a, b) for a, b in zip(held, client1()))
+    print(f"[hub lora async gate] clients arriving "
+          f"{mask.astype(int).tolist()}: loss {float(metrics['loss']):.4f}; "
+          f"client 1's adapters, moments, step and calibration "
+          f"({sum(t.numel() * t.element_size() for t in held)} B) "
+          f"bit-identical to host copies taken before the tick: {same}")
+    require(same, "hub lora async: a client that did not arrive moved")
+    _check_launches("hub lora async gate", paths["hub lora async gate"],
+                    _async_expect(n, per, 1, r2))
+    del state, metrics, held, batches
+    torch.cuda.empty_cache()
+
+    # the packed server stage: the server's 14 layers to int4 (RTN, group
+    # 128) for inference-only clients; client 0's base stage's boundary
+    # activation of a 2 x 1 024 batch through the dense and the packed
+    # stage and the head.  The base: the adapters trained above inflate the
+    # boundary activation until the server's layers barely move it, which
+    # would hide the packing's error
+    server = hub_programs(cfg, n)[-1]
+    t0 = time.perf_counter()
+    packed, report = quantized_stage_blocks(params, server, "int4",
+                                            group=128)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    dense_b = sum(d for d, _ in report.values())
+    packed_b = sum(p for _, p in report.values())
+    print(f"[hub packed] {len(report)} sites of {per} layers packed in "
+          f"{secs:.1f} s: {packed_b} B against {dense_b} B dense "
+          f"({packed_b / dense_b:.6f}x); per site "
+          + ", ".join(f"{'/'.join(k)} {p}/{d}"
+                      for k, (d, p) in sorted(report.items())))
+    require(len(report) == 7 and all(p < d for d, p in report.values()),
+            f"hub packed report {report}")
+    tokens, labels = (t[0, 0] for t in sh.make_batches(cfg, 1, 1, 1, mb,
+                                                       seq, seed=2)[0])
+    tokens, labels = (torch.as_tensor(t).cuda() for t in (tokens, labels))
+    positions = torch.arange(seq, dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        h = run_blocks(cfg, stage_blocks(params, 0), embed_tokens(
+            cfg, params, tokens), positions)
+        h_dense = run_blocks(cfg, stage_blocks(params, server.index), h,
+                             positions)
+        ce_dense = float(head_ce(cfg, params, h_dense, labels))
+        build.reset_launches()
+        h_packed = run_blocks(cfg, packed, h, positions)
+        ce_packed = float(head_ce(cfg, params, h_packed, labels))
+        torch.cuda.synchronize()
+    paths["hub packed"] = dict(build.launches)
+    change = float((h_dense.float() - h.float()).norm() / h.float().norm())
+    err = float((h_packed.float() - h_dense.float()).norm()
+                / (h_dense.float() - h.float()).norm())
+    print(f"[hub packed] the dense stage moves its input by {change:.4f} of "
+          f"its norm; the packed stage's output differs from the dense "
+          f"one's by {err:.4f} of that move (Frobenius); CE "
+          f"of {mb} x {seq} tokens through the server stage and the head: "
+          f"dense {ce_dense:.6f}, packed int4 {ce_packed:.6f} (|diff| "
+          f"{abs(ce_dense - ce_packed):.3e}, tol {PACKED_CE_TOL})")
+    require(math.isfinite(ce_packed)
+            and abs(ce_dense - ce_packed) < PACKED_CE_TOL,
+            f"hub packed CE {ce_packed} vs dense {ce_dense}")
+    # one forward, no remat: K12 once a packed site a layer, K1 once a layer
+    _check_launches("hub packed", paths["hub packed"],
+                    {"wq_matmul": len(report) * per, "flash_fwd": per})
+    del packed, h, h_dense, h_packed, params, ad, base, host
+    torch.cuda.empty_cache()
+
+    # a full-width two-layer LoRA grad step, one layer a stage, 8-bit links,
+    # on the card against the port's fp32 CPU path; B drawn nonzero, so
+    # that every adapter leaf has a gradient
+    hub8 = HubConfig(n_clients=n, quant=QuantConfig(method="rdfsq", bits=8),
+                     grad_quant=sh.GRAD_QUANT)
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    n2, mb2, seq2 = PIPE_PARITY
+    params2 = sh.init_hub_params(cfg2, hub8, seed=1, lora_rank=LORA_RANK)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for path, leaf in tree_flatten_with_path(params2["adapters"]):
+        if path[-1] == "lora_b":
+            leaf.copy_(0.05 * torch.randn(leaf.shape, generator=gen,
+                                          device="cuda"))
+    tok, lab = (torch.as_tensor(t).cuda()[:n2, :, :mb2, :seq2].contiguous()
+                for t in sh.make_batches(cfg2, 1, n2, n, mb2, seq2)[0])
+    loss_c, _, grads_c, _ = sh.build_hub_grad_step(
+        cfg2, hub8, n2, mb2, seq2, lora_rank=LORA_RANK)(params2, tok, lab)
+    cfg32 = dataclasses.replace(cfg2, param_dtype="float32",
+                                compute_dtype="float32")
+    params32 = _tree(params2, lambda t: t.float().cpu())
+    del params2
+    t0 = time.perf_counter()
+    loss_32, _, grads_32, _ = sh.build_hub_grad_step(
+        cfg32, hub8, n2, mb2, seq2, lora_rank=LORA_RANK)(
+            params32, tok.cpu(), lab.cpu())
+    print(f"[hub lora parity] two layers, {n} clients on rdfsq-8 links, "
+          f"{n2} x {mb2} x {seq2} tokens a client, the 8-bit gradient "
+          f"return; the fp32 CPU step took {time.perf_counter() - t0:.1f} s")
+    _grad_parity("hub lora parity", float(loss_c), float(loss_32), grads_c,
+                 grads_32)
+    del grads_c, grads_32, params32
+    torch.cuda.empty_cache()
+    print(f"[hub lora] phase seconds {time.perf_counter() - t_phase:.1f}; "
+          f"{smi()}")
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# phase 18: merged serving of full-width llama3_2_3b
 # ---------------------------------------------------------------------------
 
 def _pool_bytes(cfg, n_pages, page_size) -> int:
@@ -3257,14 +3650,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"[pipeline] device memory before the phase: "
           f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
-    # head width 128: the pipeline, SplitLoRA on it, the hub, merged llama
-    # serving
+    # head width 128: the pipeline, SplitLoRA on it, the hub in its three
+    # modes (lockstep, async, SplitLoRA with the packed server stage),
+    # merged llama serving
     paths128 = _timed("pipeline", phase_pipeline)
     paths128["lora pipeline"] = _timed("lora pipeline", phase_lora_pipeline)
     gc.collect()
     torch.cuda.empty_cache()
     paths128.update(_timed("hub", phase_hub))
     paths128.update(_timed("hub async", phase_hub_async))
+    paths128.update(_timed("hub lora", phase_hub_lora))
     paths128.update(_timed("llama serve", phase_serve_llama))
     for path, launches in {**paths, **paths128}.items():
         print(f"[launches] {path}: {launches}")

@@ -9,7 +9,11 @@ dict whose leaves ``numpy.asarray`` accepts (the reference's
 ``PackedLinear`` with its uint8 codes, fp16 scales / mins and int32
 ``perm`` (or ``None``) as they are, whatever ``dtype`` says.
 ``from_jax_hub_state`` carries the reference's async-hub state across,
-reading its server ``TrainState``'s ``params``, ``opt`` and ``step``.
+reading its server ``TrainState``'s ``params``, ``opt`` and ``step``; a
+SplitLoRA hub's state brings its ``client_adapters`` and the server's
+``"adapters"`` with it, and a SplitLoRA hub's stage-stacked parameters
+(``"adapters"`` beside ``"blocks"``) cross with ``from_jax_params`` as any
+other nested dict does.
 """
 from __future__ import annotations
 
@@ -63,9 +67,10 @@ def from_jax_params(tree, device: DeviceLike, dtype=None) -> Dict:
 def from_jax_hub_state(state, device: DeviceLike) -> Dict:
     """The reference's async-hub state (``schedules.init_hub_state``'s
     dict: the server's ``TrainState``, the N-stacked client blocks and
-    moments, the ``(N,)`` client steps, the N-stacked calibration) as the
-    port's (``repro_torch.launch.schedules.init_hub_state``'s layout),
-    every leaf at its own dtype."""
+    moments, the ``(N,)`` client steps, the N-stacked calibration; a
+    SplitLoRA state's N-stacked ``client_adapters`` too) as the port's
+    (``repro_torch.launch.schedules.init_hub_state``'s layout), every leaf
+    at its own dtype."""
     from repro_torch.train.loop import TrainState
 
     server = state["server"]
@@ -73,6 +78,6 @@ def from_jax_hub_state(state, device: DeviceLike) -> Dict:
         server=TrainState(params=from_jax_params(server.params, device),
                           opt=from_jax_params(server.opt, device),
                           step=from_jax_params(server.step, device)),
-        client_params=from_jax_params(state["client_params"], device),
-        client_opt=from_jax_params(state["client_opt"], device),
-        calib=from_jax_params(state["calib"], device))
+        **{k: from_jax_params(state[k], device)
+           for k in ("client_params", "client_adapters", "client_opt",
+                     "calib") if k in state})

@@ -1,5 +1,5 @@
 """Split-learning boundary: the in-graph compressor and the real wire
-(port of ``repro/core/split.py``, lines 31-133, 140-376, 381-554).
+(port of ``repro/core/split.py``, lines 31-133, 140-554).
 
 ``compressor_roundtrip`` is the paper's Figure-2 path with the wire
 replaced by identity: learnable linear encoder, the quantizer's roundtrip
@@ -19,8 +19,9 @@ stages share one process and one device, and the transport is an
 in-process send that counts every byte it carries.  ``WireLink`` owns one
 directed cut with its shape-only byte accounting; ``HubConfig`` describes
 the many-client hub's star of links (client ``c`` -> the server stage).
-The hub's adapter-gradient return (``grad_quant``, ``grad_trip``) is
-ROADMAP queue M item M9b-3.
+A SplitLoRA hub returns each client's adapter gradient over its link
+(``WireLink.grad_trip`` -> ``grad_return_trip``): every leaf through
+``grad_quant``, up to the server and back, once a step.
 
 The async hub's pieces: per-client wire calibration states
 (``init_wire_calib``, ``update_wire_calib``, ``calib_scale_error``) and
@@ -41,7 +42,7 @@ from repro_torch.core import quantizers
 from repro_torch.core.payload import CommPayload, GroupedPayload
 from repro_torch.core.quantizers import QuantConfig
 from repro_torch.core.quantizers.topk import budget as topk_budget
-from repro_torch.utils.tree import tree_leaves
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -228,20 +229,15 @@ def _payload_bytes(q: QuantConfig, shape, dtype) -> int:
         q, torch.empty(shape, dtype=dtype, device="meta")).wire_bytes()
 
 
-def _m9b3(what: str):
-    return NotImplementedError(
-        f"{what}: SplitLoRA on the hub (the adapter-gradient return) is "
-        "ROADMAP queue M, item M9b-3")
-
-
 @dataclasses.dataclass(frozen=True)
 class WireLink:
     """One directed quantized edge of a split topology: the forward
     ``QuantConfig``, the optional backward (cotangent) quant, and the
     per-link byte accounting.  ``src`` / ``dst`` are stage indices;
-    ``client`` tags hub links (``HubConfig.links``); ``grad_quant`` is
-    carried for the hub's adapter-gradient return (M9b-3).  Each link is
-    counted once, on the stages that run it."""
+    ``client`` tags hub links (``HubConfig.links``); ``grad_quant`` is the
+    codec of a SplitLoRA hub's adapter-gradient return (None = raw), the
+    cotangent (``bwd_quant``) being unchanged.  Each link is counted once,
+    on the stages that run it."""
 
     src: int
     dst: int
@@ -287,11 +283,18 @@ class WireLink:
                 (), dtype=dtype).element_size()
         return _payload_bytes(self.bwd_quant, tuple(shape), dtype)
 
-    def grad_wire_bytes(self, grad_tree_sds) -> int:
-        raise _m9b3("WireLink.grad_wire_bytes")
+    def grad_wire_bytes(self, grad_tree) -> int:
+        """Bytes of ONE direction of the adapter-gradient return: the
+        ``grad_quant`` payloads of ``grad_tree`` (shapes alone; ``meta``
+        leaves do).  The trip crosses the link twice, up and back, once a
+        step."""
+        return tree_payload_bytes(self.grad_quant, grad_tree)
 
     def grad_trip(self, grad_tree, transport: Transport):
-        raise _m9b3("WireLink.grad_trip")
+        """The adapter-gradient tree across this link, up and back
+        (:func:`grad_return_trip`): the gradient the optimizer applies."""
+        return grad_return_trip(self.grad_quant, grad_tree, transport,
+                                self.perm)
 
 
 def tree_payload_bytes(q: Optional[QuantConfig], tree) -> int:
@@ -305,6 +308,32 @@ def tree_payload_bytes(q: Optional[QuantConfig], tree) -> int:
         else:
             total += _payload_bytes(q, tuple(leaf.shape), leaf.dtype)
     return int(total)
+
+
+def grad_return_trip(q: Optional[QuantConfig], tree, transport: Transport,
+                     perm: Tuple[Link, ...]):
+    """SplitLoRA's gradient return: each leaf of an adapter-gradient tree
+    is encoded with ``q``, its payload sent ``src -> dst`` (to the
+    server), the payload the server accepted sent back ``dst -> src``, and
+    decoded to the leaf's dtype.  ``q`` None (or identity) sends the raw
+    leaf up and back.  Each direction counts exactly
+    ``tree_payload_bytes(q, tree)`` on ``transport``.  The codec takes its
+    default backend: an 8-bit ``stats_axis="tensor"`` RD-FSQ, the hub's,
+    is the plain flat-stream codec on any device (no kernel), as in the
+    reference."""
+    if len(perm) != 1:
+        raise ValueError("the in-process transport returns one link's "
+                         f"gradient at a time, got perm {perm}")
+    src, dst = perm[0]
+
+    def one(leaf):
+        if q is None or q.method == "identity":
+            return transport.send(transport.send(leaf, src, dst), dst, src)
+        up = transport.send_payload(quantizers.encode(q, leaf), src, dst)
+        back = transport.send_payload(up, dst, src)
+        return quantizers.decode(q, back).to(leaf.dtype)
+
+    return tree_map(one, tree)
 
 
 def pipeline_links(split: SplitConfig,
@@ -328,7 +357,7 @@ class HubConfig:
     client c produces a microbatch every ``tick_rates[c]`` global ticks
     (empty = all 1).
     ``grad_quant`` is the adapter-gradient return's codec, read only by a
-    SplitLoRA hub (M9b-3)."""
+    SplitLoRA hub (``lora_rank > 0``; None = raw)."""
 
     n_clients: int = 1
     quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)

@@ -12,8 +12,10 @@ a partition owns.
 SplitLoRA stages (``lora_rank > 0``) carry a stage-stacked ``"adapters"``
 tree beside ``"blocks"`` and run each layer on ``w + A @ B``
 (``peft/lora.py``).  ``hub_programs`` is the many-client hub's star of
-stages.  The packed serving stage (``quantized_stage_blocks``) is ROADMAP
-queue M, item M9b-3.
+stages.  ``quantized_stage_blocks`` packs one stage's layers to int4 / int3
+/ int2 (``repro_torch.wq``) for inference-only clients; the packed tree
+runs through :func:`run_blocks` unchanged, each packed site through K12 on
+the card.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import wq
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike
 from repro_torch.models import stack as stack_mod
@@ -134,6 +137,27 @@ def head_ce(cfg: ArchConfig, params: Dict, h: torch.Tensor,
     """Last-stage output segment: final norm + vocab head + masked CE."""
     out = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return cross_entropy(head_logits(params["head"], out), labels)
+
+
+def quantized_stage_blocks(params: Dict, stage, weight_quant: str = "int4",
+                           *, group: int = 128,
+                           hessians: Optional[Dict] = None
+                           ) -> Tuple[Dict, Dict]:
+    """The packed block tree of one stage, for serving it to
+    inference-only clients: the stage's layer stack sliced out of the
+    stage-stacked ``params["blocks"]`` and every w* site quantized
+    (``repro_torch.wq.quantize_tree``, ``stacked_axes=1``): RTN on the
+    weights' device, GPTQ on the host for the sites ``hessians`` (keyed by
+    the site's path within the stage's blocks, e.g. ``("attn", "wq")``)
+    covers.  The trainable stack is untouched.  ``stage`` is a
+    :class:`StageProgram` or its index.  Returns ``(blocks, report)``,
+    ``report`` mapping each site's path to ``(dense_bytes,
+    packed_bytes)``; the packed tree drops into :func:`run_blocks` /
+    :func:`head_ce` unchanged."""
+    index = stage.index if isinstance(stage, StageProgram) else int(stage)
+    wcfg = wq.parse_weight_quant(weight_quant, group=group)
+    return wq.quantize_tree(stage_blocks(params, index), wcfg,
+                            stacked_axes=1, hessians=hessians)
 
 
 # ---------------------------------------------------------------------------

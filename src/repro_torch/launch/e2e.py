@@ -1,6 +1,6 @@
 """End-to-end driver: the paper's full training recipe on a small
 Quantized-TinyLLaVA (port of ``examples/split_training_e2e.py``:
-``build_cfg``, ``run_e2e`` and ``run_hub_async``).
+``build_cfg``, ``run_e2e``, ``run_hub_async`` and ``run_lora``).
 
 Composite CE + alpha * L_comm loss, the 2-bit RD-FSQ compressor at the
 connector cut, warmup-cosine AdamW, a checkpoint at the end:
@@ -17,10 +17,16 @@ cotangent through ``--method`` / ``--bits``:
     PYTHONPATH=src python -m repro_torch.launch.e2e --device cpu \
         --mode hub-async --clients 3 --steps 30
 
-Runs on CUDA unless ``--device cpu`` is given.  The example's ``lora``
-mode trains SplitLoRA on the async hub, ROADMAP queue M item M9b-3, and
-raises; SplitLoRA on the chain pipeline is ``launch/split_pipeline.py
---lora-rank``.
+``--mode lora`` trains SplitLoRA on the async hub: rank ``--lora-rank``
+adapters on a frozen base, 2-bit RD-FSQ / 4-bit NF links alternating,
+tick rates ``1 + c % 2``, each client's adapter gradient through the 8-bit
+RD-FSQ codec (``stats_axis="tensor"``); it saves the adapters alone:
+
+    PYTHONPATH=src python -m repro_torch.launch.e2e --device cpu \
+        --mode lora --lora-rank 4 --steps 30
+
+Runs on CUDA unless ``--device cpu`` is given.  SplitLoRA on the chain
+pipeline is ``launch/split_pipeline.py --lora-rank``.
 """
 from __future__ import annotations
 
@@ -110,6 +116,50 @@ def run_hub_async(cfg, args):
           + ", ".join(f"{v:.4f}" for v in out["quant_rel_err"]))
 
 
+def run_lora(cfg, args):
+    """SplitLoRA on the async hub: the base stays bit-frozen, the adapters
+    alone train (moments sized by them), each client's adapter gradient
+    crosses the 8-bit codec; the adapters are saved alone."""
+    from repro_torch.launch.split_hub import GRAD_QUANT, train_hub
+    from repro_torch.optim import param_bytes
+    from repro_torch.peft import adapter_bytes
+
+    cfg = dataclasses.replace(cfg, modality="text")
+    n, r = args.clients, args.lora_rank
+    hub = HubConfig(
+        n_clients=n,
+        client_quants=tuple(
+            QuantConfig(method="rdfsq", bits=2) if c % 2 == 0
+            else QuantConfig(method="nf", bits=4) for c in range(n)),
+        grad_quant=GRAD_QUANT,
+        tick_rates=tuple(1 + c % 2 for c in range(n)))
+    pipe = make_pipeline(cfg, n * args.batch, args.seq, seed=0)
+
+    def batches():
+        while True:
+            b = next(pipe)
+            yield (b["tokens"].reshape(n, args.batch, -1),
+                   b["labels"].reshape(n, args.batch, -1))
+
+    out = train_hub(cfg, hub, AdamWConfig(lr=args.lr), batches(),
+                    micro_batch=args.batch, seq=args.seq, mode="async",
+                    n_ticks=args.steps, lora_rank=r, device=args.device)
+    hist = out["history"]
+    for i in range(0, len(hist), max(len(hist) // 10, 1)):
+        print(f"  tick {i:4d} loss={hist[i]:.4f}")
+    state = out["state"]
+    adapters = dict(server=state["server"].params["adapters"],
+                    clients=state["client_adapters"])
+    full_b = param_bytes(state["client_params"]) \
+        + param_bytes(state["server"].params["blocks"])
+    ad_b = adapter_bytes(adapters)
+    print(f"lora(r={r}) loss {hist[0]:.4f} -> {hist[-1]:.4f} over "
+          f"{args.steps} ticks; adapters {ad_b / 1024:.0f} KiB vs frozen "
+          f"base {full_b / 1024:.0f} KiB ({full_b / max(ad_b, 1):.0f}x)")
+    checkpoint.save_adapters(args.ckpt, adapters)
+    print("adapter checkpoint:", args.ckpt)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=("e2e", "hub-async", "lora"),
@@ -123,13 +173,11 @@ def main(argv=None):
     ap.add_argument("--bits", type=int, default=2)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--clients", type=int, default=3)
+    ap.add_argument("--lora-rank", type=int, default=4)
     ap.add_argument("--ckpt", default="qtllava_e2e.npz")
     ap.add_argument("--device", default=None,
                     help="torch device; CUDA unless 'cpu' is asked for")
     args = ap.parse_args(argv)
-    if args.mode == "lora":
-        raise NotImplementedError(
-            "SplitLoRA on the async hub is ROADMAP queue M, item M9b-3")
 
     cfg = build_cfg(args.d_model, args.layers, args.method, args.bits)
     n = tree_count(init_params(cfg, device="cpu"))  # a throwaway CPU copy
@@ -138,6 +186,8 @@ def main(argv=None):
           f"mode={args.mode}")
     if args.mode == "hub-async":
         run_hub_async(cfg, args)
+    elif args.mode == "lora":
+        run_lora(cfg, args)
     else:
         run_e2e(cfg, args)
 

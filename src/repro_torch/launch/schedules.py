@@ -1,10 +1,11 @@
 """Schedulers: who ticks when (port of ``repro/launch/schedules.py``,
-lines 82-157, 191-205, 246-376, 379-512, 566-742 and 858-870:
+lines 82-157, 191-205, 246-376, 379-563 and 566-870:
 ``_link_bytes``, ``chain_wire_bytes``, ``hub_wire_bytes``,
 ``boundary_probe``, ``replan_widths``, ``replan_grouped``,
 ``build_gpipe_step``, ``build_gpipe_grad_step``, ``build_hub_step``,
 ``build_hub_grad_step``, ``arrival_mask``, ``init_hub_state``,
-``build_async_update`` and ``async_tick_stream``).
+``build_async_update`` with ``_build_async_lora_update``, and
+``async_tick_stream``).
 
 The reference's lockstep GPipe is one SPMD program: every stage runs every
 tick, over ``n_micro + n_stages - 1`` ticks, and ships across every cut
@@ -30,15 +31,21 @@ microbatch, every client embeds its own tokens, runs its bottom half and
 ships over its own link; the server then runs its half once, batched over
 the N arrivals ``(N B, S, D)``, and takes each client's CE apart.  As in
 the chain, the reference's one fill and one drain tick (padding) are
-skipped.  SplitLoRA on the hub (the adapter-gradient return) is ROADMAP
-queue M item M9b-3.
+skipped.  A SplitLoRA hub (``lora_rank > 0``) differentiates the
+stage-stacked adapters alone; each client's slice of their gradient then
+crosses its link up to the server and back through ``hub.grad_quant``
+(``WireLink.grad_trip``), once a step, and the server's slice stays local.
 
 The async hub: clients arrive at their own tick rates; every tick computes
 every client's slot and the server's half once over ``(N B, S, D)``, as
 the reference does, with the in-graph wire (the STE roundtrip forward,
 ``quantize_cotangent`` back).  The loss weighs the arrivals only; the
 server steps on a tick with an arrival, each arriving client steps its own
-AdamW state, and a client that does not arrive is not touched.
+AdamW state, and a client that does not arrive is not touched.  With
+``lora_rank > 0`` every block stack is frozen: the server and each
+arriving client step their adapters, a client's adapter gradient first
+crossing ``decode(encode(.))`` of ``hub.grad_quant``, the in-graph twin of
+the lockstep gradient return.
 
 SplitLoRA (``lora_rank > 0``): every stage runs its layers on ``w + A @ B``
 from the stage-stacked ``params["adapters"]``, and the grad step
@@ -58,7 +65,7 @@ from repro_torch.core import entropy as entropy_mod
 from repro_torch.core import quantizers
 from repro_torch.core.quantizers import QuantConfig
 from repro_torch.core.split import (HubConfig, SplitConfig, Transport,
-                                    WireLink, _m9b3, init_wire_calib,
+                                    WireLink, init_wire_calib,
                                     pipeline_links, quantize_cotangent,
                                     update_wire_calib)
 from repro_torch.core.split_stage import (embed_tokens, head_ce,
@@ -69,6 +76,7 @@ from repro_torch.models import stack as stack_mod
 from repro_torch.models import transformer as tf
 from repro_torch.optim import (AdamWConfig, adamw_update, global_norm,
                                init_opt_state)
+from repro_torch.peft import lora_shapes
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -79,17 +87,19 @@ from repro_torch.utils.tree import tree_leaves, tree_map
 def _link_bytes(links: Tuple[WireLink, ...], shape, dtype,
                 data_shards: int, grad_sds=None) -> Dict:
     """The per-link byte table of one device's activation slice of
-    ``shape`` / ``dtype``.  ``grad_sds`` (the hub's adapter-gradient
-    return) is ROADMAP queue M item M9b-3."""
-    if grad_sds is not None:
-        raise _m9b3("the adapter-gradient return bytes")
+    ``shape`` / ``dtype``.  ``grad_sds`` (SplitLoRA) is one stage's
+    adapter-gradient tree (any leaves with shapes and dtypes, ``meta``
+    ones included): each link's ``grad`` is ONE direction of its return,
+    crossed up and back once a step; full fine-tuning returns no gradient,
+    so ``grad`` is 0 there."""
     table = {}
     fwd_slice, bwd_slice = [], []
     for link in links:
         f = link.fwd_wire_bytes(shape, dtype)
         b = link.bwd_wire_bytes(shape, dtype)
+        g = link.grad_wire_bytes(grad_sds) if grad_sds is not None else 0
         table[(link.src, link.dst)] = dict(
-            fwd=f * data_shards, bwd=b * data_shards, grad=0,
+            fwd=f * data_shards, bwd=b * data_shards, grad=g * data_shards,
             quant=link.quant.method,
             bits=(link.plan if link.quant.grouped else link.quant.bits))
         fwd_slice.append(f)
@@ -100,7 +110,7 @@ def _link_bytes(links: Tuple[WireLink, ...], shape, dtype,
         bwd_tick=max(bwd_slice),
         fwd_total=sum(v["fwd"] for v in table.values()),
         bwd_total=sum(v["bwd"] for v in table.values()),
-        grad_total=0,
+        grad_total=sum(v["grad"] for v in table.values()),
     )
 
 
@@ -121,16 +131,38 @@ def hub_wire_bytes(cfg: ArchConfig, hub: HubConfig, micro_batch: int,
                    seq: int, data_shards: int = 1,
                    lora_rank: int = 0) -> Dict:
     """Per-link static wire bytes of the N-client hub, one link per client;
-    each device ships a ``micro_batch / data_shards`` slice.  A SplitLoRA
-    hub's adapter-gradient return (``lora_rank > 0``) is M9b-3."""
-    if lora_rank > 0:
-        raise _m9b3("the adapter-gradient return bytes")
+    each device ships a ``micro_batch / data_shards`` slice.  With
+    ``lora_rank > 0`` each link also reports ``grad``: one direction of its
+    SplitLoRA adapter-gradient return, the ``hub.grad_quant`` payloads of
+    one stage's adapter tree (:func:`stage_adapter_shapes`), times the data
+    shards."""
+    _check_rank(lora_rank)
     if micro_batch % data_shards:
         raise ValueError(f"micro_batch {micro_batch} does not split into "
                          f"{data_shards} data shards")
+    grad_sds = stage_adapter_shapes(cfg, lora_rank) if lora_rank else None
     return _link_bytes(hub.links(),
                        (micro_batch // data_shards, seq, cfg.d_model),
-                       tf.cdtype(cfg), data_shards)
+                       tf.cdtype(cfg), data_shards, grad_sds=grad_sds)
+
+
+def _check_rank(lora_rank: int) -> None:
+    if lora_rank < 0:
+        raise ValueError(f"lora_rank must be >= 0, got {lora_rank}")
+
+
+def stage_adapter_shapes(cfg: ArchConfig, lora_rank: int) -> Dict:
+    """One hub stage's adapter tree (what a client link returns) as
+    ``meta`` tensors: the shapes and dtypes of a stage's slice of
+    ``init_stage_params(..., lora_rank=)["adapters"]``, no numbers drawn."""
+    dtype = tf.pdtype(cfg)
+
+    def empty(*shape, **_):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    blocks = tf.init_block_params(cfg, cfg.n_layers // 2, empty,
+                                  lambda _value, *shape: empty(*shape))
+    return lora_shapes(blocks, lora_rank)
 
 
 # ---------------------------------------------------------------------------
@@ -185,6 +217,36 @@ def _grads_or_zeros(loss: torch.Tensor, leaves) -> Dict:
     return tree_map(lambda p: by_id[id(p)], leaves)
 
 
+def _stage_adapters(params: Dict, lora_rank: int, n_stages: int) -> list:
+    """Each stage's slice of the stage-stacked ``params["adapters"]``
+    (views); ``None`` for every stage without SplitLoRA."""
+    if lora_rank == 0:
+        return [None] * n_stages
+    _need_adapters(params)
+    adapters = stack_mod.tree_unbind(params["adapters"])
+    if len(adapters) != n_stages:
+        raise ValueError(f"{len(adapters)} stages of adapters for "
+                         f"{n_stages} stages of blocks")
+    return adapters
+
+
+def _need_adapters(params: Dict) -> None:
+    if "adapters" not in params:
+        raise ValueError("a SplitLoRA run (lora_rank > 0) needs "
+                         "params['adapters']")
+
+
+def _adapters_and_base(params: Dict) -> Tuple[Dict, Dict]:
+    """SplitLoRA's differentiated leaves, the adapters as fresh leaves
+    that require a gradient, and the base detached, so that autograd keeps
+    nothing for it."""
+    _need_adapters(params)
+    return (tree_map(lambda p: p.detach().requires_grad_(),
+                     params["adapters"]),
+            tree_map(lambda p: p.detach(),
+                     {k: v for k, v in params.items() if k != "adapters"}))
+
+
 def build_gpipe_step(cfg: ArchConfig, split: SplitConfig, n_micro: int,
                      micro_batch: int, seq: int,
                      bwd_qcfg: Optional[QuantConfig] = None,
@@ -219,13 +281,7 @@ def build_gpipe_step(cfg: ArchConfig, split: SplitConfig, n_micro: int,
         # one view per stage; the stage axis is taken apart once, so its
         # gradient is one stack of the stages' gradients
         stages = stack_mod.tree_unbind(params["blocks"])
-        if lora_rank > 0:
-            if "adapters" not in params:
-                raise ValueError(f"lora_rank={lora_rank} needs "
-                                 "params['adapters']")
-            adapters = stack_mod.tree_unbind(params["adapters"])
-        else:
-            adapters = [None] * n_stages
+        adapters = _stage_adapters(params, lora_rank, n_stages)
         positions = torch.arange(seq, dtype=torch.int32,
                                  device=tokens.device)
         inbox = [None] * n_stages  # what each stage received last tick
@@ -272,11 +328,7 @@ def build_gpipe_grad_step(cfg: ArchConfig, split: SplitConfig,
 
     def grad_step(params, tokens, labels):
         if lora_rank > 0:
-            leaves = tree_map(lambda p: p.detach().requires_grad_(),
-                              params["adapters"])
-            base = tree_map(lambda p: p.detach(),
-                            {k: v for k, v in params.items()
-                             if k != "adapters"})
+            leaves, base = _adapters_and_base(params)
             loss, _ = step(dict(base, adapters=leaves), tokens, labels)
         else:
             leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
@@ -308,9 +360,10 @@ def build_hub_step(cfg: ArchConfig, hub: HubConfig, n_micro: int,
     the result per client for the head and the CE.  With one client this
     is the 2-stage pipeline, operation for operation.  The payloads cross
     ``transport`` (a fresh :class:`Transport` when None), which counts
-    them: ``n_micro`` a link a step."""
-    if lora_rank > 0:
-        raise _m9b3("build_hub_step(lora_rank > 0)")
+    them: ``n_micro`` a link a step.  ``lora_rank > 0``: ``params``
+    carries the stage-stacked ``"adapters"``, and every stage runs on
+    ``w + A @ B`` from its own slice."""
+    _check_rank(lora_rank)
     n = hub.n_clients
     if cfg.n_layers % 2:
         raise ValueError(f"{cfg.n_layers} layers do not split into a "
@@ -328,6 +381,7 @@ def build_hub_step(cfg: ArchConfig, hub: HubConfig, n_micro: int,
         if len(stages) != n + 1:
             raise ValueError(f"{len(stages)} stages of blocks for {n} "
                              "clients and a server")
+        adapters = _stage_adapters(params, lora_rank, n + 1)
         positions = torch.arange(seq, dtype=torch.int32,
                                  device=tokens.device)
         ce_sums = [None] * n
@@ -335,10 +389,12 @@ def build_hub_step(cfg: ArchConfig, hub: HubConfig, n_micro: int,
             arrived = []
             for c in range(n):
                 x = embed_tokens(cfg, params, tokens[j, c], dtype)
-                h = run_blocks(cfg, stages[c], x, positions)
+                h = run_blocks(cfg, stages[c], x, positions,
+                               adapters=adapters[c])
                 arrived.append(links[c].ship(h, transport))
             # the server's half once, batched over the N arrivals
-            hs = run_blocks(cfg, stages[n], torch.cat(arrived), positions)
+            hs = run_blocks(cfg, stages[n], torch.cat(arrived), positions,
+                            adapters=adapters[n])
             for c, h in enumerate(hs.split(micro_batch)):
                 ce = head_ce(cfg, params, h, labels[j, c])
                 ce_sums[c] = ce if ce_sums[c] is None else ce_sums[c] + ce
@@ -360,19 +416,35 @@ def build_hub_grad_step(cfg: ArchConfig, hub: HubConfig, n_micro: int,
     batched execution.  Returns ``fn(params, tokens, labels) -> (loss,
     per_client, grads, wire_bytes)``, ``wire_bytes`` the per-device
     per-tick forward + backward payload bytes; ``fn.transport`` counts
-    both directions."""
-    if lora_rank > 0:
-        raise _m9b3("build_hub_grad_step(lora_rank > 0)")
+    both directions.
+
+    ``lora_rank > 0`` (SplitLoRA): the gradient w.r.t. the stage-stacked
+    ``params["adapters"]`` alone, the base detached; ``grads`` mirrors the
+    adapter tree.  Each client's slice of it then crosses
+    ``links[c].grad_trip`` (``hub.grad_quant``, up to the server and back
+    over ``fn.transport``) and returns decoded; the server's slice stays
+    local.  The decoded stack is what the optimizer applies."""
     step = build_hub_step(cfg, hub, n_micro, micro_batch, seq,
-                          transport=transport)
+                          lora_rank=lora_rank, transport=transport)
+    links = hub.links()
     wire = hub_wire_bytes(cfg, hub, micro_batch, seq)
     tick_bytes = float(wire["fwd_tick"] + wire["bwd_tick"])
 
     def grad_step(params, tokens, labels):
-        leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
-        loss, per_client, _ = step(leaves, tokens, labels)
+        if lora_rank == 0:
+            leaves = tree_map(lambda p: p.detach().requires_grad_(),
+                              params)
+            loss, per_client, _ = step(leaves, tokens, labels)
+            return (loss.detach(), per_client.detach(),
+                    _grads_or_zeros(loss, leaves), tick_bytes)
+        leaves, base = _adapters_and_base(params)
+        loss, per_client, _ = step(dict(base, adapters=leaves), tokens,
+                                   labels)
+        stages = stack_mod.tree_unbind(_grads_or_zeros(loss, leaves))
+        for c, link in enumerate(links):
+            stages[c] = link.grad_trip(stages[c], step.transport)
         return (loss.detach(), per_client.detach(),
-                _grads_or_zeros(loss, leaves), tick_bytes)
+                stack_mod.tree_stack(stages), tick_bytes)
 
     grad_step.transport = step.transport
     return grad_step
@@ -421,53 +493,83 @@ def init_hub_state(cfg: ArchConfig, hub: HubConfig, opt_cfg: AdamWConfig,
     (drawn from ``seed`` on ``device`` when None; CUDA unless
     ``device="cpu"``); the state holds views of it
     (:func:`split_hub_params`), not copies, so the in-place updates write
-    through to it.  ``lora_rank > 0`` (SplitLoRA on the hub) is ROADMAP
-    queue M item M9b-3."""
+    through to it.
+
+    ``lora_rank > 0`` (SplitLoRA): every block stack is frozen.  The state
+    gains ``client_adapters``, the clients' adapters N-stacked (views of
+    ``params["adapters"]``, as the client blocks are), the server's params
+    gain ``"adapters"`` (its stage's slice), and both optimizers are sized
+    by the adapter trees alone."""
     from repro_torch.train.loop import TrainState
 
-    if lora_rank > 0:
-        raise _m9b3("init_hub_state(lora_rank > 0)")
+    _check_rank(lora_rank)
     n = hub.n_clients
     if params is None:
         if cfg.n_layers % 2:
             raise ValueError(f"{cfg.n_layers} layers do not split into a "
                              "client and a server half")
         params = init_stage_params(cfg, n + 1, cfg.n_layers // 2,
-                                   seed=seed, device=device)
+                                   lora_rank=lora_rank, seed=seed,
+                                   device=device)
     server_params, client_params = split_hub_params(params, n)
     dev = tree_leaves(params)[0].device
-    client_opt = init_opt_state(client_params, opt_cfg)
+    client_trained, server_trained = client_params, server_params
+    extra = {}
+    if lora_rank > 0:
+        ad = _stage_adapters(params, lora_rank, n + 1)
+        server_params["adapters"] = ad[n]
+        extra["client_adapters"] = tree_map(lambda a: a[:n],
+                                            params["adapters"])
+        client_trained = extra["client_adapters"]
+        server_trained = ad[n]
+    client_opt = init_opt_state(client_trained, opt_cfg)
     client_opt["step"] = torch.zeros((n,), dtype=torch.int32, device=dev)
     calib = {k: torch.zeros((n,) + v.shape, dtype=v.dtype, device=dev)
              for k, v in init_wire_calib().items()}
     return dict(
         server=TrainState(params=server_params,
-                          opt=init_opt_state(server_params, opt_cfg),
+                          opt=init_opt_state(server_trained, opt_cfg),
                           step=torch.zeros((), dtype=torch.int32,
                                            device=dev)),
-        client_params=client_params, client_opt=client_opt, calib=calib)
+        client_params=client_params, **extra, client_opt=client_opt,
+        calib=calib)
 
 
 def build_async_grad_step(cfg: ArchConfig, hub: HubConfig, micro_batch: int,
-                          seq: int) -> Callable:
+                          seq: int, lora_rank: int = 0) -> Callable:
     """The async tick's loss and gradients, without an update.
 
-    Returns ``fn(server_params, client_params, tokens, labels, mask) ->
-    (loss, ces, grads, h_pre, h_q)``: ``tokens`` / ``labels`` (N, B, S) int
-    tensors on the parameters' device, ``mask`` (N,) on the host.  One
-    embed of ``(N, B, S)`` through the shared table; client c's half on
-    ``x[c]``, the STE roundtrip of its link's codec (plain ops, no wire
-    kernel) and ``quantize_cotangent(hub.bwd_quant)`` when set; the
-    server's half once over the ``(N B, S, D)`` stack; each client's CE.
+    Returns ``fn(server_params, client_params, tokens, labels, mask,
+    client_adapters=None) -> (loss, ces, grads, h_pre, h_q)``: ``tokens`` /
+    ``labels`` (N, B, S) int tensors on the parameters' device, ``mask``
+    (N,) on the host.  One embed of ``(N, B, S)`` through the shared
+    table; client c's half on ``x[c]``, the STE roundtrip of its link's
+    codec (plain ops, no wire kernel) and
+    ``quantize_cotangent(hub.bwd_quant)`` when set; the server's half once
+    over the ``(N B, S, D)`` stack; each client's CE.
     ``loss = sum(ces * mask) / max(sum(mask), 1)``.  ``grads`` is
     ``dict(server=<tree of server_params>, clients={c: <client c's
     slice>})``; ``h_pre`` / ``h_q`` are each client's boundary activation
-    before and after the forward wire (detached)."""
+    before and after the forward wire (detached).
+
+    ``lora_rank > 0``: ``server_params`` carries the server's
+    ``"adapters"`` and ``client_adapters`` the clients' N-stacked ones;
+    every stage runs on ``w + A @ B``, the base detached, and ``grads`` is
+    ``dict(server=<the server's adapter tree>, clients={c: <client c's
+    adapter slice>})``."""
+    _check_rank(lora_rank)
     n = hub.n_clients
     links = hub.links()
     dtype = tf.cdtype(cfg)
 
-    def grad_step(server_params, client_params, tokens, labels, mask):
+    def trained(tree, c=None):
+        """Leaves that require a gradient (client ``c``'s slice when
+        given)."""
+        return tree_map(lambda a: (a if c is None else a[c]).detach()
+                        .requires_grad_(), tree)
+
+    def grad_step(server_params, client_params, tokens, labels, mask,
+                  client_adapters=None):
         if tuple(tokens.shape) != (n, micro_batch, seq):
             raise ValueError(f"tokens {tuple(tokens.shape)}, expected "
                              f"{(n, micro_batch, seq)}")
@@ -475,25 +577,38 @@ def build_async_grad_step(cfg: ArchConfig, hub: HubConfig, micro_batch: int,
         mask_t = torch.as_tensor(np.asarray(mask, dtype=np.float32),
                                  device=dev)
         positions = torch.arange(seq, dtype=torch.int32, device=dev)
-        server = tree_map(lambda p: p.detach().requires_grad_(),
-                          server_params)
-        clients = {c: tree_map(lambda a, c=c: a[c].detach().requires_grad_(),
-                               client_params) for c in range(n)}
+        if lora_rank == 0:
+            server = trained(server_params)
+            clients = {c: trained(client_params, c) for c in range(n)}
+            adapters = dict.fromkeys(range(n))
+            wrt = dict(server=server, clients=clients)
+        else:
+            if client_adapters is None:
+                raise ValueError(f"lora_rank={lora_rank} needs "
+                                 "client_adapters")
+            ad, base = _adapters_and_base(server_params)
+            server = dict(base, adapters=ad)
+            clients = {c: tree_map(lambda a, c=c: a[c].detach(),
+                                   client_params) for c in range(n)}
+            adapters = {c: trained(client_adapters, c) for c in range(n)}
+            wrt = dict(server=ad, clients=adapters)
         x = embed_tokens(cfg, server, tokens, dtype)  # (N, B, S, D)
         h_pre, h_q = [], []
         for c, link in enumerate(links):
-            hc = run_blocks(cfg, clients[c], x[c], positions)
+            hc = run_blocks(cfg, clients[c], x[c], positions,
+                            adapters=adapters[c])
             h_hat, _ = quantizers.roundtrip(link.quant, hc)
             if link.bwd_quant is not None:
                 h_hat = quantize_cotangent(link.bwd_quant, h_hat)
             h_pre.append(hc)
             h_q.append(h_hat)
         # the shared server's half once, batched over all N slots
-        hs = run_blocks(cfg, server["blocks"], torch.cat(h_q), positions)
+        hs = run_blocks(cfg, server["blocks"], torch.cat(h_q), positions,
+                        adapters=server.get("adapters"))
         ces = torch.stack([head_ce(cfg, server, h, labels[c])
                            for c, h in enumerate(hs.split(micro_batch))])
         loss = (ces * mask_t).sum() / mask_t.sum().clamp_min(1.0)
-        grads = _grads_or_zeros(loss, dict(server=server, clients=clients))
+        grads = _grads_or_zeros(loss, wrt)
         return (loss.detach(), ces.detach(), grads,
                 [h.detach() for h in h_pre], [h.detach() for h in h_q])
 
@@ -528,20 +643,37 @@ def build_async_update(cfg: ArchConfig, hub: HubConfig,
 
     ``metrics``: ``loss``, ``ces`` (N), ``quant_rel_err`` (N, the forward
     wire's relative MSE), ``mask`` and the server's ``grad_norm``, as
-    detached tensors.  ``lora_rank > 0`` is ROADMAP queue M item M9b-3."""
-    from repro_torch.train.loop import apply_gradients
+    detached tensors.
 
-    if lora_rank > 0:
-        raise _m9b3("build_async_update(lora_rank > 0)")
-    grad_step = build_async_grad_step(cfg, hub, micro_batch, seq)
+    ``lora_rank > 0`` (a state of ``init_hub_state(lora_rank=)``): the
+    base is frozen; the server steps its adapters
+    (``apply_adapter_gradients``) and each arriving client its slice of
+    ``client_adapters``, after its adapter gradient crossed
+    ``decode(encode(.))`` of ``hub.grad_quant`` (when set) on its own
+    slice, so a ``stats_axis="tensor"`` codec takes one client's
+    statistics, as the reference's ``vmap`` over the clients does."""
+    from repro_torch.train.loop import (apply_adapter_gradients,
+                                        apply_gradients)
+
+    grad_step = build_async_grad_step(cfg, hub, micro_batch, seq, lora_rank)
+    apply_server = apply_adapter_gradients if lora_rank else apply_gradients
+    client_key = "client_adapters" if lora_rank else "client_params"
+    gq = hub.grad_quant if lora_rank else None
+
+    def returned(g):
+        return quantizers.decode(gq, quantizers.encode(gq, g)).to(g.dtype)
 
     def update(state, tokens, labels, mask):
+        if ("client_adapters" in state) != (lora_rank > 0):
+            have = "with" if lora_rank == 0 else "without"
+            raise ValueError(f"lora_rank={lora_rank} on a state {have} "
+                             "client_adapters")
         arrived = np.asarray(mask, dtype=np.float32).reshape(hub.n_clients)
         loss, ces, grads, h_pre, h_q = grad_step(
             state["server"].params, state["client_params"], tokens, labels,
-            arrived)
+            arrived, state.get("client_adapters"))
         if arrived.sum() > 0:
-            state["server"], opt_metrics = apply_gradients(
+            state["server"], opt_metrics = apply_server(
                 state["server"], grads["server"], opt_cfg, donate=True)
             grad_norm = opt_metrics["grad_norm"]
         else:
@@ -551,8 +683,11 @@ def build_async_update(cfg: ArchConfig, hub: HubConfig,
             def one(tree, c=c):
                 return tree_map(lambda a: a[c], tree)
 
+            g = grads["clients"][c]
+            if gq is not None:
+                g = tree_map(returned, g)
             _, news, _ = adamw_update(
-                one(state["client_params"]), grads["clients"][c],
+                one(state[client_key]), g,
                 dict(m=one(copt["m"]), v=one(copt["v"]),
                      step=copt["step"][c]), opt_cfg, 1.0, donate=True)
             copt["step"][c] = news["step"]

@@ -21,8 +21,10 @@ wire re-planned per client between steps, or (``mode="async"``) the
 staleness-tolerant async hub: clients arrive at their own tick rates, the
 server steps per tick with an arrival, each arriving client steps its own
 AdamW state and advances its own wire calibration
-(``schedules.build_async_update``).  SplitLoRA on the hub
-(``lora_rank > 0``, ROADMAP queue M item M9b-3) raises.
+(``schedules.build_async_update``).  ``lora_rank > 0`` trains SplitLoRA
+in either mode: the base is frozen, the adapters alone step, and each
+client's adapter gradient returns through ``hub.grad_quant`` (lockstep:
+over its link, up and back, once a step; async: in the graph).
 
 The reference's ``__main__`` lowers the hub on fake devices and checks
 its HLO collective bytes (XLA only).  Here ``__main__`` trains the hub for
@@ -30,12 +32,16 @@ a few steps on the card.  Lockstep: the loss, each client's CE, and the
 bytes the transport counted on each link in both directions beside
 ``hub_wire_bytes`` x shipments.  Async: the loss and arrivals of every
 tick, the head and tail means, each client's last wire error and
-calibration count:
+calibration count.  ``--lora-rank R`` trains rank-R adapters with the
+8-bit RD-FSQ gradient return (``stats_axis="tensor"``) and prints the
+adapter and moment bytes:
 
     python -m repro_torch.launch.split_hub --layers 14  # llama3_2_3b width
     python -m repro_torch.launch.split_hub --device cpu --reduced --seq 32
     python -m repro_torch.launch.split_hub --device cpu --reduced --seq 32 \
         --micro-batch 4 --mode async --ticks 18 --lr 5e-3 --bwd-bits 2
+    python -m repro_torch.launch.split_hub --device cpu --reduced --seq 32 \
+        --micro-batch 4 --lora-rank 4 --lr 3e-2
 """
 from __future__ import annotations
 
@@ -54,7 +60,7 @@ from repro_torch.core.split import HubConfig, Transport
 from repro_torch.core.split_stage import init_stage_params
 from repro_torch.device import DeviceLike
 from repro_torch.launch import schedules
-from repro_torch.optim import AdamWConfig, init_opt_state
+from repro_torch.optim import AdamWConfig, init_opt_state, param_bytes
 from repro_torch.utils.tree import tree_leaves
 
 build_hub_step = schedules.build_hub_step
@@ -62,15 +68,16 @@ build_hub_grad_step = schedules.build_hub_grad_step
 
 
 def init_hub_params(cfg: ArchConfig, hub: HubConfig, *, seed: int = 0,
-                    device: DeviceLike = None) -> Dict:
+                    device: DeviceLike = None, lora_rank: int = 0) -> Dict:
     """Stage-stacked hub parameters: blocks (N + 1, L/2, ...), N client
     bottom halves and the server's top half; embed / head / final norm
-    shared.  From ``seed`` on ``device`` (CUDA unless ``device="cpu"``)."""
+    shared.  From ``seed`` on ``device`` (CUDA unless ``device="cpu"``).
+    ``lora_rank > 0`` adds the stage-stacked ``"adapters"`` tree."""
     if cfg.n_layers % 2:
         raise ValueError(f"{cfg.n_layers} layers do not split into a "
                          "client and a server half")
     return init_stage_params(cfg, hub.n_clients + 1, cfg.n_layers // 2,
-                             seed=seed, device=device)
+                             lora_rank=lora_rank, seed=seed, device=device)
 
 
 def hub_wire_bytes(cfg: ArchConfig, hub: HubConfig, micro_batch: int,
@@ -124,17 +131,21 @@ def train_hub(cfg: ArchConfig, hub: HubConfig, opt_cfg: AdamWConfig,
     last tick's per-client relative wire error.  ``transport`` and the
     adaptive wire belong to the lockstep mode.
 
-    ``lora_rank > 0`` (SplitLoRA on the hub) is ROADMAP queue M, item
-    M9b-3, in either mode.
+    ``lora_rank > 0`` (SplitLoRA) in either mode: the base is frozen and
+    the adapters alone step (``params``, when given, carries
+    ``"adapters"``).  Lockstep: ``init_adapter_state`` /
+    ``apply_adapter_gradients``, each client's adapter gradient crossing
+    its link up and back through ``hub.grad_quant`` once a step (the
+    transport counts it), the returned ``opt`` sized by the adapters.
+    Async: the state of ``init_hub_state(lora_rank=)``, with
+    ``client_adapters``.
     """
     from repro_torch.core import entropy as entropy_mod
-    from repro_torch.train.loop import TrainState, apply_gradients
+    from repro_torch.train.loop import (TrainState, apply_adapter_gradients,
+                                        apply_gradients, init_adapter_state)
 
     if mode not in ("lockstep", "async"):
         raise ValueError(f"unknown hub mode {mode!r}")
-    if lora_rank > 0:
-        raise NotImplementedError(
-            "SplitLoRA on the hub is ROADMAP queue M, item M9b-3")
     if mode == "async":
         if wire_budget_bytes is not None or transport is not None:
             raise ValueError("the adaptive wire and the transport belong "
@@ -142,7 +153,7 @@ def train_hub(cfg: ArchConfig, hub: HubConfig, opt_cfg: AdamWConfig,
         if n_ticks is None:
             raise ValueError("the async hub needs n_ticks")
         return _train_async(cfg, hub, opt_cfg, batches, micro_batch, seq,
-                            n_ticks, params, seed, device)
+                            n_ticks, params, seed, device, lora_rank)
     adaptive = wire_budget_bytes is not None
     if adaptive:
         for q in hub.resolve_client_quants():
@@ -153,14 +164,22 @@ def train_hub(cfg: ArchConfig, hub: HubConfig, opt_cfg: AdamWConfig,
 
     def grad_step_for(hub):
         return build_hub_grad_step(cfg, hub, n_micro, micro_batch, seq,
-                                   transport=transport)
+                                   lora_rank=lora_rank, transport=transport)
 
     grad_step = grad_step_for(hub)
     if params is None:
-        params = init_hub_params(cfg, hub, seed=seed, device=device)
+        params = init_hub_params(cfg, hub, seed=seed, device=device,
+                                 lora_rank=lora_rank)
     dev = tree_leaves(params)[0].device
-    state = TrainState(params=params, opt=init_opt_state(params, opt_cfg),
-                       step=torch.zeros((), dtype=torch.int32, device=dev))
+    if lora_rank > 0:
+        state = init_adapter_state(params, opt_cfg)
+        apply = apply_adapter_gradients
+    else:
+        state = TrainState(params=params,
+                           opt=init_opt_state(params, opt_cfg),
+                           step=torch.zeros((), dtype=torch.int32,
+                                            device=dev))
+        apply = apply_gradients
     n = hub.n_clients
     emas = ([entropy_mod.init_entropy_ema(cfg.d_model, device=dev)
              for _ in range(n)] if adaptive else None)
@@ -189,9 +208,8 @@ def train_hub(cfg: ArchConfig, hub: HubConfig, opt_cfg: AdamWConfig,
                 hub = hub.with_plans(plans)
                 grad_step = grad_step_for(hub)
         loss, pc, grads, wire_b = grad_step(state.params, tokens, labels)
-        state, _ = apply_gradients(state, grads, opt_cfg,
-                                   warmup_steps=warmup_steps,
-                                   total_steps=total_steps, donate=True)
+        state, _ = apply(state, grads, opt_cfg, warmup_steps=warmup_steps,
+                         total_steps=total_steps, donate=True)
         del grads
         history.append(float(loss))
         per_client = [float(v) for v in pc]
@@ -200,15 +218,16 @@ def train_hub(cfg: ArchConfig, hub: HubConfig, opt_cfg: AdamWConfig,
 
 
 def _train_async(cfg, hub, opt_cfg, batches, micro_batch, seq, n_ticks,
-                 params, seed, device) -> Dict:
+                 params, seed, device, lora_rank) -> Dict:
     """``train_hub(mode="async")``: the reference's loop over the tick
     stream."""
     rates = hub.resolve_tick_rates()
     state = schedules.init_hub_state(cfg, hub, opt_cfg, seed=seed,
-                                     device=device, params=params)
+                                     device=device, params=params,
+                                     lora_rank=lora_rank)
     dev = tree_leaves(state["client_params"])[0].device
     update = schedules.build_async_update(cfg, hub, opt_cfg, micro_batch,
-                                          seq)
+                                          seq, lora_rank=lora_rank)
     history: List[float] = []
     masks: List[np.ndarray] = []
     rel_err = None
@@ -226,6 +245,11 @@ def _train_async(cfg, hub, opt_cfg, batches, micro_batch, seq, n_ticks,
 # ---------------------------------------------------------------------------
 # a few steps on the card
 # ---------------------------------------------------------------------------
+
+#: the adapter-gradient return's codec of the reference's SplitLoRA hub
+#: (``dryrun_lora``, ``examples/split_training_e2e.py::run_lora``)
+GRAD_QUANT = QuantConfig(method="rdfsq", bits=8, stats_axis="tensor")
+
 
 def hub_quants(n_clients: int) -> Tuple[QuantConfig, ...]:
     """Heterogeneous per-client codecs, as the reference's ``_hub_quants``:
@@ -280,6 +304,10 @@ def main(argv=None) -> int:
     ap.add_argument("--tick-rates", default="",
                     help="async: comma-separated ticks between a client's "
                          "arrivals (default 1 + c %% 3)")
+    ap.add_argument("--lora-rank", type=int, default=0,
+                    help="SplitLoRA: the adapters' rank, the base frozen, "
+                         "the gradient returned through 8-bit RD-FSQ "
+                         "(0: full fine-tuning)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -298,7 +326,8 @@ def main(argv=None) -> int:
                     bwd_quant=(QuantConfig(method=args.bwd_method,
                                            bits=args.bwd_bits)
                                if args.bwd_bits else None),
-                    tick_rates=rates if args.mode == "async" else ())
+                    tick_rates=rates if args.mode == "async" else (),
+                    grad_quant=(GRAD_QUANT if args.lora_rank else None))
     budget = None
     if args.wire_budget_bits:
         budget = (args.micro_batch * args.seq * cfg.d_model
@@ -318,7 +347,7 @@ def main(argv=None) -> int:
                     batches, micro_batch=args.micro_batch, seq=args.seq,
                     n_micro=args.n_micro, device=args.device,
                     wire_budget_bytes=budget, plan_log=plan_log,
-                    transport=transport)
+                    transport=transport, lora_rank=args.lora_rank)
     seconds = time.perf_counter() - t0
     print(f"[split-hub {cfg.name} N={n}] loss "
           + " -> ".join(f"{v:.4f}" for v in out["history"])
@@ -333,8 +362,9 @@ def main(argv=None) -> int:
     spans = ([(hub, args.steps)] if not plan_log else
              [(hub.with_plans(p), b - a)
               for (a, p), b in zip(plan_log, starts[1:])])
-    tables = [(hub_wire_bytes(cfg, h, args.micro_batch, args.seq)["links"],
-               k * args.n_micro) for h, k in spans]
+    tables = [(hub_wire_bytes(cfg, h, args.micro_batch, args.seq,
+                              lora_rank=args.lora_rank)["links"], k)
+              for h, k in spans]
     shipments = args.steps * args.n_micro
     bwd_codec = ("raw" if hub.bwd_quant is None else
                  f"{hub.bwd_quant.method}-{hub.bwd_quant.bits}bit")
@@ -345,14 +375,30 @@ def main(argv=None) -> int:
         for direction, (src, dst), name in (
                 (f"fwd, {codec}", (link.src, link.dst), "fwd"),
                 (f"bwd, {bwd_codec}", (link.dst, link.src), "bwd")):
-            predicted = sum(t[(link.src, link.dst)][name] * k
-                            for t, k in tables)
+            # k steps of a plan: n_micro shipments and one gradient
+            # return a step
+            entries = [(t[(link.src, link.dst)], k) for t, k in tables]
+            predicted = sum(e[name] * k * args.n_micro for e, k in entries)
+            grad = sum(e["grad"] * k for e, k in entries)
+            returned = (f" + grad x {args.steps} steps = "
+                        f"{predicted + grad} B" if args.lora_rank else "")
             print(f"[split-hub] link {src}->{dst} ({direction}): counted "
                   f"{transport.bytes[(src, dst)]} B, hub_wire_bytes x "
-                  f"{shipments} shipments = {predicted} B")
+                  f"{shipments} shipments = {predicted} B{returned}")
     print(f"[split-hub] wire bytes a tick (per device, fwd + bwd): "
           f"{out['wire_bytes_per_tick']:.0f}")
+    if args.lora_rank:
+        _print_lora(out["params"]["adapters"], out["opt"])
     return 0
+
+
+def _print_lora(adapters, opt) -> None:
+    """The adapter and AdamW moment bytes of a SplitLoRA run."""
+    from repro_torch.peft import adapter_bytes, adapter_param_count
+
+    print(f"[split-hub lora] adapters {adapter_param_count(adapters)} "
+          f"parameters, {adapter_bytes(adapters)} B; AdamW m + v "
+          f"{param_bytes(opt['m']) + param_bytes(opt['v'])} B")
 
 
 def _main_async(cfg: ArchConfig, hub: HubConfig, args) -> int:
@@ -364,7 +410,8 @@ def _main_async(cfg: ArchConfig, hub: HubConfig, args) -> int:
     t0 = time.perf_counter()
     out = train_hub(cfg, hub, AdamWConfig(lr=args.lr, weight_decay=0.0),
                     batches, micro_batch=args.micro_batch, seq=args.seq,
-                    mode="async", n_ticks=args.ticks, device=args.device)
+                    mode="async", n_ticks=args.ticks, device=args.device,
+                    lora_rank=args.lora_rank)
     seconds = time.perf_counter() - t0
     hist = out["history"]
     for t, (loss, mask) in enumerate(zip(hist, out["masks"])):
@@ -385,6 +432,14 @@ def _main_async(cfg: ArchConfig, hub: HubConfig, args) -> int:
               f"{link.quant.bits}bit): last wire rel err "
               f"{out['quant_rel_err'][c]:.4e}, calibration count "
               f"{counts[c]:.0f}")
+    if args.lora_rank:
+        state = out["state"]
+        _print_lora(dict(server=state["server"].params["adapters"],
+                         clients=state["client_adapters"]),
+                    dict(m=dict(server=state["server"].opt["m"],
+                                clients=state["client_opt"]["m"]),
+                         v=dict(server=state["server"].opt["v"],
+                                clients=state["client_opt"]["v"])))
     return 0
 
 

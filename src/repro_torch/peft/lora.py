@@ -46,6 +46,23 @@ def _nest_set(d: Dict, path: Path, value) -> None:
     d[path[-1]] = value
 
 
+def _adapter_tree(tree, rank: int, a_leaf, b_leaf) -> Dict:
+    """The adapter tree mirroring ``tree``'s LoRA sites, site by site (A
+    then B): ``a_leaf(shape, w)`` / ``b_leaf(shape, w)`` make the leaves
+    of site ``w``."""
+    if rank <= 0:
+        raise ValueError(f"lora rank must be positive, got {rank}")
+    sites = lora_sites(tree)
+    if not sites:
+        raise ValueError("no LoRA sites (w*, ndim>=2) in tree")
+    adapters: Dict = {}
+    for path, w in sites:
+        a = a_leaf(tuple(w.shape[:-1]) + (rank,), w)
+        b = b_leaf(tuple(w.shape[:-2]) + (rank, w.shape[-1]), w)
+        _nest_set(adapters, path, {"lora_a": a, "lora_b": b})
+    return adapters
+
+
 def init_lora_params(gen: torch.Generator, tree, rank: int, *,
                      b_scale: float = 0.0) -> Dict:
     """The adapter tree mirroring ``tree``'s LoRA sites: ``A ~ N(0,
@@ -54,26 +71,27 @@ def init_lora_params(gen: torch.Generator, tree, rank: int, *,
     from ``gen`` (site by site, A then B).  The draws are not the
     reference's ``jax.random`` ones; tests carry the reference's adapters
     across with ``repro_torch.bridge.from_jax_params``."""
-    if rank <= 0:
-        raise ValueError(f"lora rank must be positive, got {rank}")
-    sites = lora_sites(tree)
-    if not sites:
-        raise ValueError("no LoRA sites (w*, ndim>=2) in tree")
-
     def normal(shape, scale, like):
         x = torch.randn(shape, generator=gen, device=gen.device,
                         dtype=torch.float32)
         return (x * scale).to(like.dtype).to(like.device)
 
-    adapters: Dict = {}
-    for path, w in sites:
-        d_in = w.shape[-2]
-        a = normal(tuple(w.shape[:-1]) + (rank,), d_in ** -0.5, w)
-        b_shape = tuple(w.shape[:-2]) + (rank, w.shape[-1])
-        b = normal(b_shape, b_scale, w) if b_scale else \
-            torch.zeros(b_shape, dtype=w.dtype, device=w.device)
-        _nest_set(adapters, path, {"lora_a": a, "lora_b": b})
-    return adapters
+    def b_leaf(shape, w):
+        return normal(shape, b_scale, w) if b_scale else \
+            torch.zeros(shape, dtype=w.dtype, device=w.device)
+
+    return _adapter_tree(tree, rank,
+                         lambda shape, w: normal(shape, w.shape[-2] ** -0.5,
+                                                 w), b_leaf)
+
+
+def lora_shapes(tree, rank: int) -> Dict:
+    """The adapter tree :func:`init_lora_params` makes for ``tree``, as
+    ``meta`` tensors: its shapes and dtypes, with no numbers drawn."""
+    def empty(shape, w):
+        return torch.empty(shape, dtype=w.dtype, device="meta")
+
+    return _adapter_tree(tree, rank, empty, empty)
 
 
 def lora_delta(site: Dict, scale: float) -> torch.Tensor:

@@ -53,6 +53,13 @@ def test_port_imports_with_jax_blocked():
             "sh.train_hub(cfg, hub, sh.AdamWConfig(), "
             "[(t[0], l[0]) for t, l in sh.make_batches(cfg, 2, 1, 2, 1, 8)],"
             " micro_batch=1, seq=8, mode='async', n_ticks=2, device='cpu'); "
+            # the SplitLoRA hub and the packed stage, run likewise
+            "lora = sh.HubConfig(n_clients=2, grad_quant=sh.GRAD_QUANT); "
+            "out = sh.train_hub(cfg, lora, sh.AdamWConfig(), "
+            "sh.make_batches(cfg, 1, 1, 2, 1, 8), micro_batch=1, seq=8, "
+            "lora_rank=2, device='cpu'); "
+            "from repro_torch.core.split_stage import quantized_stage_blocks;"
+            " quantized_stage_blocks(out['params'], 2, 'int4'); "
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=str(PORT.parent))
     res = subprocess.run([sys.executable, "-c", code], env=env,

@@ -38,7 +38,8 @@ from repro_torch.core.split_stage import (chain_programs,  # noqa: E402
 from repro_torch.launch import schedules as tsched  # noqa: E402
 from repro_torch.launch import split_hub as thub  # noqa: E402
 from repro_torch.launch import split_pipeline as tsp  # noqa: E402
-from repro_torch.utils.tree import tree_flatten_with_path  # noqa: E402
+from repro_torch.utils.tree import (tree_flatten_with_path,  # noqa: E402
+                                    tree_map)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOSS_RTOL = 1e-4   # losses, per-client CE and 4-step histories vs the reference
@@ -172,35 +173,57 @@ def test_hub_wire_bytes_pins_the_results():
 
 
 def test_m9b3_parts_raise():
-    """SplitLoRA on the hub (the adapter-gradient return), in the lockstep
-    and the async mode, names M9b-3; an unknown mode is a ValueError."""
+    """The argument errors of the hub's entry points: an unknown mode; a
+    SplitLoRA rank below 0 (``train_hub`` in either mode,
+    ``hub_wire_bytes``, ``init_hub_state``, the lockstep and async steps);
+    a SplitLoRA state whose stage-stacked blocks and adapters are not
+    N + 1 stages; SplitLoRA parameters without ``"adapters"``; an async
+    update whose rank does not match its state; a gradient return over a
+    permutation of more than one link."""
     cfg = get_config("llama3_2_3b").reduced()
     hub = _hubs(TQC, tsplit.HubConfig)["het"]
     opt = thub.AdamWConfig()
     with pytest.raises(ValueError, match="mode"):
         thub.train_hub(cfg, hub, opt, [], micro_batch=2, seq=16,
                        mode="sync")
-    link = tsplit.WireLink(0, 3, TQC(), grad_quant=TQC(), client=0)
     for call in (
             lambda: thub.train_hub(cfg, hub, opt, [], micro_batch=2,
-                                   seq=16, lora_rank=4),
+                                   seq=16, lora_rank=-1),
             lambda: thub.train_hub(cfg, hub, opt, [], micro_batch=2,
                                    seq=16, mode="async", n_ticks=1,
-                                   lora_rank=4),
-            lambda: tsched.build_async_update(cfg, hub, opt, 2, 16,
-                                              lora_rank=4),
+                                   lora_rank=-1),
+            lambda: thub.hub_wire_bytes(cfg, hub, 2, 16, lora_rank=-1),
             lambda: tsched.init_hub_state(cfg, hub, opt, device="cpu",
-                                          lora_rank=4),
-            lambda: tsched.build_hub_step(cfg, hub, 2, 2, 16, lora_rank=4),
+                                          lora_rank=-1),
+            lambda: tsched.build_hub_step(cfg, hub, 2, 2, 16, lora_rank=-1),
             lambda: tsched.build_hub_grad_step(cfg, hub, 2, 2, 16,
-                                               lora_rank=4),
-            lambda: thub.hub_wire_bytes(cfg, hub, 2, 16, lora_rank=4),
-            lambda: link.grad_trip({}, tsplit.Transport()),
-            lambda: link.grad_wire_bytes({}),
-            lambda: tsched._link_bytes((link,), (2, 16, 256), torch.float32,
-                                       1, grad_sds={})):
-        with pytest.raises(NotImplementedError, match="M9b-3"):
+                                               lora_rank=-1),
+            lambda: tsched.build_async_update(cfg, hub, opt, 2, 16,
+                                              lora_rank=-1)):
+        with pytest.raises(ValueError, match="lora_rank"):
             call()
+    two = dataclasses.replace(hub, n_clients=2, client_quants=())
+    lora = thub.init_hub_params(cfg, hub, device="cpu", lora_rank=2)
+    with pytest.raises(ValueError, match="stages"):
+        tsched.init_hub_state(cfg, two, opt, params=lora, lora_rank=2)
+    with pytest.raises(ValueError, match="stages"):
+        tsched.init_hub_state(cfg, hub, opt, lora_rank=2, params=dict(
+            lora, adapters=tree_map(lambda a: a[:3], lora["adapters"])))
+    full = thub.init_hub_params(cfg, hub, device="cpu")
+    tok = torch.zeros((1, 3, 2, 16), dtype=torch.int32)
+    with pytest.raises(ValueError, match="adapters"):
+        tsched.init_hub_state(cfg, hub, opt, params=full, lora_rank=2)
+    with pytest.raises(ValueError, match="adapters"):
+        tsched.build_hub_grad_step(cfg, hub, 1, 2, 16, lora_rank=2)(
+            full, tok, tok)
+    with pytest.raises(ValueError, match="client_adapters"):
+        tsched.build_async_update(cfg, hub, opt, 2, 16)(
+            tsched.init_hub_state(cfg, hub, opt, params=lora, lora_rank=2),
+            tok[0], tok[0], [1.0] * 3)
+    link = tsplit.WireLink(0, 3, TQC(), grad_quant=TQC(), client=0)
+    with pytest.raises(ValueError, match="perm"):
+        tsplit.grad_return_trip(link.grad_quant, {}, tsplit.Transport(),
+                                ((0, 3), (1, 3)))
 
 
 # ---------------------------------------------------------------------------

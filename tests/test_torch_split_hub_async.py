@@ -574,10 +574,12 @@ def test_split_hub_entry_point_async(capsys):
                       ("2", "rdfsq-2", "2")]
 
 
-def test_e2e_hub_async_mode(capsys):
+def test_e2e_hub_async_mode(capsys, tmp_path):
     """``python -m repro_torch.launch.e2e --mode hub-async --device cpu``:
-    the example's lines, arrivals per tick as the rates give them; the
-    ``lora`` mode names M9b-3."""
+    the example's lines, arrivals per tick as the rates give them; then
+    ``--mode lora`` (SplitLoRA on the async hub): a finite loss a tick and
+    overall, the adapters below the frozen base's bytes by the printed
+    factor, and the adapter checkpoint saved."""
     te2e.main(["--device", "cpu", "--mode", "hub-async", "--steps", "4",
                "--batch", "2", "--seq", "32", "--d-model", "128",
                "--layers", "2"])
@@ -588,8 +590,21 @@ def test_e2e_hub_async_mode(capsys):
                   r"wire rel err ([\d.]+), ([\d.]+), ([\d.]+)", out)
     assert m and all(np.isfinite(float(v)) for v in m.groups())
     assert "mode=hub-async" in out
-    with pytest.raises(NotImplementedError, match="M9b-3"):
-        te2e.main(["--device", "cpu", "--mode", "lora"])
+    ckpt = tmp_path / "adapters.npz"
+    te2e.main(["--device", "cpu", "--mode", "lora", "--steps", "4",
+               "--batch", "2", "--seq", "32", "--d-model", "128",
+               "--layers", "2", "--lora-rank", "2", "--ckpt", str(ckpt)])
+    out = capsys.readouterr().out
+    assert "mode=lora" in out
+    ticks = re.findall(r"tick +\d+ loss=([\d.]+)", out)
+    assert len(ticks) == 4 and all(np.isfinite(float(v)) for v in ticks)
+    m = re.search(r"lora\(r=2\) loss ([\d.]+) -> ([\d.]+) over 4 ticks; "
+                  r"adapters (\d+) KiB vs frozen base (\d+) KiB \((\d+)x\)",
+                  out)
+    assert m and all(np.isfinite(float(v)) for v in m.groups()), out
+    ad_kib, base_kib, factor = (int(v) for v in m.groups()[2:])
+    assert 0 < ad_kib < base_kib and factor == round(base_kib / ad_kib)
+    assert ckpt.exists() and f"adapter checkpoint: {ckpt}" in out
 
 
 def test_async_entry_needs_its_arguments():

@@ -242,18 +242,26 @@ def test_links_and_groups_match_reference():
 
 
 def test_m9_parts_raise():
-    """The hub's parts (ROADMAP item M9b) still raise and name it: the
+    """The hub's parts that once raised (ROADMAP item M9b) now run: the
     adapter-gradient return's ``grad_trip`` / ``grad_wire_bytes`` and
-    ``_link_bytes(grad_sds=)``.  SplitLoRA on the chain (M9a) runs:
+    ``_link_bytes(grad_sds=)`` on an empty tree count and return nothing;
+    with no gradient codec a one-leaf tree goes up and back raw, its bytes
+    counted once each way.  SplitLoRA on the chain (M9a) runs too:
     ``chain_programs`` carries the rank, and the step takes the stage-
     stacked adapters."""
     link = tsplit.WireLink(0, 1, TQC(), grad_quant=TQC())
-    for call in (lambda: link.grad_trip({}, tsplit.Transport()),
-                 lambda: link.grad_wire_bytes({}),
-                 lambda: tsched._link_bytes((link,), (2, 16, 256),
-                                            torch.float32, 1, grad_sds={})):
-        with pytest.raises(NotImplementedError, match="M9b"):
-            call()
+    transport = tsplit.Transport()
+    assert link.grad_trip({}, transport) == {}
+    assert link.grad_wire_bytes({}) == 0 and not transport.bytes
+    table = tsched._link_bytes((link,), (2, 16, 256), torch.float32, 1,
+                               grad_sds={})
+    assert table["links"][(0, 1)]["grad"] == table["grad_total"] == 0
+    raw = tsplit.WireLink(0, 1, TQC())
+    leaf = {"g": torch.arange(6, dtype=torch.float32).reshape(2, 3)}
+    back = raw.grad_trip(leaf, transport)
+    assert torch.equal(back["g"], leaf["g"])
+    assert dict(transport.bytes) == {(0, 1): 24, (1, 0): 24}
+    assert raw.grad_wire_bytes(leaf) == 24
     cfg = get_config("llama3_2_3b").reduced()
     assert {p.lora_rank for p in chain_programs(cfg, 2, lora_rank=2)} == {2}
     params = init_stage_params(cfg, 2, lora_rank=4, device="cpu")
