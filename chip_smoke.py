@@ -9,9 +9,13 @@ non-zero:
 1. build   -- compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
               (first use), print the build time and the card.
 2. kernels -- hold K1 (flash forward), K2 / K3 (flash backward; both at
-              head width 64 at tinyllava's shapes and at 128 at
+              head width 64 at tinyllava's shapes, at 128 at
               llama3_2_3b's: B 2, 24 / 8 heads, S 1 024, a padded tail, a
-              window, a ragged S), K4 / K5
+              window, a ragged S, with G 4 (32 / 8 heads) and G 7 (56 / 8)
+              cases, and at MLA's (D, Dv) = (96, 64) at minicpm3_4b's: B 2,
+              40 / 40 heads, S 1 024, a padded tail, a window, a ragged S;
+              SDPA timed under each backend that takes Dv != D, the others
+              named with their refusal), K4 / K5
               (RD-FSQ wire), K10 / K11 (NF-b wire), K6 / K7 (ring-cache
               decode, bf16 / int8), K8 / K9 (paged decode, bf16 / int8)
               and K12 (packed int2/3/4 dequant-matmul: its split-K GEMV at
@@ -47,8 +51,9 @@ non-zero:
               case and at the serve shape.  K6 - K9 run again at head
               width 128 at llama3_2_3b's shapes (8 kv heads, G 3: ring rows
               of 1 088 with a padded tail, a wrapped ring, the paged mixed
-              case, the llama serve shape, npp 128, G 16), rows ``*_d128``
-              of the kernels line, K6 against SDPA.
+              case, the llama serve shape, npp 128, G 16, G 7), rows
+              ``*_d128`` of the kernels line, K6 against SDPA; K1 - K3 at
+              (96, 64) are the rows ``*_d96v64``.
 3. serve   -- full-width tinyllava (16 layers, d 1280, bf16, random weights
               from a seed) behind ServeEngine with the 2-bit RD-FSQ split
               wire: 8 requests through 4 slots until all finish.  Launch
@@ -179,6 +184,30 @@ non-zero:
               new, over bf16 and int8 ring caches (K6, K7); one request's
               prefill and 4 teacher-forced decode steps against the fp32
               CPU path, the cut off (within 5%, the same argmax).
+19. granite -- full-width, full-depth granite_3_8b (40 layers, d 4 096,
+              32 / 8 heads: G 4; vocab 49 155; 8.37 G parameters, weights
+              from seed 0; its 2-bit cut at layer 20 in the graph, the
+              plain STE roundtrip): 8 requests through ServeEngine (K1, K8),
+              generate() of 4 prompts of 512 tokens, 32 new (K6), exact
+              launches, pool bytes by formula; a 2-layer card-vs-fp32-CPU
+              parity (the same argmax, within 5%).
+20. 33b / 34b -- deepseek_coder_33b and llava_next_34b at full width, cut
+              to 8 layers (printed: their bf16 weights alone take 66.7 /
+              68.8 GB), the 33B's cut at layer 4 inside the depth: 4
+              requests each through ServeEngine (K1, K8 at G 7); the 34B's
+              carry their 2 880 image tokens through the 2-layer connector
+              (1 152 -> 7 168) and the 2-bit wire at layer 0 (K4 / K5 at d
+              7 168; wire bytes against bf16's).
+21. mla    -- minicpm3_4b (Multi-head Latent Attention; 62 layers, d 2 560,
+              40 heads, q/k 64 + 32, v 64; 4.28 G parameters; its cut at
+              layer 31): generate() of 4 prompts of 512 tokens, 32 new
+              (K1 at (96, 64) once a layer, no decode kernel: the
+              absorbed-weight step over the latent ring cache), the latent
+              cache bytes by formula (576 B a token a layer against a
+              materialised K / V's 12 800), a 2-layer forward parity; 8
+              training steps of 2 x 1 024 tokens on an 8-layer cut (K1 -
+              K3 at (96, 64), exact launches, the CE falling); a 2-layer
+              gradient parity, the cut off (cosines >= 0.98).
 
 Every phase prints its seconds and the device memory after it.  The last
 lines are the card (nvidia-smi), the per-kernel JSON line and
@@ -281,6 +310,16 @@ PACKED_CE_TOL = 0.1
 # merged serving of llama3_2_3b: generate's 4 prompts of 512 tokens; the
 # card-vs-CPU parity's teacher-forced decode steps
 LLAMA_GEN_BATCH, LLAMA_GEN_TEXT, LLAMA_PARITY_STEPS = 4, 512, 4
+# the arch zoo: granite_3_8b at full depth, the 33B / 34B cut to ZOO_DEPTH
+# layers (their bf16 weights alone, 66.7 / 68.8 GB, leave too little of
+# the 80 GB for a serve); generate's prompts; minicpm3_4b's training cut
+# (MLA_TRAIN_LAYERS layers cut at the middle: full depth's fp32 AdamW
+# moments alone would take 34 GB beside 8.5 GB of weights and as much of
+# gradients), steps of MLA_TRAIN_BATCH x MLA_TRAIN_SEQ tokens, and the
+# 2-layer gradient parity's sequence
+ZOO_DEPTH, ZOO_GEN_BATCH, ZOO_GEN_TEXT = 8, 4, 512
+MLA_TRAIN_LAYERS, MLA_TRAIN_STEPS, MLA_TRAIN_BATCH, MLA_TRAIN_SEQ = 8, 8, 2, 1024
+MLA_LR, MLA_PARITY_SEQ = 3e-4, 256
 # int8 K/V bytes per (token, kv head) over bf16: (64 + 2) / 128
 INT8_POOL_RATIO = 0.515625
 # K12 against its plain version, relative to max |plain|: the dequantized
@@ -409,7 +448,10 @@ def phase_build():
     log = build.BUILD_DIR / "build.log"
     if log.exists():
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line or line.startswith("=="):
+            if "Compiling entry function" in line:  # the kernel's name
+                print(f"[build] {line.split(chr(39))[1]}")
+            elif "registers" in line or "spill" in line \
+                    or line.startswith("=="):
                 print(f"[build] {line.strip()}")
     print(f"[build] card: {smi()}")
 
@@ -419,9 +461,10 @@ def phase_build():
 # ---------------------------------------------------------------------------
 
 def _flash_case(gen, b, sq, h, kh, window=None, kv_valid_len=None,
-                chunk=512, d=64):
-    """Operands as ``flash_attention`` builds them: (B, S, H, D) tensors,
-    q pre-scaled then padded to the chunk, sentinel positions."""
+                chunk=512, d=64, dv=None):
+    """Operands as ``flash_attention`` builds them: (B, S, H, D) tensors
+    (v of width ``dv``, D by default), q pre-scaled then padded to the
+    chunk, sentinel positions."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.attention_ref import FAR
@@ -429,7 +472,8 @@ def _flash_case(gen, b, sq, h, kh, window=None, kv_valid_len=None,
     dev = "cuda"
     q = torch.randn((b, sq, h, d), generator=gen, device=dev).bfloat16()
     k = torch.randn((b, sq, kh, d), generator=gen, device=dev).bfloat16()
-    v = torch.randn((b, sq, kh, d), generator=gen, device=dev).bfloat16()
+    v = torch.randn((b, sq, kh, d if dv is None else dv), generator=gen,
+                    device=dev).bfloat16()
     c = min(chunk, sq)
     pad = (-sq) % c
     qs = F.pad(q * torch.tensor(d ** -0.5, dtype=q.dtype),
@@ -447,18 +491,63 @@ def _flash_case(gen, b, sq, h, kh, window=None, kv_valid_len=None,
 
 # K1 - K3 at head width 128 run at llama3_2_3b's shapes (24 / 8 heads, the
 # pipeline's microbatch of 2 x 1 024); their rows in the kernels line carry
-# this suffix
+# this suffix; at MLA's (D, Dv) = (96, 64) at minicpm3_4b's (40 / 40 heads,
+# 2 x 1 024), the suffix D96
 D128 = "_d128"
+D96 = "_d96v64"
+# the granite (G 4) and 33B / 34B (G 7) groupings at 128, timed beside
+D128_G4 = "D128 G4 (32 / 8 heads, granite) B2 S1024"
+D128_G7 = "D128 G7 (56 / 8 heads, the 33B / 34B) B2 S1024"
 
 
-def check_flash(gen, results, d=64):
-    """K1 at the serve shape (D 64) or at llama's (D 128), the first case
-    timed."""
+def _suffix(d: int) -> str:
+    return {64: "", 128: D128, 96: D96}[d]
+
+
+def _sdpa_backends(q, k, v, fn):
+    """Each fused SDPA backend that serves the operands (bf16, causal,
+    enable_gqa; at Dv != D those that take it), pinned: name -> whatever
+    ``fn(backend)`` returns; and name -> the error of each that refuses."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    import torch.nn.functional as F
+
+    backends = (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION)
+    if v.shape[-1] != q.shape[-1]:
+        backends += (SDPBackend.EFFICIENT_ATTENTION,)
+    ok, refused = {}, {}
+    for backend in backends:
+        try:
+            with sdpa_kernel([backend]):
+                F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               enable_gqa=True, scale=1.0)
+            ok[backend.name] = fn(backend)
+        except RuntimeError as e:
+            refused[backend.name] = str(e).splitlines()[0][:160]
+    return ok, refused
+
+
+def check_flash(gen, results, d=64, dv=None):
+    """K1 at the serve shape (D 64), at llama's (D 128, with G 4 and G 7
+    cases at granite's and the 33B / 34B's grouping) or at minicpm3_4b's
+    (D 96, Dv 64), the first case timed."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import attention_ops, attention_ref
 
-    if d == 64:
+    dv = d if dv is None else dv
+    if d == 96:
+        cases = {
+            "D96/64 minicpm3 shape B2 H40 S1024":
+                _flash_case(gen, 2, 1024, 40, 40, d=d, dv=dv),
+            "D96/64 padded q tail S777 + kv_valid_len 700":
+                _flash_case(gen, 2, 777, 40, 40, kv_valid_len=700, d=d,
+                            dv=dv),
+            "D96/64 window 256": _flash_case(gen, 1, 1024, 40, 40,
+                                             window=256, d=d, dv=dv),
+            "D96/64 ragged tiles S100": _flash_case(gen, 1, 100, 40, 40,
+                                                    d=d, dv=dv),
+        }
+    elif d == 64:
         cases = {
             "serve shape B4 S1024": _flash_case(gen, 4, 1024, 20, 5),
             "padded q tail S777 + kv_valid_len 700":
@@ -475,6 +564,10 @@ def check_flash(gen, results, d=64):
             "D128 window 256": _flash_case(gen, 1, 1024, 24, 8, window=256,
                                            d=d),
             "D128 ragged tiles S100": _flash_case(gen, 1, 100, 24, 8, d=d),
+            D128_G4: _flash_case(gen, 2, 1024, 32, 8, d=d),
+            D128_G7: _flash_case(gen, 2, 1024, 56, 8, d=d),
+            "D128 G7 window 256 B1 S1024":
+                _flash_case(gen, 1, 1024, 56, 8, window=256, d=d),
         }
     worst = 0.0
     for name, (q, k, v, qpos, kpos, window) in cases.items():
@@ -507,27 +600,38 @@ def check_flash(gen, results, d=64):
         F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                        enable_gqa=True, scale=1.0)
 
-    # SDPA under each backend that serves bf16, causal, enable_gqa, pinned;
-    # the faster is the library time
-    from torch.nn.attention import SDPBackend, sdpa_kernel
+    # SDPA under each backend that serves the operands, pinned; the faster
+    # is the library time
+    from torch.nn.attention import sdpa_kernel
 
-    lib = {}
-    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION):
+    def timed_sdpa(backend):
         with sdpa_kernel([backend]):
-            lib[backend.name] = (time_graph_ms(sdpa, 8), time_ms(sdpa))
-    name = min(lib, key=lambda n: lib[n][0])
-    ms, lib_ms = time_graph_ms(k1, 8), lib[name][0]
+            return time_graph_ms(sdpa, 8), time_ms(sdpa)
+
+    lib, refused = _sdpa_backends(q, k, v, timed_sdpa)
+    ms = time_graph_ms(k1, 8)
+    name = min(lib, key=lambda n: lib[n][0]) if lib else None
+    lib_ms = lib[name][0] if lib else None
     plain_ms = time_ms(lambda: attention_ref.flash_forward_ref(
         q, k, v, qpos, kpos), reps=5, inner=1)
     print(f"[kernels] K1 flash_fwd {timed}: device {ms:.4f} ms, SDPA causal "
           "GQA " + ", ".join(f"{n} {t:.4f} ms" for n, (t, _) in lib.items())
-          + f"; library: {name} (K1 / SDPA {ms / lib_ms:.2f}); eager "
-          f"{time_ms(k1):.4f} ms, SDPA " + ", ".join(
-              f"{n} {e:.4f} ms" for n, (_, e) in lib.items()))
-    flops = 2 * 2 * b * h * sq * skv * d * 0.5  # causal: half the products
+          + (f"; library: {name} (K1 / SDPA {ms / lib_ms:.2f})" if lib
+             else "; library: none") + f"; eager {time_ms(k1):.4f} ms, "
+          "SDPA " + ", ".join(f"{n} {e:.4f} ms" for n, (_, e) in lib.items()))
+    for n, err in refused.items():
+        print(f"[kernels] K1 flash_fwd {timed}: SDPA {n} refuses: {err}")
+    for name in (D128_G4, D128_G7) if d == 128 else ():
+        cq, ck, cv, cqp, ckp, _ = cases[name]
+        t = time_graph_ms(
+            lambda: attention_ops.flash_forward(cq, ck, cv, cqp, ckp), 8)
+        print(f"[kernels] K1 flash_fwd {name}: device {t:.4f} ms")
+    dv = v.shape[-1]
+    # causal: half the products, S over D and P V over Dv
+    flops = 2 * b * h * sq * skv * (d + dv) * 0.5
     n_bytes = (q.numel() + k.numel() + v.numel()) * 2 \
-        + b * h * sq * (d + 2) * 4  # out fp32 + m, l
-    results["flash_fwd" + ("" if d == 64 else D128)] = dict(
+        + b * h * sq * (dv + 2) * 4  # out fp32 + m, l
+    results["flash_fwd" + _suffix(d)] = dict(
         max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
         bound=bound(n_bytes, flops))
 
@@ -540,16 +644,30 @@ def _visible_pairs(qpos, kpos, window=None) -> int:
     return int(_mask(qpos, kpos, window).sum())
 
 
-def check_flash_bwd(gen, results, d=64):
+def check_flash_bwd(gen, results, d=64, dv=None):
     """K2 / K3 against ``flash_backward_ref`` on the forward's own (out, m,
     l); rows that see no key get a zero output gradient, as
     ``flash_attention`` gives them (it slices them off).  D 64 at the
-    training shape, D 128 at llama's; the first case timed and run twice."""
+    training shape, D 128 at llama's (with G 4 and G 7 cases), (96, 64) at
+    minicpm3_4b's (G 1: K3's clusters of one block); the first case timed
+    and run twice."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import attention_ops, attention_ref
 
+    dv = d if dv is None else dv
     cases = {
+        "D96/64 minicpm3 train shape B2 H40 S1024":
+            _flash_case(gen, 2, 1024, 40, 40, d=d, dv=dv),
+        "D96/64 padded q tail S777 + kv_valid_len 700":
+            _flash_case(gen, 2, 777, 40, 40, kv_valid_len=700, d=d, dv=dv),
+        "D96/64 window 256": _flash_case(gen, 1, 1024, 40, 40, window=256,
+                                         d=d, dv=dv),
+        "D96/64 ragged tiles S100": _flash_case(gen, 1, 100, 40, 40, d=d,
+                                                dv=dv),
+        "D96/64 G 2 (8 / 4 heads) B1 S512":
+            _flash_case(gen, 1, 512, 8, 4, d=d, dv=dv),
+    } if d == 96 else {
         "train shape B4 S793 (padded to 1024)":
             _flash_case(gen, 4, 793, 20, 5),
         "padded q tail S777 + kv_valid_len 700":
@@ -566,8 +684,13 @@ def check_flash_bwd(gen, results, d=64):
             _flash_case(gen, 2, 777, 24, 8, kv_valid_len=700, d=d),
         "D128 window 256": _flash_case(gen, 1, 1024, 24, 8, window=256, d=d),
         "D128 ragged tiles S100": _flash_case(gen, 1, 100, 24, 8, d=d),
+        D128_G4: _flash_case(gen, 2, 1024, 32, 8, d=d),
+        D128_G7: _flash_case(gen, 2, 1024, 56, 8, d=d),
+        "D128 G7 window 256 B1 S1024":
+            _flash_case(gen, 1, 1024, 56, 8, window=256, d=d),
     }
     timed = next(iter(cases))
+    kept = {}
     worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     for name, (q, k, v, qpos, kpos, window) in cases.items():
         out, m, l = attention_ops.flash_forward(q, k, v, qpos, kpos,
@@ -584,7 +707,12 @@ def check_flash_bwd(gen, results, d=64):
         errs = {n: max_err(a, r) / float(r.abs().max())
                 for n, a, r in (("dq", dq, rq), ("dk", dk, rk),
                                 ("dv", dv, rv))}
-        print(f"[kernels] K2/K3 flash_bwd {name}: max|x-plain|/max|plain| "
+        dq_plan, dkv_plan = attention_ops.flash_bwd_plan(
+            q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+            q.shape[3], v.shape[3])
+        print(f"[kernels] K2/K3 flash_bwd {name} (K2 {len(dq_plan.heads[0])}"
+              f" heads a block, K3 clusters of {dkv_plan.cluster} x "
+              f"{len(dkv_plan.heads[0])} heads): max|x-plain|/max|plain| "
               + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
               + f" (tol {FLASH_BWD_RTOL})")
         require(all(e <= FLASH_BWD_RTOL for e in errs.values()),
@@ -594,19 +722,21 @@ def check_flash_bwd(gen, results, d=64):
                                      max_err(dk, rk), max_err(dv, rv))
         if name == timed:
             main = args, window
+        if name in (D128_G4, D128_G7):
+            kept[name] = args
 
     args, window = main
     q, k, v, go, m, l, di, qpos, kpos = args
     b, h, sq, d = q.shape
-    kh, skv = k.shape[1], k.shape[2]
+    kh, skv, dv = k.shape[1], k.shape[2], v.shape[3]
     # run to run: no sum uses atomics, so the same bits
     dq = attention_ops.flash_backward_dq(*args)
-    dk, dv = attention_ops.flash_backward_dkv(*args)
+    dk, dvv = attention_ops.flash_backward_dkv(*args)
     dq2 = attention_ops.flash_backward_dq(*args)
     dk2, dv2 = attention_ops.flash_backward_dkv(*args)
     torch.cuda.synchronize()
     same = {n: bool(torch.equal(a, a2)) for n, a, a2 in
-            (("dq", dq, dq2), ("dk", dk, dk2), ("dv", dv, dv2))}
+            (("dq", dq, dq2), ("dk", dk, dk2), ("dv", dvv, dv2))}
     print(f"[kernels] K2/K3 flash_bwd {timed}, two runs bitwise equal: "
           f"{same}")
     require(all(same.values()), f"K2/K3 not deterministic: {same}")
@@ -622,13 +752,12 @@ def check_flash_bwd(gen, results, d=64):
 
     ms2, ms3 = time_graph_ms(k2, 8), time_graph_ms(k3, 8)
     # the yardstick: SDPA's backward (K2 + K3 together) by graph replay too,
-    # under each backend that serves bf16, causal, enable_gqa, pinned; the
-    # faster is the library time.  The backward runs on its forward's
-    # stream, so both go on the capture stream.
-    from torch.nn.attention import SDPBackend, sdpa_kernel
+    # under each backend that serves the operands, pinned; the faster is
+    # the library time.  The backward runs on its forward's stream, so both
+    # go on the capture stream.
+    from torch.nn.attention import sdpa_kernel
 
-    lib = {}
-    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION):
+    def timed_sdpa_bwd(backend):
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
@@ -639,33 +768,46 @@ def check_flash_bwd(gen, results, d=64):
         def sdpa_bwd(o=o, inputs=(qr, kr, vr)):
             torch.autograd.grad(o, inputs, go, retain_graph=True)
 
-        lib[backend.name] = (time_graph_ms(sdpa_bwd, 8, stream=side),
-                             time_ms(sdpa_bwd))
-    name = min(lib, key=lambda n: lib[n][0])
-    lib_ms = lib[name][0]
-    dq_plan, dkv_plan = attention_ops.flash_bwd_plan(b, h, kh, sq, skv, d)
+        return (time_graph_ms(sdpa_bwd, 8, stream=side), time_ms(sdpa_bwd))
+
+    lib, refused = _sdpa_backends(q, k, v, timed_sdpa_bwd)
+    name = min(lib, key=lambda n: lib[n][0]) if lib else None
+    lib_ms = lib[name][0] if lib else None
+    dq_plan, dkv_plan = attention_ops.flash_bwd_plan(b, h, kh, sq, skv, d,
+                                                     dv)
     print(f"[kernels] K2/K3 flash_bwd {timed}: device K2 {ms2:.4f} + K3 "
           f"{ms3:.4f} = {ms2 + ms3:.4f} ms (K2 {len(dq_plan.heads[0])} heads "
           f"a block, K3 clusters of {dkv_plan.cluster} x "
           f"{len(dkv_plan.heads[0])} heads), SDPA backward " + ", ".join(
               f"{n} {t:.4f} ms" for n, (t, _) in lib.items())
-          + f"; library: {name} (K2+K3 / SDPA {(ms2 + ms3) / lib_ms:.2f}); "
-          f"eager K2 {time_ms(k2):.4f}, K3 {time_ms(k3):.4f} ms, SDPA "
+          + (f"; library: {name} (K2+K3 / SDPA "
+             f"{(ms2 + ms3) / lib_ms:.2f})" if lib else "; library: none")
+          + f"; eager K2 {time_ms(k2):.4f}, K3 {time_ms(k3):.4f} ms, SDPA "
           "backward " + ", ".join(f"{n} {e:.4f} ms"
                                   for n, (_, e) in lib.items()))
+    for n, err in refused.items():
+        print(f"[kernels] K2/K3 flash_bwd {timed}: SDPA {n} refuses: {err}")
+    for name, a in kept.items():
+        t2 = time_graph_ms(lambda: attention_ops.flash_backward_dq(*a), 8)
+        t3 = time_graph_ms(lambda: attention_ops.flash_backward_dkv(*a), 8)
+        print(f"[kernels] K2/K3 flash_bwd {name}: device K2 {t2:.4f} + K3 "
+              f"{t3:.4f} = {t2 + t3:.4f} ms")
     pairs = b * h * _visible_pairs(qpos, kpos)
-    prod = 2 * pairs * d  # FLOPs of one (Sq x Skv x D) product, causal
+    # FLOPs of one causal (Sq x Skv) product over D or Dv columns: K2 runs
+    # S and dQ over D and dP over Dv; K3 S^T and dK over D, dP^T and dV
+    # over Dv
     n_in = (q.numel() + k.numel() + v.numel() + go.numel()) * 2 \
         + 3 * b * h * sq * 4  # bf16 operands, fp32 m, l, di
-    suffix = "" if d == 64 else D128
+    suffix = _suffix(d)
     results["flash_bwd_dq" + suffix] = dict(
         max_abs_err=worst["flash_bwd_dq"], ms=ms2,
         plain_ms=plain_ms, library_ms=lib_ms,
-        bound=bound(n_in + q.numel() * 4, 3 * prod))
+        bound=bound(n_in + q.numel() * 4, 2 * pairs * (2 * d + dv)))
     results["flash_bwd_dkv" + suffix] = dict(
         max_abs_err=worst["flash_bwd_dkv"], ms=ms3,
         plain_ms=plain_ms, library_ms=lib_ms,
-        bound=bound(n_in + 2 * b * kh * skv * d * 4, 4 * prod))
+        bound=bound(n_in + b * kh * skv * (d + dv) * 4,
+                    2 * pairs * (2 * d + 2 * dv)))
 
 
 WIRE_COLD = 8  # inputs in rotation for a cold time (60 MB at the serve shape)
@@ -1051,6 +1193,9 @@ def _ring_cases(gen, d):
             "D128 G16 (KH2) L2000": (
                 _ring_case(gen, 4, 2000, [1999, 3100, 700, -1], kh=2, g=16,
                            d=d), (None, 200)),
+            "D128 G7 (KH8, the 33B / 34B grouping) L544": (
+                _ring_case(gen, 4, 544, [543, 700, 100, -1], kh=8, g=7,
+                           d=d), (None, 200)),
         }
     return {
         "generate shape B4 L825": (
@@ -1237,6 +1382,9 @@ def _paged_cases(gen, d):
             "D128 pg64 npp16 G16 (KH2)": (
                 _paged_case(gen, (854, 500, 0, 100), npp=16, pg=64, kh=2,
                             g=16, holes=((1, 2),), d=d), (None, 200)),
+            "D128 G7 (KH8, the 33B / 34B grouping) pg16 npp64": (
+                _paged_case(gen, (854, 500, 0, 100), kh=8, g=7, holes=holes,
+                            d=d), (None, 200)),
         }
     return {
         "S4 KH5 G4 pg16 npp64 (a -1 page, an inactive slot)": (
@@ -1533,6 +1681,8 @@ def phase_kernels():
     check_flash_bwd(gen, results)
     check_flash(gen, results, d=128)
     check_flash_bwd(gen, results, d=128)
+    check_flash(gen, results, d=96, dv=64)
+    check_flash_bwd(gen, results, d=96, dv=64)
     check_wire(gen, results)
     check_nf(gen, results)
     check_ring_decode(gen, results)
@@ -3394,12 +3544,13 @@ def _serve_llama(cfg, params, adapters, reqs, tag):
     return launches, eng
 
 
-def _llama_parity(cfg, params, toks):
+def _llama_parity(cfg, params, toks, tag="llama parity"):
     """One request on the card (bf16) against the port's CPU path in fp32
     from the same (merged) weights, with the cut off as in
     ``_decode_parity``: the prefill's logits, then LLAMA_PARITY_STEPS
-    teacher-forced decode steps over bf16 ring caches (K6), each within
-    PARITY_RTOL and with the same argmax."""
+    teacher-forced decode steps over bf16 ring caches (K6; MLA: the
+    absorbed-weight step over the latent cache), each within PARITY_RTOL
+    and with the same argmax."""
     import torch
     from repro_torch.serve import decode as sd
 
@@ -3415,7 +3566,7 @@ def _llama_parity(cfg, params, toks):
                             cache_len)
     t0 = time.perf_counter()
     cl, ccache = sd.prefill(params32, cfg32, dict(tokens=tokens), cache_len)
-    print(f"[llama parity] the fp32 CPU prefill of {n} tokens took "
+    print(f"[{tag}] the fp32 CPU prefill of {n} tokens took "
           f"{time.perf_counter() - t0:.1f} s")
     gstep, cstep = sd.make_serve_step(cfg_b), sd.make_serve_step(cfg32)
     g, c = gl[0].float().cpu(), cl[0]
@@ -3428,17 +3579,18 @@ def _llama_parity(cfg, params, toks):
                           qpos.cuda())
             cl, _ = cstep(params32, ccache, dict(tokens=tok[:, None]), qpos)
             g, c = gl[0].float().cpu(), cl[0]
-            what = f"decode step {i} (K6)"
+            what = f"decode step {i} " + (
+                "(absorbed MLA)" if cfg.attn_type == "mla" else "(K6)")
             tok = c[-1].argmax()[None]
         rel = float((g - c).norm() / c.norm())
         agree = int(g[-1].argmax()) == int(c[-1].argmax())
         top2 = torch.topk(c[-1], 2).values
-        print(f"[llama parity] {what}, cut off: relative error {rel:.3e} "
+        print(f"[{tag}] {what}, cut off: relative error {rel:.3e} "
               f"(tol {PARITY_RTOL}); argmax card {int(g[-1].argmax())} cpu "
               f"{int(c[-1].argmax())} agree {agree} (cpu top-2 gap "
               f"{float(top2[0] - top2[1]):.4f})")
         require(math.isfinite(rel) and rel < PARITY_RTOL and agree,
-                f"llama parity {what}: rel {rel}, argmax agree {agree}")
+                f"{tag} {what}: rel {rel}, argmax agree {agree}")
     del params32
 
 
@@ -3521,6 +3673,264 @@ def phase_serve_llama():
     paths["llama generate"] = total
     _llama_parity(cfg, merged, reqs[0][0])
     del params, adapters, merged
+    torch.cuda.empty_cache()
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# phases 19 - 21: the arch zoo on the card
+# ---------------------------------------------------------------------------
+
+def _zoo_generate(cfg, params, tag, kernel):
+    """``generate`` of ZOO_GEN_BATCH prompts of ZOO_GEN_TEXT tokens, GEN_NEW
+    new, greedy, over ring caches: exact launches (K1 once a layer, the
+    decode ``kernel`` a layer a step, or none for MLA), then ms per decode
+    step.  Returns the launch counts and the prompts."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.serve import decode as sd
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    batch = dict(tokens=torch.randint(1, cfg.vocab_size,
+                                      (ZOO_GEN_BATCH, ZOO_GEN_TEXT),
+                                      generator=gen, device="cuda"))
+    cache_len = ZOO_GEN_TEXT + GEN_NEW
+    sd.generate(params, cfg, batch, n_new=2, cache_len=cache_len)
+    torch.cuda.synchronize()  # first-call set-up off the clock
+    build.reset_launches()
+    t0 = time.perf_counter()
+    toks = sd.generate(params, cfg, batch, n_new=GEN_NEW, cache_len=cache_len)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.launches)
+    expect = {"flash_fwd": cfg.n_layers}
+    if kernel:
+        expect[kernel] = cfg.n_layers * GEN_NEW
+    _check_launches(tag, launches, expect)
+    require(toks.shape == (ZOO_GEN_BATCH, GEN_NEW) and bool(
+        ((toks >= 0) & (toks < cfg.vocab_size)).all()), f"{tag} tokens")
+    step_ms = _step_ms(cfg, params, batch, cache_len, toks)
+    print(f"[{tag}] {ZOO_GEN_BATCH} requests x {ZOO_GEN_TEXT} prompt tokens, "
+          f"{GEN_NEW} new, ring caches of {cache_len}: {wall:.3f} s prefill "
+          f"+ decode, {ZOO_GEN_BATCH * GEN_NEW / wall:.1f} tokens/s end to "
+          f"end; {step_ms:.2f} ms per decode step (median of {GEN_NEW})")
+    return launches, batch
+
+
+def _two_layers(cfg):
+    """``cfg`` at full width cut to 2 layers, the cut after the first."""
+    return dataclasses.replace(cfg, n_layers=2, split=dataclasses.replace(
+        cfg.split, cut_layer=1))
+
+
+def _describe(tag, cfg, params):
+    from repro_torch.utils.tree import tree_count
+
+    attn = (f"MLA: q latent {cfg.q_lora_rank}, kv latent "
+            f"{cfg.kv_lora_rank}, q/k {cfg.qk_nope_dim} + {cfg.qk_rope_dim}"
+            f", v {cfg.v_head_dim}, {cfg.n_heads} heads"
+            if cfg.attn_type == "mla" else
+            f"{cfg.n_heads}/{cfg.n_kv_heads} heads of width {cfg.head_dim} "
+            f"(G {cfg.n_heads // cfg.n_kv_heads})")
+    print(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{attn}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+          f"{tree_count(params)} parameters, bf16, weights from seed 0; the "
+          f"2-bit cut at layer {cfg.split.resolve_cut(cfg.n_layers)} in the "
+          "graph")
+
+
+def phase_granite():
+    """Full-width, full-depth granite_3_8b (40 layers, 32 / 8 heads: K1 and
+    K8 / K6 at G 4; vocab 49 155): 8 requests through ServeEngine, then
+    ``generate``, then a 2-layer card-vs-CPU parity.  Returns the launch
+    counts by path."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+
+    cfg = get_config("granite_3_8b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    _describe("granite", cfg, params)
+    print(f"[granite] weights in {time.perf_counter() - t0:.1f} s")
+    reqs = _requests(cfg, 8, seed=7)
+    paths = {}
+    paths["granite serve"], eng = _serve_llama(cfg, params, None, reqs,
+                                               "granite serve")
+    del eng
+    paths["granite generate"], _ = _zoo_generate(cfg, params,
+                                                 "granite generate", "decode")
+    del params
+    torch.cuda.empty_cache()
+    cfg2 = _two_layers(cfg)
+    params2 = init_params(cfg2, seed=1)
+    _llama_parity(cfg2, params2, reqs[0][0], tag="granite parity")
+    del params2
+    torch.cuda.empty_cache()
+    return paths
+
+
+def phase_zoo_wide():
+    """deepseek_coder_33b and llava_next_34b at full width, cut to
+    ZOO_DEPTH layers (K1 and K8 at G 7): 4 requests each through
+    ServeEngine; the 34B's carry their 2 880 image tokens through the
+    2-layer GELU connector (1 152 -> 7 168) and the 2-bit wire at layer 0
+    (K4 / K5 at d 7 168).  Returns the launch counts by path."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.utils.tree import tree_count
+
+    paths = {}
+    for arch, tag in (("deepseek_coder_33b", "33b serve"),
+                      ("llava_next_34b", "34b serve")):
+        full = get_config(arch)
+        cut = full.split.resolve_cut(full.n_layers)
+        cfg = dataclasses.replace(
+            full, n_layers=ZOO_DEPTH, split=dataclasses.replace(
+                full.split, cut_layer=min(cut, ZOO_DEPTH // 2)))
+        params = init_params(cfg, seed=0)
+        torch.cuda.synchronize()
+        per_layer = sum(tree_count(seg) for side in ("client", "server")
+                        for seg in params[side].values()) / cfg.n_layers
+        n_full = tree_count(params) + (full.n_layers - cfg.n_layers) \
+            * per_layer
+        print(f"[{tag}] reduced: depth {full.n_layers} -> {cfg.n_layers} "
+              f"layers, the cut {cut} -> "
+              f"{cfg.split.resolve_cut(cfg.n_layers)}: at full depth "
+              f"{n_full / 1e9:.2f} G parameters, {2 * n_full / 1e9:.1f} GB "
+              "of bf16 weights, too much of the card's 80 GB for a serve; "
+              "the widths are the published ones")
+        _describe(tag, cfg, params)
+        reqs = _requests(cfg, 4, seed=7)
+        if cfg.modality == "vlm":
+            paths[tag] = phase_serve(cfg, params, reqs, tag=tag)["launches"]
+        else:
+            paths[tag], eng = _serve_llama(cfg, params, None, reqs, tag)
+            del eng
+        del params, reqs
+        torch.cuda.empty_cache()
+    return paths
+
+
+def phase_mla():
+    """minicpm3_4b (Multi-head Latent Attention): full width and depth for
+    ``generate`` (K1 at (96, 64) once a layer a prefill, no decode kernel:
+    the absorbed-weight step over the latent ring cache), the latent cache
+    bytes, a 2-layer forward parity; then MLA_TRAIN_STEPS training steps on
+    a depth cut (K1 - K3 at (96, 64)) and a 2-layer gradient parity.
+    Returns the launch counts by path."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.kernels import build
+    from repro_torch.models.transformer import (cdtype, init_params,
+                                                layer_forward_count)
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.serve import decode as sd
+    from repro_torch.train.loop import (batch_to, init_state, make_grad_fn,
+                                        make_train_step)
+    from repro_torch.utils.tree import tree_count
+
+    cfg = get_config("minicpm3_4b")
+    params = init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    _describe("mla", cfg, params)
+    n_full = tree_count(params)
+    paths = {}
+    paths["mla generate"], batch = _zoo_generate(cfg, params, "mla generate",
+                                                 None)
+    cache_len = ZOO_GEN_TEXT + GEN_NEW
+    _, caches = sd.prefill(params, cfg, batch, cache_len)
+    got = _kv_bytes(caches)
+    per_token = (cfg.kv_lora_rank + cfg.qk_rope_dim) * 2
+    want = cfg.n_layers * ZOO_GEN_BATCH * cache_len * per_token
+    dense = cfg.n_heads * (cfg.qk_nope_dim + cfg.qk_rope_dim
+                           + cfg.v_head_dim) * 2
+    print(f"[mla] latent ring caches {got} B (formula {want}: {cfg.n_layers}"
+          f" layers x {ZOO_GEN_BATCH} x {cache_len} tokens x ("
+          f"{cfg.kv_lora_rank} + {cfg.qk_rope_dim}) x 2 B); {per_token} B a "
+          f"token a layer against a materialised K / V's {dense} B "
+          f"({dense / per_token:.1f}x)")
+    require(got == want, f"mla cache bytes {got}, expected {want}")
+    del caches, params
+    torch.cuda.empty_cache()
+    cfg2 = _two_layers(cfg)
+    params2 = init_params(cfg2, seed=1)
+    _llama_parity(cfg2, params2, batch["tokens"][0, :96].tolist(),
+                  tag="mla parity")
+
+    # training on a depth cut
+    tcfg = dataclasses.replace(cfg, n_layers=MLA_TRAIN_LAYERS,
+                               split=dataclasses.replace(
+                                   cfg.split,
+                                   cut_layer=MLA_TRAIN_LAYERS // 2))
+    opt = AdamWConfig(lr=MLA_LR)
+    state = init_state(tcfg, opt, seed=0)
+    step_fn = make_train_step(tcfg, opt, total_steps=MLA_TRAIN_STEPS,
+                              warmup_steps=1)
+    data = make_pipeline(tcfg, MLA_TRAIN_BATCH, MLA_TRAIN_SEQ, seed=0)
+    batches = [next(data) for _ in range(MLA_TRAIN_STEPS)]
+    print(f"[mla train] reduced: depth {cfg.n_layers} -> {tcfg.n_layers} "
+          f"layers, the cut at {tcfg.split.resolve_cut(tcfg.n_layers)} "
+          f"(full depth's fp32 AdamW moments alone would take "
+          f"{8 * n_full / 1e9:.1f} GB); {tree_count(state.params)} "
+          f"parameters, remat "
+          f"{tcfg.remat}; {MLA_TRAIN_STEPS} steps of {MLA_TRAIN_BATCH} x "
+          f"{MLA_TRAIN_SEQ} tokens, lr {MLA_LR}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    times, ces = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, m = step_fn(state, b)
+        ces.append(float(m["ce"]))  # waits for the step
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    paths["mla train"] = dict(build.launches)
+    carry = torch.empty((MLA_TRAIN_BATCH, MLA_TRAIN_SEQ, cfg.d_model),
+                        dtype=cdtype(tcfg), device="meta")
+    per_step = layer_forward_count(tcfg, carry)
+    _check_launches("mla train", paths["mla train"],
+                    {"flash_fwd": per_step * MLA_TRAIN_STEPS,
+                     "flash_bwd_dq": tcfg.n_layers * MLA_TRAIN_STEPS,
+                     "flash_bwd_dkv": tcfg.n_layers * MLA_TRAIN_STEPS})
+    peak = torch.cuda.max_memory_allocated()
+    # the first batch's CE after the steps, against its CE at step 1
+    _, m = make_grad_fn(tcfg)(state.params, batch_to(batches[0],
+                                                     torch.device("cuda")))
+    after = float(m["ce"])
+    print(f"[mla train] CE " + " ".join(f"{x:.4f}" for x in ces)
+          + f"; the first batch's {ces[0]:.4f} -> {after:.4f} after the "
+          f"steps; {1e3 * statistics.median(times[1:]):.2f} ms per step "
+          f"(median of steps 2-{MLA_TRAIN_STEPS}), "
+          f"{MLA_TRAIN_BATCH * MLA_TRAIN_SEQ / statistics.median(times[1:]):.1f}"
+          f" training tokens/s; peak device memory {peak / 2 ** 30:.2f} GiB")
+    require(all(math.isfinite(x) for x in ces) and after < ces[0],
+            f"mla train: the first batch's CE did not fall: {ces[0]} -> "
+            f"{after}")
+    del state, step_fn
+    torch.cuda.empty_cache()
+
+    # one step's loss and gradients, 2 layers, card vs the fp32 CPU path,
+    # the cut off as in the forward parity (bf16 moves the 2-bit codes)
+    cfg_nc = dataclasses.replace(cfg2, split=dataclasses.replace(
+        cfg2.split, enabled=False))
+    params_nc = {k: v for k, v in params2.items() if k != "codec"}
+    pbatch = next(make_pipeline(cfg_nc, 1, MLA_PARITY_SEQ, seed=1))
+    grads, m = make_grad_fn(cfg_nc)(params_nc, batch_to(
+        pbatch, torch.device("cuda")))
+    cfg32 = dataclasses.replace(cfg_nc, param_dtype="float32",
+                                compute_dtype="float32")
+    g32, m32 = make_grad_fn(cfg32)(_tree(params_nc, _cpu32),
+                                   batch_to(pbatch, torch.device("cpu")))
+    print(f"[mla grad parity] two layers, 1 x {MLA_PARITY_SEQ} tokens, the "
+          "cut off")
+    _grad_parity("mla grad parity", float(m["loss"]), float(m32["loss"]),
+                 grads, g32)
+    del params2, params_nc, grads, g32
     torch.cuda.empty_cache()
     return paths
 
@@ -3661,19 +4071,29 @@ def main() -> int:
     paths128.update(_timed("hub async", phase_hub_async))
     paths128.update(_timed("hub lora", phase_hub_lora))
     paths128.update(_timed("llama serve", phase_serve_llama))
-    for path, launches in {**paths, **paths128}.items():
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the arch zoo: head width 128 at G 4 and G 7, then MLA at (96, 64)
+    paths128.update(_timed("granite", phase_granite))
+    paths128.update(_timed("33b / 34b", phase_zoo_wide))
+    paths96 = _timed("mla", phase_mla)
+    every = {**paths, **paths128, **paths96}
+    for path, launches in every.items():
         print(f"[launches] {path}: {launches}")
 
     by_width = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "decode",
                 "decode_q8", "decode_paged", "decode_paged_q8")
     kernels = []
-    for name in list(REPLACES) + [k + D128 for k in by_width]:
+    for name in list(REPLACES) + [k + D128 for k in by_width] \
+            + [k + D96 for k in by_width[:3]]:
         r = results[name]
-        kernel = name.removesuffix(D128)
+        kernel = name.removesuffix(D128).removesuffix(D96)
         # the attention rows count their width's paths (tinyllava: 64,
-        # llama3_2_3b: 128); the wire and weight kernels every path
-        counted = ({**paths, **paths128} if kernel not in by_width else
-                   paths128 if name.endswith(D128) else paths)
+        # llama3_2_3b and the GQA zoo: 128, minicpm3_4b: (96, 64)); the
+        # wire and weight kernels every path
+        counted = (every if kernel not in by_width else
+                   paths128 if name.endswith(D128) else
+                   paths96 if name.endswith(D96) else paths)
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[kernel],
             replaces=REPLACES[kernel],

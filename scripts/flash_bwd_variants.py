@@ -44,7 +44,8 @@ EDITS = {
                  "template <class... A>\n__device__ __forceinline__ void "
                  "nop_mma(A&&...) {}\nnamespace {\n\nnamespace cg"),
                 ("hopper::wgmma_m64n64_ss<0>(", "nop_mma("),
-                ("hopper::wgmma_m64n64_rs<1>(", "nop_mma(")],
+                ("flash::mma_mn<D>(", "nop_mma("),
+                ("flash::mma_mn<DV>(", "nop_mma(")],
     "stages5": [("constexpr int kStages = 3;", "constexpr int kStages = 5;")],
 }
 HEADS = {"p1": 1, "p2": 2, "p4": 4}

@@ -19,7 +19,9 @@ virtual pages, the last one ragged.  The reference's ring wrappers fall
 back to jnp where no block divides the cache length; K6 / K7 take any
 length whose plan fits a block's shared memory.  The decode kernels are
 compiled for head widths ``DECODE_HEAD_DIMS`` (64 and 128), the flash
-kernels for ``FLASH_HEAD_DIMS``; the wrappers raise on any other width.
+kernels for the (D, Dv) pairs ``FLASH_HEAD_DIMS`` (q/k width D, v width
+Dv: (96, 64) is MLA's on minicpm3_4b); the wrappers raise on any other
+width.
 """
 from __future__ import annotations
 
@@ -31,7 +33,12 @@ import torch
 from repro_torch.kernels import attention_ref, build
 
 DECODE_HEAD_DIMS = (64, 128)  # the decode kernels' compiled widths, D = Dv
-FLASH_HEAD_DIMS = (64, 128)  # the flash kernels' compiled widths, D = Dv
+# the flash kernels' compiled (D, Dv) pairs
+FLASH_HEAD_DIMS = ((64, 64), (128, 128), (96, 64))
+# (D, Dv) pairs that configs of the reference take and the port does not
+# compile yet, with the ROADMAP queue K "Still to port" item of each
+_FLASH_QUEUED = {(192, 128): "item 2 (deepseek_v2_236b's MLA)",
+                 (80, 80): "item 3 (zamba2_2_7b)"}
 _MAX_G = 16
 _MAX_PAGE = 64
 
@@ -56,23 +63,31 @@ def _check_device(name: str, *tensors: torch.Tensor) -> None:
         raise ValueError(f"{name} operands lie on different devices")
 
 
+def _check_widths(name: str, d: int, dv: int) -> None:
+    """Raise unless (D, Dv) is a compiled pair, naming the queue K item
+    that covers a pair a config needs."""
+    if (d, dv) not in FLASH_HEAD_DIMS:
+        item = _FLASH_QUEUED.get((d, dv))
+        raise ValueError(
+            f"{name} is compiled for head_dim (D, Dv) in {FLASH_HEAD_DIMS}, "
+            f"got ({d}, {dv})" + (f" (ROADMAP queue K, 'Still to port', "
+                                  f"{item})" if item else ""))
+
+
 def _check_flash(name: str, q, k, v, qpos, kpos, *rest):
     """The checks every flash kernel makes of its operands (``rest``: the
     bf16 (B, H, Sq, Dv) output gradient, if any).  Returns (qpos, kpos)
     as flat contiguous int32."""
     b, h, sq, d = q.shape
-    kh, skv = k.shape[1], k.shape[2]
+    kh, skv, dv = k.shape[1], k.shape[2], v.shape[-1]
     _check_bf16(name, q, k, v, *rest)
     _check_device(name, q, k, v, qpos, kpos, *rest)
-    if d not in FLASH_HEAD_DIMS or k.shape[-1] != d:
-        raise ValueError(f"{name} is compiled for head_dim "
-                         f"{FLASH_HEAD_DIMS}, got q {d}, k {k.shape[-1]}")
-    if v.shape[-1] != d:
-        raise ValueError(f"{name} takes Dv = D, got D {d}, Dv "
-                         f"{v.shape[-1]} (Dv != D is ROADMAP queue K, "
-                         "'Still to port', item 2)")
+    if k.shape[-1] != d:
+        raise ValueError(f"{name}: q and k head_dim differ, q {d}, k "
+                         f"{k.shape[-1]}")
+    _check_widths(name, d, dv)
     if h % kh or k.shape[:3] != v.shape[:3] or k.shape[0] != b \
-            or any(t.shape != (b, h, sq, d) for t in rest):
+            or any(t.shape != (b, h, sq, dv) for t in rest):
         raise ValueError(f"bad GQA shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
     for i, t in enumerate((q, k, v) + rest):
@@ -113,9 +128,9 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_ref.flash_forward_ref(q, k, v, qpos, kpos,
                                                window=window)
     b, h, sq, d = q.shape
-    kh, skv = k.shape[1], k.shape[2]
+    kh, skv, dv = k.shape[1], k.shape[2], v.shape[-1]
     qpos, kpos = _check_flash("flash_forward", q, k, v, qpos, kpos)
-    out = torch.empty((b, sq, h, d), dtype=torch.float32,
+    out = torch.empty((b, sq, h, dv), dtype=torch.float32,
                       device=q.device).transpose(1, 2)
     m = torch.empty((b, h, sq, 1), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
@@ -125,17 +140,19 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
         kpos.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
         b, h, kh, sq, skv, *q.stride()[:3], *k.stride()[:3],
-        *v.stride()[:3], *out.stride()[:3], has_window, win, d,
+        *v.stride()[:3], *out.stride()[:3], has_window, win, d, dv,
         build.current_stream())
     return out, m, l
 
 
 # K2 / K3 launch geometry (csrc/flash_bwd.cu): K2 takes q tiles of 128
 # rows against kv tiles of 64 keys, K3 kv tiles of 128 keys against q tiles
-# of 64 rows; both keep a ring of 3 stages, but K2 only 2 at head width 128
+# of 64 rows; both keep a ring of 3 stages, but K2 only 2 where D + Dv
+# passes BWD_DQ_WIDE (at (128, 128))
 BWD_DQ_ROWS, BWD_DQ_KEYS = 128, 64
 BWD_DKV_KEYS, BWD_DKV_ROWS = 128, 64
 BWD_STAGES = 3
+BWD_DQ_WIDE = 192
 BWD_MAX_CLUSTER = 8  # portable thread block cluster size
 SMS = 132  # the H100 SXM's streaming multiprocessors
 SMEM_MAX = 232448  # dynamic shared memory a block may use on the H100
@@ -172,31 +189,32 @@ def bwd_heads_per_block(g: int, b: int, h: int, n: int,
 
 @functools.lru_cache(maxsize=None)
 def flash_bwd_plan(b: int, h: int, kh: int, sq: int, skv: int,
-                   hd: int = 64) -> Tuple[LaunchPlan, LaunchPlan]:
+                   hd: int = 64, dv: Optional[int] = None
+                   ) -> Tuple[LaunchPlan, LaunchPlan]:
     """(K2, K3) launch plans.  K2: one block per (q tile of 128 rows, run of
     p heads of one group, batch row), grid (B H / p, q tiles), the last q
     tile first (causally the longest).  K3: one block per (kv tile of 128
     keys, run of p query heads, batch row), the G / p blocks of a (kv tile,
     kv head, batch row) in one cluster; grid (G / p KH B, kv tiles), kv
     tile 0 (causally the longest) first.  p from ``bwd_heads_per_block``.
-    Shared memory at head width ``hd``: the tiles (K2: two Q / dO slots),
-    the mbarriers, the list of visible tiles."""
-    if hd not in FLASH_HEAD_DIMS:
-        raise ValueError(f"K2 / K3 are compiled for head_dim "
-                         f"{FLASH_HEAD_DIMS}, got {hd}")
+    Shared memory at q/k width ``hd`` and v width ``dv`` (``hd`` if not
+    given), each tile sized by its own width: the tiles (K2: two Q / dO
+    slots), the mbarriers, the list of visible tiles."""
+    dv = hd if dv is None else dv
+    _check_widths("K2 / K3", hd, dv)
     g = h // kh
     nq, nkv = -(-sq // BWD_DQ_ROWS), -(-skv // BWD_DKV_KEYS)
-    tile_q, tile_k = BWD_DQ_ROWS * hd * 2, BWD_DQ_KEYS * hd * 2
-    stages = BWD_STAGES if hd == 64 else 2
+    stages = BWD_STAGES if hd + dv <= BWD_DQ_WIDE else 2
     p = bwd_heads_per_block(g, b, h, -(-skv // BWD_DQ_KEYS))
     dq = LaunchPlan(
         grid=(b * h // p, nq), cluster=1, tiles=tuple(range(nq - 1, -1, -1)),
         heads=(tuple(range(p)),),
-        smem=1024 + 4 * tile_q + 2 * stages * tile_k
+        smem=1024 + 2 * BWD_DQ_ROWS * (hd + dv) * 2
+        + stages * BWD_DQ_KEYS * (hd + dv) * 2
         + (4 + 2 * stages) * 8 + 8 * 4 + -(-skv // BWD_DQ_KEYS) * 4)
     p = bwd_heads_per_block(g, b, h, -(-sq // BWD_DKV_ROWS), BWD_MAX_CLUSTER)
     c = g // p
-    ring = (2 * BWD_DKV_KEYS + 2 * BWD_STAGES * BWD_DKV_ROWS) * hd * 2
+    ring = (BWD_DKV_KEYS + BWD_STAGES * BWD_DKV_ROWS) * (hd + dv) * 2
     dkv = LaunchPlan(
         grid=(c * kh * b, nkv), cluster=c, tiles=tuple(range(nkv)),
         heads=tuple(tuple(range(r * p, (r + 1) * p)) for r in range(c)),
@@ -215,10 +233,10 @@ def flash_backward_dq(q, k, v, go, m, l, di, qpos, kpos, *,
         return attention_ref.flash_backward_ref(
             q, k, v, go, m, l, di, qpos, kpos, window=window)[0]
     b, h, sq, d = q.shape
-    kh, skv = k.shape[1], k.shape[2]
+    kh, skv, dv = k.shape[1], k.shape[2], v.shape[-1]
     qpos, kpos = _check_flash("flash_backward_dq", q, k, v, qpos, kpos, go)
     m, l, di = _row_stats("flash_backward_dq", q, m, l, di)
-    plan = flash_bwd_plan(b, h, kh, sq, skv, d)[0]
+    plan = flash_bwd_plan(b, h, kh, sq, skv, d, dv)[0]
     dq = torch.empty((b, sq, h, d), dtype=torch.float32,
                      device=q.device).transpose(1, 2)
     has_window, win = _window_args(window)
@@ -229,7 +247,7 @@ def flash_backward_dq(q, k, v, go, m, l, di, qpos, kpos, *,
         kpos.data_ptr(), dq.data_ptr(), b, h, kh, sq, skv,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *go.stride()[:3], *dq.stride()[:3], has_window, win,
-        plan.grid[1], len(plan.heads[0]), plan.smem, d,
+        plan.grid[1], len(plan.heads[0]), plan.smem, d, dv,
         build.current_stream())
     return dq
 
@@ -239,19 +257,20 @@ def flash_backward_dkv(q, k, v, go, m, l, di, qpos, kpos, *,
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3.  Operands as ``flash_backward_dq``.  Returns (dk, dv) fp32
     (B, KH, Skv, D/Dv), each summed over the GQA group, as transposed
-    views of (B, Skv, KH, D) buffers."""
+    views of (B, Skv, KH, D/Dv) buffers."""
     if not q.is_cuda:
         _, dk, dv = attention_ref.flash_backward_ref(
             q, k, v, go, m, l, di, qpos, kpos, window=window)
         return dk, dv
     b, h, sq, d = q.shape
-    kh, skv = k.shape[1], k.shape[2]
+    kh, skv, d_v = k.shape[1], k.shape[2], v.shape[-1]
     qpos, kpos = _check_flash("flash_backward_dkv", q, k, v, qpos, kpos, go)
     m, l, di = _row_stats("flash_backward_dkv", q, m, l, di)
-    plan = flash_bwd_plan(b, h, kh, sq, skv, d)[1]
+    plan = flash_bwd_plan(b, h, kh, sq, skv, d, d_v)[1]
     dk = torch.empty((b, skv, kh, d), dtype=torch.float32,
                      device=q.device).transpose(1, 2)
-    dv = torch.empty_like(dk)
+    dv = torch.empty((b, skv, kh, d_v), dtype=torch.float32,
+                     device=q.device).transpose(1, 2)
     has_window, win = _window_args(window)
     build.launch(
         "flash_bwd_dkv", "flash_bwd_dkv_bf16",
@@ -260,7 +279,7 @@ def flash_backward_dkv(q, k, v, go, m, l, di, qpos, kpos, *,
         kpos.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, kh, sq, skv,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *go.stride()[:3], *dk.stride()[:3], *dv.stride()[:3], has_window,
-        win, plan.grid[1], plan.cluster, plan.smem, d,
+        win, plan.grid[1], plan.cluster, plan.smem, d, d_v,
         build.current_stream())
     return dk, dv
 

@@ -36,10 +36,10 @@ launches: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
-    "flash_fwd_bf16": [_P] * 8 + [_I] * 5 + [_LL] * 12 + [_I] * 3 + [_P],
-    "flash_bwd_dq_bf16": [_P] * 10 + [_I] * 5 + [_LL] * 15 + [_I] * 6
+    "flash_fwd_bf16": [_P] * 8 + [_I] * 5 + [_LL] * 12 + [_I] * 4 + [_P],
+    "flash_bwd_dq_bf16": [_P] * 10 + [_I] * 5 + [_LL] * 15 + [_I] * 7
     + [_P],
-    "flash_bwd_dkv_bf16": [_P] * 11 + [_I] * 5 + [_LL] * 18 + [_I] * 6
+    "flash_bwd_dkv_bf16": [_P] * 11 + [_I] * 5 + [_LL] * 18 + [_I] * 7
     + [_P],
     "rdfsq_quantize": [_P, _I, _P, _P, _LL, _LL, _I, _I, _P],
     "rdfsq_dequantize": [_P, _P, _P, _I, _LL, _LL, _I, _I, _P],

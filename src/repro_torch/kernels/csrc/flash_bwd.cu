@@ -65,14 +65,20 @@
 // exponentials run under the second product; K3 issues dV before it forms
 // dS^T.
 //
-// The head width HD (q/k and v alike) is a template parameter,
-// instantiated for 64 and 128.  Every tile is HD / 64 column blocks of one
-// 128-byte swizzle atom (flash_common.cuh, load_rows): the products that
-// contract over HD step their descriptors along the blocks (kmajor_step),
-// and those whose output has HD columns (dQ, dK, dV) run one m64n64 product
-// per block into its own 32 accumulators.  At 128 K2 keeps a ring of 2
-// stages (3 with its two Q / dO slots would pass the H100's 227 KB), and
-// K3 holds 128 fp32 of dK and dV a thread.
+// The q/k width D and the v width DV are template parameters, instantiated
+// for (64, 64), (128, 128) and MLA's (96, 64).  A tile of W columns is
+// W / 64 column blocks of one 128-byte swizzle atom plus, for W = 96, one
+// 32-column block of a 64-byte swizzle atom with its own tensor map
+// (flash_common.cuh, Cols / load_rows): the products that contract over D
+// or DV step their descriptors along the blocks (kmajor_desc), and those
+// whose output has D or DV columns (dQ, dK over D; dV over DV) run one
+// m64n64 product per full block and an m64n32 for a tail (mma_mn).  Each
+// tile and accumulator array is sized by its own width.  Where D + DV
+// passes 192 (at (128, 128)) K2 keeps a ring of 2 stages (3 with its two
+// Q / dO slots would pass the H100's 227 KB), and K3 holds (D + DV) / 2
+// fp32 of dK and dV a thread (128 at (128, 128), 80 at (96, 64)).  At
+// G 1 (MLA's materialised K / V, KH = H) K3's clusters are of one block,
+// whose cluster sum reads only its own partials.
 // What is left: a block's fixed cost is still paid 2 - 3 times per SM
 // (a persistent grid would overlap it with the previous tile's sweep);
 // each warpgroup waits on its products before the next tile (an FA3
@@ -128,29 +134,34 @@ __device__ __forceinline__ float row_lse2(float m, float l) {
 }
 
 // Shared-memory layouts (bytes from the 1 024-aligned base), the host's
-// sizes included.
-template <int HD>
+// sizes included (attention_ops.py::flash_bwd_plan).
+template <int D, int DV>
 struct DqSmem {
-  static constexpr int kQ = kDqRows * HD * 2, kK = kDqKeys * HD * 2;
-  static constexpr int kSt = HD == 64 ? kStages : 2;  // the K / V ring
+  static constexpr int kQ = kDqRows * D * 2, kG = kDqRows * DV * 2;
+  static constexpr int kK = kDqKeys * D * 2, kV = kDqKeys * DV * 2;
+  static constexpr int kSt = D + DV > 192 ? 2 : kStages;  // the K / V ring
   // two Q / dO slots (one head's while the next head's lands)
-  static constexpr int q = 0, go = kQ, slot = 2 * kQ;
+  static constexpr int q = 0, go = kQ, slot = kQ + kG;
   static constexpr int k = 2 * slot, v = k + kSt * kK;
-  static constexpr int bars = v + kSt * kK;
+  static constexpr int bars = v + kSt * kV;
   static constexpr int red = bars + (4 + 2 * kSt) * 8;
   static constexpr int list = red + kRed * 4;
   static int bytes(int n_tiles) { return 1024 + list + n_tiles * 4; }
 };
 
-template <int HD>
+template <int D, int DV>
 struct DkvSmem {
-  static constexpr int kKV = kDkvKeys * HD * 2, kQ = kDkvRows * HD * 2;
-  static constexpr int kLdp = HD + 8;  // partial row stride, floats
+  static constexpr int kK = kDkvKeys * D * 2, kV = kDkvKeys * DV * 2;
+  static constexpr int kQ = kDkvRows * D * 2, kG = kDkvRows * DV * 2;
+  // partial row strides, floats
+  static constexpr int kLdk = D + 8, kLdv = DV + 8;
   static constexpr int kStat = 3 * kDkvRows * 4;  // lse2, delta, qpos
-  static constexpr int k = 0, v = kKV, q = 2 * kKV, go = q + kStages * kQ;
-  static constexpr int ring = go + kStages * kQ;
-  static constexpr int part = kDkvKeys * kLdp * 4;  // one partial, bytes
-  static_assert(2 * part <= ring, "the partials overlay the tiles");
+  static constexpr int k = 0, v = kK, q = kK + kV, go = q + kStages * kQ;
+  static constexpr int ring = go + kStages * kG;
+  // the partials, bytes: dK's then dV's
+  static constexpr int part_k = kDkvKeys * kLdk * 4;
+  static constexpr int part_v = kDkvKeys * kLdv * 4;
+  static_assert(part_k + part_v <= ring, "the partials overlay the tiles");
   static constexpr int stat = ring;
   static constexpr int bars = stat + kStages * kStat;
   static constexpr int red = bars + (1 + 2 * kStages) * 8;
@@ -160,19 +171,22 @@ struct DkvSmem {
 
 // ------------------------------------------------------------------ K2 ---
 
-template <int HD>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
     const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap qtail,
     const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap ktail,
     const __grid_constant__ CUtensorMap vmap,
-    const __grid_constant__ CUtensorMap gomap, int q_axes, int k_axes,
+    const __grid_constant__ CUtensorMap vtail,
+    const __grid_constant__ CUtensorMap gomap,
+    const __grid_constant__ CUtensorMap gotail, int q_axes, int k_axes,
     int v_axes, int go_axes, const float* __restrict__ m_in,
     const float* __restrict__ l_in, const float* __restrict__ di_in,
     const int* __restrict__ qpos, const int* __restrict__ kpos,
     float* __restrict__ dq, int H, int KH, int Sq, int Skv, long long dq_sb,
     long long dq_sh, long long dq_ss, int has_window, int window, int hpb) {
-  static_assert(HD == 64 || HD == 128, "K2 takes head width 64 or 128");
-  using L = DqSmem<HD>;
+  using L = DqSmem<D, DV>;
   constexpr int kSt = L::kSt;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024u - hopper::smem_u32(smem_raw)) & 1023u);
@@ -212,11 +226,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
                     ga = flash::unpack_axes(go_axes);
   auto load_q = [&](int j) {  // head h0 + j's Q and dO into slot j % 2
     const int slot = j & 1;
-    hopper::mbar_expect_tx(&qfull[slot], 2 * L::kQ);
-    flash::load_rows<HD>(smem + L::q + slot * L::slot, &qmap, &qfull[slot],
-                         qa, q0, h0 + j, b, kDqRows);
-    flash::load_rows<HD>(smem + L::go + slot * L::slot, &gomap, &qfull[slot],
-                         ga, q0, h0 + j, b, kDqRows);
+    hopper::mbar_expect_tx(&qfull[slot], L::kQ + L::kG);
+    flash::load_rows<D>(smem + L::q + slot * L::slot, &qmap, &qtail,
+                        &qfull[slot], qa, q0, h0 + j, b, kDqRows);
+    flash::load_rows<DV>(smem + L::go + slot * L::slot, &gomap, &gotail,
+                         &qfull[slot], ga, q0, h0 + j, b, kDqRows);
   };
 
   // position extrema of each warpgroup's 64 rows
@@ -279,12 +293,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
         for (int i = 0; i < n_vis; ++i, ++it) {
           const int s = it % kSt;
           if (it >= kSt) hopper::mbar_wait(&empty[s], (it / kSt - 1) & 1);
-          hopper::mbar_expect_tx(&full[s], 2 * L::kK);
+          hopper::mbar_expect_tx(&full[s], L::kK + L::kV);
           const int k0 = (list[i] & kTileBits) * kDqKeys;
-          flash::load_rows<HD>(smem + L::k + s * L::kK, &kmap, &full[s], ka,
-                               k0, kh, b, kDqKeys);
-          flash::load_rows<HD>(smem + L::v + s * L::kK, &vmap, &full[s], va,
-                               k0, kh, b, kDqKeys);
+          flash::load_rows<D>(smem + L::k + s * L::kK, &kmap, &ktail,
+                              &full[s], ka, k0, kh, b, kDqKeys);
+          flash::load_rows<DV>(smem + L::v + s * L::kV, &vmap, &vtail,
+                               &full[s], va, k0, kh, b, kDqKeys);
         }
       }
     }
@@ -303,14 +317,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
     const float d0 = raw[2], d1 = raw[5];
     if (j + 1 < hpb) fetch(h + 1);
 
-    float acc[HD / 2], sc[32], dp[32];
+    float acc[D / 2], sc[32], dp[32];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
     hopper::mbar_wait(&qfull[slot], (j >> 1) & 1);
-    const uint64_t dqa = hopper::desc_sw128(smem + L::q + slot * L::slot +
-                                            wg * 64 * 128);
-    const uint64_t dga = hopper::desc_sw128(smem + L::go + slot * L::slot +
-                                            wg * 64 * 128);
+    const uint8_t* qt = smem + L::q + slot * L::slot;
+    const uint8_t* gt = smem + L::go + slot * L::slot;
 
     for (int i = 0; i < n_vis; ++i, ++it) {
       const int s = it % kSt, entry = list[i];
@@ -343,22 +355,22 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
 
       // S = Q K^T and dP = dO V^T: 64 rows x 64 keys per warpgroup, in two
       // commit groups: P is formed while dP is still running
-      const uint64_t dk = hopper::desc_sw128(smem + L::k + s * L::kK);
-      const uint64_t dv = hopper::desc_sw128(smem + L::v + s * L::kK);
+      const uint8_t* kt = smem + L::k + s * L::kK;
+      const uint8_t* vt = smem + L::v + s * L::kV;
       hopper::wgmma_fence();
       hopper::fence_regs(sc);
       hopper::fence_regs(dp);
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
-        hopper::wgmma_m64n64_ss<0>(sc, dqa + flash::kmajor_step(kk, kDqRows),
-                                   dk + flash::kmajor_step(kk, kDqKeys),
-                                   kk > 0);
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_m64n64_ss<0>(
+            sc, flash::kmajor_desc<D>(qt, kDqRows, wg * 64, kk),
+            flash::kmajor_desc<D>(kt, kDqKeys, 0, kk), kk > 0);
       hopper::wgmma_commit();
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
-        hopper::wgmma_m64n64_ss<0>(dp, dga + flash::kmajor_step(kk, kDqRows),
-                                   dv + flash::kmajor_step(kk, kDqKeys),
-                                   kk > 0);
+      for (int kk = 0; kk < DV / 16; ++kk)
+        hopper::wgmma_m64n64_ss<0>(
+            dp, flash::kmajor_desc<DV>(gt, kDqRows, wg * 64, kk),
+            flash::kmajor_desc<DV>(vt, kDqKeys, 0, kk), kk > 0);
       hopper::wgmma_commit();
       hopper::wgmma_wait<1>();
       hopper::fence_regs(sc);
@@ -385,21 +397,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
       }
 
       // dQ += dS K: dS (bf16) from the accumulators as A fragments, K read
-      // MN-major, one product per 64 columns of dQ
+      // MN-major, one product per block of dQ's D columns
       uint32_t da[kDqKeys / 16][4];
 #pragma unroll
       for (int kk = 0; kk < kDqKeys / 16; ++kk)
         flash::acc_to_a(da[kk], &sc[kk * 8], &sc[kk * 8 + 4]);
       hopper::wgmma_fence();
       hopper::fence_regs(acc);
-#pragma unroll
-      for (int c = 0; c < HD / 64; ++c) {
-#pragma unroll
-        for (int kk = 0; kk < kDqKeys / 16; ++kk)
-          hopper::wgmma_m64n64_rs<1>(
-              flash::acc64(acc, c), da[kk],
-              dk + flash::column_block(c, kDqKeys) + 128 * kk, 1);
-      }
+      flash::mma_mn<D>(acc, da, kt, kDqKeys);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(acc);
@@ -410,7 +415,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
     // rows past Sq are not written
     float* out = dq + b * dq_sb + h * dq_sh;
 #pragma unroll
-    for (int jj = 0; jj < HD / 8; ++jj) {
+    for (int jj = 0; jj < D / 8; ++jj) {
       const int col = jj * 8 + t4 * 2;
       if (row0 < Sq)
         *reinterpret_cast<float2*>(out + row0 * dq_ss + col) =
@@ -424,12 +429,16 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
 
 // ------------------------------------------------------------------ K3 ---
 
-template <int HD>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
     const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap qtail,
     const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap ktail,
     const __grid_constant__ CUtensorMap vmap,
-    const __grid_constant__ CUtensorMap gomap, int q_axes, int k_axes,
+    const __grid_constant__ CUtensorMap vtail,
+    const __grid_constant__ CUtensorMap gomap,
+    const __grid_constant__ CUtensorMap gotail, int q_axes, int k_axes,
     int v_axes, int go_axes, const float* __restrict__ m_in,
     const float* __restrict__ l_in, const float* __restrict__ di_in,
     const int* __restrict__ qpos, const int* __restrict__ kpos,
@@ -437,8 +446,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
     int Skv, long long dk_sb, long long dk_sh, long long dk_ss,
     long long dv_sb, long long dv_sh, long long dv_ss, int has_window,
     int window) {
-  static_assert(HD == 64 || HD == 128, "K3 takes head width 64 or 128");
-  using L = DkvSmem<HD>;
+  using L = DkvSmem<D, DV>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024u - hopper::smem_u32(smem_raw)) & 1023u);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::bars);
@@ -476,10 +484,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
   }
   __syncthreads();
   if (tid == kConsumers) {  // lands while the tiles are listed
-    hopper::mbar_expect_tx(kvbar, 2 * L::kKV);
-    flash::load_rows<HD>(smem + L::k, &kmap, kvbar,
-                         flash::unpack_axes(k_axes), k0, kh, b, kDkvKeys);
-    flash::load_rows<HD>(smem + L::v, &vmap, kvbar,
+    hopper::mbar_expect_tx(kvbar, L::kK + L::kV);
+    flash::load_rows<D>(smem + L::k, &kmap, &ktail, kvbar,
+                        flash::unpack_axes(k_axes), k0, kh, b, kDkvKeys);
+    flash::load_rows<DV>(smem + L::v, &vmap, &vtail, kvbar,
                          flash::unpack_axes(v_axes), k0, kh, b, kDkvKeys);
   }
   // which q tiles each warpgroup's keys can see: one warp per tile
@@ -507,9 +515,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
   __syncthreads();
   const int n_list = red[4], total = gpb * n_list;
 
-  float dka[HD / 2], dva[HD / 2];
+  float dka[D / 2], dva[DV / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) dka[i] = dva[i] = 0.0f;
+  for (int i = 0; i < D / 2; ++i) dka[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) dva[i] = 0.0f;
   const int wg = tid / 128, wi = (tid % 128) / 32;
   const int g = lane >> 2, t4 = lane & 3;
 
@@ -539,11 +549,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
       }
       if (i >= kStages) hopper::mbar_wait(&empty[s], (i / kStages - 1) & 1);
       if (lane == 0) {
-        hopper::mbar_add_tx(&full[s], 2 * L::kQ);
-        flash::load_rows<HD>(smem + L::q + s * L::kQ, &qmap, &full[s], qa, q0,
-                             h, b, kDkvRows);
-        flash::load_rows<HD>(smem + L::go + s * L::kQ, &gomap, &full[s], ga,
-                             q0, h, b, kDkvRows);
+        hopper::mbar_add_tx(&full[s], L::kQ + L::kG);
+        flash::load_rows<D>(smem + L::q + s * L::kQ, &qmap, &qtail, &full[s],
+                            qa, q0, h, b, kDkvRows);
+        flash::load_rows<DV>(smem + L::go + s * L::kG, &gomap, &gotail,
+                             &full[s], ga, q0, h, b, kDkvRows);
       }
       float* st = reinterpret_cast<float*>(smem + L::stat + s * L::kStat);
 #pragma unroll
@@ -561,8 +571,6 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
     const long long kp1 = key1 < Skv ? kpos[key1] : kFar;
     float sc[32], dp[32];
     hopper::mbar_wait(kvbar, 0);
-    const uint64_t dka_s = hopper::desc_sw128(smem + L::k + wg * 64 * 128);
-    const uint64_t dva_s = hopper::desc_sw128(smem + L::v + wg * 64 * 128);
 
     for (int i = 0; i < total; ++i) {
       const int s = i % kStages, entry = list[i % n_list];
@@ -592,24 +600,24 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
       }
 
       // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 q rows per warpgroup
-      const uint64_t dq_s = hopper::desc_sw128(smem + L::q + s * L::kQ);
-      const uint64_t dg_s = hopper::desc_sw128(smem + L::go + s * L::kQ);
+      const uint8_t* qt = smem + L::q + s * L::kQ;
+      const uint8_t* gt = smem + L::go + s * L::kG;
       // three commit groups: P^T is formed while dP^T runs, dS^T while
       // dV += P^T dO runs
       hopper::wgmma_fence();
       hopper::fence_regs(sc);
       hopper::fence_regs(dp);
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
+      for (int kk = 0; kk < D / 16; ++kk)
         hopper::wgmma_m64n64_ss<0>(
-            sc, dka_s + flash::kmajor_step(kk, kDkvKeys),
-            dq_s + flash::kmajor_step(kk, kDkvRows), kk > 0);
+            sc, flash::kmajor_desc<D>(smem + L::k, kDkvKeys, wg * 64, kk),
+            flash::kmajor_desc<D>(qt, kDkvRows, 0, kk), kk > 0);
       hopper::wgmma_commit();
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
+      for (int kk = 0; kk < DV / 16; ++kk)
         hopper::wgmma_m64n64_ss<0>(
-            dp, dva_s + flash::kmajor_step(kk, kDkvKeys),
-            dg_s + flash::kmajor_step(kk, kDkvRows), kk > 0);
+            dp, flash::kmajor_desc<DV>(smem + L::v, kDkvKeys, wg * 64, kk),
+            flash::kmajor_desc<DV>(gt, kDkvRows, 0, kk), kk > 0);
       hopper::wgmma_commit();
       hopper::wgmma_wait<1>();
       hopper::fence_regs(sc);
@@ -629,21 +637,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
                               : 0.0f;
       }
       // dV += P^T dO: P^T (bf16) from the accumulators as A fragments, dO
-      // read MN-major, one product per 64 columns of dV
+      // read MN-major, one product per block of dV's DV columns
       uint32_t pa[kDkvRows / 16][4], sa[kDkvRows / 16][4];
 #pragma unroll
       for (int kk = 0; kk < kDkvRows / 16; ++kk)
         flash::acc_to_a(pa[kk], &sc[kk * 8], &sc[kk * 8 + 4]);
       hopper::wgmma_fence();
       hopper::fence_regs(dva);
-#pragma unroll
-      for (int c = 0; c < HD / 64; ++c) {
-#pragma unroll
-        for (int kk = 0; kk < kDkvRows / 16; ++kk)
-          hopper::wgmma_m64n64_rs<1>(
-              flash::acc64(dva, c), pa[kk],
-              dg_s + flash::column_block(c, kDkvRows) + 128 * kk, 1);
-      }
+      flash::mma_mn<DV>(dva, pa, gt, kDkvRows);
       hopper::wgmma_commit();
       hopper::wgmma_wait<1>();  // dP^T (groups retire in order)
       hopper::fence_regs(dp);
@@ -663,14 +664,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
         flash::acc_to_a(sa[kk], &dp[kk * 8], &dp[kk * 8 + 4]);
       hopper::wgmma_fence();
       hopper::fence_regs(dka);
-#pragma unroll
-      for (int c = 0; c < HD / 64; ++c) {
-#pragma unroll
-        for (int kk = 0; kk < kDkvRows / 16; ++kk)
-          hopper::wgmma_m64n64_rs<1>(
-              flash::acc64(dka, c), sa[kk],
-              dq_s + flash::column_block(c, kDkvRows) + 128 * kk, 1);
-      }
+      flash::mma_mn<D>(dka, sa, qt, kDkvRows);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(dva);
@@ -687,18 +681,23 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
     // the block's partials, over the tiles every consumer is done with
     consumers_sync();
     float* part_k = reinterpret_cast<float*>(smem);
-    float* part_v = part_k + kDkvKeys * L::kLdp;
+    float* part_v = part_k + kDkvKeys * L::kLdk;
     const int r0 = wg * 64 + wi * 16 + g;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
 #pragma unroll
-      for (int e = 0; e < 4; e += 2) {
-        const int off = (r0 + 4 * e) * L::kLdp + j * 8 + t4 * 2;
-        *reinterpret_cast<float2*>(part_k + off) =
+      for (int e = 0; e < 4; e += 2)
+        *reinterpret_cast<float2*>(part_k + (r0 + 4 * e) * L::kLdk + j * 8 +
+                                   t4 * 2) =
             make_float2(dka[j * 4 + e], dka[j * 4 + e + 1]);
-        *reinterpret_cast<float2*>(part_v + off) =
+    }
+#pragma unroll
+    for (int j = 0; j < DV / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; e += 2)
+        *reinterpret_cast<float2*>(part_v + (r0 + 4 * e) * L::kLdv + j * 8 +
+                                   t4 * 2) =
             make_float2(dva[j * 4 + e], dva[j * 4 + e + 1]);
-      }
     }
   }
 
@@ -713,11 +712,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
     const float* part = reinterpret_cast<const float*>(smem);
     float* dkb = dk + b * dk_sb + kh * dk_sh;
     float* dvb = dv + b * dv_sb + kh * dv_sh;
-    constexpr int kVec = HD / 4;  // float4 per row
-    for (int i = tid; i < 2 * n * kVec; i += kThreads) {
-      const int which = i / (n * kVec), r = lo + (i / kVec) % n,
-                col = (i % kVec) * 4;
-      const int off = which * kDkvKeys * L::kLdp + r * L::kLdp + col;
+    constexpr int kVecK = D / 4, kVecV = DV / 4;  // float4 per row
+    for (int i = tid; i < n * (kVecK + kVecV); i += kThreads) {
+      // dK's rows first, then dV's
+      const int which = i >= n * kVecK, j = which ? i - n * kVecK : i;
+      const int vec = which ? kVecV : kVecK, r = lo + j / vec,
+                col = (j % vec) * 4;
+      const int off = which ? kDkvKeys * L::kLdk + r * L::kLdv + col
+                            : r * L::kLdk + col;
       // every rank's load in flight at once, then the sum in rank order
       float4 x[kMaxCluster];
 #pragma unroll
@@ -751,24 +753,25 @@ bool bad_shape(int B, int H, int KH, int Sq, int Skv) {
          (long long)B * H > 0x7fffffffLL;
 }
 
-// The four operand maps; false if TMA cannot describe a layout.
+// The four operands' maps, each a main and a tail map (q, k at width D; v,
+// dO at DV); false if TMA cannot describe a layout.
 bool make_maps(CUtensorMap* m, int* axes, const void* q, const void* k,
-               const void* v, const void* go, int hd, int B, int H, int KH,
-               int Sq, int Skv, const long long* qs, const long long* ks,
-               const long long* vs, const long long* gs, int q_rows,
-               int kv_rows) {
-  axes[0] = flash::map_bshd(&m[0], q, hd, Sq, H, B, qs[2], qs[1], qs[0],
-                            q_rows);
-  axes[1] = flash::map_bshd(&m[1], k, hd, Skv, KH, B, ks[2], ks[1], ks[0],
-                            kv_rows);
-  axes[2] = flash::map_bshd(&m[2], v, hd, Skv, KH, B, vs[2], vs[1], vs[0],
-                            kv_rows);
-  axes[3] = flash::map_bshd(&m[3], go, hd, Sq, H, B, gs[2], gs[1], gs[0],
-                            q_rows);
+               const void* v, const void* go, int D, int DV, int B, int H,
+               int KH, int Sq, int Skv, const long long* qs,
+               const long long* ks, const long long* vs, const long long* gs,
+               int q_rows, int kv_rows) {
+  axes[0] = flash::map_operand(&m[0], &m[1], q, D, Sq, H, B, qs[2], qs[1],
+                               qs[0], q_rows);
+  axes[1] = flash::map_operand(&m[2], &m[3], k, D, Skv, KH, B, ks[2], ks[1],
+                               ks[0], kv_rows);
+  axes[2] = flash::map_operand(&m[4], &m[5], v, DV, Skv, KH, B, vs[2],
+                               vs[1], vs[0], kv_rows);
+  axes[3] = flash::map_operand(&m[6], &m[7], go, DV, Sq, H, B, gs[2], gs[1],
+                               gs[0], q_rows);
   return axes[0] >= 0 && axes[1] >= 0 && axes[2] >= 0 && axes[3] >= 0;
 }
 
-template <int HD>
+template <int D, int DV>
 int launch_dq(const void* q, const void* k, const void* v, const void* go,
               const void* m, const void* l, const void* di, const void* qpos,
               const void* kpos, void* dq, int B, int H, int KH, int Sq,
@@ -779,23 +782,24 @@ int launch_dq(const void* q, const void* k, const void* v, const void* go,
   if (bad_shape(B, H, KH, Sq, Skv) || heads_per_block < 1 ||
       (H / KH) % heads_per_block ||
       q_tiles != (Sq + kDqRows - 1) / kDqRows || q_tiles > 65535 ||
-      smem != DqSmem<HD>::bytes((Skv + kDqKeys - 1) / kDqKeys) ||
+      smem != DqSmem<D, DV>::bytes((Skv + kDqKeys - 1) / kDqKeys) ||
       smem > 232448 || (dq_sb | dq_sh | dq_ss) & 1 ||
       reinterpret_cast<uintptr_t>(dq) & 7)
     return (int)cudaErrorInvalidValue;
-  CUtensorMap maps[4];
+  CUtensorMap maps[8];
   int axes[4];
-  if (!make_maps(maps, axes, q, k, v, go, HD, B, H, KH, Sq, Skv, qs, ks, vs,
-                 gs, kDqRows, kDqKeys))
+  if (!make_maps(maps, axes, q, k, v, go, D, DV, B, H, KH, Sq, Skv, qs, ks,
+                 vs, gs, kDqRows, kDqKeys))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_bwd_dq_kernel<D, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * (H / heads_per_block), q_tiles);
-  flash_bwd_dq_kernel<HD><<<grid, kThreads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      maps[0], maps[1], maps[2], maps[3], axes[0], axes[1], axes[2], axes[3],
+  flash_bwd_dq_kernel<D, DV><<<grid, kThreads, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], maps[7],
+      axes[0], axes[1], axes[2], axes[3],
       static_cast<const float*>(m), static_cast<const float*>(l),
       static_cast<const float*>(di), static_cast<const int*>(qpos),
       static_cast<const int*>(kpos), static_cast<float*>(dq), H, KH, Sq, Skv,
@@ -803,7 +807,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* go,
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+template <int D, int DV>
 int launch_dkv(const void* q, const void* k, const void* v, const void* go,
                const void* m, const void* l, const void* di,
                const void* qpos, const void* kpos, void* dk, void* dv, int B,
@@ -817,19 +821,19 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* go,
       cluster > kMaxCluster || (H / KH) % cluster ||
       (long long)cluster * KH * B > 0x7fffffffLL ||
       kv_tiles != (Skv + kDkvKeys - 1) / kDkvKeys || kv_tiles > 65535 ||
-      smem != DkvSmem<HD>::bytes((Sq + kDkvRows - 1) / kDkvRows) ||
+      smem != DkvSmem<D, DV>::bytes((Sq + kDkvRows - 1) / kDkvRows) ||
       smem > 232448 || (dk_sb | dk_sh | dk_ss | dv_sb | dv_sh | dv_ss) & 3 ||
       (reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv)) &
           15)
     return (int)cudaErrorInvalidValue;
-  CUtensorMap maps[4];
+  CUtensorMap maps[8];
   int axes[4];
-  if (!make_maps(maps, axes, q, k, v, go, HD, B, H, KH, Sq, Skv, qs, ks, vs,
-                 gs, kDkvRows, kDkvKeys))
+  if (!make_maps(maps, axes, q, k, v, go, D, DV, B, H, KH, Sq, Skv, qs, ks,
+                 vs, gs, kDkvRows, kDkvKeys))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_bwd_dkv_kernel<D, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cluster * KH * B, kv_tiles);
@@ -844,8 +848,9 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* go,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(
-      &cfg, flash_bwd_dkv_kernel<HD>, maps[0], maps[1], maps[2], maps[3],
-      axes[0], axes[1], axes[2], axes[3], static_cast<const float*>(m),
+      &cfg, flash_bwd_dkv_kernel<D, DV>, maps[0], maps[1], maps[2], maps[3],
+      maps[4], maps[5], maps[6], maps[7], axes[0], axes[1], axes[2], axes[3],
+      static_cast<const float*>(m),
       static_cast<const float*>(l), static_cast<const float*>(di),
       static_cast<const int*>(qpos), static_cast<const int*>(kpos),
       static_cast<float*>(dk), static_cast<float*>(dv), H, KH, Sq, Skv, dk_sb,
@@ -856,10 +861,11 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* go,
 
 }  // namespace
 
-// K2.  q (B, H, Sq, D), k / v (B, KH, Skv, D), go (B, H, Sq, D) bf16 given
-// by pointer and element strides (batch, head, sequence; the last axis is
-// contiguous, strides multiples of 8, bases 16-byte aligned), D = hd, 64 or
-// 128; m / l / di (B, H, Sq) fp32 contiguous; qpos (Sq,), kpos (Skv,)
+// K2.  q (B, H, Sq, D), k (B, KH, Skv, D), v (B, KH, Skv, DV), go (B, H,
+// Sq, DV) bf16 given by pointer and element strides (batch, head,
+// sequence; the last axis is contiguous, strides multiples of 8, bases
+// 16-byte aligned), (D, DV) = (hd, dv), one of (64, 64), (128, 128),
+// (96, 64); m / l / di (B, H, Sq) fp32 contiguous; qpos (Sq,), kpos (Skv,)
 // int32; dq (B, H, Sq, D) fp32 by strides (multiples of 2, base 8-byte
 // aligned).  The plan (attention_ops.py::flash_bwd_plan): q_tiles =
 // ceil(Sq / 128) grid rows of B H / heads_per_block blocks, each sweeping
@@ -875,27 +881,26 @@ extern "C" int flash_bwd_dq_bf16(
     long long k_sh, long long k_ss, long long v_sb, long long v_sh,
     long long v_ss, long long go_sb, long long go_sh, long long go_ss,
     long long dq_sb, long long dq_sh, long long dq_ss, int has_window,
-    int window, int q_tiles, int heads_per_block, int smem, int hd,
+    int window, int q_tiles, int heads_per_block, int smem, int hd, int dv,
     void* stream) {
   const long long qs[3] = {q_sb, q_sh, q_ss}, ks[3] = {k_sb, k_sh, k_ss},
                   vs[3] = {v_sb, v_sh, v_ss}, gs[3] = {go_sb, go_sh, go_ss};
-  if (hd == 64)
-    return launch_dq<64>(q, k, v, go, m, l, di, qpos, kpos, dq, B, H, KH, Sq,
-                         Skv, qs, ks, vs, gs, dq_sb, dq_sh, dq_ss, has_window,
-                         window, q_tiles, heads_per_block, smem, stream);
-  if (hd == 128)
-    return launch_dq<128>(q, k, v, go, m, l, di, qpos, kpos, dq, B, H, KH, Sq,
-                          Skv, qs, ks, vs, gs, dq_sb, dq_sh, dq_ss,
-                          has_window, window, q_tiles, heads_per_block, smem,
-                          stream);
+  auto run = [&](auto fn) {
+    return fn(q, k, v, go, m, l, di, qpos, kpos, dq, B, H, KH, Sq, Skv, qs,
+              ks, vs, gs, dq_sb, dq_sh, dq_ss, has_window, window, q_tiles,
+              heads_per_block, smem, stream);
+  };
+  if (hd == 64 && dv == 64) return run(launch_dq<64, 64>);
+  if (hd == 128 && dv == 128) return run(launch_dq<128, 128>);
+  if (hd == 96 && dv == 64) return run(launch_dq<96, 64>);
   return (int)cudaErrorInvalidValue;
 }
 
-// K3.  Operands as K2; dk / dv (B, KH, Skv, D) fp32 by strides (multiples
-// of 4, bases 16-byte aligned), each the sum over the G = H / KH query
-// heads of the group.  The plan: kv_tiles = ceil(Skv / 128) grid rows of
-// cluster KH B blocks in clusters of `cluster` (a divisor of G, at most
-// 8), `smem` bytes of dynamic shared memory.
+// K3.  Operands as K2; dk (B, KH, Skv, D) and dv (B, KH, Skv, DV) fp32 by
+// strides (multiples of 4, bases 16-byte aligned), each the sum over the
+// G = H / KH query heads of the group.  The plan: kv_tiles = ceil(Skv /
+// 128) grid rows of cluster KH B blocks in clusters of `cluster` (a divisor
+// of G, at most 8), `smem` bytes of dynamic shared memory.
 extern "C" int flash_bwd_dkv_bf16(
     const void* q, const void* k, const void* v, const void* go,
     const void* m, const void* l, const void* di, const void* qpos,
@@ -905,18 +910,16 @@ extern "C" int flash_bwd_dkv_bf16(
     long long v_ss, long long go_sb, long long go_sh, long long go_ss,
     long long dk_sb, long long dk_sh, long long dk_ss, long long dv_sb,
     long long dv_sh, long long dv_ss, int has_window, int window,
-    int kv_tiles, int cluster, int smem, int hd, void* stream) {
+    int kv_tiles, int cluster, int smem, int hd, int dvw, void* stream) {
   const long long qs[3] = {q_sb, q_sh, q_ss}, ks[3] = {k_sb, k_sh, k_ss},
                   vs[3] = {v_sb, v_sh, v_ss}, gs[3] = {go_sb, go_sh, go_ss};
-  if (hd == 64)
-    return launch_dkv<64>(q, k, v, go, m, l, di, qpos, kpos, dk, dv, B, H, KH,
-                          Sq, Skv, qs, ks, vs, gs, dk_sb, dk_sh, dk_ss, dv_sb,
-                          dv_sh, dv_ss, has_window, window, kv_tiles, cluster,
-                          smem, stream);
-  if (hd == 128)
-    return launch_dkv<128>(q, k, v, go, m, l, di, qpos, kpos, dk, dv, B, H,
-                           KH, Sq, Skv, qs, ks, vs, gs, dk_sb, dk_sh, dk_ss,
-                           dv_sb, dv_sh, dv_ss, has_window, window, kv_tiles,
-                           cluster, smem, stream);
+  auto run = [&](auto fn) {
+    return fn(q, k, v, go, m, l, di, qpos, kpos, dk, dv, B, H, KH, Sq, Skv,
+              qs, ks, vs, gs, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss,
+              has_window, window, kv_tiles, cluster, smem, stream);
+  };
+  if (hd == 64 && dvw == 64) return run(launch_dkv<64, 64>);
+  if (hd == 128 && dvw == 128) return run(launch_dkv<128, 128>);
+  if (hd == 96 && dvw == 64) return run(launch_dkv<96, 64>);
   return (int)cudaErrorInvalidValue;
 }

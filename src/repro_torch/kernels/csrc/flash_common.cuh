@@ -104,54 +104,97 @@ __device__ __forceinline__ Axes unpack_axes(int code) {
   return Axes{code & 3, (code >> 2) & 3, (code >> 4) & 3};
 }
 
+// A tile of W columns (W = 64 n + 32 t, t 0 or 1) of `rows` rows in
+// shared memory: n column blocks of one 128-byte swizzle atom (64 columns,
+// rows x 128 B each), then for t = 1 one tail block of 32 columns with a
+// 64-byte swizzle atom (rows x 64 B).  Every block starts 1 024-aligned
+// when the tile does and rows is a multiple of 8.
+template <int W>
+struct Cols {
+  static_assert(W % 32 == 0 && W >= 64, "a tile is 64-column blocks and at "
+                                        "most one 32-column tail");
+  static constexpr int kFull = W / 64;        // 128-byte blocks
+  static constexpr bool kTail = W % 64 != 0;  // then one 64-byte block
+  static constexpr int kSteps = W / 16;       // k-steps of 16 columns
+};
+
 // TMA load of `rows` positions of one head of one batch row at (row0,
-// head, batch): HD / 64 boxes of one 128-byte swizzle atom (64 columns)
-// each, box j (columns 64 j ..) to dst + j rows 128 B.  A tile is so HD / 64
-// column blocks of `rows` 128-byte rows; a wgmma operand steps along them
-// with kmajor_step, or takes one block per 64 output columns.
-template <int HD>
+// head, batch) into a W-column tile at dst: box j of `map` (64 columns,
+// 128-byte swizzle) for each full block, one box of `tail` (32 columns,
+// 64-byte swizzle) for the tail block.
+template <int W>
 __device__ __forceinline__ void load_rows(void* dst, const CUtensorMap* map,
+                                          const CUtensorMap* tail,
                                           uint64_t* bar, Axes ax, int row0,
                                           int head, int batch, int rows) {
   int c[4] = {0, 0, 0, 0};
   c[ax.s] = row0;
   c[ax.h] = head;
   c[ax.b] = batch;
+  uint8_t* d = static_cast<uint8_t*>(dst);
 #pragma unroll
-  for (int j = 0; j < HD / 64; ++j)
-    hopper::tma_load_4d(static_cast<uint8_t*>(dst) + j * rows * 128, map,
-                        bar, 64 * j, c[1], c[2], c[3]);
+  for (int j = 0; j < Cols<W>::kFull; ++j)
+    hopper::tma_load_4d(d + j * rows * 128, map, bar, 64 * j, c[1], c[2],
+                        c[3]);
+  if (Cols<W>::kTail)
+    hopper::tma_load_4d(d + Cols<W>::kFull * rows * 128, tail, bar,
+                        64 * Cols<W>::kFull, c[1], c[2], c[3]);
 }
 
-// Descriptor offset (16-byte units) of k-step kk (16 columns) of a K-major
-// operand whose tile load_rows wrote with `rows` rows: +32 B within a
-// 64-column atom, then the next column block, rows x 128 B on.
-__device__ __forceinline__ uint64_t kmajor_step(int kk, int rows) {
-  return (uint64_t)((kk >> 2) * rows * 8 + 2 * (kk & 3));
+// Descriptor of k-step kk (columns 16 kk ..) of rows r0 .. r0 + 63 of a
+// W-column tile of `rows` rows read K-major (A, or B as [n][k]): +32 B a
+// step within a block's atom, then the next block.
+template <int W>
+__device__ __forceinline__ uint64_t kmajor_desc(const void* tile, int rows,
+                                                int r0, int kk) {
+  constexpr int kFull = Cols<W>::kFull;
+  const uint8_t* t = static_cast<const uint8_t*>(tile);
+  if (kk < 4 * kFull)
+    return hopper::desc_sw128(t + (kk >> 2) * rows * 128 + r0 * 128) +
+           (uint64_t)(2 * (kk & 3));
+  return hopper::desc_sw64(t + kFull * rows * 128 + r0 * 64) +
+         (uint64_t)(2 * (kk - 4 * kFull));
 }
 
-// Descriptor offset (16-byte units) of column block c of a tile of `rows`
-// rows: the MN-major operand of the 64 output columns 64 c ..
-__device__ __forceinline__ uint64_t column_block(int c, int rows) {
-  return (uint64_t)(c * rows * 8);
-}
-
-// The 32 accumulators of output columns 64 c .. 64 c + 63 (one m64n64
-// product) of a row-of-64 accumulator array of HD / 2 floats.
-template <int R>
-__device__ __forceinline__ float (&acc64(float (&a)[R], int c))[32] {
-  return *reinterpret_cast<float(*)[32]>(&a[32 * c]);
+// acc (+)= A B with B a W-column tile of `rows` rows read MN-major (its
+// rows the contraction) and A the register fragments of KS k-steps; acc
+// holds the W / 2 accumulators of a row of 64 (column 8 j + 2 t + e in
+// element 4 j + e): one m64n64 product per full block, one m64n32 for the
+// tail.
+template <int W, int KS>
+__device__ __forceinline__ void mma_mn(float (&acc)[W / 2],
+                                       const uint32_t (&a)[KS][4],
+                                       const void* tile, int rows) {
+  constexpr int kFull = Cols<W>::kFull;
+  const uint8_t* t = static_cast<const uint8_t*>(tile);
+#pragma unroll
+  for (int c = 0; c < kFull; ++c) {
+    const uint64_t d = hopper::desc_sw128(t + c * rows * 128);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      hopper::wgmma_m64n64_rs<1>(
+          *reinterpret_cast<float(*)[32]>(&acc[32 * c]), a[kk],
+          d + (uint64_t)(128 * kk), 1);
+  }
+  if constexpr (Cols<W>::kTail) {
+    const uint64_t d = hopper::desc_sw64(t + kFull * rows * 128);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      hopper::wgmma_m64n32_rs<1>(
+          *reinterpret_cast<float(*)[16]>(&acc[32 * kFull]), a[kk],
+          d + (uint64_t)(64 * kk), 1);
+  }
 }
 
 // A 4-D tensor map of a (B, S, heads, hd) bf16 view given by element
 // strides: dim 0 is the contiguous head axis, dims 1..3 the sequence, head
-// and batch axes in increasing stride order, 128-byte swizzle.  Box:
-// `rows` positions of one head of one batch row, 64 columns (the swizzle
-// atom; load_rows takes hd / 64 boxes).  Returns the Axes code, or -1 (also
-// for hd not a multiple of 64).
+// and batch axes in increasing stride order.  Box: `rows` positions of one
+// head of one batch row and `cols` columns, 64 with 128-byte swizzle (a
+// full block of load_rows) or 32 with 64-byte swizzle (its tail).  Returns
+// the Axes code, or -1 (also for hd not a multiple of 32).
 inline int map_bshd(CUtensorMap* map, const void* base, int hd, int S,
                     int heads, int B, long long ss, long long sh,
-                    long long sb, int rows) {
+                    long long sb, int rows, int cols = 64) {
   struct Ax {
     uint64_t n, stride;
     uint32_t box;
@@ -167,14 +210,33 @@ inline int map_bshd(CUtensorMap* map, const void* base, int hd, int S,
     }
   const uint64_t dims[4] = {(uint64_t)hd, ax[0].n, ax[1].n, ax[2].n};
   const uint64_t strides[3] = {ax[0].stride, ax[1].stride, ax[2].stride};
-  if (hd <= 0 || hd % 64) return -1;
-  const uint32_t box[4] = {64u, ax[0].box, ax[1].box, ax[2].box};
+  if (hd < 64 || hd % 32 || (cols != 64 && cols != 32)) return -1;
+  const uint32_t box[4] = {(uint32_t)cols, ax[0].box, ax[1].box, ax[2].box};
   if (!hopper::make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims,
-                        strides, box, CU_TENSOR_MAP_SWIZZLE_128B))
+                        strides, box,
+                        cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                   : CU_TENSOR_MAP_SWIZZLE_64B))
     return -1;
   int pos[3];
   for (int i = 0; i < 3; ++i) pos[ax[i].which] = i + 1;
   return pos[0] | (pos[1] << 2) | (pos[2] << 4);
+}
+
+// The maps of one operand of width hd: `main` (64-column boxes) and, for a
+// width with a 32-column tail, `tail`; a copy of `main` (never read)
+// otherwise.  Returns the Axes code, or -1.
+inline int map_operand(CUtensorMap* main, CUtensorMap* tail,
+                       const void* base, int hd, int S, int heads, int B,
+                       long long ss, long long sh, long long sb, int rows) {
+  const int ax = map_bshd(main, base, hd, S, heads, B, ss, sh, sb, rows);
+  if (ax < 0) return -1;
+  if (hd % 64 == 0) {
+    *tail = *main;
+    return ax;
+  }
+  return map_bshd(tail, base, hd, S, heads, B, ss, sh, sb, rows, 32) == ax
+             ? ax
+             : -1;
 }
 
 }  // namespace flash

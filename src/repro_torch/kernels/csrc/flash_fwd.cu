@@ -33,12 +33,16 @@
 // l = 0, m = -1e30 and out = acc / max(l, 1e-30) = 0.  GQA reads kv head
 // h / (H / KH).  out, m and l are fp32.
 //
-// The head width HD (q/k and v alike) is a template parameter,
-// instantiated for 64 and 128.  A tile row of 128 bf16 is two 128-byte
-// swizzle atoms, so every tile is HD / 64 column blocks (flash_common.cuh,
-// load_rows): Q K^T steps its descriptors along them (kmajor_step) and
-// O += P V runs one m64n64 product per block into its own 32 accumulators.
-// At 128 the block holds 129 KB of shared memory and 64 fp32 of O a thread.
+// The q/k width D and the v width DV are template parameters, instantiated
+// for (64, 64), (128, 128) and MLA's (96, 64) (minicpm3_4b: qk_nope 64 +
+// qk_rope 32, v 64).  A tile of W columns is W / 64 column blocks of one
+// 128-byte swizzle atom plus, where W is not a multiple of 64, one
+// 32-column block of a 64-byte swizzle atom with its own tensor map
+// (flash_common.cuh, Cols / load_rows): Q K^T steps its descriptors along
+// the blocks over D (kmajor_desc: 4 k-steps a full block, 2 in the tail)
+// and O += P V runs one m64n64 product per full block of V's DV columns
+// (mma_mn; an m64n32 for a tail).  At (128, 128) the block holds 129 KB
+// of shared memory and 64 fp32 of O a thread; at (96, 64) 85 KB and 32.
 // What is left: each warpgroup waits on its
 // Q K^T before the softmax and on its P V before the next tile, so the
 // tensor cores idle while a warpgroup's softmax runs unless the other
@@ -57,29 +61,33 @@ using flash::Axes;
 using flash::exp2_approx;
 using flash::kLog2e;
 using flash::load_rows;
-using flash::map_bshd;
 using flash::unpack_axes;
 
-template <int HD>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap qtail,
     const __grid_constant__ CUtensorMap kmap,
-    const __grid_constant__ CUtensorMap vmap, int q_axes, int k_axes,
+    const __grid_constant__ CUtensorMap ktail,
+    const __grid_constant__ CUtensorMap vmap,
+    const __grid_constant__ CUtensorMap vtail, int q_axes, int k_axes,
     int v_axes, const int* __restrict__ qpos, const int* __restrict__ kpos,
     float* __restrict__ out, float* __restrict__ m_out,
     float* __restrict__ l_out, int H, int KH, int Sq, int Skv,
     long long o_sb, long long o_sh, long long o_ss, int has_window,
     int window) {
-  static_assert(HD == 64 || HD == 128, "K1 takes head width 64 or 128");
-  constexpr int kTile = kBKV * HD * 2;  // bytes of one K or V tile
+  static_assert(DV % 64 == 0, "O += P V takes whole 64-column blocks of V");
+  constexpr int kQTile = kBQ * D * 2;   // bytes of the Q tile
+  constexpr int kKTile = kBKV * D * 2;  // of one K tile
+  constexpr int kVTile = kBKV * DV * 2;  // of one V tile
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   // 1 024-aligned for the 128-byte swizzle; offset from smem_raw so that
   // the compiler still reads through it with shared-memory loads
   uint8_t* smem = smem_raw + ((1024u - hopper::smem_u32(smem_raw)) & 1023u);
-  uint8_t* q_s = smem;                      // [HD / 64][128][64] bf16
-  uint8_t* k_s = q_s + kBQ * HD * 2;        // [stage][HD / 64][64][64]
-  uint8_t* v_s = k_s + kStages * kTile;     // [stage][HD / 64][64][64]
-  uint64_t* bars = reinterpret_cast<uint64_t*>(v_s + kStages * kTile);
+  uint8_t* q_s = smem;                   // Cols<D> of 128 rows
+  uint8_t* k_s = q_s + kQTile;           // [stage] Cols<D> of 64 rows
+  uint8_t* v_s = k_s + kStages * kKTile;  // [stage] Cols<DV> of 64 rows
+  uint64_t* bars = reinterpret_cast<uint64_t*>(v_s + kStages * kVTile);
   uint64_t* qbar = bars;                        // 1
   uint64_t* full = bars + 1;                    // kStages
   uint64_t* empty = bars + 1 + kStages;         // kStages
@@ -163,15 +171,17 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     if (lane == 0) {
       const Axes qa = unpack_axes(q_axes), ka = unpack_axes(k_axes),
                  va = unpack_axes(v_axes);
-      hopper::mbar_expect_tx(qbar, kBQ * HD * 2);
-      load_rows<HD>(q_s, &qmap, qbar, qa, q0, h, b, kBQ);
+      hopper::mbar_expect_tx(qbar, kQTile);
+      load_rows<D>(q_s, &qmap, &qtail, qbar, qa, q0, h, b, kBQ);
       for (int i = 0; i < n_vis; ++i) {
         const int s = i % kStages;
         if (i >= kStages) hopper::mbar_wait(&empty[s], (i / kStages - 1) & 1);
-        hopper::mbar_expect_tx(&full[s], 2 * kTile);
+        hopper::mbar_expect_tx(&full[s], kKTile + kVTile);
         const int k0 = (list[i] & ~kFullTile) * kBKV;
-        load_rows<HD>(k_s + s * kTile, &kmap, &full[s], ka, k0, kh, b, kBKV);
-        load_rows<HD>(v_s + s * kTile, &vmap, &full[s], va, k0, kh, b, kBKV);
+        load_rows<D>(k_s + s * kKTile, &kmap, &ktail, &full[s], ka, k0, kh,
+                     b, kBKV);
+        load_rows<DV>(v_s + s * kVTile, &vmap, &vtail, &full[s], va, k0, kh,
+                      b, kBKV);
       }
     }
     return;
@@ -185,12 +195,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const long long qp1 = row1 < Sq ? qpos[row1] : -flash::kFar;
 
   float m0 = flash::kNeg, m1 = flash::kNeg, l0 = 0.0f, l1 = 0.0f;
-  float o[HD / 2], sc[32];
+  float o[DV / 2], sc[32];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.0f;
 
   hopper::mbar_wait(qbar, 0);
-  const uint64_t dq = hopper::desc_sw128(q_s + wg * 64 * 128);
 
   for (int i = 0; i < n_vis; ++i) {
     const int s = i % kStages, entry = list[i];
@@ -215,14 +224,16 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     }
     hopper::mbar_wait(&full[s], (i / kStages) & 1);
 
-    // S = Q K^T: 64 rows x 64 keys per warpgroup
-    const uint64_t dk = hopper::desc_sw128(k_s + s * kTile);
+    // S = Q K^T: 64 rows x 64 keys per warpgroup, over D
+    const uint8_t* kt = k_s + s * kKTile;
     hopper::wgmma_fence();
     hopper::fence_regs(sc);
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      hopper::wgmma_m64n64_ss<0>(sc, dq + flash::kmajor_step(kk, kBQ),
-                                 dk + flash::kmajor_step(kk, kBKV), kk > 0);
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::wgmma_m64n64_ss<0>(sc,
+                                 flash::kmajor_desc<D>(q_s, kBQ, wg * 64, kk),
+                                 flash::kmajor_desc<D>(kt, kBKV, 0, kk),
+                                 kk > 0);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(sc);
@@ -273,7 +284,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     m0 = mn0;
     m1 = mn1;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       o[j * 4] *= corr0;
       o[j * 4 + 1] *= corr0;
       o[j * 4 + 2] *= corr1;
@@ -286,18 +297,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 #pragma unroll
     for (int kk = 0; kk < kBKV / 16; ++kk)
       flash::acc_to_a(pa[kk], &sc[kk * 8], &sc[kk * 8 + 4]);
-    const uint64_t dv = hopper::desc_sw128(v_s + s * kTile);
     hopper::wgmma_fence();
     hopper::fence_regs(o);
-#pragma unroll
-    for (int c = 0; c < HD / 64; ++c) {
-#pragma unroll
-      for (int kk = 0; kk < kBKV / 16; ++kk)
-        hopper::wgmma_m64n64_rs<1>(flash::acc64(o, c), pa[kk],
-                                   dv + flash::column_block(c, kBKV) +
-                                       128 * kk,
-                                   1);
-    }
+    flash::mma_mn<DV>(o, pa, v_s + s * kVTile, kBKV);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(o);
@@ -308,7 +310,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
   float* ob = out + b * o_sb + h * o_sh;
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j) {
+  for (int j = 0; j < DV / 8; ++j) {
     const int col = j * 8 + t4 * 2;
     if (row0 < Sq)
       *reinterpret_cast<float2*>(ob + row0 * o_ss + col) =
@@ -334,7 +336,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 
 namespace {
 
-template <int HD>
+template <int D, int DV>
 int launch_fwd(const void* q, const void* k, const void* v, const void* qpos,
                const void* kpos, void* out, void* m, void* l, int B, int H,
                int KH, int Sq, int Skv, long long q_sb, long long q_sh,
@@ -345,22 +347,25 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* qpos,
   if (B <= 0 || H <= 0 || KH <= 0 || H % KH || Sq <= 0 || Skv <= 0 ||
       (long long)B * H > 0x7fffffffLL || (Sq + kBQ - 1) / kBQ > 65535)
     return (int)cudaErrorInvalidValue;
-  CUtensorMap qm, km, vm;
-  const int qa = map_bshd(&qm, q, HD, Sq, H, B, q_ss, q_sh, q_sb, kBQ);
-  const int ka = map_bshd(&km, k, HD, Skv, KH, B, k_ss, k_sh, k_sb, kBKV);
-  const int va = map_bshd(&vm, v, HD, Skv, KH, B, v_ss, v_sh, v_sb, kBKV);
+  CUtensorMap qm, qt, km, kt, vm, vt;
+  const int qa = flash::map_operand(&qm, &qt, q, D, Sq, H, B, q_ss, q_sh,
+                                    q_sb, kBQ);
+  const int ka = flash::map_operand(&km, &kt, k, D, Skv, KH, B, k_ss, k_sh,
+                                    k_sb, kBKV);
+  const int va = flash::map_operand(&vm, &vt, v, DV, Skv, KH, B, v_ss, v_sh,
+                                    v_sb, kBKV);
   if (qa < 0 || ka < 0 || va < 0) return (int)cudaErrorInvalidValue;
   const int nt = (Skv + kBKV - 1) / kBKV;
-  const int smem = 1024 + kBQ * HD * 2 + 2 * kStages * kBKV * HD * 2 +
+  const int smem = 1024 + kBQ * D * 2 + kStages * kBKV * (D + DV) * 2 +
                    (1 + 2 * kStages) * 8 + 20 * 4 + nt * 4;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-  flash_fwd_kernel<HD><<<grid, kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      qm, km, vm, qa, ka, va, static_cast<const int*>(qpos),
+  flash_fwd_kernel<D, DV><<<grid, kThreads, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      qm, qt, km, kt, vm, vt, qa, ka, va, static_cast<const int*>(qpos),
       static_cast<const int*>(kpos), static_cast<float*>(out),
       static_cast<float*>(m), static_cast<float*>(l), H, KH, Sq, Skv, o_sb,
       o_sh, o_ss, has_window, window);
@@ -369,11 +374,12 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* qpos,
 
 }  // namespace
 
-// q (B, H, Sq, D), k / v (B, KH, Skv, D) bf16 given by pointer and element
-// strides (batch, head, sequence; the last axis is contiguous, strides
-// multiples of 8, bases 16-byte aligned), D = hd, 64 or 128; qpos (Sq,),
-// kpos (Skv,) int32; out (B, H, Sq, D) fp32 by strides; m / l (B, H, Sq)
-// fp32 contiguous.  Returns cudaGetLastError() (cudaErrorInvalidValue for a
+// q (B, H, Sq, D), k (B, KH, Skv, D), v (B, KH, Skv, DV) bf16 given by
+// pointer and element strides (batch, head, sequence; the last axis is
+// contiguous, strides multiples of 8, bases 16-byte aligned), (D, DV) =
+// (hd, dv), one of (64, 64), (128, 128), (96, 64); qpos (Sq,), kpos (Skv,)
+// int32; out (B, H, Sq, DV) fp32 by strides; m / l (B, H, Sq) fp32
+// contiguous.  Returns cudaGetLastError() (cudaErrorInvalidValue for a
 // width, shape or layout the kernel does not take).
 extern "C" int flash_fwd_bf16(
     const void* q, const void* k, const void* v, const void* qpos,
@@ -381,15 +387,15 @@ extern "C" int flash_fwd_bf16(
     int Sq, int Skv, long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss, long long v_sb,
     long long v_sh, long long v_ss, long long o_sb, long long o_sh,
-    long long o_ss, int has_window, int window, int hd, void* stream) {
-  if (hd == 64)
-    return launch_fwd<64>(q, k, v, qpos, kpos, out, m, l, B, H, KH, Sq, Skv,
-                          q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
-                          v_ss, o_sb, o_sh, o_ss, has_window, window, stream);
-  if (hd == 128)
-    return launch_fwd<128>(q, k, v, qpos, kpos, out, m, l, B, H, KH, Sq, Skv,
-                           q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
-                           v_ss, o_sb, o_sh, o_ss, has_window, window,
-                           stream);
+    long long o_ss, int has_window, int window, int hd, int dv,
+    void* stream) {
+  auto run = [&](auto fn) {
+    return fn(q, k, v, qpos, kpos, out, m, l, B, H, KH, Sq, Skv, q_sb, q_sh,
+              q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
+              has_window, window, stream);
+  };
+  if (hd == 64 && dv == 64) return run(launch_fwd<64, 64>);
+  if (hd == 128 && dv == 128) return run(launch_fwd<128, 128>);
+  if (hd == 96 && dv == 64) return run(launch_fwd<96, 64>);
   return (int)cudaErrorInvalidValue;
 }

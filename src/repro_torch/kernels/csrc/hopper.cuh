@@ -2,7 +2,7 @@
 // (flash_fwd.cu), K2 / K3 (flash_bwd.cu) and K12 (wq.cu), and the wire
 // kernels K4 / K5 (rdfsq.cu, mbarriers only): mbarriers, TMA
 // tensor maps and loads, cluster barriers, wgmma shared-memory descriptors
-// and the m64nNk16 bf16 products.
+// (128- and 64-byte swizzle) and the m64nNk16 bf16 products.
 //
 // Tensor maps are encoded on the host with the CUDA driver API's
 // cuTensorMapEncodeTiled, reached through the runtime's driver entry point
@@ -164,6 +164,16 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
          (1ull << 62);
 }
 
+// As desc_sw128 for a tile laid out as TMA's 64-byte swizzle writes it:
+// rows of 32 elements (64 B), 8-row groups 512 B apart, the tile 512-byte
+// aligned.  K-major steps 16 k by +32 B; MN-major steps 16 k by 16 rows,
+// +1 024 B.
+__device__ __forceinline__ uint64_t desc_sw64(const void* tile) {
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3FFFFull) >> 4) | (1ull << 16) | (32ull << 32) |
+         (2ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -215,6 +225,21 @@ __device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32],
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
       "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : HOPPER_R8(0), HOPPER_R8(8), HOPPER_R8(16), HOPPER_R8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+}
+
+// As wgmma_m64n64_rs for 32 output columns.
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n32_rs(float (&d)[16],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : HOPPER_R8(0), HOPPER_R8(8)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
         "n"(TB));
 }

@@ -1,10 +1,12 @@
-"""The decoder stack for the ``dense`` block and the ``text`` and ``vlm``
-modalities (port of ``repro/models/transformer.py``: ``init_params``,
+"""The decoder stack for the ``dense`` block with GQA or MLA attention and
+the ``text`` and ``vlm`` modalities (port of
+``repro/models/transformer.py``: ``init_params``,
 ``_embed_inputs``, ``block_forward``, ``_fill_kv_cache``, ``_run_segments``
 with its remat policies, ``forward``, ``block_decode`` over a ring cache
 or a paged pool, ``decode_step``, ``decode_step_paged``,
 ``init_block_cache``, ``init_caches`` and ``init_paged_caches``; 16-bit or
-int8 KV caches).
+int8 KV caches; MLA's latent ring cache, which, as in the reference, has
+no paged form and ignores ``kv_cache_bits``).
 
 Parameters are a plain dict keyed like the reference's tree, with each
 segment's layers stacked on a leading axis (``models/stack.py``).  The
@@ -17,7 +19,8 @@ reference's ``block_forward`` calls.  It keeps XLA from hoisting the
 layer-invariant attention masks out of its layer scan; PyTorch runs the
 layers eagerly and hoists nothing, so the barrier means nothing here.
 The MoE auxiliary losses are carried as zeros, which is what dense blocks
-give; the other block types and the audio modality are ROADMAP item M11.
+give; the other block types and the audio modality are ROADMAP queue M,
+item M11b.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from repro_torch.core import split as split_mod
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import stack as stack_mod
 from repro_torch.models.layers import attention as attn_mod
+from repro_torch.models.layers import mla as mla_mod
 from repro_torch.models.layers.embedding import embed, head_logits
 from repro_torch.models.layers.mlp import mlp_forward, swiglu_forward
 from repro_torch.models.layers.norms import rms_norm
@@ -47,11 +51,14 @@ def cdtype(cfg: ArchConfig) -> torch.dtype:
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.modality not in ("text", "vlm") or cfg.attn_type != "gqa" \
-            or set(cfg.block_pattern()) != {"dense"}:
+    blocks = set(cfg.block_pattern())
+    if cfg.modality not in ("text", "vlm") or blocks != {"dense"} \
+            or cfg.attn_type not in ("gqa", "mla"):
+        item = "M11b-2 (moe.py)" if "moe" in blocks else "M11b"
         raise NotImplementedError(
-            f"{cfg.name}: the port has dense GQA blocks with the text and "
-            "vlm modalities; the rest is ROADMAP queue M, item M11")
+            f"{cfg.name}: the port has dense blocks with GQA or MLA and the "
+            f"text and vlm modalities; the rest is ROADMAP queue M, item "
+            f"{item}")
 
 
 # ---------------------------------------------------------------------------
@@ -63,15 +70,22 @@ def init_block_params(cfg: ArchConfig, n: int, normal, const) -> Dict:
     ``const(value, *shape)`` draw the leaves."""
     d, hd = cfg.d_model, cfg.head_dim
     dq, dkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
-    return {
-        "ln1": const(1.0, n, d),
-        "ln2": const(1.0, n, d),
-        "attn": {
+    if cfg.attn_type == "mla":
+        attn = mla_mod.init_mla_params(
+            n, d, cfg.n_heads, normal, const, q_lora_rank=cfg.q_lora_rank,
+            kv_lora_rank=cfg.kv_lora_rank, qk_nope_dim=cfg.qk_nope_dim,
+            qk_rope_dim=cfg.qk_rope_dim, v_head_dim=cfg.v_head_dim)
+    else:
+        attn = {
             "wq": normal(n, d, dq, scale=d ** -0.5),
             "wk": normal(n, d, dkv, scale=d ** -0.5),
             "wv": normal(n, d, dkv, scale=d ** -0.5),
             "wo": normal(n, dq, d, scale=dq ** -0.5),
-        },
+        }
+    return {
+        "ln1": const(1.0, n, d),
+        "ln2": const(1.0, n, d),
+        "attn": attn,
         "ffn": {
             "w_gate": normal(n, d, cfg.d_ff, scale=d ** -0.5),
             "w_up": normal(n, d, cfg.d_ff, scale=d ** -0.5),
@@ -146,21 +160,44 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
 # ---------------------------------------------------------------------------
 
 def _attn_kwargs(cfg: ArchConfig) -> Dict:
+    if cfg.attn_type == "mla":
+        return dict(n_heads=cfg.n_heads, qk_nope_dim=cfg.qk_nope_dim,
+                    qk_rope_dim=cfg.qk_rope_dim, v_head_dim=cfg.v_head_dim,
+                    kv_lora_rank=cfg.kv_lora_rank, rope_theta=cfg.rope_theta)
     return dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                 head_dim=cfg.head_dim, rope_theta=cfg.rope_theta)
 
 
+def _attn_forward(cfg: ArchConfig, p: Dict, h: torch.Tensor, positions,
+                  window, return_kv: bool = False):
+    fwd = mla_mod.mla_forward if cfg.attn_type == "mla" \
+        else attn_mod.gqa_forward
+    return fwd(p, h, positions=positions, window=window,
+               return_kv=return_kv, **_attn_kwargs(cfg))
+
+
 def _fill_kv_cache(cfg: ArchConfig, kv, cache_len: int,
                    positions: torch.Tensor) -> Dict:
-    """Place prefill K/V into a ring buffer of ``cache_len`` slots."""
+    """Place prefill K/V (MLA: the latent and the rotary key) into a ring
+    buffer of ``cache_len`` slots."""
+    keep = min(kv[0].shape[1], cache_len)
+    pos = positions[-keep:]
+    where = (slice(None), (pos % cache_len).long())
+    if cfg.attn_type == "mla":
+        ckv, krope = kv  # (B, S, kv_lora), (B, S, dr)
+        b = ckv.shape[0]
+        cache = mla_mod.init_mla_cache(b, cache_len, cfg.kv_lora_rank,
+                                       cfg.qk_rope_dim, dtype=ckv.dtype,
+                                       device=ckv.device)
+        cache["ckv"][where] = ckv[:, -keep:]
+        cache["krope"][where] = krope[:, -keep:]
+        cache["pos"][where] = pos.to(torch.int32).expand(b, keep)
+        return cache
     k, v = kv  # (B, S, KH, hd)
-    b, s = k.shape[:2]
+    b = k.shape[0]
     cache = attn_mod.init_kv_cache(b, cache_len, cfg.n_kv_heads,
                                    cfg.head_dim, dtype=k.dtype,
                                    bits=cfg.kv_cache_bits, device=k.device)
-    keep = min(s, cache_len)
-    pos = positions[-keep:]
-    where = (slice(None), (pos % cache_len).long())
     attn_mod.write_kv(cache, where, k[:, -keep:], v[:, -keep:])
     cache["pos"][where] = pos.to(torch.int32).expand(b, keep)
     return cache
@@ -182,13 +219,11 @@ def block_forward(cfg: ArchConfig, p: Dict, x: torch.Tensor, *,
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     cache = None
     if collect_cache is not None:
-        a, kv = attn_mod.gqa_forward(p["attn"], h, positions=positions,
-                                     window=window, return_kv=True,
-                                     **_attn_kwargs(cfg))
+        a, kv = _attn_forward(cfg, p["attn"], h, positions, window,
+                              return_kv=True)
         cache = _fill_kv_cache(cfg, kv, collect_cache, positions)
     else:
-        a = attn_mod.gqa_forward(p["attn"], h, positions=positions,
-                                 window=window, **_attn_kwargs(cfg))
+        a = _attn_forward(cfg, p["attn"], h, positions, window)
     x = x + a
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + swiglu_forward(p["ffn"], h2), _empty_aux(x.device), cache
@@ -201,7 +236,13 @@ def block_decode(cfg: ArchConfig, p: Dict, x: torch.Tensor, cache: Dict, *,
     ``page_table`` its (P, pg, ...) pools, the batch axis of ``x`` then
     being the scheduler's slot axis) is updated in place.  Returns x."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    if page_table is None:
+    if cfg.attn_type == "mla":
+        if page_table is not None:
+            raise NotImplementedError("paged decode requires GQA KV caches "
+                                      "(attn_type != mla)")
+        a, _ = mla_mod.mla_decode(p["attn"], h, cache, qpos=qpos,
+                                  window=window, **_attn_kwargs(cfg))
+    elif page_table is None:
         a, _ = attn_mod.gqa_decode(p["attn"], h, cache, qpos=qpos,
                                    window=window, **_attn_kwargs(cfg))
     else:
@@ -236,9 +277,12 @@ def init_block_cache(cfg: ArchConfig, batch: int, cache_len: int,
                      dtype=torch.bfloat16, device: DeviceLike = None
                      ) -> Dict:
     """One dense block's ring cache (B, cache_len, ...), 16-bit or int8 as
-    ``cfg.kv_cache_bits`` says, on ``device`` (CUDA unless
-    ``device="cpu"``)."""
+    ``cfg.kv_cache_bits`` says (MLA: the latent cache in ``dtype``), on
+    ``device`` (CUDA unless ``device="cpu"``)."""
     _check_supported(cfg)
+    if cfg.attn_type == "mla":
+        return mla_mod.init_mla_cache(batch, cache_len, cfg.kv_lora_rank,
+                                      cfg.qk_rope_dim, dtype, device=device)
     return attn_mod.init_kv_cache(batch, cache_len, cfg.n_kv_heads,
                                   cfg.head_dim, dtype,
                                   bits=cfg.kv_cache_bits, device=device)
@@ -258,8 +302,11 @@ def init_paged_caches(cfg: ArchConfig, n_pages: int, page_size: int,
                       ) -> Dict:
     """Stacked paged KV pools per segment, keyed like the parameters: one
     (P, pg, ...) pool per layer, shared page table across layers, on
-    ``device`` (CUDA unless ``device="cpu"``)."""
+    ``device`` (CUDA unless ``device="cpu"``).  MLA has no paged form and
+    raises, as in the reference."""
     _check_supported(cfg)
+    if cfg.attn_type == "mla":
+        raise NotImplementedError("paged serving requires GQA KV caches")
     device = resolve_device(device)
     return _stacked(cfg, lambda: attn_mod.init_paged_kv_pool(
         n_pages, page_size, cfg.n_kv_heads, cfg.head_dim, dtype,

@@ -375,8 +375,9 @@ def test_flash_bwd_plan_shared_memory_at_each_width(shape):
 
 
 def test_flash_wrappers_refuse_other_widths():
-    """CUDA-free argument checks: K1 - K3 take D = Dv in (64, 128) and
-    name queue K item 2 for Dv != D; the plan refuses other widths; the
+    """CUDA-free argument checks: K1 - K3 take (D, Dv) in (64, 64),
+    (128, 128) and MLA's (96, 64), refuse 96 / 96 and (128, 64), and name
+    queue K item 2 for (192, 128); the plan refuses other widths; the
     decode kernels K6 - K9 take 64 and 128 and name queue K item 3 for
     80."""
     def ops(d, dv=None):
@@ -387,13 +388,16 @@ def test_flash_wrappers_refuse_other_widths():
         pos = torch.arange(16, dtype=torch.int32)
         return q, k, v, pos, pos
 
-    for d in (64, 128):
-        qpos, _ = tops._check_flash("K1", *ops(d))
+    for d, dv in ((64, None), (128, None), (96, 64)):
+        qpos, _ = tops._check_flash("K1", *ops(d, dv))
         assert qpos.dtype == torch.int32
+    tops.flash_bwd_plan(1, 4, 2, 16, 16, 96, 64)
     with pytest.raises(ValueError, match="head_dim"):
         tops._check_flash("K1", *ops(96))
-    with pytest.raises(ValueError, match="item 2"):
+    with pytest.raises(ValueError, match="head_dim"):
         tops._check_flash("K1", *ops(128, dv=64))
+    with pytest.raises(ValueError, match="item 2"):
+        tops._check_flash("K1", *ops(192, dv=128))
     with pytest.raises(ValueError, match="head_dim"):
         tops.flash_bwd_plan(1, 4, 2, 16, 16, 96)
     for d in (64, 128, 80):
