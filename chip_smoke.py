@@ -208,6 +208,34 @@ non-zero:
               training steps of 2 x 1 024 tokens on an 8-layer cut (K1 -
               K3 at (96, 64), exact launches, the CE falling); a 2-layer
               gradient parity, the cut off (cosines >= 0.98).
+22. attack -- the feature-inversion attack (launch/privacy_attack.py, the
+              paper's Figure 4) at full-width tinyllava's connector (1 152
+              -> 1 280 -> 1 280, bf16): 512 training and 128 validation
+              images of 16 patches, the inversion decoder trained 250
+              steps against each deployment's wire features (16-bit, NF
+              2-bit through K10 / K11, RD-FSQ 2-bit through K4 / K5, each
+              launched once, at (640, 16, 1 280)); each deployment's
+              decoded features bit-identical to the plain codecs' on the
+              CPU; 5 steps of the attack on the card against the fp32 CPU
+              path (TF32 off); the three final validation losses and
+              whether RD-FSQ > NF > original holds at full width (printed,
+              not gated: the CPU tests gate the ordering at the reference's
+              scale).  No cut.
+23. arctic serve -- arctic_480b at full width (d 7 168, 56 / 8 heads of
+              width 128: G 7; 128 experts top-2 + a dense residual), the
+              depth cut 35 -> 2 layers (printed: a layer is 13.6 G
+              parameters, so full depth would not fit one card), its cut
+              at layer 1: 4 requests through ServeEngine (K1, K8 at G 7,
+              exact launches), the prefill drop fraction, peak memory and
+              ms a tick.
+24. arctic train -- 2 layers at full width with the experts cut 128 -> 8,
+              top-2 kept (printed: 128 experts' fp32 moments alone would
+              not fit): AdamW steps of 2 x 1 024 tokens (K1 - K3 at G 7,
+              exact launches), finite auxiliaries, the first batch's CE
+              falling; one such layer's forward on the card against the
+              fp32 CPU path, the cut off: the count of tokens routed to
+              another expert set, and over the tokens routed alike the
+              logits within 5% and the same argmax.
 
 Every phase prints its seconds and the device memory after it.  The last
 lines are the card (nvidia-smi), the per-kernel JSON line and
@@ -320,6 +348,17 @@ LLAMA_GEN_BATCH, LLAMA_GEN_TEXT, LLAMA_PARITY_STEPS = 4, 512, 4
 ZOO_DEPTH, ZOO_GEN_BATCH, ZOO_GEN_TEXT = 8, 4, 512
 MLA_TRAIN_LAYERS, MLA_TRAIN_STEPS, MLA_TRAIN_BATCH, MLA_TRAIN_SEQ = 8, 8, 2, 1024
 MLA_LR, MLA_PARITY_SEQ = 3e-4, 256
+# the feature-inversion attack: steps a deployment; the card-vs-CPU
+# check's steps, and its tolerance on each step's loss (fp32 convolutions
+# with TF32 off, summed in another order)
+ATTACK_STEPS, ATTACK_PARITY_STEPS, ATTACK_RTOL = 250, 5, 1e-4
+# arctic_480b: serving at full width on ARCTIC_DEPTH layers; training on
+# ARCTIC_DEPTH layers with ARCTIC_TRAIN_EXPERTS experts, ARCTIC_TRAIN_STEPS
+# steps of ARCTIC_TRAIN_BATCH x ARCTIC_TRAIN_SEQ tokens; the one-layer
+# parity's sequence
+ARCTIC_DEPTH, ARCTIC_TRAIN_EXPERTS, ARCTIC_TRAIN_STEPS = 2, 8, 6
+ARCTIC_TRAIN_BATCH, ARCTIC_TRAIN_SEQ, ARCTIC_LR = 2, 1024, 3e-4
+ARCTIC_PARITY_SEQ = 256
 # int8 K/V bytes per (token, kv head) over bf16: (64 + 2) / 128
 INT8_POOL_RATIO = 0.515625
 # K12 against its plain version, relative to max |plain|: the dequantized
@@ -3936,6 +3975,298 @@ def phase_mla():
 
 
 # ---------------------------------------------------------------------------
+# phase 22: the feature-inversion attack
+# ---------------------------------------------------------------------------
+
+def phase_attack():
+    """The paper's Figure 4 at full-width tinyllava's connector: the
+    inversion decoder trained against each deployment's wire features (K4 /
+    K5 and K10 / K11 once each), the wire bit-identical to the plain
+    codecs' on the CPU, 5 attack steps against the fp32 CPU path.  Returns
+    the launch counts."""
+    import torch
+    from repro_torch.attack import inversion as inv
+    from repro_torch.configs import get_config
+    from repro_torch.core import quantizers
+    from repro_torch.kernels import build
+    from repro_torch.launch import privacy_attack as pa
+    from repro_torch.optim import init_opt_state
+
+    cfg = get_config("tinyllava")
+    n = pa.N_TRAIN + pa.N_VAL
+    images, _ = pa.make_images(n, seed=42)
+    feats = pa.client_features(cfg, images, seed=43)
+    print(f"[attack] full-width {cfg.name} connector {cfg.d_vision} -> "
+          f"{cfg.d_connector or cfg.d_model} -> {cfg.d_model} ({feats.dtype}"
+          f"), {pa.N_TRAIN} + {pa.N_VAL} images of {pa.GRID[0]} x "
+          f"{pa.GRID[1]} patches: wire features {tuple(feats.shape)}; "
+          f"{ATTACK_STEPS} steps a deployment; no cut")
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    out = pa.run(ATTACK_STEPS, cfg=cfg, images=images, features=feats,
+                 log=lambda line: print(f"[attack] {line}"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.launches)
+    _check_launches("attack", launches, {
+        "rdfsq_quantize": 1, "rdfsq_dequantize": 1, "nf_quantize": 1,
+        "nf_dequantize": 1})
+    for name, qcfg in pa.DEPLOYMENTS:
+        card = out["wire"][name]
+        if qcfg is None:
+            require(card is feats, "attack: the 16-bit wire is the features")
+            continue
+        with torch.inference_mode():
+            plain = quantizers.decode(qcfg, quantizers.encode(
+                qcfg, feats.cpu()))
+        same = torch.equal(card.cpu(), plain)
+        print(f"[attack] {name}: card wire features {tuple(card.shape)} "
+              f"{card.dtype} equal to the CPU plain codec's: {same}; max "
+              f"|wire - clean| {max_err(card, feats):.4f}")
+        require(same, f"attack {name}: wire features differ from the plain "
+                "codec's")
+
+    # 5 steps on the card against the fp32 CPU path, from the same weights
+    # and batches (TF32 is off on the card: resolve_device)
+    wire = out["wire"]["rdfsq_2bit"].float()
+    f_card, i_card = wire[:pa.N_TRAIN], images[:pa.N_TRAIN]
+    f_cpu, i_cpu = f_card.cpu(), i_card.cpu()
+    p_cpu = inv.init_attack_params(cfg.d_model, seed=5, device="cpu")
+    p_card = {k: v.cuda() for k, v in p_cpu.items()}
+    opt_cfg = inv.attack_opt_config()
+    o_cpu, o_card = init_opt_state(p_cpu, opt_cfg), init_opt_state(p_card,
+                                                                   opt_cfg)
+    idx = torch.randint(0, pa.N_TRAIN, (ATTACK_PARITY_STEPS, 16),
+                        generator=torch.Generator().manual_seed(6))
+    rels = []
+    for i in range(ATTACK_PARITY_STEPS):
+        p_card, o_card, l_card = inv.attack_step(
+            p_card, o_card, opt_cfg, f_card[idx[i].cuda()],
+            i_card[idx[i].cuda()], pa.GRID)
+        p_cpu, o_cpu, l_cpu = inv.attack_step(
+            p_cpu, o_cpu, opt_cfg, f_cpu[idx[i]], i_cpu[idx[i]], pa.GRID)
+        rels.append(abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu)))
+    print(f"[attack parity] {ATTACK_PARITY_STEPS} steps on the RD-FSQ wire's "
+          f"features, card vs fp32 CPU: loss relative errors "
+          + " ".join(f"{r:.2e}" for r in rels) + f" (tol {ATTACK_RTOL})")
+    require(all(r < ATTACK_RTOL for r in rels), f"attack parity {rels}")
+
+    r = out["results"]
+    print(f"[attack] final validation losses: original "
+          f"{r['original_16bit']:.4f}, NF 2-bit {r['qlora_nf_2bit']:.4f}, "
+          f"RD-FSQ 2-bit {r['rdfsq_2bit']:.4f}; RD-FSQ > NF > original at "
+          f"full width: {out['ordered']} (a finding, not gated); "
+          + ", ".join(f"{k} {1e3 * v / ATTACK_STEPS:.2f} ms a step"
+                      for k, v in out["seconds"].items())
+          + f"; {wall:.1f} s in all")
+    require(all(math.isfinite(v) for v in r.values()), f"attack losses {r}")
+    return {"attack": launches}
+
+
+# ---------------------------------------------------------------------------
+# phases 23 - 24: arctic_480b (MoE)
+# ---------------------------------------------------------------------------
+
+def phase_arctic_serve():
+    """arctic_480b at full width cut to ARCTIC_DEPTH layers: 4 requests
+    through ServeEngine (K1, K8 at G 7), the prefill drop fraction, peak
+    memory.  Returns the launch counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.utils.tree import tree_count
+
+    full = get_config("arctic_480b")
+    cfg = dataclasses.replace(full, n_layers=ARCTIC_DEPTH,
+                              split=dataclasses.replace(full.split,
+                                                        cut_layer=1))
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    n = tree_count(params)
+    per_layer = (n - tree_count({k: v for k, v in params.items()
+                                 if k not in ("client", "server")})) \
+        / cfg.n_layers
+    experts = sum(tree_count(seg["ffn"]) for side in ("client", "server")
+                  for seg in params[side].values()) / cfg.n_layers
+    n_full = n + (full.n_layers - cfg.n_layers) * per_layer
+    print(f"[arctic serve] reduced: depth {full.n_layers} -> {cfg.n_layers} "
+          f"layers, the cut {full.split.resolve_cut(full.n_layers)} -> "
+          f"{cfg.split.resolve_cut(cfg.n_layers)}: a layer is "
+          f"{per_layer / 1e9:.2f} G parameters ({experts / 1e9:.2f} G of them "
+          f"its MoE feed-forward), so full depth would be "
+          f"{n_full / 1e9:.1f} G parameters, {2 * n_full / 1e9:.0f} GB of "
+          f"bf16 weights, on a card of 80 GB; the widths are the published "
+          f"ones")
+    _describe("arctic serve", cfg, params)
+    print(f"[arctic serve] weights in {time.perf_counter() - t0:.1f} s: "
+          f"{2 * n / 1e9:.1f} GB of bf16; {cfg.n_experts} experts of width "
+          f"{cfg.moe_d_ff}, top-{cfg.moe_top_k}, dense residual "
+          f"{cfg.d_ff}")
+    reqs = _requests(cfg, 4, seed=7)
+    torch.cuda.reset_peak_memory_stats()
+    launches, eng = _serve_llama(cfg, params, None, reqs, "arctic serve")
+    del eng
+    peak = torch.cuda.max_memory_allocated()
+    # the MoE's drops at prefill (capacity factor 1.25 in groups of up to
+    # 16 tokens: one slot an expert a group), one prompt
+    toks = torch.tensor([reqs[0][0]], device="cuda")
+    with torch.inference_mode():
+        _, aux = tf.forward(params, cfg, dict(tokens=toks))
+    drop = float(aux["drop_fraction"]) / cfg.n_layers
+    print(f"[arctic serve] prefill of {toks.shape[1]} tokens: drop fraction "
+          f"{drop:.4f} (mean of {cfg.n_layers} layers), load balance "
+          f"{float(aux['load_balance']) / cfg.n_layers:.4f}; peak device "
+          f"memory {peak / 2 ** 30:.2f} GiB; a decode tick computes every "
+          f"expert's slots (capacity factor 8), so it reads "
+          f"{2 * experts * cfg.n_layers / 1e9:.1f} GB of expert weights")
+    require(0.0 <= drop < 1.0 and math.isfinite(
+        float(aux["load_balance"])), f"arctic serve aux {aux}")
+    del params
+    torch.cuda.empty_cache()
+    return {"arctic serve": launches}
+
+
+def _arctic_routing(cfg, params, tokens):
+    """The first layer's routing (expert ids (G, TG, k)) of ``tokens`` and
+    the logits, the MoE layer's input recomputed from the block's own
+    pieces."""
+    import torch
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import moe
+    from repro_torch.models.layers.embedding import embed
+    from repro_torch.models.layers.norms import rms_norm
+    from repro_torch.models.stack import tree_index
+
+    with torch.inference_mode():
+        logits, _ = tf.forward(params, cfg, dict(tokens=tokens))
+        p = tree_index(params["client"]["seg0"], 0)
+        x = embed(params["embed"], tokens, tf.cdtype(cfg))
+        pos = torch.arange(x.shape[1], device=x.device, dtype=torch.int32)
+        x = x + tf._attn_forward(cfg, p["attn"], rms_norm(
+            x, p["ln1"], cfg.norm_eps), pos, None)
+        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+        t = h2.shape[0] * h2.shape[1]
+        g = moe._pick_groups(t, 16)
+        _, _, _, ids = moe.route(p["ffn"]["router"], h2.reshape(
+            g, t // g, -1), cfg.moe_top_k)
+    return logits, ids
+
+
+def phase_arctic_train():
+    """ARCTIC_DEPTH full-width arctic layers with ARCTIC_TRAIN_EXPERTS
+    experts: AdamW steps (K1 - K3 at G 7), finite auxiliaries, the first
+    batch's CE falling; then one such layer on the card against the fp32
+    CPU path.  Returns the launch counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.kernels import build
+    from repro_torch.models.transformer import cdtype, layer_forward_count
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.loop import (batch_to, init_state, make_grad_fn,
+                                        make_train_step)
+    from repro_torch.utils.tree import tree_count
+
+    full = get_config("arctic_480b")
+    cfg = dataclasses.replace(
+        full, n_layers=ARCTIC_DEPTH, n_experts=ARCTIC_TRAIN_EXPERTS,
+        split=dataclasses.replace(full.split, cut_layer=1))
+    opt = AdamWConfig(lr=ARCTIC_LR)
+    state = init_state(cfg, opt, seed=0)
+    n = tree_count(state.params)
+    expert = 3 * cfg.d_model * cfg.moe_d_ff
+    print(f"[arctic train] reduced: depth {full.n_layers} -> {cfg.n_layers} "
+          f"layers (cut at {cfg.split.resolve_cut(cfg.n_layers)}), experts "
+          f"{full.n_experts} -> {cfg.n_experts} a layer, top-"
+          f"{cfg.moe_top_k} kept: {n / 1e9:.2f} G parameters, "
+          f"{(2 + 2 + 8) * n / 1e9:.1f} GB of bf16 weights and gradients and "
+          f"fp32 moments; {full.n_experts} experts would take "
+          f"{12 * full.n_experts * expert * cfg.n_layers / 1e9:.0f} GB for "
+          f"theirs alone; {ARCTIC_TRAIN_STEPS} steps of {ARCTIC_TRAIN_BATCH} "
+          f"x {ARCTIC_TRAIN_SEQ} tokens, lr {ARCTIC_LR}, remat {cfg.remat}")
+    step_fn = make_train_step(cfg, opt, total_steps=ARCTIC_TRAIN_STEPS,
+                              warmup_steps=1)
+    data = make_pipeline(cfg, ARCTIC_TRAIN_BATCH, ARCTIC_TRAIN_SEQ, seed=0)
+    batches = [next(data) for _ in range(ARCTIC_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    times, ms = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, m = step_fn(state, b)
+        ms.append({k: float(v) for k, v in m.items()})  # waits for the step
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    launches = dict(build.launches)
+    carry = torch.empty((ARCTIC_TRAIN_BATCH, ARCTIC_TRAIN_SEQ, cfg.d_model),
+                        dtype=cdtype(cfg), device="meta")
+    per_step = layer_forward_count(cfg, carry)
+    _check_launches("arctic train", launches,
+                    {"flash_fwd": per_step * ARCTIC_TRAIN_STEPS,
+                     "flash_bwd_dq": cfg.n_layers * ARCTIC_TRAIN_STEPS,
+                     "flash_bwd_dkv": cfg.n_layers * ARCTIC_TRAIN_STEPS})
+    peak = torch.cuda.max_memory_allocated()
+    _, m = make_grad_fn(cfg)(state.params, batch_to(batches[0],
+                                                    torch.device("cuda")))
+    after = float(m["ce"])
+    ces = [x["ce"] for x in ms]
+    step_s = statistics.median(times[1:])
+    print(f"[arctic train] CE " + " ".join(f"{x:.4f}" for x in ces)
+          + f"; the first batch's {ces[0]:.4f} -> {after:.4f} after the "
+          f"steps; load balance " + " ".join(
+              f"{x['load_balance']:.4f}" for x in ms) + "; drop fraction "
+          + " ".join(f"{x['drop_fraction']:.4f}" for x in ms)
+          + f" (sums over {cfg.n_layers} layers); {1e3 * step_s:.2f} ms per "
+          f"step (median of steps 2-{ARCTIC_TRAIN_STEPS}), "
+          f"{ARCTIC_TRAIN_BATCH * ARCTIC_TRAIN_SEQ / step_s:.1f} training "
+          f"tokens/s; peak device memory {peak / 2 ** 30:.2f} GiB")
+    require(all(math.isfinite(x[k]) for x in ms
+                for k in ("loss", "load_balance", "drop_fraction")),
+            f"arctic train: auxiliaries not finite: {ms}")
+    require(after < ces[0], f"arctic train: the first batch's CE did not "
+            f"fall: {ces[0]} -> {after}")
+    del state, step_fn
+    torch.cuda.empty_cache()
+
+    # one such layer (8 experts), card vs the fp32 CPU path, the cut off
+    cfg1 = dataclasses.replace(cfg, n_layers=1, split=dataclasses.replace(
+        cfg.split, enabled=False))
+    from repro_torch.models.transformer import init_params
+    params1 = init_params(cfg1, seed=1)
+    cfg32 = dataclasses.replace(cfg1, param_dtype="float32",
+                                compute_dtype="float32")
+    params32 = _tree(params1, _cpu32)
+    toks = torch.randint(1, cfg.vocab_size, (1, ARCTIC_PARITY_SEQ),
+                         generator=torch.Generator().manual_seed(3))
+    gl, gids = _arctic_routing(cfg1, params1, toks.cuda())
+    cl, cids = _arctic_routing(cfg32, params32, toks)
+    g, c = gl[0].float().cpu(), cl[0]
+    gs = gids.cpu().reshape(-1, cfg.moe_top_k).sort(-1).values
+    cs = cids.reshape(-1, cfg.moe_top_k).sort(-1).values
+    same = ~(gs != cs).any(-1)  # tokens routed to the same expert set
+    flips = int((~same).sum())
+    rel_all = float((g - c).norm() / c.norm())
+    rel = float((g[same] - c[same]).norm() / c[same].norm())
+    agree = int(g[-1].argmax()) == int(c[-1].argmax()) or not bool(same[-1])
+    print(f"[arctic parity] one layer of {cfg.n_experts} experts, 1 x "
+          f"{ARCTIC_PARITY_SEQ} tokens, the cut off: routing: {flips} of "
+          f"{gs.shape[0]} tokens chose another expert set on the card (bf16 "
+          f"activations into the fp32 router: a flipped token's feed-forward "
+          f"is another one); logits relative error over the tokens routed "
+          f"alike {rel:.3e} (tol {PARITY_RTOL}), over all {rel_all:.3e}; the "
+          f"last token's argmax card {int(g[-1].argmax())} cpu "
+          f"{int(c[-1].argmax())} (routed alike: {bool(same[-1])})")
+    require(math.isfinite(rel) and rel < PARITY_RTOL and agree,
+            f"arctic parity: rel {rel}, argmax agree {agree}")
+    del params1, params32
+    torch.cuda.empty_cache()
+    return {"arctic train": launches}
+
+
+# ---------------------------------------------------------------------------
 # phase 12: one training step on the card against the fp32 CPU path
 # ---------------------------------------------------------------------------
 
@@ -4077,6 +4408,15 @@ def main() -> int:
     paths128.update(_timed("granite", phase_granite))
     paths128.update(_timed("33b / 34b", phase_zoo_wide))
     paths96 = _timed("mla", phase_mla)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the feature-inversion attack (no attention), then arctic_480b's MoE
+    # blocks at head width 128, G 7
+    paths.update(_timed("attack", phase_attack))
+    paths128.update(_timed("arctic serve", phase_arctic_serve))
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths128.update(_timed("arctic train", phase_arctic_train))
     every = {**paths, **paths128, **paths96}
     for path, launches in every.items():
         print(f"[launches] {path}: {launches}")

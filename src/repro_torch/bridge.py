@@ -13,7 +13,9 @@ reading its server ``TrainState``'s ``params``, ``opt`` and ``step``; a
 SplitLoRA hub's state brings its ``client_adapters`` and the server's
 ``"adapters"`` with it, and a SplitLoRA hub's stage-stacked parameters
 (``"adapters"`` beside ``"blocks"``) cross with ``from_jax_params`` as any
-other nested dict does.
+other nested dict does.  ``from_jax_attack_params`` carries the
+reference's feature-inversion model across, its HWIO convolution kernels
+turned to the port's OIHW.
 """
 from __future__ import annotations
 
@@ -81,3 +83,15 @@ def from_jax_hub_state(state, device: DeviceLike) -> Dict:
         **{k: from_jax_params(state[k], device)
            for k in ("client_params", "client_adapters", "client_opt",
                      "calib") if k in state})
+
+
+def from_jax_attack_params(params, device: DeviceLike) -> Dict:
+    """The reference's inversion model (``repro.attack.init_attack_params``:
+    HWIO kernels ``w*``, biases ``b*``) as the port's (OIHW kernels), fp32
+    leaves."""
+    dev = resolve_device(device)
+    out = {}
+    for k, v in params.items():
+        t = _leaf(v, dev, torch.float32)
+        out[k] = t.permute(3, 2, 0, 1).contiguous() if t.ndim == 4 else t
+    return out

@@ -2,9 +2,10 @@
 ``repro/configs/base.py``).
 
 Field for field and default for default the reference's dataclass, so
-``dataclasses.asdict`` of the two agree.  The model builder of this slice
-interprets only the ``dense`` block type and the ``vlm`` modality; the
-other fields are carried for the configurations later slices port.
+``dataclasses.asdict`` of the two agree.  The model code interprets
+the ``dense`` and ``moe`` block types and the ``text`` and ``vlm``
+modalities; the other fields are carried for the configurations later
+slices port.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
-"""The decoder stack for the ``dense`` block with GQA or MLA attention and
-the ``text`` and ``vlm`` modalities (port of
-``repro/models/transformer.py``: ``init_params``,
-``_embed_inputs``, ``block_forward``, ``_fill_kv_cache``, ``_run_segments``
+"""The decoder stack for the ``dense`` and ``moe`` blocks with GQA or MLA
+attention and the ``text`` and ``vlm`` modalities (port of
+``repro/models/transformer.py``: ``init_params``, ``_embed_inputs``,
+``block_forward``, ``_fill_kv_cache``, ``_run_segments``
 with its remat policies, ``forward``, ``block_decode`` over a ring cache
 or a paged pool, ``decode_step``, ``decode_step_paged``,
 ``init_block_cache``, ``init_caches`` and ``init_paged_caches``; 16-bit or
@@ -18,9 +18,10 @@ Not ported, on purpose: ``utils/barrier.py::grad_safe_barrier``, which the
 reference's ``block_forward`` calls.  It keeps XLA from hoisting the
 layer-invariant attention masks out of its layer scan; PyTorch runs the
 layers eagerly and hoists nothing, so the barrier means nothing here.
-The MoE auxiliary losses are carried as zeros, which is what dense blocks
-give; the other block types and the audio modality are ROADMAP queue M,
-item M11b.
+A stack is all ``dense`` or all ``moe`` blocks (``models/layers/moe.py``;
+each block's auxiliary losses summed over the layers, zeros for dense
+blocks); the mixed dense-then-moe pattern (``first_dense_layers``), the
+other block types and the audio modality are ROADMAP queue M, item M11b.
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import stack as stack_mod
 from repro_torch.models.layers import attention as attn_mod
 from repro_torch.models.layers import mla as mla_mod
+from repro_torch.models.layers import moe as moe_mod
 from repro_torch.models.layers.embedding import embed, head_logits
 from repro_torch.models.layers.mlp import mlp_forward, swiglu_forward
 from repro_torch.models.layers.norms import rms_norm
@@ -52,13 +54,18 @@ def cdtype(cfg: ArchConfig) -> torch.dtype:
 
 def _check_supported(cfg: ArchConfig) -> None:
     blocks = set(cfg.block_pattern())
-    if cfg.modality not in ("text", "vlm") or blocks != {"dense"} \
+    if cfg.modality not in ("text", "vlm") or len(blocks) != 1 \
+            or not blocks <= {"dense", "moe"} \
             or cfg.attn_type not in ("gqa", "mla"):
-        item = "M11b-2 (moe.py)" if "moe" in blocks else "M11b"
         raise NotImplementedError(
-            f"{cfg.name}: the port has dense blocks with GQA or MLA and the "
-            f"text and vlm modalities; the rest is ROADMAP queue M, item "
-            f"{item}")
+            f"{cfg.name}: the port has dense or moe blocks (not both in one "
+            f"stack) with GQA or MLA and the text and vlm modalities; the "
+            f"rest is ROADMAP queue M, item M11b")
+
+
+def _block_type(cfg: ArchConfig) -> str:
+    """The stack's one block type, ``dense`` or ``moe``."""
+    return cfg.block_pattern()[0] if cfg.n_layers else "dense"
 
 
 # ---------------------------------------------------------------------------
@@ -66,8 +73,10 @@ def _check_supported(cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def init_block_params(cfg: ArchConfig, n: int, normal, const) -> Dict:
-    """``n`` layer-stacked dense blocks: ``normal(*shape, scale=)`` and
-    ``const(value, *shape)`` draw the leaves."""
+    """``n`` layer-stacked dense or moe blocks: ``normal(*shape, scale=)``
+    and ``const(value, *shape)`` draw the leaves (a moe block's router and
+    experts pass ``normal`` the ``dtype`` and ``per_expert`` keywords of
+    ``leaf_makers``)."""
     d, hd = cfg.d_model, cfg.head_dim
     dq, dkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
     if cfg.attn_type == "mla":
@@ -82,15 +91,22 @@ def init_block_params(cfg: ArchConfig, n: int, normal, const) -> Dict:
             "wv": normal(n, d, dkv, scale=d ** -0.5),
             "wo": normal(n, dq, d, scale=dq ** -0.5),
         }
+    if _block_type(cfg) == "moe":
+        ffn = moe_mod.init_moe_params(
+            n, d, cfg.n_experts, cfg.moe_d_ff or cfg.d_ff, normal, const,
+            n_shared_experts=cfg.n_shared_experts,
+            dense_residual_d_ff=cfg.d_ff if cfg.dense_residual else 0)
+    else:
+        ffn = {
+            "w_gate": normal(n, d, cfg.d_ff, scale=d ** -0.5),
+            "w_up": normal(n, d, cfg.d_ff, scale=d ** -0.5),
+            "w_down": normal(n, cfg.d_ff, d, scale=cfg.d_ff ** -0.5),
+        }
     return {
         "ln1": const(1.0, n, d),
         "ln2": const(1.0, n, d),
         "attn": attn,
-        "ffn": {
-            "w_gate": normal(n, d, cfg.d_ff, scale=d ** -0.5),
-            "w_up": normal(n, d, cfg.d_ff, scale=d ** -0.5),
-            "w_down": normal(n, cfg.d_ff, d, scale=cfg.d_ff ** -0.5),
-        },
+        "ffn": ffn,
     }
 
 
@@ -100,17 +116,44 @@ def leaf_makers(cfg: ArchConfig, seed: int, device: DeviceLike):
     (CUDA unless ``device="cpu"``)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    dtype = pdtype(cfg)
+    param_dtype = pdtype(cfg)
 
-    def normal(*shape, scale):
+    def draw(shape, scale, dt):
         x = torch.randn(shape, generator=gen, device=dev,
                         dtype=torch.float32)
-        return (x * scale).to(dtype)
+        return x.mul_(scale).to(dt)  # the same bits as (x * scale)
+
+    def normal(*shape, scale, dtype=None, per_expert=False):
+        """A leaf in ``dtype`` (the parameter dtype by default); with
+        ``per_expert`` a (layers, experts, ...) stack drawn one expert at a
+        time into the leaf, so a stack of 8.9 G elements never exists in
+        fp32."""
+        dt = dtype or param_dtype
+        if not per_expert:
+            return draw(shape, scale, dt)
+        out = torch.empty(shape, dtype=dt, device=dev)
+        for i in range(shape[0]):
+            for j in range(shape[1]):
+                out[i, j] = draw(shape[2:], scale, dt)
+        return out
 
     def const(value, *shape):
-        return torch.full(shape, value, dtype=dtype, device=dev)
+        return torch.full(shape, value, dtype=param_dtype, device=dev)
 
     return normal, const, gen, dev
+
+
+def init_connector_params(cfg: ArchConfig, normal, const) -> Dict:
+    """The vision -> language connector, a 2-layer GELU MLP (d_vision ->
+    d_connector -> d_model)."""
+    d = cfg.d_model
+    d_conn = cfg.d_connector or d
+    return {
+        "w1": normal(cfg.d_vision, d_conn, scale=cfg.d_vision ** -0.5),
+        "b1": const(0.0, d_conn),
+        "w2": normal(d_conn, d, scale=d_conn ** -0.5),
+        "b2": const(0.0, d),
+    }
 
 
 def init_params(cfg: ArchConfig, *, seed: int = 0,
@@ -127,13 +170,7 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
     d = cfg.d_model
     params: Dict = {"embed": {"emb": normal(cfg.vocab_size, d, scale=0.02)}}
     if cfg.modality == "vlm":
-        d_conn = cfg.d_connector or d
-        params["connector"] = {
-            "w1": normal(cfg.d_vision, d_conn, scale=cfg.d_vision ** -0.5),
-            "b1": const(0.0, d_conn),
-            "w2": normal(d_conn, d, scale=d_conn ** -0.5),
-            "b2": const(0.0, d),
-        }
+        params["connector"] = init_connector_params(cfg, normal, const)
     params["head"] = {"w": normal(d, cfg.vocab_size, scale=d ** -0.5)}
     params["final_norm"] = const(1.0, d)
     client_segs, server_segs = cfg.client_server_segments()
@@ -212,10 +249,22 @@ def _empty_aux(device) -> Dict[str, torch.Tensor]:
             for k in AUX_KEYS}
 
 
+def _ffn(cfg: ArchConfig, p: Dict, h: torch.Tensor,
+         capacity_factor: float):
+    """The block's feed-forward: SwiGLU, or the MoE layer at
+    ``capacity_factor``.  Returns (out, aux or None)."""
+    if _block_type(cfg) == "moe":
+        return moe_mod.moe_forward(p, h, top_k=cfg.moe_top_k,
+                                   capacity_factor=capacity_factor)
+    return swiglu_forward(p, h), None
+
+
 def block_forward(cfg: ArchConfig, p: Dict, x: torch.Tensor, *,
                   positions: torch.Tensor, window: Optional[int],
                   collect_cache: Optional[int] = None):
-    """Full-sequence dense block.  Returns (x, aux, cache_or_None)."""
+    """Full-sequence dense or moe block (the MoE layer at the config's
+    capacity factor; its auxiliaries in fp32, zeros for a dense block).
+    Returns (x, aux, cache_or_None)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     cache = None
     if collect_cache is not None:
@@ -226,15 +275,21 @@ def block_forward(cfg: ArchConfig, p: Dict, x: torch.Tensor, *,
         a = _attn_forward(cfg, p["attn"], h, positions, window)
     x = x + a
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + swiglu_forward(p["ffn"], h2), _empty_aux(x.device), cache
+    f, moe_aux = _ffn(cfg, p["ffn"], h2, cfg.capacity_factor)
+    aux = _empty_aux(x.device)
+    if moe_aux is not None:
+        aux.update({k: v.float() for k, v in moe_aux.items()})
+    return x + f, aux, cache
 
 
 def block_decode(cfg: ArchConfig, p: Dict, x: torch.Tensor, cache: Dict, *,
                  qpos: torch.Tensor, window: Optional[int],
                  page_table: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One-token dense block; ``cache`` (this layer's ring cache, or with
-    ``page_table`` its (P, pg, ...) pools, the batch axis of ``x`` then
-    being the scheduler's slot axis) is updated in place.  Returns x."""
+    """One-token dense or moe block (the MoE layer at capacity factor 8:
+    no drops at decode, as in the reference); ``cache`` (this layer's ring
+    cache, or with ``page_table`` its (P, pg, ...) pools, the batch axis of
+    ``x`` then being the scheduler's slot axis) is updated in place.
+    Returns x."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if cfg.attn_type == "mla":
         if page_table is not None:
@@ -251,7 +306,7 @@ def block_decode(cfg: ArchConfig, p: Dict, x: torch.Tensor, cache: Dict, *,
                                          window=window, **_attn_kwargs(cfg))
     x = x + a
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + swiglu_forward(p["ffn"], h2)
+    return x + _ffn(cfg, p["ffn"], h2, 8.0)[0]
 
 
 # ---------------------------------------------------------------------------

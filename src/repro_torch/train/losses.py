@@ -3,9 +3,9 @@
 
 L(Y, Y_hat) = CrossEntropy(Y, Y_hat) + alpha * L_comm      (Section 3.2.2)
 
-plus the MoE auxiliaries (load-balance, router-z), which are zero for the
-dense blocks this slice ports.  Labels == IGNORE (-100) are masked (image
-positions in VLM sequences, padding).
+plus the MoE auxiliaries (load-balance, router-z), summed over the moe
+blocks' layers and zero for dense blocks.  Labels == IGNORE (-100) are
+masked (image positions in VLM sequences, padding).
 """
 from __future__ import annotations
 

@@ -1,11 +1,13 @@
 """The dense GQA configs (``granite_3_8b``, ``deepseek_coder_33b``,
-``llava_next_34b``) and ``minicpm3_4b`` (MLA) in the port against the JAX
-reference, on the CPU, in fp32 at ``reduced()``: the configs field for
-field, their segments and cut, the registry's aliases and refusals, the
-parameter trees and their crossing by ``from_jax_params``, the forward's
-logits and caches, one training step's loss and gradients, a decode step,
-greedy ``generate`` token for token, granite's odd vocab, and the engine
-refusing MLA where the reference's does."""
+``llava_next_34b``), ``minicpm3_4b`` (MLA) and ``arctic_480b`` (MoE
+blocks) in the port against the JAX reference, on the CPU, in fp32 at
+``reduced()``: the configs field for field, their segments and cut, the
+registry's aliases and refusals, the parameter trees and their crossing
+by ``from_jax_params``, the forward's logits and caches, one training
+step's loss and gradients, a decode step, greedy ``generate`` token for
+token, granite's odd vocab, the engine refusing MLA where the reference's
+does and serving the rest; and ``leaf_makers`` drawing the weights it drew
+before it scaled in place."""
 import pytest
 
 pytest.importorskip("jax")
@@ -33,7 +35,9 @@ from repro_torch.train import loop as tloop  # noqa: E402
 from repro_torch.utils.tree import tree_flatten_with_path  # noqa: E402
 
 ARCHS = ["granite_3_8b", "deepseek_coder_33b", "llava_next_34b",
-         "minicpm3_4b"]
+         "minicpm3_4b", "arctic_480b"]
+# the configs the paged engine serves (MLA has no paged form)
+GQA_ARCHS = [a for a in ARCHS if a != "minicpm3_4b"]
 # the tolerances of tests/test_torch_model.py (tinyllava): logits and
 # caches 1e-5, a decode step 1e-4; a training step's as
 # tests/test_torch_train.py's
@@ -138,7 +142,8 @@ def test_full_configs_keep_their_published_shapes():
     ("llava-next-34b", "llava_next_34b"),
     ("minicpm3-4b", "minicpm3_4b"),
     ("llama3.2-3b", "llama3_2_3b"),
-    ("llama3-2-3b", "llama3_2_3b")])
+    ("llama3-2-3b", "llama3_2_3b"),
+    ("arctic-480b", "arctic_480b")])
 def test_aliases_resolve_as_the_reference_s(alias, arch):
     assert tget(alias) is tget(arch)
     assert dataclasses.asdict(tget(alias)) == \
@@ -146,8 +151,8 @@ def test_aliases_resolve_as_the_reference_s(alias, arch):
 
 
 @pytest.mark.parametrize("arch", [
-    "arctic_480b", "deepseek_v2_236b", "musicgen_large", "rwkv6_7b",
-    "zamba2_2_7b", "arctic-480b", "zamba2-2.7b", "no_such_arch"])
+    "deepseek_v2_236b", "musicgen_large", "rwkv6_7b", "zamba2_2_7b",
+    "deepseek-v2-236b", "zamba2-2.7b", "no_such_arch"])
 def test_unported_archs_raise_naming_their_item(arch):
     with pytest.raises(KeyError, match="M11"):
         tget(arch)
@@ -175,6 +180,61 @@ def test_init_params_and_bridge_match_reference_tree(arch):
         for k in p:
             node = node[k.key]
         np.testing.assert_array_equal(node.numpy(), np.asarray(leaf))
+
+
+def _leaf_makers_scaling_a_copy(cfg, seed, device):
+    """``leaf_makers`` as it was before it scaled in place: each leaf drawn
+    in fp32, then ``x * scale`` as a second fp32 tensor, then cast."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dtype = ttf.pdtype(cfg)
+
+    def normal(*shape, scale):
+        x = torch.randn(shape, generator=gen, device=device,
+                        dtype=torch.float32)
+        return (x * scale).to(dtype)
+
+    def const(value, *shape):
+        return torch.full(shape, value, dtype=dtype, device=device)
+
+    return normal, const, gen, torch.device(device)
+
+
+@pytest.mark.parametrize("arch,dtype", [
+    ("tinyllava", "bfloat16"), ("llama3_2_3b", "float32"),
+    ("minicpm3_4b", "bfloat16"), ("granite_3_8b", "float32")])
+def test_leaf_makers_scale_in_place_to_the_same_weights(arch, dtype,
+                                                        monkeypatch):
+    """Scaling each drawn leaf in place (``x.mul_(scale)``, no second fp32
+    tensor) gives every dense config the weights it had, bit for bit: the
+    reduced configs in the parameter dtype given."""
+    cfg = dataclasses.replace(tget(arch).reduced(), param_dtype=dtype)
+    new = ttf.init_params(cfg, seed=3, device="cpu")
+    monkeypatch.setattr(ttf, "leaf_makers", _leaf_makers_scaling_a_copy)
+    old = ttf.init_params(cfg, seed=3, device="cpu")
+    flat_new, flat_old = (tree_flatten_with_path(t) for t in (new, old))
+    assert [p for p, _ in flat_new] == [p for p, _ in flat_old]
+    for (path, a), (_, b) in zip(flat_new, flat_old):
+        assert a.dtype == b.dtype == ttf.DTYPES[dtype], path
+        assert torch.equal(a, b), path
+
+
+def test_moe_leaves_draw_one_expert_at_a_time():
+    """A moe config's stacked experts are drawn one (d, f) slice at a time
+    into a leaf of the parameter dtype, with the reference's scales; the
+    router is fp32 in a bf16 config, as the reference keeps it."""
+    cfg = dataclasses.replace(tget("arctic_480b").reduced(),
+                              param_dtype="bfloat16")
+    p = ttf.init_params(cfg, seed=0, device="cpu")["server"]["seg0"]["ffn"]
+    d, f = cfg.d_model, cfg.moe_d_ff
+    assert p["router"].dtype == torch.float32
+    assert p["w_gate"].shape == (1, cfg.n_experts, d, f)
+    assert p["w_gate"].dtype == p["dense_residual"]["w_up"].dtype \
+        == torch.bfloat16
+    for name, scale in (("w_gate", d ** -0.5), ("w_down", f ** -0.5)):
+        std = p[name].float().std(dim=(-2, -1))
+        np.testing.assert_allclose(std.numpy(), scale, rtol=0.05)
+    # the experts are different draws
+    assert not torch.equal(p["w_up"][0, 0], p["w_up"][0, 1])
 
 
 # ---------------------------------------------------------------------------
@@ -334,11 +394,12 @@ def test_engine_refuses_mla_as_the_reference_does():
                          page_table=torch.zeros(1, 1, dtype=torch.int32))
 
 
-@pytest.mark.parametrize("arch", ARCHS[:3])
+@pytest.mark.parametrize("arch", GQA_ARCHS)
 def test_engine_serves_gqa_zoo_on_the_cpu(arch):
-    """The three GQA configs through the port's ``ServeEngine`` on the
-    CPU (their 2-bit wire at the cut, paged pools): every request
-    finishes with its budget of in-vocab tokens and the pages return."""
+    """The GQA configs (arctic's MoE blocks among them) through the port's
+    ``ServeEngine`` on the CPU (their 2-bit wire at the cut, paged pools):
+    every request finishes with its budget of in-vocab tokens and the
+    pages return."""
     _, tcfg, _, tp = _setup(arch)
     eng = TEngine(tp, tcfg, n_slots=2, page_size=4, n_pages=40,
                   device="cpu")

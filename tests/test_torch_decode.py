@@ -43,6 +43,17 @@ CFG8 = dataclasses.replace(CFG, kv_cache_bits=8)
 TCFG8 = dataclasses.replace(TCFG, kv_cache_bits=8)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side on one torch thread: the suite runs a worker a core
+    or so, and a pool of a thread a core in each worker oversubscribes the
+    machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.as_tensor(np.array(a))
 

@@ -46,6 +46,17 @@ TCFG = torch_get_config("tinyllava").reduced()
 assert CFG.n_image_tokens == 16 and CFG.d_vision == 64
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side on one torch thread: the suite runs a worker a core
+    or so, and a pool of a thread a core in each worker oversubscribes the
+    machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _deep(cfg):
     """Two-level remat needs >= 4 layers in a segment: 4 server layers,
     cut at 0."""

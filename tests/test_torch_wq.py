@@ -47,6 +47,17 @@ TCFG = torch_get_config("tinyllava").reduced()
 ATOL, RTOL = 1e-4, 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side on one torch thread: the suite runs a worker a core
+    or so, and a pool of a thread a core in each worker oversubscribes the
+    machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def params():
     jp = jtf.init_params(jax.random.PRNGKey(0), CFG)
