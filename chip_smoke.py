@@ -227,7 +227,11 @@ non-zero:
               parameters, so full depth would not fit one card), its cut
               at layer 1: 4 requests through ServeEngine (K1, K8 at G 7,
               exact launches), the prefill drop fraction, peak memory and
-              ms a tick.
+              ms a tick; the first layer's MoE with all 128 experts on the
+              card against the fp32 CPU path, decode-shaped (16 rows of
+              one token: 16 groups, capacity factor 8, one slot an expert
+              a group): the count of rows routed to another expert set,
+              and over the rest the outputs within 5%.
 24. arctic train -- 2 layers at full width with the experts cut 128 -> 8,
               top-2 kept (printed: 128 experts' fp32 moments alone would
               not fit): AdamW steps of 2 x 1 024 tokens (K1 - K3 at G 7,
@@ -355,10 +359,11 @@ ATTACK_STEPS, ATTACK_PARITY_STEPS, ATTACK_RTOL = 250, 5, 1e-4
 # arctic_480b: serving at full width on ARCTIC_DEPTH layers; training on
 # ARCTIC_DEPTH layers with ARCTIC_TRAIN_EXPERTS experts, ARCTIC_TRAIN_STEPS
 # steps of ARCTIC_TRAIN_BATCH x ARCTIC_TRAIN_SEQ tokens; the one-layer
-# parity's sequence
+# parity's sequence; the rows of the 128-expert MoE parity (decode-shaped:
+# one token a row, so one group a row)
 ARCTIC_DEPTH, ARCTIC_TRAIN_EXPERTS, ARCTIC_TRAIN_STEPS = 2, 8, 6
 ARCTIC_TRAIN_BATCH, ARCTIC_TRAIN_SEQ, ARCTIC_LR = 2, 1024, 3e-4
-ARCTIC_PARITY_SEQ = 256
+ARCTIC_PARITY_SEQ, ARCTIC_MOE_PARITY_ROWS = 256, 16
 # int8 K/V bytes per (token, kv head) over bf16: (64 + 2) / 128
 INT8_POOL_RATIO = 0.515625
 # K12 against its plain version, relative to max |plain|: the dequantized
@@ -4071,10 +4076,12 @@ def phase_attack():
 def phase_arctic_serve():
     """arctic_480b at full width cut to ARCTIC_DEPTH layers: 4 requests
     through ServeEngine (K1, K8 at G 7), the prefill drop fraction, peak
-    memory.  Returns the launch counts."""
+    memory; the first layer's 128-expert MoE against the fp32 CPU path.
+    Returns the launch counts."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as tf
+    from repro_torch.models.stack import tree_index
     from repro_torch.utils.tree import tree_count
 
     full = get_config("arctic_480b")
@@ -4123,35 +4130,74 @@ def phase_arctic_serve():
           f"{2 * experts * cfg.n_layers / 1e9:.1f} GB of expert weights")
     require(0.0 <= drop < 1.0 and math.isfinite(
         float(aux["load_balance"])), f"arctic serve aux {aux}")
+    _arctic_moe_parity(cfg, tree_index(params["client"]["seg0"], 0)["ffn"])
     del params
     torch.cuda.empty_cache()
     return {"arctic serve": launches}
 
 
-def _arctic_routing(cfg, params, tokens):
-    """The first layer's routing (expert ids (G, TG, k)) of ``tokens`` and
-    the logits, the MoE layer's input recomputed from the block's own
-    pieces."""
-    import torch
-    from repro_torch.models import transformer as tf
+def _routed(fn, *args, **kw):
+    """``fn(*args, **kw)`` and the expert ids (G, TG, k) chosen by every
+    MoE layer it ran, in order: ``moe.route`` is wrapped for the call."""
     from repro_torch.models.layers import moe
-    from repro_torch.models.layers.embedding import embed
-    from repro_torch.models.layers.norms import rms_norm
-    from repro_torch.models.stack import tree_index
 
+    route, ids = moe.route, []
+
+    def record(*a, **k):
+        out = route(*a, **k)
+        ids.append(out[3])
+        return out
+
+    moe.route = record
+    try:
+        return fn(*args, **kw), ids
+    finally:
+        moe.route = route
+
+
+def _same_experts(card_ids, cpu_ids, top_k):
+    """Per token: whether the card and the CPU chose the same expert set."""
+    a = card_ids.cpu().reshape(-1, top_k).sort(-1).values
+    b = cpu_ids.cpu().reshape(-1, top_k).sort(-1).values
+    return ~(a != b).any(-1)
+
+
+def _arctic_moe_parity(cfg, p):
+    """The MoE layer ``p`` (all of the config's experts, bf16 on the card)
+    on ARCTIC_MOE_PARITY_ROWS decode-shaped rows against the fp32 CPU path
+    on the same values.  The expert stacks cross to the host in bf16 and
+    ``moe_forward`` widens each to fp32 for its product, so the host holds
+    one fp32 stack at a time (17.8 GB at arctic's widths)."""
+    import torch
+    from repro_torch.models.layers import moe
+
+    experts = ("w_gate", "w_up", "w_down")
+    p_cpu = {k: v.cpu() if k in experts else _tree(v, _cpu32)
+             for k, v in p.items()}
+    x = torch.randn((ARCTIC_MOE_PARITY_ROWS, 1, cfg.d_model),
+                    generator=torch.Generator().manual_seed(11)
+                    ).to(torch.bfloat16)
+    kw = dict(top_k=cfg.moe_top_k, capacity_factor=8.0)
     with torch.inference_mode():
-        logits, _ = tf.forward(params, cfg, dict(tokens=tokens))
-        p = tree_index(params["client"]["seg0"], 0)
-        x = embed(params["embed"], tokens, tf.cdtype(cfg))
-        pos = torch.arange(x.shape[1], device=x.device, dtype=torch.int32)
-        x = x + tf._attn_forward(cfg, p["attn"], rms_norm(
-            x, p["ln1"], cfg.norm_eps), pos, None)
-        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-        t = h2.shape[0] * h2.shape[1]
-        g = moe._pick_groups(t, 16)
-        _, _, _, ids = moe.route(p["ffn"]["router"], h2.reshape(
-            g, t // g, -1), cfg.moe_top_k)
-    return logits, ids
+        (y, aux), (ids,) = _routed(moe.moe_forward, p, x.cuda(), **kw)
+        (c, caux), (cids,) = _routed(moe.moe_forward, p_cpu, x.float(),
+                                     **kw)
+    g, tg, _ = cids.shape
+    same = _same_experts(ids, cids, cfg.moe_top_k)
+    y, c = y.float().cpu().reshape(g * tg, -1), c.reshape(g * tg, -1)
+    rel = float((y[same] - c[same]).norm() / c[same].norm())
+    drops = (float(aux["drop_fraction"]), float(caux["drop_fraction"]))
+    print(f"[arctic serve] MoE parity: layer 0's {cfg.n_experts} experts, "
+          f"{g} groups of {tg} token (capacity factor 8, slots an expert "
+          f"a group: {moe.capacity(tg, cfg.moe_top_k, cfg.n_experts, 8.0)})"
+          f", card bf16 vs CPU fp32: {int((~same).sum())} of "
+          f"{g * tg} rows chose another expert set; outputs' relative error "
+          f"over the {int(same.sum())} routed alike {rel:.3e} (tol "
+          f"{PARITY_RTOL}); drop fraction card {drops[0]} cpu {drops[1]}")
+    require(2 * int(same.sum()) >= g * tg and math.isfinite(rel)
+            and rel < PARITY_RTOL and drops == (0.0, 0.0),
+            f"arctic serve MoE parity: {int(same.sum())} of {g * tg} routed "
+            f"alike, rel {rel}, drops {drops}")
 
 
 def phase_arctic_train():
@@ -4234,26 +4280,27 @@ def phase_arctic_train():
     # one such layer (8 experts), card vs the fp32 CPU path, the cut off
     cfg1 = dataclasses.replace(cfg, n_layers=1, split=dataclasses.replace(
         cfg.split, enabled=False))
-    from repro_torch.models.transformer import init_params
+    from repro_torch.models.transformer import forward, init_params
     params1 = init_params(cfg1, seed=1)
     cfg32 = dataclasses.replace(cfg1, param_dtype="float32",
                                 compute_dtype="float32")
     params32 = _tree(params1, _cpu32)
     toks = torch.randint(1, cfg.vocab_size, (1, ARCTIC_PARITY_SEQ),
                          generator=torch.Generator().manual_seed(3))
-    gl, gids = _arctic_routing(cfg1, params1, toks.cuda())
-    cl, cids = _arctic_routing(cfg32, params32, toks)
+    with torch.inference_mode():
+        (gl, _), (gids,) = _routed(forward, params1, cfg1,
+                                   dict(tokens=toks.cuda()))
+        (cl, _), (cids,) = _routed(forward, params32, cfg32,
+                                   dict(tokens=toks))
     g, c = gl[0].float().cpu(), cl[0]
-    gs = gids.cpu().reshape(-1, cfg.moe_top_k).sort(-1).values
-    cs = cids.reshape(-1, cfg.moe_top_k).sort(-1).values
-    same = ~(gs != cs).any(-1)  # tokens routed to the same expert set
+    same = _same_experts(gids, cids, cfg.moe_top_k)
     flips = int((~same).sum())
     rel_all = float((g - c).norm() / c.norm())
     rel = float((g[same] - c[same]).norm() / c[same].norm())
     agree = int(g[-1].argmax()) == int(c[-1].argmax()) or not bool(same[-1])
     print(f"[arctic parity] one layer of {cfg.n_experts} experts, 1 x "
           f"{ARCTIC_PARITY_SEQ} tokens, the cut off: routing: {flips} of "
-          f"{gs.shape[0]} tokens chose another expert set on the card (bf16 "
+          f"{same.numel()} tokens chose another expert set on the card (bf16 "
           f"activations into the fp32 router: a flipped token's feed-forward "
           f"is another one); logits relative error over the tokens routed "
           f"alike {rel:.3e} (tol {PARITY_RTOL}), over all {rel_all:.3e}; the "

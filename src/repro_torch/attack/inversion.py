@@ -22,7 +22,7 @@ so a caller can replay another run's indices.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -130,31 +130,23 @@ def val_loss(params: Dict, feats: torch.Tensor, imgs: torch.Tensor,
 def train_attack(feats_train: torch.Tensor, imgs_train: torch.Tensor,
                  feats_val: torch.Tensor, imgs_val: torch.Tensor, *,
                  grid: Tuple[int, int], n_steps: int = 200, batch: int = 16,
-                 lr: float = 1e-3, seed: int = 0,
-                 params: Optional[Dict] = None,
-                 indices: Optional[torch.Tensor] = None
+                 lr: float = 1e-3, seed: int = 0
                  ) -> Tuple[Dict, List[float]]:
     """Train the inversion model; returns (params, val-loss history), the
     history taken every 25 steps and after the last, as the reference's.
 
     The model starts from ``init_attack_params(seed=seed)`` on the
-    features' device unless ``params`` is given; each step's ``batch``
-    indices come from a ``torch.Generator`` seeded with ``seed + 1``
-    unless ``indices`` (n_steps, batch) is given."""
+    features' device; each step's ``batch`` indices come from a
+    ``torch.Generator`` seeded with ``seed + 1``."""
     dev = feats_train.device
-    if params is None:
-        params = init_attack_params(feats_train.shape[-1], seed=seed,
-                                    device=dev)
+    params = init_attack_params(feats_train.shape[-1], seed=seed, device=dev)
     opt_cfg = attack_opt_config(lr)
     opt = init_opt_state(params, opt_cfg)
-    n = feats_train.shape[0]
-    if indices is None:
-        gen = torch.Generator(device=dev).manual_seed(seed + 1)
-        indices = torch.randint(0, n, (n_steps, batch), generator=gen,
-                                device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    indices = torch.randint(0, feats_train.shape[0], (n_steps, batch),
+                            generator=gen, device=dev)
     history = []
-    for i in range(n_steps):
-        idx = indices[i].to(dev)
+    for i, idx in enumerate(indices):
         params, opt, _ = attack_step(params, opt, opt_cfg, feats_train[idx],
                                      imgs_train[idx], grid)
         if i % 25 == 0 or i == n_steps - 1:

@@ -4,8 +4,9 @@
 Token-choice top-k routing with a static per-expert capacity, dispatched
 per token group:
 
-  1. tokens reshaped to (G, T/G, D), G = ``_pick_groups(T, 16)`` (the
-     reference's sharding context is inactive in one process),
+  1. tokens reshaped to (G, T/G, D), G = ``_pick_groups(T)``, the largest
+     divisor of T up to ``GROUPS`` (the reference's sharding context, which
+     could set G, is inactive in one process),
   2. the router in fp32 whatever the parameter dtype; top-k experts per
      token, gates renormalized with ``+ 1e-9``,
   3. a stable per-group sort of the (token, expert) copies by expert id;
@@ -81,9 +82,12 @@ def moe_aux_losses(logits: torch.Tensor, probs: torch.Tensor,
     return dict(load_balance=load_balance, router_z=torch.mean(z * z))
 
 
-def _pick_groups(t: int, preferred: int = 16) -> int:
-    """Largest divisor of t that is <= preferred."""
-    g = min(preferred, t)
+GROUPS = 16   # the reference's preferred group count
+
+
+def _pick_groups(t: int) -> int:
+    """Largest divisor of t that is <= GROUPS."""
+    g = min(GROUPS, t)
     while t % g:
         g -= 1
     return max(g, 1)
@@ -130,14 +134,13 @@ def dispatch(expert_ids: torch.Tensor, gate_vals: torch.Tensor,
 
 
 def moe_forward(params: Dict, x: torch.Tensor, *, top_k: int,
-                capacity_factor: float = 1.25,
-                n_groups: int = 0) -> Tuple[torch.Tensor, Dict]:
+                capacity_factor: float = 1.25) -> Tuple[torch.Tensor, Dict]:
     """x: (B, S, D) -> (B, S, D), aux dict (load_balance, router_z,
     drop_fraction)."""
     b, s, d = x.shape
     e = params["router"].shape[1]
     t = b * s
-    g = n_groups or _pick_groups(t, 16)
+    g = _pick_groups(t)
     tg = t // g
     dt = x.dtype
     xg = x.reshape(g, tg, d)

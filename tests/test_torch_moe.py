@@ -240,7 +240,7 @@ def test_decode_shaped_groups_and_one_slot_capacity():
     copy, and the output equals the reference's."""
     jp, tp = _pair(32, 16, 48, dense_residual_d_ff=40)
     x = _x(4, (4, 1, 32))
-    assert tmoe._pick_groups(4, 16) == 4 and tmoe.capacity(1, 2, 16, 8.0) == 1
+    assert tmoe._pick_groups(4) == 4 and tmoe.capacity(1, 2, 16, 8.0) == 1
     y, aux = tmoe.moe_forward(tp, torch.as_tensor(x), top_k=2,
                               capacity_factor=8.0)
     jy, _ = _jax_forward(2, 8.0)(jp, jnp.asarray(x))
@@ -250,7 +250,7 @@ def test_decode_shaped_groups_and_one_slot_capacity():
 
 @pytest.mark.parametrize("t", [1, 7, 16, 48, 96, 1000])
 def test_pick_groups_matches_reference(t):
-    assert tmoe._pick_groups(t, 16) == jmoe._pick_groups(t, 16)
+    assert tmoe._pick_groups(t) == jmoe._pick_groups(t, 16)
 
 
 def test_scatter_is_deterministic_at_top_2():
