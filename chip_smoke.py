@@ -53,7 +53,11 @@ non-zero:
               of 1 088 with a padded tail, a wrapped ring, the paged mixed
               case, the llama serve shape, npp 128, G 16, G 7), rows
               ``*_d128`` of the kernels line, K6 against SDPA; K1 - K3 at
-              (96, 64) are the rows ``*_d96v64``.
+              (96, 64) are the rows ``*_d96v64``, at (192, 128) the rows
+              ``*_d192v128`` (deepseek_v2_236b's: B 2, 128 / 128 heads, S
+              1 024, a padded tail, a window, a ragged S, and G 2 cases:
+              K3's clusters of 2, K2's one Q / dO slot reused by a second
+              head).
 3. serve   -- full-width tinyllava (16 layers, d 1280, bf16, random weights
               from a seed) behind ServeEngine with the 2-bit RD-FSQ split
               wire: 8 requests through 4 slots until all finish.  Launch
@@ -240,6 +244,26 @@ non-zero:
               fp32 CPU path, the cut off: the count of tokens routed to
               another expert set, and over the tokens routed alike the
               logits within 5% and the same argmax.
+25. deepseek serve -- deepseek_v2_236b at full width (d 5 120, 128 heads of
+              MLA: q latent 1 536, kv latent 512, q/k 128 + 64, v 128;
+              160 routed experts of width 1 536 at top-6 beside 2 shared),
+              the depth cut 60 -> 6 layers (layer 0 dense, 1 - 5 moe;
+              printed: a moe layer is 3.97 G parameters, so full depth
+              would not fit one card), its cut moved 30 -> 3: generate() of
+              4 prompts of 512 tokens, 32 new (K1 at (192, 128) once a
+              layer, no decode kernel), the latent cache bytes by formula,
+              the prefill drop fraction, peak memory, ms a decode step; a
+              moe layer twice on 4 x 512 tokens, bitwise equal; layers 0 -
+              1 (dense, then moe with all 160 experts) on the card against
+              the fp32 CPU path on the card's routing, the cut off: the
+              tokens whose expert set would flip counted, the logits within
+              5% and the same argmax.
+26. deepseek train -- 2 full-width layers (dense, moe) with the routed
+              experts cut 160 -> 16, top-6 and the 2 shared kept (printed:
+              160 experts' weights, gradients and moments would take about
+              64 GB): 6 AdamW steps of 2 x 1 024 tokens (K1 - K3 at (192,
+              128), exact launches), finite auxiliaries, the first batch's
+              CE falling.
 
 Every phase prints its seconds and the device memory after it.  The last
 lines are the card (nvidia-smi), the per-kernel JSON line and
@@ -364,6 +388,13 @@ ATTACK_STEPS, ATTACK_PARITY_STEPS, ATTACK_RTOL = 250, 5, 1e-4
 ARCTIC_DEPTH, ARCTIC_TRAIN_EXPERTS, ARCTIC_TRAIN_STEPS = 2, 8, 6
 ARCTIC_TRAIN_BATCH, ARCTIC_TRAIN_SEQ, ARCTIC_LR = 2, 1024, 3e-4
 ARCTIC_PARITY_SEQ, ARCTIC_MOE_PARITY_ROWS = 256, 16
+# deepseek_v2_236b: serving on DEEPSEEK_DEPTH layers (a dense one, then moe
+# ones) cut at DEEPSEEK_CUT; training on DEEPSEEK_TRAIN_LAYERS layers with
+# DEEPSEEK_TRAIN_EXPERTS routed experts, DEEPSEEK_TRAIN_STEPS steps of
+# ARCTIC_TRAIN_BATCH x ARCTIC_TRAIN_SEQ tokens; the 2-layer parity's
+# sequence is ARCTIC_PARITY_SEQ
+DEEPSEEK_DEPTH, DEEPSEEK_CUT = 6, 3
+DEEPSEEK_TRAIN_LAYERS, DEEPSEEK_TRAIN_EXPERTS, DEEPSEEK_TRAIN_STEPS = 2, 16, 6
 # int8 K/V bytes per (token, kv head) over bf16: (64 + 2) / 128
 INT8_POOL_RATIO = 0.515625
 # K12 against its plain version, relative to max |plain|: the dequantized
@@ -539,13 +570,15 @@ def _flash_case(gen, b, sq, h, kh, window=None, kv_valid_len=None,
 # 2 x 1 024), the suffix D96
 D128 = "_d128"
 D96 = "_d96v64"
+# and at deepseek_v2_236b's (192, 128) (128 / 128 heads, 2 x 1 024)
+D192 = "_d192v128"
 # the granite (G 4) and 33B / 34B (G 7) groupings at 128, timed beside
 D128_G4 = "D128 G4 (32 / 8 heads, granite) B2 S1024"
 D128_G7 = "D128 G7 (56 / 8 heads, the 33B / 34B) B2 S1024"
 
 
 def _suffix(d: int) -> str:
-    return {64: "", 128: D128, 96: D96}[d]
+    return {64: "", 128: D128, 96: D96, 192: D192}[d]
 
 
 def _sdpa_backends(q, k, v, fn):
@@ -572,14 +605,25 @@ def _sdpa_backends(q, k, v, fn):
 
 def check_flash(gen, results, d=64, dv=None):
     """K1 at the serve shape (D 64), at llama's (D 128, with G 4 and G 7
-    cases at granite's and the 33B / 34B's grouping) or at minicpm3_4b's
-    (D 96, Dv 64), the first case timed."""
+    cases at granite's and the 33B / 34B's grouping), at minicpm3_4b's
+    (D 96, Dv 64) or at deepseek_v2_236b's (D 192, Dv 128), the first case
+    timed."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import attention_ops, attention_ref
 
     dv = d if dv is None else dv
-    if d == 96:
+    if d == 192:
+        cases = {
+            "D192/128 deepseek shape B2 H128 S1024":
+                _flash_case(gen, 2, 1024, 128, 128, d=d, dv=dv),
+            "D192/128 padded q tail S777 + kv_valid_len 700":
+                _flash_case(gen, 1, 777, 128, 128, kv_valid_len=700, d=d,
+                            dv=dv),
+            "D192/128 ragged tiles S100": _flash_case(gen, 1, 100, 128, 128,
+                                                      d=d, dv=dv),
+        }
+    elif d == 96:
         cases = {
             "D96/64 minicpm3 shape B2 H40 S1024":
                 _flash_case(gen, 2, 1024, 40, 40, d=d, dv=dv),
@@ -693,14 +737,30 @@ def check_flash_bwd(gen, results, d=64, dv=None):
     l); rows that see no key get a zero output gradient, as
     ``flash_attention`` gives them (it slices them off).  D 64 at the
     training shape, D 128 at llama's (with G 4 and G 7 cases), (96, 64) at
-    minicpm3_4b's (G 1: K3's clusters of one block); the first case timed
-    and run twice."""
+    minicpm3_4b's (G 1: K3's clusters of one block), (192, 128) at
+    deepseek_v2_236b's (G 1; K2 with one Q / dO slot, K3 with the two
+    warpgroups splitting dK / dV's columns; G 2 cases for K2's slot reused
+    by a second head and for K3's clusters); the first case timed and run
+    twice."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import attention_ops, attention_ref
 
     dv = d if dv is None else dv
     cases = {
+        "D192/128 deepseek train shape B2 H128 S1024":
+            _flash_case(gen, 2, 1024, 128, 128, d=d, dv=dv),
+        "D192/128 padded q tail S777 + kv_valid_len 700":
+            _flash_case(gen, 1, 777, 128, 128, kv_valid_len=700, d=d, dv=dv),
+        "D192/128 window 256": _flash_case(gen, 1, 1024, 16, 16, window=256,
+                                           d=d, dv=dv),
+        "D192/128 ragged tiles S100": _flash_case(gen, 1, 100, 128, 128, d=d,
+                                                  dv=dv),
+        "D192/128 G 2 (8 / 4 heads: K3 clusters of 2) B1 S512":
+            _flash_case(gen, 1, 512, 8, 4, d=d, dv=dv),
+        "D192/128 G 2 (64 / 32 heads: K2 2 heads a block through one Q / "
+        "dO slot) B2 S1024": _flash_case(gen, 2, 1024, 64, 32, d=d, dv=dv),
+    } if d == 192 else {
         "D96/64 minicpm3 train shape B2 H40 S1024":
             _flash_case(gen, 2, 1024, 40, 40, d=d, dv=dv),
         "D96/64 padded q tail S777 + kv_valid_len 700":
@@ -1727,6 +1787,8 @@ def phase_kernels():
     check_flash_bwd(gen, results, d=128)
     check_flash(gen, results, d=96, dv=64)
     check_flash_bwd(gen, results, d=96, dv=64)
+    check_flash(gen, results, d=192, dv=128)
+    check_flash_bwd(gen, results, d=192, dv=128)
     check_wire(gen, results)
     check_nf(gen, results)
     check_ring_decode(gen, results)
@@ -4314,6 +4376,272 @@ def phase_arctic_train():
 
 
 # ---------------------------------------------------------------------------
+# phases 25 - 26: deepseek_v2_236b (a dense layer, then top-6 MoE layers
+# with shared experts; MLA at (192, 128))
+# ---------------------------------------------------------------------------
+
+def _forced_route(card_ids):
+    """A ``moe.route`` that keeps the router's probabilities but takes the
+    expert ids the card chose (gates renormalized over them), so that the
+    capacity decision, which hangs on every token of a group, is the
+    card's; the ids it would have chosen are appended to the list it
+    returns."""
+    import torch
+    from repro_torch.models.layers import moe
+
+    route, own = moe.route, []
+
+    def forced(router, xg, top_k):
+        logits, probs, _, ids = route(router, xg, top_k)
+        own.append(ids)
+        chosen = card_ids.to(ids.device)
+        gates = torch.gather(probs, -1, chosen)
+        gates = gates / (gates.sum(dim=-1, keepdim=True) + 1e-9)
+        return logits, probs, gates, chosen
+
+    return forced, own
+
+
+def phase_deepseek_serve():
+    """deepseek_v2_236b at full width cut to DEEPSEEK_DEPTH layers (layer
+    0 dense, the rest moe), its cut moved to DEEPSEEK_CUT: ``generate`` of
+    4 prompts of 512 tokens (K1 at (192, 128) once a layer, no decode
+    kernel), the latent cache bytes, the prefill drop fraction, peak
+    memory; the moe layer twice on the card, bitwise; layers 0 - 1 (the
+    dense layer, a moe layer with all 160 experts) against the fp32 CPU
+    path, the cut off.  Returns the launch counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import moe
+    from repro_torch.models.stack import tree_index
+    from repro_torch.serve import decode as sd
+    from repro_torch.utils.tree import tree_count
+
+    full = get_config("deepseek_v2_236b")
+    cfg = dataclasses.replace(full, n_layers=DEEPSEEK_DEPTH,
+                              split=dataclasses.replace(
+                                  full.split, cut_layer=DEEPSEEK_CUT))
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    n = tree_count(params)
+    client = params["client"]
+    dense_layer = tree_count(client["seg0"])
+    moe_layer = tree_count(tree_index(client["seg1"], 0))
+    n_full = n + (full.n_layers - cfg.n_layers) * moe_layer
+    print(f"[deepseek serve] reduced: depth {full.n_layers} -> "
+          f"{cfg.n_layers} layers (layer 0 dense, 1 - {cfg.n_layers - 1} "
+          f"moe), the cut {full.split.resolve_cut(full.n_layers)} -> "
+          f"{cfg.split.resolve_cut(cfg.n_layers)} (client "
+          f"{cfg.client_server_segments()[0]}, server "
+          f"{cfg.client_server_segments()[1]}): a moe layer is "
+          f"{moe_layer / 1e9:.2f} G parameters ({2 * moe_layer / 1e9:.1f} GB "
+          f"in bf16), the dense one {dense_layer / 1e9:.2f} G, so full depth "
+          f"would be {n_full / 1e9:.1f} G parameters, "
+          f"{2 * n_full / 1e9:.0f} GB of bf16 weights, on a card of 80 GB; "
+          "the widths are the published ones")
+    _describe("deepseek serve", cfg, params)
+    print(f"[deepseek serve] weights in {time.perf_counter() - t0:.1f} s: "
+          f"{n / 1e9:.2f} G parameters, {2 * n / 1e9:.1f} GB of bf16; "
+          f"{cfg.n_experts} routed experts of width {cfg.moe_d_ff}, top-"
+          f"{cfg.moe_top_k}, {cfg.n_shared_experts} shared (a SwiGLU of "
+          f"{cfg.n_shared_experts * cfg.moe_d_ff}); the dense layer's SwiGLU "
+          f"{cfg.d_ff}")
+    torch.cuda.reset_peak_memory_stats()
+    launches, batch = _zoo_generate(cfg, params, "deepseek generate", None)
+    peak = torch.cuda.max_memory_allocated()
+    cache_len = ZOO_GEN_TEXT + GEN_NEW
+    _, caches = sd.prefill(params, cfg, batch, cache_len)
+    got = _kv_bytes(caches)
+    per_token = (cfg.kv_lora_rank + cfg.qk_rope_dim) * 2
+    want = cfg.n_layers * ZOO_GEN_BATCH * cache_len * per_token
+    dense = cfg.n_heads * (cfg.qk_nope_dim + cfg.qk_rope_dim
+                           + cfg.v_head_dim) * 2
+    print(f"[deepseek serve] latent ring caches {got} B (formula {want}: "
+          f"{cfg.n_layers} layers x {ZOO_GEN_BATCH} x {cache_len} tokens x ("
+          f"{cfg.kv_lora_rank} + {cfg.qk_rope_dim}) x 2 B); {per_token} B a "
+          f"token a layer against a materialised K / V's {dense} B "
+          f"({dense / per_token:.1f}x)")
+    require(got == want, f"deepseek cache bytes {got}, expected {want}")
+    del caches
+    n_moe = sum(k for t, k in cfg.segments() if t == "moe")
+    with torch.inference_mode():
+        _, aux = tf.forward(params, cfg, dict(tokens=batch["tokens"][:1]))
+    drop = float(aux["drop_fraction"]) / n_moe
+    tg = ZOO_GEN_TEXT // moe._pick_groups(ZOO_GEN_TEXT)
+    cap = moe.capacity(tg, cfg.moe_top_k, cfg.n_experts, cfg.capacity_factor)
+    print(f"[deepseek serve] prefill of {ZOO_GEN_TEXT} tokens: drop "
+          f"fraction {drop:.4f} (mean of {n_moe} moe layers; capacity "
+          f"factor {cfg.capacity_factor} in groups of {tg} tokens: {cap} "
+          f"slot an expert a group), load balance "
+          f"{float(aux['load_balance']) / n_moe:.4f}; peak device memory of "
+          f"generate {peak / 2 ** 30:.2f} GiB")
+    require(0.0 <= drop < 1.0 and math.isfinite(
+        float(aux["load_balance"])), f"deepseek serve aux {aux}")
+
+    # the moe layer twice on the card, the generate prompts' 2 048 tokens
+    p1 = tree_index(client["seg1"], 0)["ffn"]
+    x = torch.randn((ZOO_GEN_BATCH, ZOO_GEN_TEXT, cfg.d_model),
+                    generator=torch.Generator(device="cuda").manual_seed(5),
+                    device="cuda").bfloat16()
+    with torch.inference_mode():
+        y1, _ = moe.moe_forward(p1, x, top_k=cfg.moe_top_k,
+                                capacity_factor=cfg.capacity_factor)
+        y2, _ = moe.moe_forward(p1, x, top_k=cfg.moe_top_k,
+                                capacity_factor=cfg.capacity_factor)
+    same = bool(torch.equal(y1, y2))
+    print(f"[deepseek serve] layer 1's MoE (top-{cfg.moe_top_k} of "
+          f"{cfg.n_experts}) on {ZOO_GEN_BATCH} x {ZOO_GEN_TEXT} tokens "
+          f"twice: bitwise equal {same}")
+    require(same, "deepseek serve: the MoE combine is not deterministic")
+    del x, y1, y2
+
+    # layers 0 - 1 on the card against the fp32 CPU path, the cut off
+    cfg2 = dataclasses.replace(cfg, n_layers=2, split=dataclasses.replace(
+        cfg.split, cut_layer=1, enabled=False))
+    params2 = {k: params[k] for k in ("embed", "head", "final_norm")}
+    params2["client"] = {"seg0": client["seg0"]}
+    params2["server"] = {"seg0": _tree(client["seg1"], lambda t: t[:1])}
+    _deepseek_parity(cfg2, params2)
+    del params, params2, client, p1
+    torch.cuda.empty_cache()
+    return {"deepseek generate": launches}
+
+
+def _deepseek_parity(cfg, params):
+    """``cfg``'s 2 layers (dense, then moe with all the config's experts)
+    on ARCTIC_PARITY_SEQ tokens, bf16 on the card against fp32 on the CPU
+    from the same weights (21.4 GB on the host at full width).  The CPU
+    path takes the card's expert ids: a token whose routing flips under
+    bf16 moves the capacity decision of its whole group, so only the
+    card's routing makes the tokens comparable; the flips are counted."""
+    import torch
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import moe
+
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    t0 = time.perf_counter()
+    params32 = _tree(params, _cpu32)
+    print(f"[deepseek parity] fp32 host copy of {cfg.n_layers} layers in "
+          f"{time.perf_counter() - t0:.1f} s")
+    toks = torch.randint(1, cfg.vocab_size, (1, ARCTIC_PARITY_SEQ),
+                         generator=torch.Generator().manual_seed(3))
+    with torch.inference_mode():
+        (gl, _), (gids,) = _routed(tf.forward, params, cfg,
+                                   dict(tokens=toks.cuda()))
+        forced, own = _forced_route(gids)
+        route, moe.route = moe.route, forced
+        try:
+            t0 = time.perf_counter()
+            cl, _ = tf.forward(params32, cfg32, dict(tokens=toks))
+        finally:
+            moe.route = route
+    g, c = gl[0].float().cpu(), cl[0]
+    same = _same_experts(gids, own[0], cfg.moe_top_k)
+    rel_all = float((g - c).norm() / c.norm())
+    rel = float((g[same] - c[same]).norm() / c[same].norm())
+    agree = int(g[-1].argmax()) == int(c[-1].argmax())
+    print(f"[deepseek parity] layers 0 - 1 (dense, moe of {cfg.n_experts} "
+          f"experts), 1 x {ARCTIC_PARITY_SEQ} tokens, the cut off, the fp32 "
+          f"CPU forward in {time.perf_counter() - t0:.1f} s on the card's "
+          f"routing: {int((~same).sum())} of {same.numel()} tokens would "
+          f"have chosen another expert set on the CPU; logits relative error "
+          f"over the tokens routed alike {rel:.3e} (tol {PARITY_RTOL}), over "
+          f"all {rel_all:.3e}; the last token's argmax card "
+          f"{int(g[-1].argmax())} cpu {int(c[-1].argmax())}")
+    require(math.isfinite(rel) and rel < PARITY_RTOL
+            and rel_all < PARITY_RTOL and agree,
+            f"deepseek parity: rel {rel}, all {rel_all}, argmax agree "
+            f"{agree}")
+    del params32
+
+
+def phase_deepseek_train():
+    """DEEPSEEK_TRAIN_LAYERS full-width deepseek layers (dense, then moe)
+    with DEEPSEEK_TRAIN_EXPERTS routed experts, top-6 and the 2 shared
+    experts kept: AdamW steps (K1 - K3 at (192, 128)), finite auxiliaries,
+    the first batch's CE falling.  Returns the launch counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.kernels import build
+    from repro_torch.models.transformer import cdtype, layer_forward_count
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.loop import (batch_to, init_state, make_grad_fn,
+                                        make_train_step)
+    from repro_torch.utils.tree import tree_count
+
+    full = get_config("deepseek_v2_236b")
+    cfg = dataclasses.replace(
+        full, n_layers=DEEPSEEK_TRAIN_LAYERS,
+        n_experts=DEEPSEEK_TRAIN_EXPERTS,
+        split=dataclasses.replace(full.split, cut_layer=1))
+    opt = AdamWConfig(lr=ARCTIC_LR)
+    state = init_state(cfg, opt, seed=0)
+    n = tree_count(state.params)
+    expert = 3 * cfg.d_model * cfg.moe_d_ff
+    n_160 = n + (full.n_experts - cfg.n_experts) * expert
+    print(f"[deepseek train] reduced: depth {full.n_layers} -> "
+          f"{cfg.n_layers} layers (dense, moe; cut at "
+          f"{cfg.split.resolve_cut(cfg.n_layers)}), routed experts "
+          f"{full.n_experts} -> {cfg.n_experts}, top-{cfg.moe_top_k} and "
+          f"{cfg.n_shared_experts} shared kept: {n / 1e9:.2f} G parameters, "
+          f"{(2 + 2 + 8) * n / 1e9:.1f} GB of bf16 weights and gradients and "
+          f"fp32 moments; at {full.n_experts} experts the {cfg.n_layers} "
+          f"layers are {n_160 / 1e9:.2f} G parameters, "
+          f"{(2 + 2 + 8) * n_160 / 1e9:.0f} GB before any activation; "
+          f"{DEEPSEEK_TRAIN_STEPS} steps of {ARCTIC_TRAIN_BATCH} x "
+          f"{ARCTIC_TRAIN_SEQ} tokens, lr {ARCTIC_LR}, remat {cfg.remat}")
+    step_fn = make_train_step(cfg, opt, total_steps=DEEPSEEK_TRAIN_STEPS,
+                              warmup_steps=1)
+    data = make_pipeline(cfg, ARCTIC_TRAIN_BATCH, ARCTIC_TRAIN_SEQ, seed=0)
+    batches = [next(data) for _ in range(DEEPSEEK_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    times, ms = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, m = step_fn(state, b)
+        ms.append({k: float(v) for k, v in m.items()})  # waits for the step
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    launches = dict(build.launches)
+    carry = torch.empty((ARCTIC_TRAIN_BATCH, ARCTIC_TRAIN_SEQ, cfg.d_model),
+                        dtype=cdtype(cfg), device="meta")
+    per_step = layer_forward_count(cfg, carry)
+    _check_launches("deepseek train", launches,
+                    {"flash_fwd": per_step * DEEPSEEK_TRAIN_STEPS,
+                     "flash_bwd_dq": cfg.n_layers * DEEPSEEK_TRAIN_STEPS,
+                     "flash_bwd_dkv": cfg.n_layers * DEEPSEEK_TRAIN_STEPS})
+    peak = torch.cuda.max_memory_allocated()
+    _, m = make_grad_fn(cfg)(state.params, batch_to(batches[0],
+                                                    torch.device("cuda")))
+    after = float(m["ce"])
+    ces = [x["ce"] for x in ms]
+    step_s = statistics.median(times[1:])
+    print(f"[deepseek train] CE " + " ".join(f"{x:.4f}" for x in ces)
+          + f"; the first batch's {ces[0]:.4f} -> {after:.4f} after the "
+          f"steps; load balance " + " ".join(
+              f"{x['load_balance']:.4f}" for x in ms) + "; drop fraction "
+          + " ".join(f"{x['drop_fraction']:.4f}" for x in ms)
+          + f" (the moe layer's); {1e3 * step_s:.2f} ms per step (median of "
+          f"steps 2-{DEEPSEEK_TRAIN_STEPS}), "
+          f"{ARCTIC_TRAIN_BATCH * ARCTIC_TRAIN_SEQ / step_s:.1f} training "
+          f"tokens/s; peak device memory {peak / 2 ** 30:.2f} GiB")
+    require(all(math.isfinite(x[k]) for x in ms
+                for k in ("loss", "load_balance", "drop_fraction")),
+            f"deepseek train: auxiliaries not finite: {ms}")
+    require(after < ces[0], f"deepseek train: the first batch's CE did not "
+            f"fall: {ces[0]} -> {after}")
+    del state, step_fn
+    torch.cuda.empty_cache()
+    return {"deepseek train": launches}
+
+
+# ---------------------------------------------------------------------------
 # phase 12: one training step on the card against the fp32 CPU path
 # ---------------------------------------------------------------------------
 
@@ -4464,7 +4792,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths128.update(_timed("arctic train", phase_arctic_train))
-    every = {**paths, **paths128, **paths96}
+    gc.collect()
+    torch.cuda.empty_cache()
+    # deepseek_v2_236b: MLA at (192, 128), a dense layer before MoE layers
+    paths192 = _timed("deepseek serve", phase_deepseek_serve)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths192.update(_timed("deepseek train", phase_deepseek_train))
+    every = {**paths, **paths128, **paths96, **paths192}
     for path, launches in every.items():
         print(f"[launches] {path}: {launches}")
 
@@ -4472,15 +4807,17 @@ def main() -> int:
                 "decode_q8", "decode_paged", "decode_paged_q8")
     kernels = []
     for name in list(REPLACES) + [k + D128 for k in by_width] \
-            + [k + D96 for k in by_width[:3]]:
+            + [k + sfx for sfx in (D96, D192) for k in by_width[:3]]:
         r = results[name]
-        kernel = name.removesuffix(D128).removesuffix(D96)
+        kernel = name.removesuffix(D128).removesuffix(D96).removesuffix(D192)
         # the attention rows count their width's paths (tinyllava: 64,
-        # llama3_2_3b and the GQA zoo: 128, minicpm3_4b: (96, 64)); the
-        # wire and weight kernels every path
+        # llama3_2_3b and the GQA zoo: 128, minicpm3_4b: (96, 64),
+        # deepseek_v2_236b: (192, 128)); the wire and weight kernels every
+        # path
         counted = (every if kernel not in by_width else
                    paths128 if name.endswith(D128) else
-                   paths96 if name.endswith(D96) else paths)
+                   paths96 if name.endswith(D96) else
+                   paths192 if name.endswith(D192) else paths)
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[kernel],
             replaces=REPLACES[kernel],

@@ -20,8 +20,8 @@ back to jnp where no block divides the cache length; K6 / K7 take any
 length whose plan fits a block's shared memory.  The decode kernels are
 compiled for head widths ``DECODE_HEAD_DIMS`` (64 and 128), the flash
 kernels for the (D, Dv) pairs ``FLASH_HEAD_DIMS`` (q/k width D, v width
-Dv: (96, 64) is MLA's on minicpm3_4b); the wrappers raise on any other
-width.
+Dv: (96, 64) is MLA's on minicpm3_4b, (192, 128) on deepseek_v2_236b);
+the wrappers raise on any other width.
 """
 from __future__ import annotations
 
@@ -34,11 +34,10 @@ from repro_torch.kernels import attention_ref, build
 
 DECODE_HEAD_DIMS = (64, 128)  # the decode kernels' compiled widths, D = Dv
 # the flash kernels' compiled (D, Dv) pairs
-FLASH_HEAD_DIMS = ((64, 64), (128, 128), (96, 64))
+FLASH_HEAD_DIMS = ((64, 64), (128, 128), (96, 64), (192, 128))
 # (D, Dv) pairs that configs of the reference take and the port does not
 # compile yet, with the ROADMAP queue K "Still to port" item of each
-_FLASH_QUEUED = {(192, 128): "item 2 (deepseek_v2_236b's MLA)",
-                 (80, 80): "item 3 (zamba2_2_7b)"}
+_FLASH_QUEUED = {(80, 80): "item 3 (zamba2_2_7b)"}
 _MAX_G = 16
 _MAX_PAGE = 64
 
@@ -147,12 +146,15 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 # K2 / K3 launch geometry (csrc/flash_bwd.cu): K2 takes q tiles of 128
 # rows against kv tiles of 64 keys, K3 kv tiles of 128 keys against q tiles
-# of 64 rows; both keep a ring of 3 stages, but K2 only 2 where D + Dv
-# passes BWD_DQ_WIDE (at (128, 128))
+# of 64 rows; both keep a ring of 3 stages.  K2 keeps two Q / dO slots, but
+# only 2 stages where D + Dv passes BWD_DQ_WIDE (at (128, 128)); past
+# BWD_SPLIT (at (192, 128)) K2 keeps one slot and 3 stages, and K3's two
+# warpgroups split the dK / dV columns of one kv tile of BWD_SPLIT_KEYS
 BWD_DQ_ROWS, BWD_DQ_KEYS = 128, 64
 BWD_DKV_KEYS, BWD_DKV_ROWS = 128, 64
 BWD_STAGES = 3
 BWD_DQ_WIDE = 192
+BWD_SPLIT, BWD_SPLIT_KEYS = 256, 64
 BWD_MAX_CLUSTER = 8  # portable thread block cluster size
 SMS = 132  # the H100 SXM's streaming multiprocessors
 SMEM_MAX = 232448  # dynamic shared memory a block may use on the H100
@@ -194,27 +196,31 @@ def flash_bwd_plan(b: int, h: int, kh: int, sq: int, skv: int,
     """(K2, K3) launch plans.  K2: one block per (q tile of 128 rows, run of
     p heads of one group, batch row), grid (B H / p, q tiles), the last q
     tile first (causally the longest).  K3: one block per (kv tile of 128
-    keys, run of p query heads, batch row), the G / p blocks of a (kv tile,
-    kv head, batch row) in one cluster; grid (G / p KH B, kv tiles), kv
-    tile 0 (causally the longest) first.  p from ``bwd_heads_per_block``.
-    Shared memory at q/k width ``hd`` and v width ``dv`` (``hd`` if not
-    given), each tile sized by its own width: the tiles (K2: two Q / dO
-    slots), the mbarriers, the list of visible tiles."""
+    keys, 64 past BWD_SPLIT, run of p query heads, batch row), the G / p
+    blocks of a (kv tile, kv head, batch row) in one cluster; grid (G / p
+    KH B, kv tiles), kv tile 0 (causally the longest) first.  p from
+    ``bwd_heads_per_block``.  Shared memory at q/k width ``hd`` and v width
+    ``dv`` (``hd`` if not given), each tile sized by its own width: the
+    tiles (K2: its Q / dO slots), the mbarriers, the list of visible
+    tiles."""
     dv = hd if dv is None else dv
     _check_widths("K2 / K3", hd, dv)
     g = h // kh
-    nq, nkv = -(-sq // BWD_DQ_ROWS), -(-skv // BWD_DKV_KEYS)
-    stages = BWD_STAGES if hd + dv <= BWD_DQ_WIDE else 2
+    split = hd + dv > BWD_SPLIT
+    keys = BWD_SPLIT_KEYS if split else BWD_DKV_KEYS
+    nq, nkv = -(-sq // BWD_DQ_ROWS), -(-skv // keys)
+    slots = 1 if split else 2
+    stages = 2 if hd + dv > BWD_DQ_WIDE and not split else BWD_STAGES
     p = bwd_heads_per_block(g, b, h, -(-skv // BWD_DQ_KEYS))
     dq = LaunchPlan(
         grid=(b * h // p, nq), cluster=1, tiles=tuple(range(nq - 1, -1, -1)),
         heads=(tuple(range(p)),),
-        smem=1024 + 2 * BWD_DQ_ROWS * (hd + dv) * 2
+        smem=1024 + slots * BWD_DQ_ROWS * (hd + dv) * 2
         + stages * BWD_DQ_KEYS * (hd + dv) * 2
         + (4 + 2 * stages) * 8 + 8 * 4 + -(-skv // BWD_DQ_KEYS) * 4)
     p = bwd_heads_per_block(g, b, h, -(-sq // BWD_DKV_ROWS), BWD_MAX_CLUSTER)
     c = g // p
-    ring = (BWD_DKV_KEYS + BWD_STAGES * BWD_DKV_ROWS) * (hd + dv) * 2
+    ring = (keys + BWD_STAGES * BWD_DKV_ROWS) * (hd + dv) * 2
     dkv = LaunchPlan(
         grid=(c * kh * b, nkv), cluster=c, tiles=tuple(range(nkv)),
         heads=tuple(tuple(range(r * p, (r + 1) * p)) for r in range(c)),

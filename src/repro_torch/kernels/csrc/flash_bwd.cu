@@ -66,11 +66,11 @@
 // dS^T.
 //
 // The q/k width D and the v width DV are template parameters, instantiated
-// for (64, 64), (128, 128) and MLA's (96, 64).  A tile of W columns is
-// W / 64 column blocks of one 128-byte swizzle atom plus, for W = 96, one
-// 32-column block of a 64-byte swizzle atom with its own tensor map
-// (flash_common.cuh, Cols / load_rows): the products that contract over D
-// or DV step their descriptors along the blocks (kmajor_desc), and those
+// for (64, 64), (128, 128) and MLA's (96, 64) and (192, 128).  A tile of
+// W columns is W / 64 column blocks of one 128-byte swizzle atom plus, for
+// W = 96, one 32-column block of a 64-byte swizzle atom with its own tensor
+// map (flash_common.cuh, Cols / load_rows): the products that contract over
+// D or DV step their descriptors along the blocks (kmajor_desc), and those
 // whose output has D or DV columns (dQ, dK over D; dV over DV) run one
 // m64n64 product per full block and an m64n32 for a tail (mma_mn).  Each
 // tile and accumulator array is sized by its own width.  Where D + DV
@@ -79,6 +79,24 @@
 // fp32 of dK and dV a thread (128 at (128, 128), 80 at (96, 64)).  At
 // G 1 (MLA's materialised K / V, KH = H) K3's clusters are of one block,
 // whose cluster sum reads only its own partials.
+// At (192, 128) (deepseek_v2_236b's MLA, G 1, so p = 1):
+// * K2 keeps one Q / dO slot and 3 ring stages (206 KB): two slots would
+//   need 247 KB, and at p = 1 the second has no next head to hold.  Each
+//   thread holds 96 fp32 of dQ beside the 32 of S and the 32 of dP.
+// * K3 would hold 160 fp32 of dK / dV a thread, which with the S^T and
+//   dP^T tiles and their A fragments passes the 255-register limit.  So
+//   both warpgroups take the same 64 keys (a block's kv tile is 64 keys)
+//   and split the output columns: warpgroup w keeps dK[:, 96 w, 96 w + 96)
+//   and dV[:, 64 w, 64 w + 64), 80 fp32, the load of (96, 64).  Each
+//   computes S^T and dP^T for the 64 keys itself, which repeats those two
+//   products (half as much tensor work again as one warpgroup a 64 keys)
+//   but needs no exchange between the warpgroups; sharing P^T and dS^T
+//   through shared memory as bf16 would cost a barrier between them every
+//   tile.
+//   Q lands as a narrow tile (six 32-column blocks of 64-byte swizzle,
+//   flash_common.cuh), so a warpgroup's 96 dK columns are three m64n32
+//   products on whole blocks; dO's 128-byte blocks split 64 / 64.  The
+//   ring holds 3 stages of (Q, dO) beside K and V: 167 KB in all.
 // What is left: a block's fixed cost is still paid 2 - 3 times per SM
 // (a persistent grid would overlap it with the previous tile's sweep);
 // each warpgroup waits on its products before the next tile (an FA3
@@ -139,10 +157,14 @@ template <int D, int DV>
 struct DqSmem {
   static constexpr int kQ = kDqRows * D * 2, kG = kDqRows * DV * 2;
   static constexpr int kK = kDqKeys * D * 2, kV = kDqKeys * DV * 2;
-  static constexpr int kSt = D + DV > 192 ? 2 : kStages;  // the K / V ring
-  // two Q / dO slots (one head's while the next head's lands)
+  // Q / dO slots (with two, the next head's land during this one's sweep)
+  // and K / V ring stages: (2, 3) up to D + Dv = 192, (2, 2) up to 256
+  // (at (128, 128)), (1, 3) above (at (192, 128), whose two slots alone
+  // would take 160 KB)
+  static constexpr int kSlots = D + DV > 256 ? 1 : 2;
+  static constexpr int kSt = D + DV > 192 && kSlots == 2 ? 2 : kStages;
   static constexpr int q = 0, go = kQ, slot = kQ + kG;
-  static constexpr int k = 2 * slot, v = k + kSt * kK;
+  static constexpr int k = kSlots * slot, v = k + kSt * kK;
   static constexpr int bars = v + kSt * kV;
   static constexpr int red = bars + (4 + 2 * kSt) * 8;
   static constexpr int list = red + kRed * 4;
@@ -151,7 +173,12 @@ struct DqSmem {
 
 template <int D, int DV>
 struct DkvSmem {
-  static constexpr int kK = kDkvKeys * D * 2, kV = kDkvKeys * DV * 2;
+  // split: both warpgroups take the same 64 keys, each half of dK's and of
+  // dV's columns, with Q kept as a narrow tile (at (192, 128), where
+  // (D + Dv) / 2 = 160 fp32 of dK / dV a thread would spill)
+  static constexpr bool kSplit = D + DV > 256;
+  static constexpr int kKeys = kSplit ? 64 : kDkvKeys;  // keys a block
+  static constexpr int kK = kKeys * D * 2, kV = kKeys * DV * 2;
   static constexpr int kQ = kDkvRows * D * 2, kG = kDkvRows * DV * 2;
   // partial row strides, floats
   static constexpr int kLdk = D + 8, kLdv = DV + 8;
@@ -159,8 +186,8 @@ struct DkvSmem {
   static constexpr int k = 0, v = kK, q = kK + kV, go = q + kStages * kQ;
   static constexpr int ring = go + kStages * kG;
   // the partials, bytes: dK's then dV's
-  static constexpr int part_k = kDkvKeys * kLdk * 4;
-  static constexpr int part_v = kDkvKeys * kLdv * 4;
+  static constexpr int part_k = kKeys * kLdk * 4;
+  static constexpr int part_v = kKeys * kLdv * 4;
   static_assert(part_k + part_v <= ring, "the partials overlay the tiles");
   static constexpr int stat = ring;
   static constexpr int bars = stat + kStages * kStat;
@@ -187,12 +214,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
     float* __restrict__ dq, int H, int KH, int Sq, int Skv, long long dq_sb,
     long long dq_sh, long long dq_ss, int has_window, int window, int hpb) {
   using L = DqSmem<D, DV>;
-  constexpr int kSt = L::kSt;
+  constexpr int kSt = L::kSt, kSlots = L::kSlots;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024u - hopper::smem_u32(smem_raw)) & 1023u);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::bars);
-  uint64_t* qfull = bars;       // 2: the Q / dO slots
-  uint64_t* qempty = bars + 2;  // 2
+  uint64_t* qfull = bars;       // kSlots (of 2 reserved): the Q / dO slots
+  uint64_t* qempty = bars + 2;  // kSlots (of 2)
   uint64_t* full = bars + 4;
   uint64_t* empty = bars + 4 + kSt;
   int* red = reinterpret_cast<int*>(smem + L::red);
@@ -224,8 +251,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
   if (tid < kConsumers) fetch(h0);
   const flash::Axes qa = flash::unpack_axes(q_axes),
                     ga = flash::unpack_axes(go_axes);
-  auto load_q = [&](int j) {  // head h0 + j's Q and dO into slot j % 2
-    const int slot = j & 1;
+  auto load_q = [&](int j) {  // head h0 + j's Q and dO into its slot
+    const int slot = j % kSlots;
     hopper::mbar_expect_tx(&qfull[slot], L::kQ + L::kG);
     flash::load_rows<D>(smem + L::q + slot * L::slot, &qmap, &qtail,
                         &qfull[slot], qa, q0, h0 + j, b, kDqRows);
@@ -243,7 +270,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
     }
   }
   if (tid == 0) {
-    for (int j = 0; j < 2; ++j) {
+    for (int j = 0; j < kSlots; ++j) {
       hopper::mbar_init(&qfull[j], 1);
       hopper::mbar_init(&qempty[j], kConsumers);
     }
@@ -288,7 +315,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
                         va = flash::unpack_axes(v_axes);
       int it = 0;  // ring position, over the heads' sweeps
       for (int j = 0; j < hpb; ++j) {
-        if (j >= 2) hopper::mbar_wait(&qempty[j & 1], ((j >> 1) - 1) & 1);
+        if (j >= kSlots)
+          hopper::mbar_wait(&qempty[j % kSlots], (j / kSlots - 1) & 1);
         if (j > 0) load_q(j);
         for (int i = 0; i < n_vis; ++i, ++it) {
           const int s = it % kSt;
@@ -310,7 +338,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
   const long long qp1 = row1 < Sq ? qpos[row1] : -kFar;
   int it = 0;
   for (int j = 0; j < hpb; ++j) {
-    const int slot = j & 1, h = h0 + j;
+    const int slot = j % kSlots, h = h0 + j;
     // rows past Sq: lse2 = +inf gives P = 0
     const float lse0 = row0 < Sq ? row_lse2(raw[0], raw[1]) : CUDART_INF_F;
     const float lse1 = row1 < Sq ? row_lse2(raw[3], raw[4]) : CUDART_INF_F;
@@ -320,7 +348,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
     float acc[D / 2], sc[32], dp[32];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
-    hopper::mbar_wait(&qfull[slot], (j >> 1) & 1);
+    hopper::mbar_wait(&qfull[slot], (j / kSlots) & 1);
     const uint8_t* qt = smem + L::q + slot * L::slot;
     const uint8_t* gt = smem + L::go + slot * L::slot;
 
@@ -447,6 +475,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
     long long dv_sb, long long dv_sh, long long dv_ss, int has_window,
     int window) {
   using L = DkvSmem<D, DV>;
+  constexpr bool kSplit = L::kSplit;
+  static_assert(!kSplit || (D % 64 == 0 && DV % 128 == 0),
+                "a split warpgroup takes whole narrow blocks of Q and whole "
+                "128-byte blocks of dO");
+  // the dK / dV columns a warpgroup keeps in registers
+  constexpr int kNk = kSplit ? D / 2 : D, kNv = kSplit ? DV / 2 : DV;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024u - hopper::smem_u32(smem_raw)) & 1023u);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::bars);
@@ -459,16 +493,17 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
   cg::cluster_group cluster = cg::this_cluster();
   const int c = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int grp = blockIdx.x / c, kh = grp % KH, b = grp / KH;
-  const int k0 = blockIdx.y * kDkvKeys;  // tile 0 sees the most q tiles
+  const int k0 = blockIdx.y * L::kKeys;  // tile 0 sees the most q tiles
   const int gpb = H / KH / c;            // query heads per block
   const int h_first = kh * (H / KH) + rank * gpb;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int nq = (Sq + kDkvRows - 1) / kDkvRows;
 
-  // position extrema of each warpgroup's 64 keys
+  // position extrema of each warpgroup's 64 keys (split: the same 64)
   if (warp < 2) {
     int lo, hi;
-    flash::warp_extrema(kpos, k0 + 64 * warp, Skv, lane, lo, hi);
+    flash::warp_extrema(kpos, k0 + (kSplit ? 0 : 64 * warp), Skv, lane, lo,
+                        hi);
     if (lane == 0) {
       red[2 * warp] = lo;
       red[2 * warp + 1] = hi;
@@ -486,9 +521,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
   if (tid == kConsumers) {  // lands while the tiles are listed
     hopper::mbar_expect_tx(kvbar, L::kK + L::kV);
     flash::load_rows<D>(smem + L::k, &kmap, &ktail, kvbar,
-                        flash::unpack_axes(k_axes), k0, kh, b, kDkvKeys);
+                        flash::unpack_axes(k_axes), k0, kh, b, L::kKeys);
     flash::load_rows<DV>(smem + L::v, &vmap, &vtail, kvbar,
-                         flash::unpack_axes(v_axes), k0, kh, b, kDkvKeys);
+                         flash::unpack_axes(v_axes), k0, kh, b, L::kKeys);
   }
   // which q tiles each warpgroup's keys can see: one warp per tile
   for (int t = warp; t < nq; t += kThreads / 32) {
@@ -515,11 +550,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
   __syncthreads();
   const int n_list = red[4], total = gpb * n_list;
 
-  float dka[D / 2], dva[DV / 2];
+  float dka[kNk / 2], dva[kNv / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dka[i] = 0.0f;
+  for (int i = 0; i < kNk / 2; ++i) dka[i] = 0.0f;
 #pragma unroll
-  for (int i = 0; i < DV / 2; ++i) dva[i] = 0.0f;
+  for (int i = 0; i < kNv / 2; ++i) dva[i] = 0.0f;
   const int wg = tid / 128, wi = (tid % 128) / 32;
   const int g = lane >> 2, t4 = lane & 3;
 
@@ -550,8 +585,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
       if (i >= kStages) hopper::mbar_wait(&empty[s], (i / kStages - 1) & 1);
       if (lane == 0) {
         hopper::mbar_add_tx(&full[s], L::kQ + L::kG);
-        flash::load_rows<D>(smem + L::q + s * L::kQ, &qmap, &qtail, &full[s],
-                            qa, q0, h, b, kDkvRows);
+        if constexpr (kSplit)  // qtail is the 32-column map
+          flash::load_narrow<D>(smem + L::q + s * L::kQ, &qtail, &full[s],
+                                qa, q0, h, b, kDkvRows);
+        else
+          flash::load_rows<D>(smem + L::q + s * L::kQ, &qmap, &qtail,
+                              &full[s], qa, q0, h, b, kDkvRows);
         flash::load_rows<DV>(smem + L::go + s * L::kG, &gomap, &gotail,
                              &full[s], ga, q0, h, b, kDkvRows);
       }
@@ -566,7 +605,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
     }
   } else {
     // ---------------------------------------------- consumer warpgroups
-    const int key0 = k0 + wg * 64 + wi * 16 + g, key1 = key0 + 8;
+    const int krow = kSplit ? 0 : wg * 64;  // the warpgroup's first key
+    const int key0 = k0 + krow + wi * 16 + g, key1 = key0 + 8;
     const long long kp0 = key0 < Skv ? kpos[key0] : kFar;
     const long long kp1 = key1 < Skv ? kpos[key1] : kFar;
     float sc[32], dp[32];
@@ -610,13 +650,15 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
         hopper::wgmma_m64n64_ss<0>(
-            sc, flash::kmajor_desc<D>(smem + L::k, kDkvKeys, wg * 64, kk),
-            flash::kmajor_desc<D>(qt, kDkvRows, 0, kk), kk > 0);
+            sc, flash::kmajor_desc<D>(smem + L::k, L::kKeys, krow, kk),
+            kSplit ? flash::narrow_kdesc(qt, kDkvRows, 0, kk)
+                   : flash::kmajor_desc<D>(qt, kDkvRows, 0, kk),
+            kk > 0);
       hopper::wgmma_commit();
 #pragma unroll
       for (int kk = 0; kk < DV / 16; ++kk)
         hopper::wgmma_m64n64_ss<0>(
-            dp, flash::kmajor_desc<DV>(smem + L::v, kDkvKeys, wg * 64, kk),
+            dp, flash::kmajor_desc<DV>(smem + L::v, L::kKeys, krow, kk),
             flash::kmajor_desc<DV>(gt, kDkvRows, 0, kk), kk > 0);
       hopper::wgmma_commit();
       hopper::wgmma_wait<1>();
@@ -637,14 +679,18 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
                               : 0.0f;
       }
       // dV += P^T dO: P^T (bf16) from the accumulators as A fragments, dO
-      // read MN-major, one product per block of dV's DV columns
+      // read MN-major, one product per block of the warpgroup's dV columns
       uint32_t pa[kDkvRows / 16][4], sa[kDkvRows / 16][4];
 #pragma unroll
       for (int kk = 0; kk < kDkvRows / 16; ++kk)
         flash::acc_to_a(pa[kk], &sc[kk * 8], &sc[kk * 8 + 4]);
       hopper::wgmma_fence();
       hopper::fence_regs(dva);
-      flash::mma_mn<DV>(dva, pa, gt, kDkvRows);
+      if constexpr (kSplit)  // dO's 128-byte blocks of this half
+        flash::mma_mn<kNv>(dva, pa, gt + wg * (kNv / 64) * kDkvRows * 128,
+                           kDkvRows);
+      else
+        flash::mma_mn<DV>(dva, pa, gt, kDkvRows);
       hopper::wgmma_commit();
       hopper::wgmma_wait<1>();  // dP^T (groups retire in order)
       hopper::fence_regs(dp);
@@ -664,7 +710,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
         flash::acc_to_a(sa[kk], &dp[kk * 8], &dp[kk * 8 + 4]);
       hopper::wgmma_fence();
       hopper::fence_regs(dka);
-      flash::mma_mn<D>(dka, sa, qt, kDkvRows);
+      if constexpr (kSplit)  // Q's narrow blocks of this half
+        flash::mma_narrow<kNk>(dka, sa, qt, kDkvRows, wg * (kNk / 32));
+      else
+        flash::mma_mn<D>(dka, sa, qt, kDkvRows);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(dva);
@@ -681,22 +730,24 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
     // the block's partials, over the tiles every consumer is done with
     consumers_sync();
     float* part_k = reinterpret_cast<float*>(smem);
-    float* part_v = part_k + kDkvKeys * L::kLdk;
-    const int r0 = wg * 64 + wi * 16 + g;
+    float* part_v = part_k + L::kKeys * L::kLdk;
+    const int r0 = krow + wi * 16 + g;
+    // the warpgroup's first dK / dV column (split: its half)
+    const int ck = kSplit ? wg * kNk : 0, cv = kSplit ? wg * kNv : 0;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < kNk / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; e += 2)
-        *reinterpret_cast<float2*>(part_k + (r0 + 4 * e) * L::kLdk + j * 8 +
-                                   t4 * 2) =
+        *reinterpret_cast<float2*>(part_k + (r0 + 4 * e) * L::kLdk + ck +
+                                   j * 8 + t4 * 2) =
             make_float2(dka[j * 4 + e], dka[j * 4 + e + 1]);
     }
 #pragma unroll
-    for (int j = 0; j < DV / 8; ++j) {
+    for (int j = 0; j < kNv / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; e += 2)
-        *reinterpret_cast<float2*>(part_v + (r0 + 4 * e) * L::kLdv + j * 8 +
-                                   t4 * 2) =
+        *reinterpret_cast<float2*>(part_v + (r0 + 4 * e) * L::kLdv + cv +
+                                   j * 8 + t4 * 2) =
             make_float2(dva[j * 4 + e], dva[j * 4 + e + 1]);
     }
   }
@@ -707,8 +758,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
   hopper::cluster_arrive(true);
   hopper::cluster_wait();
   {
-    const int per = (kDkvKeys + c - 1) / c;
-    const int lo = rank * per, n = min(kDkvKeys, lo + per) - lo;
+    const int per = (L::kKeys + c - 1) / c;
+    const int lo = rank * per, n = min(L::kKeys, lo + per) - lo;
     const float* part = reinterpret_cast<const float*>(smem);
     float* dkb = dk + b * dk_sb + kh * dk_sh;
     float* dvb = dv + b * dv_sb + kh * dv_sh;
@@ -718,7 +769,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
       const int which = i >= n * kVecK, j = which ? i - n * kVecK : i;
       const int vec = which ? kVecV : kVecK, r = lo + j / vec,
                 col = (j % vec) * 4;
-      const int off = which ? kDkvKeys * L::kLdk + r * L::kLdv + col
+      const int off = which ? L::kKeys * L::kLdk + r * L::kLdv + col
                             : r * L::kLdk + col;
       // every rank's load in flight at once, then the sum in rank order
       float4 x[kMaxCluster];
@@ -759,9 +810,13 @@ bool make_maps(CUtensorMap* m, int* axes, const void* q, const void* k,
                const void* v, const void* go, int D, int DV, int B, int H,
                int KH, int Sq, int Skv, const long long* qs,
                const long long* ks, const long long* vs, const long long* gs,
-               int q_rows, int kv_rows) {
+               int q_rows, int kv_rows, bool narrow_q = false) {
   axes[0] = flash::map_operand(&m[0], &m[1], q, D, Sq, H, B, qs[2], qs[1],
                                qs[0], q_rows);
+  if (narrow_q && axes[0] >= 0 &&  // q's tail map: 32-column boxes
+      flash::map_bshd(&m[1], q, D, Sq, H, B, qs[2], qs[1], qs[0], q_rows,
+                      32) != axes[0])
+    axes[0] = -1;
   axes[1] = flash::map_operand(&m[2], &m[3], k, D, Skv, KH, B, ks[2], ks[1],
                                ks[0], kv_rows);
   axes[2] = flash::map_operand(&m[4], &m[5], v, DV, Skv, KH, B, vs[2],
@@ -820,7 +875,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* go,
   if (bad_shape(B, H, KH, Sq, Skv) || cluster < 1 ||
       cluster > kMaxCluster || (H / KH) % cluster ||
       (long long)cluster * KH * B > 0x7fffffffLL ||
-      kv_tiles != (Skv + kDkvKeys - 1) / kDkvKeys || kv_tiles > 65535 ||
+      kv_tiles != (Skv + DkvSmem<D, DV>::kKeys - 1) / DkvSmem<D, DV>::kKeys ||
+      kv_tiles > 65535 ||
       smem != DkvSmem<D, DV>::bytes((Sq + kDkvRows - 1) / kDkvRows) ||
       smem > 232448 || (dk_sb | dk_sh | dk_ss | dv_sb | dv_sh | dv_ss) & 3 ||
       (reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv)) &
@@ -829,7 +885,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* go,
   CUtensorMap maps[8];
   int axes[4];
   if (!make_maps(maps, axes, q, k, v, go, D, DV, B, H, KH, Sq, Skv, qs, ks,
-                 vs, gs, kDkvRows, kDkvKeys))
+                 vs, gs, kDkvRows, DkvSmem<D, DV>::kKeys,
+                 DkvSmem<D, DV>::kSplit))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<D, DV>,
@@ -865,7 +922,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* go,
 // Sq, DV) bf16 given by pointer and element strides (batch, head,
 // sequence; the last axis is contiguous, strides multiples of 8, bases
 // 16-byte aligned), (D, DV) = (hd, dv), one of (64, 64), (128, 128),
-// (96, 64); m / l / di (B, H, Sq) fp32 contiguous; qpos (Sq,), kpos (Skv,)
+// (96, 64), (192, 128); m / l / di (B, H, Sq) fp32 contiguous; qpos (Sq,),
+// kpos (Skv,)
 // int32; dq (B, H, Sq, D) fp32 by strides (multiples of 2, base 8-byte
 // aligned).  The plan (attention_ops.py::flash_bwd_plan): q_tiles =
 // ceil(Sq / 128) grid rows of B H / heads_per_block blocks, each sweeping
@@ -893,14 +951,16 @@ extern "C" int flash_bwd_dq_bf16(
   if (hd == 64 && dv == 64) return run(launch_dq<64, 64>);
   if (hd == 128 && dv == 128) return run(launch_dq<128, 128>);
   if (hd == 96 && dv == 64) return run(launch_dq<96, 64>);
+  if (hd == 192 && dv == 128) return run(launch_dq<192, 128>);
   return (int)cudaErrorInvalidValue;
 }
 
 // K3.  Operands as K2; dk (B, KH, Skv, D) and dv (B, KH, Skv, DV) fp32 by
 // strides (multiples of 4, bases 16-byte aligned), each the sum over the
 // G = H / KH query heads of the group.  The plan: kv_tiles = ceil(Skv /
-// 128) grid rows of cluster KH B blocks in clusters of `cluster` (a divisor
-// of G, at most 8), `smem` bytes of dynamic shared memory.
+// 128) (64 at (192, 128)) grid rows of cluster KH B blocks in clusters of
+// `cluster` (a divisor of G, at most 8), `smem` bytes of dynamic shared
+// memory.
 extern "C" int flash_bwd_dkv_bf16(
     const void* q, const void* k, const void* v, const void* go,
     const void* m, const void* l, const void* di, const void* qpos,
@@ -921,5 +981,6 @@ extern "C" int flash_bwd_dkv_bf16(
   if (hd == 64 && dvw == 64) return run(launch_dkv<64, 64>);
   if (hd == 128 && dvw == 128) return run(launch_dkv<128, 128>);
   if (hd == 96 && dvw == 64) return run(launch_dkv<96, 64>);
+  if (hd == 192 && dvw == 128) return run(launch_dkv<192, 128>);
   return (int)cudaErrorInvalidValue;
 }

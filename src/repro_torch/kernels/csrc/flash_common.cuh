@@ -186,6 +186,57 @@ __device__ __forceinline__ void mma_mn(float (&acc)[W / 2],
   }
 }
 
+// A narrow tile: W columns kept as W / 32 blocks of 32 columns, each of
+// one 64-byte swizzle atom (rows x 64 B, block j at j rows 64 B), so that a
+// product can read any 32 of its columns MN-major.  K3 keeps Q so at
+// (192, 128), where each warpgroup owns 96 of dK's columns.  TMA loads box
+// j of `map` (32 columns, 64-byte swizzle) into block j.
+template <int W>
+__device__ __forceinline__ void load_narrow(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, Axes ax, int row0,
+                                            int head, int batch, int rows) {
+  static_assert(W % 32 == 0, "a narrow tile is 32-column blocks");
+  int c[4] = {0, 0, 0, 0};
+  c[ax.s] = row0;
+  c[ax.h] = head;
+  c[ax.b] = batch;
+  uint8_t* d = static_cast<uint8_t*>(dst);
+#pragma unroll
+  for (int j = 0; j < W / 32; ++j)
+    hopper::tma_load_4d(d + j * rows * 64, map, bar, 32 * j, c[1], c[2],
+                        c[3]);
+}
+
+// Descriptor of k-step kk (columns 16 kk ..) of rows r0 .. r0 + 63 of a
+// narrow tile read K-major: +32 B a step within a block, then the next.
+__device__ __forceinline__ uint64_t narrow_kdesc(const void* tile, int rows,
+                                                 int r0, int kk) {
+  const uint8_t* t = static_cast<const uint8_t*>(tile);
+  return hopper::desc_sw64(t + (kk >> 1) * rows * 64 + r0 * 64) +
+         (uint64_t)(2 * (kk & 1));
+}
+
+// acc (+)= A B with B the N columns of blocks c0 .. c0 + N / 32 - 1 of a
+// narrow tile of `rows` rows read MN-major (its rows the contraction), A
+// the register fragments of KS k-steps: one m64n32 product a block; acc
+// holds column 8 j + 2 t + e of the N in element 4 j + e, as mma_mn's.
+template <int N, int KS>
+__device__ __forceinline__ void mma_narrow(float (&acc)[N / 2],
+                                           const uint32_t (&a)[KS][4],
+                                           const void* tile, int rows,
+                                           int c0) {
+  const uint8_t* t = static_cast<const uint8_t*>(tile);
+#pragma unroll
+  for (int c = 0; c < N / 32; ++c) {
+    const uint64_t d = hopper::desc_sw64(t + (c0 + c) * rows * 64);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      hopper::wgmma_m64n32_rs<1>(
+          *reinterpret_cast<float(*)[16]>(&acc[16 * c]), a[kk],
+          d + (uint64_t)(64 * kk), 1);
+  }
+}
+
 // A 4-D tensor map of a (B, S, heads, hd) bf16 view given by element
 // strides: dim 0 is the contiguous head axis, dims 1..3 the sequence, head
 // and batch axes in increasing stride order.  Box: `rows` positions of one

@@ -35,14 +35,17 @@
 //
 // The q/k width D and the v width DV are template parameters, instantiated
 // for (64, 64), (128, 128) and MLA's (96, 64) (minicpm3_4b: qk_nope 64 +
-// qk_rope 32, v 64).  A tile of W columns is W / 64 column blocks of one
+// qk_rope 32, v 64) and (192, 128) (deepseek_v2_236b: qk_nope 128 +
+// qk_rope 64, v 128).  A tile of W columns is W / 64 column blocks of one
 // 128-byte swizzle atom plus, where W is not a multiple of 64, one
 // 32-column block of a 64-byte swizzle atom with its own tensor map
 // (flash_common.cuh, Cols / load_rows): Q K^T steps its descriptors along
 // the blocks over D (kmajor_desc: 4 k-steps a full block, 2 in the tail)
 // and O += P V runs one m64n64 product per full block of V's DV columns
 // (mma_mn; an m64n32 for a tail).  At (128, 128) the block holds 129 KB
-// of shared memory and 64 fp32 of O a thread; at (96, 64) 85 KB and 32.
+// of shared memory and 64 fp32 of O a thread; at (96, 64) 85 KB and 32; at
+// (192, 128), three whole 128-byte blocks over D and no tail, 170 KB and
+// 64 (the 12 k-steps of Q K^T add descriptors, not registers).
 // What is left: each warpgroup waits on its
 // Q K^T before the softmax and on its P V before the next tile, so the
 // tensor cores idle while a warpgroup's softmax runs unless the other
@@ -377,7 +380,8 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* qpos,
 // q (B, H, Sq, D), k (B, KH, Skv, D), v (B, KH, Skv, DV) bf16 given by
 // pointer and element strides (batch, head, sequence; the last axis is
 // contiguous, strides multiples of 8, bases 16-byte aligned), (D, DV) =
-// (hd, dv), one of (64, 64), (128, 128), (96, 64); qpos (Sq,), kpos (Skv,)
+// (hd, dv), one of (64, 64), (128, 128), (96, 64), (192, 128); qpos (Sq,),
+// kpos (Skv,)
 // int32; out (B, H, Sq, DV) fp32 by strides; m / l (B, H, Sq) fp32
 // contiguous.  Returns cudaGetLastError() (cudaErrorInvalidValue for a
 // width, shape or layout the kernel does not take).
@@ -397,5 +401,6 @@ extern "C" int flash_fwd_bf16(
   if (hd == 64 && dv == 64) return run(launch_fwd<64, 64>);
   if (hd == 128 && dv == 128) return run(launch_fwd<128, 128>);
   if (hd == 96 && dv == 64) return run(launch_fwd<96, 64>);
+  if (hd == 192 && dv == 128) return run(launch_fwd<192, 128>);
   return (int)cudaErrorInvalidValue;
 }

@@ -15,8 +15,17 @@ per token group:
   4. a scatter into a (G, E * cap + 1, D) buffer whose last row takes the
      drops, one batched product per expert weight against the stacked
      experts (``torch.matmul`` over the expert axis: plain large matmuls,
-     no TPU kernel stands behind them), a gather and ``index_add_`` back
-     in place of ``segment_sum``.
+     no TPU kernel stands behind them), a gather back,
+  5. the combine in place of ``segment_sum``: each token's k copies,
+     gathered through the sort's inverse permutation, added onto zero one
+     at a time in the compute dtype in ascending expert id, the order in
+     which the reference's ``segment_sum`` meets them in the sorted copies.
+     No atomics: the same bits on every run at any k (``index_add`` on
+     CUDA adds with atomics, whose order moves the bits from top-3 on),
+     and at top-2 the bits of ``index_add`` onto zero (0 + a + b equals
+     0 + b + a).  The copies of the tokens (step 4's rows) are gathered
+     through the sort's permutation of each token repeated k times, so the
+     backward sums a token's k gradients as a reduction, not with atomics.
 
 Every expert's slot buffer is computed, filled or not, as in the
 reference, so a decode step reads every expert's weights.
@@ -113,14 +122,14 @@ def dispatch(expert_ids: torch.Tensor, gate_vals: torch.Tensor,
              n_experts: int, cap: int):
     """The capacity decision of each group's (token, expert) copies, sorted
     stably by expert: (slot (G, tk) in [0, E * cap], the drop row E * cap
-    for a dropped copy; keep (G, tk); the copies' tokens and gates)."""
+    for a dropped copy; keep (G, tk); the sort's permutation (G, tk) of the
+    copies, copy c being token c // k's c % k-th choice; the copies'
+    gates)."""
     g, tg, k = expert_ids.shape
     tk = tg * k
     dev = expert_ids.device
     e_flat = expert_ids.reshape(g, tk)
-    tok_ids = torch.arange(tg, device=dev).repeat_interleave(k).expand(g, tk)
     sorted_e, order = torch.sort(e_flat, dim=-1, stable=True)
-    sorted_tok = torch.gather(tok_ids, 1, order)
     sorted_g = torch.gather(gate_vals.reshape(g, tk), 1, order)
     experts = torch.arange(n_experts, device=dev, dtype=sorted_e.dtype)
     starts = torch.searchsorted(
@@ -130,7 +139,7 @@ def dispatch(expert_ids: torch.Tensor, gate_vals: torch.Tensor,
     keep = pos_in_e < cap
     slot = torch.where(keep, sorted_e * cap + pos_in_e,
                        torch.full_like(sorted_e, n_experts * cap))
-    return slot, keep, sorted_tok, sorted_g
+    return slot, keep, order, sorted_g
 
 
 def moe_forward(params: Dict, x: torch.Tensor, *, top_k: int,
@@ -148,11 +157,14 @@ def moe_forward(params: Dict, x: torch.Tensor, *, top_k: int,
     logits, probs, gate_vals, expert_ids = route(params["router"], xg, top_k)
     aux = moe_aux_losses(logits, probs, expert_ids, e)
     cap = capacity(tg, top_k, e, capacity_factor)
-    slot, keep, sorted_tok, sorted_g = dispatch(expert_ids, gate_vals, e, cap)
+    slot, keep, order, sorted_g = dispatch(expert_ids, gate_vals, e, cap)
 
     # scatter the kept copies into their slots; every drop lands on the
-    # last row, which is cut off
-    rows = torch.gather(xg, 1, sorted_tok[..., None].expand(-1, -1, d))
+    # last row, which is cut off.  The rows come from each token repeated
+    # k times in copy order, permuted by the sort (one read of each), so
+    # their gradient sums a token's k copies by a reduction
+    copies = xg[:, :, None].expand(g, tg, top_k, d).reshape(g, tg * top_k, d)
+    rows = torch.gather(copies, 1, order[..., None].expand(-1, -1, d))
     buf = xg.new_zeros((g, e * cap + 1, d)).scatter(
         1, slot[..., None].expand(-1, -1, d), rows)
     # (E, G * cap, D): one matmul per expert weight over the expert axis
@@ -166,12 +178,18 @@ def moe_forward(params: Dict, x: torch.Tensor, *, top_k: int,
     out_rows = torch.cat([he, he.new_zeros((g, 1, d))], dim=1)
     contrib = torch.gather(out_rows, 1, slot[..., None].expand(-1, -1, d)) \
         * (sorted_g * keep).to(dt)[..., None]
-    # segment_sum over the tokens: each token gets its k copies added onto
-    # zero.  At top-2 that is the same bits in any order of the atomics
-    # (0 + a + b == 0 + b + a); at top-6 (deepseek) it is not
-    flat_tok = (sorted_tok + tg * torch.arange(g, device=x.device)[:, None])
-    y_flat = x.new_zeros((t, d)).index_add(0, flat_tok.reshape(-1),
-                                           contrib.reshape(-1, d))
+    # segment_sum over the tokens: each token's k copies, in ascending
+    # sorted position (= ascending expert id), added onto zero one at a time
+    pos = torch.empty_like(order).scatter_(
+        1, order, torch.arange(tg * top_k, device=x.device).expand(g, -1))
+    pos = pos.reshape(g, tg, top_k).sort(dim=-1).values
+    mine = torch.gather(contrib, 1,
+                        pos.reshape(g, -1, 1).expand(-1, -1, d)
+                        ).reshape(g, tg, top_k, d)
+    y = x.new_zeros((g, tg, d))
+    for j in range(top_k):
+        y = y + mine[:, :, j]
+    y_flat = y.reshape(t, d)
 
     if "shared" in params:
         y_flat = y_flat + swiglu_forward(params["shared"], x.reshape(t, d))

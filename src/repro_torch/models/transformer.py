@@ -18,10 +18,13 @@ Not ported, on purpose: ``utils/barrier.py::grad_safe_barrier``, which the
 reference's ``block_forward`` calls.  It keeps XLA from hoisting the
 layer-invariant attention masks out of its layer scan; PyTorch runs the
 layers eagerly and hoists nothing, so the barrier means nothing here.
-A stack is all ``dense`` or all ``moe`` blocks (``models/layers/moe.py``;
-each block's auxiliary losses summed over the layers, zeros for dense
-blocks); the mixed dense-then-moe pattern (``first_dense_layers``), the
-other block types and the audio modality are ROADMAP queue M, item M11b.
+A stack holds ``dense`` and ``moe`` blocks (``models/layers/moe.py``),
+each segment of one type, which its functions take as ``block_type`` from
+``cfg.client_server_segments()`` as the reference's do: deepseek_v2_236b's
+dense first layer (``first_dense_layers``) is a segment of its own before
+its moe layers.  Each block's auxiliary losses are summed over the layers,
+zeros for dense blocks.  The other block types and the audio modality are
+ROADMAP queue M, item M11b.
 """
 from __future__ import annotations
 
@@ -53,28 +56,25 @@ def cdtype(cfg: ArchConfig) -> torch.dtype:
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    blocks = set(cfg.block_pattern())
-    if cfg.modality not in ("text", "vlm") or len(blocks) != 1 \
-            or not blocks <= {"dense", "moe"} \
+    if cfg.modality not in ("text", "vlm") \
+            or not set(cfg.block_pattern()) <= {"dense", "moe"} \
             or cfg.attn_type not in ("gqa", "mla"):
         raise NotImplementedError(
-            f"{cfg.name}: the port has dense or moe blocks (not both in one "
-            f"stack) with GQA or MLA and the text and vlm modalities; the "
-            f"rest is ROADMAP queue M, item M11b")
-
-
-def _block_type(cfg: ArchConfig) -> str:
-    """The stack's one block type, ``dense`` or ``moe``."""
-    return cfg.block_pattern()[0] if cfg.n_layers else "dense"
+            f"{cfg.name}: the port has dense and moe blocks with GQA or MLA "
+            f"and the text and vlm modalities; the rest is ROADMAP queue M, "
+            f"item M11b")
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
-def init_block_params(cfg: ArchConfig, n: int, normal, const) -> Dict:
-    """``n`` layer-stacked dense or moe blocks: ``normal(*shape, scale=)``
-    and ``const(value, *shape)`` draw the leaves (a moe block's router and
+def init_block_params(cfg: ArchConfig, n: int, normal, const, *,
+                      block_type: str = "dense") -> Dict:
+    """``n`` layer-stacked blocks of ``block_type``, ``dense`` (a SwiGLU of
+    width ``d_ff``) or ``moe`` (experts of width ``moe_d_ff``, shared
+    experts, a dense residual): ``normal(*shape, scale=)`` and
+    ``const(value, *shape)`` draw the leaves (a moe block's router and
     experts pass ``normal`` the ``dtype`` and ``per_expert`` keywords of
     ``leaf_makers``)."""
     d, hd = cfg.d_model, cfg.head_dim
@@ -91,7 +91,7 @@ def init_block_params(cfg: ArchConfig, n: int, normal, const) -> Dict:
             "wv": normal(n, d, dkv, scale=d ** -0.5),
             "wo": normal(n, dq, d, scale=dq ** -0.5),
         }
-    if _block_type(cfg) == "moe":
+    if block_type == "moe":
         ffn = moe_mod.init_moe_params(
             n, d, cfg.n_experts, cfg.moe_d_ff or cfg.d_ff, normal, const,
             n_shared_experts=cfg.n_shared_experts,
@@ -175,8 +175,9 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
     params["final_norm"] = const(1.0, d)
     client_segs, server_segs = cfg.client_server_segments()
     for side, segs in (("client", client_segs), ("server", server_segs)):
-        params[side] = {f"seg{i}": init_block_params(cfg, n, normal, const)
-                        for i, (_, n) in enumerate(segs)}
+        params[side] = {f"seg{i}": init_block_params(cfg, n, normal, const,
+                                                     block_type=t)
+                        for i, (t, n) in enumerate(segs)}
     if cfg.split.enabled and cfg.split.learnable_codec:
         # near-identity, so the cut is transparent at step 0
         eye = torch.eye(d, dtype=torch.float32, device=dev)
@@ -249,11 +250,11 @@ def _empty_aux(device) -> Dict[str, torch.Tensor]:
             for k in AUX_KEYS}
 
 
-def _ffn(cfg: ArchConfig, p: Dict, h: torch.Tensor,
+def _ffn(cfg: ArchConfig, block_type: str, p: Dict, h: torch.Tensor,
          capacity_factor: float):
-    """The block's feed-forward: SwiGLU, or the MoE layer at
-    ``capacity_factor``.  Returns (out, aux or None)."""
-    if _block_type(cfg) == "moe":
+    """The block's feed-forward: SwiGLU, or for a ``moe`` block the MoE
+    layer at ``capacity_factor``.  Returns (out, aux or None)."""
+    if block_type == "moe":
         return moe_mod.moe_forward(p, h, top_k=cfg.moe_top_k,
                                    capacity_factor=capacity_factor)
     return swiglu_forward(p, h), None
@@ -261,10 +262,11 @@ def _ffn(cfg: ArchConfig, p: Dict, h: torch.Tensor,
 
 def block_forward(cfg: ArchConfig, p: Dict, x: torch.Tensor, *,
                   positions: torch.Tensor, window: Optional[int],
-                  collect_cache: Optional[int] = None):
-    """Full-sequence dense or moe block (the MoE layer at the config's
-    capacity factor; its auxiliaries in fp32, zeros for a dense block).
-    Returns (x, aux, cache_or_None)."""
+                  collect_cache: Optional[int] = None,
+                  block_type: str = "dense"):
+    """Full-sequence block of ``block_type``, ``dense`` or ``moe`` (the MoE
+    layer at the config's capacity factor; its auxiliaries in fp32, zeros
+    for a dense block).  Returns (x, aux, cache_or_None)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     cache = None
     if collect_cache is not None:
@@ -275,7 +277,7 @@ def block_forward(cfg: ArchConfig, p: Dict, x: torch.Tensor, *,
         a = _attn_forward(cfg, p["attn"], h, positions, window)
     x = x + a
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    f, moe_aux = _ffn(cfg, p["ffn"], h2, cfg.capacity_factor)
+    f, moe_aux = _ffn(cfg, block_type, p["ffn"], h2, cfg.capacity_factor)
     aux = _empty_aux(x.device)
     if moe_aux is not None:
         aux.update({k: v.float() for k, v in moe_aux.items()})
@@ -284,12 +286,13 @@ def block_forward(cfg: ArchConfig, p: Dict, x: torch.Tensor, *,
 
 def block_decode(cfg: ArchConfig, p: Dict, x: torch.Tensor, cache: Dict, *,
                  qpos: torch.Tensor, window: Optional[int],
-                 page_table: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One-token dense or moe block (the MoE layer at capacity factor 8:
-    no drops at decode, as in the reference); ``cache`` (this layer's ring
-    cache, or with ``page_table`` its (P, pg, ...) pools, the batch axis of
-    ``x`` then being the scheduler's slot axis) is updated in place.
-    Returns x."""
+                 page_table: Optional[torch.Tensor] = None,
+                 block_type: str = "dense") -> torch.Tensor:
+    """One-token block of ``block_type``, ``dense`` or ``moe`` (the MoE
+    layer at capacity factor 8: no drops at decode, as in the reference);
+    ``cache`` (this layer's ring cache, or with ``page_table`` its (P, pg,
+    ...) pools, the batch axis of ``x`` then being the scheduler's slot
+    axis) is updated in place.  Returns x."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if cfg.attn_type == "mla":
         if page_table is not None:
@@ -306,7 +309,7 @@ def block_decode(cfg: ArchConfig, p: Dict, x: torch.Tensor, cache: Dict, *,
                                          window=window, **_attn_kwargs(cfg))
     x = x + a
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + _ffn(cfg, p["ffn"], h2, 8.0)[0]
+    return x + _ffn(cfg, block_type, p["ffn"], h2, 8.0)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -402,11 +405,12 @@ def _run_segments(params: Dict, cfg: ArchConfig, side: str, segs, x, *,
     """Run one side's segments.  Returns (x, aux_sum, caches)."""
     aux_sum = _empty_aux(x.device)
     caches = {}
-    for i, _ in enumerate(segs):
-        def body(carry, p):
+    for i, (t, _) in enumerate(segs):
+        def body(carry, p, t=t):
             y, aux, cache = block_forward(cfg, p, carry, positions=positions,
                                           window=window,
-                                          collect_cache=collect_cache)
+                                          collect_cache=collect_cache,
+                                          block_type=t)
             return y, (aux, cache)
 
         stacked = params[side][f"seg{i}"]
@@ -478,11 +482,12 @@ def _decode(params: Dict, cfg: ArchConfig, caches: Dict, batch: Dict,
     client_segs, server_segs = cfg.client_server_segments()
 
     def run_side(side, segs, x):
-        for i, _ in enumerate(segs):
-            def body(carry, pc):
+        for i, (t, _) in enumerate(segs):
+            def body(carry, pc, t=t):
                 p, c = pc
                 return block_decode(cfg, p, carry, c, qpos=qpos,
-                                    window=window, page_table=page_table)
+                                    window=window, page_table=page_table,
+                                    block_type=t)
 
             x, _ = stack_mod.run_decode_stack(
                 body, x, params[side][f"seg{i}"], caches[side][f"seg{i}"])

@@ -96,13 +96,13 @@ def collect_hessians(params: Dict, cfg, batch: Dict, *,
     sinks: Dict = {}
 
     def run_side(side: str, side_segs, x):
-        for i, (_, n) in enumerate(side_segs):
+        for i, (t, n) in enumerate(side_segs):
             stacked = params[side][f"seg{i}"]
             for layer in range(n):
                 p = _tap_block(_slice_layer(stacked, layer),
                                (side, f"seg{i}"), layer, sinks)
                 x, _, _ = tf.block_forward(cfg, p, x, positions=positions,
-                                           window=window)
+                                           window=window, block_type=t)
         return x
 
     client_segs, server_segs = cfg.client_server_segments()

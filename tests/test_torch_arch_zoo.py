@@ -1,6 +1,7 @@
 """The dense GQA configs (``granite_3_8b``, ``deepseek_coder_33b``,
-``llava_next_34b``), ``minicpm3_4b`` (MLA) and ``arctic_480b`` (MoE
-blocks) in the port against the JAX reference, on the CPU, in fp32 at
+``llava_next_34b``), ``minicpm3_4b`` (MLA), ``arctic_480b`` (MoE blocks)
+and ``deepseek_v2_236b`` (a dense block, then MoE blocks, with MLA) in
+the port against the JAX reference, on the CPU, in fp32 at
 ``reduced()``: the configs field for field, their segments and cut, the
 registry's aliases and refusals, the parameter trees and their crossing
 by ``from_jax_params``, the forward's logits and caches, one training
@@ -35,9 +36,9 @@ from repro_torch.train import loop as tloop  # noqa: E402
 from repro_torch.utils.tree import tree_flatten_with_path  # noqa: E402
 
 ARCHS = ["granite_3_8b", "deepseek_coder_33b", "llava_next_34b",
-         "minicpm3_4b", "arctic_480b"]
+         "minicpm3_4b", "arctic_480b", "deepseek_v2_236b"]
 # the configs the paged engine serves (MLA has no paged form)
-GQA_ARCHS = [a for a in ARCHS if a != "minicpm3_4b"]
+GQA_ARCHS = [a for a in ARCHS if tget(a).attn_type != "mla"]
 # the tolerances of tests/test_torch_model.py (tinyllava): logits and
 # caches 1e-5, a decode step 1e-4; a training step's as
 # tests/test_torch_train.py's
@@ -143,7 +144,8 @@ def test_full_configs_keep_their_published_shapes():
     ("minicpm3-4b", "minicpm3_4b"),
     ("llama3.2-3b", "llama3_2_3b"),
     ("llama3-2-3b", "llama3_2_3b"),
-    ("arctic-480b", "arctic_480b")])
+    ("arctic-480b", "arctic_480b"),
+    ("deepseek-v2-236b", "deepseek_v2_236b")])
 def test_aliases_resolve_as_the_reference_s(alias, arch):
     assert tget(alias) is tget(arch)
     assert dataclasses.asdict(tget(alias)) == \
@@ -151,8 +153,8 @@ def test_aliases_resolve_as_the_reference_s(alias, arch):
 
 
 @pytest.mark.parametrize("arch", [
-    "deepseek_v2_236b", "musicgen_large", "rwkv6_7b", "zamba2_2_7b",
-    "deepseek-v2-236b", "zamba2-2.7b", "no_such_arch"])
+    "musicgen_large", "rwkv6_7b", "zamba2_2_7b", "zamba2-2.7b",
+    "no_such_arch"])
 def test_unported_archs_raise_naming_their_item(arch):
     with pytest.raises(KeyError, match="M11"):
         tget(arch)

@@ -377,7 +377,7 @@ def test_flash_bwd_plan_shared_memory_at_each_width(shape):
 def test_flash_wrappers_refuse_other_widths():
     """CUDA-free argument checks: K1 - K3 take (D, Dv) in (64, 64),
     (128, 128) and MLA's (96, 64), refuse 96 / 96 and (128, 64), and name
-    queue K item 2 for (192, 128); the plan refuses other widths; the
+    queue K item 3 for (80, 80); the plan refuses other widths; the
     decode kernels K6 - K9 take 64 and 128 and name queue K item 3 for
     80."""
     def ops(d, dv=None):
@@ -396,8 +396,8 @@ def test_flash_wrappers_refuse_other_widths():
         tops._check_flash("K1", *ops(96))
     with pytest.raises(ValueError, match="head_dim"):
         tops._check_flash("K1", *ops(128, dv=64))
-    with pytest.raises(ValueError, match="item 2"):
-        tops._check_flash("K1", *ops(192, dv=128))
+    with pytest.raises(ValueError, match="item 3"):
+        tops._check_flash("K1", *ops(80, dv=80))
     with pytest.raises(ValueError, match="head_dim"):
         tops.flash_bwd_plan(1, 4, 2, 16, 16, 96)
     for d in (64, 128, 80):

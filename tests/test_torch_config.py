@@ -52,4 +52,4 @@ def test_split_and_quant_defaults_match():
 
 def test_unported_config_raises():
     with pytest.raises(KeyError, match="M11"):
-        torch_get_config("deepseek_v2_236b")
+        torch_get_config("rwkv6_7b")
