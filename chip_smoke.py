@@ -57,7 +57,14 @@ non-zero:
               ``*_d192v128`` (deepseek_v2_236b's: B 2, 128 / 128 heads, S
               1 024, a padded tail, a window, a ragged S, and G 2 cases:
               K3's clusters of 2, K2's one Q / dO slot reused by a second
-              head).
+              head).  K1 - K3 at (80, 80) and K6 - K9 at 80 are the rows
+              ``*_d80`` (zamba2_2_7b's: K1 - K3 at B 2, 32 / 32 heads, S
+              1 024, its prefill shape, a padded tail, a ragged S, a G 4
+              window case; K6 / K7 at its generate shape, 4 rows of 32 kv
+              heads at G 1 over rings of 544, a wrapped ring, two rounds,
+              G 16; K8 / K9, on no zamba2 path, at 32 kv heads, G 1, a
+              serve-like 4 slots of 512 - 544 tokens, pages of 64, npp 1),
+              K1 - K3 and K6 against SDPA.
 3. serve   -- full-width tinyllava (16 layers, d 1280, bf16, random weights
               from a seed) behind ServeEngine with the 2-bit RD-FSQ split
               wire: 8 requests through 4 slots until all finish.  Launch
@@ -264,6 +271,24 @@ non-zero:
               64 GB): 6 AdamW steps of 2 x 1 024 tokens (K1 - K3 at (192,
               128), exact launches), finite auxiliaries, the first batch's
               CE falling.
+27. zamba2 serve -- zamba2_2_7b at full width and full depth (54 layers:
+              45 mamba2 (d_inner 5 120 as 80 heads of 64, d_state 64) and 9
+              uses of one parameter-shared attention block, 32 / 32 heads
+              of width 80 over concat(hidden, the embedded input); 2.09 G
+              parameters; its 2-bit cut at layer 27): generate() of 4
+              prompts of 512 tokens, 32 new, over bf16 ring caches (K1 9
+              times in the prefill, K6 9 times a step) and int8 ones (K7),
+              the tokens the two share, the KV / SSM state / conv cache
+              bytes by formula, peak memory, ms a decode step, the time to
+              draw the weights; the first decode step's logits against a
+              full forward over the prompt and that token (the chunked SSD
+              against the recurrence, the cut off); the first 6 layers (5
+              mamba2, the shared block, cut at 3) against the fp32 CPU
+              path; ``serve_batched --engine`` refusing mamba2 blocks.
+28. zamba2 train -- the training step at full width and full depth, 3
+              AdamW steps of 2 x 1 024 tokens: K1 = K2 = K3 = 9 a step at
+              (80, 80) (no remat around the shared block), the first
+              batch's CE falling, ms a step, peak memory.
 
 Every phase prints its seconds and the device memory after it.  The last
 lines are the card (nvidia-smi), the per-kernel JSON line and
@@ -395,6 +420,12 @@ ARCTIC_PARITY_SEQ, ARCTIC_MOE_PARITY_ROWS = 256, 16
 # sequence is ARCTIC_PARITY_SEQ
 DEEPSEEK_DEPTH, DEEPSEEK_CUT = 6, 3
 DEEPSEEK_TRAIN_LAYERS, DEEPSEEK_TRAIN_EXPERTS, DEEPSEEK_TRAIN_STEPS = 2, 16, 6
+# zamba2_2_7b at full width and full depth: generate's prompts as the zoo's;
+# the card-vs-CPU parity of its first ZAMBA_PARITY_LAYERS layers (5 mamba2
+# and the shared block) cut at ZAMBA_PARITY_CUT, on ARCTIC_PARITY_SEQ
+# tokens; ZAMBA_TRAIN_STEPS training steps of ARCTIC_TRAIN_BATCH x
+# ARCTIC_TRAIN_SEQ tokens
+ZAMBA_PARITY_LAYERS, ZAMBA_PARITY_CUT, ZAMBA_TRAIN_STEPS = 6, 3, 3
 # int8 K/V bytes per (token, kv head) over bf16: (64 + 2) / 128
 INT8_POOL_RATIO = 0.515625
 # K12 against its plain version, relative to max |plain|: the dequantized
@@ -570,15 +601,17 @@ def _flash_case(gen, b, sq, h, kh, window=None, kv_valid_len=None,
 # 2 x 1 024), the suffix D96
 D128 = "_d128"
 D96 = "_d96v64"
-# and at deepseek_v2_236b's (192, 128) (128 / 128 heads, 2 x 1 024)
+# and at deepseek_v2_236b's (192, 128) (128 / 128 heads, 2 x 1 024); K1 -
+# K3 and K6 - K9 at zamba2_2_7b's head width 80 (32 / 32 heads: G 1)
 D192 = "_d192v128"
+D80 = "_d80"
 # the granite (G 4) and 33B / 34B (G 7) groupings at 128, timed beside
 D128_G4 = "D128 G4 (32 / 8 heads, granite) B2 S1024"
 D128_G7 = "D128 G7 (56 / 8 heads, the 33B / 34B) B2 S1024"
 
 
 def _suffix(d: int) -> str:
-    return {64: "", 128: D128, 96: D96, 192: D192}[d]
+    return {64: "", 128: D128, 96: D96, 192: D192, 80: D80}[d]
 
 
 def _sdpa_backends(q, k, v, fn):
@@ -606,14 +639,27 @@ def _sdpa_backends(q, k, v, fn):
 def check_flash(gen, results, d=64, dv=None):
     """K1 at the serve shape (D 64), at llama's (D 128, with G 4 and G 7
     cases at granite's and the 33B / 34B's grouping), at minicpm3_4b's
-    (D 96, Dv 64) or at deepseek_v2_236b's (D 192, Dv 128), the first case
-    timed."""
+    (D 96, Dv 64), at deepseek_v2_236b's (D 192, Dv 128) or at
+    zamba2_2_7b's (D = Dv = 80: its training and prefill shapes, G 1), the
+    first case timed."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import attention_ops, attention_ref
 
     dv = d if dv is None else dv
-    if d == 192:
+    if d == 80:
+        cases = {
+            "D80 zamba2 train shape B2 H32 S1024":
+                _flash_case(gen, 2, 1024, 32, 32, d=d),
+            "D80 zamba2 prefill shape B4 H32 S512":
+                _flash_case(gen, 4, 512, 32, 32, d=d),
+            "D80 padded q tail S777 + kv_valid_len 700":
+                _flash_case(gen, 2, 777, 32, 32, kv_valid_len=700, d=d),
+            "D80 ragged tiles S100": _flash_case(gen, 1, 100, 32, 32, d=d),
+            "D80 G 4 (32 / 8 heads) window 256 B1 S1024":
+                _flash_case(gen, 1, 1024, 32, 8, window=256, d=d),
+        }
+    elif d == 192:
         cases = {
             "D192/128 deepseek shape B2 H128 S1024":
                 _flash_case(gen, 2, 1024, 128, 128, d=d, dv=dv),
@@ -740,7 +786,8 @@ def check_flash_bwd(gen, results, d=64, dv=None):
     minicpm3_4b's (G 1: K3's clusters of one block), (192, 128) at
     deepseek_v2_236b's (G 1; K2 with one Q / dO slot, K3 with the two
     warpgroups splitting dK / dV's columns; G 2 cases for K2's slot reused
-    by a second head and for K3's clusters); the first case timed and run
+    by a second head and for K3's clusters), (80, 80) at zamba2_2_7b's
+    (G 1, and a G 4 case for K3's clusters); the first case timed and run
     twice."""
     import torch
     import torch.nn.functional as F
@@ -748,6 +795,14 @@ def check_flash_bwd(gen, results, d=64, dv=None):
 
     dv = d if dv is None else dv
     cases = {
+        "D80 zamba2 train shape B2 H32 S1024":
+            _flash_case(gen, 2, 1024, 32, 32, d=d),
+        "D80 padded q tail S777 + kv_valid_len 700":
+            _flash_case(gen, 2, 777, 32, 32, kv_valid_len=700, d=d),
+        "D80 ragged tiles S100": _flash_case(gen, 1, 100, 32, 32, d=d),
+        "D80 G 4 (32 / 8 heads: K3 clusters) window 256 B1 S1024":
+            _flash_case(gen, 1, 1024, 32, 8, window=256, d=d),
+    } if d == 80 else {
         "D192/128 deepseek train shape B2 H128 S1024":
             _flash_case(gen, 2, 1024, 128, 128, d=d, dv=dv),
         "D192/128 padded q tail S777 + kv_valid_len 700":
@@ -1286,6 +1341,21 @@ def _hold_decode(tag, what, plan, run, ref, dead) -> float:
 def _ring_cases(gen, d):
     """check_ring_decode's cases, by name: (case, windows); the first is
     timed."""
+    if d == 80:  # zamba2_2_7b: 32 kv heads, G 1; generate's ring of 544
+        return {
+            "D80 zamba2 shape B4 KH32 G1 L544": (
+                _ring_case(gen, 4, 544, [543, 540, 300, 100], kh=32, g=1,
+                           d=d), (None, 200)),
+            "D80 wrapped ring L544, a row with no key": (
+                _ring_case(gen, 4, 544, [1000, 700, 543, -1], kh=32, g=1,
+                           d=d), (None,)),
+            "D80 G4 (KH8) L2000 (two rounds)": (
+                _ring_case(gen, 4, 2000, [1999, 3100, 700, -1], kh=8, g=4,
+                           d=d), (None, 200)),
+            "D80 G16 (KH2) L37": (
+                _ring_case(gen, 4, 37, [36, 80, 2, -1], kh=2, g=16, d=d),
+                (None, 8)),
+        }
     if d == 128:  # llama3_2_3b: 8 kv heads, G 3
         return {
             "D128 llama shape B4 L1088 (a padded tail)": (
@@ -1329,8 +1399,11 @@ def check_ring_decode(gen, results, d=64):
     and L 37 (fewer virtual pages than 8 ranks).  Head width 128 (rows
     ``*_d128``): llama3_2_3b's shape (B 4, 8 kv heads, G 3, ring rows of
     1 088 with a padded tail; timed), a wrapped ring with a row of no key,
-    G 16 at L 2000.  Every output within DECODE_ATOL, exactly 0 on a row
-    with no visible key, the same bits on two runs.  Timed as device time
+    G 16 at L 2000.  Head width 80 (rows ``*_d80``): zamba2_2_7b's
+    generate shape (B 4, 32 kv heads, G 1, rings of 544; timed), a wrapped
+    ring with a row of no key, G 4 at L 2000 (two rounds), G 16 at L 37.
+    Every output within DECODE_ATOL, exactly 0 on a row with no visible
+    key, the same bits on two runs.  Timed as device time
     by CUDA-graph replay and eager at the first case, with SDPA over the
     same cache (GQA, boolean mask) as the yardstick."""
     import torch
@@ -1338,7 +1411,7 @@ def check_ring_decode(gen, results, d=64):
     from repro_torch.kernels import attention_ops, attention_ref
 
     cases = _ring_cases(gen, d)
-    suffix = "" if d == 64 else D128
+    suffix = _suffix(d)
     worst = {"decode": 0.0, "decode_q8": 0.0}
     for name, (case, windows) in cases.items():
         qf, k, v, q8, kpos, qpos = case
@@ -1472,6 +1545,21 @@ def _paged_cases(gen, d):
     """check_decode's cases, by name: (case, windows); the first two are
     timed (the mixed case for the kernels line, then the serve shape)."""
     holes = ((1, 5),)
+    if d == 80:  # zamba2_2_7b's widths (32 kv heads, G 1), off its paths
+        return {
+            "D80 S4 KH32 G1 pg16 npp64 (a -1 page, an inactive slot)": (
+                _paged_case(gen, (854, 500, 0, 100), n_pages=433,
+                            holes=holes, kh=32, g=1, d=d), (None, 200)),
+            "D80 4 slots of 512-544 tokens, npp34": (
+                _paged_case(gen, (544, 530, 512, 520), npp=34, kh=32, g=1,
+                            d=d), (None,)),
+            "D80 pg64 npp16 G4 (KH8)": (
+                _paged_case(gen, (854, 500, 0, 100), npp=16, pg=64, kh=8,
+                            g=4, holes=((1, 2),), d=d), (None, 200)),
+            "D80 npp1 G16 (KH2)": (
+                _paged_case(gen, (16, 9, 0, 1), npp=1, kh=2, g=16, d=d),
+                (None, 8)),
+        }
     if d == 128:  # llama3_2_3b: 8 kv heads, G 3; its serve slots
         return {
             "D128 S4 KH8 G3 pg16 npp64 (a -1 page, an inactive slot)": (
@@ -1520,8 +1608,11 @@ def check_decode(gen, results, d=64):
     (4 active slots of 760 - 860 tokens), npp 1 and 128, pages of 8 and
     64, G 1 and 16.  Head width 128 (rows ``*_d128``, llama3_2_3b's 8 kv
     heads and G 3): the mixed case, the llama serve shape (4 slots of
-    75 - 128 tokens, 8 table entries), npp 128, pages of 64 at G 16.  Each
-    at window None and (where it empties whole cluster ranks) 200.  Every
+    75 - 128 tokens, 8 table entries), npp 128, pages of 64 at G 16.  Head
+    width 80 (rows ``*_d80``, on no zamba2 path: the engine refuses mamba2
+    blocks): the mixed case at 32 kv heads and G 1, 4 slots of 512 - 544
+    tokens, pages of 64 at G 4, npp 1 at G 16.  Each at window None and
+    (where it empties whole cluster ranks) 200.  Every
     output within DECODE_ATOL, exactly 0 on a slot with no visible key,
     the same bits on two runs.  Timed as device time by CUDA-graph replay
     and eager, at the mixed case (the kernels line) and the serve
@@ -1530,7 +1621,7 @@ def check_decode(gen, results, d=64):
     from repro_torch.kernels import attention_ops, attention_ref
 
     cases = _paged_cases(gen, d)
-    suffix = "" if d == 64 else D128
+    suffix = _suffix(d)
     worst = {"decode_paged": 0.0, "decode_paged_q8": 0.0}
     for name, (case, windows) in cases.items():
         qf, k_pool, v_pool, q8, pos_pool, page_table, qpos = case
@@ -1789,12 +1880,16 @@ def phase_kernels():
     check_flash_bwd(gen, results, d=96, dv=64)
     check_flash(gen, results, d=192, dv=128)
     check_flash_bwd(gen, results, d=192, dv=128)
+    check_flash(gen, results, d=80, dv=80)
+    check_flash_bwd(gen, results, d=80, dv=80)
     check_wire(gen, results)
     check_nf(gen, results)
     check_ring_decode(gen, results)
     check_decode(gen, results)
     check_ring_decode(gen, results, d=128)
     check_decode(gen, results, d=128)
+    check_ring_decode(gen, results, d=80)
+    check_decode(gen, results, d=80)
     check_wq(gen, results)
     for name, r in results.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -3787,11 +3882,12 @@ def phase_serve_llama():
 # phases 19 - 21: the arch zoo on the card
 # ---------------------------------------------------------------------------
 
-def _zoo_generate(cfg, params, tag, kernel):
+def _zoo_generate(cfg, params, tag, kernel, n_attn=None):
     """``generate`` of ZOO_GEN_BATCH prompts of ZOO_GEN_TEXT tokens, GEN_NEW
-    new, greedy, over ring caches: exact launches (K1 once a layer, the
-    decode ``kernel`` a layer a step, or none for MLA), then ms per decode
-    step.  Returns the launch counts and the prompts."""
+    new, greedy, over ring caches: exact launches (K1 once an attention
+    layer, the decode ``kernel`` an attention layer a step, or none for
+    MLA; ``n_attn`` attention layers, every layer by default), then ms per
+    decode step.  Returns the launch counts, the prompts and the tokens."""
     import torch
     from repro_torch.kernels import build
     from repro_torch.serve import decode as sd
@@ -3809,9 +3905,10 @@ def _zoo_generate(cfg, params, tag, kernel):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(build.launches)
-    expect = {"flash_fwd": cfg.n_layers}
+    n_attn = cfg.n_layers if n_attn is None else n_attn
+    expect = {"flash_fwd": n_attn}
     if kernel:
-        expect[kernel] = cfg.n_layers * GEN_NEW
+        expect[kernel] = n_attn * GEN_NEW
     _check_launches(tag, launches, expect)
     require(toks.shape == (ZOO_GEN_BATCH, GEN_NEW) and bool(
         ((toks >= 0) & (toks < cfg.vocab_size)).all()), f"{tag} tokens")
@@ -3820,7 +3917,7 @@ def _zoo_generate(cfg, params, tag, kernel):
           f"{GEN_NEW} new, ring caches of {cache_len}: {wall:.3f} s prefill "
           f"+ decode, {ZOO_GEN_BATCH * GEN_NEW / wall:.1f} tokens/s end to "
           f"end; {step_ms:.2f} ms per decode step (median of {GEN_NEW})")
-    return launches, batch
+    return launches, batch, toks
 
 
 def _two_layers(cfg):
@@ -3865,8 +3962,8 @@ def phase_granite():
     paths["granite serve"], eng = _serve_llama(cfg, params, None, reqs,
                                                "granite serve")
     del eng
-    paths["granite generate"], _ = _zoo_generate(cfg, params,
-                                                 "granite generate", "decode")
+    paths["granite generate"], _, _ = _zoo_generate(
+        cfg, params, "granite generate", "decode")
     del params
     torch.cuda.empty_cache()
     cfg2 = _two_layers(cfg)
@@ -3945,8 +4042,8 @@ def phase_mla():
     _describe("mla", cfg, params)
     n_full = tree_count(params)
     paths = {}
-    paths["mla generate"], batch = _zoo_generate(cfg, params, "mla generate",
-                                                 None)
+    paths["mla generate"], batch, _ = _zoo_generate(
+        cfg, params, "mla generate", None)
     cache_len = ZOO_GEN_TEXT + GEN_NEW
     _, caches = sd.prefill(params, cfg, batch, cache_len)
     got = _kv_bytes(caches)
@@ -4449,7 +4546,8 @@ def phase_deepseek_serve():
           f"{cfg.n_shared_experts * cfg.moe_d_ff}); the dense layer's SwiGLU "
           f"{cfg.d_ff}")
     torch.cuda.reset_peak_memory_stats()
-    launches, batch = _zoo_generate(cfg, params, "deepseek generate", None)
+    launches, batch, _ = _zoo_generate(cfg, params, "deepseek generate",
+                                       None)
     peak = torch.cuda.max_memory_allocated()
     cache_len = ZOO_GEN_TEXT + GEN_NEW
     _, caches = sd.prefill(params, cfg, batch, cache_len)
@@ -4641,6 +4739,255 @@ def phase_deepseek_train():
     return {"deepseek train": launches}
 
 
+def _zamba_cache_bytes(cfg, caches):
+    """(KV bytes of the shared blocks' rings, SSM state bytes, convolution
+    cache bytes) of a tree of zamba2 caches (positions left out)."""
+    kv = state = conv = 0
+    for side, segs in zip(("client", "server"),
+                          cfg.client_server_segments()):
+        for i, (t, _) in enumerate(segs):
+            c = caches[side][f"seg{i}"]
+            if t == "mamba2":
+                state += _nbytes(c["state"])
+                conv += _nbytes(c["conv"])
+            else:
+                kv += _nbytes(*(v for k, v in c.items() if k != "pos"))
+    return kv, state, conv
+
+
+def _zamba_cache_formula(cfg, batch, cache_len):
+    """The same three by formula: 9 rings of (B, L, KH, 80) K and V (int8
+    codes with fp16 scales, or bf16), 45 fp32 states (B, 80, 64, 64) and
+    45 bf16 convolution caches (B, 3, d_inner + 2 d_state)."""
+    pat = cfg.block_pattern()
+    n_attn, n_ssm = pat.count("shared_attn"), pat.count("mamba2")
+    row = cfg.head_dim + 2 if cfg.kv_cache_bits == 8 else 2 * cfg.head_dim
+    d_inner = cfg.ssm_expand * cfg.d_model
+    kv = n_attn * batch * cache_len * cfg.n_kv_heads * 2 * row
+    state = n_ssm * batch * d_inner * cfg.ssm_state * 4
+    conv = n_ssm * batch * 3 * (d_inner + 2 * cfg.ssm_state) * 2
+    return kv, state, conv
+
+
+def phase_zamba2_serve():
+    """zamba2_2_7b at full width and full depth (54 layers: 45 mamba2, 9
+    uses of the shared attention block at head width 80, G 1; the 2-bit
+    cut at 27): ``generate`` of 4 prompts of 512 tokens, 32 new, over bf16
+    ring caches (K1 9 times in the prefill, K6 9 times a step) and int8
+    ones (K7), the tokens the two runs share, cache bytes by formula, peak
+    memory, ms a decode step; the first decode step's logits against a
+    full forward over the prompt and that token (the chunked SSD against
+    its recurrence, the cut off); the first 6 layers against the fp32 CPU
+    path, the cut off; the engine refusing.  Returns the launch counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve_batched
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import decode as sd
+    from repro_torch.utils.tree import tree_count
+
+    cfg = get_config("zamba2_2_7b")
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    drawn = time.perf_counter() - t0
+    n = tree_count(params)
+    pat = cfg.block_pattern()
+    n_attn = pat.count("shared_attn")
+    print(f"[zamba2 serve] {cfg.name}: {cfg.n_layers} layers "
+          f"({pat.count('mamba2')} mamba2: d_inner "
+          f"{cfg.ssm_expand * cfg.d_model} as "
+          f"{cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim} heads of "
+          f"{cfg.ssm_headdim}, d_state {cfg.ssm_state}; {n_attn} uses of "
+          f"the shared block: {cfg.n_heads}/{cfg.n_kv_heads} heads of width "
+          f"{cfg.head_dim}, SwiGLU {cfg.d_ff}), d {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}, full depth; {n} parameters "
+          f"({tree_count(params['shared_attn'])} in the shared block), "
+          f"{2 * n / 1e9:.2f} GB of bf16, drawn from seed 0 in {drawn:.1f} "
+          f"s; the 2-bit cut at layer {cfg.split.resolve_cut(cfg.n_layers)} "
+          "in the graph")
+    torch.cuda.reset_peak_memory_stats()
+    paths = {}
+    runs = {}
+    for bits, kernel in ((16, "decode"), (8, "decode_q8")):
+        c = dataclasses.replace(cfg, kv_cache_bits=bits)
+        tag = f"zamba2 generate{' int8' if bits == 8 else ''}"
+        paths[tag], batch, runs[bits] = _zoo_generate(c, params, tag, kernel,
+                                                      n_attn=n_attn)
+        cache_len = ZOO_GEN_TEXT + GEN_NEW
+        _, caches = sd.prefill(params, c, batch, cache_len)
+        got = _zamba_cache_bytes(c, caches)
+        want = _zamba_cache_formula(c, ZOO_GEN_BATCH, cache_len)
+        print(f"[{tag}] caches: KV {got[0]} B ({bits}-bit, {n_attn} rings of "
+              f"{ZOO_GEN_BATCH} x {cache_len}), SSM state {got[1]} B, conv "
+              f"{got[2]} B (formula {want})")
+        require(got == want, f"{tag} cache bytes {got}, expected {want}")
+        del caches
+    peak = torch.cuda.max_memory_allocated()
+    same = int((runs[16] == runs[8]).sum())
+    print(f"[zamba2 serve] generated tokens shared by the bf16 and int8 "
+          f"runs: {same} of {runs[16].numel()}; peak device memory of "
+          f"generate {peak / 2 ** 30:.2f} GiB")
+
+    # the chunked SSD prefill against the one-step recurrence: the first
+    # decode step's logits against a full forward over prompt + token
+    off = dataclasses.replace(cfg, split=dataclasses.replace(
+        cfg.split, enabled=False))
+    toks = batch["tokens"]
+    with torch.inference_mode():
+        _, caches = sd.prefill(params, off, batch, ZOO_GEN_TEXT + 1)
+        nxt = runs[16][:, :1]
+        qpos = torch.full((ZOO_GEN_BATCH,), ZOO_GEN_TEXT, dtype=torch.int32,
+                          device="cuda")
+        step, _ = tf.decode_step(params, off, caches, dict(tokens=nxt), qpos)
+        full, _ = tf.forward(params, off,
+                             dict(tokens=torch.cat([toks, nxt], dim=1)))
+    a, b = step[:, -1].float(), full[:, -1].float()
+    rel = float((a - b).norm() / b.norm())
+    agree = int((a.argmax(-1) == b.argmax(-1)).sum())
+    print(f"[zamba2 serve] recurrence: the first decode step's logits "
+          f"against a full forward over {ZOO_GEN_TEXT} + 1 tokens, the cut "
+          f"off, bf16: relative error {rel:.3e} (tol {PARITY_RTOL}), argmax "
+          f"agrees on {agree} of {ZOO_GEN_BATCH} rows")
+    require(math.isfinite(rel) and rel < PARITY_RTOL,
+            f"zamba2 recurrence: rel {rel}")
+    del caches, step, full
+
+    # the first 6 layers (5 mamba2, the shared block) against the fp32 CPU
+    # path, the cut off
+    cfg6 = dataclasses.replace(cfg, n_layers=ZAMBA_PARITY_LAYERS,
+                               split=dataclasses.replace(
+                                   cfg.split, cut_layer=ZAMBA_PARITY_CUT,
+                                   enabled=False))
+    ssm = params["client"]["seg0"]
+    params6 = {k: params[k] for k in ("embed", "head", "final_norm",
+                                      "shared_attn")}
+    params6["client"] = {"seg0": _tree(ssm, lambda t: t[:ZAMBA_PARITY_CUT])}
+    params6["server"] = {"seg0": _tree(ssm, lambda t: t[ZAMBA_PARITY_CUT:]),
+                         "seg1": {}}
+    require(cfg6.client_server_segments() == (
+        (("mamba2", 3),), (("mamba2", 2), ("shared_attn", 1))),
+        f"zamba2 parity segments {cfg6.client_server_segments()}")
+    _zamba_parity(cfg6, params6)
+    del params6, ssm
+
+    # the paged engine has no mamba2 form
+    try:
+        serve_batched.main(["--arch", "zamba2_2_7b", "--engine"])
+        refused = None
+    except NotImplementedError as e:
+        refused = str(e)
+    print(f"[zamba2 serve] serve_batched --engine: NotImplementedError "
+          f"{refused!r}")
+    require(refused is not None and "mamba2" in refused,
+            "zamba2: the engine did not refuse mamba2 blocks")
+    del params
+    torch.cuda.empty_cache()
+    return paths
+
+
+def _zamba_parity(cfg, params):
+    """``cfg``'s layers on ARCTIC_PARITY_SEQ tokens, bf16 on the card
+    against fp32 on the CPU from the same weights."""
+    import torch
+    from repro_torch.models import transformer as tf
+
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    params32 = _tree(params, _cpu32)
+    toks = torch.randint(1, cfg.vocab_size, (1, ARCTIC_PARITY_SEQ),
+                         generator=torch.Generator().manual_seed(3))
+    with torch.inference_mode():
+        gl, _ = tf.forward(params, cfg, dict(tokens=toks.cuda()))
+        t0 = time.perf_counter()
+        cl, _ = tf.forward(params32, cfg32, dict(tokens=toks))
+    g, c = gl[0].float().cpu(), cl[0]
+    rel = float((g - c).norm() / c.norm())
+    agree = float((g.argmax(-1) == c.argmax(-1)).float().mean())
+    print(f"[zamba2 parity] layers 0 - {cfg.n_layers - 1} "
+          f"({cfg.client_server_segments()}), 1 x {ARCTIC_PARITY_SEQ} "
+          f"tokens, the cut off, the fp32 CPU forward in "
+          f"{time.perf_counter() - t0:.1f} s: logits relative error "
+          f"{rel:.3e} (tol {PARITY_RTOL}); argmax agrees on {agree:.4f} of "
+          f"the tokens, the last token's card {int(g[-1].argmax())} cpu "
+          f"{int(c[-1].argmax())}")
+    require(math.isfinite(rel) and rel < PARITY_RTOL
+            and int(g[-1].argmax()) == int(c[-1].argmax()),
+            f"zamba2 parity: rel {rel}, last argmax card "
+            f"{int(g[-1].argmax())} cpu {int(c[-1].argmax())}")
+    del params32
+
+
+def phase_zamba2_train():
+    """zamba2_2_7b's training step at full width and full depth:
+    ZAMBA_TRAIN_STEPS AdamW steps of ARCTIC_TRAIN_BATCH x ARCTIC_TRAIN_SEQ
+    tokens (remat on the mamba2 segments, none around the shared block:
+    K1 = K2 = K3 = 9 a step, at (80, 80)), the first batch's CE falling,
+    ms a step and peak memory.  Returns the launch counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.kernels import build
+    from repro_torch.models.transformer import cdtype, layer_forward_count
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.loop import (batch_to, init_state, make_grad_fn,
+                                        make_train_step)
+    from repro_torch.utils.tree import tree_count
+
+    cfg = get_config("zamba2_2_7b")
+    opt = AdamWConfig(lr=ARCTIC_LR)
+    state = init_state(cfg, opt, seed=0)
+    n = tree_count(state.params)
+    n_attn = cfg.block_pattern().count("shared_attn")
+    print(f"[zamba2 train] full width and depth: {cfg.n_layers} layers, "
+          f"{n} parameters, {(2 + 2 + 8) * n / 1e9:.1f} GB of bf16 weights "
+          f"and gradients and fp32 moments; {ZAMBA_TRAIN_STEPS} steps of "
+          f"{ARCTIC_TRAIN_BATCH} x {ARCTIC_TRAIN_SEQ} tokens, lr {ARCTIC_LR},"
+          f" remat {cfg.remat} (the mamba2 segments; the {n_attn} uses of "
+          "the shared block run outside it)")
+    step_fn = make_train_step(cfg, opt, total_steps=ZAMBA_TRAIN_STEPS,
+                              warmup_steps=1)
+    data = make_pipeline(cfg, ARCTIC_TRAIN_BATCH, ARCTIC_TRAIN_SEQ, seed=0)
+    batches = [next(data) for _ in range(ZAMBA_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    times, ms = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, m = step_fn(state, b)
+        ms.append({k: float(v) for k, v in m.items()})  # waits for the step
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    launches = dict(build.launches)
+    carry = torch.empty((ARCTIC_TRAIN_BATCH, ARCTIC_TRAIN_SEQ, cfg.d_model),
+                        dtype=cdtype(cfg), device="meta")
+    per_step = layer_forward_count(cfg, carry)
+    require(per_step == n_attn, f"zamba2 train: {per_step} K1 a step")
+    _check_launches("zamba2 train", launches,
+                    {k: n_attn * ZAMBA_TRAIN_STEPS for k in
+                     ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")})
+    peak = torch.cuda.max_memory_allocated()
+    _, m = make_grad_fn(cfg)(state.params, batch_to(batches[0],
+                                                    torch.device("cuda")))
+    after = float(m["ce"])
+    ces = [x["ce"] for x in ms]
+    step_s = statistics.median(times[1:])
+    print(f"[zamba2 train] CE " + " ".join(f"{x:.4f}" for x in ces)
+          + f"; the first batch's {ces[0]:.4f} -> {after:.4f} after the "
+          f"steps; {1e3 * step_s:.2f} ms per step (median of steps 2-"
+          f"{ZAMBA_TRAIN_STEPS}; step 1 {1e3 * times[0]:.2f}), "
+          f"{ARCTIC_TRAIN_BATCH * ARCTIC_TRAIN_SEQ / step_s:.1f} training "
+          f"tokens/s; peak device memory {peak / 2 ** 30:.2f} GiB")
+    require(all(math.isfinite(x["loss"]) for x in ms),
+            f"zamba2 train: loss not finite: {ms}")
+    require(after < ces[0], f"zamba2 train: the first batch's CE did not "
+            f"fall: {ces[0]} -> {after}")
+    del state, step_fn
+    torch.cuda.empty_cache()
+    return {"zamba2 train": launches}
+
+
 # ---------------------------------------------------------------------------
 # phase 12: one training step on the card against the fp32 CPU path
 # ---------------------------------------------------------------------------
@@ -4799,7 +5146,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths192.update(_timed("deepseek train", phase_deepseek_train))
-    every = {**paths, **paths128, **paths96, **paths192}
+    gc.collect()
+    torch.cuda.empty_cache()
+    # zamba2_2_7b: mamba2 layers and the shared attention block at head
+    # width 80, full depth
+    paths80 = _timed("zamba2 serve", phase_zamba2_serve)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths80.update(_timed("zamba2 train", phase_zamba2_train))
+    every = {**paths, **paths128, **paths96, **paths192, **paths80}
     for path, launches in every.items():
         print(f"[launches] {path}: {launches}")
 
@@ -4807,17 +5162,21 @@ def main() -> int:
                 "decode_q8", "decode_paged", "decode_paged_q8")
     kernels = []
     for name in list(REPLACES) + [k + D128 for k in by_width] \
-            + [k + sfx for sfx in (D96, D192) for k in by_width[:3]]:
+            + [k + sfx for sfx in (D96, D192) for k in by_width[:3]] \
+            + [k + D80 for k in by_width]:
         r = results[name]
-        kernel = name.removesuffix(D128).removesuffix(D96).removesuffix(D192)
+        kernel = name.removesuffix(D128).removesuffix(D96) \
+            .removesuffix(D192).removesuffix(D80)
         # the attention rows count their width's paths (tinyllava: 64,
         # llama3_2_3b and the GQA zoo: 128, minicpm3_4b: (96, 64),
-        # deepseek_v2_236b: (192, 128)); the wire and weight kernels every
-        # path
+        # deepseek_v2_236b: (192, 128), zamba2_2_7b: 80, where K8 / K9
+        # launch 0 times: the engine refuses mamba2 blocks); the wire and
+        # weight kernels every path
         counted = (every if kernel not in by_width else
                    paths128 if name.endswith(D128) else
                    paths96 if name.endswith(D96) else
-                   paths192 if name.endswith(D192) else paths)
+                   paths192 if name.endswith(D192) else
+                   paths80 if name.endswith(D80) else paths)
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[kernel],
             replaces=REPLACES[kernel],

@@ -6,17 +6,19 @@
 
 Names, run in the order given:
 
-* ``flash64``, ``flash128``, ``flash96``, ``flash192``: K1 and K2 / K3
-  against their plain versions at (D, Dv) = (64, 64), (128, 128), (96, 64)
-  or (192, 128), timed;
+* ``flash64``, ``flash128``, ``flash96``, ``flash192``, ``flash80``: K1
+  and K2 / K3 against their plain versions at (D, Dv) = (64, 64),
+  (128, 128), (96, 64), (192, 128) or (80, 80), timed;
 * ``wire`` (K4 / K5), ``nf`` (K10 / K11), ``wq`` (K12), ``ring64`` /
-  ``ring128`` (K6 / K7) and ``paged64`` / ``paged128`` (K8 / K9) likewise;
+  ``ring128`` / ``ring80`` (K6 / K7) and ``paged64`` / ``paged128`` /
+  ``paged80`` (K8 / K9) likewise;
   ``kernels`` all of them, as the smoke's kernels phase;
 * ``tinyllava`` (phases 3 - 12), and any phase by the name after
   ``phase_`` in ``chip_smoke.py``: ``pipeline``, ``lora_pipeline``,
   ``hub``, ``hub_async``, ``hub_lora``, ``serve_llama``, ``granite``,
   ``zoo_wide``, ``mla``, ``attack``, ``arctic_serve``, ``arctic_train``,
-  ``deepseek_serve``, ``deepseek_train``.
+  ``deepseek_serve``, ``deepseek_train``, ``zamba2_serve``,
+  ``zamba2_train``.
 
 Needs one CUDA device and nvcc.  A step that fails prints its traceback
 and the next one runs; the exit code is 1 if any failed (or a name is
@@ -36,14 +38,16 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # flashW -> (D, Dv) of check_flash / check_flash_bwd
 FLASH = {"flash64": (64, None), "flash128": (128, None),
-         "flash96": (96, 64), "flash192": (192, 128)}
+         "flash96": (96, 64), "flash192": (192, 128), "flash80": (80, 80)}
 # the other kernel checks: name -> (function of chip_smoke, keywords)
 CHECKS = {"wire": ("check_wire", {}), "nf": ("check_nf", {}),
           "wq": ("check_wq", {}),
           "ring64": ("check_ring_decode", {}),
           "ring128": ("check_ring_decode", {"d": 128}),
+          "ring80": ("check_ring_decode", {"d": 80}),
           "paged64": ("check_decode", {}),
-          "paged128": ("check_decode", {"d": 128})}
+          "paged128": ("check_decode", {"d": 128}),
+          "paged80": ("check_decode", {"d": 80})}
 
 
 class _Tee:

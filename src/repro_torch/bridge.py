@@ -45,8 +45,11 @@ def _leaf(a, device: torch.device, dtype: Optional[torch.dtype]
 
 def from_jax_params(tree, device: DeviceLike, dtype=None) -> Dict:
     """The reference's parameter tree as the port's parameter dict, one
-    leaf to one tensor with the same keys.  ``dtype`` casts the floating
-    leaves; ``None`` keeps each leaf's own dtype."""
+    leaf to one tensor with the same keys: zamba2's top-level
+    ``shared_attn`` subtree and its segments' empty dicts as they are.
+    ``dtype`` casts the floating leaves; ``None`` keeps each leaf's own
+    dtype, so a mamba2 mixer's ``A_log``, ``D`` and ``dt_bias`` stay fp32
+    in a bf16 tree, as in the reference."""
     dev = resolve_device(device)
 
     def conv(node):

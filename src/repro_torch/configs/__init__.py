@@ -7,14 +7,14 @@ import importlib
 from repro_torch.configs.base import ArchConfig
 
 ARCHS = ("llama3_2_3b", "tinyllava", "granite_3_8b", "deepseek_coder_33b",
-         "llava_next_34b", "minicpm3_4b", "arctic_480b", "deepseek_v2_236b")
+         "llava_next_34b", "minicpm3_4b", "arctic_480b", "deepseek_v2_236b",
+         "zamba2_2_7b")
 
 # the reference's archs not ported yet, each with the ROADMAP queue M item
 # that covers it
 _QUEUED = {
     "musicgen_large": "M11b (audio)",
     "rwkv6_7b": "M11b (rwkv6.py)",
-    "zamba2_2_7b": "M11b (mamba2.py, head width 80)",
 }
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCHS + tuple(_QUEUED)}

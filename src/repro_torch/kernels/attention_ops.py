@@ -18,10 +18,13 @@ of a slot's table row; K6 / K7 take a ring row as ``ceil(L / RING_PAGE)``
 virtual pages, the last one ragged.  The reference's ring wrappers fall
 back to jnp where no block divides the cache length; K6 / K7 take any
 length whose plan fits a block's shared memory.  The decode kernels are
-compiled for head widths ``DECODE_HEAD_DIMS`` (64 and 128), the flash
-kernels for the (D, Dv) pairs ``FLASH_HEAD_DIMS`` (q/k width D, v width
-Dv: (96, 64) is MLA's on minicpm3_4b, (192, 128) on deepseek_v2_236b);
-the wrappers raise on any other width.
+compiled for head widths ``DECODE_HEAD_DIMS`` (64, 128 and zamba2_2_7b's
+80), the flash kernels for the (D, Dv) pairs ``FLASH_HEAD_DIMS`` (q/k width
+D, v width Dv: (96, 64) is MLA's on minicpm3_4b, (192, 128) on
+deepseek_v2_236b, (80, 80) zamba2_2_7b's); the wrappers raise on any other
+width.  A width of 80 is kept 96 columns wide in the flash kernels' shared
+memory (``padded``) and 88 wide in a bf16 decode round buffer
+(``decode_row``), and the plans count those bytes.
 """
 from __future__ import annotations
 
@@ -32,12 +35,10 @@ import torch
 
 from repro_torch.kernels import attention_ref, build
 
-DECODE_HEAD_DIMS = (64, 128)  # the decode kernels' compiled widths, D = Dv
+# the decode kernels' compiled widths, D = Dv
+DECODE_HEAD_DIMS = (64, 128, 80)
 # the flash kernels' compiled (D, Dv) pairs
-FLASH_HEAD_DIMS = ((64, 64), (128, 128), (96, 64), (192, 128))
-# (D, Dv) pairs that configs of the reference take and the port does not
-# compile yet, with the ROADMAP queue K "Still to port" item of each
-_FLASH_QUEUED = {(80, 80): "item 3 (zamba2_2_7b)"}
+FLASH_HEAD_DIMS = ((64, 64), (128, 128), (96, 64), (192, 128), (80, 80))
 _MAX_G = 16
 _MAX_PAGE = 64
 
@@ -63,14 +64,18 @@ def _check_device(name: str, *tensors: torch.Tensor) -> None:
 
 
 def _check_widths(name: str, d: int, dv: int) -> None:
-    """Raise unless (D, Dv) is a compiled pair, naming the queue K item
-    that covers a pair a config needs."""
+    """Raise unless (D, Dv) is a compiled pair."""
     if (d, dv) not in FLASH_HEAD_DIMS:
-        item = _FLASH_QUEUED.get((d, dv))
         raise ValueError(
             f"{name} is compiled for head_dim (D, Dv) in {FLASH_HEAD_DIMS}, "
-            f"got ({d}, {dv})" + (f" (ROADMAP queue K, 'Still to port', "
-                                  f"{item})" if item else ""))
+            f"got ({d}, {dv}) (a width no ROADMAP item queues)")
+
+
+def padded(w: int) -> int:
+    """The columns a flash kernel keeps of a W-wide operand, in shared
+    memory and in its accumulators: W rounded up to 32 (80 -> 96; the
+    tensor maps' zeros fill the rest, csrc/flash_common.cuh)."""
+    return -(-w // 32) * 32
 
 
 def _check_flash(name: str, q, k, v, qpos, kpos, *rest):
@@ -200,12 +205,13 @@ def flash_bwd_plan(b: int, h: int, kh: int, sq: int, skv: int,
     blocks of a (kv tile, kv head, batch row) in one cluster; grid (G / p
     KH B, kv tiles), kv tile 0 (causally the longest) first.  p from
     ``bwd_heads_per_block``.  Shared memory at q/k width ``hd`` and v width
-    ``dv`` (``hd`` if not given), each tile sized by its own width: the
-    tiles (K2: its Q / dO slots), the mbarriers, the list of visible
-    tiles."""
+    ``dv`` (``hd`` if not given), each tile sized by its own width, padded
+    to 32 columns (``padded``): the tiles (K2: its Q / dO slots), the
+    mbarriers, the list of visible tiles."""
     dv = hd if dv is None else dv
     _check_widths("K2 / K3", hd, dv)
     g = h // kh
+    hd, dv = padded(hd), padded(dv)
     split = hd + dv > BWD_SPLIT
     keys = BWD_SPLIT_KEYS if split else BWD_DKV_KEYS
     nq, nkv = -(-sq // BWD_DQ_ROWS), -(-skv // keys)
@@ -355,10 +361,9 @@ def _check_decode(name: str, qf, k, v, scales, pos, qpos, code_dtype
         raise TypeError(f"{name} takes int32 key positions")
     _check_device(name, qf, k, v, *scales, pos, qpos)
     if d not in DECODE_HEAD_DIMS:
-        where = ("ROADMAP queue K, 'Still to port', item 3" if d == 80 else
-                 "a width no ROADMAP item queues")
         raise ValueError(f"{name} is compiled for head_dim "
-                         f"{DECODE_HEAD_DIMS}, got {d} ({where})")
+                         f"{DECODE_HEAD_DIMS}, got {d} (a width no ROADMAP "
+                         f"item queues)")
     if k.shape[-1] != d or v.shape[-1] != d:
         raise ValueError(f"{name} takes Dv = D, got q {d}, k {k.shape[-1]},"
                          f" v {v.shape[-1]}")
@@ -403,6 +408,14 @@ def _r16(x: int) -> int:
     return -(-x // 16) * 16
 
 
+def decode_row(d: int, elem: int) -> int:
+    """The elements a K or V row of head width ``d`` takes in a decode
+    kernel's round buffer: ``d``, but a bf16 row of 80 is padded to 88, so
+    that rows r and r + 4 do not share banks (csrc/decode_paged.cu,
+    ``row_ld``)."""
+    return d + 8 if elem == 2 and d % 64 else d
+
+
 @functools.lru_cache(maxsize=None)
 def decode_paged_plan(s: int, kh: int, npp: int, pg: int, g: int,
                       elem: int, d: int) -> PagedPlan:
@@ -410,8 +423,9 @@ def decode_paged_plan(s: int, kh: int, npp: int, pg: int, g: int,
     codes with scales) launch plan for S rows, KH kv heads, npp pages of
     pg tokens a row (K8 / K9: table entries; K6 / K7: ``ceil(L /
     RING_PAGE)`` of ``RING_PAGE``), G query heads per kv head and head
-    width ``d`` (a page's K and V rows take ``2 pg d elem`` bytes, so a
-    round holds half the pages at 128 that it holds at 64).  The
+    width ``d`` (a page's K and V rows take ``2 pg decode_row(d, elem)
+    elem`` bytes, so a round holds half the pages at 128 that it holds at
+    64).  The
     cluster is the fewest ranks, a power of two up to 8 and at most npp,
     that put a block on every SM; the ranks split the row's pages into
     equal ranges.  A round holds as many pages as fit PAGED_ROUND_BYTES of
@@ -426,11 +440,12 @@ def decode_paged_plan(s: int, kh: int, npp: int, pg: int, g: int,
     while c < want and 2 * c <= min(PAGED_MAX_CLUSTER, npp):
         c *= 2
     ppr = -(-npp // c)
-    rnd = min(ppr, max(1, PAGED_ROUND_BYTES // (2 * pg * d * elem)))
+    row = decode_row(d, elem) * elem  # bytes of a buffered K or V row
+    rnd = min(ppr, max(1, PAGED_ROUND_BYTES // (2 * pg * row)))
     nbuf = 1 if rnd >= ppr else 2
     kr = _r16(rnd * pg)
     part = (2 * _MAX_G + g * d) * 4
-    smem = (_r16(max(nbuf * 2 * kr * d * elem, PAGED_WARPS * part))
+    smem = (_r16(max(nbuf * 2 * kr * row, PAGED_WARPS * part))
             + _r16(nbuf * kr) + (nbuf * kr * 8 if elem == 1 else 0)
             + 2 * _r16(ppr * 4) + _r16(ppr) + _r16(ppr * pg) + part + 16)
     return PagedPlan(grid=s * kh * c, cluster=c, pages_per_rank=ppr,

@@ -28,10 +28,24 @@
 // (N, KH, T) fp32 transposed copies.
 //
 // The head width D (q / k and v alike) is a template parameter, 64
-// (tinyllava) or 128 (llama3_2_3b); the entry points dispatch on it.  A
-// row is D / 64 column blocks of 64, and every per-row step below (the
-// fragment loads, the k-steps of S, the n-tiles of O, the partials) runs
-// once a block, so D 64 compiles to the code of a single block.
+// (tinyllava), 128 (llama3_2_3b) or 80 (zamba2_2_7b); the entry points
+// dispatch on it.  A row is D / 64 column blocks of 64, and every per-row
+// step below (the fragment loads, the k-steps of S, the n-tiles of O, the
+// partials) runs once a block, so D 64 compiles to the code of a single
+// block.  At D 80 a tail block of 16 columns follows the full one: one more
+// k-step of S, whose fragments are 4 contiguous elements of a Q and a K row
+// (permuted alike), and two more n-tiles of O, n-tile t holding the
+// columns 64 + 2 j + t, so that a thread reads one bf16 pair (int8: two
+// codes) of each of its V rows.  A bf16 row of 80 (160 B, 10 chunks) would
+// put rows r and r + 4 on the same banks, and the chunk swizzle of a full
+// block (ch ^ (row & 7)) would carry the tail's two chunks past the row, so
+// bf16 rows of 80 are padded to 88 elements (176 B, 11 chunks) and kept
+// unswizzled: with an odd count of chunks between rows, the 8 threads of
+// a quarter warp hit 8 distinct 16-byte bank groups in the full block's K
+// and V reads, and a warp's 4-byte tail V reads hit 32 distinct banks; the
+// 8-byte tail K reads meet one 2-way conflict a half warp (rows 0 and 3).
+// int8 rows of 80 stay 80 B, their full-block K reads 2-way conflicted as
+// at 128.
 //
 // Bound on the H100: bytes, and at the serve and generate shapes (4 rows of
 // some 800 keys, 5 kv heads) mostly latency.  Each cache byte read feeds
@@ -106,9 +120,16 @@ constexpr float kNeg = -1e30f;
 
 __host__ __device__ constexpr int round16(int x) { return (x + 15) & ~15; }
 
+// The elements a K or V row takes in shared memory: D, but bf16 rows of 80
+// padded to 88 (see above).
+__host__ __device__ constexpr int row_ld(int D, int elem) {
+  return elem == 2 && D % 64 ? D + 8 : D;
+}
+
 // Byte offsets of a block's dynamic shared memory at head width D (mirrored
 // by attention_ops.decode_paged_plan, which the entry points check):
-//   kv     `nbuf` round buffers of K then V rows (kr rows of D elements);
+//   kv     `nbuf` round buffers of K then V rows (kr rows of row_ld(D)
+//          elements);
 //          after the sweep the warps' partials (m, l of 16 rows, acc of G
 //          rows) reuse it
 //   rv     per buffer, one visibility byte per row
@@ -124,7 +145,7 @@ struct Layout {
   __host__ __device__ Layout(int D, int elem, bool scaled, int G, int pg,
                              int ppr, int rnd, int nbuf) {
     kr = round16(rnd * pg);
-    const int kv_bytes = nbuf * 2 * kr * D * elem;
+    const int kv_bytes = nbuf * 2 * kr * row_ld(D, elem) * elem;
     const int warp_part = kWarps * (2 * kMaxG + G * D) * 4;
     int at = 0;
     kv = at;
@@ -168,25 +189,28 @@ __device__ __forceinline__ uint32_t word(const uint4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-// Element type traits at head width D: 16-byte chunks per row, where chunk
-// `ch` of row `row` lies (bf16 rows swizzle each column block's 8 chunks by
-// the row), and the fragments each thread reads from column block cb (the
-// elements [64 cb, 64 cb + 64) of a row).
+// Element type traits at head width D: the row stride in shared memory,
+// 16-byte chunks per row, where chunk `ch` of row `row` lies (bf16 rows of
+// whole blocks swizzle each column block's 8 chunks by the row), the
+// fragments each thread reads from column block cb (the elements
+// [64 cb, 64 cb + 64) of a row) and from the 16-column tail at 64 (D / 64).
 template <typename Elem, int D>
 struct Rows;
 
 template <int D>
 struct Rows<__nv_bfloat16, D> {
+  static constexpr int kLd = row_ld(D, 2);
   static constexpr int kChunks = D / 8;
+  static constexpr int kT = D / 64 * 64;  // the tail's first element
   __device__ __forceinline__ static int chunk(int row, int ch) {
-    return ch ^ (row & 7);
+    return D % 64 ? ch : ch ^ (row & 7);
   }
   // S's B fragments: elements 64 cb + [16 q4, 16 q4 + 16) of a K row, as
   // pairs
   __device__ __forceinline__ static void k_frag(const __nv_bfloat16* k,
                                                 int row, int cb, int q4,
                                                 uint32_t b[8]) {
-    const __nv_bfloat16* r = k + row * D;
+    const __nv_bfloat16* r = k + row * kLd;
     const uint4 lo = *reinterpret_cast<const uint4*>(
         r + chunk(row, 8 * cb + 2 * q4) * 8);
     const uint4 hi = *reinterpret_cast<const uint4*>(
@@ -210,7 +234,7 @@ struct Rows<__nv_bfloat16, D> {
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       f.v[i] = *reinterpret_cast<const uint4*>(
-          v + rows[i] * D + chunk(rows[i], 8 * cb + g4) * 8);
+          v + rows[i] * kLd + chunk(rows[i], 8 * cb + g4) * 8);
     return f;
   }
   __device__ __forceinline__ static void v_b(const VFrag& f, int nt,
@@ -218,6 +242,37 @@ struct Rows<__nv_bfloat16, D> {
     const int sel = (nt & 1) ? 0x7632 : 0x5410;
     b0 = __byte_perm(word(f.v[0], nt >> 1), word(f.v[1], nt >> 1), sel);
     b1 = __byte_perm(word(f.v[2], nt >> 1), word(f.v[3], nt >> 1), sel);
+  }
+  // the tail's k-step of S: elements kT + 4 q4 + (0, 1 | 2, 3) of a K row
+  __device__ __forceinline__ static void k_tail(const __nv_bfloat16* k,
+                                                int row, int q4,
+                                                uint32_t b[2]) {
+    const uint2 w =
+        *reinterpret_cast<const uint2*>(k + row * kLd + kT + 4 * q4);
+    b[0] = w.x;
+    b[1] = w.y;
+  }
+  // the tail's n-tiles of O (n-tile t: columns kT + 2 j + t): the pair
+  // kT + 2 g4 + (0, 1) of V rows r0, r0 + 1, r0 + 8, r0 + 9
+  struct VTail {
+    uint32_t v[4];
+  };
+  __device__ __forceinline__ static VTail v_tail(const __nv_bfloat16* v,
+                                                 int r0, int g4) {
+    VTail f;
+    const int rows[4] = {r0, r0 + 1, r0 + 8, r0 + 9};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      f.v[i] =
+          *reinterpret_cast<const uint32_t*>(v + rows[i] * kLd + kT + 2 * g4);
+    return f;
+  }
+  __device__ __forceinline__ static void v_tail_b(const VTail& f, int nt,
+                                                  uint32_t& b0,
+                                                  uint32_t& b1) {
+    const int sel = nt ? 0x7632 : 0x5410;
+    b0 = __byte_perm(f.v[0], f.v[1], sel);
+    b1 = __byte_perm(f.v[2], f.v[3], sel);
   }
 };
 
@@ -230,12 +285,14 @@ __device__ __forceinline__ uint32_t codes_bf16(uint32_t w, int i) {
 
 template <int D>
 struct Rows<int8_t, D> {
+  static constexpr int kLd = row_ld(D, 1);
   static constexpr int kChunks = D / 16;
+  static constexpr int kT = D / 64 * 64;
   __device__ __forceinline__ static int chunk(int, int ch) { return ch; }
   __device__ __forceinline__ static void k_frag(const int8_t* k, int row,
                                                 int cb, int q4,
                                                 uint32_t b[8]) {
-    const uint4 c = *reinterpret_cast<const uint4*>(k + row * D + 64 * cb +
+    const uint4 c = *reinterpret_cast<const uint4*>(k + row * kLd + 64 * cb +
                                                     16 * q4);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -252,8 +309,8 @@ struct Rows<int8_t, D> {
     const int rows[4] = {r0, r0 + 1, r0 + 8, r0 + 9};
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      f.v[i] = *reinterpret_cast<const uint2*>(v + rows[i] * D + 64 * cb +
-                                               8 * g4);
+      f.v[i] = *reinterpret_cast<const uint2*>(v + rows[i] * kLd +
+                                               64 * cb + 8 * g4);
     return f;
   }
   __device__ __forceinline__ static void v_b(const VFrag& f, int nt,
@@ -263,6 +320,33 @@ struct Rows<int8_t, D> {
       const uint32_t w = (nt < 4) ? f.v[i].x : f.v[i].y;
       return (float)(int8_t)(w >> sh);
     };
+    b0 = flash::pack_bf16(code(0), code(1));
+    b1 = flash::pack_bf16(code(2), code(3));
+  }
+  __device__ __forceinline__ static void k_tail(const int8_t* k, int row,
+                                                int q4, uint32_t b[2]) {
+    const uint32_t w =
+        *reinterpret_cast<const uint32_t*>(k + row * kLd + kT + 4 * q4);
+    b[0] = codes_bf16(w, 0);
+    b[1] = codes_bf16(w, 2);
+  }
+  struct VTail {
+    uint32_t v[4];  // the two codes in the low 16 bits
+  };
+  __device__ __forceinline__ static VTail v_tail(const int8_t* v, int r0,
+                                                 int g4) {
+    VTail f;
+    const int rows[4] = {r0, r0 + 1, r0 + 8, r0 + 9};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      f.v[i] =
+          *reinterpret_cast<const uint16_t*>(v + rows[i] * kLd + kT + 2 * g4);
+    return f;
+  }
+  __device__ __forceinline__ static void v_tail_b(const VTail& f, int nt,
+                                                  uint32_t& b0,
+                                                  uint32_t& b1) {
+    auto code = [&](int i) { return (float)(int8_t)(f.v[i] >> (8 * nt)); };
     b0 = flash::pack_bf16(code(0), code(1));
     b1 = flash::pack_bf16(code(2), code(3));
   }
@@ -311,7 +395,10 @@ __global__ void __launch_bounds__(kThreads)
                         int has_window, int window, int ppr, int rnd,
                         int nbuf) {
   using R = Rows<Elem, D>;
-  constexpr int kBlocks = D / 64;  // column blocks of 64 a row
+  static_assert(D % 64 == 0 || D % 64 == 16,
+                "a row is 64-column blocks and at most one 16-column tail");
+  constexpr int kBlocks = D / 64;        // column blocks of 64 a row
+  constexpr int kTail = D % 64 ? 1 : 0;  // then a tail of 16 columns
   extern __shared__ __align__(128) uint8_t smem[];
   const Layout L(D, sizeof(Elem), kScaled, G, pg, ppr, rnd, nbuf);
   int* entry_s = reinterpret_cast<int*>(smem + L.entry);
@@ -334,8 +421,10 @@ __global__ void __launch_bounds__(kThreads)
   // Q as S's A fragments, query heads as rows (g4, g4 + 8; zero past G),
   // the head dimension permuted as K's: k-step 4 cb + kk, logical columns
   // (2 q4, 2 q4 + 1 | 2 q4 + 8, 2 q4 + 9) hold elements 64 cb + 16 q4 +
-  // 4 kk + (0, 1 | 2, 3).  Loaded first, so that they land during the scan.
-  uint32_t qa[4 * kBlocks][4];
+  // 4 kk + (0, 1 | 2, 3); the tail's k-step 4 kBlocks likewise holds
+  // elements 64 kBlocks + 4 q4 + (0, 1 | 2, 3).  Loaded first, so that they
+  // land during the scan.
+  uint32_t qa[4 * kBlocks + kTail][4];
 #pragma unroll
   for (int cb = 0; cb < kBlocks; ++cb) {
     const __nv_bfloat16* qh =
@@ -356,6 +445,17 @@ __global__ void __launch_bounds__(kThreads)
       qa[4 * cb + kk][2] = word(r0[kk >> 1], 2 * (kk & 1) + 1);
       qa[4 * cb + kk][3] = word(r1[kk >> 1], 2 * (kk & 1) + 1);
     }
+  }
+  if constexpr (kTail) {
+    const __nv_bfloat16* qh =
+        q + (long long)head * G * D + 64 * kBlocks + 4 * q4;
+    uint2 r0 = {}, r1 = {};
+    if (g4 < G) r0 = *reinterpret_cast<const uint2*>(qh + g4 * D);
+    if (g4 + 8 < G) r1 = *reinterpret_cast<const uint2*>(qh + (g4 + 8) * D);
+    qa[4 * kBlocks][0] = r0.x;
+    qa[4 * kBlocks][1] = r1.x;
+    qa[4 * kBlocks][2] = r0.y;
+    qa[4 * kBlocks][3] = r1.y;
   }
 
   // the scan: every key's position in one pass, a flag per key and per
@@ -398,8 +498,8 @@ __global__ void __launch_bounds__(kThreads)
   auto issue = [&](int r) {
     const int b = r % nbuf, first = r * rnd, npr = min(rnd, nvis - first);
     const int nkeys = npr * pg, nrows = round16(nkeys);
-    Elem* kb = reinterpret_cast<Elem*>(smem + L.kv) + b * 2 * L.kr * D;
-    Elem* vb = kb + L.kr * D;
+    Elem* kb = reinterpret_cast<Elem*>(smem + L.kv) + b * 2 * L.kr * R::kLd;
+    Elem* vb = kb + L.kr * R::kLd;
     constexpr int kPer = 16 / sizeof(Elem);  // elements per chunk
     for (int i = tid; i < 2 * nrows * R::kChunks; i += kThreads) {
       const int ch = i % R::kChunks, row = (i / R::kChunks) % nrows;
@@ -415,7 +515,8 @@ __global__ void __launch_bounds__(kThreads)
       // end of a ragged ring row, perhaps) is not handed to the copy
       const Elem* src = (is_v ? v_pool : k_pool) +
                         ((v ? tok : 0) * KH + kh) * D + ch * kPer;
-      Elem* dst = (is_v ? vb : kb) + row * D + R::chunk(row, ch) * kPer;
+      Elem* dst =
+          (is_v ? vb : kb) + row * R::kLd + R::chunk(row, ch) * kPer;
       cp_async16(dst, src, v);
     }
     cp_async_commit();
@@ -441,9 +542,11 @@ __global__ void __launch_bounds__(kThreads)
   // this warp's online softmax state: rows g4 (m0, l0) and g4 + 8 (m1,
   // l1); l sums only this thread's columns until the end
   float m0 = kNeg, m1 = kNeg, l0 = 0.0f, l1 = 0.0f;
-  float acc[8 * kBlocks][4];
+  // O's n-tiles: 8 a block, then 2 for a tail
+  constexpr int kNt = 8 * kBlocks + 2 * kTail;
+  float acc[kNt][4];
 #pragma unroll
-  for (int nt = 0; nt < 8 * kBlocks; ++nt)
+  for (int nt = 0; nt < kNt; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
 
@@ -459,8 +562,8 @@ __global__ void __launch_bounds__(kThreads)
     const int b = r % nbuf;
     const int nch = round16(min(rnd, nvis - r * rnd) * pg) / 16;
     const Elem* kb = reinterpret_cast<const Elem*>(smem + L.kv) +
-                     b * 2 * L.kr * D;
-    const Elem* vb = kb + L.kr * D;
+                     b * 2 * L.kr * R::kLd;
+    const Elem* vb = kb + L.kr * R::kLd;
     const uint8_t* rv = smem + L.rv + b * L.kr;
     const float* ks = reinterpret_cast<const float*>(smem + L.sc) +
                       b * 2 * L.kr;
@@ -480,6 +583,11 @@ __global__ void __launch_bounds__(kThreads)
           for (int kk = 0; kk < 4; ++kk)
             flash::mma_16816(s[nt], qa[4 * cb + kk], kf[2 * kk],
                              kf[2 * kk + 1]);
+        }
+        if constexpr (kTail) {
+          uint32_t kf[2];
+          R::k_tail(kb, k0 + 8 * nt + g4, q4, kf);
+          flash::mma_16816(s[nt], qa[4 * kBlocks], kf[0], kf[1]);
         }
       }
       // this thread's keys: k0 + 8 nt + 2 q4 + e, e = 0, 1
@@ -542,6 +650,20 @@ __global__ void __launch_bounds__(kThreads)
           flash::mma_16816(a, pa, b0, b1);
         }
       }
+      if constexpr (kTail) {  // O column 64 kBlocks + 2 g4 + nt
+        const typename R::VTail vt = R::v_tail(vb, k0 + 2 * q4, g4);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          float* a = acc[8 * kBlocks + nt];
+          a[0] *= corr0;
+          a[1] *= corr0;
+          a[2] *= corr1;
+          a[3] *= corr1;
+          uint32_t b0, b1;
+          R::v_tail_b(vt, nt, b0, b1);
+          flash::mma_16816(a, pa, b0, b1);
+        }
+      }
     }
     __syncthreads();  // the buffer is free for round r + 2
   }
@@ -562,10 +684,12 @@ __global__ void __launch_bounds__(kThreads)
     wl[warp * kMaxG + g4 + 8] = l1;
   }
 #pragma unroll
-  for (int nt = 0; nt < 8 * kBlocks; ++nt) {
+  for (int nt = 0; nt < kNt; ++nt) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const int d = 64 * (nt / 8) + 8 * (2 * q4 + e) + nt % 8;
+      const int d = nt < 8 * kBlocks
+                        ? 64 * (nt / 8) + 8 * (2 * q4 + e) + nt % 8
+                        : 64 * kBlocks + 2 * (2 * q4 + e) + nt % 8;
       if (g4 < G) wacc[(warp * G + g4) * D + d] = acc[nt][e];
       if (g4 + 8 < G) wacc[(warp * G + g4 + 8) * D + d] = acc[nt][2 + e];
     }
@@ -682,7 +806,7 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
   return (int)cudaGetLastError();
 }
 
-// The head width's instantiation: D 64 or 128.
+// The head width's instantiation: D 64, 128 or 80.
 template <typename Elem, bool kScaled, typename Src>
 int launch_d(int d, const void* q, const void* k_pool, const void* v_pool,
              const void* k_scale, const void* v_scale, const void* pos,
@@ -697,6 +821,11 @@ int launch_d(int d, const void* q, const void* k_pool, const void* v_pool,
         smem, stream);
   if (d == 128)
     return launch<128, Elem, kScaled, Src>(
+        q, k_pool, v_pool, k_scale, v_scale, pos, page_table, qpos, out, S,
+        KH, G, pg, npp, len, has_window, window, cluster, ppr, rnd, nbuf,
+        smem, stream);
+  if (d == 80)
+    return launch<80, Elem, kScaled, Src>(
         q, k_pool, v_pool, k_scale, v_scale, pos, page_table, qpos, out, S,
         KH, G, pg, npp, len, has_window, window, cluster, ppr, rnd, nbuf,
         smem, stream);
@@ -715,8 +844,8 @@ int ring_pages(int L, int pg) {
 // pages a rank, rounds of `rnd` pages in `nbuf` buffers, `smem` bytes of
 // dynamic shared memory; `d` the head width D of q, K and V.  Each returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a shape or plan the
-// kernel does not take.  Requires G <= 16, D 64 or 128, pages of at most
-// 64 keys, and 16-byte aligned q and caches (the wrappers check).
+// kernel does not take.  Requires G <= 16, D 64, 128 or 80, pages of at
+// most 64 keys, and 16-byte aligned q and caches (the wrappers check).
 
 // K6.  q (B, KH, G, D) bf16 pre-scaled; caches (B, L, KH, D) bf16 in the
 // ring layout, any L; kpos (B, L) int32 (-1 empty); qpos (B,) int32; out

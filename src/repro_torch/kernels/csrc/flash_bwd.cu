@@ -66,19 +66,24 @@
 // dS^T.
 //
 // The q/k width D and the v width DV are template parameters, instantiated
-// for (64, 64), (128, 128) and MLA's (96, 64) and (192, 128).  A tile of
-// W columns is W / 64 column blocks of one 128-byte swizzle atom plus, for
-// W = 96, one 32-column block of a 64-byte swizzle atom with its own tensor
-// map (flash_common.cuh, Cols / load_rows): the products that contract over
-// D or DV step their descriptors along the blocks (kmajor_desc), and those
-// whose output has D or DV columns (dQ, dK over D; dV over DV) run one
-// m64n64 product per full block and an m64n32 for a tail (mma_mn).  Each
-// tile and accumulator array is sized by its own width.  Where D + DV
-// passes 192 (at (128, 128)) K2 keeps a ring of 2 stages (3 with its two
-// Q / dO slots would pass the H100's 227 KB), and K3 holds (D + DV) / 2
-// fp32 of dK and dV a thread (128 at (128, 128), 80 at (96, 64)).  At
-// G 1 (MLA's materialised K / V, KH = H) K3's clusters are of one block,
-// whose cluster sum reads only its own partials.
+// for (64, 64), (128, 128), MLA's (96, 64) and (192, 128), and zamba2's
+// (80, 80).  A tile of W columns is W / 64 column blocks of one 128-byte
+// swizzle atom plus, where W is not a multiple of 64, one 32-column block
+// of a 64-byte swizzle atom with its own tensor map (flash_common.cuh,
+// Cols / load_rows): the products that contract over D or DV step their
+// descriptors along the blocks (kmajor_desc), and those whose output has D
+// or DV columns (dQ, dK over D; dV over DV) run one m64n64 product per
+// full block and an m64n32 for a tail (mma_mn).  Each tile and
+// accumulator array is sized by its own width, rounded up to 32 columns
+// (Cols::kPad): at (80, 80) the tiles are 96 wide with TMA's zeros in the
+// last 16, S and dP (S^T and dP^T) step the 5 k-steps that hold data, and
+// dQ, dK and dV keep 48 accumulators a thread of which 40 are stored.
+// Where the padded D + DV passes 192 (at (128, 128)) K2 keeps a ring of 2
+// stages (3 with its two Q / dO slots would pass the H100's 227 KB), and
+// K3 holds the padded (D + DV) / 2 fp32 of dK and dV a thread (128 at
+// (128, 128), 80 at (96, 64), 96 at (80, 80)).  At G 1 (MLA's
+// materialised K / V, and zamba2's 32 / 32 heads: KH = H) K3's clusters
+// are of one block, whose cluster sum reads only its own partials.
 // At (192, 128) (deepseek_v2_236b's MLA, G 1, so p = 1):
 // * K2 keeps one Q / dO slot and 3 ring stages (206 KB): two slots would
 //   need 247 KB, and at p = 1 the second has no next head to hold.  Each
@@ -153,16 +158,18 @@ __device__ __forceinline__ float row_lse2(float m, float l) {
 
 // Shared-memory layouts (bytes from the 1 024-aligned base), the host's
 // sizes included (attention_ops.py::flash_bwd_plan).
+// Tiles and accumulators take Cols::kPad columns (96 at width 80).
 template <int D, int DV>
 struct DqSmem {
-  static constexpr int kQ = kDqRows * D * 2, kG = kDqRows * DV * 2;
-  static constexpr int kK = kDqKeys * D * 2, kV = kDqKeys * DV * 2;
+  static constexpr int kD = flash::Cols<D>::kPad, kDV = flash::Cols<DV>::kPad;
+  static constexpr int kQ = kDqRows * kD * 2, kG = kDqRows * kDV * 2;
+  static constexpr int kK = kDqKeys * kD * 2, kV = kDqKeys * kDV * 2;
   // Q / dO slots (with two, the next head's land during this one's sweep)
-  // and K / V ring stages: (2, 3) up to D + Dv = 192, (2, 2) up to 256
-  // (at (128, 128)), (1, 3) above (at (192, 128), whose two slots alone
-  // would take 160 KB)
-  static constexpr int kSlots = D + DV > 256 ? 1 : 2;
-  static constexpr int kSt = D + DV > 192 && kSlots == 2 ? 2 : kStages;
+  // and K / V ring stages: (2, 3) up to kD + kDV = 192 (at (80, 80) too),
+  // (2, 2) up to 256 (at (128, 128)), (1, 3) above (at (192, 128), whose
+  // two slots alone would take 160 KB)
+  static constexpr int kSlots = kD + kDV > 256 ? 1 : 2;
+  static constexpr int kSt = kD + kDV > 192 && kSlots == 2 ? 2 : kStages;
   static constexpr int q = 0, go = kQ, slot = kQ + kG;
   static constexpr int k = kSlots * slot, v = k + kSt * kK;
   static constexpr int bars = v + kSt * kV;
@@ -173,14 +180,15 @@ struct DqSmem {
 
 template <int D, int DV>
 struct DkvSmem {
+  static constexpr int kD = flash::Cols<D>::kPad, kDV = flash::Cols<DV>::kPad;
   // split: both warpgroups take the same 64 keys, each half of dK's and of
   // dV's columns, with Q kept as a narrow tile (at (192, 128), where
   // (D + Dv) / 2 = 160 fp32 of dK / dV a thread would spill)
-  static constexpr bool kSplit = D + DV > 256;
+  static constexpr bool kSplit = kD + kDV > 256;
   static constexpr int kKeys = kSplit ? 64 : kDkvKeys;  // keys a block
-  static constexpr int kK = kKeys * D * 2, kV = kKeys * DV * 2;
-  static constexpr int kQ = kDkvRows * D * 2, kG = kDkvRows * DV * 2;
-  // partial row strides, floats
+  static constexpr int kK = kKeys * kD * 2, kV = kKeys * kDV * 2;
+  static constexpr int kQ = kDkvRows * kD * 2, kG = kDkvRows * kDV * 2;
+  // partial row strides, floats (the real columns only)
   static constexpr int kLdk = D + 8, kLdv = DV + 8;
   static constexpr int kStat = 3 * kDkvRows * 4;  // lse2, delta, qpos
   static constexpr int k = 0, v = kK, q = kK + kV, go = q + kStages * kQ;
@@ -345,9 +353,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
     const float d0 = raw[2], d1 = raw[5];
     if (j + 1 < hpb) fetch(h + 1);
 
-    float acc[D / 2], sc[32], dp[32];
+    float acc[L::kD / 2], sc[32], dp[32];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+    for (int i = 0; i < L::kD / 2; ++i) acc[i] = 0.0f;
     hopper::mbar_wait(&qfull[slot], (j / kSlots) & 1);
     const uint8_t* qt = smem + L::q + slot * L::slot;
     const uint8_t* gt = smem + L::go + slot * L::slot;
@@ -381,8 +389,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
       }
       hopper::mbar_wait(&full[s], (it / kSt) & 1);
 
-      // S = Q K^T and dP = dO V^T: 64 rows x 64 keys per warpgroup, in two
-      // commit groups: P is formed while dP is still running
+      // S = Q K^T and dP = dO V^T: 64 rows x 64 keys per warpgroup, over
+      // the k-steps that hold data, in two commit groups: P is formed while
+      // dP is still running
       const uint8_t* kt = smem + L::k + s * L::kK;
       const uint8_t* vt = smem + L::v + s * L::kV;
       hopper::wgmma_fence();
@@ -440,7 +449,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
     }
     hopper::mbar_arrive(&qempty[slot]);  // its products have retired
 
-    // rows past Sq are not written
+    // rows past Sq and columns past D are not written
     float* out = dq + b * dq_sb + h * dq_sh;
 #pragma unroll
     for (int jj = 0; jj < D / 8; ++jj) {
@@ -479,8 +488,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
   static_assert(!kSplit || (D % 64 == 0 && DV % 128 == 0),
                 "a split warpgroup takes whole narrow blocks of Q and whole "
                 "128-byte blocks of dO");
-  // the dK / dV columns a warpgroup keeps in registers
+  // the dK / dV columns a warpgroup keeps (kNk, kNv) and the accumulators
+  // it holds for them (kAk, kAv: Cols::kPad wide unless split)
   constexpr int kNk = kSplit ? D / 2 : D, kNv = kSplit ? DV / 2 : DV;
+  constexpr int kAk = kSplit ? kNk : L::kD, kAv = flash::Cols<kNv>::kPad;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024u - hopper::smem_u32(smem_raw)) & 1023u);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::bars);
@@ -550,11 +561,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
   __syncthreads();
   const int n_list = red[4], total = gpb * n_list;
 
-  float dka[kNk / 2], dva[kNv / 2];
+  float dka[kAk / 2], dva[kAv / 2];
 #pragma unroll
-  for (int i = 0; i < kNk / 2; ++i) dka[i] = 0.0f;
+  for (int i = 0; i < kAk / 2; ++i) dka[i] = 0.0f;
 #pragma unroll
-  for (int i = 0; i < kNv / 2; ++i) dva[i] = 0.0f;
+  for (int i = 0; i < kAv / 2; ++i) dva[i] = 0.0f;
   const int wg = tid / 128, wi = (tid % 128) / 32;
   const int g = lane >> 2, t4 = lane & 3;
 
@@ -727,7 +738,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
       hopper::mbar_arrive(&empty[s]);
     }
 
-    // the block's partials, over the tiles every consumer is done with
+    // the block's partials (their real columns), over the tiles every
+    // consumer is done with
     consumers_sync();
     float* part_k = reinterpret_cast<float*>(smem);
     float* part_v = part_k + L::kKeys * L::kLdk;
@@ -922,13 +934,12 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* go,
 // Sq, DV) bf16 given by pointer and element strides (batch, head,
 // sequence; the last axis is contiguous, strides multiples of 8, bases
 // 16-byte aligned), (D, DV) = (hd, dv), one of (64, 64), (128, 128),
-// (96, 64), (192, 128); m / l / di (B, H, Sq) fp32 contiguous; qpos (Sq,),
-// kpos (Skv,)
-// int32; dq (B, H, Sq, D) fp32 by strides (multiples of 2, base 8-byte
-// aligned).  The plan (attention_ops.py::flash_bwd_plan): q_tiles =
-// ceil(Sq / 128) grid rows of B H / heads_per_block blocks, each sweeping
-// heads_per_block heads of one GQA group (a divisor of G), `smem` bytes of
-// dynamic shared memory.
+// (96, 64), (192, 128), (80, 80); m / l / di (B, H, Sq) fp32 contiguous;
+// qpos (Sq,), kpos (Skv,) int32; dq (B, H, Sq, D) fp32 by strides
+// (multiples of 2, base 8-byte aligned).  The plan
+// (attention_ops.py::flash_bwd_plan): q_tiles = ceil(Sq / 128) grid rows of
+// B H / heads_per_block blocks, each sweeping heads_per_block heads of one
+// GQA group (a divisor of G), `smem` bytes of dynamic shared memory.
 // Returns cudaGetLastError(), or cudaErrorInvalidValue for a width, shape,
 // layout or plan the kernel does not take.
 extern "C" int flash_bwd_dq_bf16(
@@ -952,6 +963,7 @@ extern "C" int flash_bwd_dq_bf16(
   if (hd == 128 && dv == 128) return run(launch_dq<128, 128>);
   if (hd == 96 && dv == 64) return run(launch_dq<96, 64>);
   if (hd == 192 && dv == 128) return run(launch_dq<192, 128>);
+  if (hd == 80 && dv == 80) return run(launch_dq<80, 80>);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -982,5 +994,6 @@ extern "C" int flash_bwd_dkv_bf16(
   if (hd == 128 && dvw == 128) return run(launch_dkv<128, 128>);
   if (hd == 96 && dvw == 64) return run(launch_dkv<96, 64>);
   if (hd == 192 && dvw == 128) return run(launch_dkv<192, 128>);
+  if (hd == 80 && dvw == 80) return run(launch_dkv<80, 80>);
   return (int)cudaErrorInvalidValue;
 }

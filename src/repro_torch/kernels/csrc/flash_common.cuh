@@ -1,6 +1,22 @@
 // Position masks, TMA tensor maps of (B, S, H, D) views and fragment
 // helpers shared by the flash-attention kernels K1 (flash_fwd.cu) and
 // K2 / K3 (flash_bwd.cu); K12 (wq.cu) uses the mma.sync product and ld32.
+//
+// Widths that are not a multiple of 32 (zamba2_2_7b's 80): a tile of W
+// columns with W % 64 = 16 is laid out as the tile of W + 16 columns, the
+// 64-column blocks of 128-byte swizzle and a 32-column tail block of
+// 64-byte swizzle, and its tail box still asks TMA for 32 columns; the
+// tensor map's inner extent stays W, so TMA fills the 16 columns past it
+// with zeros and still counts them in the barrier's transaction bytes.
+// The products that contract over W step only the W / 16 k-steps that
+// hold data (the tail block's first); those whose output has W columns run
+// the tail's m64n32 product, whose last 16 columns are zero and are never
+// stored.  This is the 96-column tile (MLA's (96, 64), proven on the card)
+// over an 80-column operand: it reuses the 64-byte swizzle mode and the
+// m64n32 product already in use instead of adding a 32-byte mode and an
+// m64n16 product the card has not run, at the price of 16 idle output
+// columns in the tail's product (a sixth more tensor work in P V, dQ, dK
+// and dV at W 80, none in Q K^T and dO V^T).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -104,18 +120,20 @@ __device__ __forceinline__ Axes unpack_axes(int code) {
   return Axes{code & 3, (code >> 2) & 3, (code >> 4) & 3};
 }
 
-// A tile of W columns (W = 64 n + 32 t, t 0 or 1) of `rows` rows in
+// A tile of W columns (W = 64 n + r, r 0, 16 or 32) of `rows` rows in
 // shared memory: n column blocks of one 128-byte swizzle atom (64 columns,
-// rows x 128 B each), then for t = 1 one tail block of 32 columns with a
-// 64-byte swizzle atom (rows x 64 B).  Every block starts 1 024-aligned
-// when the tile does and rows is a multiple of 8.
+// rows x 128 B each), then for r > 0 one tail block of 32 columns with a
+// 64-byte swizzle atom (rows x 64 B), of which r hold data (the rest TMA's
+// zeros).  Every block starts 1 024-aligned when the tile does and rows is
+// a multiple of 8.
 template <int W>
 struct Cols {
-  static_assert(W % 32 == 0 && W >= 64, "a tile is 64-column blocks and at "
-                                        "most one 32-column tail");
+  static_assert(W % 16 == 0 && W % 64 <= 32 && W >= 64,
+                "a tile is 64-column blocks and at most one 32-column tail");
   static constexpr int kFull = W / 64;        // 128-byte blocks
   static constexpr bool kTail = W % 64 != 0;  // then one 64-byte block
-  static constexpr int kSteps = W / 16;       // k-steps of 16 columns
+  static constexpr int kPad = (W + 31) / 32 * 32;  // columns kept
+  static constexpr int kSteps = W / 16;  // k-steps of 16 columns with data
 };
 
 // TMA load of `rows` positions of one head of one batch row at (row0,
@@ -158,11 +176,11 @@ __device__ __forceinline__ uint64_t kmajor_desc(const void* tile, int rows,
 
 // acc (+)= A B with B a W-column tile of `rows` rows read MN-major (its
 // rows the contraction) and A the register fragments of KS k-steps; acc
-// holds the W / 2 accumulators of a row of 64 (column 8 j + 2 t + e in
-// element 4 j + e): one m64n64 product per full block, one m64n32 for the
-// tail.
+// holds the Cols<W>::kPad / 2 accumulators of a row of 64 (column
+// 8 j + 2 t + e in element 4 j + e): one m64n64 product per full block,
+// one m64n32 for the tail (at W 80 its last 16 columns are TMA's zeros).
 template <int W, int KS>
-__device__ __forceinline__ void mma_mn(float (&acc)[W / 2],
+__device__ __forceinline__ void mma_mn(float (&acc)[Cols<W>::kPad / 2],
                                        const uint32_t (&a)[KS][4],
                                        const void* tile, int rows) {
   constexpr int kFull = Cols<W>::kFull;
@@ -241,8 +259,9 @@ __device__ __forceinline__ void mma_narrow(float (&acc)[N / 2],
 // strides: dim 0 is the contiguous head axis, dims 1..3 the sequence, head
 // and batch axes in increasing stride order.  Box: `rows` positions of one
 // head of one batch row and `cols` columns, 64 with 128-byte swizzle (a
-// full block of load_rows) or 32 with 64-byte swizzle (its tail).  Returns
-// the Axes code, or -1 (also for hd not a multiple of 32).
+// full block of load_rows) or 32 with 64-byte swizzle (its tail; at hd 80
+// the box runs 16 columns past the tensor, which TMA fills with zeros).
+// Returns the Axes code, or -1 (also for a width Cols does not take).
 inline int map_bshd(CUtensorMap* map, const void* base, int hd, int S,
                     int heads, int B, long long ss, long long sh,
                     long long sb, int rows, int cols = 64) {
@@ -261,7 +280,8 @@ inline int map_bshd(CUtensorMap* map, const void* base, int hd, int S,
     }
   const uint64_t dims[4] = {(uint64_t)hd, ax[0].n, ax[1].n, ax[2].n};
   const uint64_t strides[3] = {ax[0].stride, ax[1].stride, ax[2].stride};
-  if (hd < 64 || hd % 32 || (cols != 64 && cols != 32)) return -1;
+  if (hd < 64 || hd % 16 || hd % 64 > 32 || (cols != 64 && cols != 32))
+    return -1;
   const uint32_t box[4] = {(uint32_t)cols, ax[0].box, ax[1].box, ax[2].box};
   if (!hopper::make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims,
                         strides, box,
@@ -274,8 +294,8 @@ inline int map_bshd(CUtensorMap* map, const void* base, int hd, int S,
 }
 
 // The maps of one operand of width hd: `main` (64-column boxes) and, for a
-// width with a 32-column tail, `tail`; a copy of `main` (never read)
-// otherwise.  Returns the Axes code, or -1.
+// width with a tail (16 or 32 columns), `tail`, of 32-column boxes; a copy
+// of `main` (never read) otherwise.  Returns the Axes code, or -1.
 inline int map_operand(CUtensorMap* main, CUtensorMap* tail,
                        const void* base, int hd, int S, int heads, int B,
                        long long ss, long long sh, long long sb, int rows) {

@@ -34,18 +34,23 @@
 // h / (H / KH).  out, m and l are fp32.
 //
 // The q/k width D and the v width DV are template parameters, instantiated
-// for (64, 64), (128, 128) and MLA's (96, 64) (minicpm3_4b: qk_nope 64 +
+// for (64, 64), (128, 128), MLA's (96, 64) (minicpm3_4b: qk_nope 64 +
 // qk_rope 32, v 64) and (192, 128) (deepseek_v2_236b: qk_nope 128 +
-// qk_rope 64, v 128).  A tile of W columns is W / 64 column blocks of one
-// 128-byte swizzle atom plus, where W is not a multiple of 64, one
-// 32-column block of a 64-byte swizzle atom with its own tensor map
-// (flash_common.cuh, Cols / load_rows): Q K^T steps its descriptors along
-// the blocks over D (kmajor_desc: 4 k-steps a full block, 2 in the tail)
-// and O += P V runs one m64n64 product per full block of V's DV columns
-// (mma_mn; an m64n32 for a tail).  At (128, 128) the block holds 129 KB
-// of shared memory and 64 fp32 of O a thread; at (96, 64) 85 KB and 32; at
-// (192, 128), three whole 128-byte blocks over D and no tail, 170 KB and
-// 64 (the 12 k-steps of Q K^T add descriptors, not registers).
+// qk_rope 64, v 128), and (80, 80) (zamba2_2_7b's shared attention).  A
+// tile of W columns is W / 64 column blocks of one 128-byte swizzle atom
+// plus, where W is not a multiple of 64, one 32-column block of a 64-byte
+// swizzle atom with its own tensor map (flash_common.cuh, Cols /
+// load_rows): Q K^T steps its descriptors along the blocks over D
+// (kmajor_desc: 4 k-steps a full block, 2 in the tail) and O += P V runs
+// one m64n64 product per full block of V's DV columns (mma_mn; an m64n32
+// for a tail).  At (128, 128) the block holds 129 KB of shared memory and
+// 64 fp32 of O a thread; at (96, 64) 85 KB and 32; at (192, 128), three
+// whole 128-byte blocks over D and no tail, 170 KB and 64 (the 12 k-steps
+// of Q K^T add descriptors, not registers).  At (80, 80) every tile is
+// kept 96 columns wide, TMA's zeros in the last 16 (flash_common.cuh):
+// Q K^T runs the 5 k-steps that hold data, P V an m64n64 and an m64n32
+// product into 48 fp32 of O a thread, of which the 40 of real columns are
+// stored; 97 KB of shared memory.
 // What is left: each warpgroup waits on its
 // Q K^T before the softmax and on its P V before the next tile, so the
 // tensor cores idle while a warpgroup's softmax runs unless the other
@@ -79,10 +84,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     float* __restrict__ l_out, int H, int KH, int Sq, int Skv,
     long long o_sb, long long o_sh, long long o_ss, int has_window,
     int window) {
-  static_assert(DV % 64 == 0, "O += P V takes whole 64-column blocks of V");
-  constexpr int kQTile = kBQ * D * 2;   // bytes of the Q tile
-  constexpr int kKTile = kBKV * D * 2;  // of one K tile
-  constexpr int kVTile = kBKV * DV * 2;  // of one V tile
+  // bytes of the Q tile, of one K tile and of one V tile, each kept
+  // Cols::kPad columns wide (zeros past D or DV, from TMA)
+  constexpr int kQTile = kBQ * flash::Cols<D>::kPad * 2;
+  constexpr int kKTile = kBKV * flash::Cols<D>::kPad * 2;
+  constexpr int kVTile = kBKV * flash::Cols<DV>::kPad * 2;
+  constexpr int kO = flash::Cols<DV>::kPad / 2;  // O accumulators a thread
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   // 1 024-aligned for the 128-byte swizzle; offset from smem_raw so that
   // the compiler still reads through it with shared-memory loads
@@ -198,9 +205,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const long long qp1 = row1 < Sq ? qpos[row1] : -flash::kFar;
 
   float m0 = flash::kNeg, m1 = flash::kNeg, l0 = 0.0f, l1 = 0.0f;
-  float o[DV / 2], sc[32];
+  float o[kO], sc[32];
 #pragma unroll
-  for (int i = 0; i < DV / 2; ++i) o[i] = 0.0f;
+  for (int i = 0; i < kO; ++i) o[i] = 0.0f;
 
   hopper::mbar_wait(qbar, 0);
 
@@ -227,7 +234,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     }
     hopper::mbar_wait(&full[s], (i / kStages) & 1);
 
-    // S = Q K^T: 64 rows x 64 keys per warpgroup, over D
+    // S = Q K^T: 64 rows x 64 keys per warpgroup, over the D / 16 k-steps
+    // that hold data
     const uint8_t* kt = k_s + s * kKTile;
     hopper::wgmma_fence();
     hopper::fence_regs(sc);
@@ -287,7 +295,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     m0 = mn0;
     m1 = mn1;
 #pragma unroll
-    for (int j = 0; j < DV / 8; ++j) {
+    for (int j = 0; j < kO / 4; ++j) {
       o[j * 4] *= corr0;
       o[j * 4 + 1] *= corr0;
       o[j * 4 + 2] *= corr1;
@@ -309,7 +317,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     hopper::mbar_arrive(&empty[s]);
   }
 
-  // out = o / max(l, 1e-30); rows past Sq are not written
+  // out = o / max(l, 1e-30); rows past Sq and columns past DV are not
+  // written
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
   float* ob = out + b * o_sb + h * o_sh;
 #pragma unroll
@@ -359,7 +368,8 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* qpos,
                                     v_sb, kBKV);
   if (qa < 0 || ka < 0 || va < 0) return (int)cudaErrorInvalidValue;
   const int nt = (Skv + kBKV - 1) / kBKV;
-  const int smem = 1024 + kBQ * D * 2 + kStages * kBKV * (D + DV) * 2 +
+  constexpr int kD = flash::Cols<D>::kPad, kDV = flash::Cols<DV>::kPad;
+  const int smem = 1024 + kBQ * kD * 2 + kStages * kBKV * (kD + kDV) * 2 +
                    (1 + 2 * kStages) * 8 + 20 * 4 + nt * 4;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -380,11 +390,11 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* qpos,
 // q (B, H, Sq, D), k (B, KH, Skv, D), v (B, KH, Skv, DV) bf16 given by
 // pointer and element strides (batch, head, sequence; the last axis is
 // contiguous, strides multiples of 8, bases 16-byte aligned), (D, DV) =
-// (hd, dv), one of (64, 64), (128, 128), (96, 64), (192, 128); qpos (Sq,),
-// kpos (Skv,)
-// int32; out (B, H, Sq, DV) fp32 by strides; m / l (B, H, Sq) fp32
-// contiguous.  Returns cudaGetLastError() (cudaErrorInvalidValue for a
-// width, shape or layout the kernel does not take).
+// (hd, dv), one of (64, 64), (128, 128), (96, 64), (192, 128), (80, 80);
+// qpos (Sq,), kpos (Skv,) int32; out (B, H, Sq, DV) fp32 by strides;
+// m / l (B, H, Sq) fp32 contiguous.  Returns cudaGetLastError()
+// (cudaErrorInvalidValue for a width, shape or layout the kernel does not
+// take).
 extern "C" int flash_fwd_bf16(
     const void* q, const void* k, const void* v, const void* qpos,
     const void* kpos, void* out, void* m, void* l, int B, int H, int KH,
@@ -402,5 +412,6 @@ extern "C" int flash_fwd_bf16(
   if (hd == 128 && dv == 128) return run(launch_fwd<128, 128>);
   if (hd == 96 && dv == 64) return run(launch_fwd<96, 64>);
   if (hd == 192 && dv == 128) return run(launch_fwd<192, 128>);
+  if (hd == 80 && dv == 80) return run(launch_fwd<80, 80>);
   return (int)cudaErrorInvalidValue;
 }

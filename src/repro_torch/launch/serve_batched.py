@@ -19,7 +19,11 @@ too: its length is image + prompt + new tokens (or the window), where the
 reference's example leaves the image out and so drops the oldest image
 positions.  ``--engine --weight-quant int4`` (or ``int3``) serves from
 GPTQ-quantized packed weights, calibrated on a 4-row batch of the data
-pipeline; every w* matmul of the block stacks then runs K12.
+pipeline; every w* matmul of the block stacks then runs K12.  A hybrid
+config (``--arch zamba2_2_7b``) serves through prefill and the static
+loop, its mamba2 layers on their {state, conv} caches; ``--engine`` raises
+``NotImplementedError`` for it, as the reference does: the paged pools
+have no mamba2 form.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
-"""The decoder stack for the ``dense`` and ``moe`` blocks with GQA or MLA
-attention and the ``text`` and ``vlm`` modalities (port of
+"""The decoder stack for the ``dense``, ``moe``, ``mamba2`` and
+``shared_attn`` blocks with GQA or MLA attention and the ``text`` and
+``vlm`` modalities (port of
 ``repro/models/transformer.py``: ``init_params``, ``_embed_inputs``,
 ``block_forward``, ``_fill_kv_cache``, ``_run_segments``
 with its remat policies, ``forward``, ``block_decode`` over a ring cache
@@ -19,12 +20,25 @@ reference's ``block_forward`` calls.  It keeps XLA from hoisting the
 layer-invariant attention masks out of its layer scan; PyTorch runs the
 layers eagerly and hoists nothing, so the barrier means nothing here.
 A stack holds ``dense`` and ``moe`` blocks (``models/layers/moe.py``),
-each segment of one type, which its functions take as ``block_type`` from
+``mamba2`` blocks (``models/layers/mamba2.py``: ``x + mamba2(rms_norm(x))``)
+and uses of Zamba2's ``shared_attn`` block, each segment of one type,
+which its functions take as ``block_type`` from
 ``cfg.client_server_segments()`` as the reference's do: deepseek_v2_236b's
 dense first layer (``first_dense_layers``) is a segment of its own before
-its moe layers.  Each block's auxiliary losses are summed over the layers,
-zeros for dense blocks.  The other block types and the audio modality are
-ROADMAP queue M, item M11b.
+its moe layers, and zamba2_2_7b alternates runs of mamba2 layers with
+single shared blocks.  Each block's auxiliary losses are summed over the
+layers, zeros for every block but moe.
+
+The shared block has one set of parameters at the top of the tree,
+``params["shared_attn"]`` (no layer axis; its segments are ``{}``), read
+by every use: ``xin = concat(x, emb0) @ w_in``, then a dense block on
+``xin``, then ``x + out``.  ``emb0`` is the embedded input (the prompt's in
+``forward``, the token's in ``_decode``), handed to the server's shared
+blocks directly, not over the wire, as the reference does.  A use runs
+outside ``run_stack``, with no remat, and its ring cache carries a leading
+axis of 1.  A mamba2 layer's decode cache is {state, conv}; the paged
+engine refuses mamba2 blocks, as the reference's does.  ``rwkv6`` blocks
+and the audio modality are ROADMAP queue M, item M11b.
 """
 from __future__ import annotations
 
@@ -37,11 +51,13 @@ from repro_torch.core import split as split_mod
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import stack as stack_mod
 from repro_torch.models.layers import attention as attn_mod
+from repro_torch.models.layers import mamba2 as mamba_mod
 from repro_torch.models.layers import mla as mla_mod
 from repro_torch.models.layers import moe as moe_mod
 from repro_torch.models.layers.embedding import embed, head_logits
 from repro_torch.models.layers.mlp import mlp_forward, swiglu_forward
 from repro_torch.models.layers.norms import rms_norm
+from repro_torch.utils.tree import tree_map
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -55,14 +71,17 @@ def cdtype(cfg: ArchConfig) -> torch.dtype:
     return DTYPES[cfg.compute_dtype]
 
 
+BLOCK_TYPES = ("dense", "moe", "mamba2", "shared_attn")
+
+
 def _check_supported(cfg: ArchConfig) -> None:
     if cfg.modality not in ("text", "vlm") \
-            or not set(cfg.block_pattern()) <= {"dense", "moe"} \
+            or not set(cfg.block_pattern()) <= set(BLOCK_TYPES) \
             or cfg.attn_type not in ("gqa", "mla"):
         raise NotImplementedError(
-            f"{cfg.name}: the port has dense and moe blocks with GQA or MLA "
-            f"and the text and vlm modalities; the rest is ROADMAP queue M, "
-            f"item M11b")
+            f"{cfg.name}: the port has {', '.join(BLOCK_TYPES)} blocks with "
+            f"GQA or MLA and the text and vlm modalities; the rest is ROADMAP "
+            f"queue M, item M11b")
 
 
 # ---------------------------------------------------------------------------
@@ -70,14 +89,21 @@ def _check_supported(cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def init_block_params(cfg: ArchConfig, n: int, normal, const, *,
-                      block_type: str = "dense") -> Dict:
-    """``n`` layer-stacked blocks of ``block_type``, ``dense`` (a SwiGLU of
-    width ``d_ff``) or ``moe`` (experts of width ``moe_d_ff``, shared
-    experts, a dense residual): ``normal(*shape, scale=)`` and
-    ``const(value, *shape)`` draw the leaves (a moe block's router and
-    experts pass ``normal`` the ``dtype`` and ``per_expert`` keywords of
-    ``leaf_makers``)."""
+                      block_type: str = "dense",
+                      gen: Optional[torch.Generator] = None) -> Dict:
+    """``n`` layer-stacked blocks of ``block_type``: ``dense`` (a SwiGLU of
+    width ``d_ff``), ``moe`` (experts of width ``moe_d_ff``, shared
+    experts, a dense residual), ``mamba2`` (``ln`` and the mixer; ``gen``,
+    ``leaf_makers``' generator, draws its dt) or ``shared_attn`` (a dense
+    block with its 2d -> d input projection ``w_in``).
+    ``normal(*shape, scale=)`` and ``const(value, *shape)`` draw the leaves
+    (a moe block's router and experts pass ``normal`` the ``dtype`` and
+    ``per_expert`` keywords of ``leaf_makers``)."""
     d, hd = cfg.d_model, cfg.head_dim
+    if block_type == "mamba2":
+        return {"ln": const(1.0, n, d),
+                "mixer": mamba_mod.init_mamba2_params(
+                    n, d, normal, const, gen, **_ssm_kwargs(cfg))}
     dq, dkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
     if cfg.attn_type == "mla":
         attn = mla_mod.init_mla_params(
@@ -102,12 +128,21 @@ def init_block_params(cfg: ArchConfig, n: int, normal, const, *,
             "w_up": normal(n, d, cfg.d_ff, scale=d ** -0.5),
             "w_down": normal(n, cfg.d_ff, d, scale=cfg.d_ff ** -0.5),
         }
-    return {
+    block = {
         "ln1": const(1.0, n, d),
         "ln2": const(1.0, n, d),
         "attn": attn,
         "ffn": ffn,
     }
+    if block_type == "shared_attn":
+        block = {"w_in": normal(n, 2 * d, d, scale=(2 * d) ** -0.5),
+                 **block}
+    return block
+
+
+def _ssm_kwargs(cfg: ArchConfig) -> Dict:
+    return dict(expand=cfg.ssm_expand, headdim=cfg.ssm_headdim,
+                d_state=cfg.ssm_state)
 
 
 def leaf_makers(cfg: ArchConfig, seed: int, device: DeviceLike):
@@ -173,11 +208,16 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
         params["connector"] = init_connector_params(cfg, normal, const)
     params["head"] = {"w": normal(d, cfg.vocab_size, scale=d ** -0.5)}
     params["final_norm"] = const(1.0, d)
+    if "shared_attn" in cfg.block_pattern():  # one block, no layer axis
+        params["shared_attn"] = tree_map(
+            lambda t: t[0].clone(), init_block_params(
+                cfg, 1, normal, const, block_type="shared_attn"))
     client_segs, server_segs = cfg.client_server_segments()
     for side, segs in (("client", client_segs), ("server", server_segs)):
-        params[side] = {f"seg{i}": init_block_params(cfg, n, normal, const,
-                                                     block_type=t)
-                        for i, (t, n) in enumerate(segs)}
+        params[side] = {
+            f"seg{i}": {} if t == "shared_attn" else init_block_params(
+                cfg, n, normal, const, block_type=t, gen=gen)
+            for i, (t, n) in enumerate(segs)}
     if cfg.split.enabled and cfg.split.learnable_codec:
         # near-identity, so the cut is transparent at step 0
         eye = torch.eye(d, dtype=torch.float32, device=dev)
@@ -260,14 +300,36 @@ def _ffn(cfg: ArchConfig, block_type: str, p: Dict, h: torch.Tensor,
     return swiglu_forward(p, h), None
 
 
+def _shared_in(block_type: str, p: Dict, x: torch.Tensor,
+               emb0: Optional[torch.Tensor]) -> torch.Tensor:
+    """The input of a block's attention half: x, or for a ``shared_attn``
+    block concat(x, emb0) through its 2d -> d projection."""
+    if block_type != "shared_attn":
+        return x
+    return torch.cat([x, emb0], dim=-1) @ p["w_in"].to(x.dtype)
+
+
 def block_forward(cfg: ArchConfig, p: Dict, x: torch.Tensor, *,
                   positions: torch.Tensor, window: Optional[int],
                   collect_cache: Optional[int] = None,
-                  block_type: str = "dense"):
-    """Full-sequence block of ``block_type``, ``dense`` or ``moe`` (the MoE
+                  block_type: str = "dense",
+                  emb0: Optional[torch.Tensor] = None):
+    """Full-sequence block of ``block_type``: ``dense``, ``moe`` (the MoE
     layer at the config's capacity factor; its auxiliaries in fp32, zeros
-    for a dense block).  Returns (x, aux, cache_or_None)."""
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    for every other block), ``mamba2`` (its cache {state, conv}) or
+    ``shared_attn`` (reading ``emb0``, the embedded input).  Returns (x,
+    aux, cache_or_None)."""
+    aux = _empty_aux(x.device)
+    if block_type == "mamba2":
+        h = rms_norm(x, p["ln"], cfg.norm_eps)
+        if collect_cache is None:
+            return x + mamba_mod.mamba2_forward(p["mixer"], h,
+                                                **_ssm_kwargs(cfg)), aux, None
+        y, cache = mamba_mod.mamba2_forward(p["mixer"], h, return_state=True,
+                                            **_ssm_kwargs(cfg))
+        return x + y, aux, cache
+    xin = _shared_in(block_type, p, x, emb0)
+    h = rms_norm(xin, p["ln1"], cfg.norm_eps)
     cache = None
     if collect_cache is not None:
         a, kv = _attn_forward(cfg, p["attn"], h, positions, window,
@@ -275,25 +337,38 @@ def block_forward(cfg: ArchConfig, p: Dict, x: torch.Tensor, *,
         cache = _fill_kv_cache(cfg, kv, collect_cache, positions)
     else:
         a = _attn_forward(cfg, p["attn"], h, positions, window)
-    x = x + a
-    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    xin = xin + a
+    h2 = rms_norm(xin, p["ln2"], cfg.norm_eps)
     f, moe_aux = _ffn(cfg, block_type, p["ffn"], h2, cfg.capacity_factor)
-    aux = _empty_aux(x.device)
     if moe_aux is not None:
         aux.update({k: v.float() for k, v in moe_aux.items()})
-    return x + f, aux, cache
+    out = xin + f
+    if block_type == "shared_attn":
+        out = x + out  # a residual around the whole shared block
+    return out, aux, cache
 
 
 def block_decode(cfg: ArchConfig, p: Dict, x: torch.Tensor, cache: Dict, *,
                  qpos: torch.Tensor, window: Optional[int],
                  page_table: Optional[torch.Tensor] = None,
-                 block_type: str = "dense") -> torch.Tensor:
-    """One-token block of ``block_type``, ``dense`` or ``moe`` (the MoE
-    layer at capacity factor 8: no drops at decode, as in the reference);
-    ``cache`` (this layer's ring cache, or with ``page_table`` its (P, pg,
-    ...) pools, the batch axis of ``x`` then being the scheduler's slot
-    axis) is updated in place.  Returns x."""
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+                 block_type: str = "dense",
+                 emb0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One-token block of ``block_type``: ``dense``, ``moe`` (the MoE
+    layer at capacity factor 8: no drops at decode, as in the reference),
+    ``mamba2`` (the recurrence on its {state, conv} cache) or
+    ``shared_attn`` (reading ``emb0``, the token's embedding); ``cache``
+    (this layer's ring cache, or with ``page_table`` its (P, pg, ...)
+    pools, the batch axis of ``x`` then being the scheduler's slot axis)
+    is updated in place.  Returns x."""
+    if block_type == "mamba2":
+        h = rms_norm(x, p["ln"], cfg.norm_eps)
+        y, new = mamba_mod.mamba2_decode(p["mixer"], h, cache,
+                                         **_ssm_kwargs(cfg))
+        for k, v in new.items():
+            cache[k].copy_(v)
+        return x + y
+    xin = _shared_in(block_type, p, x, emb0)
+    h = rms_norm(xin, p["ln1"], cfg.norm_eps)
     if cfg.attn_type == "mla":
         if page_table is not None:
             raise NotImplementedError("paged decode requires GQA KV caches "
@@ -307,9 +382,10 @@ def block_decode(cfg: ArchConfig, p: Dict, x: torch.Tensor, cache: Dict, *,
         a, _ = attn_mod.gqa_decode_paged(p["attn"], h, cache, qpos=qpos,
                                          page_table=page_table,
                                          window=window, **_attn_kwargs(cfg))
-    x = x + a
-    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + _ffn(cfg, block_type, p["ffn"], h2, 8.0)[0]
+    xin = xin + a
+    h2 = rms_norm(xin, p["ln2"], cfg.norm_eps)
+    out = xin + _ffn(cfg, block_type, p["ffn"], h2, 8.0)[0]
+    return x + out if block_type == "shared_attn" else out
 
 
 # ---------------------------------------------------------------------------
@@ -318,13 +394,14 @@ def block_decode(cfg: ArchConfig, p: Dict, x: torch.Tensor, cache: Dict, *,
 
 def _stacked(cfg: ArchConfig, make_one) -> Dict:
     """One cache per layer, stacked per segment and keyed like the
-    parameters; ``make_one()`` builds a layer's cache."""
+    parameters (a shared block's use: a stack of one); ``make_one(t)``
+    builds a layer's cache for block type t."""
     out = {}
     for side, segs in zip(("client", "server"),
                           cfg.client_server_segments()):
         out[side] = {}
-        for i, (_, n) in enumerate(segs):
-            one = make_one()
+        for i, (t, n) in enumerate(segs):
+            one = make_one(t)
             out[side][f"seg{i}"] = {
                 k: v.unsqueeze(0).repeat((n,) + (1,) * v.ndim)
                 for k, v in one.items()}
@@ -332,12 +409,16 @@ def _stacked(cfg: ArchConfig, make_one) -> Dict:
 
 
 def init_block_cache(cfg: ArchConfig, batch: int, cache_len: int,
-                     dtype=torch.bfloat16, device: DeviceLike = None
-                     ) -> Dict:
-    """One dense block's ring cache (B, cache_len, ...), 16-bit or int8 as
-    ``cfg.kv_cache_bits`` says (MLA: the latent cache in ``dtype``), on
-    ``device`` (CUDA unless ``device="cpu"``)."""
+                     dtype=torch.bfloat16, device: DeviceLike = None, *,
+                     block_type: str = "dense") -> Dict:
+    """One block's decode cache on ``device`` (CUDA unless
+    ``device="cpu"``): an attention block's ring cache (B, cache_len, ...),
+    16-bit or int8 as ``cfg.kv_cache_bits`` says (MLA: the latent cache in
+    ``dtype``); a ``mamba2`` block's {state fp32, conv in ``dtype``}."""
     _check_supported(cfg)
+    if block_type == "mamba2":
+        return mamba_mod.init_mamba2_cache(batch, cfg.d_model, dtype=dtype,
+                                           device=device, **_ssm_kwargs(cfg))
     if cfg.attn_type == "mla":
         return mla_mod.init_mla_cache(batch, cache_len, cfg.kv_lora_rank,
                                       cfg.qk_rope_dim, dtype, device=device)
@@ -351,8 +432,8 @@ def init_caches(cfg: ArchConfig, batch: int, cache_len: int,
     """Stacked ring caches per segment, keyed like the parameters, on
     ``device`` (CUDA unless ``device="cpu"``)."""
     device = resolve_device(device)
-    return _stacked(cfg, lambda: init_block_cache(cfg, batch, cache_len,
-                                                  dtype, device))
+    return _stacked(cfg, lambda t: init_block_cache(
+        cfg, batch, cache_len, dtype, device, block_type=t))
 
 
 def init_paged_caches(cfg: ArchConfig, n_pages: int, page_size: int,
@@ -360,15 +441,22 @@ def init_paged_caches(cfg: ArchConfig, n_pages: int, page_size: int,
                       ) -> Dict:
     """Stacked paged KV pools per segment, keyed like the parameters: one
     (P, pg, ...) pool per layer, shared page table across layers, on
-    ``device`` (CUDA unless ``device="cpu"``).  MLA has no paged form and
-    raises, as in the reference."""
+    ``device`` (CUDA unless ``device="cpu"``).  MLA and mamba2 blocks have
+    no paged form and raise, as in the reference."""
     _check_supported(cfg)
     if cfg.attn_type == "mla":
         raise NotImplementedError("paged serving requires GQA KV caches")
     device = resolve_device(device)
-    return _stacked(cfg, lambda: attn_mod.init_paged_kv_pool(
-        n_pages, page_size, cfg.n_kv_heads, cfg.head_dim, dtype,
-        bits=cfg.kv_cache_bits, device=device))
+
+    def pool(t):
+        if t == "mamba2":
+            raise NotImplementedError(
+                f"paged serving does not support {t} blocks")
+        return attn_mod.init_paged_kv_pool(
+            n_pages, page_size, cfg.n_kv_heads, cfg.head_dim, dtype,
+            bits=cfg.kv_cache_bits, device=device)
+
+    return _stacked(cfg, pool)
 
 
 # ---------------------------------------------------------------------------
@@ -401,16 +489,30 @@ def _remat_group(cfg: ArchConfig, n: int, x: torch.Tensor) -> int:
 
 
 def _run_segments(params: Dict, cfg: ArchConfig, side: str, segs, x, *,
-                  positions, window, collect_cache: Optional[int] = None):
-    """Run one side's segments.  Returns (x, aux_sum, caches)."""
+                  positions, window, emb0: torch.Tensor,
+                  collect_cache: Optional[int] = None):
+    """Run one side's segments; a shared block's use runs once on
+    ``params["shared_attn"]``, outside the stack executor and so with no
+    remat, as in the reference.  Returns (x, aux_sum, caches)."""
     aux_sum = _empty_aux(x.device)
     caches = {}
     for i, (t, _) in enumerate(segs):
+        if t == "shared_attn":
+            x, aux, cache = block_forward(
+                cfg, params["shared_attn"], x, positions=positions,
+                window=window, collect_cache=collect_cache, block_type=t,
+                emb0=emb0)
+            aux_sum = {k: aux_sum[k] + aux[k] for k in aux_sum}
+            if collect_cache is not None:
+                caches[f"seg{i}"] = {k: v.unsqueeze(0)
+                                     for k, v in cache.items()}
+            continue
+
         def body(carry, p, t=t):
             y, aux, cache = block_forward(cfg, p, carry, positions=positions,
                                           window=window,
                                           collect_cache=collect_cache,
-                                          block_type=t)
+                                          block_type=t, emb0=emb0)
             return y, (aux, cache)
 
         stacked = params[side][f"seg{i}"]
@@ -425,14 +527,18 @@ def _run_segments(params: Dict, cfg: ArchConfig, side: str, segs, x, *,
 
 
 def layer_forward_count(cfg: ArchConfig, x: torch.Tensor) -> int:
-    """How many times one training step's forward + backward runs a layer
-    body (and so K1), summed over every segment, for the remat policy
-    ``_run_segments`` picks for a carry like ``x`` (B, S, d)."""
+    """How many times one training step's forward + backward runs an
+    attention block's body (and so K1), summed over every segment, for the
+    remat policy ``_run_segments`` picks for a carry like ``x`` (B, S, d):
+    a shared block's use once (no remat), a mamba2 layer never."""
     total = 0
     for segs in cfg.client_server_segments():
-        for _, n in segs:
-            total += stack_mod.layer_forward_count(
-                n, cfg.remat, _remat_group(cfg, n, x))
+        for t, n in segs:
+            if t == "shared_attn":
+                total += 1
+            elif t != "mamba2":
+                total += stack_mod.layer_forward_count(
+                    n, cfg.remat, _remat_group(cfg, n, x))
     return total
 
 
@@ -453,16 +559,17 @@ def forward(params: Dict, cfg: ArchConfig, batch: Dict, *,
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     positions = positions.to(torch.int32)
+    emb0 = x  # the shared blocks' second input, on both sides of the cut
     client_segs, server_segs = cfg.client_server_segments()
     x, aux_c, caches_c = _run_segments(
         params, cfg, "client", client_segs, x, positions=positions,
-        window=window, collect_cache=collect_cache)
+        window=window, emb0=emb0, collect_cache=collect_cache)
     # the paper's compressor at the cut
     x, commit = split_mod.compressor_roundtrip(params.get("codec"),
                                                cfg.split, x, rng)
     x, aux_s, caches_s = _run_segments(
         params, cfg, "server", server_segs, x, positions=positions,
-        window=window, collect_cache=collect_cache)
+        window=window, emb0=emb0, collect_cache=collect_cache)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = head_logits(params["head"], x)
     aux = {k: aux_c[k] + aux_s[k] for k in aux_c}
@@ -479,18 +586,27 @@ def _decode(params: Dict, cfg: ArchConfig, caches: Dict, batch: Dict,
     caches (ring, or paged with ``page_table``) are updated in place.
     Returns the logits."""
     x = embed(params["embed"], batch["tokens"], cdtype(cfg))
+    emb0 = x
     client_segs, server_segs = cfg.client_server_segments()
 
     def run_side(side, segs, x):
         for i, (t, _) in enumerate(segs):
+            cache = caches[side][f"seg{i}"]
+            if t == "shared_attn":  # its one-layer cache
+                x = block_decode(cfg, params["shared_attn"], x,
+                                 stack_mod.tree_index(cache, 0), qpos=qpos,
+                                 window=window, page_table=page_table,
+                                 block_type=t, emb0=emb0)
+                continue
+
             def body(carry, pc, t=t):
                 p, c = pc
                 return block_decode(cfg, p, carry, c, qpos=qpos,
                                     window=window, page_table=page_table,
-                                    block_type=t)
+                                    block_type=t, emb0=emb0)
 
             x, _ = stack_mod.run_decode_stack(
-                body, x, params[side][f"seg{i}"], caches[side][f"seg{i}"])
+                body, x, params[side][f"seg{i}"], cache)
         return x
 
     x = run_side("client", client_segs, x)

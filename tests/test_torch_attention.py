@@ -57,11 +57,15 @@ FLASH_CASES = [
 # width of llama3_2_3b, which K1 - K3 are compiled for on the card
 D = 16
 D128_CASES = [FLASH_CASES[i] for i in (1, 2, 3, 4, 5)]
+# and at zamba2_2_7b's 80 (G 1 as zamba2's, a padded tail, kv_valid_len,
+# a window), which K1 - K3 keep 96 columns wide on the card
+D80_CASES = [FLASH_CASES[i] for i in (0, 2, 3, 4)]
 
 
 def _atol(d, ref):
-    """ATOL at D 16; at D 128, where every sum runs over 8x the terms and
-    the gradients reach ~10, ATOL relative to the largest |ref|."""
+    """ATOL at D 16; at D 128 (or 80), where every sum runs over 8x (5x)
+    the terms and the gradients reach ~10, ATOL relative to the largest
+    |ref|."""
     return ATOL if d == D else ATOL * max(1.0, float(np.abs(ref).max()))
 
 
@@ -97,6 +101,12 @@ def test_flash_forward_plain_matches_reference_kernel_d128(case):
     """As above at head width 128 (GQA, padded tails, kv_valid_len, a
     window, G = 3)."""
     _check_flash_forward(case, 128)
+
+
+@pytest.mark.parametrize("case", D80_CASES)
+def test_flash_forward_plain_matches_reference_kernel_d80(case):
+    """As above at head width 80 (zamba2_2_7b's)."""
+    _check_flash_forward(case, 80)
 
 
 def _check_flash_forward(case, d):
@@ -176,6 +186,12 @@ def test_flash_backward_plain_matches_reference_kernels(case):
 def test_flash_backward_plain_matches_reference_kernels_d128(case):
     """As above at head width 128."""
     _check_flash_backward(case, 128)
+
+
+@pytest.mark.parametrize("case", D80_CASES)
+def test_flash_backward_plain_matches_reference_kernels_d80(case):
+    """As above at head width 80."""
+    _check_flash_backward(case, 80)
 
 
 def _check_flash_backward(case, d):
@@ -376,10 +392,10 @@ def test_flash_bwd_plan_shared_memory_at_each_width(shape):
 
 def test_flash_wrappers_refuse_other_widths():
     """CUDA-free argument checks: K1 - K3 take (D, Dv) in (64, 64),
-    (128, 128) and MLA's (96, 64), refuse 96 / 96 and (128, 64), and name
-    queue K item 3 for (80, 80); the plan refuses other widths; the
-    decode kernels K6 - K9 take 64 and 128 and name queue K item 3 for
-    80."""
+    (128, 128), MLA's (96, 64) and zamba2's (80, 80), refuse 96 / 96,
+    (128, 64) and (112, 112), the last saying no ROADMAP item queues it;
+    the plan refuses other widths; the decode kernels K6 - K9 take 64, 128
+    and 80 and refuse 96, saying no item queues it."""
     def ops(d, dv=None):
         q = torch.zeros(1, 4, 16, d, dtype=torch.bfloat16)
         k = torch.zeros(1, 2, 16, d, dtype=torch.bfloat16)
@@ -388,19 +404,20 @@ def test_flash_wrappers_refuse_other_widths():
         pos = torch.arange(16, dtype=torch.int32)
         return q, k, v, pos, pos
 
-    for d, dv in ((64, None), (128, None), (96, 64)):
+    for d, dv in ((64, None), (128, None), (96, 64), (80, 80)):
         qpos, _ = tops._check_flash("K1", *ops(d, dv))
         assert qpos.dtype == torch.int32
     tops.flash_bwd_plan(1, 4, 2, 16, 16, 96, 64)
+    tops.flash_bwd_plan(1, 4, 2, 16, 16, 80, 80)
     with pytest.raises(ValueError, match="head_dim"):
         tops._check_flash("K1", *ops(96))
     with pytest.raises(ValueError, match="head_dim"):
         tops._check_flash("K1", *ops(128, dv=64))
-    with pytest.raises(ValueError, match="item 3"):
-        tops._check_flash("K1", *ops(80, dv=80))
+    with pytest.raises(ValueError, match="no ROADMAP item"):
+        tops._check_flash("K1", *ops(112, dv=112))
     with pytest.raises(ValueError, match="head_dim"):
         tops.flash_bwd_plan(1, 4, 2, 16, 16, 96)
-    for d in (64, 128, 80):
+    for d in (64, 128, 80, 96):
         qf = torch.zeros(2, 2, 2, d, dtype=torch.bfloat16)
         cache = torch.zeros(2, 8, 2, d, dtype=torch.bfloat16)
         pos = torch.zeros(2, 8, dtype=torch.int32)
@@ -409,7 +426,7 @@ def test_flash_wrappers_refuse_other_widths():
             tops._check_decode("K6", qf, cache, cache, (), pos, qpos,
                                torch.bfloat16)
         else:
-            with pytest.raises(ValueError, match="item 3"):
+            with pytest.raises(ValueError, match="no ROADMAP item"):
                 tops._check_decode("K6", qf, cache, cache, (), pos, qpos,
                                    torch.bfloat16)
 
@@ -548,16 +565,19 @@ def test_decode_paged_plan_fits_shared_memory(shape):
     """A round holds at least one page and at most PAGED_ROUND_BYTES of K
     and V (or one page, if a page is larger), a rank of several rounds gets
     two buffers, and a block's shared memory (the buffers and everything
-    beside them) fits the H100's 227 KB, at head widths 64 and 128."""
+    beside them) fits the H100's 227 KB, at head widths 64, 128 and 80 (a
+    bf16 row of 80 buffered 88 wide)."""
     npp, pg, g = shape
+    assert tops.decode_row(80, 2) == 88 and tops.decode_row(80, 1) == 80
     for elem, d in ((e, d) for e in (2, 1) for d in tops.DECODE_HEAD_DIMS):
         plan = tops.decode_paged_plan(SERVE_SLOTS, SERVE_KV_HEADS, npp, pg,
                                       g, elem, d)
-        rnd, page = plan.pages_per_round, 2 * pg * d * elem
+        row = tops.decode_row(d, elem) * elem
+        rnd, page = plan.pages_per_round, 2 * pg * row
         assert 1 <= rnd <= plan.pages_per_rank
         assert rnd * page <= max(tops.PAGED_ROUND_BYTES, page)
         assert plan.buffers == (1 if rnd == plan.pages_per_rank else 2)
-        kv = plan.buffers * 2 * (-(-rnd * pg // 16) * 16) * d * elem
+        kv = plan.buffers * 2 * (-(-rnd * pg // 16) * 16) * row
         assert kv < plan.smem <= tops.SMEM_MAX == 232448
 
 

@@ -1,8 +1,8 @@
-"""The decode kernels K6 - K9 at head width 128 (llama3_2_3b's), on the
-CPU: the plain versions that the wrappers run for CPU tensors (and that
-``chip_smoke.py`` holds the CUDA kernels to) against the reference's Pallas
-kernels in interpret mode at G 3, the wrappers' width checks, and the
-launch plan at 128.
+"""The decode kernels K6 - K9 at head widths 128 (llama3_2_3b's) and 80
+(zamba2_2_7b's), on the CPU: the plain versions that the wrappers run for
+CPU tensors (and that ``chip_smoke.py`` holds the CUDA kernels to) against
+the reference's Pallas kernels in interpret mode at G 3, the wrappers'
+width checks, and the launch plan at 128.
 """
 import pytest
 
@@ -29,11 +29,11 @@ def _q8(x):
     return np.asarray(codes), np.asarray(scales)
 
 
-def _ring_case():
+def _ring_case(d=D):
     """A ring of L 40 (the Pallas kernel's blocks of 20 divide it; the
     port's virtual pages of 16 leave a ragged last one) for 4 rows: row 0
     full and unwrapped, row 1 wrapped (positions 21 - 60), row 2 inactive,
-    row 3 holding 0 - 10."""
+    row 3 holding 0 - 10; head width ``d``."""
     rng = np.random.default_rng(11)
     b, length = 4, 40
     qpos = np.array([39, 60, -1, 10], np.int32)
@@ -41,15 +41,15 @@ def _ring_case():
     for row, qp in enumerate(qpos):
         for p in range(max(0, qp - length + 1), qp + 1):
             kpos[row, p % length] = p
-    qf = (rng.normal(size=(b, KH, G, D)) / np.sqrt(D)).astype(np.float32)
-    k = rng.normal(size=(b, length, KH, D)).astype(np.float32)
-    v = rng.normal(size=(b, length, KH, D)).astype(np.float32)
+    qf = (rng.normal(size=(b, KH, G, d)) / np.sqrt(d)).astype(np.float32)
+    k = rng.normal(size=(b, length, KH, d)).astype(np.float32)
+    v = rng.normal(size=(b, length, KH, d)).astype(np.float32)
     return qf, k, v, kpos, qpos
 
 
-def _paged_case():
+def _paged_case(d=D):
     """Pools of 8-token pages for 4 slots of 40, 25 (its second page
-    unallocated), 0 and 9 tokens."""
+    unallocated), 0 and 9 tokens; head width ``d``."""
     rng = np.random.default_rng(12)
     pg, npp, lens = 8, 8, (40, 25, 0, 9)
     n_pages = 1 + sum(-(-n // pg) for n in lens)
@@ -64,10 +64,10 @@ def _paged_case():
             pos[page, :ln] = np.arange(j * pg, j * pg + ln)
     pt[1, 1] = -1
     qpos = np.array([n - 1 if n else -1 for n in lens], np.int32)
-    qf = (rng.normal(size=(len(lens), KH, G, D)) / np.sqrt(D)) \
+    qf = (rng.normal(size=(len(lens), KH, G, d)) / np.sqrt(d)) \
         .astype(np.float32)
-    k = rng.normal(size=(n_pages, pg, KH, D)).astype(np.float32)
-    v = rng.normal(size=(n_pages, pg, KH, D)).astype(np.float32)
+    k = rng.normal(size=(n_pages, pg, KH, d)).astype(np.float32)
+    v = rng.normal(size=(n_pages, pg, KH, d)).astype(np.float32)
     return qf, k, v, pos, pt, qpos
 
 
@@ -78,10 +78,21 @@ def test_plain_decode_d128_matches_reference_kernels(kind, window):
     Pallas ``decode`` / ``decode_q8`` / ``decode_paged`` /
     ``decode_paged_q8`` in interpret mode, within ATOL; the inactive row
     exactly 0."""
+    _check_plain_decode(kind, window, D)
+
+
+@pytest.mark.parametrize("window", [None, 16])
+@pytest.mark.parametrize("kind", ["K6", "K7", "K8", "K9"])
+def test_plain_decode_d80_matches_reference_kernels(kind, window):
+    """As above at head width 80 (zamba2_2_7b's)."""
+    _check_plain_decode(kind, window, 80)
+
+
+def _check_plain_decode(kind, window, d):
     scale = lambda s: jnp.asarray(s).astype(jnp.float32).transpose(  # noqa
         0, 2, 1)
     if kind in ("K6", "K7"):
-        qf, k, v, kpos, qpos = _ring_case()
+        qf, k, v, kpos, qpos = _ring_case(d)
         jq, jpos, jqpos = (jnp.asarray(a) for a in (qf, kpos, qpos))
         if kind == "K6":
             ref = decode_kernel.decode(
@@ -99,7 +110,7 @@ def test_plain_decode_d128_matches_reference_kernels(kind, window):
             out = tops.decode_q8(_t(qf), _t(kc), _t(vc), _t(ks), _t(vs),
                                  _t(kpos), _t(qpos), window=window)
     else:
-        qf, k, v, pos, pt, qpos = _paged_case()
+        qf, k, v, pos, pt, qpos = _paged_case(d)
         jq, jpos, jpt, jqpos = (jnp.asarray(a) for a in (qf, pos, pt, qpos))
         if kind == "K8":
             ref = decode_kernel.decode_paged(
@@ -116,7 +127,7 @@ def test_plain_decode_d128_matches_reference_kernels(kind, window):
             out = tops.decode_paged_q8(_t(qf), _t(kc), _t(vc), _t(ks),
                                        _t(vs), _t(pos), _t(pt), _t(qpos),
                                        window=window)
-    assert out.shape == (4, KH, G, D) and out.dtype == torch.float32
+    assert out.shape == (4, KH, G, d) and out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
     assert np.all(out.numpy()[2] == 0.0)
 
@@ -124,8 +135,8 @@ def test_plain_decode_d128_matches_reference_kernels(kind, window):
 @pytest.mark.parametrize("d", [64, 128, 80, 96])
 def test_check_decode_takes_64_and_128_only(d):
     """``_check_decode`` (every decode wrapper's CUDA-side check) takes
-    head widths 64 and 128; 80 names ROADMAP queue K item 3, 96 says no
-    item queues it; a V of another width than Q and K is refused."""
+    head widths 64, 128 and zamba2's 80; 96 says no ROADMAP item queues
+    it; a V of another width than Q and K is refused."""
     qf = torch.zeros(2, KH, G, d, dtype=torch.bfloat16)
     cache = torch.zeros(2, 8, KH, d, dtype=torch.bfloat16)
     pos = torch.zeros(2, 8, dtype=torch.int32)
@@ -137,8 +148,7 @@ def test_check_decode_takes_64_and_128_only(d):
             tops._check_decode("K6", qf, cache, cache[..., :d // 2], (),
                                pos, qpos, torch.bfloat16)
         return
-    match = "item 3" if d == 80 else "no ROADMAP item"
-    with pytest.raises(ValueError, match=match):
+    with pytest.raises(ValueError, match="no ROADMAP item"):
         tops._check_decode("K6", *args)
 
 

@@ -301,9 +301,10 @@ def _ops(d, dv, h=4, kh=2):
 
 def test_flash_checks_take_d96_v64_and_name_the_queued_pairs():
     """The flash checks admit (96, 64), with a (B, H, Sq, 64) output
-    gradient; (80, 80) names queue K item 3 (deepseek_v2_236b's (192,
-    128) is compiled: tests/test_torch_deepseek.py); any other pair, and
-    q / k widths that differ, raise ``ValueError``."""
+    gradient (deepseek_v2_236b's (192, 128) and zamba2's (80, 80) are
+    compiled too: tests/test_torch_deepseek.py, tests/test_torch_zamba2.py);
+    a pair no config needs, (112, 112), says no ROADMAP item queues it;
+    any other pair, and q / k widths that differ, raise ``ValueError``."""
     assert (96, 64) in tops.FLASH_HEAD_DIMS
     q, k, v, qpos, kpos = _ops(96, 64)
     go = torch.zeros(1, 4, 16, 64, dtype=torch.bfloat16)
@@ -311,11 +312,11 @@ def test_flash_checks_take_d96_v64_and_name_the_queued_pairs():
     with pytest.raises(ValueError, match="bad GQA shapes"):
         tops._check_flash("K2", q, k, v, qpos, kpos,
                           torch.zeros(1, 4, 16, 96, dtype=torch.bfloat16))
-    with pytest.raises(ValueError, match="item 3"):
-        tops._check_flash("K1", *_ops(80, 80))
-    with pytest.raises(ValueError, match="item 3"):
-        tops._check_flash("K2", *_ops(80, 80),
-                          torch.zeros(1, 4, 16, 80, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="no ROADMAP item"):
+        tops._check_flash("K1", *_ops(112, 112))
+    with pytest.raises(ValueError, match="no ROADMAP item"):
+        tops._check_flash("K2", *_ops(112, 112),
+                          torch.zeros(1, 4, 16, 112, dtype=torch.bfloat16))
     for d, dv in ((96, 96), (64, 96), (96, 128), (32, 16)):
         with pytest.raises(ValueError, match="head_dim"):
             tops._check_flash("K1", *_ops(d, dv))
@@ -354,5 +355,5 @@ def test_flash_bwd_plan_at_d96_v64(shape):
     # keys) fit over the ring of tiles they overlay
     assert 128 * (96 + 8) * 4 + 128 * (64 + 8) * 4 <= \
         (128 + 3 * 64) * (96 + 64) * 2
-    with pytest.raises(ValueError, match="item 3"):
-        tops.flash_bwd_plan(b, h, kh, sq, skv, 80, 80)
+    with pytest.raises(ValueError, match="no ROADMAP item"):
+        tops.flash_bwd_plan(b, h, kh, sq, skv, 112, 112)
