@@ -64,7 +64,14 @@ non-zero:
               heads at G 1 over rings of 544, a wrapped ring, two rounds,
               G 16; K8 / K9, on no zamba2 path, at 32 kv heads, G 1, a
               serve-like 4 slots of 512 - 544 tokens, pages of 64, npp 1),
-              K1 - K3 and K6 against SDPA.
+              K1 - K3 and K6 against SDPA.  K1 - K3 and K6 / K7 at head
+              width 64 at musicgen_large's G 1 are the rows ``*_d64g1``
+              (K1 - K3 at B 2, 32 / 32 heads, S 1 024: K2 one head a
+              block, K3 clusters of one block; K1 at B 4 too, the prefill
+              shape; a padded tail, a window of 256, a ragged S; K6 / K7
+              at 4 rows of 32 kv heads over rings of 1 056 at windows None
+              and 200 and a wrapped ring), K1 - K3 and K6 against SDPA.
+              Every K1 case, at every width, gives the same bits twice.
 3. serve   -- full-width tinyllava (16 layers, d 1280, bf16, random weights
               from a seed) behind ServeEngine with the 2-bit RD-FSQ split
               wire: 8 requests through 4 slots until all finish.  Launch
@@ -286,9 +293,44 @@ non-zero:
               mamba2, the shared block, cut at 3) against the fp32 CPU
               path; ``serve_batched --engine`` refusing mamba2 blocks.
 28. zamba2 train -- the training step at full width and full depth, 3
-              AdamW steps of 2 x 1 024 tokens: K1 = K2 = K3 = 9 a step at
-              (80, 80) (no remat around the shared block), the first
-              batch's CE falling, ms a step, peak memory.
+              in-place AdamW steps of 2 x 1 024 tokens: K1 = K2 = K3 = 9
+              a step at (80, 80) (no remat around the shared block), the
+              first batch's CE falling, ms a step, peak memory.
+29. rwkv6 serve -- rwkv6_7b at full width and full depth (32 rwkv6
+              layers: the 5-way low-rank token shift, 64 heads of 64 with
+              a fp32 (64 x 64) WKV state each, the group norm, the channel
+              mix's relu^2 of 14 336; vocab 65 536; 7.61 G parameters,
+              15.2 GB of bf16; its 2-bit cut at layer 16 in the graph as
+              the plain STE roundtrip): generate() of 4 prompts of 1 024
+              tokens, 32 new, launching no kernel; the WKV state and
+              token-shift bytes by formula, peak memory, ms a decode step;
+              the chunked prefill against the same 64 tokens decoded one
+              at a time, the cut off: each layer's time mix on its own
+              input in fp32 (final WKV state and last output within
+              1e-4), the whole model's last logits and states in bf16
+              printed; the first layer
+              on each side of the cut against the fp32 CPU path; the
+              engine refusing rwkv6 blocks.
+30. rwkv6 train -- 3 in-place AdamW steps of 2 x 1 024 tokens at full
+              width on an 8-layer cut (printed: full depth's weights,
+              gradients and fp32 moments, 7.61 G x 12 B = 91 GB, would not
+              fit the card): no kernel launched, the first batch's CE
+              falling, ms a step, peak memory.
+31. musicgen serve -- musicgen_large at full width and full depth (48
+              layers, d 2 048, 32 / 32 heads of 64: G 1; 4 codebooks of
+              2 048, embedded one table each and summed, one head each;
+              3.26 G parameters; its cut at layer 24): generate() of 4
+              prompts of 1 024 frames, 32 new frames of 4 codes, over bf16
+              ring caches (K1 48 times in the prefill, K6 48 times a step)
+              and int8 ones (K7); KV bytes by formula, the codes the two
+              runs share, peak memory, ms a decode step; the first layer
+              on each side of the cut against the fp32 CPU path, the cut
+              off (the argmax per codebook); the engine refusing audio.
+32. musicgen train -- 3 in-place AdamW steps of 2 x 1 024 frames at full
+              width and full depth: K1 = 96, K2 = K3 = 48 a step at (64,
+              64), G 1 (remat: the forward twice a layer), the first
+              batch's CE over the 4 codebooks falling, ms a step, peak
+              memory.
 
 Every phase prints its seconds and the device memory after it.  The last
 lines are the card (nvidia-smi), the per-kernel JSON line and
@@ -426,6 +468,17 @@ DEEPSEEK_TRAIN_LAYERS, DEEPSEEK_TRAIN_EXPERTS, DEEPSEEK_TRAIN_STEPS = 2, 16, 6
 # tokens; ZAMBA_TRAIN_STEPS training steps of ARCTIC_TRAIN_BATCH x
 # ARCTIC_TRAIN_SEQ tokens
 ZAMBA_PARITY_LAYERS, ZAMBA_PARITY_CUT, ZAMBA_TRAIN_STEPS = 6, 3, 3
+# rwkv6_7b at full width and full depth: generate's prompts of
+# RWKV_GEN_TEXT tokens; the recurrence check's RWKV_RECUR_SEQ tokens (4
+# chunks of 16, a state carried across) decoded one at a time, each layer's
+# time mix in fp32 within RECUR_RTOL (the same math in another order);
+# training on RWKV_TRAIN_LAYERS layers,
+# RWKV_TRAIN_STEPS steps.  musicgen_large at full width and full depth:
+# prompts of MUSIC_GEN_TEXT frames, MUSIC_TRAIN_STEPS training steps; both
+# train on ARCTIC_TRAIN_BATCH x ARCTIC_TRAIN_SEQ tokens
+RWKV_GEN_TEXT, RWKV_RECUR_SEQ, RECUR_RTOL = 1024, 64, 1e-4
+RWKV_TRAIN_LAYERS, RWKV_TRAIN_STEPS = 8, 3
+MUSIC_GEN_TEXT, MUSIC_TRAIN_STEPS = 1024, 3
 # int8 K/V bytes per (token, kv head) over bf16: (64 + 2) / 128
 INT8_POOL_RATIO = 0.515625
 # K12 against its plain version, relative to max |plain|: the dequantized
@@ -605,13 +658,37 @@ D96 = "_d96v64"
 # K3 and K6 - K9 at zamba2_2_7b's head width 80 (32 / 32 heads: G 1)
 D192 = "_d192v128"
 D80 = "_d80"
+# K1 - K3 and K6 / K7 at head width 64 at musicgen_large's G 1 (32 / 32
+# heads): K2 one head a block, K3 clusters of one block
+D64G1 = "_d64g1"
 # the granite (G 4) and 33B / 34B (G 7) groupings at 128, timed beside
 D128_G4 = "D128 G4 (32 / 8 heads, granite) B2 S1024"
 D128_G7 = "D128 G7 (56 / 8 heads, the 33B / 34B) B2 S1024"
 
 
-def _suffix(d: int) -> str:
+def _suffix(d: int, g1: bool = False) -> str:
+    if g1:
+        return D64G1
     return {64: "", 128: D128, 96: D96, 192: D192, 80: D80}[d]
+
+
+def _g1_flash_cases(gen, bwd=False):
+    """K1 - K3 at musicgen_large's head width 64, G 1 (32 / 32 heads): its
+    training shape (timed), for K1 its prefill shape, a padded q tail with
+    kv_valid_len, a window of 256, ragged tiles."""
+    cases = {"D64 G1 musicgen train shape B2 H32 S1024":
+             _flash_case(gen, 2, 1024, 32, 32)}
+    if not bwd:
+        cases["D64 G1 musicgen prefill shape B4 H32 S1024"] = \
+            _flash_case(gen, 4, 1024, 32, 32)
+    cases.update({
+        "D64 G1 padded q tail S777 + kv_valid_len 700":
+            _flash_case(gen, 2, 777, 32, 32, kv_valid_len=700),
+        "D64 G1 window 256 B1 S1024":
+            _flash_case(gen, 1, 1024, 32, 32, window=256),
+        "D64 G1 ragged tiles S100": _flash_case(gen, 1, 100, 32, 32),
+    })
+    return cases
 
 
 def _sdpa_backends(q, k, v, fn):
@@ -636,18 +713,21 @@ def _sdpa_backends(q, k, v, fn):
     return ok, refused
 
 
-def check_flash(gen, results, d=64, dv=None):
+def check_flash(gen, results, d=64, dv=None, g1=False):
     """K1 at the serve shape (D 64), at llama's (D 128, with G 4 and G 7
     cases at granite's and the 33B / 34B's grouping), at minicpm3_4b's
-    (D 96, Dv 64), at deepseek_v2_236b's (D 192, Dv 128) or at
-    zamba2_2_7b's (D = Dv = 80: its training and prefill shapes, G 1), the
-    first case timed."""
+    (D 96, Dv 64), at deepseek_v2_236b's (D 192, Dv 128), at
+    zamba2_2_7b's (D = Dv = 80: its training and prefill shapes, G 1) or,
+    with ``g1``, at musicgen_large's (D 64, G 1: its training and prefill
+    shapes); each case run twice for the same bits, the first timed."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import attention_ops, attention_ref
 
     dv = d if dv is None else dv
-    if d == 80:
+    if g1:
+        cases = _g1_flash_cases(gen)
+    elif d == 80:
         cases = {
             "D80 zamba2 train shape B2 H32 S1024":
                 _flash_case(gen, 2, 1024, 32, 32, d=d),
@@ -707,6 +787,8 @@ def check_flash(gen, results, d=64, dv=None):
     for name, (q, k, v, qpos, kpos, window) in cases.items():
         out, m, l = attention_ops.flash_forward(q, k, v, qpos, kpos,
                                                 window=window)
+        again = attention_ops.flash_forward(q, k, v, qpos, kpos,
+                                            window=window)
         ro, rm, rl = attention_ref.flash_forward_ref(q, k, v, qpos, kpos,
                                                      window=window)
         torch.cuda.synchronize()
@@ -714,11 +796,13 @@ def check_flash(gen, results, d=64, dv=None):
         e_l = float(((l - rl).abs() / rl.abs().clamp_min(1e-30)).max())
         dead = (rl == 0).reshape(-1)  # rows with no visible key
         exact0 = bool((out.reshape(-1, out.shape[-1])[dead] == 0).all())
+        same = all(torch.equal(a, b) for a, b in zip((out, m, l), again))
         print(f"[kernels] K1 flash_fwd {name}: max|out-plain| {e_out:.3e} "
               f"(tol {FLASH_OUT_ATOL}), max|m-plain| {e_m:.3e}, "
-              f"max rel l {e_l:.3e}, masked rows exact 0: {exact0}")
+              f"max rel l {e_l:.3e}, masked rows exact 0: {exact0}, same "
+              f"bits twice: {same}")
         require(e_out <= FLASH_OUT_ATOL and e_m <= STATS_ATOL
-                and e_l <= L_RTOL and exact0, f"K1 {name}")
+                and e_l <= L_RTOL and exact0 and same, f"K1 {name}")
         worst = max(worst, e_out)
 
     timed = next(iter(cases))
@@ -765,7 +849,7 @@ def check_flash(gen, results, d=64, dv=None):
     flops = 2 * b * h * sq * skv * (d + dv) * 0.5
     n_bytes = (q.numel() + k.numel() + v.numel()) * 2 \
         + b * h * sq * (dv + 2) * 4  # out fp32 + m, l
-    results["flash_fwd" + _suffix(d)] = dict(
+    results["flash_fwd" + _suffix(d, g1)] = dict(
         max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
         bound=bound(n_bytes, flops))
 
@@ -778,7 +862,7 @@ def _visible_pairs(qpos, kpos, window=None) -> int:
     return int(_mask(qpos, kpos, window).sum())
 
 
-def check_flash_bwd(gen, results, d=64, dv=None):
+def check_flash_bwd(gen, results, d=64, dv=None, g1=False):
     """K2 / K3 against ``flash_backward_ref`` on the forward's own (out, m,
     l); rows that see no key get a zero output gradient, as
     ``flash_attention`` gives them (it slices them off).  D 64 at the
@@ -787,14 +871,15 @@ def check_flash_bwd(gen, results, d=64, dv=None):
     deepseek_v2_236b's (G 1; K2 with one Q / dO slot, K3 with the two
     warpgroups splitting dK / dV's columns; G 2 cases for K2's slot reused
     by a second head and for K3's clusters), (80, 80) at zamba2_2_7b's
-    (G 1, and a G 4 case for K3's clusters); the first case timed and run
-    twice."""
+    (G 1, and a G 4 case for K3's clusters), or with ``g1`` (64, 64) at
+    musicgen_large's (G 1: K2 one head a block, K3 clusters of one
+    block); the first case timed and run twice."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import attention_ops, attention_ref
 
     dv = d if dv is None else dv
-    cases = {
+    cases = _g1_flash_cases(gen, bwd=True) if g1 else {
         "D80 zamba2 train shape B2 H32 S1024":
             _flash_case(gen, 2, 1024, 32, 32, d=d),
         "D80 padded q tail S777 + kv_valid_len 700":
@@ -957,7 +1042,7 @@ def check_flash_bwd(gen, results, d=64, dv=None):
     # over Dv
     n_in = (q.numel() + k.numel() + v.numel() + go.numel()) * 2 \
         + 3 * b * h * sq * 4  # bf16 operands, fp32 m, l, di
-    suffix = _suffix(d)
+    suffix = _suffix(d, g1)
     results["flash_bwd_dq" + suffix] = dict(
         max_abs_err=worst["flash_bwd_dq"], ms=ms2,
         plain_ms=plain_ms, library_ms=lib_ms,
@@ -1338,9 +1423,18 @@ def _hold_decode(tag, what, plan, run, ref, dead) -> float:
     return e
 
 
-def _ring_cases(gen, d):
+def _ring_cases(gen, d, g1=False):
     """check_ring_decode's cases, by name: (case, windows); the first is
     timed."""
+    if g1:  # musicgen_large: 32 kv heads, G 1; generate's ring of 1 056
+        return {
+            "D64 G1 musicgen shape B4 KH32 L1056": (
+                _ring_case(gen, 4, 1056, [1055, 1040, 600, 100], kh=32,
+                           g=1), (None, 200)),
+            "D64 G1 wrapped ring L1056, a row with no key": (
+                _ring_case(gen, 4, 1056, [2000, 1500, 1055, -1], kh=32,
+                           g=1), (None,)),
+        }
     if d == 80:  # zamba2_2_7b: 32 kv heads, G 1; generate's ring of 544
         return {
             "D80 zamba2 shape B4 KH32 G1 L544": (
@@ -1389,7 +1483,7 @@ def _ring_cases(gen, d):
     }
 
 
-def check_ring_decode(gen, results, d=64):
+def check_ring_decode(gen, results, d=64, g1=False):
     """K6 and K7 against their plain versions over one ring cache per case
     (K7 reads the codes and fp16 scales of K6's bf16 cache).  Head width
     64: the generate shape (B 4, L 825, timed since the kernels were first
@@ -1402,6 +1496,9 @@ def check_ring_decode(gen, results, d=64):
     G 16 at L 2000.  Head width 80 (rows ``*_d80``): zamba2_2_7b's
     generate shape (B 4, 32 kv heads, G 1, rings of 544; timed), a wrapped
     ring with a row of no key, G 4 at L 2000 (two rounds), G 16 at L 37.
+    With ``g1`` (rows ``*_d64g1``): musicgen_large's generate shape (B 4,
+    32 kv heads, G 1, rings of 1 056 = 1 024 + 32; timed) at windows None
+    and 200, and a wrapped ring with a row of no key.
     Every output within DECODE_ATOL, exactly 0 on a row with no visible
     key, the same bits on two runs.  Timed as device time
     by CUDA-graph replay and eager at the first case, with SDPA over the
@@ -1410,8 +1507,8 @@ def check_ring_decode(gen, results, d=64):
     import torch.nn.functional as F
     from repro_torch.kernels import attention_ops, attention_ref
 
-    cases = _ring_cases(gen, d)
-    suffix = _suffix(d)
+    cases = _ring_cases(gen, d, g1)
+    suffix = _suffix(d, g1)
     worst = {"decode": 0.0, "decode_q8": 0.0}
     for name, (case, windows) in cases.items():
         qf, k, v, q8, kpos, qpos = case
@@ -1882,6 +1979,8 @@ def phase_kernels():
     check_flash_bwd(gen, results, d=192, dv=128)
     check_flash(gen, results, d=80, dv=80)
     check_flash_bwd(gen, results, d=80, dv=80)
+    check_flash(gen, results, g1=True)
+    check_flash_bwd(gen, results, g1=True)
     check_wire(gen, results)
     check_nf(gen, results)
     check_ring_decode(gen, results)
@@ -1890,6 +1989,7 @@ def phase_kernels():
     check_decode(gen, results, d=128)
     check_ring_decode(gen, results, d=80)
     check_decode(gen, results, d=80)
+    check_ring_decode(gen, results, g1=True)
     check_wq(gen, results)
     for name, r in results.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -2286,20 +2386,25 @@ def phase_serve_wq(cfg, params, reqs, bf16_run, tag, act_order=False,
 
 def _step_ms(cfg, params, batch, cache_len, toks) -> float:
     """Median host time of one synchronized ``make_serve_step`` call over
-    ``toks`` (teacher-forced) after a prefill."""
+    ``toks`` (teacher-forced; an audio config's (B, n, K) codes) after a
+    prefill."""
     import torch
     from repro_torch.serve import decode as sd
 
     _, caches = sd.prefill(params, cfg, batch, cache_len)
     step = sd.make_serve_step(cfg)
-    pos0 = cfg.n_image_tokens + batch["tokens"].shape[1]
+    audio = "codes" in batch
+    pos0 = cfg.n_image_tokens + (batch["codes"].shape[-1] if audio
+                                 else batch["tokens"].shape[1])
     times = []
     for i in range(toks.shape[1]):
         qpos = torch.full((toks.shape[0],), pos0 + i, dtype=torch.int32,
                           device="cuda")
+        one = dict(codes=toks[:, i, :, None]) if audio \
+            else dict(tokens=toks[:, i:i + 1])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        step(params, caches, dict(tokens=toks[:, i:i + 1]), qpos)
+        step(params, caches, one, qpos)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return 1e3 * statistics.median(times)
@@ -3882,21 +3987,26 @@ def phase_serve_llama():
 # phases 19 - 21: the arch zoo on the card
 # ---------------------------------------------------------------------------
 
-def _zoo_generate(cfg, params, tag, kernel, n_attn=None):
-    """``generate`` of ZOO_GEN_BATCH prompts of ZOO_GEN_TEXT tokens, GEN_NEW
-    new, greedy, over ring caches: exact launches (K1 once an attention
-    layer, the decode ``kernel`` an attention layer a step, or none for
-    MLA; ``n_attn`` attention layers, every layer by default), then ms per
-    decode step.  Returns the launch counts, the prompts and the tokens."""
+def _zoo_generate(cfg, params, tag, kernel, n_attn=None, text=None):
+    """``generate`` of ZOO_GEN_BATCH prompts of ``text`` tokens
+    (ZOO_GEN_TEXT by default; an audio config's prompts are (K, text)
+    codes), GEN_NEW new, greedy, over ring caches: exact launches (K1 once
+    an attention layer, the decode ``kernel`` an attention layer a step, or
+    none for MLA; ``n_attn`` attention layers, every layer by default),
+    then ms per decode step.  Returns the launch counts, the prompts and
+    the tokens."""
     import torch
     from repro_torch.kernels import build
     from repro_torch.serve import decode as sd
 
+    text = ZOO_GEN_TEXT if text is None else text
+    audio = cfg.modality == "audio"
     gen = torch.Generator(device="cuda").manual_seed(11)
-    batch = dict(tokens=torch.randint(1, cfg.vocab_size,
-                                      (ZOO_GEN_BATCH, ZOO_GEN_TEXT),
-                                      generator=gen, device="cuda"))
-    cache_len = ZOO_GEN_TEXT + GEN_NEW
+    books = (cfg.n_codebooks,) if audio else ()
+    batch = {"codes" if audio else "tokens": torch.randint(
+        1, cfg.vocab_size, (ZOO_GEN_BATCH,) + books + (text,),
+        generator=gen, device="cuda")}
+    cache_len = text + GEN_NEW
     sd.generate(params, cfg, batch, n_new=2, cache_len=cache_len)
     torch.cuda.synchronize()  # first-call set-up off the clock
     build.reset_launches()
@@ -3910,10 +4020,11 @@ def _zoo_generate(cfg, params, tag, kernel, n_attn=None):
     if kernel:
         expect[kernel] = n_attn * GEN_NEW
     _check_launches(tag, launches, expect)
-    require(toks.shape == (ZOO_GEN_BATCH, GEN_NEW) and bool(
+    require(toks.shape == (ZOO_GEN_BATCH, GEN_NEW) + books and bool(
         ((toks >= 0) & (toks < cfg.vocab_size)).all()), f"{tag} tokens")
     step_ms = _step_ms(cfg, params, batch, cache_len, toks)
-    print(f"[{tag}] {ZOO_GEN_BATCH} requests x {ZOO_GEN_TEXT} prompt tokens, "
+    unit = f"frames of {books[0]} codes" if audio else "tokens"
+    print(f"[{tag}] {ZOO_GEN_BATCH} requests x {text} prompt {unit}, "
           f"{GEN_NEW} new, ring caches of {cache_len}: {wall:.3f} s prefill "
           f"+ decode, {ZOO_GEN_BATCH * GEN_NEW / wall:.1f} tokens/s end to "
           f"end; {step_ms:.2f} ms per decode step (median of {GEN_NEW})")
@@ -4868,7 +4979,9 @@ def phase_zamba2_serve():
     require(cfg6.client_server_segments() == (
         (("mamba2", 3),), (("mamba2", 2), ("shared_attn", 1))),
         f"zamba2 parity segments {cfg6.client_server_segments()}")
-    _zamba_parity(cfg6, params6)
+    toks = torch.randint(1, cfg.vocab_size, (1, ARCTIC_PARITY_SEQ),
+                         generator=torch.Generator().manual_seed(3))
+    _cpu_parity("zamba2 parity", cfg6, params6, dict(tokens=toks))
     del params6, ssm
 
     # the paged engine has no mamba2 form
@@ -4886,69 +4999,296 @@ def phase_zamba2_serve():
     return paths
 
 
-def _zamba_parity(cfg, params):
-    """``cfg``'s layers on ARCTIC_PARITY_SEQ tokens, bf16 on the card
-    against fp32 on the CPU from the same weights."""
+def phase_zamba2_train():
+    """zamba2_2_7b's training step at full width and full depth:
+    ZAMBA_TRAIN_STEPS in-place AdamW steps of ARCTIC_TRAIN_BATCH x
+    ARCTIC_TRAIN_SEQ tokens (remat on the mamba2 segments, none around the
+    shared block: K1 = K2 = K3 = 9 a step, at (80, 80)), the first batch's
+    CE falling, ms a step and peak memory.  Returns the launch counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import cdtype, layer_forward_count
+
+    cfg = get_config("zamba2_2_7b")
+    n_attn = cfg.block_pattern().count("shared_attn")
+    carry = torch.empty((ARCTIC_TRAIN_BATCH, ARCTIC_TRAIN_SEQ, cfg.d_model),
+                        dtype=cdtype(cfg), device="meta")
+    per_step = layer_forward_count(cfg, carry)
+    require(per_step == n_attn, f"zamba2 train: {per_step} K1 a step")
+    return {"zamba2 train": _train_phase(
+        "zamba2 train", cfg, ZAMBA_TRAIN_STEPS,
+        dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                      n_attn),
+        f" and full depth (the mamba2 segments under remat; the {n_attn} "
+        "uses of the shared block run outside it)")}
+
+# ---------------------------------------------------------------------------
+# phases 29 - 32: rwkv6_7b (RWKV6 blocks, no attention) and musicgen_large
+# (the audio modality, head width 64 at G 1)
+# ---------------------------------------------------------------------------
+
+def _rwkv_cache_bytes(caches):
+    """(WKV state bytes, token-shift bytes: x_last + cmix_last) of a tree
+    of rwkv6 caches."""
+    state = shift = 0
+    for side in caches.values():
+        for c in side.values():
+            state += _nbytes(c["tmix"]["state"])
+            shift += _nbytes(c["tmix"]["x_last"], c["cmix_last"])
+    return state, shift
+
+
+def _rwkv_cache_formula(cfg, batch):
+    """The same by formula: a fp32 (H, 64, 64) state a row a layer, and two
+    (1, d) shifts in the compute dtype (bf16)."""
+    h = cfg.d_model // cfg.rwkv_head_dim
+    state = cfg.n_layers * batch * h * cfg.rwkv_head_dim ** 2 * 4
+    shift = cfg.n_layers * batch * 2 * cfg.d_model * 2
+    return state, shift
+
+
+def _depth_cut(cfg, params, n_client, n_server, **split):
+    """``cfg`` and ``params`` cut to the first ``n_client`` layers of the
+    client's one segment and the first ``n_server`` of the server's, the
+    cut between them (views of the card's tensors)."""
+    cut = dataclasses.replace(cfg, n_layers=n_client + n_server,
+                              split=dataclasses.replace(
+                                  cfg.split, cut_layer=n_client, **split))
+    sub = {k: v for k, v in params.items() if k not in ("client", "server")}
+    sub["client"] = {"seg0": _tree(params["client"]["seg0"],
+                                   lambda t: t[:n_client])}
+    sub["server"] = {"seg0": _tree(params["server"]["seg0"],
+                                   lambda t: t[:n_server])}
+    return cut, sub
+
+
+def _cpu_parity(tag, cfg, params, batch):
+    """``cfg``'s layers on ``batch``, bf16 on the card against fp32 on the
+    CPU from the same weights: the logits' relative error (tol
+    PARITY_RTOL) and the argmax, per codebook for an audio config."""
     import torch
     from repro_torch.models import transformer as tf
 
     cfg32 = dataclasses.replace(cfg, param_dtype="float32",
                                 compute_dtype="float32")
     params32 = _tree(params, _cpu32)
-    toks = torch.randint(1, cfg.vocab_size, (1, ARCTIC_PARITY_SEQ),
-                         generator=torch.Generator().manual_seed(3))
     with torch.inference_mode():
-        gl, _ = tf.forward(params, cfg, dict(tokens=toks.cuda()))
+        gl, _ = tf.forward(params, cfg, {k: v.cuda()
+                                         for k, v in batch.items()})
         t0 = time.perf_counter()
-        cl, _ = tf.forward(params32, cfg32, dict(tokens=toks))
+        cl, _ = tf.forward(params32, cfg32, batch)
     g, c = gl[0].float().cpu(), cl[0]
     rel = float((g - c).norm() / c.norm())
     agree = float((g.argmax(-1) == c.argmax(-1)).float().mean())
-    print(f"[zamba2 parity] layers 0 - {cfg.n_layers - 1} "
-          f"({cfg.client_server_segments()}), 1 x {ARCTIC_PARITY_SEQ} "
-          f"tokens, the cut off, the fp32 CPU forward in "
+    last_g, last_c = g[-1].argmax(-1), c[-1].argmax(-1)
+    print(f"[{tag}] layers 0 - {cfg.n_layers - 1} "
+          f"({cfg.client_server_segments()}), 1 x {g.shape[0]} positions, "
+          f"the cut off, the fp32 CPU forward in "
           f"{time.perf_counter() - t0:.1f} s: logits relative error "
           f"{rel:.3e} (tol {PARITY_RTOL}); argmax agrees on {agree:.4f} of "
-          f"the tokens, the last token's card {int(g[-1].argmax())} cpu "
-          f"{int(c[-1].argmax())}")
+          f"the {'codes' if g.ndim == 3 else 'tokens'}, the last position's "
+          f"card {last_g.tolist()} cpu {last_c.tolist()}")
     require(math.isfinite(rel) and rel < PARITY_RTOL
-            and int(g[-1].argmax()) == int(c[-1].argmax()),
-            f"zamba2 parity: rel {rel}, last argmax card "
-            f"{int(g[-1].argmax())} cpu {int(c[-1].argmax())}")
+            and bool((last_g == last_c).all()),
+            f"{tag}: rel {rel}, last argmax card {last_g.tolist()} cpu "
+            f"{last_c.tolist()}")
     del params32
 
 
-def phase_zamba2_train():
-    """zamba2_2_7b's training step at full width and full depth:
-    ZAMBA_TRAIN_STEPS AdamW steps of ARCTIC_TRAIN_BATCH x ARCTIC_TRAIN_SEQ
-    tokens (remat on the mamba2 segments, none around the shared block:
-    K1 = K2 = K3 = 9 a step, at (80, 80)), the first batch's CE falling,
-    ms a step and peak memory.  Returns the launch counts."""
+def _engine_refusal(tag, arch, word):
+    """``serve_batched --engine`` on ``arch`` (reduced) must raise
+    ``NotImplementedError`` naming ``word``."""
+    from repro_torch.launch import serve_batched
+
+    try:
+        serve_batched.main(["--arch", arch, "--engine"])
+        refused = None
+    except NotImplementedError as e:
+        refused = str(e)
+    print(f"[{tag}] serve_batched --engine: NotImplementedError "
+          f"{refused!r}")
+    require(refused is not None and word in refused,
+            f"{tag}: the engine did not refuse")
+
+
+def _rwkv_recurrence(cfg, params, seq):
+    """``seq`` (B, S) through a chunked prefill and through S one-token
+    decode steps from zero caches, the whole model: (the last logits'
+    relative error, the worst layer's final WKV state relative error, the
+    rows whose argmax agrees)."""
+    import torch
+    from repro_torch.models import transformer as tf
+
+    b = seq.shape[0]
+    with torch.inference_mode():
+        pl, _, pc = tf.forward(params, cfg, dict(tokens=seq),
+                               collect_cache=1)
+        dc = tf.init_caches(cfg, b, 1, dtype=tf.cdtype(cfg))
+        for t in range(seq.shape[1]):
+            qpos = torch.full((b,), t, dtype=torch.int32, device="cuda")
+            dl, dc = tf.decode_step(params, cfg, dc,
+                                    dict(tokens=seq[:, t:t + 1]), qpos)
+    a, r = dl[:, -1].float(), pl[:, -1].float()
+    rel = float((a - r).norm() / r.norm())
+    agree = int((a.argmax(-1) == r.argmax(-1)).sum())
+    srel = 0.0
+    for side in ("client", "server"):
+        for seg in pc[side]:
+            got = dc[side][seg]["tmix"]["state"]
+            want = pc[side][seg]["tmix"]["state"]
+            for i in range(want.shape[0]):
+                srel = max(srel, float((got[i] - want[i]).norm()
+                                       / want[i].norm()))
+    return rel, srel, agree
+
+
+def _rwkv_layer_recurrence(cfg, params, seq):
+    """Every layer's time mix on its own input (the layer's ``rms_norm``
+    of the bf16 prefill's hidden state over ``seq``), in fp32: the chunked
+    ``rwkv6_forward`` against ``rwkv6_decode`` one token at a time from a
+    zero cache.  Returns (the worst layer's final WKV state relative
+    error, the worst last-position output relative error)."""
+    import torch
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import rwkv6 as rw
+    from repro_torch.models.layers.norms import rms_norm
+    from repro_torch.models.stack import stack_len, tree_index
+
+    def rel(a, r):
+        return float((a - r).norm() / r.norm())
+
+    b, s = seq.shape
+    hd = cfg.rwkv_head_dim
+    positions = torch.arange(s, device="cuda")
+    srel = orel = 0.0
+    with torch.inference_mode():
+        x = tf._embed_inputs(params, cfg, dict(tokens=seq))
+        for side in ("client", "server"):
+            stacked = params[side]["seg0"]
+            for i in range(stack_len(stacked)):
+                p = tree_index(stacked, i)
+                h = rms_norm(x, p["ln1"], cfg.norm_eps).float()
+                tmix = {k: v.float() for k, v in p["tmix"].items()}
+                y, want = rw.rwkv6_forward(tmix, h, head_dim=hd,
+                                           return_state=True)
+                cache = rw.init_rwkv6_cache(b, cfg.d_model, hd)
+                for t in range(s):
+                    yt, cache = rw.rwkv6_decode(tmix, h[:, t:t + 1], cache,
+                                                head_dim=hd)
+                srel = max(srel, rel(cache["state"], want["state"]))
+                orel = max(orel, rel(yt[:, 0], y[:, -1]))
+                x, _, _ = tf.block_forward(cfg, p, x, positions=positions,
+                                           window=None, block_type="rwkv6")
+    return srel, orel
+
+
+def phase_rwkv6_serve():
+    """rwkv6_7b at full width and full depth (32 rwkv6 layers, d 4 096, 64
+    heads of 64, d_ff 14 336, vocab 65 536; the 2-bit cut at 16):
+    ``generate`` of 4 prompts of RWKV_GEN_TEXT tokens, 32 new (no kernel
+    launches: no attention, the cut's plain STE roundtrip), the WKV state
+    and token-shift bytes by formula, peak memory, ms a decode step; the
+    chunked prefill's final states and last logits against the same
+    RWKV_RECUR_SEQ tokens decoded one at a time (the cut off; gated a
+    layer at a time in fp32, the whole model in bf16 printed); the first 2
+    layers against the fp32 CPU path; the engine refusing.  Returns the
+    launch counts."""
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import decode as sd
+    from repro_torch.utils.tree import tree_count
+
+    cfg = get_config("rwkv6_7b")
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    drawn = time.perf_counter() - t0
+    n = tree_count(params)
+    print(f"[rwkv6 serve] {cfg.name}: {cfg.n_layers} rwkv6 layers, d "
+          f"{cfg.d_model}, {cfg.d_model // cfg.rwkv_head_dim} heads of "
+          f"{cfg.rwkv_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"full depth; {n} parameters, {2 * n / 1e9:.2f} GB of bf16 "
+          f"(decay_base and u fp32), drawn from seed 0 in {drawn:.1f} s; the "
+          f"2-bit cut at layer {cfg.split.resolve_cut(cfg.n_layers)} in the "
+          "graph")
+    torch.cuda.reset_peak_memory_stats()
+    launches, batch, toks = _zoo_generate(cfg, params, "rwkv6 generate",
+                                          None, n_attn=0, text=RWKV_GEN_TEXT)
+    _, caches = sd.prefill(params, cfg, batch, RWKV_GEN_TEXT + GEN_NEW)
+    got = _rwkv_cache_bytes(caches)
+    want = _rwkv_cache_formula(cfg, ZOO_GEN_BATCH)
+    print(f"[rwkv6 generate] caches: WKV states {got[0]} B, token shifts "
+          f"(x_last + cmix_last) {got[1]} B (formula {want}); whatever the "
+          "prompt's length")
+    require(got == want, f"rwkv6 cache bytes {got}, expected {want}")
+    del caches
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[rwkv6 serve] peak device memory of generate "
+          f"{peak / 2 ** 30:.2f} GiB")
+
+    # the chunked prefill against the one-token recurrence, the cut off:
+    # gated a layer at a time in fp32, each time mix on its own input; the
+    # whole model's last logits and final states in bf16 printed beside
+    # (random weights fork the two orders' roundings through 32 layers:
+    # an fp32 copy of the whole model gave 2.0e-2 / 5.9e-2 too)
+    off = dataclasses.replace(cfg, split=dataclasses.replace(
+        cfg.split, enabled=False))
+    seq = batch["tokens"][:, :RWKV_RECUR_SEQ]
+    srel, orel = _rwkv_layer_recurrence(off, params, seq)
+    rel, mrel, agree = _rwkv_recurrence(off, params, seq)
+    print(f"[rwkv6 serve] recurrence: {RWKV_RECUR_SEQ} tokens decoded one "
+          f"at a time against the chunked prefill (chunks of 16), the cut "
+          f"off; each of the {cfg.n_layers} time mixes on its own input in "
+          f"fp32: the worst final WKV state relative error {srel:.3e}, the "
+          f"worst last output {orel:.3e} (tol {RECUR_RTOL} each); the whole "
+          f"model in bf16 (not gated): last logits {rel:.3e}, argmax agrees "
+          f"on {agree} of {ZOO_GEN_BATCH} rows, the worst layer's state "
+          f"{mrel:.3e}")
+    require(math.isfinite(srel) and srel < RECUR_RTOL
+            and math.isfinite(orel) and orel < RECUR_RTOL,
+            f"rwkv6 recurrence: states rel {srel}, outputs rel {orel}")
+
+    # the first layer on each side of a 2-layer cut against the fp32 CPU
+    # path, the cut off
+    cut, sub = _depth_cut(cfg, params, 1, 1, enabled=False)
+    toks = torch.randint(1, cfg.vocab_size, (1, ARCTIC_PARITY_SEQ),
+                         generator=torch.Generator().manual_seed(3))
+    _cpu_parity("rwkv6 parity", cut, sub, dict(tokens=toks))
+    del sub
+    _engine_refusal("rwkv6 serve", "rwkv6_7b", "rwkv6")
+    del params
+    torch.cuda.empty_cache()
+    return {"rwkv6 generate": launches}
+
+
+def _train_phase(tag, cfg, steps, expect_per_step, note):
+    """``steps`` in-place AdamW steps of ARCTIC_TRAIN_BATCH x
+    ARCTIC_TRAIN_SEQ tokens of the data pipeline: exact launches
+    (``expect_per_step`` a step), finite losses, the first batch's CE
+    falling, ms a step and peak memory.  Returns the launch counts."""
+    import torch
     from repro_torch.data.pipeline import make_pipeline
     from repro_torch.kernels import build
-    from repro_torch.models.transformer import cdtype, layer_forward_count
     from repro_torch.optim import AdamWConfig
     from repro_torch.train.loop import (batch_to, init_state, make_grad_fn,
                                         make_train_step)
     from repro_torch.utils.tree import tree_count
 
-    cfg = get_config("zamba2_2_7b")
     opt = AdamWConfig(lr=ARCTIC_LR)
     state = init_state(cfg, opt, seed=0)
     n = tree_count(state.params)
-    n_attn = cfg.block_pattern().count("shared_attn")
-    print(f"[zamba2 train] full width and depth: {cfg.n_layers} layers, "
-          f"{n} parameters, {(2 + 2 + 8) * n / 1e9:.1f} GB of bf16 weights "
-          f"and gradients and fp32 moments; {ZAMBA_TRAIN_STEPS} steps of "
-          f"{ARCTIC_TRAIN_BATCH} x {ARCTIC_TRAIN_SEQ} tokens, lr {ARCTIC_LR},"
-          f" remat {cfg.remat} (the mamba2 segments; the {n_attn} uses of "
-          "the shared block run outside it)")
-    step_fn = make_train_step(cfg, opt, total_steps=ZAMBA_TRAIN_STEPS,
-                              warmup_steps=1)
+    print(f"[{tag}] {cfg.n_layers} layers at full width{note}: {n} "
+          f"parameters, {(2 + 2 + 8) * n / 1e9:.1f} GB of bf16 weights and "
+          f"gradients and fp32 moments; {steps} steps of "
+          f"{ARCTIC_TRAIN_BATCH} x {ARCTIC_TRAIN_SEQ} tokens, lr "
+          f"{ARCTIC_LR}, remat {cfg.remat}")
+    # in place: full-depth musicgen's weights and moments, 39 GB, twice
+    # over would not leave room for the update's fp32 temporaries
+    step_fn = make_train_step(cfg, opt, total_steps=steps, warmup_steps=1,
+                              donate=True)
     data = make_pipeline(cfg, ARCTIC_TRAIN_BATCH, ARCTIC_TRAIN_SEQ, seed=0)
-    batches = [next(data) for _ in range(ZAMBA_TRAIN_STEPS)]
+    batches = [next(data) for _ in range(steps)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
@@ -4960,32 +5300,136 @@ def phase_zamba2_train():
         times.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
     launches = dict(build.launches)
-    carry = torch.empty((ARCTIC_TRAIN_BATCH, ARCTIC_TRAIN_SEQ, cfg.d_model),
-                        dtype=cdtype(cfg), device="meta")
-    per_step = layer_forward_count(cfg, carry)
-    require(per_step == n_attn, f"zamba2 train: {per_step} K1 a step")
-    _check_launches("zamba2 train", launches,
-                    {k: n_attn * ZAMBA_TRAIN_STEPS for k in
-                     ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")})
+    _check_launches(tag, launches,
+                    {k: v * steps for k, v in expect_per_step.items()})
     peak = torch.cuda.max_memory_allocated()
     _, m = make_grad_fn(cfg)(state.params, batch_to(batches[0],
                                                     torch.device("cuda")))
     after = float(m["ce"])
     ces = [x["ce"] for x in ms]
     step_s = statistics.median(times[1:])
-    print(f"[zamba2 train] CE " + " ".join(f"{x:.4f}" for x in ces)
+    print(f"[{tag}] CE " + " ".join(f"{x:.4f}" for x in ces)
           + f"; the first batch's {ces[0]:.4f} -> {after:.4f} after the "
           f"steps; {1e3 * step_s:.2f} ms per step (median of steps 2-"
-          f"{ZAMBA_TRAIN_STEPS}; step 1 {1e3 * times[0]:.2f}), "
+          f"{steps}; step 1 {1e3 * times[0]:.2f}), "
           f"{ARCTIC_TRAIN_BATCH * ARCTIC_TRAIN_SEQ / step_s:.1f} training "
           f"tokens/s; peak device memory {peak / 2 ** 30:.2f} GiB")
     require(all(math.isfinite(x["loss"]) for x in ms),
-            f"zamba2 train: loss not finite: {ms}")
-    require(after < ces[0], f"zamba2 train: the first batch's CE did not "
-            f"fall: {ces[0]} -> {after}")
+            f"{tag}: loss not finite: {ms}")
+    require(after < ces[0], f"{tag}: the first batch's CE did not fall: "
+            f"{ces[0]} -> {after}")
     del state, step_fn
     torch.cuda.empty_cache()
-    return {"zamba2 train": launches}
+    return launches
+
+
+def phase_rwkv6_train():
+    """rwkv6_7b's training step at full width on RWKV_TRAIN_LAYERS layers
+    (the cut in the middle): full depth's weights, gradients and fp32
+    moments, 7.57 G x 12 B = 91 GB, do not fit the card's 80 GB.
+    RWKV_TRAIN_STEPS AdamW steps, no kernel launched, the first batch's CE
+    falling, ms a step, peak memory.  Returns the launch counts."""
+    from repro_torch.configs import get_config
+
+    full = get_config("rwkv6_7b")
+    n = RWKV_TRAIN_LAYERS
+    cfg = dataclasses.replace(full, n_layers=n, split=dataclasses.replace(
+        full.split, cut_layer=n // 2))
+    note = (f" (a depth cut {full.n_layers} -> {n}: full depth's 7.57 G "
+            "parameters x (2 + 2 + 8) B = 91 GB of weights, gradients and "
+            "fp32 moments would not fit the card's 80 GB)")
+    return {"rwkv6 train": _train_phase("rwkv6 train", cfg,
+                                        RWKV_TRAIN_STEPS, {}, note)}
+
+
+def _kv_formula(cfg, batch, cache_len):
+    """KV ring bytes by formula: (B, L, KH, hd) K and V a layer, int8 codes
+    with fp16 scales or bf16 (positions left out)."""
+    row = cfg.head_dim + 2 if cfg.kv_cache_bits == 8 else 2 * cfg.head_dim
+    return cfg.n_layers * batch * cache_len * cfg.n_kv_heads * 2 * row
+
+
+def phase_musicgen_serve():
+    """musicgen_large at full width and full depth (48 layers, d 2 048, 32
+    / 32 heads of 64: G 1; 4 codebooks of 2 048; its 2-bit cut at 24):
+    ``generate`` of 4 prompts of MUSIC_GEN_TEXT frames, 32 new, over bf16
+    ring caches (K1 48 times in the prefill, K6 48 times a step) and int8
+    ones (K7), the codes the two runs share, KV bytes by formula, peak
+    memory, ms a decode step; the first 2 layers against the fp32 CPU path
+    (argmax per codebook); the engine refusing audio.  Returns the launch
+    counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import decode as sd
+    from repro_torch.utils.tree import tree_count
+
+    cfg = get_config("musicgen_large")
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    drawn = time.perf_counter() - t0
+    n = tree_count(params)
+    print(f"[musicgen serve] {cfg.name}: {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of width "
+          f"{cfg.head_dim} (G 1), SwiGLU {cfg.d_ff}, {cfg.n_codebooks} "
+          f"codebooks of {cfg.vocab_size}, full depth; {n} parameters, "
+          f"{2 * n / 1e9:.2f} GB of bf16, drawn from seed 0 in {drawn:.1f} "
+          f"s; the 2-bit cut at layer {cfg.split.resolve_cut(cfg.n_layers)} "
+          "in the graph")
+    torch.cuda.reset_peak_memory_stats()
+    paths, runs = {}, {}
+    cache_len = MUSIC_GEN_TEXT + GEN_NEW
+    for bits, kernel in ((16, "decode"), (8, "decode_q8")):
+        c = dataclasses.replace(cfg, kv_cache_bits=bits)
+        tag = f"musicgen generate{' int8' if bits == 8 else ''}"
+        paths[tag], batch, runs[bits] = _zoo_generate(
+            c, params, tag, kernel, text=MUSIC_GEN_TEXT)
+        _, caches = sd.prefill(params, c, batch, cache_len)
+        got = sum(_nbytes(*(v for k, v in seg.items() if k != "pos"))
+                  for side in caches.values() for seg in side.values())
+        want = _kv_formula(c, ZOO_GEN_BATCH, cache_len)
+        print(f"[{tag}] KV caches {got} B ({bits}-bit, {c.n_layers} rings "
+              f"of {ZOO_GEN_BATCH} x {cache_len}; formula {want})")
+        require(got == want, f"{tag} KV bytes {got}, expected {want}")
+        del caches
+    peak = torch.cuda.max_memory_allocated()
+    same = int((runs[16] == runs[8]).sum())
+    print(f"[musicgen serve] generated codes shared by the bf16 and int8 "
+          f"runs: {same} of {runs[16].numel()}; peak device memory of "
+          f"generate {peak / 2 ** 30:.2f} GiB")
+    cut, sub = _depth_cut(cfg, params, 1, 1, enabled=False)
+    codes = torch.randint(1, cfg.vocab_size,
+                          (1, cfg.n_codebooks, ARCTIC_PARITY_SEQ),
+                          generator=torch.Generator().manual_seed(3))
+    _cpu_parity("musicgen parity", cut, sub, dict(codes=codes))
+    del sub
+    _engine_refusal("musicgen serve", "musicgen_large", "text/vlm")
+    del params
+    torch.cuda.empty_cache()
+    return paths
+
+
+def phase_musicgen_train():
+    """musicgen_large's training step at full width and full depth,
+    MUSIC_TRAIN_STEPS AdamW steps of 2 x 1 024 frames: K1 = 2 x 48, K2 =
+    K3 = 48 a step under remat (``layer_forward_count``), the first batch's
+    CE (over the 4 codebooks) falling, ms a step, peak memory.  Returns
+    the launch counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import cdtype, layer_forward_count
+
+    cfg = get_config("musicgen_large")
+    carry = torch.empty((ARCTIC_TRAIN_BATCH, ARCTIC_TRAIN_SEQ, cfg.d_model),
+                        dtype=cdtype(cfg), device="meta")
+    k1 = layer_forward_count(cfg, carry)
+    require(k1 == 2 * cfg.n_layers, f"musicgen train: {k1} K1 a step")
+    per_step = {"flash_fwd": k1, "flash_bwd_dq": cfg.n_layers,
+                "flash_bwd_dkv": cfg.n_layers}
+    return {"musicgen train": _train_phase(
+        "musicgen train", cfg, MUSIC_TRAIN_STEPS, per_step,
+        f" and full depth (K1 {k1}, K2 = K3 = {cfg.n_layers} a step)")}
 
 
 # ---------------------------------------------------------------------------
@@ -5154,7 +5598,22 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths80.update(_timed("zamba2 train", phase_zamba2_train))
-    every = {**paths, **paths128, **paths96, **paths192, **paths80}
+    gc.collect()
+    torch.cuda.empty_cache()
+    # rwkv6_7b (rwkv6 blocks: no kernel on its paths) and musicgen_large
+    # (the audio modality at head width 64, G 1)
+    paths64g1 = _timed("rwkv6 serve", phase_rwkv6_serve)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths64g1.update(_timed("rwkv6 train", phase_rwkv6_train))
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths64g1.update(_timed("musicgen serve", phase_musicgen_serve))
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths64g1.update(_timed("musicgen train", phase_musicgen_train))
+    every = {**paths, **paths128, **paths96, **paths192, **paths80,
+             **paths64g1}
     for path, launches in every.items():
         print(f"[launches] {path}: {launches}")
 
@@ -5163,20 +5622,22 @@ def main() -> int:
     kernels = []
     for name in list(REPLACES) + [k + D128 for k in by_width] \
             + [k + sfx for sfx in (D96, D192) for k in by_width[:3]] \
-            + [k + D80 for k in by_width]:
+            + [k + D80 for k in by_width] \
+            + [k + D64G1 for k in by_width[:5]]:
         r = results[name]
         kernel = name.removesuffix(D128).removesuffix(D96) \
-            .removesuffix(D192).removesuffix(D80)
+            .removesuffix(D192).removesuffix(D80).removesuffix(D64G1)
         # the attention rows count their width's paths (tinyllava: 64,
         # llama3_2_3b and the GQA zoo: 128, minicpm3_4b: (96, 64),
         # deepseek_v2_236b: (192, 128), zamba2_2_7b: 80, where K8 / K9
-        # launch 0 times: the engine refuses mamba2 blocks); the wire and
-        # weight kernels every path
+        # launch 0 times: the engine refuses mamba2 blocks; musicgen_large
+        # and rwkv6_7b: 64 at G 1); the wire and weight kernels every path
         counted = (every if kernel not in by_width else
                    paths128 if name.endswith(D128) else
                    paths96 if name.endswith(D96) else
                    paths192 if name.endswith(D192) else
-                   paths80 if name.endswith(D80) else paths)
+                   paths80 if name.endswith(D80) else
+                   paths64g1 if name.endswith(D64G1) else paths)
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[kernel],
             replaces=REPLACES[kernel],

@@ -8,17 +8,19 @@ Names, run in the order given:
 
 * ``flash64``, ``flash128``, ``flash96``, ``flash192``, ``flash80``: K1
   and K2 / K3 against their plain versions at (D, Dv) = (64, 64),
-  (128, 128), (96, 64), (192, 128) or (80, 80), timed;
+  (128, 128), (96, 64), (192, 128) or (80, 80), timed; ``flash64g1`` at
+  (64, 64) at musicgen_large's G 1 (rows ``*_d64g1``);
 * ``wire`` (K4 / K5), ``nf`` (K10 / K11), ``wq`` (K12), ``ring64`` /
-  ``ring128`` / ``ring80`` (K6 / K7) and ``paged64`` / ``paged128`` /
-  ``paged80`` (K8 / K9) likewise;
+  ``ring128`` / ``ring80`` / ``ring64g1`` (K6 / K7) and ``paged64`` /
+  ``paged128`` / ``paged80`` (K8 / K9) likewise;
   ``kernels`` all of them, as the smoke's kernels phase;
 * ``tinyllava`` (phases 3 - 12), and any phase by the name after
   ``phase_`` in ``chip_smoke.py``: ``pipeline``, ``lora_pipeline``,
   ``hub``, ``hub_async``, ``hub_lora``, ``serve_llama``, ``granite``,
   ``zoo_wide``, ``mla``, ``attack``, ``arctic_serve``, ``arctic_train``,
   ``deepseek_serve``, ``deepseek_train``, ``zamba2_serve``,
-  ``zamba2_train``.
+  ``zamba2_train``, ``rwkv6_serve``, ``rwkv6_train``, ``musicgen_serve``,
+  ``musicgen_train``.
 
 Needs one CUDA device and nvcc.  A step that fails prints its traceback
 and the next one runs; the exit code is 1 if any failed (or a name is
@@ -36,15 +38,18 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
-# flashW -> (D, Dv) of check_flash / check_flash_bwd
+# flashW -> (D, Dv) of check_flash / check_flash_bwd; flash64g1 at
+# musicgen_large's G 1
 FLASH = {"flash64": (64, None), "flash128": (128, None),
-         "flash96": (96, 64), "flash192": (192, 128), "flash80": (80, 80)}
+         "flash96": (96, 64), "flash192": (192, 128), "flash80": (80, 80),
+         "flash64g1": (64, None)}
 # the other kernel checks: name -> (function of chip_smoke, keywords)
 CHECKS = {"wire": ("check_wire", {}), "nf": ("check_nf", {}),
           "wq": ("check_wq", {}),
           "ring64": ("check_ring_decode", {}),
           "ring128": ("check_ring_decode", {"d": 128}),
           "ring80": ("check_ring_decode", {"d": 80}),
+          "ring64g1": ("check_ring_decode", {"g1": True}),
           "paged64": ("check_decode", {}),
           "paged128": ("check_decode", {"d": 128}),
           "paged80": ("check_decode", {"d": 80})}
@@ -88,10 +93,9 @@ def _runs(cs, name, gen, results):
     unknown one."""
     if name in FLASH:
         d, dv = FLASH[name]
-        return [(f"K1 {name}", cs.check_flash, (gen, results),
-                 {"d": d, "dv": dv}),
-                (f"K2/K3 {name}", cs.check_flash_bwd, (gen, results),
-                 {"d": d, "dv": dv})]
+        kw = {"d": d, "dv": dv, "g1": name.endswith("g1")}
+        return [(f"K1 {name}", cs.check_flash, (gen, results), kw),
+                (f"K2/K3 {name}", cs.check_flash_bwd, (gen, results), kw)]
     if name in CHECKS:
         fn, kw = CHECKS[name]
         return [(name, getattr(cs, fn), (gen, results), kw)]

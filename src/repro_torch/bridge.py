@@ -48,8 +48,9 @@ def from_jax_params(tree, device: DeviceLike, dtype=None) -> Dict:
     leaf to one tensor with the same keys: zamba2's top-level
     ``shared_attn`` subtree and its segments' empty dicts as they are.
     ``dtype`` casts the floating leaves; ``None`` keeps each leaf's own
-    dtype, so a mamba2 mixer's ``A_log``, ``D`` and ``dt_bias`` stay fp32
-    in a bf16 tree, as in the reference."""
+    dtype, so a mamba2 mixer's ``A_log``, ``D`` and ``dt_bias`` and an
+    rwkv6 time mix's ``decay_base`` and ``u`` stay fp32 in a bf16 tree, as
+    in the reference."""
     dev = resolve_device(device)
 
     def conv(node):

@@ -3,9 +3,9 @@
 
 Field for field and default for default the reference's dataclass, so
 ``dataclasses.asdict`` of the two agree.  The model code interprets
-the ``dense`` and ``moe`` block types and the ``text`` and ``vlm``
-modalities; the other fields are carried for the configurations later
-slices port.
+every block type of ``block_pattern`` (``dense``, ``moe``, ``mamba2``,
+``shared_attn``, ``rwkv6``) and every modality (``text``, ``vlm``,
+``audio``).
 """
 from __future__ import annotations
 

@@ -23,7 +23,13 @@ pipeline; every w* matmul of the block stacks then runs K12.  A hybrid
 config (``--arch zamba2_2_7b``) serves through prefill and the static
 loop, its mamba2 layers on their {state, conv} caches; ``--engine`` raises
 ``NotImplementedError`` for it, as the reference does: the paged pools
-have no mamba2 form.
+have no mamba2 form.  So does rwkv6_7b (``--arch rwkv6-7b``, its
+{tmix: {state, x_last}, cmix_last} caches; no paged form either).  An
+audio config (``--arch musicgen_large``) serves a prompt of (B, K, S)
+codes: each step picks one code a codebook and feeds back (B, K, 1);
+``--engine`` raises for it, in the reference's words.  (The reference's
+example fails on its first audio step, broadcasting the (B, 1, K) first
+pick to (B, K, 1); the port does not copy that fault.)
 """
 from __future__ import annotations
 
@@ -106,12 +112,14 @@ def run_static(cfg, params, args, device) -> None:
     cache_len = cache_length(cfg, n_img + args.prompt_len + args.new_tokens,
                              args.window)
     batch = {}
+    audio = cfg.modality == "audio"
     if cfg.modality == "vlm":
         batch["image_embeds"] = torch.randn(
             (args.batch, n_img, cfg.d_vision), generator=gen).to(device)
-    batch["tokens"] = torch.randint(0, cfg.vocab_size,
-                                    (args.batch, args.prompt_len),
-                                    generator=gen).to(device)
+    prompt = (args.batch,) + ((cfg.n_codebooks,) if audio else ()) \
+        + (args.prompt_len,)
+    batch["codes" if audio else "tokens"] = torch.randint(
+        0, cfg.vocab_size, prompt, generator=gen).to(device)
     t0 = time.perf_counter()
     logits, caches = prefill(params, cfg, batch, cache_len,
                              window=args.window)
@@ -128,8 +136,9 @@ def run_static(cfg, params, args, device) -> None:
         qpos = torch.full((args.batch,), pos0 + i, dtype=torch.int32,
                           device=device)
         t0 = time.perf_counter()
-        logits, caches = serve_step(params, caches,
-                                    dict(tokens=tok[:, None]), qpos)
+        step_batch = dict(codes=tok[..., None]) if audio \
+            else dict(tokens=tok[:, None])
+        logits, caches = serve_step(params, caches, step_batch, qpos)
         _sync(device)
         times.append(time.perf_counter() - t0)
         tok = logits[:, -1].argmax(dim=-1)

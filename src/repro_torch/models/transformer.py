@@ -1,13 +1,14 @@
-"""The decoder stack for the ``dense``, ``moe``, ``mamba2`` and
-``shared_attn`` blocks with GQA or MLA attention and the ``text`` and
-``vlm`` modalities (port of
+"""The decoder stack for the ``dense``, ``moe``, ``mamba2``,
+``shared_attn`` and ``rwkv6`` blocks with GQA or MLA attention and the
+``text``, ``vlm`` and ``audio`` modalities (port of
 ``repro/models/transformer.py``: ``init_params``, ``_embed_inputs``,
-``block_forward``, ``_fill_kv_cache``, ``_run_segments``
-with its remat policies, ``forward``, ``block_decode`` over a ring cache
-or a paged pool, ``decode_step``, ``decode_step_paged``,
-``init_block_cache``, ``init_caches`` and ``init_paged_caches``; 16-bit or
-int8 KV caches; MLA's latent ring cache, which, as in the reference, has
-no paged form and ignores ``kv_cache_bits``).
+``init_cmix_params``, ``cmix_forward``, ``block_forward``,
+``_fill_kv_cache``, ``_run_segments`` with its remat policies,
+``forward``, ``block_decode`` over a ring cache or a paged pool,
+``decode_step``, ``decode_step_paged``, ``init_block_cache``,
+``init_caches`` and ``init_paged_caches``; 16-bit or int8 KV caches;
+MLA's latent ring cache, which, as in the reference, has no paged form
+and ignores ``kv_cache_bits``).
 
 Parameters are a plain dict keyed like the reference's tree, with each
 segment's layers stacked on a leading axis (``models/stack.py``).  The
@@ -37,8 +38,18 @@ by every use: ``xin = concat(x, emb0) @ w_in``, then a dense block on
 blocks directly, not over the wire, as the reference does.  A use runs
 outside ``run_stack``, with no remat, and its ring cache carries a leading
 axis of 1.  A mamba2 layer's decode cache is {state, conv}; the paged
-engine refuses mamba2 blocks, as the reference's does.  ``rwkv6`` blocks
-and the audio modality are ROADMAP queue M, item M11b.
+engine refuses mamba2 blocks, as the reference's does.
+
+An ``rwkv6`` block (rwkv6_7b) is ``x + tmix(rms_norm(x))`` then ``x +
+cmix(rms_norm(x))``: the time mix of ``models/layers/rwkv6.py`` and the
+channel mix here (relu^2 of a ``d_ff`` expansion under a sigmoid gate),
+each with its token shift (the previous position's input, zeros before
+the first).  Its decode cache is {tmix: {state, x_last}, cmix_last}; no
+attention body runs in it, and the paged pools refuse it, as the
+reference's do.  The ``audio`` modality (musicgen_large) embeds a (B, K,
+S) code grid through one table a codebook, summed, and its head gives
+(B, S, K, V) logits (``models/layers/embedding.py``); a decode step
+takes ``codes`` (B, K, 1).
 """
 from __future__ import annotations
 
@@ -54,7 +65,9 @@ from repro_torch.models.layers import attention as attn_mod
 from repro_torch.models.layers import mamba2 as mamba_mod
 from repro_torch.models.layers import mla as mla_mod
 from repro_torch.models.layers import moe as moe_mod
-from repro_torch.models.layers.embedding import embed, head_logits
+from repro_torch.models.layers import rwkv6 as rwkv_mod
+from repro_torch.models.layers.embedding import (embed, embed_codebooks,
+                                                 head_logits)
 from repro_torch.models.layers.mlp import mlp_forward, swiglu_forward
 from repro_torch.models.layers.norms import rms_norm
 from repro_torch.utils.tree import tree_map
@@ -71,17 +84,43 @@ def cdtype(cfg: ArchConfig) -> torch.dtype:
     return DTYPES[cfg.compute_dtype]
 
 
-BLOCK_TYPES = ("dense", "moe", "mamba2", "shared_attn")
+BLOCK_TYPES = ("dense", "moe", "mamba2", "shared_attn", "rwkv6")
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.modality not in ("text", "vlm") \
-            or not set(cfg.block_pattern()) <= set(BLOCK_TYPES) \
-            or cfg.attn_type not in ("gqa", "mla"):
-        raise NotImplementedError(
-            f"{cfg.name}: the port has {', '.join(BLOCK_TYPES)} blocks with "
-            f"GQA or MLA and the text and vlm modalities; the rest is ROADMAP "
-            f"queue M, item M11b")
+    """What the reference refuses: a block type its ``init_block_params``
+    does not know raises ``ValueError`` naming it."""
+    for t in cfg.block_pattern():
+        if t not in BLOCK_TYPES:
+            raise ValueError(t)
+
+
+# ---------------------------------------------------------------------------
+# the RWKV channel mix (the FFN half of an rwkv6 block)
+# ---------------------------------------------------------------------------
+
+def init_cmix_params(n: int, d_model: int, d_ff: int, normal, const
+                     ) -> Dict:
+    """``n`` layer-stacked channel mixes with the reference's shapes and
+    scales."""
+    return dict(
+        mu_k=const(0.5, n, d_model),
+        mu_r=const(0.5, n, d_model),
+        wk=normal(n, d_model, d_ff, scale=d_model ** -0.5),
+        wv=normal(n, d_ff, d_model, scale=d_ff ** -0.5),
+        wr=normal(n, d_model, d_model, scale=d_model ** -0.5),
+    )
+
+
+def cmix_forward(p: Dict, x: torch.Tensor, x_prev: torch.Tensor
+                 ) -> torch.Tensor:
+    """sigmoid(xr @ wr) * (relu(xk @ wk)^2 @ wv), xk and xr the token
+    shifts of x toward ``x_prev``."""
+    dt = x.dtype
+    xk = x + (x_prev - x) * p["mu_k"].to(dt)
+    xr = x + (x_prev - x) * p["mu_r"].to(dt)
+    k = torch.square(torch.relu(xk @ p["wk"].to(dt)))
+    return torch.sigmoid(xr @ p["wr"].to(dt)) * (k @ p["wv"].to(dt))
 
 
 # ---------------------------------------------------------------------------
@@ -94,8 +133,9 @@ def init_block_params(cfg: ArchConfig, n: int, normal, const, *,
     """``n`` layer-stacked blocks of ``block_type``: ``dense`` (a SwiGLU of
     width ``d_ff``), ``moe`` (experts of width ``moe_d_ff``, shared
     experts, a dense residual), ``mamba2`` (``ln`` and the mixer; ``gen``,
-    ``leaf_makers``' generator, draws its dt) or ``shared_attn`` (a dense
-    block with its 2d -> d input projection ``w_in``).
+    ``leaf_makers``' generator, draws its dt), ``shared_attn`` (a dense
+    block with its 2d -> d input projection ``w_in``) or ``rwkv6`` (``ln1``,
+    ``ln2``, the time mix ``tmix`` and the channel mix ``cmix``).
     ``normal(*shape, scale=)`` and ``const(value, *shape)`` draw the leaves
     (a moe block's router and experts pass ``normal`` the ``dtype`` and
     ``per_expert`` keywords of ``leaf_makers``)."""
@@ -104,6 +144,11 @@ def init_block_params(cfg: ArchConfig, n: int, normal, const, *,
         return {"ln": const(1.0, n, d),
                 "mixer": mamba_mod.init_mamba2_params(
                     n, d, normal, const, gen, **_ssm_kwargs(cfg))}
+    if block_type == "rwkv6":
+        return {"ln1": const(1.0, n, d), "ln2": const(1.0, n, d),
+                "tmix": rwkv_mod.init_rwkv6_params(
+                    n, d, normal, const, head_dim=cfg.rwkv_head_dim),
+                "cmix": init_cmix_params(n, d, cfg.d_ff, normal, const)}
     dq, dkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
     if cfg.attn_type == "mla":
         attn = mla_mod.init_mla_params(
@@ -198,15 +243,17 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
     unless ``device="cpu"``).  The draws differ from the reference's
     ``jax.random`` ones; tests carry the reference's own parameters
     across with ``repro_torch.bridge.from_jax_params``.  A text model has
-    no connector."""
+    no connector; an audio model has a (K, V, d) embedding, one table a
+    codebook, and a (K, d, V) head."""
     _check_supported(cfg)
     normal, const, gen, dev = leaf_makers(cfg, seed, device)
     dtype = pdtype(cfg)
-    d = cfg.d_model
-    params: Dict = {"embed": {"emb": normal(cfg.vocab_size, d, scale=0.02)}}
+    d, v = cfg.d_model, cfg.vocab_size
+    books = (cfg.n_codebooks,) if cfg.modality == "audio" else ()
+    params: Dict = {"embed": {"emb": normal(*books, v, d, scale=0.02)}}
     if cfg.modality == "vlm":
         params["connector"] = init_connector_params(cfg, normal, const)
-    params["head"] = {"w": normal(d, cfg.vocab_size, scale=d ** -0.5)}
+    params["head"] = {"w": normal(*books, d, v, scale=d ** -0.5)}
     params["final_norm"] = const(1.0, d)
     if "shared_attn" in cfg.block_pattern():  # one block, no layer axis
         params["shared_attn"] = tree_map(
@@ -316,10 +363,27 @@ def block_forward(cfg: ArchConfig, p: Dict, x: torch.Tensor, *,
                   emb0: Optional[torch.Tensor] = None):
     """Full-sequence block of ``block_type``: ``dense``, ``moe`` (the MoE
     layer at the config's capacity factor; its auxiliaries in fp32, zeros
-    for every other block), ``mamba2`` (its cache {state, conv}) or
-    ``shared_attn`` (reading ``emb0``, the embedded input).  Returns (x,
-    aux, cache_or_None)."""
+    for every other block), ``mamba2`` (its cache {state, conv}),
+    ``shared_attn`` (reading ``emb0``, the embedded input) or ``rwkv6``
+    (its cache {tmix: {state, x_last}, cmix_last}).  Returns (x, aux,
+    cache_or_None)."""
     aux = _empty_aux(x.device)
+    if block_type == "rwkv6":
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        tcache = None
+        if collect_cache is None:
+            y = rwkv_mod.rwkv6_forward(p["tmix"], h,
+                                       head_dim=cfg.rwkv_head_dim)
+        else:
+            y, tcache = rwkv_mod.rwkv6_forward(
+                p["tmix"], h, head_dim=cfg.rwkv_head_dim, return_state=True)
+        x = x + y
+        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+        h2_prev = torch.nn.functional.pad(h2, (0, 0, 1, 0))[:, :-1]
+        x = x + cmix_forward(p["cmix"], h2, h2_prev)
+        cache = None if collect_cache is None \
+            else dict(tmix=tcache, cmix_last=h2[:, -1:])
+        return x, aux, cache
     if block_type == "mamba2":
         h = rms_norm(x, p["ln"], cfg.norm_eps)
         if collect_cache is None:
@@ -355,8 +419,9 @@ def block_decode(cfg: ArchConfig, p: Dict, x: torch.Tensor, cache: Dict, *,
                  emb0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One-token block of ``block_type``: ``dense``, ``moe`` (the MoE
     layer at capacity factor 8: no drops at decode, as in the reference),
-    ``mamba2`` (the recurrence on its {state, conv} cache) or
-    ``shared_attn`` (reading ``emb0``, the token's embedding); ``cache``
+    ``mamba2`` (the recurrence on its {state, conv} cache),
+    ``shared_attn`` (reading ``emb0``, the token's embedding) or ``rwkv6``
+    (the recurrence on {tmix: {state, x_last}, cmix_last}); ``cache``
     (this layer's ring cache, or with ``page_table`` its (P, pg, ...)
     pools, the batch axis of ``x`` then being the scheduler's slot axis)
     is updated in place.  Returns x."""
@@ -367,6 +432,20 @@ def block_decode(cfg: ArchConfig, p: Dict, x: torch.Tensor, cache: Dict, *,
         for k, v in new.items():
             cache[k].copy_(v)
         return x + y
+    if block_type == "rwkv6":
+        if page_table is not None:
+            raise NotImplementedError(
+                "paged serving does not support rwkv6 blocks")
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        y, tnew = rwkv_mod.rwkv6_decode(p["tmix"], h, cache["tmix"],
+                                        head_dim=cfg.rwkv_head_dim)
+        x = x + y
+        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+        x = x + cmix_forward(p["cmix"], h2, cache["cmix_last"].to(h2.dtype))
+        for k, v in tnew.items():
+            cache["tmix"][k].copy_(v)
+        cache["cmix_last"].copy_(h2)
+        return x
     xin = _shared_in(block_type, p, x, emb0)
     h = rms_norm(xin, p["ln1"], cfg.norm_eps)
     if cfg.attn_type == "mla":
@@ -401,10 +480,9 @@ def _stacked(cfg: ArchConfig, make_one) -> Dict:
                           cfg.client_server_segments()):
         out[side] = {}
         for i, (t, n) in enumerate(segs):
-            one = make_one(t)
-            out[side][f"seg{i}"] = {
-                k: v.unsqueeze(0).repeat((n,) + (1,) * v.ndim)
-                for k, v in one.items()}
+            out[side][f"seg{i}"] = tree_map(
+                lambda v, n=n: v.unsqueeze(0).repeat((n,) + (1,) * v.ndim),
+                make_one(t))
     return out
 
 
@@ -414,11 +492,20 @@ def init_block_cache(cfg: ArchConfig, batch: int, cache_len: int,
     """One block's decode cache on ``device`` (CUDA unless
     ``device="cpu"``): an attention block's ring cache (B, cache_len, ...),
     16-bit or int8 as ``cfg.kv_cache_bits`` says (MLA: the latent cache in
-    ``dtype``); a ``mamba2`` block's {state fp32, conv in ``dtype``}."""
+    ``dtype``); a ``mamba2`` block's {state fp32, conv in ``dtype``}; an
+    ``rwkv6`` block's {tmix: {state fp32, x_last}, cmix_last}, the last
+    two (B, 1, d) in ``dtype``."""
     _check_supported(cfg)
     if block_type == "mamba2":
         return mamba_mod.init_mamba2_cache(batch, cfg.d_model, dtype=dtype,
                                            device=device, **_ssm_kwargs(cfg))
+    if block_type == "rwkv6":
+        return dict(
+            tmix=rwkv_mod.init_rwkv6_cache(batch, cfg.d_model,
+                                           cfg.rwkv_head_dim, dtype,
+                                           device=device),
+            cmix_last=torch.zeros((batch, 1, cfg.d_model), dtype=dtype,
+                                  device=resolve_device(device)))
     if cfg.attn_type == "mla":
         return mla_mod.init_mla_cache(batch, cache_len, cfg.kv_lora_rank,
                                       cfg.qk_rope_dim, dtype, device=device)
@@ -441,15 +528,15 @@ def init_paged_caches(cfg: ArchConfig, n_pages: int, page_size: int,
                       ) -> Dict:
     """Stacked paged KV pools per segment, keyed like the parameters: one
     (P, pg, ...) pool per layer, shared page table across layers, on
-    ``device`` (CUDA unless ``device="cpu"``).  MLA and mamba2 blocks have
-    no paged form and raise, as in the reference."""
+    ``device`` (CUDA unless ``device="cpu"``).  MLA, mamba2 and rwkv6
+    blocks have no paged form and raise, as in the reference."""
     _check_supported(cfg)
     if cfg.attn_type == "mla":
         raise NotImplementedError("paged serving requires GQA KV caches")
     device = resolve_device(device)
 
     def pool(t):
-        if t == "mamba2":
+        if t in ("mamba2", "rwkv6"):
             raise NotImplementedError(
                 f"paged serving does not support {t} blocks")
         return attn_mod.init_paged_kv_pool(
@@ -466,7 +553,9 @@ def init_paged_caches(cfg: ArchConfig, n_pages: int, page_size: int,
 def _embed_inputs(params: Dict, cfg: ArchConfig, batch: Dict
                   ) -> torch.Tensor:
     dtype = cdtype(cfg)
-    if cfg.modality == "text":
+    if cfg.modality == "audio":
+        return embed_codebooks(params["embed"], batch["codes"], dtype)
+    if cfg.modality != "vlm":
         return embed(params["embed"], batch["tokens"], dtype)
     if "image_features" in batch:
         # split-serve: the client ran the connector and shipped its
@@ -530,13 +619,13 @@ def layer_forward_count(cfg: ArchConfig, x: torch.Tensor) -> int:
     """How many times one training step's forward + backward runs an
     attention block's body (and so K1), summed over every segment, for the
     remat policy ``_run_segments`` picks for a carry like ``x`` (B, S, d):
-    a shared block's use once (no remat), a mamba2 layer never."""
+    a shared block's use once (no remat), a mamba2 or rwkv6 layer never."""
     total = 0
     for segs in cfg.client_server_segments():
         for t, n in segs:
             if t == "shared_attn":
                 total += 1
-            elif t != "mamba2":
+            elif t not in ("mamba2", "rwkv6"):
                 total += stack_mod.layer_forward_count(
                     n, cfg.remat, _remat_group(cfg, n, x))
     return total
@@ -582,10 +671,13 @@ def forward(params: Dict, cfg: ArchConfig, batch: Dict, *,
 def _decode(params: Dict, cfg: ArchConfig, caches: Dict, batch: Dict,
             qpos: torch.Tensor, window: Optional[int],
             page_table: Optional[torch.Tensor]) -> torch.Tensor:
-    """One token through every layer and the compressor at the cut; the
-    caches (ring, or paged with ``page_table``) are updated in place.
-    Returns the logits."""
-    x = embed(params["embed"], batch["tokens"], cdtype(cfg))
+    """One token (audio: one frame of ``codes`` (B, K, 1)) through every
+    layer and the compressor at the cut; the caches (ring, or paged with
+    ``page_table``) are updated in place.  Returns the logits."""
+    if cfg.modality == "audio":
+        x = embed_codebooks(params["embed"], batch["codes"], cdtype(cfg))
+    else:
+        x = embed(params["embed"], batch["tokens"], cdtype(cfg))
     emb0 = x
     client_segs, server_segs = cfg.client_server_segments()
 
@@ -620,7 +712,8 @@ def decode_step(params: Dict, cfg: ArchConfig, caches: Dict, batch: Dict,
                 qpos: torch.Tensor, *, window: Optional[int] = None):
     """One-token serve step against the ring caches.
 
-    batch: {tokens: (B, 1)} (the images were consumed at prefill); qpos
+    batch: {tokens: (B, 1)} (the images were consumed at prefill), or
+    for an audio config {codes: (B, K, 1)}; qpos
     (B,) absolute positions.  The caches are updated in place (the
     reference donates them).  Returns (logits, caches).
     """

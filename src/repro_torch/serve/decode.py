@@ -61,7 +61,10 @@ def generate(params: Dict, cfg: ArchConfig, batch: Dict, *, n_new: int,
              eos_id: Optional[int] = None, pad_id: int = 0) -> torch.Tensor:
     """Prefill + greedy or sampled generation of ``n_new`` tokens.
 
-    Returns (B, n_new) token ids on the batch's device.  ``temperature >
+    Returns (B, n_new) token ids on the batch's device; for an audio
+    config (a prompt of ``codes`` (B, K, S)) (B, n_new, K): each step picks
+    one code a codebook and feeds them back as ``codes`` (B, K, 1), and a
+    row is done when every codebook emits ``eos_id``.  ``temperature >
     0`` samples by the Gumbel-max trick from a ``torch.Generator`` seeded
     with ``seed`` on that device; its draws are not the reference's
     ``jax.random`` ones, so only greedy decoding matches it token for
@@ -71,13 +74,19 @@ def generate(params: Dict, cfg: ArchConfig, batch: Dict, *, n_new: int,
     go unused.
     """
     logits, caches = prefill(params, cfg, batch, cache_len, window=window)
-    tokens = batch["tokens"]
-    bsz, dev = tokens.shape[0], logits.device
-    prompt_len = tokens.shape[1] + cfg.n_image_tokens  # vlm: image first
+    audio = cfg.modality == "audio"
+    if audio:
+        bsz, prompt_len = batch["codes"].shape[0], batch["codes"].shape[-1]
+    else:
+        bsz = batch["tokens"].shape[0]
+        prompt_len = batch["tokens"].shape[1] \
+            + (cfg.n_image_tokens if cfg.modality == "vlm" else 0)
+    dev = logits.device
     step = make_serve_step(cfg, window=window)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def pick(logits: torch.Tensor) -> torch.Tensor:
+        """(B,) from (B, S, V), or (B, K) from audio's (B, S, K, V)."""
         last = logits[:, -1].float()
         if temperature <= 0.0:
             return last.argmax(dim=-1)
@@ -90,15 +99,18 @@ def generate(params: Dict, cfg: ArchConfig, batch: Dict, *, n_new: int,
     tok = pick(logits)
     for i in range(n_new):
         if eos_id is not None:
-            tok = torch.where(done, pad_id, tok)
-            done = done | (tok == eos_id)
+            d = done[:, None] if audio else done
+            tok = torch.where(d, pad_id, tok)
+            hit = tok == eos_id
+            done = done | (hit.all(dim=-1) if audio else hit)
         out.append(tok)
         if eos_id is not None and i + 1 < n_new and bool(done.all()):
             out.extend([torch.full_like(tok, pad_id)] * (n_new - i - 1))
             break
         qpos = torch.full((bsz,), prompt_len + i, dtype=torch.int32,
                           device=dev)
-        logits, caches = step(params, caches, dict(tokens=tok[:, None]),
-                              qpos)
+        step_batch = dict(codes=tok[..., None]) if audio \
+            else dict(tokens=tok[:, None])
+        logits, caches = step(params, caches, step_batch, qpos)
         tok = pick(logits)
     return torch.stack(out, dim=1)

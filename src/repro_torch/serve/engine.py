@@ -32,7 +32,9 @@ arithmetic, so serving merged params is token-exact against the adapter
 forward, at no cost a token.
 
 A text config (``llama3_2_3b``) takes requests of tokens alone; a vlm
-config (``tinyllava``) takes an image's embeddings with each.
+config (``tinyllava``) takes an image's embeddings with each.  An audio
+config raises, in the reference's words; so do configs whose blocks have
+no paged form (MLA, mamba2, rwkv6), from the pools' constructor.
 
 Weight-only quantized serving (``weight_quant="int4" | "int3" |
 "int2"``): once the params are on the device, every w* matmul site of the
@@ -94,6 +96,8 @@ class ServeEngine:
                  wq_group: int = 128, wq_act_order: bool = False,
                  wq_calib: Optional[Dict] = None,
                  device: DeviceLike = None):
+        if cfg.modality == "audio":
+            raise NotImplementedError("engine serves text/vlm configs")
         self.device = resolve_device(device)
         self.params = _to_device(params, self.device)
         if lora_adapters is not None:

@@ -170,9 +170,13 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
                     grad_accum: int = 1,
                     accum_dtype: str = "float32",
                     remat: Optional[bool] = None,
-                    remat_group: Optional[int] = None) -> Callable:
+                    remat_group: Optional[int] = None,
+                    donate: bool = False) -> Callable:
     """Build the train step ``(state, batch, rng=None) -> (state,
     metrics)``; the batch may be numpy (the data pipeline's) or tensors.
+    ``donate`` updates the state's parameters and moments in place
+    (``apply_gradients``), so no second copy of them exists during the
+    update: the old state is not kept.
 
     ``remat`` / ``remat_group`` override the config's stack-executor
     policy (``models/stack.py``): ``remat=True`` checkpoints each layer
@@ -195,7 +199,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
                                        batch_to(batch, device), rng)
         state, opt_metrics = apply_gradients(state, grads, opt_cfg,
                                              warmup_steps=warmup_steps,
-                                             total_steps=total_steps)
+                                             total_steps=total_steps,
+                                             donate=donate)
         metrics.update(opt_metrics)
         return state, metrics
 

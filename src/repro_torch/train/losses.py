@@ -32,12 +32,13 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
 
 def composite_loss(logits: torch.Tensor, batch: Dict, aux: Dict,
                    commit_alpha: float) -> Tuple[torch.Tensor, Dict]:
-    """Paper loss + MoE auxiliaries, for the text / vlm label layout.  The
-    audio layout (``labels_codes``) is ROADMAP item M11 and raises."""
+    """Paper loss + MoE auxiliaries, for the text / vlm label layout
+    (``labels`` (B, S)) and the audio one (logits (B, S, K, V),
+    ``labels_codes`` (B, K, S), transposed to (B, S, K))."""
     if "labels_codes" in batch:
-        raise NotImplementedError(
-            "the audio label layout is ROADMAP queue M, item M11")
-    ce = cross_entropy(logits, batch["labels"])
+        ce = cross_entropy(logits, batch["labels_codes"].transpose(1, 2))
+    else:
+        ce = cross_entropy(logits, batch["labels"])
     loss = ce + commit_alpha * aux["commit"]
     loss = loss + MOE_LB_COEF * aux["load_balance"] + \
         MOE_Z_COEF * aux["router_z"]

@@ -146,18 +146,23 @@ def test_full_configs_keep_their_published_shapes():
     ("llama3-2-3b", "llama3_2_3b"),
     ("arctic-480b", "arctic_480b"),
     ("deepseek-v2-236b", "deepseek_v2_236b"),
-    ("zamba2-2.7b", "zamba2_2_7b")])
+    ("zamba2-2.7b", "zamba2_2_7b"),
+    ("rwkv6-7b", "rwkv6_7b"),
+    ("musicgen-large", "musicgen_large")])
 def test_aliases_resolve_as_the_reference_s(alias, arch):
     assert tget(alias) is tget(arch)
     assert dataclasses.asdict(tget(alias)) == \
         dataclasses.asdict(get_config(alias))
 
 
-@pytest.mark.parametrize("arch", [
-    "musicgen_large", "rwkv6_7b", "no_such_arch"])
+@pytest.mark.parametrize("arch", ["no_such_arch"])
 def test_unported_archs_raise_naming_their_item(arch):
-    with pytest.raises(KeyError, match="M11"):
+    """Every arch of the reference's is ported: only a name the reference
+    does not know raises, naming itself."""
+    with pytest.raises(KeyError, match=f"unknown arch '{arch}'"):
         tget(arch)
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config(arch)
 
 
 # ---------------------------------------------------------------------------

@@ -51,5 +51,8 @@ def test_split_and_quant_defaults_match():
 
 
 def test_unported_config_raises():
-    with pytest.raises(KeyError, match="M11"):
-        torch_get_config("rwkv6_7b")
+    """Every config of the reference's is ported; an unknown name raises
+    ``KeyError``."""
+    with pytest.raises(KeyError, match="unknown arch 'rwkv7_7b'"):
+        torch_get_config("rwkv7_7b")
+    assert torch_get_config("rwkv6_7b").name == "rwkv6-7b"

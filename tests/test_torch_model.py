@@ -177,8 +177,27 @@ def test_cache_constructors_raise_without_cuda(make):
 
 
 def test_unported_model_features_raise():
+    """Every block type and modality of the reference's is ported: the
+    audio modality builds the reference's tree (one embedding table and
+    one head a codebook); a block type the reference does not know raises
+    ``ValueError`` naming it, as the reference's ``init_block_params``
+    does."""
     import dataclasses
 
-    with pytest.raises(NotImplementedError, match="M11"):
-        ttf.init_params(dataclasses.replace(TCFG, modality="audio"),
-                        device="cpu")
+    cfg = dataclasses.replace(TCFG, modality="audio", n_codebooks=2)
+    jcfg = dataclasses.replace(CFG, modality="audio", n_codebooks=2)
+    ours = ttf.init_params(cfg, device="cpu")
+    ref = jax.eval_shape(lambda k: jtf.init_params(k, jcfg),
+                         jax.random.PRNGKey(0))
+    shapes = {p: tuple(v.shape) for p, v in
+              jax.tree_util.tree_flatten_with_path(ref)[0]}
+    assert len(shapes) == len(jax.tree_util.tree_leaves(ours))
+    assert tuple(ours["embed"]["emb"].shape) == \
+        (2, cfg.vocab_size, cfg.d_model)
+    assert tuple(ours["head"]["w"].shape) == (2, cfg.d_model, cfg.vocab_size)
+    odd = dataclasses.replace(TCFG)
+    object.__setattr__(odd, "block_pattern", lambda: ("xlstm",) * 2)
+    with pytest.raises(ValueError, match="xlstm"):
+        ttf.init_params(odd, device="cpu")
+    with pytest.raises(ValueError, match="xlstm"):
+        jtf.init_block_params(jax.random.PRNGKey(0), CFG, "xlstm")

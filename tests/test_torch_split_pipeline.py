@@ -95,10 +95,25 @@ def test_text_forward_matches_reference():
 
 
 def test_audio_modality_still_raises():
-    cfg = dataclasses.replace(get_config("llama3_2_3b").reduced(),
-                              modality="audio", n_codebooks=2)
-    with pytest.raises(NotImplementedError, match="M11"):
-        ttf.init_params(cfg, device="cpu")
+    """The audio modality on llama's reduced config is ported: the
+    reference's tree (a (2, V, d) embedding, a (2, d, V) head) and its
+    (B, S, 2, V) logits from the same weights."""
+    upd = dict(modality="audio", n_codebooks=2)
+    cfg = dataclasses.replace(get_config("llama3_2_3b").reduced(), **upd)
+    jcfg = dataclasses.replace(jget_config("llama3_2_3b").reduced(), **upd)
+    jparams = jtf.init_params(jax.random.PRNGKey(0), jcfg)
+    ours = ttf.init_params(cfg, device="cpu")
+    assert {k: tuple(v.shape) for k, v in tree_flatten_with_path(ours)} == {
+        tuple(str(p.key) for p in k): tuple(v.shape) for k, v in
+        jax.tree_util.tree_flatten_with_path(jparams)[0]}
+    codes = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 2, 12)).astype(np.int32)
+    jlogits, _ = jtf.forward(jparams, jcfg, {"codes": jnp.asarray(codes)})
+    logits, _ = ttf.forward(from_jax_params(jparams, "cpu"), cfg,
+                            {"codes": torch.as_tensor(codes)})
+    assert tuple(logits.shape) == (2, 12, 2, cfg.vocab_size)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
+                               atol=FWD_ATOL)
 
 
 # ---------------------------------------------------------------------------

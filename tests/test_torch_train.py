@@ -446,7 +446,15 @@ def test_train_entry_points_raise_without_cuda():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tloop.init_state(TCFG, AdamWConfig())
-    with pytest.raises(NotImplementedError, match="M11"):
-        from repro_torch.train.losses import composite_loss
-        composite_loss(torch.zeros(1), {"labels_codes": torch.zeros(1)}, {},
-                       0.25)
+    # the audio label layout is ported: labels_codes (B, K, S) against
+    # logits (B, S, K, V)
+    from repro_torch.train.losses import composite_loss, cross_entropy
+    logits = torch.randn((2, 3, 2, 5), generator=torch.Generator()
+                         .manual_seed(0))
+    codes = torch.tensor([[[1, 2, 3], [4, 0, -100]],
+                          [[0, 0, 1], [2, 3, 4]]])
+    zero = torch.zeros(())
+    _, m = composite_loss(logits, {"labels_codes": codes},
+                          dict(commit=zero, load_balance=zero,
+                               router_z=zero, drop_fraction=zero), 0.25)
+    assert torch.equal(m["ce"], cross_entropy(logits, codes.transpose(1, 2)))
