@@ -331,6 +331,31 @@ non-zero:
               64), G 1 (remat: the forward twice a layer), the first
               batch's CE over the 4 codebooks falling, ms a step, peak
               memory.
+33. paper  -- the paper's experiments (repro_torch.paper) at full-width
+              tinyllava (bf16, weights from seed 0): Table 1's KDE entropy
+              of the boundary activations over 8 batches of 8 x 729 x 1 280
+              on the card against the same batches' fp32 CPU path (the
+              connector in fp32 on both, one subsample of 4 096 each), the
+              same optimal width; Table 2's 17 rows at (8, 128, 1 280)
+              fp32, each row's layout and bytes equal to the CPU's and its
+              arrays bit-identical (Top-K: its (index, value) pairs as
+              sets; FSQ / RD-FSQ: a code at a grid edge may move with a
+              last bit of tanh or of a row's stats); Table 4
+              over 4 batches, every row's bytes by formula from the payload
+              layout, the 2-bit reduction beside the paper's 0.875, the hub
+              rows; the roofline's parameter count and int4 weight bytes
+              beside the model's (printed); Table 3's identity-16, rdfsq-2
+              and nf-2 for 6 steps each (K1 - K3 exact, the first batch's
+              CE falling, the eval finite); the adaptive-wire curve trained
+              30 steps, the adaptive plans within the static 2-bit bytes
+              (K1 - K3, and K4 / K5 on the double-quantized plan's kernel
+              groups, exact), its CEs printed.  Each part's launches are
+              counted on its own.
+34. quickstart -- launch/quickstart.py at full width: 6 training steps
+              through the 2-bit cut, the answer accuracy on a fresh batch
+              of 16, generate() of 8 tokens for 2 prompts over bf16 ring
+              caches of 729 + 8 + 8 (K6); exact launches of K1 - K3 and
+              K6, the first batch's CE falling.
 
 Every phase prints its seconds and the device memory after it.  The last
 lines are the card (nvidia-smi), the per-kernel JSON line and
@@ -350,8 +375,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12    # H100 SXM, data sheet
-BF16_FLOP_PER_S = 989e12     # H100 SXM dense bf16 tensor cores
 SRC = "src/repro_torch/kernels/csrc/"
 REPLACES = {
     "flash_fwd": "src/repro/kernels/flash_kernel.py:109",
@@ -479,6 +502,20 @@ ZAMBA_PARITY_LAYERS, ZAMBA_PARITY_CUT, ZAMBA_TRAIN_STEPS = 6, 3, 3
 RWKV_GEN_TEXT, RWKV_RECUR_SEQ, RECUR_RTOL = 1024, 64, 1e-4
 RWKV_TRAIN_LAYERS, RWKV_TRAIN_STEPS = 8, 3
 MUSIC_GEN_TEXT, MUSIC_TRAIN_STEPS = 1024, 3
+# the paper's experiments at full-width tinyllava (repro_torch.paper): Table
+# 1's mean entropy on the card against the same batches' fp32 CPU features
+# (the connector runs in fp32 on both, as the reference's does, so only the
+# order of the fp32 sums differs) within T1_TOL bits; Table 4 over
+# PAPER_T4_BATCHES of its 20 batches; Table 3's identity-16 / rdfsq-2 /
+# nf-2 for PAPER_T3_STEPS steps of one seed; the curve trained
+# PAPER_CURVE_TRAIN steps (the CLI's 120 would take the phase's time),
+# evaluated on PAPER_CURVE_EVAL batches
+T1_TOL = 1e-4
+PAPER_T4_BATCHES = 4
+PAPER_T3_SETTINGS = (("identity", 16), ("rdfsq", 2), ("nf", 2))
+PAPER_T3_STEPS, PAPER_CURVE_TRAIN, PAPER_CURVE_EVAL = 6, 30, 8
+# the quickstart at full width: QUICK_STEPS training steps
+QUICK_STEPS = 6
 # int8 K/V bytes per (token, kv head) over bf16: (64 + 2) / 128
 INT8_POOL_RATIO = 0.515625
 # K12 against its plain version, relative to max |plain|: the dequantized
@@ -577,6 +614,10 @@ def time_graph_cold_ms(fn, inputs, reps: int = 15) -> float:
 
 
 def bound(n_bytes: float, flops: float = 0.0):
+    """The least time in ms: bytes at the H100's memory rate, operations
+    at its dense bf16 rate (``launch/roofline.py``), the larger."""
+    from repro_torch.launch.roofline import BF16_FLOP_PER_S, HBM_BYTES_PER_S
+
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOP_PER_S * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
@@ -5474,6 +5515,366 @@ def phase_train_parity(cfg, params):
             f"train parity: loss rel {rel}, cosines {cos}")
 
 
+# ---------------------------------------------------------------------------
+# phases 33 - 34: the paper's experiments and the quickstart
+# ---------------------------------------------------------------------------
+
+def _launched(tag, fn, expect):
+    """``fn()`` with the launch counts zeroed right before and read right
+    after, held against ``expect`` exactly unless it is None (the caller
+    checks them against what ``fn`` returns).  Returns (out, launches)."""
+    import torch
+    from repro_torch.kernels import build
+
+    torch.cuda.synchronize()
+    build.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = dict(build.launches)
+    if expect is not None:
+        _check_launches(tag, launches, expect)
+    return out, launches
+
+
+def _paper_table1(cfg, params):
+    """Table 1 on the card against the fp32 CPU path: the same batches, the
+    same subsample of each (a CPU generator), the connector in fp32 on both
+    (the reference's protocol)."""
+    from repro_torch.paper import table1_entropy as t1
+
+    card, _ = _launched("paper table1", lambda: t1.run(
+        cfg=cfg, device="cuda", params=params), {})
+    cpu32 = {k: _tree(params[k], _cpu32) for k in ("connector", "codec")}
+    cpu = t1.run(cfg=cfg, device="cpu", params=cpu32)
+    gap = abs(card["mean"] - cpu["mean"])
+    worst = max(abs(a - b) for a, b in zip(card["entropies"],
+                                            cpu["entropies"]))
+    print(f"[paper table1] full width, {len(card['entropies'])} batches of "
+          f"{t1.BATCH} x {cfg.n_image_tokens} x {cfg.d_model}: mean H "
+          f"{card['mean']:.6f} bits on the card, {cpu['mean']:.6f} on the "
+          f"fp32 CPU path (gap {gap:.3e}, worst batch {worst:.3e}; tol "
+          f"{T1_TOL}); spread {card['spread']:.4f}; optimal width "
+          f"{card['optimal_bits']} / {cpu['optimal_bits']} bits (the paper: "
+          "1.80 - 1.84 bits, 2 bits, on trained weights)")
+    require(gap < T1_TOL and card["optimal_bits"] == cpu["optimal_bits"],
+            f"table 1: card {card['mean']} vs CPU {cpu['mean']}")
+
+
+def _by_index(payload):
+    """A Top-K payload's (indices, values) with each row sorted by index:
+    the set the wire carries.  Its uniform noise draws 24-bit values, so a
+    row of 163 840 holds some hundreds of ties, which torch.topk orders
+    differently on the card and on the CPU."""
+    import torch
+
+    idx, vals = payload.aux["indices"].cpu(), payload.data.cpu()
+    order = idx.argsort(dim=1)
+    return idx.gather(1, order), vals.gather(1, order)
+
+
+def _paper_table2():
+    """Table 2 on the card against the same encodes on the CPU: every row's
+    layout and bytes equal; NF and identity arrays bit-identical, Top-K's
+    (index, value) pairs as sets (its order of tied noise draws is the
+    device's); FSQ's codes (tanh) and RD-FSQ's (a row's mean and sigma,
+    sums in another order) may move at a grid edge, and their (lo, hi) by
+    a last bit: at most 1e-5 of their bytes differ, and the fp16 side
+    information is within one step of fp16."""
+    import torch
+    from repro_torch.paper import table2_bits as t2
+
+    n_calls = 5  # time_fn's warmup and 3 iterations, then the payload
+    card, launches = _launched("paper table2", lambda: t2.run(
+        device="cuda"), {"rdfsq_quantize": 3 * n_calls,
+                         "nf_quantize": 3 * n_calls})
+    cpu = t2.run(device="cpu")
+    identical = 0
+    for key in t2.rows():
+        a, b = card[key], cpu[key]
+        pa, pb = a["payload"].arrays(), b["payload"].arrays()
+        same = [torch.equal(x.cpu(), y) for x, y in zip(pa, pb)]
+        identical += all(same)
+        moved = sum(int((x.cpu() != y).sum()) for x, y in zip(pa, pb)
+                    if x.dtype == torch.uint8)
+        total = sum(y.numel() for y in pb if y.dtype == torch.uint8)
+        side = max((float(((x.cpu().float() - y.float()).abs()
+                            / y.float().abs().clamp_min(1e-30)).max())
+                    for x, y in zip(pa, pb) if y.dtype == torch.float16),
+                   default=0.0)
+        print(f"[paper table2] {key[0]}-{key[1]}: {a['wire_bytes']} B "
+              f"({a['layout']}) measured {a['measured']:.3f} bits, analytic "
+              f"{a['analytic']:.3f}; arrays equal to the CPU's {same}"
+              + ("" if all(same) else f" ({moved} of {total} code bytes "
+                 f"moved, side information within {side:.2e})"))
+        require(a["wire_bytes"] == b["wire_bytes"]
+                and a["layout"] == b["layout"]
+                and [(x.shape, x.dtype) for x in pa]
+                == [(y.shape, y.dtype) for y in pb],
+                f"table 2 {key}: layout or bytes")
+        if key[0] in ("fsq", "rdfsq"):
+            require(moved <= 1e-5 * total and side <= 2 ** -10,
+                    f"table 2 {key}: {moved} code bytes moved, side {side}")
+        elif key[0] == "topk":
+            sets = [torch.equal(x, y) for x, y in
+                    zip(_by_index(a["payload"]), _by_index(b["payload"]))]
+            print(f"[paper table2] {key[0]}-{key[1]}: (index, value) pairs "
+                  f"equal to the CPU's as sets: {sets}")
+            require(all(sets), f"table 2 {key}: the kept sets differ")
+        else:
+            require(all(same), f"table 2 {key}: arrays differ")
+    print(f"[paper table2] {identical} of {len(card)} rows bit-identical to "
+          "the CPU's")
+    return launches
+
+
+def _wire_formula(method, bits, shape) -> int:
+    """A payload's bytes from its layout: identity bf16; RD-FSQ a row's
+    codes (kernel slots at 1 / 2 / 4 / 8 bits, else one bitstream) and an
+    fp16 (lo, hi) a row; NF-b per block of 64 its codes (slots or
+    bitstream), an 8-bit range code and an fp16 minimum, and an fp16 scale
+    per 256 blocks."""
+    n, rows = math.prod(shape), shape[0]
+    if method == "identity":
+        return 2 * n
+    slot = bits in (1, 2, 4, 8)
+    if method == "rdfsq":
+        codes = rows * (n // rows * bits // 8) if slot else \
+            -(-n * bits // 8)
+        return codes + 4 * rows
+    nb = -(-n // 64)
+    codes = nb * 64 * bits // 8 if slot else -(-nb * 64 * bits // 8)
+    return codes + 3 * nb + 2 * -(-nb // 256)
+
+
+def _paper_table4(cfg, params):
+    """Table 4 over PAPER_T4_BATCHES batches (SCALE following): each row's
+    bytes by formula, the 2-bit reduction beside the paper's 0.875, the
+    hub rows at full width."""
+    from repro_torch.paper import table4_comm as t4
+
+    nb = PAPER_T4_BATCHES
+    out, launches = _launched("paper table4", lambda: t4.run(
+        cfg=cfg, n_batches=nb, device="cuda", params=params),
+        {"rdfsq_quantize": 2 * nb, "nf_quantize": 2 * nb})
+    shape = (8, cfg.n_image_tokens, cfg.d_model)
+    for method, bits in t4.SETTINGS:
+        want = nb * _wire_formula(method, bits, shape)
+        print(f"[paper table4] {method}-{bits}: {out[(method, bits)]['bytes']}"
+              f" B over {nb} batches (formula {want}), "
+              f"{out[(method, bits)]['mb']:.2f} MB per 100")
+        require(out[(method, bits)]["bytes"] == want,
+                f"table 4 {method}-{bits}: {out[(method, bits)]['bytes']} B")
+    tok = cfg.d_model * 2  # a token row of bf16
+    red = 1 - (shape[1] * cfg.d_model * 2 // 8 + 4) / (shape[1] * tok)
+    print(f"[paper table4] 2-bit against 16-bit: {out['reduction']:.7f} of "
+          f"the bytes cut (by the layout: {red:.7f}: {tok // 8} B of codes "
+          f"a token row of {tok} B, plus 4 B a sample); the paper claims "
+          "0.875")
+    require(abs(out["reduction"] - red) < 1e-12, "table 4 reduction")
+    for n, row in out["hub"].items():
+        require(len(row["links"]) == n and sum(row["links"].values())
+                == row["server_ingress_bytes_per_tick"], f"hub row {n}")
+    return launches
+
+
+def _paper_roofline(cfg, params):
+    """The analytic counts beside the model's: ``param_counts`` against the
+    numel of the parameters (the gap: norms, connector and codec, which
+    the reference's count leaves out), ``decode_weight_bytes(4, 128)``
+    against the RTN int4 stores of the stack plus the bf16 head."""
+    from repro_torch.launch import roofline
+    from repro_torch.utils.tree import tree_count, tree_leaves
+    from repro_torch.wq import PackedLinear, parse_weight_quant, \
+        quantize_params
+
+    counted = roofline.param_counts(cfg)["total"]
+    n = tree_count(params)
+    d, c, v = cfg.d_model, cfg.d_connector, cfg.d_vision
+    gap = dict(norms=(2 * cfg.n_layers + 1) * d,
+               connector=v * c + c + c * d + d, codec=2 * (d * d + d))
+    packed, _ = quantize_params(params, parse_weight_quant("int4"))
+    stores = sum(x.packed_bytes() for x in tree_leaves(packed)
+                 if isinstance(x, PackedLinear))
+    head = params["head"]["w"].numel() * 2
+    want = roofline.decode_weight_bytes(cfg, 4, 128)
+    print(f"[paper roofline] param_counts total {counted:.0f} against "
+          f"{n} parameters: {n - counted:.0f} more = norms {gap['norms']} + "
+          f"connector {gap['connector']} + codec {gap['codec']} "
+          f"({sum(gap.values())}); decode_weight_bytes(int4, g128) "
+          f"{want:.0f} B against the RTN int4 stores {stores} B + the bf16 "
+          f"head {head} B = {stores + head} B (not gated)")
+    del packed
+
+
+def _paper_table3(cfg):
+    """Table 3's identity-16, rdfsq-2 and nf-2 at full width, one seed,
+    PAPER_T3_STEPS steps each: exact K1 - K3 (the training steps under
+    remat, the 8 eval forwards and one more forward for the first batch's
+    CE after the steps), the first batch's CE falling, ``_eval`` finite."""
+    import torch
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.models import transformer as tf
+    from repro_torch.paper import table3_performance as t3
+    from repro_torch.train.loop import batch_to
+    from repro_torch.train.losses import cross_entropy
+
+    steps, layers = PAPER_T3_STEPS, cfg.n_layers
+    carry = torch.empty((t3.BATCH, cfg.n_image_tokens + 8, cfg.d_model),
+                        dtype=tf.cdtype(cfg), device="meta")
+    per_step = tf.layer_forward_count(cfg, carry)
+    expect = {"flash_fwd": steps * per_step + (8 + 1) * layers,
+              "flash_bwd_dq": steps * layers,
+              "flash_bwd_dkv": steps * layers}
+    launches = {}
+    for method, bits in PAPER_T3_SETTINGS:
+        scfg = t3._cfg(method, bits, cfg)
+        first = batch_to(next(make_pipeline(scfg, t3.BATCH, t3.SEQ, seed=0)),
+                         torch.device("cuda"))
+
+        def one():
+            t0 = time.perf_counter()
+            state, history = t3.train(scfg, steps, seed=0)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            ev = t3._eval(state, scfg)
+            with torch.no_grad():
+                after = float(cross_entropy(
+                    tf.forward(state.params, scfg, first)[0],
+                    first["labels"]))
+            return state, history, ev, after, dt
+
+        tag = f"paper table3 {method}-{bits}"
+        (state, history, ev, after, dt), got = _launched(tag, one, expect)
+        before = history[0][1]["ce"]
+        print(f"[{tag}] {steps} steps of {t3.BATCH} x "
+              f"{carry.shape[1]} positions in {dt:.1f} s: the first batch's "
+              f"CE {before:.4f} -> {after:.4f}; eval CE {ev['ce']:.4f}, "
+              f"accuracy {ev['acc']:.4f}")
+        require(after < before and math.isfinite(ev["ce"])
+                and math.isfinite(ev["acc"]),
+                f"{tag}: CE {before} -> {after}, eval {ev}")
+        launches[tag] = got
+        del state
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _paper_curve(cfg):
+    """The adaptive wire's curve at full width: PAPER_CURVE_TRAIN steps of
+    the uncompressed wire, the plans at the static 2-bit budget, the CE of
+    six wires over PAPER_CURVE_EVAL batches.  Gated: the adaptive bytes at
+    most the static 2-bit bytes (``quant_curve.check``, in ``run``) and
+    exact launches (K4 / K5 once a batch for each group of the
+    double-quantized plan at a kernel width); the CEs are printed."""
+    import torch
+    from repro_torch.models import transformer as tf
+    from repro_torch.paper import quant_curve as qc
+
+    carry = torch.empty((qc.BATCH, cfg.n_image_tokens + 8, cfg.d_model),
+                        dtype=tf.cdtype(cfg), device="meta")
+    train = PAPER_CURVE_TRAIN * tf.layer_forward_count(cfg, carry)
+    t0 = time.perf_counter()
+    curve, launches = _launched("paper curve", lambda: qc.run(
+        cfg=cfg, n_train=PAPER_CURVE_TRAIN, n_eval=PAPER_CURVE_EVAL), None)
+    wall = time.perf_counter() - t0
+    kernel_groups = sum(w in (1, 2, 4, 8) for w in curve["plan_dq"])
+    ev = PAPER_CURVE_EVAL
+    expect = {"flash_fwd": train + 6 * ev * cfg.n_layers,
+              "flash_bwd_dq": PAPER_CURVE_TRAIN * cfg.n_layers,
+              "flash_bwd_dkv": PAPER_CURVE_TRAIN * cfg.n_layers,
+              "rdfsq_quantize": ev * kernel_groups,
+              "rdfsq_dequantize": ev * kernel_groups}
+    _check_launches("paper curve", launches, expect)
+    pts = curve["points"]
+    st = pts["static-2bit"]
+    print(f"[paper curve] full width, {wall:.1f} s: plan "
+          f"{curve['plan']}, dq plan {curve['plan_dq']}; side bytes "
+          f"{curve['side_bytes']} / {curve['side_bytes_dq']} (dq)")
+    for name, p in pts.items():
+        print(f"[paper curve] {name}: {p['wire_bytes']} B, eval CE "
+              f"{p['eval_ce']:.4f}")
+    wins = {k: pts[k]["eval_ce"] < st["eval_ce"]
+            for k in ("adaptive-grouped", "adaptive-dq-scales")}
+    print(f"[paper curve] adaptive below static 2-bit's CE at full width: "
+          f"{wins} (a finding, not gated)")
+    require(all(math.isfinite(p["eval_ce"]) for p in pts.values()),
+            "curve CE not finite")
+    return launches
+
+
+def phase_paper():
+    """The paper's experiments at full-width tinyllava (16 layers, d 1 280,
+    729 image tokens; bf16 weights from seed 0): Tables 1, 2, 4, the
+    roofline's counts, Table 3's three settings and the adaptive-wire
+    curve, each with its launches counted on its own.  Returns the launch
+    counts by path."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+
+    cfg = get_config("tinyllava")
+    params = init_params(cfg, seed=0)
+    _paper_table1(cfg, params)
+    paths = {"paper table2": _paper_table2(),
+             "paper table4": _paper_table4(cfg, params)}
+    _paper_roofline(cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.update(_paper_table3(cfg))
+    paths["paper curve"] = _paper_curve(cfg)
+    return paths
+
+
+def phase_quickstart():
+    """The quickstart at full width (``launch/quickstart.py``): QUICK_STEPS
+    training steps through the 2-bit cut, the answer accuracy on a fresh
+    batch of 16, ``generate`` of 8 tokens for 2 prompts over bf16 ring
+    caches of ``cache_length`` 729 + 8 + 8.  Exact launches: K1 - K3 of the
+    steps, K1 for the eval forward and the prefill, K6 16 times a
+    generated token; the first batch's CE falling."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.launch import quickstart
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.loop import batch_to
+    from repro_torch.train.losses import cross_entropy
+
+    cfg = get_config("tinyllava")
+    layers = cfg.n_layers
+    carry = torch.empty((8, cfg.n_image_tokens + 8, cfg.d_model),
+                        dtype=tf.cdtype(cfg), device="meta")
+    per_step = tf.layer_forward_count(cfg, carry)
+    expect = {"flash_fwd": QUICK_STEPS * per_step + 2 * layers,
+              "flash_bwd_dq": QUICK_STEPS * layers,
+              "flash_bwd_dkv": QUICK_STEPS * layers,
+              "decode": quickstart.N_NEW * layers}
+    t0 = time.perf_counter()
+    out, launches = _launched("quickstart", lambda: quickstart.run(
+        steps=QUICK_STEPS, full=True), expect)
+    wall = time.perf_counter() - t0
+    first = batch_to(next(make_pipeline(cfg, 8, 32, seed=0)),
+                     torch.device("cuda"))
+    with torch.no_grad():
+        after = float(cross_entropy(tf.forward(out["state"].params, cfg,
+                                               first)[0], first["labels"]))
+    before = out["history"][0][1]["ce"]
+    gen = torch.tensor(out["generated"])
+    print(f"[quickstart] full width, {wall:.1f} s: ring caches of "
+          f"{out['cache_len']}; the first batch's CE {before:.4f} -> "
+          f"{after:.4f} after {QUICK_STEPS} steps; accuracy {out['acc']:.3f};"
+          f" generated {tuple(gen.shape)}")
+    require(out["cache_len"] == cfg.n_image_tokens + 16
+            and gen.shape == (2, quickstart.N_NEW)
+            and bool(((gen >= 0) & (gen < cfg.vocab_size)).all())
+            and after < before and math.isfinite(out["acc"]),
+            f"quickstart: CE {before} -> {after}, generated {gen.shape}")
+    return {"quickstart": launches}
+
+
 def _tree(tree, fn):
     if isinstance(tree, dict):
         return {k: _tree(v, fn) for k, v in tree.items()}
@@ -5612,6 +6013,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths64g1.update(_timed("musicgen train", phase_musicgen_train))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the paper's experiments and the quickstart on full-width tinyllava
+    # (head width 64)
+    paths.update(_timed("paper", phase_paper))
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.update(_timed("quickstart", phase_quickstart))
     every = {**paths, **paths128, **paths96, **paths192, **paths80,
              **paths64g1}
     for path, launches in every.items():

@@ -20,7 +20,8 @@ Names, run in the order given:
   ``zoo_wide``, ``mla``, ``attack``, ``arctic_serve``, ``arctic_train``,
   ``deepseek_serve``, ``deepseek_train``, ``zamba2_serve``,
   ``zamba2_train``, ``rwkv6_serve``, ``rwkv6_train``, ``musicgen_serve``,
-  ``musicgen_train``.
+  ``musicgen_train``, ``paper`` (Tables 1 - 4, the roofline's counts and
+  the adaptive-wire curve at full-width tinyllava), ``quickstart``.
 
 Needs one CUDA device and nvcc.  A step that fails prints its traceback
 and the next one runs; the exit code is 1 if any failed (or a name is

@@ -216,7 +216,7 @@ def quantized_ship(cfg: QuantConfig, x: torch.Tensor, transport: Transport,
     return _QuantizedShip.apply(x, cfg, transport, tuple(perm[0]), bwd_cfg)
 
 
-def _payload_bytes(q: QuantConfig, shape, dtype) -> int:
+def payload_bytes(q: QuantConfig, shape, dtype) -> int:
     """Wire bytes of ``encode(q, x)`` for an ``x`` of this shape and dtype,
     from shapes alone: the codec runs on a meta tensor.  Top-K draws its
     random picks from a generator that has no meta device, so it encodes
@@ -273,7 +273,7 @@ class WireLink:
     def fwd_wire_bytes(self, shape, dtype) -> int:
         """Forward payload bytes for one activation of ``shape`` /
         ``dtype``, from shapes alone."""
-        return _payload_bytes(self.quant, tuple(shape), dtype)
+        return payload_bytes(self.quant, tuple(shape), dtype)
 
     def bwd_wire_bytes(self, shape, dtype) -> int:
         """Backward (cotangent) bytes: the packed payload when
@@ -281,7 +281,7 @@ class WireLink:
         if self.bwd_quant is None:
             return math.prod(shape) * torch.empty(
                 (), dtype=dtype).element_size()
-        return _payload_bytes(self.bwd_quant, tuple(shape), dtype)
+        return payload_bytes(self.bwd_quant, tuple(shape), dtype)
 
     def grad_wire_bytes(self, grad_tree) -> int:
         """Bytes of ONE direction of the adapter-gradient return: the
@@ -306,7 +306,7 @@ def tree_payload_bytes(q: Optional[QuantConfig], tree) -> int:
         if q is None or q.method == "identity":
             total += leaf.numel() * leaf.element_size()
         else:
-            total += _payload_bytes(q, tuple(leaf.shape), leaf.dtype)
+            total += payload_bytes(q, tuple(leaf.shape), leaf.dtype)
     return int(total)
 
 

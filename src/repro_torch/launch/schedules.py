@@ -77,7 +77,7 @@ from repro_torch.models import transformer as tf
 from repro_torch.optim import (AdamWConfig, adamw_update, global_norm,
                                init_opt_state)
 from repro_torch.peft import lora_shapes
-from repro_torch.utils.tree import tree_leaves, tree_map
+from repro_torch.utils.tree import grads_or_zeros, tree_leaves, tree_map
 
 
 # ---------------------------------------------------------------------------
@@ -207,16 +207,6 @@ def replan_grouped(ema_state: Dict, budget_bytes: float, *, n_groups: int,
 # ---------------------------------------------------------------------------
 # lockstep GPipe chain
 # ---------------------------------------------------------------------------
-def _grads_or_zeros(loss: torch.Tensor, leaves) -> Dict:
-    """d loss / d leaf for every leaf of ``leaves``; a leaf the loss does not
-    reach gets a zero gradient, as in JAX."""
-    flat = tree_leaves(leaves)
-    grads = torch.autograd.grad(loss, flat, allow_unused=True)
-    by_id = {id(p): torch.zeros_like(p) if g is None else g
-             for p, g in zip(flat, grads)}
-    return tree_map(lambda p: by_id[id(p)], leaves)
-
-
 def _stage_adapters(params: Dict, lora_rank: int, n_stages: int) -> list:
     """Each stage's slice of the stage-stacked ``params["adapters"]``
     (views); ``None`` for every stage without SplitLoRA."""
@@ -333,7 +323,7 @@ def build_gpipe_grad_step(cfg: ArchConfig, split: SplitConfig,
         else:
             leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
             loss, _ = step(leaves, tokens, labels)
-        return loss.detach(), _grads_or_zeros(loss, leaves), tick_bytes
+        return loss.detach(), grads_or_zeros(loss, leaves), tick_bytes
 
     grad_step.transport = step.transport
     return grad_step
@@ -436,11 +426,11 @@ def build_hub_grad_step(cfg: ArchConfig, hub: HubConfig, n_micro: int,
                               params)
             loss, per_client, _ = step(leaves, tokens, labels)
             return (loss.detach(), per_client.detach(),
-                    _grads_or_zeros(loss, leaves), tick_bytes)
+                    grads_or_zeros(loss, leaves), tick_bytes)
         leaves, base = _adapters_and_base(params)
         loss, per_client, _ = step(dict(base, adapters=leaves), tokens,
                                    labels)
-        stages = stack_mod.tree_unbind(_grads_or_zeros(loss, leaves))
+        stages = stack_mod.tree_unbind(grads_or_zeros(loss, leaves))
         for c, link in enumerate(links):
             stages[c] = link.grad_trip(stages[c], step.transport)
         return (loss.detach(), per_client.detach(),
@@ -608,7 +598,7 @@ def build_async_grad_step(cfg: ArchConfig, hub: HubConfig, micro_batch: int,
         ces = torch.stack([head_ce(cfg, server, h, labels[c])
                            for c, h in enumerate(hs.split(micro_batch))])
         loss = (ces * mask_t).sum() / mask_t.sum().clamp_min(1.0)
-        grads = _grads_or_zeros(loss, wrt)
+        grads = grads_or_zeros(loss, wrt)
         return (loss.detach(), ces.detach(), grads,
                 [h.detach() for h in h_pre], [h.detach() for h in h_q])
 

@@ -24,8 +24,8 @@ from repro_torch.models import transformer as tf
 from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
 from repro_torch.optim.schedule import warmup_cosine
 from repro_torch.train.losses import composite_loss
-from repro_torch.utils.tree import (tree_flatten_with_path, tree_leaves,
-                                    tree_map)
+from repro_torch.utils.tree import (grads_or_zeros, tree_flatten_with_path,
+                                    tree_leaves, tree_map)
 
 _ACCUM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -127,13 +127,8 @@ def make_grad_fn(cfg: ArchConfig, *, window: Optional[int] = None,
         leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
         logits, aux = tf.forward(leaves, cfg, batch, rng=rng, window=window)
         loss, metrics = composite_loss(logits, batch, aux, alpha)
-        flat = tree_leaves(leaves)
-        grads = torch.autograd.grad(loss, flat, allow_unused=True)
-        # a leaf the loss does not reach gets a zero gradient, as in JAX
-        by_id = {id(p): torch.zeros_like(p) if g is None else g
-                 for p, g in zip(flat, grads)}
         metrics = {k: v.detach() for k, v in metrics.items()}
-        return tree_map(lambda p: by_id[id(p)], leaves), metrics
+        return grads_or_zeros(loss, leaves), metrics
 
     def compute_grads(params, batch, rng=None):
         if grad_accum <= 1:

@@ -1,6 +1,6 @@
 """Tree and numeric helpers (port of ``repro/utils/tree.py``:
 ``tree_bytes``, ``tree_count``, ``is_weight_site``, ``weight_sites``,
-``ste``).
+``ste``), and ``grads_or_zeros``, the port's ``jax.grad`` over a tree.
 
 A tree here is a nested dict whose leaves are tensors (or anything else
 that is not a dict); ``tree_map`` / ``tree_leaves`` stand in for
@@ -82,3 +82,13 @@ def ste(x: torch.Tensor, x_hat: torch.Tensor) -> torch.Tensor:
     rounds.
     """
     return x + (x_hat - x).detach()
+
+
+def grads_or_zeros(loss: torch.Tensor, leaves):
+    """d loss / d leaf for every leaf of the tree ``leaves``; a leaf the
+    loss does not reach gets a zero gradient, as in JAX."""
+    flat = tree_leaves(leaves)
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    by_id = {id(p): torch.zeros_like(p) if g is None else g
+             for p, g in zip(flat, grads)}
+    return tree_map(lambda p: by_id[id(p)], leaves)
