@@ -356,6 +356,19 @@ non-zero:
               of 16, generate() of 8 tokens for 2 prompts over bf16 ring
               caches of 729 + 8 + 8 (K6); exact launches of K1 - K3 and
               K6, the first batch's CE falling.
+35. mesh   -- a process a rank (launch/dist.py): (a) train --mesh 1x1,
+              one NCCL rank with every parameter and moment a DTensor, on
+              full-width tinyllava for 2 steps of 4 x 793 against the
+              unsharded step on the card (loss, parameters, and K1 - K3
+              launches equal to the unsharded run's: local_map reaches the
+              kernels); (b) full-width llama3_2_3b split into 2 processes
+              on the one card, the client rank (embed + 14 layers, K4) and
+              the server rank (14 layers + head, K5) linked by the 2-bit
+              RD-FSQ wire over gloo, 3 grad steps of 4 x 2 x 1 024 tokens
+              against the single-process grad step (loss and each stage's
+              gradients within PIPE_MONO_RTOL), bytes per link exactly
+              pipeline_wire_bytes', seconds a step.  The ranks' launches
+              enter the kernels line.
 
 Every phase prints its seconds and the device memory after it.  The last
 lines are the card (nvidia-smi), the per-kernel JSON line and
@@ -427,6 +440,14 @@ PIPE_STEPS, PIPE_MICRO, PIPE_MB, PIPE_SEQ, PIPE_LR = 6, 4, 2, 1024, 3e-4
 PIPE_MONO_RTOL = 1e-3
 # the two-layer card-vs-CPU parity: 2 microbatches of 1 x 256 tokens
 PIPE_PARITY = (2, 1, 256)
+# the mesh phase: train --mesh 1x1 for MESH_STEPS steps at the train
+# phase's shapes, then MESH_PIPE_STEPS grad steps of the pipeline at its
+# shapes in 2 processes; a group of ranks gets MESH_TIMEOUT s a collective
+# (and 4x that in all).  One rank's DTensors run the unsharded step's
+# operations, so its loss and parameters should be the same bits; the
+# bound allows one AdamW step of 2 lr on a leaf whose gradient is rounding
+MESH_STEPS, MESH_PIPE_STEPS, MESH_TIMEOUT = 2, 3, 120.0
+MESH_LOSS_RTOL, MESH_PARAM_ATOL = 1e-4, 2e-3
 # SplitLoRA on the pipeline: 4 AdamW steps of the rank-8 adapters
 LORA_RANK, LORA_STEPS, LORA_LR = 8, 4, 3e-3
 # the lockstep hub: 3 clients and a server of 7 full-width llama3_2_3b
@@ -5875,6 +5896,180 @@ def phase_quickstart():
     return {"quickstart": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 35: the mesh -- a process a rank
+# ---------------------------------------------------------------------------
+
+def phase_mesh():
+    """(a) ``train --mesh 1x1`` (one NCCL rank, DTensor placements,
+    ``local_map``) on full-width tinyllava against the unsharded step on
+    the card; (b) full-width llama3_2_3b split into 2 processes on the one
+    card over a gloo 2-bit RD-FSQ wire against the single-process grad
+    step.  Returns the launch counts by path: (head width 64, head width
+    128), the child ranks' own counts among them."""
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.quantizers import QuantConfig
+    from repro_torch.core.split import SplitConfig
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.kernels import build
+    from repro_torch.launch import split_pipeline as sp
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.train.loop import init_state
+    from repro_torch.utils.tree import tree_flatten_with_path
+
+    t_phase = time.perf_counter()
+    paths64, paths128 = {}, {}
+
+    # (a) the sharded training step's launcher on a 1 x 1 mesh
+    cfg = get_config("tinyllava")
+    seq = cfg.n_image_tokens + TRAIN_TEXT
+    opts = vars(tlaunch._parser().parse_args(
+        ["--arch", "tinyllava", "--full", "--steps", str(MESH_STEPS),
+         "--batch", str(TRAIN_BATCH), "--seq", str(seq), "--log-every",
+         "1"]))
+    tcfg, opt_cfg = tlaunch._config(opts)
+    state = init_state(tcfg, opt_cfg, seed=0)
+    step_fn = tlaunch._step_fn(tcfg, opt_cfg, opts)
+    data = make_pipeline(tcfg, TRAIN_BATCH, seq)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    lines = []
+    for i in range(MESH_STEPS):
+        state, m = step_fn(state, next(data))
+        lines.append(tlaunch.step_line(i, m))
+    torch.cuda.synchronize()
+    paths64["mesh unsharded"] = dict(build.launches)
+    whole = {"/".join(p): t.detach().cpu()
+             for p, t in tree_flatten_with_path(state.params)}
+    loss = float(m["loss"])
+    del state, m, step_fn
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    opts.update(mesh_shape=(1, 1), return_params=True)
+    out = tlaunch.run_mesh(opts, timeout=MESH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    res = out[0]["result"]
+    paths64["mesh 1x1 rank 0"] = out[0]["launches"]
+    got = {"/".join(p): t for p, t in tree_flatten_with_path(res["params"])}
+    worst = max(float((got[k].float() - whole[k].float()).abs().max())
+                for k in whole)
+    mesh_loss = res["history"][-1][1]["loss"]
+    print(f"[mesh] train --mesh 1x1 (NCCL, one rank) on full-width "
+          f"{cfg.name}, {MESH_STEPS} steps of {TRAIN_BATCH} x {seq}: "
+          f"{wall:.1f} s with the rank's start; step lines:")
+    for line in res["lines"]:
+        print(f"[mesh]   {line}")
+    print(f"[mesh] unsharded on the card: " + " | ".join(lines))
+    print(f"[mesh] loss {mesh_loss:.6f} vs unsharded {loss:.6f}; "
+          f"parameters max |diff| {worst:.3e} (tol {MESH_PARAM_ATOL})")
+    require(abs(mesh_loss - loss) <= MESH_LOSS_RTOL * abs(loss)
+            and got.keys() == whole.keys() and worst <= MESH_PARAM_ATOL,
+            f"mesh 1x1 vs unsharded: loss {mesh_loss} vs {loss}, params "
+            f"{worst}")
+    flash = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    ours = {k: out[0]["launches"][k] for k in flash}
+    base = {k: paths64["mesh unsharded"][k] for k in flash}
+    print(f"[mesh] K1 - K3 launches of the rank {ours}, of the unsharded "
+          f"run {base}")
+    require(ours == base and all(ours.values()),
+            f"mesh K1 - K3 launches {ours}, unsharded {base}")
+    del whole, got, res, out
+    print(f"[mesh] (a) took {time.perf_counter() - t_phase:.1f} s")
+
+    # (b) the split pipeline, a process a stage, on the one card
+    pcfg = sp._homogeneous_cfg("llama3_2_3b", n_stages=2)
+    r2 = QuantConfig(method="rdfsq", bits=2)
+    split = SplitConfig(quant=r2, learnable_codec=False, n_stages=2)
+    n_micro, mb, pseq = PIPE_MICRO, PIPE_MB, PIPE_SEQ
+    tokens, labels = (torch.as_tensor(a) for a in
+                      sp.make_batches(pcfg, 1, n_micro, mb, pseq)[0])
+    params = sp.init_pipeline_params(pcfg, 2, seed=0)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    loss1, grads1, _ = sp.build_pipeline_grad_step(
+        pcfg, split, None, n_micro, mb, pseq)(params, tokens.cuda(),
+                                               labels.cuda())
+    torch.cuda.synchronize()
+    paths128["mesh pipeline single"] = dict(build.launches)
+    loss1 = float(loss1)
+    ref = {"/".join(p): g.cpu() for p, g in tree_flatten_with_path(grads1)}
+    del params, grads1
+    torch.cuda.empty_cache()
+    print(f"[mesh pipeline] the single-process reference, on the host at "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="mesh_grads_") as tmp:
+        t0 = time.perf_counter()
+        out = sp.run_ranks(pcfg, split, (2, 1),
+                           [(tokens, labels)] * MESH_PIPE_STEPS,
+                           mode="grad", n_micro=n_micro, micro_batch=mb,
+                           seq=pseq, seed=0, device="cuda",
+                           link_backend="gloo", grads_dir=tmp,
+                           timeout=MESH_TIMEOUT)
+        wall = time.perf_counter() - t0
+        worst = {}
+        for r in out:
+            res = r["result"]
+            s = res["stage"]
+            paths128[f"mesh pipeline rank {s}"] = r["launches"]
+            rel = [abs(v - loss1) / abs(loss1) for v in res["history"]]
+            print(f"[mesh pipeline] rank {s} (stage {s}): losses "
+                  + " ".join(f"{v:.6f}" for v in res["history"])
+                  + f" vs single-process {loss1:.6f} (rel {max(rel):.3e}, "
+                  f"tol {PIPE_MONO_RTOL}); grad steps of "
+                  + ", ".join(f"{t:.3f}" for t in res["times"]) + " s")
+            require(max(rel) <= PIPE_MONO_RTOL, f"rank {s} loss {rel}")
+            # each leaf compared on the card, which the ranks have left
+            grads = torch.load(res["grads_path"], mmap=True)
+            for p, g in tree_flatten_with_path(grads):
+                k = "/".join(p)
+                want = ref[k][s] if k.startswith("blocks/") else ref[k]
+                g, want = g.cuda().float(), want.cuda().float()
+                d = (g - want).norm() / want.norm().clamp_min(1e-30)
+                worst[f"stage{s}/{k}"] = float(d)
+                del g, want
+            del grads
+    top = max(worst, key=worst.get)
+    print(f"[mesh pipeline] compared at {time.perf_counter() - t_phase:.1f} "
+          "s")
+    print(f"[mesh pipeline] {len(worst)} gradient leaves over 2 stages: "
+          f"largest relative L2 difference {worst[top]:.3e} ({top}), tol "
+          f"{PIPE_MONO_RTOL}")
+    require(worst[top] <= PIPE_MONO_RTOL, f"mesh pipeline grads {top}")
+    table = sp.pipeline_wire_bytes(pcfg, split, mb, pseq)
+    entry = table["links"][(0, 1)]
+    shipments = MESH_PIPE_STEPS * n_micro
+    counted = {}
+    for r in out:
+        for link, b in r["result"]["bytes"].items():
+            counted[link] = counted.get(link, 0) + b
+    expect = {(0, 1): entry["fwd"] * shipments,
+              (1, 0): entry["bwd"] * shipments}
+    print(f"[mesh pipeline] link 0->1 rdfsq-2: counted fwd "
+          f"{counted.get((0, 1))} B, bwd (raw bf16) {counted.get((1, 0))} B;"
+          f" pipeline_wire_bytes {entry['fwd']} B / {entry['bwd']} B x "
+          f"{shipments} shipments")
+    require(counted == expect, f"mesh pipeline bytes {counted}, {expect}")
+    steady = statistics.median(out[0]["result"]["times"][1:])
+    print(f"[mesh pipeline] 2 processes on one card, the wire over gloo "
+          f"(host-staged): {steady:.3f} s a grad step of {n_micro} x {mb} x "
+          f"{pseq} tokens (median of steps 2-{MESH_PIPE_STEPS}), "
+          f"{wall:.1f} s with the ranks' start")
+    both = {k: sum(paths128[f"mesh pipeline rank {s}"][k] for s in (0, 1))
+            for k in paths128["mesh pipeline single"]}
+    expect_launches = _pipe_expect(pcfg.n_layers, n_micro, MESH_PIPE_STEPS,
+                                   {"rdfsq_quantize": 1,
+                                    "rdfsq_dequantize": 1})
+    _check_launches("mesh pipeline ranks", both, expect_launches)
+    require(paths128["mesh pipeline rank 0"]["rdfsq_dequantize"] == 0
+            and paths128["mesh pipeline rank 1"]["rdfsq_quantize"] == 0,
+            "K4 runs on the client rank, K5 on the server rank")
+    print(f"[mesh] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return paths64, paths128
+
+
 def _tree(tree, fn):
     if isinstance(tree, dict):
         return {k: _tree(v, fn) for k, v in tree.items()}
@@ -6021,6 +6216,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths.update(_timed("quickstart", phase_quickstart))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # a process a rank: the children share the card, so the parent's
+    # cache is freed first
+    mesh64, mesh128 = _timed("mesh", phase_mesh)
+    paths.update(mesh64)
+    paths128.update(mesh128)
     every = {**paths, **paths128, **paths96, **paths192, **paths80,
              **paths64g1}
     for path, launches in every.items():

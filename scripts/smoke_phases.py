@@ -21,7 +21,8 @@ Names, run in the order given:
   ``deepseek_serve``, ``deepseek_train``, ``zamba2_serve``,
   ``zamba2_train``, ``rwkv6_serve``, ``rwkv6_train``, ``musicgen_serve``,
   ``musicgen_train``, ``paper`` (Tables 1 - 4, the roofline's counts and
-  the adaptive-wire curve at full-width tinyllava), ``quickstart``.
+  the adaptive-wire curve at full-width tinyllava), ``quickstart``,
+  ``mesh`` (train --mesh 1x1 and the pipeline in 2 processes).
 
 Needs one CUDA device and nvcc.  A step that fails prints its traceback
 and the next one runs; the exit code is 1 if any failed (or a name is

@@ -15,8 +15,11 @@ payload across a :class:`Transport` and decodes it on the receiving side;
 its backward returns the cotangent over the reverse link, raw at its own
 dtype (the paper's scope) or through ``bwd_quant``.  Where the reference
 ``ppermute``s across the ``pod`` mesh axis of one SPMD program, the port's
-stages share one process and one device, and the transport is an
-in-process send that counts every byte it carries.  ``WireLink`` owns one
+stages share one process and one device over a :class:`Transport`, an
+in-process send that counts every byte it carries, or run in processes of
+their own over a :class:`DistTransport`, point-to-point sends of
+``torch.distributed`` (``ship_send`` / ``ship_recv`` / ``ship_return`` /
+``ship_cotangent``, the halves each side runs).  ``WireLink`` owns one
 directed cut with its shape-only byte accounting; ``HubConfig`` describes
 the many-client hub's star of links (client ``c`` -> the server stage).
 A SplitLoRA hub returns each client's adapter gradient over its link
@@ -42,6 +45,7 @@ from repro_torch.core import quantizers
 from repro_torch.core.payload import CommPayload, GroupedPayload
 from repro_torch.core.quantizers import QuantConfig
 from repro_torch.core.quantizers.topk import budget as topk_budget
+from repro_torch.sharding import ctx as shard_ctx
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -112,7 +116,10 @@ def compressor_roundtrip(params: Optional[Dict], cfg: SplitConfig,
     randomized quantizer (Top-K); the others ignore it."""
     if not cfg.enabled or cfg.quant.method == "none":
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
-    h = client_encode_pre(params, cfg, x)
+    # under a mesh the quantizer reads whole rows: the encoder's output
+    # columns are gathered over ``model`` first (its per-sample stats
+    # flatten the features, which DTensor refuses on a sharded axis)
+    h = shard_ctx.constrain(client_encode_pre(params, cfg, x), "hidden")
     h_hat, commit = quantizers.roundtrip(cfg.quant, h, rng)
     return server_decode_post(params, cfg, h_hat), commit
 
@@ -179,6 +186,245 @@ class Transport:
         return one(payload)
 
 
+def _payload_like(layout, leaves, metas):
+    """``layout``'s payload structure with its arrays replaced, in
+    ``arrays()`` order, by ``leaves`` and its metadata by ``metas`` (the
+    structure :func:`_payload_metas` gives)."""
+    it = iter(leaves)
+
+    def one(p: CommPayload, meta) -> CommPayload:
+        data = next(it)
+        scales = None if p.scales is None else next(it)
+        return CommPayload(data=data, scales=scales,
+                           aux={k: next(it) for k in p.aux}, meta=dict(meta))
+
+    if isinstance(layout, GroupedPayload):
+        top, groups = metas
+        out = GroupedPayload(
+            groups=tuple(one(g, m) for g, m in zip(layout.groups, groups)),
+            meta=dict(top))
+        out.scale_meta = None if layout.scale_meta is None else next(it)
+        return out
+    return one(layout, metas)
+
+
+def _payload_metas(payload):
+    if isinstance(payload, GroupedPayload):
+        return dict(payload.meta), [dict(g.meta) for g in payload.groups]
+    return dict(payload.meta)
+
+
+class DistTransport:
+    """The wire between stages in processes of their own: the port's
+    ``ppermute`` across the ``pod`` axis, over ``torch.distributed``
+    point-to-point sends.
+
+    ``ranks[s]`` is the global rank that runs stage ``s``; this process is
+    the stage whose rank it holds.  A stage sends on one rank and receives
+    on the other.  ``bytes[link]`` and ``payloads[link]`` count, as
+    :class:`Transport`'s do, on the SENDING rank: each payload once, every
+    leaf at its wire width, a float leaf crossing as the unsigned integer
+    of its width.  The receiver allocates each leaf from the link's static
+    layout, the payload ``encode`` gives for a ``meta`` tensor of the
+    activation's shape (what ``WireLink.fwd_wire_bytes`` reads), and
+    takes the payload's ``meta`` from it too.  The sender's ``meta`` (the
+    session handshake) crosses once a link, as a pickled object, and is
+    not counted: the receiver raises if it differs from its own layout's,
+    that is if the two ends disagree on the codec or the shape.  ``link_backend``
+    names the process group's backend: over ``"gloo"`` a CUDA leaf is
+    staged through host memory, over ``"nccl"`` it crosses from the card.
+    The caller picks it; nothing tries one and falls back to the other.
+    """
+
+    def __init__(self, ranks, *, link_backend: str = "gloo",
+                 device=None):
+        import torch.distributed as dist
+
+        if link_backend not in ("gloo", "nccl"):
+            raise ValueError(f"link_backend {link_backend!r}")
+        self.ranks = tuple(int(r) for r in ranks)
+        rank = dist.get_rank()
+        if rank not in self.ranks:
+            raise ValueError(f"rank {rank} runs none of the stages "
+                             f"{self.ranks}")
+        self.stage = self.ranks.index(rank)
+        self.link_backend = link_backend
+        self.device = torch.device("cpu") if device is None \
+            else torch.device(device)
+        self.bytes: Dict[Link, int] = collections.Counter()
+        self.payloads: Dict[Link, int] = collections.Counter()
+        self._shaken = set()  # links whose handshake crossed
+
+    def _host(self) -> bool:
+        return self.link_backend == "gloo" and self.device.type == "cuda"
+
+    def _peer(self, link: Link, sending: bool) -> int:
+        src, dst = link
+        if (src if sending else dst) != self.stage:
+            raise ValueError(f"stage {self.stage} is not the "
+                             f"{'source' if sending else 'destination'} "
+                             f"of link {link}")
+        return self.ranks[dst if sending else src]
+
+    def _send_leaf(self, a: torch.Tensor, link: Link) -> None:
+        import torch.distributed as dist
+
+        self.bytes[link] += a.numel() * a.element_size()
+        wire = a.detach().contiguous()
+        if wire.is_floating_point():
+            wire = wire.view(_WIRE_INT[wire.element_size()])
+        if self._host():
+            wire = wire.cpu()
+        dist.send(wire, self._peer(link, True))
+
+    def _recv_leaf(self, shape, dtype, link: Link) -> torch.Tensor:
+        import torch.distributed as dist
+
+        wire_dt = _WIRE_INT[torch.empty((), dtype=dtype).element_size()] \
+            if dtype.is_floating_point else dtype
+        buf = torch.empty(tuple(shape), dtype=wire_dt,
+                          device="cpu" if self._host() else self.device)
+        dist.recv(buf, self._peer(link, False))
+        return buf.to(self.device).view(dtype)
+
+    def _handshake(self, link: Link, metas, sending: bool) -> None:
+        """The first payload's metadata across ``link``, once a session:
+        sent, or received and held against the receiver's ``metas``."""
+        import torch.distributed as dist
+
+        if link in self._shaken:
+            return
+        self._shaken.add(link)
+        peer = self._peer(link, sending)
+        if sending:
+            dist.send_object_list([metas], dst=peer)
+            return
+        box = [None]
+        dist.recv_object_list(box, src=peer)
+        if box[0] != metas:
+            raise ValueError(f"link {link}: the sender's payload {box[0]} "
+                             f"is not the layout {metas} expected here")
+
+    def send(self, a: torch.Tensor, src: int, dst: int) -> None:
+        """One raw tensor across ``src -> dst`` (this rank is ``src``)."""
+        self.payloads[(src, dst)] += 1
+        self._send_leaf(a, (src, dst))
+
+    def recv(self, shape, dtype, src: int, dst: int) -> torch.Tensor:
+        """The raw tensor of ``shape`` / ``dtype`` that ``src`` sends (this
+        rank is ``dst``)."""
+        return self._recv_leaf(shape, dtype, (src, dst))
+
+    def send_payload(self, payload, src: int, dst: int) -> None:
+        """Every array of a payload across ``src -> dst``."""
+        link = (src, dst)
+        self.payloads[link] += 1
+        self._handshake(link, _payload_metas(payload), True)
+        for a in payload.arrays():
+            self._send_leaf(a, link)
+
+    def recv_payload(self, q: QuantConfig, shape, dtype, src: int,
+                     dst: int):
+        """The payload ``encode(q, x)`` of an ``x`` of ``shape`` / ``dtype``
+        that ``src`` sends, its leaves allocated from the static layout."""
+        link = (src, dst)
+        layout = _static_layout(q, tuple(shape), dtype)
+        metas = _payload_metas(layout)
+        self._handshake(link, metas, False)
+        leaves = [self._recv_leaf(a.shape, a.dtype, link)
+                  for a in layout.arrays()]
+        return _payload_like(layout, leaves, metas)
+
+
+def _static_layout(q: QuantConfig, shape, dtype):
+    """The payload of ``encode(q, x)`` for an ``x`` of this shape and
+    dtype, its shapes and dtypes only: the codec runs on a meta tensor.
+    Top-K draws its random picks from a generator that has no meta
+    device, so it encodes zeros on the CPU; its payload's layout does not
+    depend on the data."""
+    if q.method == "topk":
+        return quantizers.encode(q, torch.zeros(shape, dtype=dtype),
+                                 torch.Generator().manual_seed(0))
+    return quantizers.encode(q, torch.empty(shape, dtype=dtype,
+                                            device="meta"))
+
+
+def ship_send(cfg: QuantConfig, x: torch.Tensor, transport: DistTransport,
+              link: Link) -> None:
+    """The source half of a cross-process ship: encode ``x`` (K4 / K10 on
+    CUDA) and send its payload over ``link``."""
+    transport.send_payload(quantizers.encode(cfg, x.detach()), *link)
+
+
+def ship_recv(cfg: QuantConfig, transport: DistTransport, link: Link,
+              shape, dtype) -> torch.Tensor:
+    """The destination half: receive the payload of a ``shape`` / ``dtype``
+    activation and decode it (K5 / K11 on CUDA) into a fresh leaf that
+    requires grad, whose ``.grad`` :func:`ship_return` sends back."""
+    payload = transport.recv_payload(cfg, shape, dtype, *link)
+    return quantizers.decode(cfg, payload).to(dtype).requires_grad_()
+
+
+def ship_return(leaf: torch.Tensor, transport: DistTransport, link: Link,
+                bwd_cfg: Optional[QuantConfig] = None) -> None:
+    """The received leaf's gradient back over the reverse of ``link``:
+    raw at its own dtype, or through ``bwd_cfg``."""
+    src, dst = link
+    g = leaf.grad if leaf.grad is not None else torch.zeros_like(leaf)
+    if bwd_cfg is None:
+        transport.send(g, dst, src)
+    else:
+        transport.send_payload(quantizers.encode(bwd_cfg, g), dst, src)
+
+
+def ship_cotangent(transport: DistTransport, link: Link, shape, dtype,
+                   bwd_cfg: Optional[QuantConfig] = None) -> torch.Tensor:
+    """The source's view of :func:`ship_return`: the cotangent of the
+    activation it shipped over ``link``, from which it runs its own
+    backward."""
+    src, dst = link
+    if bwd_cfg is None:
+        return transport.recv(shape, dtype, dst, src)
+    payload = transport.recv_payload(bwd_cfg, shape, dtype, dst, src)
+    return quantizers.decode(bwd_cfg, payload).to(dtype)
+
+
+class _DistShip(torch.autograd.Function):
+    """``ppermute`` of a quantized activation across ranks: each link of
+    ``perm`` in one global order, its source sending and its destination
+    receiving (so no two ranks wait on each other); the backward runs the
+    reverse links the same way."""
+
+    @staticmethod
+    def forward(ctx, x, cfg, transport, perm, bwd_cfg):
+        ctx.transport, ctx.perm, ctx.bwd_cfg = transport, perm, bwd_cfg
+        ctx.shape, ctx.dtype = tuple(x.shape), x.dtype
+        me, out = transport.stage, None
+        for link in perm:
+            if link[0] == me:
+                ship_send(cfg, x, transport, link)
+            if link[1] == me:
+                out = quantizers.decode(cfg, transport.recv_payload(
+                    cfg, x.shape, x.dtype, *link)).to(x.dtype)
+        return torch.zeros_like(x) if out is None else out
+
+    @staticmethod
+    def backward(ctx, g):
+        transport, me, gx = ctx.transport, ctx.transport.stage, None
+        for src, dst in sorted((d, s) for s, d in ctx.perm):
+            if (dst, src) in ctx.perm and src == me:  # I received: return
+                if ctx.bwd_cfg is None:
+                    transport.send(g, src, dst)
+                else:
+                    transport.send_payload(
+                        quantizers.encode(ctx.bwd_cfg, g), src, dst)
+            if dst == me:  # I sent: my activation's cotangent comes back
+                gx = ship_cotangent(transport, (dst, src), ctx.shape,
+                                    ctx.dtype, ctx.bwd_cfg)
+        return (torch.zeros(ctx.shape, dtype=ctx.dtype, device=g.device)
+                if gx is None else gx), None, None, None, None
+
+
 class _QuantizedShip(torch.autograd.Function):
     """Forward: encode, send ``src -> dst``, decode.  Backward: the
     cotangent returns ``dst -> src``, raw or through ``bwd_cfg``."""
@@ -209,7 +455,15 @@ def quantized_ship(cfg: QuantConfig, x: torch.Tensor, transport: Transport,
     """Quantize -> pack -> send over ``transport`` -> decode; the gradient
     crosses back as the reference's custom VJP sends it.  ``perm`` is the
     reference's permutation; in one process an activation has one source
-    stage, so it holds one ``(src, dst)`` pair."""
+    stage, so it holds one ``(src, dst)`` pair.  Over a
+    :class:`DistTransport` every rank calls it, as every device of the
+    reference's ``shard_map`` does: each link's source sends, its
+    destination receives and returns the decoded activation (a rank that
+    receives nothing gets zeros), and the gradient crosses the reverse
+    links."""
+    if isinstance(transport, DistTransport):
+        return _DistShip.apply(x, cfg, transport, tuple(map(tuple, perm)),
+                               bwd_cfg)
     if len(perm) != 1:
         raise ValueError("the in-process transport ships one link's "
                          f"activation at a time, got perm {perm}")
@@ -218,15 +472,8 @@ def quantized_ship(cfg: QuantConfig, x: torch.Tensor, transport: Transport,
 
 def payload_bytes(q: QuantConfig, shape, dtype) -> int:
     """Wire bytes of ``encode(q, x)`` for an ``x`` of this shape and dtype,
-    from shapes alone: the codec runs on a meta tensor.  Top-K draws its
-    random picks from a generator that has no meta device, so it encodes
-    zeros on the CPU; its payload's size does not depend on the data."""
-    if q.method == "topk":
-        x = torch.zeros(shape, dtype=dtype)
-        return quantizers.encode(
-            q, x, torch.Generator().manual_seed(0)).wire_bytes()
-    return quantizers.encode(
-        q, torch.empty(shape, dtype=dtype, device="meta")).wire_bytes()
+    from shapes alone (:func:`_static_layout`)."""
+    return _static_layout(q, tuple(shape), dtype).wire_bytes()
 
 
 @dataclasses.dataclass(frozen=True)

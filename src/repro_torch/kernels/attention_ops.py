@@ -128,6 +128,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     The CUDA kernel takes any strides whose last axis is contiguous, so
     (B, S, H, D) tensors pass as transposed views without a copy.
     """
+    build.refuse_dtensor("flash_forward", q, k, v, qpos, kpos)
     if not q.is_cuda:
         return attention_ref.flash_forward_ref(q, k, v, qpos, kpos,
                                                window=window)
@@ -241,6 +242,7 @@ def flash_backward_dq(q, k, v, go, m, l, di, qpos, kpos, *,
     forward's m, l and di = rowsum(go * out) (B, H, Sq, 1) fp32.  Returns
     dq fp32 (B, H, Sq, D) w.r.t. the pre-scaled query, as a transposed
     view of a (B, Sq, H, D) buffer."""
+    build.refuse_dtensor("flash_backward_dq", q, k, v, go, m, l, di, qpos, kpos)
     if not q.is_cuda:
         return attention_ref.flash_backward_ref(
             q, k, v, go, m, l, di, qpos, kpos, window=window)[0]
@@ -270,6 +272,7 @@ def flash_backward_dkv(q, k, v, go, m, l, di, qpos, kpos, *,
     """K3.  Operands as ``flash_backward_dq``.  Returns (dk, dv) fp32
     (B, KH, Skv, D/Dv), each summed over the GQA group, as transposed
     views of (B, Skv, KH, D/Dv) buffers."""
+    build.refuse_dtensor("flash_backward_dkv", q, k, v, go, m, l, di, qpos, kpos)
     if not q.is_cuda:
         _, dk, dv = attention_ref.flash_backward_ref(
             q, k, v, go, m, l, di, qpos, kpos, window=window)
@@ -341,6 +344,58 @@ def flash(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(B, S, H, D) operands of ``flash_attention`` -> (B, Sq, H, Dv) in
     qs.dtype, differentiable in (qs, k, v) through K2 / K3."""
     return FlashAttention.apply(qs, k, v, qpos, kpos, window)
+
+
+def head_placements(mesh, b: int, h: int, kh: int) -> Tuple:
+    """DTensor placements of a (B, S, heads x D) operand of K1 – K3 on
+    ``mesh``: the batch over every axis but ``model`` while B divides
+    them, the heads (dim 2) over ``model`` when both H and KH divide it,
+    else replicated there (a kernel cannot run on part of a head, and a
+    GQA group must stay whole on a rank)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = mesh.mesh_dim_names
+    out, batch_ranks = [], 1
+    for i, name in enumerate(names):
+        size = mesh.size(i)
+        if name == "model":
+            whole = h % size == 0 and kh % size == 0
+            out.append(Shard(2) if whole and size > 1 else Replicate())
+        elif size > 1 and b % (batch_ranks * size) == 0:
+            batch_ranks *= size
+            out.append(Shard(0))
+        else:
+            out.append(Replicate())
+    return tuple(out)
+
+
+def on_local_heads(fn, q, k, v, *rest, heads: Tuple[int, int]):
+    """``fn(q, k, v, *rest)`` on each rank's local heads: K1 – K3 under a
+    mesh.  q / k / v are the (B, S, heads x D) projections, ``heads`` =
+    (H, KH); as DTensors they are redistributed to ``head_placements`` (an
+    all-gather of the heads where they do not divide the ``model`` axis)
+    and ``fn`` runs through ``local_map`` on the local shards, which it
+    splits into heads itself: no DTensor view folds or unfolds a sharded
+    head axis, which DTensor refuses on some torch versions.  ``rest``
+    (positions) pass as they are, a DTensor among them replicated first.
+    ``fn``'s (B, S, H x Dv) output comes back as a DTensor of the same
+    placements, differentiable in q, k, v.  Plain tensors call ``fn``
+    directly."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    if not isinstance(q, DTensor):
+        return fn(q, k, v, *rest)
+    place = head_placements(q.device_mesh, q.shape[0], *heads)
+    q, k, v = (t.redistribute(q.device_mesh, place) for t in (q, k, v))
+    whole = [Replicate()] * q.device_mesh.ndim
+    rest_place = tuple(whole if isinstance(t, DTensor) else None
+                       for t in rest)
+    heads = list(place)  # a list: one output's placements
+    mapped = local_map(fn, out_placements=heads,
+                       in_placements=(heads, heads, heads) + rest_place,
+                       device_mesh=q.device_mesh, redistribute_inputs=True)
+    return mapped(q, k, v, *rest)
 
 
 def _check_decode(name: str, qf, k, v, scales, pos, qpos, code_dtype
@@ -513,6 +568,8 @@ def decode(qf: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     """K6.  qf: (B, KH, G, D) pre-scaled; caches (B, L, KH, D/Dv) in the
     ring layout, any L; kpos (B, L) int32 (-1 empty); qpos (B,).  Returns
     (B, KH, G, Dv) fp32; a row with no visible key gives 0."""
+    build.refuse_dtensor("decode", qf, k_cache, v_cache, kpos,
+                         qpos)
     if not qf.is_cuda:
         return attention_ref.decode_attention_ref(
             qf, k_cache, v_cache, kpos, qpos, window=window)
@@ -528,6 +585,8 @@ def decode_q8(qf: torch.Tensor, k_codes: torch.Tensor,
     (B, L, KH), which the kernel reads where they lie (the reference's
     wrapper makes an fp32 (B, KH, L) copy first).  Returns (B, KH, G, D)
     fp32."""
+    build.refuse_dtensor("decode_q8", qf, k_codes, v_codes, k_scale,
+                         v_scale, kpos, qpos)
     if not qf.is_cuda:
         return attention_ref.decode_attention_q8_ref(
             qf, k_codes, v_codes, k_scale, v_scale, kpos, qpos,
@@ -571,6 +630,8 @@ def decode_paged(qf: torch.Tensor, k_pool: torch.Tensor,
     (S,) (-1 inactive: the slot's output is 0).  Returns (S, KH, G, Dv)
     fp32.  The kernel reads each slot's pages where they lie in the pool:
     no gathered copy of the cache is made."""
+    build.refuse_dtensor("decode_paged", qf, k_pool, v_pool, pos_pool,
+                         page_table, qpos)
     if not qf.is_cuda:
         return attention_ref.decode_attention_paged_ref(
             qf, k_pool, v_pool, pos_pool, page_table, qpos, window=window)
@@ -587,6 +648,9 @@ def decode_paged_q8(qf: torch.Tensor, k_pool: torch.Tensor,
     """K9.  As ``decode_paged`` over int8 code pools (P, pg, KH, D) with
     fp16 scale pools (P, pg, KH), read where they lie.  Returns
     (S, KH, G, D) fp32."""
+    build.refuse_dtensor("decode_paged_q8", qf, k_pool, v_pool,
+                         k_scale_pool, v_scale_pool, pos_pool,
+                         page_table, qpos)
     if not qf.is_cuda:
         return attention_ref.decode_attention_paged_q8_ref(
             qf, k_pool, v_pool, k_scale_pool, v_scale_pool, pos_pool,

@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 from pathlib import Path
 from typing import Dict, Optional
@@ -60,6 +61,19 @@ _lib: Optional[ctypes.CDLL] = None
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def refuse_dtensor(name: str, *tensors) -> None:
+    """A kernel takes one rank's local tensors: raise ``TypeError`` on a
+    ``DTensor`` (a CUDA one would reach the launch with a rank's local
+    pointer and the global shape, a CPU one would run the plain version op
+    by op across the mesh).  Sharded callers hand a kernel their local
+    shards through ``local_map`` (``attention_ops.on_local_heads``)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    dtensor = getattr(mod, "DTensor", None)
+    if dtensor is not None and any(isinstance(t, dtensor) for t in tensors):
+        raise TypeError(f"{name} takes local tensors, got a DTensor: call "
+                        "it on the local shard (local_map)")
 
 
 def _nvcc() -> str:

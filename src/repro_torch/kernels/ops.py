@@ -131,6 +131,7 @@ def rdfsq_quantize(x: torch.Tensor, bits: int, clip_sigma: float = 3.0
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused quantize+pack.  x: (B, ...) -> (words (B, ceil(C/per)) uint8,
     stats (B, 2) fp16)."""
+    build.refuse_dtensor("rdfsq_quantize", x)
     x2d = x.reshape(x.shape[0], -1)
     lo, hi = rdfsq_stats(x2d, clip_sigma)
     stats = torch.cat([lo, hi], dim=1).float()
@@ -176,6 +177,7 @@ def rdfsq_dequantize(words: torch.Tensor, stats: torch.Tensor, bits: int,
                      n_cols: int, out_dtype=torch.float32) -> torch.Tensor:
     """Unpack + dequantize with the payload's (fp16) stats.  words
     (B, ceil(n_cols/per)) uint8, stats (B, 2) -> (B, n_cols)."""
+    build.refuse_dtensor("rdfsq_dequantize", words, stats)
     dequantize = dequantize_kernel if words.is_cuda else dequantize_plain
     return dequantize(words, stats.float(), bits, n_cols, out_dtype)
 
@@ -358,6 +360,7 @@ def nf_quantize(x: torch.Tensor, bits: int, block: int = 64,
     fp16."""
     from repro_torch.core.quantizers.nf import codebook_tensor
 
+    build.refuse_dtensor("nf_quantize", x)
     flat = x.reshape(-1)
     book = codebook_tensor(bits, flat.device)
     quantize = nf_quantize_kernel if flat.is_cuda else nf_quantize_plain
@@ -416,6 +419,7 @@ def nf_dequantize(words: torch.Tensor, scales: torch.Tensor, aux: dict,
     fp16 before the kernel, as the reference wrapper does."""
     from repro_torch.core.quantizers.nf import codebook_tensor
 
+    build.refuse_dtensor("nf_dequantize", words, scales, *aux.values())
     nb = words.shape[0]
     if double_quant:
         codes = F.pad(scales, (0, 0, 0, (-nb) % dq_group)

@@ -55,6 +55,7 @@ link (raw, or through ``bwd_qcfg``), since stage 0's adapters need it.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
@@ -327,6 +328,173 @@ def build_gpipe_grad_step(cfg: ArchConfig, split: SplitConfig,
 
     grad_step.transport = step.transport
     return grad_step
+
+
+# ---------------------------------------------------------------------------
+# the chain with each stage in its own process
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PipeRanks:
+    """Rank ``rank`` of a (pod, data) world of ``n_stages`` x ``data``
+    processes, pod-major as the reference's ``_pipeline_mesh``: stage
+    ``rank // data``, data replica ``rank % data``."""
+    n_stages: int
+    data: int
+    rank: int
+
+    @property
+    def stage(self) -> int:
+        return self.rank // self.data
+
+    @property
+    def replica(self) -> int:
+        return self.rank % self.data
+
+    def stage_ranks(self) -> Tuple[int, ...]:
+        """The rank of every stage in this rank's data replica: the
+        ``DistTransport``'s ``ranks``."""
+        return tuple(s * self.data + self.replica
+                     for s in range(self.n_stages))
+
+    def data_ranks(self, stage: Optional[int] = None) -> Tuple[int, ...]:
+        """The ranks of one stage (this rank's by default), one a data
+        replica."""
+        s = self.stage if stage is None else stage
+        return tuple(s * self.data + d for d in range(self.data))
+
+
+def data_groups(ranks: PipeRanks):
+    """Every stage's data-parallel process group (all ranks must call this,
+    in the same order); this rank's group, or None with one replica."""
+    import torch.distributed as dist
+
+    if ranks.data == 1:
+        return None
+    groups = [dist.new_group(list(ranks.data_ranks(s)))
+              for s in range(ranks.n_stages)]
+    return groups[ranks.stage]
+
+
+def rank_stage_params(params: Dict, stage: int, n_stages: int) -> Dict:
+    """What stage ``stage`` of ``n_stages`` holds of the stage-stacked tree
+    (``init_stage_params``): its own blocks, the embedding on the first
+    stage, the final norm and head on the last.  Copies, so the whole tree
+    can be freed."""
+    out = {"blocks": tree_map(lambda t: t[stage].clone(), params["blocks"])}
+    if stage == 0:
+        out["embed"] = tree_map(torch.clone, params["embed"])
+    if stage == n_stages - 1:
+        out["final_norm"] = params["final_norm"].clone()
+        out["head"] = tree_map(torch.clone, params["head"])
+    return out
+
+
+def reduce_sum(t: torch.Tensor, group, host: bool) -> torch.Tensor:
+    """SUM all-reduce of ``t`` over ``group`` (the default group when
+    None), staged through host memory when ``host``."""
+    import torch.distributed as dist
+
+    buf = t.cpu() if host else t
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    return buf.to(t.device) if host else buf
+
+
+def build_rank_gpipe_grad_step(cfg: ArchConfig, split: SplitConfig,
+                               bwd_qcfg: Optional[QuantConfig],
+                               n_micro: int, micro_batch: int, seq: int, *,
+                               ranks: PipeRanks, transport,
+                               group=None, grads: bool = True) -> Callable:
+    """One rank's part of :func:`build_gpipe_grad_step` (with ``grads``;
+    else of :func:`build_gpipe_step`) when each stage runs in a process of
+    its own: rank ``ranks.rank`` runs stage ``ranks.stage`` on its data
+    replica's ``micro_batch / data`` rows of every microbatch.
+
+    Returns ``fn(stage_params, tokens, labels) -> (loss, grads,
+    wire_bytes)`` (``(loss, wire_bytes)`` without ``grads``):
+    ``stage_params`` is :func:`rank_stage_params`'s tree, ``tokens`` /
+    ``labels`` the whole (n_micro, B, S) batch, the same on every rank.
+    GPipe order: every microbatch forward, activations crossing
+    ``transport`` (a ``DistTransport`` over ``ranks.stage_ranks()``), then
+    the backwards in reverse, each cotangent crossing back over the same
+    link (raw, or through ``bwd_qcfg``).  The last stage weighs its rows'
+    CE by their share of the microbatch's labelled tokens, so the sum over
+    replicas is the whole batch's CE; the gradients are summed over the
+    stage's data ``group`` (:func:`data_groups`) and the loss over the
+    world, so every rank returns the single-process step's loss and its
+    own stage's gradients.  ``wire_bytes`` is the reference's per-device
+    per-tick figure, ``chain_wire_bytes(..., data_shards=data)``."""
+    from repro_torch.core.split import (ship_cotangent, ship_recv,
+                                        ship_return, ship_send)
+    from repro_torch.train.losses import IGNORE
+
+    n_stages, s, data = split.n_stages, ranks.stage, ranks.data
+    if ranks.n_stages != n_stages:
+        raise ValueError(f"{ranks.n_stages} stages of ranks for a split "
+                         f"of {n_stages}")
+    if micro_batch % data:
+        raise ValueError(f"micro_batch {micro_batch} does not split into "
+                         f"{data} data replicas")
+    links = pipeline_links(split, bwd_qcfg)
+    wire = chain_wire_bytes(cfg, split, micro_batch, seq, bwd_qcfg,
+                            data_shards=data)
+    tick_bytes = float(wire["fwd_tick"] + wire["bwd_tick"]) if grads \
+        else float(wire["fwd_tick"])
+    dtype = tf.cdtype(cfg)
+    rows = slice(ranks.replica * (micro_batch // data),
+                 (ranks.replica + 1) * (micro_batch // data))
+    shape = (micro_batch // data, seq, cfg.d_model)
+    last = n_stages - 1
+
+    def step(params, tokens, labels):
+        if tuple(tokens.shape) != (n_micro, micro_batch, seq):
+            raise ValueError(f"tokens {tuple(tokens.shape)}, expected "
+                             f"{(n_micro, micro_batch, seq)}")
+        leaves = tree_map(lambda p: p.detach().requires_grad_(grads),
+                          params)
+        dev = tree_leaves(leaves)[0].device
+        host = transport.link_backend == "gloo" and dev.type == "cuda"
+        positions = torch.arange(seq, dtype=torch.int32, device=dev)
+        inputs, outputs = [], []
+        loss = torch.zeros((), dtype=torch.float64, device=dev)
+        with torch.set_grad_enabled(grads):
+            for j in range(n_micro):
+                x = (embed_tokens(cfg, leaves, tokens[j, rows], dtype)
+                     if s == 0 else ship_recv(links[s - 1].quant, transport,
+                                              (s - 1, s), shape, dtype))
+                inputs.append(x)
+                h = run_blocks(cfg, leaves["blocks"], x, positions)
+                if s == last:
+                    lab = labels[j]
+                    share = (lab[rows] != IGNORE).sum() / torch.clamp_min(
+                        (lab != IGNORE).sum(), 1)
+                    ce = head_ce(cfg, leaves, h, lab[rows]) * share
+                    outputs.append(ce / n_micro)
+                    loss = loss + ce.detach().double()
+                else:
+                    ship_send(links[s].quant, h, transport, (s, s + 1))
+                    outputs.append(h)
+        if grads:
+            for j in reversed(range(n_micro)):
+                if s == last:
+                    outputs[j].backward()
+                else:
+                    outputs[j].backward(ship_cotangent(
+                        transport, (s, s + 1), shape, dtype, bwd_qcfg))
+                if s > 0:
+                    ship_return(inputs[j], transport, (s - 1, s), bwd_qcfg)
+                inputs[j] = outputs[j] = None
+        loss = reduce_sum(loss / n_micro if s == last else loss, None,
+                          host)
+        if not grads:
+            return loss.float(), tick_bytes
+        out = tree_map(lambda p: torch.zeros_like(p) if p.grad is None
+                       else p.grad, leaves)
+        if group is not None:
+            out = tree_map(lambda g: reduce_sum(g, group, host), out)
+        return loss.float(), out, tick_bytes
+
+    return step
 
 
 # ---------------------------------------------------------------------------

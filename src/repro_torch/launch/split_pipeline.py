@@ -12,9 +12,16 @@ partitions the chain has ``n_stages - 1`` cuts, each with its own codec
   * schedulers: ``repro_torch.launch.schedules`` (lockstep GPipe).
 
 ``train_pipeline`` runs AdamW (``train/loop.apply_gradients``) over it,
-with the entropy-adaptive re-plan between steps.  The stages share one
-process and one device (``launch/schedules.py`` says how the lockstep
-maps onto it).  SplitLoRA (``lora_rank > 0``) freezes the base weights
+with the entropy-adaptive re-plan between steps.  By default the stages
+share one process and one device (``launch/schedules.py`` says how the
+lockstep maps onto it).  ``ranks=(P, D)`` (``--ranks PxD``, the
+reference's (pod, data) ``_pipeline_mesh``) runs each stage in processes
+of its own instead, P stages x D data replicas started by
+``launch/dist.spawn``: stage s holds only its own parameters, activations
+and cotangents cross a ``core.split.DistTransport`` (the paper's
+deployment: client and server on separate boxes, the wire a host link),
+the gradients are summed over each stage's replicas, and the clip reads
+the global gradient norm over every stage.  SplitLoRA (``lora_rank > 0``) freezes the base weights
 and trains rank-r adapters on every stage (``peft/lora.py``), with AdamW
 moments over the adapters alone (``train/loop.init_adapter_state``,
 ``apply_adapter_gradients``).
@@ -27,6 +34,8 @@ link and the bytes ``chain_wire_bytes`` predicts for them:
     python -m repro_torch.launch.split_pipeline              # llama3_2_3b
     python -m repro_torch.launch.split_pipeline --device cpu --reduced
     python -m repro_torch.launch.split_pipeline --lora-rank 8  # SplitLoRA
+    python -m repro_torch.launch.split_pipeline --device cpu --reduced \
+        --ranks 2x1                                    # a process a stage
 """
 from __future__ import annotations
 
@@ -129,7 +138,9 @@ def train_pipeline(cfg: ArchConfig, split, opt_cfg: AdamWConfig,
                    entropy_decay: float = 0.9,
                    plan_log: Optional[List] = None, lora_rank: int = 0,
                    device: DeviceLike = None,
-                   transport: Optional[Transport] = None
+                   transport: Optional[Transport] = None,
+                   ranks: Optional[Tuple[int, int]] = None,
+                   link_backend: str = "gloo"
                    ) -> Tuple[Dict, Dict, List[float], float]:
     """AdamW over the N-stage quantized pipeline.
 
@@ -157,7 +168,34 @@ def train_pipeline(cfg: ArchConfig, split, opt_cfg: AdamWConfig,
     AdamW moments are sized by them (``init_adapter_state``), updated in
     place (``apply_adapter_gradients(donate=True)``).  The base leaves come
     back as the same, unchanged tensors.
+
+    ``ranks=(P, D)`` runs the P stages in processes of their own, D data
+    replicas each (:func:`run_ranks`, over ``link_backend``), and returns
+    the parameters gathered to the host (the stage-stacked tree) and no
+    optimizer state; ``transport`` then receives the bytes and payloads
+    every rank sent.  The adaptive wire and SplitLoRA run in one process
+    only.
     """
+    if ranks is not None:
+        if wire_budget_bytes is not None or lora_rank:
+            raise NotImplementedError(
+                "--ranks runs the static wire with every weight trained; "
+                "the adaptive re-plan and SplitLoRA run in one process")
+        batches = [(torch.as_tensor(t).cpu(), torch.as_tensor(lab).cpu())
+                   for t, lab in batches]
+        out = run_ranks(cfg, split, ranks, batches, mode="train",
+                        n_micro=n_micro, micro_batch=micro_batch, seq=seq,
+                        bwd_qcfg=bwd_qcfg, params=params, seed=seed,
+                        device=device, link_backend=link_backend,
+                        opt_cfg=opt_cfg, warmup_steps=warmup_steps,
+                        total_steps=total_steps, return_params=True)
+        if transport is not None:
+            for r in out:
+                transport.bytes.update(r["result"]["bytes"])
+                transport.payloads.update(r["result"]["payloads"])
+        res = out[0]["result"]
+        return (stack_stage_params(out, _as_split(split).n_stages, ranks[1]),
+                None, res["history"], res["wire_bytes"])
     from repro_torch.core import entropy as entropy_mod
     from repro_torch.train.loop import (TrainState, apply_adapter_gradients,
                                         apply_gradients, init_adapter_state)
@@ -223,6 +261,184 @@ def train_pipeline(cfg: ArchConfig, split, opt_cfg: AdamWConfig,
 
 
 # ---------------------------------------------------------------------------
+# a process a stage
+# ---------------------------------------------------------------------------
+
+def pipeline_rank(rank: int, world: int, job: Dict) -> Dict:
+    """One rank of ``run_ranks``: stage ``rank // D`` of data replica
+    ``rank % D``.  Builds the whole stage-stacked tree (``job["params"]``,
+    host tensors, or from ``job["seed"]``), keeps only its stage's part
+    and frees the rest, then runs ``job["mode"]``: ``"grad"``, one grad
+    step per batch, or ``"train"``, AdamW over the batches; with
+    ``job["eval"]`` then the forward-only step on the last batch.
+    Returns the losses, each step's seconds, the bytes and payloads this
+    rank sent per link, and on request its stage's gradients or
+    parameters (host tensors, replica 0 only)."""
+    import torch.distributed as dist
+
+    from repro_torch.core.split import DistTransport
+    from repro_torch.train.loop import TrainState, apply_gradients
+    from repro_torch.utils.tree import tree_map
+
+    n_stages, data = job["ranks"]
+    pr = schedules.PipeRanks(n_stages, data, rank)
+    if job["device"] == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    else:
+        device = torch.device(job["device"])
+    group = schedules.data_groups(pr)
+    transport = DistTransport(pr.stage_ranks(),
+                              link_backend=job["link_backend"],
+                              device=device)
+    probe = _ship_probe(job["ship"], pr, transport, device) \
+        if job.get("ship") else None
+    cfg, split = job["cfg"], job["split"]
+    if job.get("params") is not None:
+        whole = tree_map(lambda t: t.to(device), job["params"])
+    else:
+        whole = init_pipeline_params(cfg, n_stages, seed=job["seed"],
+                                     device=device)
+    params = schedules.rank_stage_params(whole, pr.stage, n_stages)
+    del whole
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    step = schedules.build_rank_gpipe_grad_step(
+        cfg, split, job["bwd_qcfg"], job["n_micro"], job["micro_batch"],
+        job["seq"], ranks=pr, transport=transport, group=group)
+    host = job["link_backend"] == "gloo" and device.type == "cuda"
+    state = TrainState(params=params, opt=init_opt_state(params,
+                                                         job["opt_cfg"]),
+                       step=torch.zeros((), dtype=torch.int32,
+                                        device=device)) \
+        if job["mode"] == "train" else None
+    history, times, grads, wire_b = [], [], None, 0.0
+    for tokens, labels in job["batches"]:
+        tokens, labels = tokens.to(device), labels.to(device)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads, wire_b = step(params, tokens, labels)
+        if state is not None:
+            # the clip's global norm: every stage's gradients, once each
+            sq = sum(torch.sum(torch.square(g.double()))
+                     for g in tree_leaves(grads))
+            sq = schedules.reduce_sum(sq if pr.replica == 0 else sq * 0,
+                                      None, host)
+            state, _ = apply_gradients(
+                state, grads, job["opt_cfg"],
+                warmup_steps=job["warmup_steps"],
+                total_steps=job["total_steps"], donate=True,
+                gnorm=torch.sqrt(sq).float())
+            params, grads = state.params, None
+        history.append(float(loss))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    sent = dict(transport.bytes), dict(transport.payloads)
+    if job.get("eval") and job["batches"]:
+        # the forward-only step on the last batch, after the run; its
+        # bytes are left out of the run's counts
+        loss, _ = schedules.build_rank_gpipe_grad_step(
+            cfg, split, job["bwd_qcfg"], job["n_micro"], job["micro_batch"],
+            job["seq"], ranks=pr, transport=transport, group=group,
+            grads=False)(params, tokens, labels)
+        eval_loss = float(loss)
+    else:
+        eval_loss = None
+    out = dict(history=history, times=times, wire_bytes=wire_b,
+               eval_loss=eval_loss, bytes=sent[0], payloads=sent[1],
+               stage=pr.stage,
+               replica=pr.replica, ship=probe)
+    keep = pr.replica == 0
+    if job.get("return_grads") and keep and grads is not None:
+        out["grads"] = tree_map(lambda g: g.detach().cpu(), grads)
+    if job.get("grads_dir") and keep and grads is not None:
+        path = f"{job['grads_dir']}/stage{pr.stage}.pt"
+        torch.save(tree_map(lambda g: g.detach().cpu(), grads), path)
+        out["grads_path"] = path
+    if job.get("return_params") and keep:
+        out["params"] = tree_map(lambda p: p.detach().cpu(), params)
+    dist.barrier()
+    return out
+
+
+def _ship_probe(spec: Dict, pr, transport, device) -> Dict:
+    """A check of the wire before the run, the reference's
+    ``quantized_ship`` across the ``pod`` axis: stage s ships its rows
+    ``spec["x"][s * R:(s + 1) * R]`` (host float32, R = rows / stages)
+    over ``spec["perm"]`` with codec ``spec["quant"]``, and returns what
+    it received and the gradient of ``sum(received * spec["scale"])``
+    with respect to its rows.  The bytes it sends are left out of the
+    run's counts."""
+    from repro_torch.core.split import quantized_ship
+
+    x = torch.as_tensor(spec["x"])
+    rows = x.shape[0] // pr.n_stages
+    mine = x[pr.stage * rows:(pr.stage + 1) * rows].to(device)
+    mine.requires_grad_()
+    got = quantized_ship(spec["quant"], mine, transport,
+                         tuple(spec["perm"]))
+    (got * spec["scale"]).sum().backward()
+    transport.bytes.clear()
+    transport.payloads.clear()
+    return dict(received=got.detach().cpu(), grad=mine.grad.cpu())
+
+
+def run_ranks(cfg: ArchConfig, split, ranks: Tuple[int, int], batches, *,
+              mode: str = "grad", n_micro: int, micro_batch: int, seq: int,
+              bwd_qcfg: Optional[QuantConfig] = None,
+              params: Optional[Dict] = None, seed: int = 0,
+              device: DeviceLike = None, link_backend: str = "gloo",
+              opt_cfg: Optional[AdamWConfig] = None, warmup_steps: int = 0,
+              total_steps: int = 0, timeout: float = 300.0,
+              **flags) -> List[Dict]:
+    """Run the pipeline with each of its ``ranks = (P, D)`` stage replicas
+    in a process of its own (``launch/dist.spawn``, rank-major results;
+    see :func:`pipeline_rank`).  ``batches`` are (tokens, labels) host
+    tensors of (n_micro, B, S); ``params`` an optional host
+    stage-stacked tree (else each rank draws it from ``seed``).  CUDA
+    ranks share the machine's cards round-robin over a gloo link, or take
+    one card each over NCCL (``link_backend="nccl"``, which raises where
+    the cards are fewer than the ranks)."""
+    from repro_torch.device import resolve_device
+    from repro_torch.launch import dist
+
+    split = _as_split(split)
+    n_stages, data = ranks
+    if n_stages != split.n_stages:
+        raise ValueError(f"{n_stages} stages of ranks for a split of "
+                         f"{split.n_stages}")
+    kind = resolve_device(device).type
+    if kind == "cuda" and link_backend == "nccl":
+        dist.check_cards(n_stages * data)
+    job = dict(cfg=cfg, split=split, ranks=(n_stages, data), mode=mode,
+               n_micro=n_micro, micro_batch=micro_batch, seq=seq,
+               bwd_qcfg=bwd_qcfg, params=params, seed=seed, device=kind,
+               link_backend=link_backend, batches=list(batches),
+               opt_cfg=opt_cfg or AdamWConfig(), warmup_steps=warmup_steps,
+               total_steps=total_steps, **flags)
+    from repro_torch.launch.split_pipeline import pipeline_rank as rank_fn
+    return dist.spawn(rank_fn, n_stages * data, job, device=kind,
+                      backend=link_backend, timeout=timeout,
+                      threads=1 if kind == "cpu" else None)
+
+
+def stack_stage_params(results: List[Dict], n_stages: int,
+                       data: int) -> Dict:
+    """The stage-stacked tree from the ranks' ``params`` (replica 0 of
+    each stage): the inverse of ``schedules.rank_stage_params``."""
+    from repro_torch.models import stack as stack_mod
+
+    stages = [results[s * data]["result"]["params"]
+              for s in range(n_stages)]
+    out = {"blocks": stack_mod.tree_stack([p["blocks"] for p in stages]),
+           "embed": stages[0]["embed"]}
+    out["final_norm"] = stages[-1]["final_norm"]
+    out["head"] = stages[-1]["head"]
+    return out
+
+
+# ---------------------------------------------------------------------------
 # a few steps on the card
 # ---------------------------------------------------------------------------
 
@@ -260,7 +476,21 @@ def main(argv=None) -> int:
     ap.add_argument("--lora-rank", type=int, default=0,
                     help="SplitLoRA: train rank-r adapters on a frozen base "
                          "(0: every weight)")
+    ap.add_argument("--ranks", default=None,
+                    help="PxD: each of P stages in D processes of its own "
+                         "(pod x data); P sets --stages")
+    ap.add_argument("--link-backend", default="gloo",
+                    choices=("gloo", "nccl"),
+                    help="the wire between --ranks processes")
     args = ap.parse_args(argv)
+    ranks = None
+    if args.ranks:
+        from repro_torch.launch.dist import parse_shape
+
+        ranks = parse_shape(args.ranks)
+        if len(ranks) != 2:
+            ap.error(f"--ranks takes PxD, got {args.ranks!r}")
+        args.stages = ranks[0]
 
     cfg = _homogeneous_cfg(args.arch, reduced=args.reduced,
                            n_stages=args.stages)
@@ -278,10 +508,12 @@ def main(argv=None) -> int:
         cfg, split, AdamWConfig(lr=args.lr, weight_decay=0.0), batches,
         n_micro=args.n_micro, micro_batch=args.micro_batch, seq=args.seq,
         bwd_qcfg=bwd, device=args.device, transport=transport,
-        lora_rank=args.lora_rank)
+        lora_rank=args.lora_rank, ranks=ranks,
+        link_backend=args.link_backend)
     seconds = time.perf_counter() - t0
     lora = f" r={args.lora_rank}" if args.lora_rank else ""
-    print(f"[split-pipeline {cfg.name} N={args.stages}{lora}] loss "
+    procs = f" in {ranks[0]} x {ranks[1]} processes" if ranks else ""
+    print(f"[split-pipeline {cfg.name} N={args.stages}{lora}{procs}] loss "
           + " -> ".join(f"{v:.4f}" for v in history)
           + f" in {seconds:.1f} s ({args.steps} steps of {args.n_micro} x "
           f"{args.micro_batch} x {args.seq} tokens)")
@@ -294,7 +526,8 @@ def main(argv=None) -> int:
               f"parameters, {adapter_bytes(ad)} B; AdamW m {param_bytes(opt['m'])}"
               f" B; the frozen base {param_bytes(params) - adapter_bytes(ad)}"
               " B")
-    wire = pipeline_wire_bytes(cfg, split, args.micro_batch, args.seq, bwd)
+    wire = pipeline_wire_bytes(cfg, split, args.micro_batch, args.seq, bwd,
+                               data_shards=ranks[1] if ranks else 1)
     shipments = args.steps * args.n_micro
     bwd_codec = "raw" if bwd is None else f"{bwd.method}-{bwd.bits}bit"
     for (src, dst), entry in sorted(wire["links"].items()):

@@ -20,6 +20,7 @@ from repro_torch.kernels import attention_ops
 from repro_torch.kernels.attention_ref import FAR
 from repro_torch.kernels.ref import div_exact
 from repro_torch.models.layers.rope import apply_rope, rope_angles
+from repro_torch.sharding import ctx as shard_ctx
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -65,8 +66,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _grouped_query(q: torch.Tensor, kh: int) -> torch.Tensor:
     """(B, 1, H, D) -> pre-scaled (B, KH, G, D)."""
     b, _, h, d = q.shape
-    return q.reshape(b, kh, h // kh, d) * torch.tensor(d ** -0.5,
-                                                       dtype=q.dtype)
+    qf = q.reshape(b, kh, h // kh, d) * torch.tensor(d ** -0.5,
+                                                     dtype=q.dtype)
+    return shard_ctx.constrain(qf, "decode_q")
 
 
 def decode_attention(q, k_cache, v_cache, kpos, qpos, *,
@@ -137,16 +139,26 @@ def gqa_forward(params: Dict, x: torch.Tensor, *, n_heads: int,
                 positions: torch.Tensor, causal: bool = True,
                 window: Optional[int] = None, return_kv: bool = False):
     """Full-sequence attention (prefill)."""
-    b, s, _ = x.shape
-    q, k, v = _qkv(params, x, n_heads, n_kv_heads, head_dim)
-    cos, sin = rope_angles(positions, head_dim, rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-    out = flash_attention(q, k, v, positions=positions, causal=causal,
-                          window=window)
-    y = out.reshape(b, s, n_heads * head_dim) @ params["wo"].to(x.dtype)
+    q, k, v = (x @ params[w].to(x.dtype) for w in ("wq", "wk", "wv"))
+    kv = []  # the rotated K and V, for return_kv
+
+    def attend(q, k, v, positions):
+        b, s, _ = q.shape
+        q, k, v = (t.reshape(b, s, -1, head_dim) for t in (q, k, v))
+        cos, sin = rope_angles(positions, head_dim, rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        kv.append((k, v))
+        out = flash_attention(q, k, v, positions=positions, causal=causal,
+                              window=window)
+        return out.reshape(b, s, -1)
+
+    # under a mesh (DTensor q / k / v) on each rank's local heads
+    out = attention_ops.on_local_heads(attend, q, k, v, positions,
+                                       heads=(n_heads, n_kv_heads))
+    y = out @ params["wo"].to(x.dtype)
     if return_kv:
-        return y, (k, v)
+        return y, kv[0]
     return y
 
 
@@ -164,11 +176,14 @@ def write_kv(cache: Dict, where, k: torch.Tensor, v: torch.Tensor) -> None:
     place: in the cache's dtype, or for an int8 cache (one with
     ``k_scale``) as codes with fp16 scales."""
     if "k_scale" in cache:
-        cache["k"][where], cache["k_scale"][where] = quantize_kv_token(k)
-        cache["v"][where], cache["v_scale"][where] = quantize_kv_token(v)
+        kc, cache["k_scale"][where] = quantize_kv_token(k)
+        vc, cache["v_scale"][where] = quantize_kv_token(v)
+        cache["k"][where] = shard_ctx.constrain_kv(kc)
+        cache["v"][where] = shard_ctx.constrain_kv(vc)
     else:
-        cache["k"][where] = k.to(cache["k"].dtype)
-        cache["v"][where] = v.to(cache["v"].dtype)
+        # the new token in the cache's layout before the scatter
+        cache["k"][where] = shard_ctx.constrain_kv(k.to(cache["k"].dtype))
+        cache["v"][where] = shard_ctx.constrain_kv(v.to(cache["v"].dtype))
 
 
 def gqa_decode(params: Dict, x: torch.Tensor, cache: Dict, *, n_heads: int,

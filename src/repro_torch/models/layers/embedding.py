@@ -7,10 +7,28 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+import torch.nn.functional as F
+
+
+def _rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``.  A DTensor table (``launch/train.py --mesh``) is
+    gathered whole for the lookup, as FSDP gathers every weight at its use,
+    and read by ``F.embedding`` (ids sharded over the batch, the gradient
+    a partial sum that reduces into the table's layout): DTensor's
+    vocab-sharded lookup ends in a partial its reductions cannot convert,
+    and indexing's backward (``index_put``) has no rule that holds on
+    every torch the port runs on."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if isinstance(table, DTensor):
+        whole = table.redistribute(table.device_mesh,
+                                   [Replicate()] * table.device_mesh.ndim)
+        return F.embedding(ids, whole)
+    return table[ids]
 
 
 def embed(params: Dict, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return params["emb"].to(dtype)[tokens.long()]
+    return _rows(params["emb"].to(dtype), tokens.long())
 
 
 def embed_codebooks(params: Dict, codes: torch.Tensor, dtype
@@ -21,7 +39,7 @@ def embed_codebooks(params: Dict, codes: torch.Tensor, dtype
     codebook's rows), so the rounding in ``dtype`` is the same."""
     emb = params["emb"].to(dtype)
     codes = codes.long()
-    return sum(emb[k][codes[:, k]] for k in range(codes.shape[1]))
+    return sum(_rows(emb[k], codes[:, k]) for k in range(codes.shape[1]))
 
 
 def head_logits(params: Dict, x: torch.Tensor) -> torch.Tensor:

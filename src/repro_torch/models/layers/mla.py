@@ -21,6 +21,7 @@ from repro_torch.kernels.attention_ref import NEG_INF
 from repro_torch.models.layers.attention import flash_attention
 from repro_torch.models.layers.norms import rms_norm
 from repro_torch.models.layers.rope import apply_rope, rope_angles
+from repro_torch.sharding import ctx as shard_ctx
 
 
 def init_mla_params(n: int, d_model: int, n_heads: int, normal, const, *,
@@ -104,7 +105,8 @@ def mla_decode(params: Dict, x: torch.Tensor, cache: Dict, *, n_heads: int,
     cos, sin = rope_angles(qpos[:, None], qk_rope_dim, rope_theta)
     q_rope = apply_rope(q_rope, cos, sin)[:, 0]  # (B, H, dr)
     kv_a = (x @ params["wkv_a"].to(x.dtype))[:, 0]
-    c_kv_new = rms_norm(kv_a[..., :kv_lora_rank], params["kv_norm"])
+    c_kv_new = shard_ctx.constrain_latent(
+        rms_norm(kv_a[..., :kv_lora_rank], params["kv_norm"]))
     k_rope_new = apply_rope(
         kv_a[..., kv_lora_rank:].reshape(b, 1, 1, qk_rope_dim), cos, sin
     )[:, 0, 0]

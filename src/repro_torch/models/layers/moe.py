@@ -4,9 +4,10 @@
 Token-choice top-k routing with a static per-expert capacity, dispatched
 per token group:
 
-  1. tokens reshaped to (G, T/G, D), G = ``_pick_groups(T)``, the largest
-     divisor of T up to ``GROUPS`` (the reference's sharding context, which
-     could set G, is inactive in one process),
+  1. tokens reshaped to (G, T/G, D), G = ``_pick_groups(T, n)``, the
+     largest divisor of T up to n = max(``GROUPS``, the data-parallel
+     ranks of an installed mesh: ``sharding.ctx.dp_size``), as the
+     reference picks it,
   2. the router in fp32 whatever the parameter dtype; top-k experts per
      token, gates renormalized with ``+ 1e-9``,
   3. a stable per-group sort of the (token, expert) copies by expert id;
@@ -45,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers.mlp import swiglu_forward
+from repro_torch.sharding import ctx as shard_ctx
 
 
 def init_moe_params(n: int, d_model: int, n_experts: int, d_ff: int,
@@ -94,9 +96,9 @@ def moe_aux_losses(logits: torch.Tensor, probs: torch.Tensor,
 GROUPS = 16   # the reference's preferred group count
 
 
-def _pick_groups(t: int) -> int:
-    """Largest divisor of t that is <= GROUPS."""
-    g = min(GROUPS, t)
+def _pick_groups(t: int, preferred: int = GROUPS) -> int:
+    """Largest divisor of t that is <= preferred."""
+    g = min(preferred, t)
     while t % g:
         g -= 1
     return max(g, 1)
@@ -149,10 +151,12 @@ def moe_forward(params: Dict, x: torch.Tensor, *, top_k: int,
     b, s, d = x.shape
     e = params["router"].shape[1]
     t = b * s
-    g = _pick_groups(t)
+    # under a mesh, at least one group a data-parallel rank
+    preferred = shard_ctx.dp_size() if shard_ctx.active() else GROUPS
+    g = _pick_groups(t, max(preferred, GROUPS))
     tg = t // g
     dt = x.dtype
-    xg = x.reshape(g, tg, d)
+    xg = shard_ctx.constrain(x.reshape(g, tg, d), "hidden")
 
     logits, probs, gate_vals, expert_ids = route(params["router"], xg, top_k)
     aux = moe_aux_losses(logits, probs, expert_ids, e)
@@ -168,12 +172,14 @@ def moe_forward(params: Dict, x: torch.Tensor, *, top_k: int,
     buf = xg.new_zeros((g, e * cap + 1, d)).scatter(
         1, slot[..., None].expand(-1, -1, d), rows)
     # (E, G * cap, D): one matmul per expert weight over the expert axis
-    xe = buf[:, :-1].reshape(g, e, cap, d).transpose(0, 1).reshape(
+    xe = shard_ctx.constrain(buf[:, :-1].reshape(g, e, cap, d),
+                             "moe_experts").transpose(0, 1).reshape(
         e, g * cap, d)
     gate = F.silu(xe @ params["w_gate"].to(dt))
     up = xe @ params["w_up"].to(dt)
     he = (gate * up) @ params["w_down"].to(dt)
-    he = he.reshape(e, g, cap, d).transpose(0, 1).reshape(g, e * cap, d)
+    he = shard_ctx.constrain(he.reshape(e, g, cap, d).transpose(0, 1),
+                             "moe_experts").reshape(g, e * cap, d)
 
     out_rows = torch.cat([he, he.new_zeros((g, 1, d))], dim=1)
     contrib = torch.gather(out_rows, 1, slot[..., None].expand(-1, -1, d)) \
@@ -189,7 +195,7 @@ def moe_forward(params: Dict, x: torch.Tensor, *, top_k: int,
     y = x.new_zeros((g, tg, d))
     for j in range(top_k):
         y = y + mine[:, :, j]
-    y_flat = y.reshape(t, d)
+    y_flat = shard_ctx.constrain(y, "hidden").reshape(t, d)
 
     if "shared" in params:
         y_flat = y_flat + swiglu_forward(params["shared"], x.reshape(t, d))

@@ -70,6 +70,7 @@ from repro_torch.models.layers.embedding import (embed, embed_codebooks,
                                                  head_logits)
 from repro_torch.models.layers.mlp import mlp_forward, swiglu_forward
 from repro_torch.models.layers.norms import rms_norm
+from repro_torch.sharding import ctx as shard_ctx
 from repro_torch.utils.tree import tree_map
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -383,15 +384,16 @@ def block_forward(cfg: ArchConfig, p: Dict, x: torch.Tensor, *,
         x = x + cmix_forward(p["cmix"], h2, h2_prev)
         cache = None if collect_cache is None \
             else dict(tmix=tcache, cmix_last=h2[:, -1:])
-        return x, aux, cache
+        return shard_ctx.constrain(x, "hidden"), aux, cache
     if block_type == "mamba2":
         h = rms_norm(x, p["ln"], cfg.norm_eps)
         if collect_cache is None:
-            return x + mamba_mod.mamba2_forward(p["mixer"], h,
-                                                **_ssm_kwargs(cfg)), aux, None
-        y, cache = mamba_mod.mamba2_forward(p["mixer"], h, return_state=True,
-                                            **_ssm_kwargs(cfg))
-        return x + y, aux, cache
+            y, cache = mamba_mod.mamba2_forward(p["mixer"], h,
+                                                **_ssm_kwargs(cfg)), None
+        else:
+            y, cache = mamba_mod.mamba2_forward(
+                p["mixer"], h, return_state=True, **_ssm_kwargs(cfg))
+        return shard_ctx.constrain(x + y, "hidden"), aux, cache
     xin = _shared_in(block_type, p, x, emb0)
     h = rms_norm(xin, p["ln1"], cfg.norm_eps)
     cache = None
@@ -409,7 +411,7 @@ def block_forward(cfg: ArchConfig, p: Dict, x: torch.Tensor, *,
     out = xin + f
     if block_type == "shared_attn":
         out = x + out  # a residual around the whole shared block
-    return out, aux, cache
+    return shard_ctx.constrain(out, "hidden"), aux, cache
 
 
 def block_decode(cfg: ArchConfig, p: Dict, x: torch.Tensor, cache: Dict, *,
@@ -643,7 +645,7 @@ def forward(params: Dict, cfg: ArchConfig, batch: Dict, *,
     ``torch.Generator`` for Top-K's random picks; the others draw none).
     """
     _check_supported(cfg)
-    x = _embed_inputs(params, cfg, batch)
+    x = shard_ctx.constrain(_embed_inputs(params, cfg, batch), "hidden")
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
@@ -661,6 +663,8 @@ def forward(params: Dict, cfg: ArchConfig, batch: Dict, *,
         window=window, emb0=emb0, collect_cache=collect_cache)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = head_logits(params["head"], x)
+    if logits.ndim == 3:
+        logits = shard_ctx.constrain(logits, "logits")
     aux = {k: aux_c[k] + aux_s[k] for k in aux_c}
     aux["commit"] = commit
     if collect_cache is not None:

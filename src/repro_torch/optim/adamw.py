@@ -69,12 +69,15 @@ def _decay_mask(params):
 
 @torch.no_grad()
 def adamw_update(params, grads, state: Dict, cfg: AdamWConfig,
-                 lr_scale=1.0, donate: bool = False
+                 lr_scale=1.0, donate: bool = False, gnorm=None
                  ) -> Tuple[Any, Dict, Dict]:
     """One AdamW step.  Returns (new_params, new_state, metrics); with
     ``donate`` they are ``params`` and ``state``'s own tensors, updated in
-    place."""
-    gnorm = global_norm(grads)
+    place.  ``gnorm`` is the global gradient norm the clip reads, when the
+    gradients here are one part of a model whose other parts live in other
+    processes (``launch/split_pipeline.py --ranks``); by default the norm
+    of ``grads``."""
+    gnorm = global_norm(grads) if gnorm is None else gnorm
     scale = torch.clamp_max(cfg.clip_norm / (gnorm + 1e-9), 1.0)
     step = state["step"] + 1
     stepf = step.float()

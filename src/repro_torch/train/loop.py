@@ -23,6 +23,7 @@ from repro_torch.device import DeviceLike
 from repro_torch.models import transformer as tf
 from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
 from repro_torch.optim.schedule import warmup_cosine
+from repro_torch.sharding import ctx as shard_ctx
 from repro_torch.train.losses import composite_loss
 from repro_torch.utils.tree import (grads_or_zeros, tree_flatten_with_path,
                                     tree_leaves, tree_map)
@@ -49,16 +50,18 @@ def init_state(cfg: ArchConfig, opt_cfg: AdamWConfig, *, seed: int = 0,
 
 def apply_gradients(state: TrainState, grads, opt_cfg: AdamWConfig, *,
                     warmup_steps: int = 0, total_steps: int = 0,
-                    donate: bool = False) -> Tuple[TrainState, Dict]:
+                    donate: bool = False, gnorm=None
+                    ) -> Tuple[TrainState, Dict]:
     """Warmup-cosine scheduled AdamW update of a TrainState.
     ``total_steps == 0`` disables the schedule (constant lr).  ``donate``
     updates the state's parameters and moments in place
-    (``adamw_update``)."""
+    (``adamw_update``), which also takes ``gnorm``."""
     lr_scale = warmup_cosine(state.step, warmup_steps=warmup_steps,
                              total_steps=total_steps) \
         if total_steps else 1.0
     new_params, new_opt, opt_metrics = adamw_update(
-        state.params, grads, state.opt, opt_cfg, lr_scale, donate=donate)
+        state.params, grads, state.opt, opt_cfg, lr_scale, donate=donate,
+        gnorm=gnorm)
     return TrainState(params=new_params, opt=new_opt,
                       step=state.step + 1), opt_metrics
 
@@ -139,17 +142,20 @@ def make_grad_fn(cfg: ArchConfig, *, window: Optional[int] = None,
         if any(len(v) != grad_accum for v in micro.values()):
             raise ValueError(f"batch does not split into {grad_accum} "
                              "microbatches")
-        grads_acc = tree_map(
-            lambda p: torch.zeros(p.shape, dtype=acc_dt, device=p.device),
-            params)
+        grads_acc = tree_map(lambda p: torch.zeros_like(p, dtype=acc_dt),
+                             params)
         metrics_acc = None
         for i in range(grad_accum):
-            mb = {k: v[i] for k, v in micro.items()}
+            mb = shard_ctx.constrain_batch_tree(
+                {k: v[i] for k, v in micro.items()})
             if positions is not None:
                 mb["positions"] = positions
             grads, metrics = grad_fn(params, mb, rng)
-            grads_acc = tree_map(lambda a, g: a + g.to(acc_dt), grads_acc,
-                                 grads)
+            # under a mesh: each microbatch's gradients and the accumulator
+            # in the parameters' (FSDP) layout
+            grads = shard_ctx.constrain_like_params(grads)
+            grads_acc = shard_ctx.constrain_like_params(tree_map(
+                lambda a, g: a + g.to(acc_dt), grads_acc, grads))
             metrics = {k: v / grad_accum for k, v in metrics.items()}
             metrics_acc = metrics if metrics_acc is None else {
                 k: metrics_acc[k] + metrics[k] for k in metrics}

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels.ref import wq_matmul_ref
 from repro_torch.kernels.wq_ops import wq_matmul_kernel
 
@@ -23,6 +24,7 @@ def wq_matmul(x: torch.Tensor, w) -> torch.Tensor:
     stacked store must be sliced to its 2-D per-layer form first (the
     stack executor does).
     """
+    build.refuse_dtensor("wq_matmul", x, w.codes, w.scales, w.mins)
     if w.codes.ndim != 2:
         raise ValueError(
             "matmul on a layer-stacked PackedLinear: slice the stack "
